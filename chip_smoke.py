@@ -1,0 +1,488 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch + CUDA port (stjep_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py [--seed 0]
+
+Needs one CUDA card and nvcc; builds the kernels from stjep_tpu_torch/csrc
+itself. Phases, each printed on its own line; any failure raises and exits
+non-zero without printing a result:
+
+1. device: the card's name and power limit (nvidia-smi), TF32 off.
+2. build: compile the CUDA kernels, with the seconds it took.
+3. kernels K1-K4 at the flagship shapes on seeded inputs: each kernel
+   against its plain PyTorch version on the card (floats within a stated
+   tolerance; integer outputs equal wherever the plain version's top-2 gap
+   exceeds 1e-5), with median times from CUDA events.
+4. end to end: forward_translate(mode="ST", beam_width=5) on 3 requests of
+   B=16 at the flagship configuration (bench.py's), random weights from
+   init_seq2seq(seed); utt/s, a B=1 latency, the kernels' launch counts on
+   that run; then the same call on CPU copies (the plain route) for one
+   request, with every row that differs explained by a tie: at the first
+   divergence, the plain arm's own log-probs (LAS symbols) or kept beam
+   scores (beam hypotheses) of the two choices agree within 1e-3.
+
+The last two lines: a JSON object with one entry per kernel, the
+nvidia-smi line, then {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+TIE = 1e-5  # integer outputs may differ only where the plain top-2 gap is below this
+E2E_MARGIN = 1e-3  # first-divergence margin that explains a differing e2e row
+
+# bench.py's flagship workload (bench.py:24-38,120-129)
+FLAGSHIP = dict(
+    enc_vocab_size=30000, dec_vocab_size=200, enc_embedding_size=200,
+    dec_embedding_size=512, acous_dim=40, acous_hidden_size=256,
+    dim_model=512, dim_feedforward=1024, num_heads=8, enc_layers=6,
+    dec_layers=6, num_unilstm_dec=3, spec_aug=True, dropout=0.2,
+    max_seq_len_src=90, max_seq_len_tgt=150, mode="ASR_ST")
+B, FRAMES, DECODE_LEN, BEAM = 16, 1504, 150, 5
+
+
+def say(phase: str, **kw):
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()), flush=True)
+
+
+def need(ok: bool, what: str):
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Median milliseconds of fn() on the card, each call timed with CUDA
+    events after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def max_err(a, b) -> float:
+    return float((a.double().cpu() - b.double().cpu()).abs().max())
+
+
+def inputs(rng, n):
+    """Seeded fbank-shaped features and lengths, as bench.py makes them."""
+    feats = rng.randn(n, FRAMES, 40).astype(np.float32)
+    lens = rng.randint(FRAMES // 2, FRAMES - 8, size=(n,)).astype(np.int64)
+    lens[0] = FRAMES - 8  # round_up8(max) == FRAMES
+    return torch.from_numpy(feats), torch.from_numpy(lens)
+
+
+def first_diff(a, b):
+    """Per row: the first column where a and b differ, or None."""
+    d = (a.cpu() != b.cpu())
+    return [int(np.argmax(r)) if r.any() else None for r in d.numpy()]
+
+
+def phase_k1(params, cfg, rng):
+    from stjep_tpu_torch.ops.lstm_pallas import bilstm_pallas, bilstm_plain
+
+    enc = params["las"]["encoder"]
+    lens = torch.from_numpy(rng.randint(FRAMES // 2, FRAMES, size=(B,))).cuda()
+    T, din, err, ms, plain_ms = FRAMES, cfg.acous_dim, 0.0, 0.0, 0.0
+    shapes = []
+    for li in range(cfg.num_pyramid_layers):
+        shapes.append(f"({T},{din})")
+        p = enc[f"acous_enc_l{li + 1}"]
+        x = torch.from_numpy(rng.uniform(-1, 1, (B, T, din)).astype(np.float32)).cuda()
+        args = (p["fwd"], p["bwd"], x, lens)
+        err = max(err, max_err(bilstm_pallas(*args), bilstm_plain(*args)))
+        ms += cuda_ms(lambda: bilstm_pallas(*args), 5)
+        plain_ms += cuda_ms(lambda: bilstm_plain(*args), 2)
+        T, din, lens = T // 2, 4 * cfg.acous_hidden_size, lens // 2
+    # outputs are LSTM states in (-1, 1); f32 on both sides, summed in another
+    # order (GEMM tiles vs ATen) over up to 1504 contractive recurrent steps
+    tol = 1e-4
+    say("kernel K1 bilstm", B=B, T_Din=",".join(shapes),
+        max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms)
+    need(err <= tol, f"K1 max_abs_err {err} > {tol}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def phase_k2(params, cfg, rng):
+    from stjep_tpu_torch.config import BOS
+    from stjep_tpu_torch.ops.attention import precompute_keys
+    from stjep_tpu_torch.ops.las_flash import las_greedy_flash, las_greedy_plain
+
+    dec = params["las"]["decoder"]
+    Tk, n = FRAMES // 8, cfg.max_seq_len_src - 1
+    acous = torch.from_numpy(rng.uniform(-1, 1, (B, Tk, 2 * cfg.acous_hidden_size))
+                             .astype(np.float32)).cuda()
+    wk = precompute_keys(dec["acous_att"], acous, "bilinear")["wk"]
+    lens_k = torch.from_numpy(rng.randint(Tk // 2, Tk + 1, size=(B,))).cuda()
+    sym0 = torch.full((B,), BOS, device="cuda")
+    args = (dec, cfg, wk, acous, lens_k, sym0, n)
+    embs_k, preds_k, picked_k = las_greedy_flash(*args)
+    embs_p, preds_p, picked_p = las_greedy_plain(*args)
+    at_k = las_greedy_plain(*args, ref_tokens=preds_k)[2]  # plain logp of the kernel's pick
+    at_p = las_greedy_plain(*args, ref_tokens=preds_p)[2]  # plain logp of its own pick
+    err, rows = 0.0, 0
+    for r, c in enumerate(first_diff(preds_k, preds_p)):
+        end = n if c is None else c + 1  # step c's embedding precedes its pick
+        err = max(err, max_err(embs_k[r, :end], embs_p[r, :end]),
+                  max_err(picked_k[r, :end], picked_p[r, :end]))
+        if c is not None:
+            rows += 1
+            gap = float(at_p[r, c] - at_k[r, c])
+            need(gap <= TIE, f"K2 row {r} step {c}: symbols differ, plain gap {gap}")
+    ms = cuda_ms(lambda: las_greedy_flash(*args), 5)
+    plain_ms = cuda_ms(lambda: las_greedy_plain(*args), 3)
+    # dynamic embeddings are unbounded FFN outputs fed back through 89
+    # recurrent steps; f32 on both sides, summed in another order
+    tol = 1e-3
+    say("kernel K2 las_greedy", steps=n, V=cfg.enc_vocab_size, max_abs_err=err,
+        tol=tol, tied_rows=rows, ms=ms, plain_ms=plain_ms)
+    need(err <= tol, f"K2 max_abs_err {err} > {tol}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def decode_state(params, cfg, rng, pos):
+    """A seeded decode state at position `pos` for B=16, K=5: memory K/V of
+    89 encoder positions (padded to 96), caches filled below pos, a random
+    ancestry and random prefix tokens."""
+    from stjep_tpu_torch.config import BOS, PAD
+    from stjep_tpu_torch.models.tf_decoder import tf_decoder_init_cache_chain
+    from stjep_tpu_torch.ops.decode_flash import CROSS_BLOCK, pad_len
+
+    K, BK, Lk, D = BEAM, B * BEAM, cfg.max_seq_len_src - 1, cfg.dim_model
+    enc = torch.from_numpy(rng.randn(B, Lk, D).astype(np.float32)).cuda()
+    cache = tf_decoder_init_cache_chain(params["dec_tgt"], cfg, enc, DECODE_LEN, K)
+    Lpad = cache.self_k.shape[3]
+    fill = lambda: torch.from_numpy(rng.randn(*cache.self_k[:, :, :, :pos].shape)
+                                    .astype(np.float32)).cuda()
+    cache.self_k[:, :, :, :pos] = fill()
+    cache.self_v[:, :, :, :pos] = fill()
+    preds = torch.full((BK, Lpad), PAD, dtype=torch.int32)
+    preds[:, 1:pos + 1] = torch.from_numpy(rng.randint(4, cfg.dec_vocab_size, (BK, pos)))
+    preds[:, 0] = BOS
+    anc = torch.from_numpy(rng.randint(0, K, (Lpad, BK))).int()
+    mem_len = rng.randint(1, Lk + 1, size=(B,))
+    mem_mask = np.zeros((pad_len(Lk, CROSS_BLOCK), B), np.int32)
+    for b, m in enumerate(mem_len):
+        mem_mask[:m, b] = 1
+    return dict(cache=cache, preds=preds.cuda(), anc=anc.cuda(),
+                maskk=(preds != PAD).T.int().contiguous().cuda(),
+                mem_mask=torch.from_numpy(mem_mask).cuda())
+
+
+def clone_cache(c):
+    return type(c)(*(t.clone() for t in c))
+
+
+def phase_k3(params, cfg, rng):
+    from stjep_tpu_torch.config import BOS
+    from stjep_tpu_torch.models.seq2seq import _embed_tgt_token
+    from stjep_tpu_torch.ops.decode_flash import (
+        decode_chain_step_flash,
+        decode_chain_step_plain,
+        stack_decoder_layers,
+    )
+    from stjep_tpu_torch.ops.masks import position_signal
+
+    K, BK = BEAM, B * BEAM
+    st = decode_state(params, cfg, rng, 0)  # position 1 reads position 0 only
+    st["anc"][0] = torch.arange(BK, device="cuda", dtype=torch.int32) % K
+    tok = torch.full((BK,), BOS, device="cuda", dtype=torch.int32)
+    x = _embed_tgt_token(params, cfg, tok) + position_signal(500, cfg.dim_model, "cuda")[0, 0]
+    dec = params["dec_tgt"]
+    stacked = stack_decoder_layers(dec)
+
+    def run(fn, cache, topk):
+        return fn(stacked, dec["norm"], params["out_tgt"], x, cache.self_k,
+                  cache.self_v, cache.mem_k, cache.mem_v, 0, cfg.num_heads,
+                  st["anc"], K, st["mem_mask"], st["maskk"], topk)
+
+    ck, cp = clone_cache(st["cache"]), clone_cache(st["cache"])
+    sc_k, ids_k = run(decode_chain_step_flash, ck, K + 1)
+    sc_p, ids_p = run(decode_chain_step_plain, cp, K + 1)
+    err = max(max_err(sc_k, sc_p), max_err(ck.self_k, cp.self_k),
+              max_err(ck.self_v, cp.self_v))
+    rows = 0
+    for r, c in enumerate(first_diff(ids_k[:, :K], ids_p[:, :K])):
+        if c is not None:
+            rows += 1
+            gap = float((sc_p[r, :K] - sc_p[r, 1:K + 1]).min())
+            need(gap <= TIE, f"K3 row {r}: ids differ, plain top-k gap {gap}")
+    ms = cuda_ms(lambda: run(decode_chain_step_flash, ck, K), 20)
+    plain_ms = cuda_ms(lambda: run(decode_chain_step_plain, cp, K), 10)
+    # log-probs of magnitude <= ~10 after 6 layers in f32, summed in another order
+    tol = 1e-4
+    say("kernel K3 decode_chain_step", BK=BK, pos=0, max_abs_err=err, tol=tol,
+        tied_rows=rows, ms=ms, plain_ms=plain_ms)
+    need(err <= tol, f"K3 max_abs_err {err} > {tol}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def phase_k4(params, cfg, rng):
+    from stjep_tpu_torch.config import EOS
+    from stjep_tpu_torch.models.seq2seq import _dec_embedder, _embed_tgt_token
+    from stjep_tpu_torch.ops.decode_flash import (
+        beam_candidates,
+        decode_beam_step_flash,
+        decode_beam_step_plain,
+        decode_chain_step_plain,
+        stack_decoder_layers,
+    )
+    from stjep_tpu_torch.ops.masks import position_signal
+
+    K, BK, i = BEAM, B * BEAM, DECODE_LEN // 2  # a mid-decode position
+    st = decode_state(params, cfg, rng, i - 1)
+    eos = torch.from_numpy((rng.rand(BK) < 0.2).astype(np.int32)).cuda()
+    scores = torch.from_numpy(-rng.uniform(0, 3 * i, BK).astype(np.float32)).cuda()
+    lenm = torch.from_numpy(rng.randint(1, i, BK).astype(np.float32)).cuda()
+    last_tok = st["preds"][:, i - 1].contiguous()
+    dec = params["dec_tgt"]
+    stacked = stack_decoder_layers(dec)
+    table = _dec_embedder(params, cfg).contiguous()
+    tsig = position_signal(500, cfg.dim_model, "cuda")[0].contiguous()
+
+    def run(fn, cache, anc):
+        return fn(stacked, dec["norm"], params["out_tgt"], table, tsig, i,
+                  last_tok, st["preds"], anc, st["maskk"], st["mem_mask"],
+                  scores, eos, lenm, cache.self_k, cache.self_v, cache.mem_k,
+                  cache.mem_v, cfg.num_heads, K, 1.0)
+
+    ck, cp = clone_cache(st["cache"]), clone_cache(st["cache"])
+    anc_k, anc_p = st["anc"].clone(), st["anc"].clone()
+    out_k = run(decode_beam_step_flash, ck, anc_k)
+    out_p = run(decode_beam_step_plain, cp, anc_p)
+    # the plain candidates, to tell ties from faults
+    x = _embed_tgt_token(params, cfg, last_tok) + tsig[i - 1]
+    sc, _ = decode_chain_step_plain(stacked, dec["norm"], params["out_tgt"], x,
+                                    clone_cache(st["cache"]).self_k,
+                                    clone_cache(st["cache"]).self_v,
+                                    ck.mem_k, ck.mem_v, i - 1, cfg.num_heads,
+                                    anc_p, K, st["mem_mask"], st["maskk"], K)
+    cand = beam_candidates(sc, scores, eos, lenm, 1.0)[0].sort(dim=1, descending=True)[0]
+    gaps = (cand[:, :K] - cand[:, 1:K + 1]).min(dim=1)[0]
+    names = ("preds", "anc", "maskk", "last_tok", "scores", "eos", "lenm")
+    grp = torch.arange(BK, device="cuda") // K
+    err, groups = 0.0, set()
+    for nm, a, b in zip(names, out_k, out_p):
+        if nm in ("scores", "lenm"):
+            err = max(err, max_err(a, b))
+            continue
+        bad = (a != b)
+        bad = bad.any(dim=1) if nm == "preds" else bad.any(dim=0) if a.dim() == 2 else bad
+        for g in grp[bad].unique().tolist():
+            groups.add(g)
+            need(float(gaps[g]) <= TIE,
+                 f"K4 {nm} differs in group {g}, plain candidate gap {float(gaps[g])}")
+    need(bool((out_k[7] == out_p[7]).all()) or groups, "K4 all-EOS flag differs")
+    err = max(err, max_err(ck.self_k, cp.self_k), max_err(ck.self_v, cp.self_v))
+    ms = cuda_ms(lambda: run(decode_beam_step_flash, ck, anc_k), 20)
+    plain_ms = cuda_ms(lambda: run(decode_beam_step_plain, cp, anc_p), 10)
+    # cumulative scores of magnitude up to ~450 in f32 (rel. 2e-6), plus K3's error
+    tol = 1e-3
+    say("kernel K4 decode_beam_step", BK=BK, i=i, eos_rows=int(eos.sum()),
+        max_abs_err=err, tol=tol, tied_groups=len(groups), ms=ms,
+        plain_ms=plain_ms, EOS=EOS)
+    need(err <= tol, f"K4 max_abs_err {err} > {tol}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def recorded_translate(params, cfg, feats, lens):
+    """forward_translate ST beam-5 that also records, at every beam
+    position, the state the megastep hands on (tokens [BK, L] and kept
+    scores [BK], on the host), starting with the state after position 1.
+    Returns (tokens [B, L], ASR hypotheses, states)."""
+    import stjep_tpu_torch.infer.beam as beam_mod
+    from stjep_tpu_torch.infer.forward import encode_st, forward_translate
+
+    step, states = beam_mod.decode_beam_step_flash, []
+
+    def recording(*a):
+        if not states:  # the state after position 1: the first step's input
+            states.append((a[7].cpu(), a[11].cpu()))
+        out = step(*a)
+        states.append((out[0].cpu(), out[4].cpu()))
+        return out
+
+    beam_mod.decode_beam_step_flash = recording
+    try:
+        toks = forward_translate(params, cfg, "ST", acous_feats=feats,
+                                 acous_lens=lens, beam_width=BEAM,
+                                 penalty_factor=1.0, max_seq_len=DECODE_LEN)
+    finally:
+        beam_mod.decode_beam_step_flash = step
+    return toks.cpu(), encode_st(params, cfg, feats, lens)[2].cpu(), states
+
+
+def explain_e2e(params_c, cfg, feats, lens, card, plain):
+    """Every row where the card's tokens differ from the plain arm's must be
+    explained by a tie at the first divergence, in the plain arm's own
+    log-probs: if the ASR hypotheses differ, the plain LAS log-probs of the
+    two symbols at their first difference; else, at the first beam position
+    where the row's K hypotheses differ, the two arms' kept beam scores
+    (sums of log-probs), sorted, within E2E_MARGIN. Returns the margins."""
+    from stjep_tpu_torch.config import BOS
+    from stjep_tpu_torch.models.las_encoder import las_encoder_forward
+    from stjep_tpu_torch.ops.attention import precompute_keys
+    from stjep_tpu_torch.ops.las_flash import las_greedy_plain
+    from stjep_tpu_torch.ops.masks import round_up8
+
+    (toks_c, hyp_c, st_c), (toks_p, hyp_p, st_p) = card, plain
+    dec = params_c["las"]["decoder"]
+    acous, _ = las_encoder_forward(params_c["las"]["encoder"], cfg, feats, lens)
+    args = (dec, cfg, precompute_keys(dec["acous_att"], acous, "bilinear")["wk"],
+            acous, round_up8(lens) // 8, torch.full((feats.shape[0],), BOS),
+            cfg.max_seq_len_src - 1)
+    at_card = las_greedy_plain(*args, ref_tokens=hyp_c)[2]
+    at_own = las_greedy_plain(*args, ref_tokens=hyp_p)[2]
+    las_rows = first_diff(hyp_c, hyp_p)
+    margins = []
+    for r, c in enumerate(first_diff(toks_c, toks_p)):
+        if c is None:
+            continue
+        h = las_rows[r]
+        if h is not None:
+            stage, pos, m = "las", h, float(abs(at_own[r, h] - at_card[r, h]))
+        else:
+            stage, pos, m = "beam", None, float("inf")
+            g = slice(r * BEAM, (r + 1) * BEAM)
+            for t, ((pc, sc), (pp, sp)) in enumerate(zip(st_c, st_p)):
+                if not torch.equal(pc[g], pp[g]):
+                    pos = t + 1
+                    m = float((sc[g].sort()[0] - sp[g].sort()[0]).abs().max())
+                    break
+        say("e2e differing row", row=r, stage=stage, position=pos, col=c,
+            margin=m)
+        margins.append(m)
+    return margins
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on a GPU",
+              file=sys.stderr)
+        return 2
+    from stjep_tpu_torch import kernels
+    from stjep_tpu_torch.bridge import params_to
+    from stjep_tpu_torch.config import BOS, ModelConfig
+    from stjep_tpu_torch.infer.forward import forward_translate
+    from stjep_tpu_torch.models.seq2seq import init_seq2seq
+    from stjep_tpu_torch.ops.decode_flash import (
+        decode_beam_step_flash,
+        decode_chain_step_flash,
+    )
+    from stjep_tpu_torch.ops.las_flash import las_greedy_flash
+    from stjep_tpu_torch.ops.lstm_pallas import bilstm_pallas
+
+    # 1. device
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name = torch.cuda.get_device_name(0)
+    say("device", name=repr(name), nvidia_smi=repr(smi), torch=torch.__version__,
+        cuda=torch.version.cuda)
+
+    # 2. build
+    t0 = time.perf_counter()
+    lib = kernels.build()
+    kernels.lib()
+    say("build", seconds=round(time.perf_counter() - t0, 3), library=lib.name)
+
+    cfg = ModelConfig(**FLAGSHIP)
+    gen = torch.Generator().manual_seed(args.seed)
+    params_c = init_seq2seq(cfg, gen, "cpu")
+    params = params_to(params_c, "cuda")
+    rng = np.random.RandomState(args.seed)
+
+    # 3. kernels vs their plain versions
+    results = {"K1": phase_k1(params, cfg, rng), "K2": phase_k2(params, cfg, rng),
+               "K3": phase_k3(params, cfg, rng), "K4": phase_k4(params, cfg, rng)}
+
+    # 4. end to end: 3 requests of B=16, ST beam 5
+    reqs = [inputs(rng, B) for _ in range(3)]
+    # host inputs: the call moves them to the card, inside the timed region
+    call = lambda f, l: forward_translate(params, cfg, "ST", acous_feats=f,
+                                          acous_lens=l, beam_width=BEAM,
+                                          penalty_factor=1.0,
+                                          max_seq_len=DECODE_LEN,
+                                          device="cuda", generator=gen)
+    wrappers = {"K1": bilstm_pallas, "K2": las_greedy_flash,
+                "K3": decode_chain_step_flash, "K4": decode_beam_step_flash}
+    for w in wrappers.values():
+        w.launches = 0
+    outs, secs = [], []
+    for f, l in reqs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(call(f, l))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    for o in outs:
+        need(o.shape == (B, DECODE_LEN) and bool((o[:, 0] == BOS).all())
+             and bool(((o >= 0) & (o < cfg.dec_vocab_size)).all()),
+             "e2e output shape/range")
+    need(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
+    f1, l1 = reqs[0][0][:1], reqs[0][1][:1]
+    lat = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call(f1, l1)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    say("e2e", requests=len(reqs), batch=B, utt_per_s=round(B * len(reqs) / sum(secs), 3),
+        request_ms=[round(s * 1e3, 1) for s in secs],
+        b1_latency_ms=round(statistics.median(lat) * 1e3, 1), launches=launches)
+
+    # the plain arm: the same call on CPU copies, for request 0
+    feats, lens = reqs[0]
+    t0 = time.perf_counter()
+    plain = recorded_translate(params_c, cfg, feats, lens)
+    plain_s = time.perf_counter() - t0
+    card = recorded_translate(params, cfg, feats.cuda(), lens.cuda())
+    need(torch.equal(card[0], outs[0].cpu()), "card run not reproducible")
+    margins = explain_e2e(params_c, cfg, feats, lens, card, plain)
+    say("e2e plain arm", device="cpu", seconds=round(plain_s, 1),
+        rows_differ=len(margins), of=B,
+        max_first_divergence_margin=max(margins, default=0.0), limit=E2E_MARGIN)
+    need(all(m <= E2E_MARGIN for m in margins),
+         f"e2e rows differ beyond ties: margins {margins}")
+
+    sources = {"K1": ("bilstm", "stjep_tpu_torch/csrc/bilstm.cu",
+                      "stjep_tpu/ops/lstm_pallas.py:206"),
+               "K2": ("las_greedy", "stjep_tpu_torch/csrc/las_greedy.cu",
+                      "stjep_tpu/ops/las_flash.py:168"),
+               "K3": ("decode_chain_step", "stjep_tpu_torch/csrc/decode.cu",
+                      "stjep_tpu/ops/decode_flash.py:1078"),
+               "K4": ("decode_beam_step", "stjep_tpu_torch/csrc/decode.cu",
+                      "stjep_tpu/ops/decode_flash.py:1412")}
+    print(json.dumps({"kernels": [
+        {"name": nm, "route": "cuda", "source": src, "replaces": rep,
+         "launches": launches[k], **results[k]}
+        for k, (nm, src, rep) in sources.items()]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

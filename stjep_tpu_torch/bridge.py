@@ -1,0 +1,42 @@
+"""Weight bridge between the JAX package's params and the port's tensors.
+
+Both sides use the same key paths (`las/encoder/acous_enc_l1/fwd/w_ih`,
+`dec_tgt/layers/<i>/decslf_attn/w_qs/w`, ...) and the same `[in, out]`
+layout, so the bridge is a copy: nested dicts (and lists) of numpy arrays
+become the same structure of torch tensors, and back.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+
+def params_from_numpy(tree: Any, device=None) -> Any:
+    """Nested dicts/lists/tuples of array-likes -> the same structure of
+    torch tensors on `device` (dtypes and bytes unchanged)."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_numpy(v, device) for v in tree)
+    return torch.from_numpy(np.array(tree, copy=True)).to(device)
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """The inverse of params_from_numpy: tensors -> numpy arrays on the host."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_to_numpy(v) for v in tree)
+    return tree.detach().cpu().numpy()
+
+
+def params_to(tree: Any, device) -> Any:
+    """Move every tensor of a params tree to `device`."""
+    if isinstance(tree, dict):
+        return {k: params_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_to(v, device) for v in tree)
+    return tree.to(device)

@@ -1,0 +1,336 @@
+// K3 / K4: the transformer beam-decode step kernels.
+//
+// K3 replaces stjep_tpu/ops/decode_flash.py `decode_chain_step_flash` (body
+// `_chain_kernel`: `_self_core`, `_cross_core`, `_ffn_core`, `_head_topk`)
+// and K4 replaces `decode_beam_step_flash` (body `_beam_step_kernel`). On
+// the TPU each was one launch per decode position; here a position is a
+// chain of launches per layer — layernorm, GEMMs (gemm.cu), and the two
+// attention kernels below — then the head (layernorm, GEMM, head_topk) and,
+// for K4, embed_time before and beam_select after.
+//
+// Cache semantics are the TPU kernel's: self caches [K, B, Lpad, D] per
+// layer are never reordered; row r = b*K + k writes its new K/V row at
+// `pos` in slot (k, b), and reads position l from slot (anc[l, r], b) —
+// the ancestry map the beam carries instead of permuting caches. Memory
+// K/V stay unexpanded [B, Lk, D]; row r reads batch entry r / K.
+//
+// What bounds it on the H100: at B*K = 80 rows a position reads every
+// decoder weight once (6 layers x 4.2M f32 = 100 MB) and at most
+// 2 x 6 x 80 x 160 x 512 x 4 B = 315 MB of self cache, so a step is bound by
+// memory bandwidth and by the launch latency of ~80 launches. Design: one
+// block per (row, head) in the attention kernels, reading only the live
+// prefix 0..pos; exact two-pass softmax in shared memory (the lengths are
+// short); the new K/V row is used from registers at `pos` and written to
+// the cache in the same kernel. Fusing a layer into fewer launches, bf16
+// caches and CUDA graphs are later work.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int ATT_THREADS = 256;
+
+// x[r] = table[tok[r]] * (tok[r] != PAD) + tsig[pos]; anc[pos, r] = r % K
+// (the K/V this step writes lives in the row itself); flag = 1, to be
+// and-ed with each group's all-EOS bit by beam_select.
+__global__ void embed_time_kernel(const float* __restrict__ table,
+                                  const int* __restrict__ tok,
+                                  const float* __restrict__ tsig,
+                                  float* __restrict__ x, int* __restrict__ anc,
+                                  int* __restrict__ flag, int pos, int BK,
+                                  int K, int D) {
+  const int r = blockIdx.x;
+  const int t = tok[r];
+  const float keep = t != STJEP_PAD ? 1.f : 0.f;
+  for (int c = threadIdx.x; c < D; c += blockDim.x)
+    x[(size_t)r * D + c] = table[(size_t)t * D + c] * keep + tsig[(size_t)pos * D + c];
+  if (threadIdx.x == 0) {
+    anc[(size_t)pos * BK + r] = r % K;
+    if (flag && r == 0) *flag = 1;
+  }
+}
+
+// Softmax over s[0..n) in shared memory, then the context
+// out[t] = sum_l p[l] * vrow(l)[t] for t < d. Threads split as
+// G = blockDim / d groups over l; `part` holds blockDim floats.
+template <typename VRow>
+__device__ void softmax_context(float* s, int n, int d, VRow vrow,
+                                float* part, float* red, float* out) {
+  float m = -INFINITY;
+  for (int l = threadIdx.x; l < n; l += blockDim.x) m = fmaxf(m, s[l]);
+  m = block_max(m, red);
+  float z = 0.f;
+  for (int l = threadIdx.x; l < n; l += blockDim.x) z += expf(s[l] - m);
+  z = block_sum(z, red);
+  for (int l = threadIdx.x; l < n; l += blockDim.x) s[l] = expf(s[l] - m) / z;
+  __syncthreads();
+  const int G = blockDim.x / d;
+  const int t = threadIdx.x % d, g = threadIdx.x / d;
+  float acc = 0.f;
+#pragma unroll 4
+  for (int l = g; l < n; l += G) acc = fmaf(s[l], vrow(l)[t], acc);
+  part[threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.x < d) {
+    float v = 0.f;
+    for (int j = 0; j < G; ++j) v += part[j * d + threadIdx.x];
+    out[threadIdx.x] = v;
+  }
+}
+
+// s[l] = q . krow(l) for l < n (one warp per position, lanes over d), or
+// -1e9 where valid[l] == 0. qs is the scaled query in shared memory.
+template <typename KRow>
+__device__ void scores(const float* qs, int n, int d, KRow krow,
+                       const int* valid, float* s) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+#pragma unroll 2
+  for (int l = warp; l < n; l += nw) {
+    const float* kp = krow(l);
+    float acc = 0.f;
+    for (int t = lane; t < d; t += 32) acc = fmaf(qs[t], kp[t], acc);
+    acc = warp_sum(acc);
+    if (lane == 0) s[l] = valid[l] ? acc : -1e9f;
+  }
+}
+
+// Self-attention of one (row, head) over positions 0..pos through the
+// ancestry map; masked keys (maskk == 0) score -1e9, so a fully masked
+// row becomes uniform attention, never NaN. The ancestry column and mask
+// of the row are staged in shared memory first, so the position loops
+// issue their cache loads without waiting on an index load.
+__global__ void __launch_bounds__(ATT_THREADS) self_attn_kernel(
+    const float* __restrict__ q, const float* __restrict__ knew,
+    const float* __restrict__ vnew, float* __restrict__ ck,
+    float* __restrict__ cv, const int* __restrict__ anc,
+    const int* __restrict__ maskk, float* __restrict__ out, int pos, int BK,
+    int K, int Lpad, int D, int d) {
+  extern __shared__ float sm[];
+  const int n = pos + 1;
+  float* qs = sm;                          // [d]
+  float* part = qs + d;                    // [blockDim]
+  float* s = part + blockDim.x;            // [n]
+  int* slot = (int*)(s + n);               // [n]
+  int* valid = slot + n;                   // [n]
+  __shared__ float red[32];
+  const int r = blockIdx.x, h = blockIdx.y;
+  const int B = BK / K, b = r / K, own = r % K;
+  const size_t hoff = (size_t)h * d;
+  const float* kn = knew + (size_t)r * D + hoff;
+  const float* vn = vnew + (size_t)r * D + hoff;
+  const float temp = sqrtf((float)d);
+  for (int t = threadIdx.x; t < d; t += blockDim.x) {
+    qs[t] = q[(size_t)r * D + hoff + t] / temp;
+    const size_t dst = (((size_t)own * B + b) * Lpad + pos) * D + hoff + t;
+    ck[dst] = kn[t];
+    cv[dst] = vn[t];
+  }
+  for (int l = threadIdx.x; l < n; l += blockDim.x) {
+    slot[l] = l == pos ? own : anc[(size_t)l * BK + r];
+    valid[l] = maskk[(size_t)l * BK + r];
+  }
+  __syncthreads();
+  const size_t lstride = (size_t)Lpad * D;
+  auto krow = [&](int l) -> const float* {
+    if (l == pos) return kn;
+    return ck + ((size_t)slot[l] * B + b) * lstride + (size_t)l * D + hoff;
+  };
+  auto vrow = [&](int l) -> const float* {
+    if (l == pos) return vn;
+    return cv + ((size_t)slot[l] * B + b) * lstride + (size_t)l * D + hoff;
+  };
+  scores(qs, n, d, krow, valid, s);
+  __syncthreads();
+  softmax_context(s, n, d, vrow, part, red, out + (size_t)r * D + hoff);
+}
+
+// Cross-attention of one (row, head) over the unexpanded memory of batch
+// entry r / K; padded memory positions are masked (memmask [Lk, B]).
+__global__ void __launch_bounds__(ATT_THREADS) cross_attn_kernel(
+    const float* __restrict__ q, const float* __restrict__ mk,
+    const float* __restrict__ mv, const int* __restrict__ memmask,
+    float* __restrict__ out, int BK, int K, int Lk, int D, int d) {
+  extern __shared__ float sm[];
+  float* qs = sm;
+  float* part = qs + d;
+  float* s = part + blockDim.x;   // [Lk]
+  int* valid = (int*)(s + Lk);    // [Lk]
+  __shared__ float red[32];
+  const int r = blockIdx.x, h = blockIdx.y;
+  const int B = BK / K, b = r / K;
+  const size_t hoff = (size_t)h * d;
+  const float temp = sqrtf((float)d);
+  for (int t = threadIdx.x; t < d; t += blockDim.x)
+    qs[t] = q[(size_t)r * D + hoff + t] / temp;
+  for (int l = threadIdx.x; l < Lk; l += blockDim.x)
+    valid[l] = memmask[(size_t)l * B + b];
+  __syncthreads();
+  const float* kb = mk + (size_t)b * Lk * D + hoff;
+  const float* vb = mv + (size_t)b * Lk * D + hoff;
+  scores(qs, Lk, d, [&](int l) -> const float* { return kb + (size_t)l * D; },
+         valid, s);
+  __syncthreads();
+  softmax_context(s, Lk, d, [&](int l) -> const float* { return vb + (size_t)l * D; },
+                  part, red, out + (size_t)r * D + hoff);
+}
+
+// Decode head for one row per block: log-softmax over V, then top-K by
+// repeated arg-max with the lowest index winning ties (jax.lax.top_k's
+// order); a taken entry is set to -1e30 like the TPU kernel.
+__global__ void head_topk_kernel(const float* __restrict__ logits,
+                                 float* __restrict__ sc, int* __restrict__ ids,
+                                 int V, int K) {
+  extern __shared__ float x[];  // [V]
+  __shared__ float rv[32];
+  __shared__ int ri[32];
+  __shared__ float red[32];
+  const int r = blockIdx.x;
+  for (int c = threadIdx.x; c < V; c += blockDim.x) x[c] = logits[(size_t)r * V + c];
+  __syncthreads();
+  float m = -INFINITY;
+  for (int c = threadIdx.x; c < V; c += blockDim.x) m = fmaxf(m, x[c]);
+  m = block_max(m, red);
+  float z = 0.f;
+  for (int c = threadIdx.x; c < V; c += blockDim.x) z += expf(x[c] - m);
+  z = block_sum(z, red);
+  const float lse = m + logf(z);
+  for (int k = 0; k < K; ++k) {
+    float bv = -INFINITY;
+    int bi = 0x7fffffff;
+    for (int c = threadIdx.x; c < V; c += blockDim.x)
+      if (better(x[c], c, bv, bi)) { bv = x[c]; bi = c; }
+    block_argmax(bv, bi, rv, ri);
+    if (threadIdx.x == 0) {
+      sc[(size_t)r * K + k] = bv - lse;
+      ids[(size_t)r * K + k] = bi;
+      x[bi] = -1e30f;
+    }
+    __syncthreads();
+  }
+}
+
+constexpr int MAX_BEAM = 16;
+
+// The k^2 -> k beam update for one batch item per block, transcribing
+// stjep_tpu/infer/beam.py body() / decode_flash.py `_beam_step_kernel`:
+// EOS rows contribute one candidate (column 0 at +0, the rest -1e9);
+// candidates are ranked by score / lenm^pf; top-K over flat index j*K + c
+// with the lowest index winning ties; the kept score is multiplied back by
+// the OLD slot's penalty; eos/lenm stay slot-indexed; preds, anc and maskk
+// are back-copied from the source rows; the caches are never touched.
+__global__ void beam_select_kernel(
+    const float* __restrict__ sc_k, const int* __restrict__ id_k,
+    const float* __restrict__ scores, const int* __restrict__ eos,
+    const float* __restrict__ lenm, const int* __restrict__ preds,
+    const int* __restrict__ anc, const int* __restrict__ maskk,
+    int* __restrict__ preds_o, int* __restrict__ anc_o,
+    int* __restrict__ maskk_o, int* __restrict__ tok_o,
+    float* __restrict__ scores_o, int* __restrict__ eos_o,
+    float* __restrict__ lenm_o, int* __restrict__ flag, int i, int K,
+    int Lbuf, float pf) {
+  __shared__ float st[MAX_BEAM * MAX_BEAM];
+  __shared__ int src_s[MAX_BEAM], tok_s[MAX_BEAM];
+  __shared__ float sel_s[MAX_BEAM];
+  const int b = blockIdx.x;
+  const int BK = gridDim.x * K;
+  if (threadIdx.x == 0) {
+    for (int j = 0; j < K; ++j) {
+      const int r = b * K + j;
+      const float lp = pf == 1.f ? lenm[r] : powf(lenm[r], pf);
+      for (int c = 0; c < K; ++c) {
+        const float smk = eos[r] ? (c == 0 ? 0.f : -1e9f) : sc_k[r * K + c];
+        st[j * K + c] = (scores[r] + smk) / lp;
+      }
+    }
+    bool all_eos = true;
+    for (int slot = 0; slot < K; ++slot) {
+      float bv = -INFINITY;
+      int bf = 0;
+      for (int f = 0; f < K * K; ++f)
+        if (st[f] > bv) { bv = st[f]; bf = f; }
+      st[bf] = -1e30f;
+      const int src = b * K + bf / K;
+      const int tok = id_k[src * K + bf % K];
+      src_s[slot] = src;
+      tok_s[slot] = tok;
+      sel_s[slot] = bv;
+      const int s = b * K + slot;
+      const float lp_old = pf == 1.f ? lenm[s] : powf(lenm[s], pf);
+      const int e = (eos[s] || tok == STJEP_EOS) ? 1 : 0;
+      scores_o[s] = bv * lp_old;
+      tok_o[s] = tok;
+      eos_o[s] = e;
+      lenm_o[s] = lenm[s] + (e ? 0.f : 1.f);
+      all_eos = all_eos && e;
+    }
+    if (!all_eos) atomicAnd(flag, 0);
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < K * Lbuf; e += blockDim.x) {
+    const int slot = e / Lbuf, l = e % Lbuf;
+    const int s = b * K + slot, src = src_s[slot];
+    preds_o[(size_t)s * Lbuf + l] = l == i ? tok_s[slot] : preds[(size_t)src * Lbuf + l];
+    anc_o[(size_t)l * BK + s] = anc[(size_t)l * BK + src];
+    maskk_o[(size_t)l * BK + s] =
+        l == i ? (tok_s[slot] != STJEP_PAD) : maskk[(size_t)l * BK + src];
+  }
+}
+
+// qs[d] + part[ATT_THREADS] + s[n] + two int arrays [n]
+int attn_smem(int d, int n) { return (d + ATT_THREADS + 3 * n) * (int)sizeof(float); }
+
+}  // namespace
+
+extern "C" int embed_time(const float* table, const int* tok, const float* tsig,
+                          float* x, int* anc, int* flag, int pos, int BK, int K,
+                          int D, cudaStream_t stream) {
+  embed_time_kernel<<<BK, 256, 0, stream>>>(table, tok, tsig, x, anc, flag, pos,
+                                            BK, K, D);
+  STJEP_RETURN_LAUNCH_STATUS();
+}
+
+extern "C" int self_attn_anc(const float* q, const float* knew,
+                             const float* vnew, float* ck, float* cv,
+                             const int* anc, const int* maskk, float* out,
+                             int pos, int BK, int K, int Lpad, int D, int nh,
+                             cudaStream_t stream) {
+  const int d = D / nh;
+  if (d > ATT_THREADS || ATT_THREADS % d || attn_smem(d, Lpad) > 48 * 1024)
+    return (int)cudaErrorInvalidValue;
+  self_attn_kernel<<<dim3(BK, nh), ATT_THREADS, attn_smem(d, pos + 1), stream>>>(
+      q, knew, vnew, ck, cv, anc, maskk, out, pos, BK, K, Lpad, D, d);
+  STJEP_RETURN_LAUNCH_STATUS();
+}
+
+extern "C" int cross_attn(const float* q, const float* mk, const float* mv,
+                          const int* memmask, float* out, int BK, int K,
+                          int Lk, int D, int nh, cudaStream_t stream) {
+  const int d = D / nh;
+  if (d > ATT_THREADS || ATT_THREADS % d || attn_smem(d, Lk) > 48 * 1024)
+    return (int)cudaErrorInvalidValue;
+  cross_attn_kernel<<<dim3(BK, nh), ATT_THREADS, attn_smem(d, Lk), stream>>>(
+      q, mk, mv, memmask, out, BK, K, Lk, D, d);
+  STJEP_RETURN_LAUNCH_STATUS();
+}
+
+extern "C" int head_topk(const float* logits, float* sc, int* ids, int BK,
+                         int V, int K, cudaStream_t stream) {
+  if (V * (int)sizeof(float) > 48 * 1024) return (int)cudaErrorInvalidValue;
+  head_topk_kernel<<<BK, 256, V * sizeof(float), stream>>>(logits, sc, ids, V, K);
+  STJEP_RETURN_LAUNCH_STATUS();
+}
+
+extern "C" int beam_select(const float* sc_k, const int* id_k,
+                           const float* scores, const int* eos,
+                           const float* lenm, const int* preds, const int* anc,
+                           const int* maskk, int* preds_o, int* anc_o,
+                           int* maskk_o, int* tok_o, float* scores_o,
+                           int* eos_o, float* lenm_o, int* flag, int i, int B,
+                           int K, int Lbuf, float pf, cudaStream_t stream) {
+  if (K > MAX_BEAM) return (int)cudaErrorInvalidValue;
+  beam_select_kernel<<<B, 256, 0, stream>>>(
+      sc_k, id_k, scores, eos, lenm, preds, anc, maskk, preds_o, anc_o, maskk_o,
+      tok_o, scores_o, eos_o, lenm_o, flag, i, K, Lbuf, pf);
+  STJEP_RETURN_LAUNCH_STATUS();
+}

@@ -1,0 +1,56 @@
+"""Transformer text encoder, standard type, eval only (port of
+stjep_tpu/models/tf_encoder.py).
+
+The time signal is added once before the stack; the final LayerNorm uses
+eps 1e-6 (ref: models/TFEnc.py:61-89). The universal type and ACT are not
+ported yet. Plain PyTorch: the JAX package runs this stage in XLA, with no
+kernel of its own.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from stjep_tpu_torch.config import ModelConfig
+from stjep_tpu_torch.ops.masks import position_signal
+from stjep_tpu_torch.ops.transformer import (
+    encoder_layer,
+    encoder_layer_init,
+    layer_norm,
+    layer_norm_init,
+)
+
+UPPERBOUND_SEQ_LEN = 500  # ref: TFEnc.py:35
+
+
+def check_standard(cfg: ModelConfig):
+    if cfg.transformer_type != "standard" or cfg.act:
+        raise NotImplementedError(
+            "only the standard transformer is ported; universal/ACT wait "
+            "(ROADMAP Queue A item 14)")
+
+
+def tf_encoder_init(generator: torch.Generator, cfg: ModelConfig,
+                    device=None) -> Dict:
+    check_standard(cfg)
+    return {
+        "layers": [encoder_layer_init(generator, cfg.dim_model, cfg.num_heads,
+                                      cfg.dim_feedforward, device)
+                   for _ in range(cfg.enc_layers)],
+        "norm": layer_norm_init(cfg.dim_model, device),
+    }
+
+
+def tf_encoder_forward(params: Dict, cfg: ModelConfig, src: torch.Tensor,
+                       src_mask: Optional[torch.Tensor] = None,
+                       max_time: int = UPPERBOUND_SEQ_LEN) -> torch.Tensor:
+    """src [B, L, D] embedded input, src_mask [B, 1, L] (0 = blocked) ->
+    encoded [B, L, D]."""
+    check_standard(cfg)
+    L = src.shape[1]
+    x = src + position_signal(max(max_time, L), cfg.dim_model, src.device)[:, :L]
+    for lp in params["layers"]:
+        x = encoder_layer(lp, x, cfg.num_heads, mask=src_mask)
+    return layer_norm(params["norm"], x, eps=1e-6)

@@ -1,0 +1,267 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Small shapes chosen for the edges the flagship run of chip_smoke.py does not
+reach: batches that do not fill a tile, fully masked rows, finished beams, a
+length penalty other than 1, strided GEMM operands. Both sides run on the
+card in f32 with TF32 off; they differ only in summation order, hence the
+tolerances below. Integer outputs (symbols, ids, back-copies) must be equal:
+with random weights at these sizes no two candidates tie.
+
+Every test needs a CUDA card and skips without one. Run them on a GPU host
+(the tests' conftest imports JAX, which that host need not have):
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from stjep_tpu_torch import kernels
+from stjep_tpu_torch.bridge import params_to
+from stjep_tpu_torch.config import BOS, PAD, ModelConfig
+from stjep_tpu_torch.infer.beam import beam_search
+from stjep_tpu_torch.infer.forward import forward_translate
+from stjep_tpu_torch.models.seq2seq import _dec_embedder, init_seq2seq
+from stjep_tpu_torch.models.tf_decoder import tf_decoder_init_cache_chain
+from stjep_tpu_torch.ops.attention import precompute_keys
+from stjep_tpu_torch.ops.decode_flash import (
+    CROSS_BLOCK,
+    decode_beam_step_flash,
+    decode_beam_step_plain,
+    decode_chain_step_flash,
+    decode_chain_step_plain,
+    pad_len,
+    stack_decoder_layers,
+)
+from stjep_tpu_torch.ops.las_flash import las_greedy_flash, las_greedy_plain
+from stjep_tpu_torch.ops.lstm import bilstm_init
+from stjep_tpu_torch.ops.lstm_pallas import bilstm_pallas, bilstm_plain
+from stjep_tpu_torch.ops.masks import position_signal
+from stjep_tpu_torch.ops.transformer import layer_norm
+
+pytestmark = pytest.mark.cuda
+
+TOL_LSTM = 1e-5  # states in (-1, 1) after <= 40 contractive steps
+TOL = 1e-4  # log-probs / projections of magnitude <= ~30 through a few layers
+
+CFG = ModelConfig(
+    enc_vocab_size=50, dec_vocab_size=40, enc_embedding_size=16,
+    dec_embedding_size=128, acous_dim=8, acous_hidden_size=64, dim_model=128,
+    dim_feedforward=256, num_heads=4, enc_layers=2, dec_layers=2,
+    num_unilstm_dec=3, spec_aug=False, dropout=0.0, max_seq_len_src=12,
+    max_seq_len_tgt=16, mode="ASR_ST")
+B, LK, MAX_LEN = 3, 11, 16
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: python -m pytest tests/test_torch_cuda.py "
+                    "-m cuda --noconftest on a GPU host")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels.lib()
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def params(dev):
+    p = init_seq2seq(CFG, torch.Generator().manual_seed(0), "cpu")
+    return p, params_to(p, dev)
+
+
+def _randn(rng, *shape, dev=None):
+    return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
+
+
+def _close(a, b, tol):
+    err = float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+    assert err <= tol, err
+
+
+@pytest.mark.parametrize("M,K,N,epilogue", [
+    (80, 512, 512, ""), (16, 712, 1024, "bias"), (80, 1024, 512, "bias,resid"),
+    (80, 512, 1024, "bias,relu"), (3, 7, 9, "bias,relu,resid"),
+    (300, 40, 1024, "bias")])
+def test_gemm_matches_matmul(dev, M, K, N, epilogue):
+    rng = np.random.RandomState(M + K + N)
+    a_full = _randn(rng, M, K + 5, dev=dev)
+    a = a_full[:, 2:K + 2]  # row-strided view
+    w = _randn(rng, K, N, dev=dev)
+    bias = _randn(rng, N, dev=dev) if "bias" in epilogue else None
+    resid = _randn(rng, M, N, dev=dev) if "resid" in epilogue else None
+    out_full = torch.zeros((M, N + 3), device=dev)
+    out = kernels.gemm(a, w, bias=bias, residual=resid, relu="relu" in epilogue,
+                       out=out_full[:, :N])
+    ref = a @ w + (bias if bias is not None else 0)
+    if "relu" in epilogue:
+        ref = torch.relu(ref)
+    if resid is not None:
+        ref = ref + resid
+    _close(out, ref, TOL)
+    assert torch.all(out_full[:, N:] == 0)  # nothing written past the view
+
+
+def test_layernorm_matches_plain(dev):
+    rng = np.random.RandomState(0)
+    x, g, b = _randn(rng, 7, 130, dev=dev), _randn(rng, 130, dev=dev), _randn(rng, 130, dev=dev)
+    for eps in (1e-6, 1e-5):
+        _close(kernels.layernorm(x, g, b, eps),
+               layer_norm({"scale": g, "bias": b}, x, eps), 1e-5)
+
+
+def test_wrappers_reject_bad_cuda_input(dev):
+    w = torch.zeros((4, 4), device=dev)
+    with pytest.raises(ValueError):
+        kernels.gemm(torch.zeros((2, 4), device=dev, dtype=torch.float64), w)
+    with pytest.raises(ValueError):
+        kernels.gemm(torch.zeros((2, 4), device=dev), w.t())  # not contiguous
+
+
+@pytest.mark.parametrize("Bn,T,Din,H", [(3, 21, 8, 64), (9, 40, 24, 256)])
+def test_bilstm_kernel_matches_plain(dev, Bn, T, Din, H):
+    rng = np.random.RandomState(T)
+    p = bilstm_init(torch.Generator().manual_seed(T), Din, H, dev)
+    x = _randn(rng, Bn, T, Din, dev=dev)
+    lens = torch.from_numpy(rng.randint(1, T + 1, size=(Bn,))).to(dev)
+    lens[0] = T
+    lens[-1] = 1
+    before = bilstm_pallas.launches
+    out = bilstm_pallas(p["fwd"], p["bwd"], x, lens)
+    assert bilstm_pallas.launches == before + 1
+    _close(out, bilstm_plain(p["fwd"], p["bwd"], x, lens), TOL_LSTM)
+    valid = torch.arange(T, device=dev)[None, :] < lens[:, None]
+    assert torch.all(out[~valid] == 0)
+
+
+def test_las_greedy_kernel_matches_plain(dev, params):
+    _, pg = params
+    dec = pg["las"]["decoder"]
+    rng = np.random.RandomState(3)
+    Tk = 9
+    acous = _randn(rng, 5, Tk, 2 * CFG.acous_hidden_size, dev=dev)
+    wk = precompute_keys(dec["acous_att"], acous, "bilinear")["wk"]
+    lens_k = torch.tensor([9, 1, 4, 9, 6], device=dev)
+    sym0 = torch.full((5,), BOS, device=dev)
+    n = CFG.max_seq_len_src - 1
+    refs = torch.from_numpy(rng.randint(0, CFG.enc_vocab_size, (5, n))).to(dev)
+    args = (dec, CFG, wk, acous, lens_k, sym0, n)
+    embs, preds, picked = las_greedy_flash(*args, ref_tokens=refs)
+    embs_p, preds_p, picked_p = las_greedy_plain(*args, ref_tokens=refs)
+    assert torch.equal(preds, preds_p)
+    _close(embs, embs_p, TOL)
+    _close(picked, picked_p, TOL)
+
+
+def _decode_state(pg, K, pos, rng, dev):
+    """Caches filled below pos, a random ancestry and prefix, row 1's self
+    mask all zero and batch entry 2's memory fully masked (both must give
+    uniform attention, not NaN)."""
+    BK = B * K
+    enc = _randn(rng, B, LK, CFG.dim_model, dev=dev)
+    cache = tf_decoder_init_cache_chain(pg["dec_tgt"], CFG, enc, MAX_LEN, K)
+    Lpad = cache.self_k.shape[3]
+    cache.self_k[:, :, :, :pos] = _randn(rng, *cache.self_k[:, :, :, :pos].shape, dev=dev)
+    cache.self_v[:, :, :, :pos] = _randn(rng, *cache.self_v[:, :, :, :pos].shape, dev=dev)
+    preds = torch.full((BK, Lpad), PAD, dtype=torch.int32)
+    preds[:, 0] = BOS
+    preds[:, 1:pos + 1] = torch.from_numpy(rng.randint(4, CFG.dec_vocab_size, (BK, pos)))
+    anc = torch.from_numpy(rng.randint(0, K, (Lpad, BK))).int()
+    anc[pos] = torch.arange(BK, dtype=torch.int32) % K
+    maskk = (preds != PAD).T.int().contiguous()
+    maskk[:, 1] = 0
+    mem_mask = torch.zeros((pad_len(LK, CROSS_BLOCK), B), dtype=torch.int32)
+    mem_mask[:LK, 0] = 1
+    mem_mask[:5, 1] = 1
+    return cache, preds.to(dev), anc.to(dev), maskk.to(dev), mem_mask.to(dev)
+
+
+def _clone(cache):
+    return type(cache)(*(t.clone() for t in cache))
+
+
+@pytest.mark.parametrize("K,pos", [(1, 0), (3, 0), (3, 6), (2, 9)])
+def test_chain_step_kernel_matches_plain(dev, params, K, pos):
+    _, pg = params
+    rng = np.random.RandomState(10 * K + pos)
+    cache, _, anc, maskk, mem_mask = _decode_state(pg, K, pos, rng, dev)
+    maskk[pos] = 1
+    maskk[:, 1] = 0
+    x = _randn(rng, B * K, CFG.dim_model, dev=dev)
+    stacked = stack_decoder_layers(pg["dec_tgt"])
+    outs = []
+    for fn, c in ((decode_chain_step_flash, _clone(cache)),
+                  (decode_chain_step_plain, _clone(cache))):
+        sc, ids = fn(stacked, pg["dec_tgt"]["norm"], pg["out_tgt"], x, c.self_k,
+                     c.self_v, c.mem_k, c.mem_v, pos, CFG.num_heads, anc, K,
+                     mem_mask, maskk, K + 1)
+        outs.append((sc, ids, c))
+    (sc, ids, ck), (sc_p, ids_p, cp) = outs
+    assert torch.isfinite(sc).all()
+    assert torch.equal(ids, ids_p)
+    _close(sc, sc_p, TOL)
+    _close(ck.self_k, cp.self_k, TOL)
+    _close(ck.self_v, cp.self_v, TOL)
+
+
+@pytest.mark.parametrize("K,i,pf", [(1, 5, 1.0), (3, 7, 1.0), (3, 7, 0.7), (2, 12, 1.3)])
+def test_beam_step_kernel_matches_plain(dev, params, K, i, pf):
+    _, pg = params
+    rng = np.random.RandomState(100 * K + i)
+    BK = B * K
+    cache, preds, anc, maskk, mem_mask = _decode_state(pg, K, i - 1, rng, dev)
+    eos = torch.from_numpy((rng.rand(BK) < 0.3).astype(np.int32)).to(dev)
+    scores = torch.from_numpy(-rng.uniform(0, 3 * i, BK).astype(np.float32)).to(dev)
+    lenm = torch.from_numpy(rng.randint(1, i, BK).astype(np.float32)).to(dev)
+    last_tok = preds[:, i - 1].contiguous()
+    stacked = stack_decoder_layers(pg["dec_tgt"])
+    table = _dec_embedder(pg, CFG).contiguous()
+    tsig = position_signal(500, CFG.dim_model, dev)[0].contiguous()
+    outs = []
+    for fn in (decode_beam_step_flash, decode_beam_step_plain):
+        c, a = _clone(cache), anc.clone()
+        out = fn(stacked, pg["dec_tgt"]["norm"], pg["out_tgt"], table, tsig, i,
+                 last_tok, preds, a, maskk, mem_mask, scores, eos, lenm,
+                 c.self_k, c.self_v, c.mem_k, c.mem_v, CFG.num_heads, K, pf)
+        outs.append((out, c, a))
+    (out_k, ck, ak), (out_p, cp, ap) = outs
+    names = ("preds", "anc", "maskk", "last_tok", "scores", "eos", "lenm", "flag")
+    for nm, a, b in zip(names, out_k, out_p):
+        if nm in ("scores", "lenm"):
+            _close(a, b, TOL)
+        else:
+            assert torch.equal(a.int(), b.int()), nm
+    assert torch.equal(ak, ap)  # anc[i-1] set in place to each row's own slot
+    _close(ck.self_k, cp.self_k, TOL)
+    _close(ck.self_v, cp.self_v, TOL)
+
+
+@pytest.mark.parametrize("K", [1, 2, 3, 5])
+def test_beam_search_card_matches_cpu(dev, params, K):
+    pc, pg = params
+    rng = np.random.RandomState(K)
+    enc = _randn(rng, B, LK, CFG.dim_model)
+    mem_mask = torch.arange(LK)[None, :] < torch.tensor([11, 6, 9])[:, None]
+    preds_c, scores_c = beam_search(pc, CFG, enc, mem_mask, K, 1.0, MAX_LEN)
+    preds_g, scores_g = beam_search(pg, CFG, enc.to(dev), mem_mask.to(dev), K,
+                                    1.0, MAX_LEN)
+    assert torch.equal(preds_g.cpu(), preds_c)
+    _close(scores_g.cpu(), scores_c, TOL)
+
+
+def test_forward_translate_card_matches_cpu(dev, params):
+    pc, pg = params
+    rng = np.random.RandomState(7)
+    feats = _randn(rng, B, 64, CFG.acous_dim)
+    lens = torch.tensor([64, 29, 47])
+    wrappers = (bilstm_pallas, las_greedy_flash, decode_chain_step_flash,
+                decode_beam_step_flash)
+    before = [w.launches for w in wrappers]
+    out_g = forward_translate(pg, CFG, "ST", acous_feats=feats, acous_lens=lens,
+                              beam_width=3, max_seq_len=MAX_LEN, device=dev)
+    assert all(w.launches > n for w, n in zip(wrappers, before))
+    out_c = forward_translate(pc, CFG, "ST", acous_feats=feats, acous_lens=lens,
+                              beam_width=3, max_seq_len=MAX_LEN)
+    assert torch.equal(out_g.cpu(), out_c)
+    assert out_c.shape == (B, MAX_LEN) and (out_c[:, 0] == BOS).all()
