@@ -8,7 +8,8 @@ itself. Phases, each printed on its own line; any failure raises and exits
 non-zero without printing a result:
 
 1. device: the card's name and power limit (nvidia-smi), TF32 off.
-2. build: compile the CUDA kernels, with the seconds it took.
+2. build: compile the CUDA kernels (one nvcc per source, in parallel), with
+   the seconds it took.
 3. kernels K1-K4 at the flagship shapes on seeded inputs: each kernel
    against its plain PyTorch version on the card (floats within a stated
    tolerance; integer outputs equal wherever the plain version's top-2 gap
@@ -20,9 +21,23 @@ non-zero without printing a result:
    request, with every row that differs explained by a tie: at the first
    divergence, the plain arm's own log-probs (LAS symbols) or kept beam
    scores (beam hypotheses) of the two choices agree within 1e-3.
+5. kernels K8 (trainable BiLSTM) and K9 (teacher-forced LAS scan) at the
+   flagship train shapes on seeded inputs and cotangents: forward and
+   backward each against its plain version on the card, every saved or
+   emitted stream within a stated tolerance relative to its max-abs, with
+   median times.
+6. train parity: one deterministic ASR_ST step (no dropout, no
+   SpecAugment) at full widths with B=2 and 256 frames, the kernel route
+   on the card against the plain route on CPU copies: loss, every
+   gradient leaf (relative norm), and the parameters after one Adam step
+   (each arm's step against Adam's formula from its own gradients).
+7. train end to end: make_train_step ASR_ST at the flagship (B=16, 1504
+   frames, dropout 0.2, SpecAugment), 2 warm-up and 5 timed steps; steps/s,
+   step ms, the losses (finite), peak device memory, K8/K9 launch counts
+   on that run, and every trained parameter moved by a step.
 
-The last two lines: a JSON object with one entry per kernel, the
-nvidia-smi line, then {"ok": true, "device": {...}}.
+The last lines: a JSON object with one entry per kernel, the nvidia-smi
+line, then {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -48,6 +63,8 @@ FLAGSHIP = dict(
     dec_layers=6, num_unilstm_dec=3, spec_aug=True, dropout=0.2,
     max_seq_len_src=90, max_seq_len_tgt=150, mode="ASR_ST")
 B, FRAMES, DECODE_LEN, BEAM = 16, 1504, 150, 5
+TRAIN_LR = 1e-4  # bench.py's train row
+PARITY_B, PARITY_FRAMES = 2, 256
 
 
 def say(phase: str, **kw):
@@ -299,6 +316,240 @@ def phase_k4(params, cfg, rng):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
 
 
+def rel_err(a, b) -> float:
+    """max |a - b| relative to max |b| (b: the plain version's tensor)."""
+    scale = float(b.double().abs().max().cpu())
+    return max_err(a, b) / scale if scale > 0 else max_err(a, b)
+
+
+def phase_k8(params, cfg, rng):
+    """K8 forward and backward at the four pyramid shapes of the main path."""
+    from stjep_tpu_torch.ops import lstm_pallas_bwd as k8
+
+    enc = params["las"]["encoder"]
+    H = cfg.acous_hidden_size
+    lens = torch.from_numpy(rng.randint(FRAMES // 2, FRAMES, size=(B,))).cuda()
+    lens[0] = FRAMES
+    T, din = FRAMES, cfg.acous_dim
+    err = {"fwd": 0.0, "bwd": 0.0}
+    rel = {"fwd": 0.0, "bwd": 0.0}
+    ms = {k: 0.0 for k in ("fwd", "bwd", "plain_fwd", "plain_bwd")}
+    for li in range(cfg.num_pyramid_layers):
+        p = enc[f"acous_enc_l{li + 1}"]
+        w = tuple((p["fwd"][k], p["bwd"][k]) for k in ("w_ih", "w_hh"))
+        bias = tuple(q["b_ih"] + q["b_hh"] for q in (p["fwd"], p["bwd"]))
+        x = torch.from_numpy(rng.uniform(-1, 1, (B, T, din)).astype(np.float32)).cuda()
+        g = torch.from_numpy(rng.randn(B, T, 2 * H).astype(np.float32)).cuda()
+        fargs = (*w, bias, x, lens)
+        plain = k8.bilstm_fwd_save_plain(*fargs)
+        for a, b in zip(k8.bilstm_fwd_save(*fargs), plain):
+            err["fwd"], rel["fwd"] = max(err["fwd"], max_err(a, b)), max(rel["fwd"], rel_err(a, b))
+        bargs = (g, plain[2], plain[3], w[1], lens)
+        a, b = k8.bilstm_bwd(*bargs), k8.bilstm_bwd_plain(*bargs)
+        err["bwd"], rel["bwd"] = max(err["bwd"], max_err(a, b)), max(rel["bwd"], rel_err(a, b))
+        ms["fwd"] += cuda_ms(lambda: k8.bilstm_fwd_save(*fargs), 3)
+        ms["plain_fwd"] += cuda_ms(lambda: k8.bilstm_fwd_save_plain(*fargs), 1)
+        ms["bwd"] += cuda_ms(lambda: k8.bilstm_bwd(*bargs), 3)
+        ms["plain_bwd"] += cuda_ms(lambda: k8.bilstm_bwd_plain(*bargs), 1)
+        T, din, lens = T // 2, 4 * H, lens // 2
+    # f32 on both sides, other summation orders in the 256-long products of
+    # each step, carried through up to 1504 serial steps: the forward's
+    # states are bounded (|h| < 1), the backward's carried dc is not
+    tol = {"fwd": 1e-4, "bwd": 1e-3}
+    for k in ("fwd", "bwd"):
+        say(f"kernel K8 bilstm_{k}", B=B, layers=cfg.num_pyramid_layers,
+            max_abs_err=err[k], max_rel_err=rel[k], tol_rel=tol[k], ms=ms[k],
+            plain_ms=ms[f"plain_{k}"])
+        need(rel[k] <= tol[k], f"K8 {k} relative error {rel[k]} > {tol[k]}")
+    return {k: dict(max_abs_err=err[k], ms=ms[k], plain_ms=ms[f"plain_{k}"])
+            for k in ("fwd", "bwd")}
+
+
+def phase_k9(params, cfg, rng):
+    """K9 forward and backward at the main path's shapes: S = 89 steps,
+    Tk = 188 keys, with dropout masks (keep 0.8)."""
+    from stjep_tpu_torch.ops import las_tf_flash as k9
+
+    dec = params["las"]["decoder"]
+    S, Tk = cfg.max_seq_len_src - 1, FRAMES // 8
+    Hd, Ha2, E = cfg.dim_model, 2 * cfg.acous_hidden_size, cfg.enc_embedding_size
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).cuda()
+    keep = 1.0 - cfg.dropout
+    w = k9.scan_weights(*(dec[k][n] for k, n in (
+        ("dec_l0", "w_ih"), ("dec_l0", "w_hh"), ("dec_l1", "w_ih"), ("dec_l1", "w_hh"),
+        ("dec_l1", "b_ih"), ("dec_l1", "b_hh"), ("dec_l2", "w_ih"), ("dec_l2", "w_hh"),
+        ("dec_l2", "b_ih"), ("dec_l2", "b_hh"))), dec["acous_ffn"]["w"])
+    ids = torch.from_numpy(rng.randint(5, cfg.enc_vocab_size, (S, B))).cuda()
+    p0 = dec["dec_l0"]
+    pre0 = (dec["embedder"][ids] @ p0["w_ih"][:E] + p0["b_ih"] + p0["b_hh"]).contiguous()
+    acous = t(rng.uniform(-1, 1, (B, Tk, Ha2)))
+    wk = (acous @ dec["acous_att"]["linear_att_w"]["w"]).contiguous()
+    lens = torch.from_numpy(rng.randint(Tk // 2, Tk + 1, size=(B,))).cuda()
+    masks = k9.Masks(t((rng.rand(S, 3, B, Hd) < keep) / keep),
+                     t((rng.rand(S, B, Ha2) < keep) / keep))
+    g = t(rng.randn(S, B, Hd))
+    fargs = (w, pre0, wk, acous, lens, masks)
+    st = k9.las_tf_fwd_plain(*fargs)
+    err, rel = {}, {}
+    pairs = {"fwd": zip(k9.las_tf_fwd(*fargs), st)}
+    bargs = (w, st, g, wk, acous, masks)
+    pairs["bwd"] = zip(k9.las_tf_bwd(*bargs), k9.las_tf_bwd_plain(*bargs))
+    for k, zs in pairs.items():
+        zs = list(zs)
+        err[k] = max(max_err(a, b) for a, b in zs)
+        rel[k] = max(rel_err(a, b) for a, b in zs)
+    ms = {"fwd": cuda_ms(lambda: k9.las_tf_fwd(*fargs), 5),
+          "plain_fwd": cuda_ms(lambda: k9.las_tf_fwd_plain(*fargs), 3),
+          "bwd": cuda_ms(lambda: k9.las_tf_bwd(*bargs), 5),
+          "plain_bwd": cuda_ms(lambda: k9.las_tf_bwd_plain(*bargs), 3)}
+    # dynamic embeddings are unbounded FFN outputs fed back through 89
+    # recurrent steps (K2's tolerance), and the backward sums over them;
+    # f32 on both sides, summed in another order
+    tol = 1e-3
+    for k in ("fwd", "bwd"):
+        say(f"kernel K9 las_tf_{k}", steps=S, B=B, Tk=Tk, max_abs_err=err[k],
+            max_rel_err=rel[k], tol_rel=tol, ms=ms[k], plain_ms=ms[f"plain_{k}"])
+        need(rel[k] <= tol, f"K9 {k} relative error {rel[k]} > {tol}")
+    return {k: dict(max_abs_err=err[k], ms=ms[k], plain_ms=ms[f"plain_{k}"])
+            for k in ("fwd", "bwd")}
+
+
+def train_batch(rng, cfg, n, frames):
+    """bench.py's train inputs: fbank-shaped features with lengths in
+    [frames/2, frames-8] (one at frames-8), random source and target ids."""
+    feats = torch.from_numpy(rng.randn(n, frames, cfg.acous_dim).astype(np.float32))
+    lens = torch.from_numpy(rng.randint(frames // 2, frames - 8, size=(n,)))
+    lens[0] = frames - 8
+    src = rng.randint(5, cfg.enc_vocab_size, (n, cfg.max_seq_len_src))
+    tgt = rng.randint(5, cfg.dec_vocab_size, (n, cfg.max_seq_len_tgt))
+    return {"srcid": torch.from_numpy(src), "tgtid": torch.from_numpy(tgt),
+            "acous_feat": feats, "acouslen": lens}
+
+
+def phase_train_parity(seed, rng):
+    """The kernel route on the card against the plain route on CPU copies,
+    one deterministic step."""
+    from stjep_tpu_torch.bridge import leaves, named_leaves, params_to
+    from stjep_tpu_torch.config import ModelConfig
+    from stjep_tpu_torch.models.seq2seq import init_seq2seq
+    from stjep_tpu_torch.train.optim import make_optimizer, set_lr
+    from stjep_tpu_torch.train.trainer import compute_grads
+
+    cfg = ModelConfig(**{**FLAGSHIP, "dropout": 0.0, "spec_aug": False,
+                         "embedding_dropout": 0.0})
+    params_c = init_seq2seq(cfg, torch.Generator().manual_seed(seed + 1), "cpu")
+    mb = train_batch(rng, cfg, PARITY_B, PARITY_FRAMES)
+    arms, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        p = params_to(params_c, dev) if dev == "cuda" else params_c
+        t0 = time.perf_counter()
+        losses, grads = compute_grads(cfg, "ASR_ST", p, [{k: v.to(dev) for k, v in mb.items()}],
+                                      torch.Generator().manual_seed(seed), is_training=False)
+        before = [t_.detach().clone() for t_ in leaves(p)]
+        opt = make_optimizer(1.0)
+        opt.update(grads, set_lr(opt.init(p), TRAIN_LR))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        secs[dev] = time.perf_counter() - t0
+        moved = [a.detach() - b for a, b in zip(leaves(p), before)]
+        arms[dev] = (float(sum(losses.values())), [g_.cpu() for g_ in grads],
+                     [m.cpu() for m in moved])
+    names = [n for n, _ in named_leaves(params_c)]
+    (loss_g, grads_g, moved_g), (loss_c, grads_c, moved_c) = arms["cuda"], arms["cpu"]
+    loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+
+    def worst(xs, ys):
+        out = (0.0, None)
+        for nm, a, b in zip(names, xs, ys):
+            nb = float(b.double().norm())
+            r = float((a.double() - b.double()).norm()) / nb if nb > 0 else float(a.abs().max())
+            out = max(out, (r, nm), key=lambda v: v[0])
+        return out
+
+    g_rel, g_leaf = worst(grads_g, grads_c)
+    # Adam's first step moves a coordinate by -lr * g / (|g| + eps), about
+    # lr * sign(g): where g is near zero the arms' rounding can move it the
+    # other way. So each arm's step is held to that formula from its OWN
+    # gradients (float64; 1e-2 lr covers f32 rounding of |p| < 8), and the
+    # arms' parameters then differ only as their gradients do
+    formula_err = {}
+    for dev, (_, grads, moved) in arms.items():
+        formula_err[dev] = max(float((m.double() - u).abs().max()) / TRAIN_LR
+                               for m, u in zip(moved, adam_first_step(grads)))
+    apart = sum(int(((a - b).abs() > 1e-3 * TRAIN_LR).sum())
+                for a, b in zip(moved_g, moved_c))
+    p_diff = max(float((a - b).abs().max()) for a, b in zip(moved_g, moved_c))
+    # f32 on both sides in another summation order: the loss to 1e-4, each
+    # gradient leaf to 1e-3 of its norm
+    say("train parity", B=PARITY_B, frames=PARITY_FRAMES, loss_card=loss_g,
+        loss_cpu=loss_c, loss_rel=loss_rel, tol=1e-4, worst_grad_rel=g_rel,
+        worst_grad_leaf=g_leaf, tol_grad=1e-3, lr=TRAIN_LR,
+        adam_step_err_lr_card=formula_err["cuda"], adam_step_err_lr_cpu=formula_err["cpu"],
+        tol_adam=1e-2, max_param_diff=p_diff, coords_moved_apart=apart,
+        of=sum(m.numel() for m in moved_c), card_s=round(secs["cuda"], 3),
+        cpu_s=round(secs["cpu"], 3))
+    need(loss_rel <= 1e-4, f"train parity loss {loss_g} vs {loss_c}")
+    need(g_rel <= 1e-3, f"train parity gradient {g_leaf}: {g_rel}")
+    need(max(formula_err.values()) <= 1e-2, f"train parity Adam step: {formula_err}")
+
+
+def adam_first_step(grads, max_norm: float = 1.0, eps: float = 1e-8):
+    """Adam's first update from raw gradients, in float64: optax's global
+    clip, then -lr * g / (|g| + eps) (the bias corrections cancel)."""
+    gs = [g.double() for g in grads]
+    norm = sum(float((g * g).sum()) for g in gs) ** 0.5
+    if norm >= max_norm:
+        gs = [g / norm * max_norm for g in gs]
+    return [-TRAIN_LR * g / (g.abs() + eps) for g in gs]
+
+
+def phase_train_e2e(seed, rng):
+    """make_train_step at the flagship; returns the K8/K9 launch counts."""
+    from stjep_tpu_torch.bridge import leaves, named_leaves, params_to
+    from stjep_tpu_torch.config import ModelConfig
+    from stjep_tpu_torch.models.seq2seq import init_seq2seq
+    from stjep_tpu_torch.ops import las_tf_flash as k9
+    from stjep_tpu_torch.ops import lstm_pallas_bwd as k8
+    from stjep_tpu_torch.train.optim import make_optimizer
+    from stjep_tpu_torch.train.trainer import make_train_step
+
+    cfg = ModelConfig(**FLAGSHIP)
+    params = params_to(init_seq2seq(cfg, torch.Generator().manual_seed(seed + 2), "cpu"),
+                       "cuda")
+    mb = {k: v.cuda() for k, v in train_batch(rng, cfg, B, FRAMES).items()}
+    opt = make_optimizer(1.0)
+    opt_state = opt.init(params)
+    step = make_train_step(cfg, "ASR_ST", opt)
+    gen = torch.Generator().manual_seed(seed)
+    counters = {"K8 fwd": k8.bilstm_fwd_save, "K8 bwd": k8.bilstm_bwd,
+                "K9 fwd": k9.las_tf_fwd, "K9 bwd": k9.las_tf_bwd}
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = [t.detach().clone() for t in leaves(params)]
+    losses, secs = [], []
+    for i in range(7):  # 2 warm-up steps, then 5 timed
+        t0 = time.perf_counter()
+        params, opt_state, ls = step(params, opt_state, [mb], gen, TRAIN_LR)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(sum(ls.values())))
+        if i == 0:
+            still = [nm for (nm, a), b in zip(named_leaves(params), before)
+                     if torch.equal(a.detach(), b) and nm != "/emb_dyn_ave"]
+            need(not still, f"parameters unchanged by a train step: {still}")
+    launches = {k: c.launches for k, c in counters.items()}
+    timed = secs[2:]
+    say("train e2e", mode="ASR_ST", B=B, frames=FRAMES, steps_per_s=len(timed) / sum(timed),
+        step_ms=[round(x * 1e3, 3) for x in timed],
+        warmup_ms=[round(x * 1e3, 3) for x in secs[:2]], losses=losses,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30, launches=launches)
+    need(all(np.isfinite(losses)), f"non-finite train loss: {losses}")
+    need(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
+    return launches
+
+
 def recorded_translate(params, cfg, feats, lens):
     """forward_translate ST beam-5 that also records, at every beam
     position, the state the megastep hands on (tokens [BK, L] and kept
@@ -370,6 +621,7 @@ def explain_e2e(params_c, cfg, feats, lens, card, plain):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -466,6 +718,13 @@ def main() -> int:
     need(all(m <= E2E_MARGIN for m in margins),
          f"e2e rows differ beyond ties: margins {margins}")
 
+    # 5-7. the train path: its kernels, a parity step, the flagship step
+    k8_res, k9_res = phase_k8(params, cfg, rng), phase_k9(params, cfg, rng)
+    for d in ("fwd", "bwd"):
+        results[f"K8 {d}"], results[f"K9 {d}"] = k8_res[d], k9_res[d]
+    phase_train_parity(args.seed, rng)
+    launches.update(phase_train_e2e(args.seed, rng))
+
     sources = {"K1": ("bilstm", "stjep_tpu_torch/csrc/bilstm.cu",
                       "stjep_tpu/ops/lstm_pallas.py:206"),
                "K2": ("las_greedy", "stjep_tpu_torch/csrc/las_greedy.cu",
@@ -473,11 +732,20 @@ def main() -> int:
                "K3": ("decode_chain_step", "stjep_tpu_torch/csrc/decode.cu",
                       "stjep_tpu/ops/decode_flash.py:1078"),
                "K4": ("decode_beam_step", "stjep_tpu_torch/csrc/decode.cu",
-                      "stjep_tpu/ops/decode_flash.py:1412")}
+                      "stjep_tpu/ops/decode_flash.py:1412"),
+               "K8 fwd": ("bilstm_fwd_save", "stjep_tpu_torch/csrc/bilstm.cu",
+                          "stjep_tpu/ops/lstm_pallas_bwd.py:174"),
+               "K8 bwd": ("bilstm_bwd", "stjep_tpu_torch/csrc/bilstm_bwd.cu",
+                          "stjep_tpu/ops/lstm_pallas_bwd.py:262"),
+               "K9 fwd": ("las_tf_fwd", "stjep_tpu_torch/csrc/las_tf.cu",
+                          "stjep_tpu/ops/las_tf_flash.py:263"),
+               "K9 bwd": ("las_tf_bwd", "stjep_tpu_torch/csrc/las_tf.cu",
+                          "stjep_tpu/ops/las_tf_flash.py:364")}
     print(json.dumps({"kernels": [
         {"name": nm, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], **results[k]}
         for k, (nm, src, rep) in sources.items()]}))
+    say("total", seconds=round(time.perf_counter() - t_start, 1))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

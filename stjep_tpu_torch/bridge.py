@@ -33,6 +33,21 @@ def params_to_numpy(tree: Any) -> Any:
     return tree.detach().cpu().numpy()
 
 
+def named_leaves(tree: Any, prefix: str = "") -> list:
+    """(path, leaf) pairs of a params tree, depth first in key order, with
+    paths like "/las/encoder/acous_enc_l1/fwd/w_ih"."""
+    if isinstance(tree, dict):
+        return [kv for k, v in tree.items() for kv in named_leaves(v, f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [kv for i, v in enumerate(tree) for kv in named_leaves(v, f"{prefix}/{i}")]
+    return [(prefix, tree)]
+
+
+def leaves(tree: Any) -> list:
+    """The leaves of a params tree, in named_leaves order."""
+    return [t for _, t in named_leaves(tree)]
+
+
 def params_to(tree: Any, device) -> Any:
     """Move every tensor of a params tree to `device`."""
     if isinstance(tree, dict):

@@ -1,6 +1,7 @@
-// K1: the recurrent sweep of one bidirectional pyramid layer.
+// K1: the recurrent sweep of one bidirectional pyramid layer, and K8's
+// forward (the same sweep, saving what the backward reads).
 //
-// Replaces stjep_tpu/ops/lstm_pallas.py `bilstm_pallas` (body
+// K1 replaces stjep_tpu/ops/lstm_pallas.py `bilstm_pallas` (body
 // `_bilstm_kernel`), which kept h/c in VMEM across a sequential grid over
 // time. Here the input projections x @ W_ih + b for all steps are one GEMM
 // per direction before this kernel (gemm.cu); this kernel runs the time
@@ -9,15 +10,23 @@
 // through and the output is 0; the reverse direction starts at T-1, so it
 // effectively starts at the last valid frame.
 //
+// K8's forward replaces stjep_tpu/ops/lstm_pallas_bwd.py `_run_fwd_save`
+// (body `_fwd_save_kernel`): the SAVE instantiation also writes, time-major
+// [dir][T][B][.] as the JAX kernel lays them out, the carries before each
+// step (h_{t-1}, c_{t-1}) and the gate activations (zero at invalid
+// steps). The TPU kernel stores these streams in bf16; this one keeps f32,
+// the JAX package's parity mode (its interpret mode is f32 too).
+//
 // What bounds it on the H100: the serial recurrence. Each step reads the
 // whole W_hh (H x 4H f32 = 1 MB at H = 256) from L2 and does BT*H*4H FMAs
 // in one block; both take about the same time on one SM, ~10 us, and the
-// flagship pyramid has 2820 steps. Design: one block per (batch tile of BT
-// rows, direction), time loop inside; thread j owns gate column j (4H
-// threads: coalesced W_hh reads, h read from shared memory four values at
-// a time), then H of them apply the gates with c in registers. Splitting
-// W_hh across a thread-block cluster so it stays in shared memory is later
-// work.
+// flagship pyramid has 2820 steps. K8's saves add 6H floats per row and
+// step of coalesced stores, small beside the product. Design: one block
+// per (batch tile of BT rows, direction), time loop inside; thread j owns
+// gate column j (4H threads: coalesced W_hh reads, h read from shared
+// memory four values at a time), then H of them apply the gates with c in
+// registers. Splitting W_hh across a thread-block cluster so it stays in
+// shared memory is later work.
 
 #include "common.cuh"
 
@@ -25,11 +34,16 @@ namespace {
 
 constexpr int BT = 8;  // batch rows per block
 
+// SAVE: hsave/csave [2][T][B][H] get h_{t-1}/c_{t-1} at every step, gsave
+// [2][T][B][4H] the gates (0 where t >= length). Without SAVE they are
+// unused and the kernel is K1's.
+template <bool SAVE>
 __global__ void __launch_bounds__(1024) bilstm_kernel(
     const float* __restrict__ xpf, const float* __restrict__ xpb,
     const float* __restrict__ whf, const float* __restrict__ whb,
-    const int* __restrict__ lens, float* __restrict__ out, int B, int T,
-    int H) {
+    const int* __restrict__ lens, float* __restrict__ out,
+    float* __restrict__ hsave, float* __restrict__ csave,
+    float* __restrict__ gsave, int B, int T, int H) {
   extern __shared__ float sm[];
   float* hs = sm;            // [BT][H] recurrent state
   float* pre = sm + BT * H;  // [BT][4H] h @ W_hh for this step
@@ -86,6 +100,16 @@ __global__ void __launch_bounds__(1024) bilstm_kernel(
         const float cn = gf * c[r] + gi * gg;
         const float hn = go * tanhf(cn);
         const bool valid = t < len[r];
+        if (SAVE) {
+          const size_t row = ((size_t)dir * T + t) * B + b;
+          hsave[row * H + j] = hs[r * H + j];
+          csave[row * H + j] = c[r];
+          float* g = gsave + row * H4 + j;
+          g[0] = valid ? gi : 0.f;
+          g[H] = valid ? gf : 0.f;
+          g[2 * H] = valid ? gg : 0.f;
+          g[3 * H] = valid ? go : 0.f;
+        }
         if (valid) {
           c[r] = cn;
           hs[r * H + j] = hn;
@@ -97,18 +121,36 @@ __global__ void __launch_bounds__(1024) bilstm_kernel(
   }
 }
 
+template <bool SAVE>
+int launch_bilstm(const float* xpf, const float* xpb, const float* whf,
+                  const float* whb, const int* lens, float* out, float* hsave,
+                  float* csave, float* gsave, int B, int T, int H,
+                  cudaStream_t stream) {
+  if (4 * H > 1024 || H % 4) return (int)cudaErrorInvalidValue;
+  const int smem = BT * 5 * H * (int)sizeof(float);
+  cudaFuncSetAttribute(bilstm_kernel<SAVE>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  dim3 grid((B + BT - 1) / BT, 2);
+  bilstm_kernel<SAVE><<<grid, 4 * H, smem, stream>>>(
+      xpf, xpb, whf, whb, lens, out, hsave, csave, gsave, B, T, H);
+  STJEP_RETURN_LAUNCH_STATUS();
+}
+
 }  // namespace
 
 extern "C" int bilstm_recurrent(const float* xpf, const float* xpb,
                                 const float* whf, const float* whb,
                                 const int* lens, float* out, int B, int T,
                                 int H, cudaStream_t stream) {
-  if (4 * H > 1024 || H % 4) return (int)cudaErrorInvalidValue;
-  const int smem = BT * 5 * H * (int)sizeof(float);
-  cudaFuncSetAttribute(bilstm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       smem);
-  dim3 grid((B + BT - 1) / BT, 2);
-  bilstm_kernel<<<grid, 4 * H, smem, stream>>>(xpf, xpb, whf, whb, lens, out,
-                                               B, T, H);
-  STJEP_RETURN_LAUNCH_STATUS();
+  return launch_bilstm<false>(xpf, xpb, whf, whb, lens, out, nullptr, nullptr,
+                              nullptr, B, T, H, stream);
+}
+
+extern "C" int bilstm_fwd_save(const float* xpf, const float* xpb,
+                               const float* whf, const float* whb,
+                               const int* lens, float* out, float* hsave,
+                               float* csave, float* gsave, int B, int T, int H,
+                               cudaStream_t stream) {
+  return launch_bilstm<true>(xpf, xpb, whf, whb, lens, out, hsave, csave,
+                             gsave, B, T, H, stream);
 }

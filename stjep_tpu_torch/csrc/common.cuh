@@ -76,3 +76,26 @@ __device__ __forceinline__ void block_argmax(float& v, int& i, float* rv, int* r
 }
 
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-x)); }
+
+// One LSTM cell backward from the saved gate activations (i, f, g, o), the
+// previous cell c_prev and dh_t = dL/dh_t (external + recurrent): writes
+// dL/dpre for the four gates to dp[0], dp[H], dp[2H], dp[3H] and returns the
+// cell cotangent passed to step t-1 (dc_t * f). dc is the carried dL/dc_t.
+// The order of operations is stjep_tpu's (lstm_pallas_bwd.py `_bwd_kernel`,
+// las_tf_flash.py `lstm_bwd`).
+__device__ __forceinline__ float lstm_cell_bwd(float gi, float gf, float gg,
+                                               float go, float c_prev,
+                                               float dh_t, float dc, float* dp,
+                                               int H) {
+  const float tanh_c = tanhf(gf * c_prev + gi * gg);
+  const float d_o = dh_t * tanh_c;
+  const float dc_t = dc + dh_t * go * (1.f - tanh_c * tanh_c);
+  const float di = dc_t * gg;
+  const float df = dc_t * c_prev;
+  const float dg = dc_t * gi;
+  dp[0] = di * gi * (1.f - gi);
+  dp[H] = df * gf * (1.f - gf);
+  dp[2 * H] = dg * (1.f - gg * gg);
+  dp[3 * H] = d_o * go * (1.f - go);
+  return dc_t * gf;
+}

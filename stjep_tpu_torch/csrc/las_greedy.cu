@@ -20,6 +20,11 @@
 // kernel so the [B, V] logits are read once more, not four times; the
 // rest stays simple. Keeping the head in bf16 and the loop in one
 // persistent kernel or CUDA graph is later work.
+//
+// K9's forward (las_tf.cu) drives `lstm_gates` and `bilinear_attend` too,
+// through optional pointers that K2 passes as null: a separate next cell
+// state, a dropout mask on the layer output, and saves of the gates and of
+// the attention probabilities.
 
 #include "common.cuh"
 
@@ -43,13 +48,18 @@ __global__ void embed_concat_kernel(const float* __restrict__ table,
 }
 
 // One LSTM cell update from pre-activations pre[b, 4H] (gate order i,f,g,o).
-// c is updated in place; h goes to h_dst (the next step's recurrent input)
-// and h (+ resid, the layer input, for the residual middle layers) to
-// out_dst (the next layer's input).
+// c is updated in place, or the new state goes to c_out when given; h goes
+// to h_dst (the next step's recurrent input) and h (+ resid, the layer
+// input, for the residual middle layers), times mask[b, :] when given, to
+// out_dst (the next layer's input). g_save [B, 4H], when given, gets the
+// gate activations.
 __global__ void lstm_gates_kernel(const float* __restrict__ pre,
-                                  float* __restrict__ c, float* h_dst,
+                                  float* __restrict__ c,
+                                  float* __restrict__ c_out, float* h_dst,
                                   int ld_h, float* out_dst, int ld_out,
-                                  const float* resid, int ld_resid, int H) {
+                                  const float* resid, int ld_resid,
+                                  const float* __restrict__ mask,
+                                  float* __restrict__ g_save, int H) {
   const int b = blockIdx.x;
   const float* p = pre + (size_t)b * 4 * H;
   for (int u = threadIdx.x; u < H; u += blockDim.x) {
@@ -59,20 +69,31 @@ __global__ void lstm_gates_kernel(const float* __restrict__ pre,
     const float go = sigmoidf_(p[3 * H + u]);
     const float cn = gf * c[(size_t)b * H + u] + gi * gg;
     const float hn = go * tanhf(cn);
-    c[(size_t)b * H + u] = cn;
+    (c_out ? c_out : c)[(size_t)b * H + u] = cn;
     h_dst[(size_t)b * ld_h + u] = hn;
-    out_dst[(size_t)b * ld_out + u] =
-        resid ? hn + resid[(size_t)b * ld_resid + u] : hn;
+    float y = resid ? hn + resid[(size_t)b * ld_resid + u] : hn;
+    if (mask) y *= mask[(size_t)b * H + u];
+    out_dst[(size_t)b * ld_out + u] = y;
+    if (g_save) {
+      float* g = g_save + (size_t)b * 4 * H + u;
+      g[0] = gi;
+      g[H] = gf;
+      g[2 * H] = gg;
+      g[3 * H] = go;
+    }
   }
 }
 
 // Bilinear attention for one batch row per block: s[t] = q . wk[b, t]
-// (-1e12 at t >= lens[b]), softmax over t, ctx = sum_t p[t] val[b, t].
+// (-1e12 at t >= lens[b]), softmax over t, ctx = sum_t p[t] val[b, t],
+// times ctx_mask[b, :] when given. attn_save [B, Tk], when given, gets p.
 __global__ void bilinear_attend_kernel(const float* __restrict__ q, int ld_q,
                                        const float* __restrict__ wk,
                                        const float* __restrict__ val,
                                        const int* __restrict__ lens,
                                        float* __restrict__ ctx, int ld_ctx,
+                                       float* __restrict__ attn_save,
+                                       const float* __restrict__ ctx_mask,
                                        int Tk, int Hq, int Hv) {
   extern __shared__ float sm[];
   float* qs = sm;       // [Hq]
@@ -99,13 +120,17 @@ __global__ void bilinear_attend_kernel(const float* __restrict__ q, int ld_q,
   for (int t = threadIdx.x; t < Tk; t += blockDim.x) z += expf(s[t] - m);
   z = block_sum(z, red);
   __syncthreads();
-  for (int t = threadIdx.x; t < Tk; t += blockDim.x) s[t] = expf(s[t] - m) / z;
+  for (int t = threadIdx.x; t < Tk; t += blockDim.x) {
+    s[t] = expf(s[t] - m) / z;
+    if (attn_save) attn_save[(size_t)b * Tk + t] = s[t];
+  }
   __syncthreads();
   for (int c = threadIdx.x; c < Hv; c += blockDim.x) {
     const float* v = val + (size_t)b * Tk * Hv + c;
     float acc = 0.f;
 #pragma unroll 8
     for (int t = 0; t < Tk; ++t) acc = fmaf(s[t], v[(size_t)t * Hv], acc);
+    if (ctx_mask) acc *= ctx_mask[(size_t)b * Hv + c];
     ctx[(size_t)b * ld_ctx + c] = acc;
   }
 }
@@ -153,22 +178,25 @@ extern "C" int las_embed_concat(const float* table, const int* sym,
   STJEP_RETURN_LAUNCH_STATUS();
 }
 
-extern "C" int lstm_gates(const float* pre, float* c, float* h_dst, int ld_h,
-                          float* out_dst, int ld_out, const float* resid,
-                          int ld_resid, int B, int H, cudaStream_t stream) {
-  lstm_gates_kernel<<<B, 256, 0, stream>>>(pre, c, h_dst, ld_h, out_dst,
-                                           ld_out, resid, ld_resid, H);
+extern "C" int lstm_gates(const float* pre, float* c, float* c_out,
+                          float* h_dst, int ld_h, float* out_dst, int ld_out,
+                          const float* resid, int ld_resid, const float* mask,
+                          float* g_save, int B, int H, cudaStream_t stream) {
+  lstm_gates_kernel<<<B, 256, 0, stream>>>(pre, c, c_out, h_dst, ld_h,
+                                           out_dst, ld_out, resid, ld_resid,
+                                           mask, g_save, H);
   STJEP_RETURN_LAUNCH_STATUS();
 }
 
 extern "C" int bilinear_attend(const float* q, int ld_q, const float* wk,
                                const float* val, const int* lens, float* ctx,
-                               int ld_ctx, int B, int Tk, int Hq, int Hv,
-                               cudaStream_t stream) {
+                               int ld_ctx, float* attn_save,
+                               const float* ctx_mask, int B, int Tk, int Hq,
+                               int Hv, cudaStream_t stream) {
   const size_t smem = (size_t)(Hq + Tk) * sizeof(float);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  bilinear_attend_kernel<<<B, 512, smem, stream>>>(q, ld_q, wk, val, lens, ctx,
-                                                   ld_ctx, Tk, Hq, Hv);
+  bilinear_attend_kernel<<<B, 512, smem, stream>>>(
+      q, ld_q, wk, val, lens, ctx, ld_ctx, attn_save, ctx_mask, Tk, Hq, Hv);
   STJEP_RETURN_LAUNCH_STATUS();
 }
 

@@ -5,7 +5,8 @@ ST: the LAS free-running pass gives dynamic embeddings and ASR hypotheses;
 their static embeddings and the dynamic ones pass through `enc_emb_proj`
 into the transformer encoder, masked by the LAS lengths, and the
 transformer decodes by beam search (ref: Seq2seq.py:641-796). ASR returns
-the LAS hypotheses. The eval entry points draw no random numbers.
+the LAS hypotheses. The eval entry points draw no random numbers and run
+under torch.no_grad(): their kernels (K1-K4) have no backward.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ def encode_st(params: Dict, cfg: ModelConfig, acous_feats: torch.Tensor,
     return _encoder_en(params, cfg, emb_src, src_mask=src_mask), src_mask[:, 0, :], preds_src
 
 
+@torch.no_grad()
 def forward_translate(params: Dict, cfg: ModelConfig, mode: str,
                       acous_feats: Optional[torch.Tensor] = None,
                       acous_lens: Optional[torch.Tensor] = None,

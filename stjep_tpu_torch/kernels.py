@@ -1,6 +1,7 @@
 """Build, load and launch the hand-written Hopper kernels in `csrc/`.
 
-The sources compile with one `nvcc` call into a shared library with a plain
+Each source compiles with its own `nvcc` process, all started together,
+and one more `nvcc` links the objects into a shared library with a plain
 C interface (`-gencode arch=compute_90a,code=sm_90a`), loaded with ctypes.
 The build runs at first use, never at import: hosts without `nvcc` (the CPU
 test lane) import this module freely. The library's file name carries a
@@ -28,7 +29,7 @@ import torch
 SRC_DIR = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 # C signatures: p = pointer (c_void_p), i = int, f = float. Every entry point
 # also takes the stream last (c_void_p) and returns a cudaError_t.
@@ -36,9 +37,13 @@ _SIGS = {
     "gemm_f32": "pppppp" + "iiiiiiiii",
     "layernorm_f32": "pppp" + "ii" + "f",
     "bilstm_recurrent": "pppppp" + "iii",
+    "bilstm_fwd_save": "pppppp" + "ppp" + "iii",
+    "bilstm_bwd_recurrent": "ppppppp" + "iii",
     "las_embed_concat": "ppp" + "i" + "p" + "iiii",
-    "lstm_gates": "pp" + "p" + "i" + "p" + "i" + "p" + "i" + "ii",
-    "bilinear_attend": "p" + "i" + "pppp" + "i" + "iiii",
+    "lstm_gates": "pppp" + "i" + "p" + "i" + "p" + "i" + "pp" + "ii",
+    "bilinear_attend": "p" + "i" + "pppp" + "i" + "pp" + "iiii",
+    "lstm_cell_bwd": "pi" + "pi" + "pppp" + "pi" + "pp" + "ii",
+    "attend_bwd": "pi" + "ppppppp" + "iiii",
     "head_argmax": "pp" + "i" + "pp" + "i" + "p" + "i" + "ii",
     "embed_time": "pppppp" + "iiii",
     "self_attn_anc": "pppppppp" + "iiiiii",
@@ -64,8 +69,20 @@ def library_path() -> Path:
     return BUILD_DIR / f"libstjep_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(procs):
+    """Wait for every (name, Popen) and raise on the first failure."""
+    errors = []
+    for name, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc {name} failed ({proc.returncode}):\n{err}")
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
 def build() -> Path:
-    """Compile csrc/*.cu into the shared library unless it exists."""
+    """Compile csrc/*.cu into the shared library unless it exists: one nvcc
+    per source in parallel, then one link."""
     out = library_path()
     if out.exists():
         return out
@@ -74,13 +91,24 @@ def build() -> Path:
         raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
                            "host with the CUDA toolkit")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sorted(SRC_DIR.glob("*.cu"))]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, out)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs, procs = [], []
+    for src in sorted(SRC_DIR.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        objs.append(obj)
+        procs.append((src.name, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    try:
+        _run(procs)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        _run([("link", subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))])
+        os.replace(tmp, out)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return out
 
 
@@ -105,6 +133,19 @@ def launch(name: str, *args):
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {rc}")
+
+
+def refuse_grad(name: str, route: str, *tensors):
+    """Raise when autograd would record through a CUDA route that has no
+    backward: its outputs come from ctypes launches into `torch.empty`
+    buffers and carry no grad_fn, so gradients would stop there silently
+    (the same call on CPU tensors goes through plain PyTorch and does
+    produce them). `route` names what to call under autograd instead."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and an input requires "
+            f"grad; under autograd use {route}, or call it under "
+            "torch.no_grad()")
 
 
 def check(t: torch.Tensor, dtype=torch.float32, name: str = "tensor"):

@@ -1,11 +1,13 @@
-"""Composite Seq2seq, init and inference helpers (port of
-stjep_tpu/models/seq2seq.py).
+"""Composite Seq2seq: init, the training forward and the inference helpers
+(port of stjep_tpu/models/seq2seq.py).
 
 The parameter tree has the JAX package's key paths and `[in, out]`
 layouts, so `bridge.params_from_numpy` carries JAX params over unchanged.
 `enc_emb_proj` (static + dynamic -> dim_model) is always created and
-applied, as in the reference (ref: Seq2seq.py:123-125). forward_train,
-forward_eval and the greedy decoders are not ported yet.
+applied, as in the reference (ref: Seq2seq.py:123-125). `forward_train`
+runs modes ASR, MT and ASR_ST; ST alone (training through the free-running
+LAS) and the AE modes, forward_eval and the greedy decoders are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -13,11 +15,12 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from stjep_tpu_torch.config import ModelConfig
 from stjep_tpu_torch.models.las import las_forward, las_init
 from stjep_tpu_torch.models.las_decoder import embed, embedding_init
-from stjep_tpu_torch.models.tf_decoder import tf_decoder_init
+from stjep_tpu_torch.models.tf_decoder import tf_decoder_forward, tf_decoder_init
 from stjep_tpu_torch.models.tf_encoder import (
     UPPERBOUND_SEQ_LEN,
     tf_encoder_forward,
@@ -25,6 +28,7 @@ from stjep_tpu_torch.models.tf_encoder import (
 )
 from stjep_tpu_torch.ops.attention import linear, linear_init
 from stjep_tpu_torch.ops.masks import pad_mask, subsequent_mask
+from stjep_tpu_torch.ops.transformer import dropout, split
 
 
 def init_seq2seq(cfg: ModelConfig, generator: torch.Generator,
@@ -62,19 +66,37 @@ def init_seq2seq(cfg: ModelConfig, generator: torch.Generator,
 
 
 def _get_src_emb(params: Dict, cfg: ModelConfig, src: torch.Tensor,
-                 emb_src_dyn: torch.Tensor):
+                 emb_src_dyn: torch.Tensor,
+                 generator: Optional[torch.Generator] = None,
+                 is_training: bool = False):
     """(src_mask [B,L,L], emb_src [B,L,D], src_mask_input [B,1,L]);
-    emb_src = enc_emb_proj([static ; dynamic]) (ref: Seq2seq.py:183-199)."""
+    emb_src = enc_emb_proj([static ; dynamic]), with embedding dropout in
+    training (ref: Seq2seq.py:183-199)."""
     src_mask_input = pad_mask(src)
     src_mask = src_mask_input & subsequent_mask(src.shape[-1], src.device)
     emb_static = embed(params["enc_embedder"], src)
     emb_comb = torch.cat([emb_static, emb_src_dyn.to(emb_static.dtype)], dim=2)
+    if is_training and cfg.embedding_dropout > 0.0:
+        emb_comb = dropout(generator, emb_comb, cfg.embedding_dropout, True)
     return src_mask, linear(params["enc_emb_proj"], emb_comb), src_mask_input
 
 
 def _dec_embedder(params: Dict, cfg: ModelConfig) -> torch.Tensor:
     """Target embedding table; share_embedder ties it to the source table."""
     return params["enc_embedder"] if cfg.share_embedder else params["dec_embedder"]
+
+
+def _get_tgt_emb(params: Dict, cfg: ModelConfig, tgt: torch.Tensor,
+                 generator: Optional[torch.Generator] = None,
+                 is_training: bool = False):
+    """(tgt_mask [B,L,L], emb_tgt [B,L,D]) (ref: Seq2seq.py:202-211)."""
+    tgt_mask = pad_mask(tgt) & subsequent_mask(tgt.shape[-1], tgt.device)
+    e = embed(_dec_embedder(params, cfg), tgt)
+    if is_training and cfg.embedding_dropout > 0.0:
+        e = dropout(generator, e, cfg.embedding_dropout, True)
+    if cfg.dec_emb_proj_flag:
+        e = linear(params["dec_emb_proj"], e)
+    return tgt_mask, e
 
 
 def _embed_tgt_token(params: Dict, cfg: ModelConfig, token: torch.Tensor):
@@ -92,20 +114,136 @@ def _pre_proc_src(src: torch.Tensor) -> torch.Tensor:
 
 def _encoder_acous(params: Dict, cfg: ModelConfig, acous_feats: torch.Tensor,
                    acous_lens: Optional[torch.Tensor],
-                   max_seq_len: Optional[int] = None):
-    """Free-running LAS pass -> (dynamic embs, None, preds, lengths)."""
+                   max_seq_len: Optional[int] = None,
+                   tgt: Optional[torch.Tensor] = None,
+                   teacher_forcing: bool = False,
+                   generator: Optional[torch.Generator] = None,
+                   is_training: bool = False,
+                   ref_tokens: Optional[torch.Tensor] = None):
+    """LAS pass -> (dynamic embs, logps or picked logps or None, preds,
+    lengths); free running unless teacher_forcing (ref: Seq2seq.py:222-230)."""
     return las_forward(params["las"], cfg, acous_feats, acous_lens=acous_lens,
-                       max_seq_len=max_seq_len)
+                       max_seq_len=max_seq_len, tgt=tgt,
+                       use_teacher_forcing=teacher_forcing, generator=generator,
+                       is_training=is_training, ref_tokens=ref_tokens)
 
 
 def _encoder_en(params: Dict, cfg: ModelConfig, emb_src: torch.Tensor,
                 src_mask: Optional[torch.Tensor] = None,
-                max_time: int = UPPERBOUND_SEQ_LEN) -> torch.Tensor:
+                max_time: int = UPPERBOUND_SEQ_LEN,
+                generator: Optional[torch.Generator] = None,
+                is_training: bool = False) -> torch.Tensor:
     return tf_encoder_forward(params["enc_src"], cfg, emb_src,
-                              src_mask=src_mask, max_time=max_time)
+                              src_mask=src_mask, max_time=max_time,
+                              generator=generator, is_training=is_training)
+
+
+def _decoder_de(params: Dict, cfg: ModelConfig, emb_tgt: torch.Tensor,
+                enc_outputs: torch.Tensor, tgt_mask: Optional[torch.Tensor] = None,
+                src_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                is_training: bool = False, max_time: int = UPPERBOUND_SEQ_LEN,
+                ref_pick_ids: Optional[torch.Tensor] = None):
+    """(dec_outputs, logits, logps, preds) (ref: Seq2seq.py:249-257). With
+    ref_pick_ids [B, L-1] (the shifted targets) the logps slot holds the
+    log-softmax of logits[:, :-1] at those ids, by gather minus logsumexp,
+    without the [B, L, V] log-probability tensor."""
+    dec_out = tf_decoder_forward(params["dec_tgt"], cfg, emb_tgt, enc_outputs,
+                                 tgt_mask=tgt_mask, src_mask=src_mask,
+                                 max_time=max_time, generator=generator,
+                                 is_training=is_training)
+    logits = linear(params["out_tgt"], dec_out)
+    preds = torch.argmax(logits, dim=2)  # == argmax of the log-softmax
+    if ref_pick_ids is None:
+        return dec_out, logits, F.log_softmax(logits, dim=2), preds
+    lg = logits[:, :-1]
+    picked = (lg.gather(2, ref_pick_ids.long()[:, :, None])[:, :, 0]
+              - torch.logsumexp(lg, dim=-1))
+    return dec_out, logits, picked, preds
 
 
 def _length_src_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
     """[B] -> [B, 1, max_len] bool (ref: Seq2seq.py:494-497)."""
     ar = torch.arange(max_len, device=lengths.device)[None, :]
     return (ar < lengths[:, None])[:, None, :]
+
+
+def forward_train(params: Dict, cfg: ModelConfig, mode: str, src: torch.Tensor,
+                  tgt: Optional[torch.Tensor] = None,
+                  acous_feats: Optional[torch.Tensor] = None,
+                  acous_lens: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None,
+                  is_training: bool = True,
+                  ref_pick: bool = False) -> Dict[str, torch.Tensor]:
+    """Teacher-forced training forward for modes ASR, MT and ASR_ST
+    (ref: Seq2seq.py:396-509). Returns the reference's out_dict keys; with
+    ref_pick the heads give `picked_*` [B, L-1] (the log-softmax at the
+    reference token) instead of `logps_*` [B, L-1, V].
+
+    `generator` (a host torch.Generator, as the JAX function's `rng`;
+    seed 0 when None) is split where the JAX function splits its key.
+    is_training turns dropout and SpecAugment on; the teacher-forcing
+    structure is the same either way."""
+    mode = mode.upper()
+    if "AE" in mode or ("ST" in mode and "ASR" not in mode):
+        raise NotImplementedError(
+            f"forward_train mode {mode!r} is not ported yet: ST alone trains "
+            "through the free-running LAS and AE through its own head "
+            "(ROADMAP Queue A item 7)")
+    if ("ST" in mode or "ASR" in mode) and acous_feats is None:
+        raise ValueError(f"mode {mode} needs acous_feats")
+    if ("ST" in mode or "MT" in mode) and tgt is None:
+        raise ValueError(f"mode {mode} needs tgt")
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    out: Dict[str, torch.Tensor] = {}
+
+    if "ASR" in mode:
+        generator, k = split(generator)
+        emb_src, logps_src, preds_src, lengths = _encoder_acous(
+            params, cfg, acous_feats, acous_lens, tgt=src, teacher_forcing=True,
+            generator=k, is_training=is_training,
+            ref_tokens=src[:, 1:] if ref_pick else None)
+        out["emb_asr"] = emb_src
+        out["preds_asr"] = preds_src
+        out["picked_asr" if ref_pick else "logps_asr"] = logps_src
+        out["lengths_asr"] = lengths
+
+    if "MT" in mode:
+        generator, k1, k2, k3, k4 = split(generator, 5)
+        tgt_mask, emb_tgt = _get_tgt_emb(params, cfg, tgt, generator=k1,
+                                         is_training=is_training)
+        src_trim = _pre_proc_src(src)
+        B, Ls = src_trim.shape
+        emb_dyn = params["emb_dyn_ave"].detach()[None, None, :].expand(
+            B, Ls, cfg.dim_model)
+        _, emb_src, src_mask_input = _get_src_emb(
+            params, cfg, src_trim, emb_dyn, generator=k2, is_training=is_training)
+        enc_out = _encoder_en(params, cfg, emb_src, src_mask=src_mask_input,
+                              generator=k3, is_training=is_training)
+        _, _, logps_tgt, preds_tgt = _decoder_de(
+            params, cfg, emb_tgt, enc_out, tgt_mask=tgt_mask,
+            src_mask=src_mask_input, generator=k4, is_training=is_training,
+            ref_pick_ids=tgt[:, 1:] if ref_pick else None)
+        out["emb_mt"] = emb_src
+        out["preds_mt"] = preds_tgt
+        out["picked_mt" if ref_pick else "logps_mt"] = logps_tgt
+
+    if "ST" in mode:  # ASR_ST: the ASR head's dynamic embeddings and lengths
+        generator, k1, k2, k3, k4, _ = split(generator, 6)
+        tgt_mask, emb_tgt = _get_tgt_emb(params, cfg, tgt, generator=k1,
+                                         is_training=is_training)
+        src_trim = _pre_proc_src(src)
+        _, emb_src, _ = _get_src_emb(params, cfg, src_trim, out["emb_asr"],
+                                     generator=k2, is_training=is_training)
+        src_mask_input = _length_src_mask(out["lengths_asr"], emb_src.shape[1])
+        enc_out = _encoder_en(params, cfg, emb_src, src_mask=src_mask_input,
+                              generator=k3, is_training=is_training)
+        _, _, logps_tgt, preds_tgt = _decoder_de(
+            params, cfg, emb_tgt, enc_out, tgt_mask=tgt_mask,
+            src_mask=src_mask_input, generator=k4, is_training=is_training,
+            ref_pick_ids=tgt[:, 1:] if ref_pick else None)
+        out["emb_st"] = emb_src
+        out["preds_st"] = preds_tgt
+        out["picked_st" if ref_pick else "logps_st"] = logps_tgt
+    return out

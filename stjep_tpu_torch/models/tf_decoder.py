@@ -1,16 +1,17 @@
-"""Transformer decoder, standard type, eval only (port of
+"""Transformer decoder, standard type (port of
 stjep_tpu/models/tf_decoder.py).
 
-`tf_decoder_init_cache_chain` and `tf_decoder_chain_step` are the KV-cached
-decode position of the beam, through K3 (`ops/decode_flash.py`), whose
-final LayerNorm uses torch's default eps 1e-5, unlike the encoder's 1e-6
-(ref: TFDec.py:58). The full-sequence (teacher-forced) decoder is not
-ported yet.
+`tf_decoder_forward` is the full-sequence (teacher-forced) decoder of
+training, in plain PyTorch as the JAX package leaves it to XLA, with
+dropout as the encoder's. `tf_decoder_init_cache_chain` and
+`tf_decoder_chain_step` are the KV-cached decode position of the beam,
+through K3 (`ops/decode_flash.py`). The final LayerNorm uses torch's
+default eps 1e-5, unlike the encoder's 1e-6 (ref: TFDec.py:58).
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -25,7 +26,13 @@ from stjep_tpu_torch.ops.decode_flash import (
     stack_decoder_layers,
 )
 from stjep_tpu_torch.ops.masks import position_signal
-from stjep_tpu_torch.ops.transformer import decoder_layer_init, layer_norm_init
+from stjep_tpu_torch.ops.transformer import (
+    decoder_layer,
+    decoder_layer_init,
+    layer_norm,
+    layer_norm_init,
+    split,
+)
 from stjep_tpu_torch.models.tf_encoder import check_standard
 
 UPPERBOUND_SEQ_LEN = 500  # ref: TFDec.py:35
@@ -50,6 +57,26 @@ def tf_decoder_init(generator: torch.Generator, cfg: ModelConfig,
                    for _ in range(cfg.dec_layers)],
         "norm": layer_norm_init(cfg.dim_model, device),
     }
+
+
+def tf_decoder_forward(params: Dict, cfg: ModelConfig, tgt: torch.Tensor,
+                       memory: torch.Tensor,
+                       tgt_mask: Optional[torch.Tensor] = None,
+                       src_mask: Optional[torch.Tensor] = None,
+                       max_time: int = UPPERBOUND_SEQ_LEN,
+                       generator: Optional[torch.Generator] = None,
+                       is_training: bool = False) -> torch.Tensor:
+    """tgt [B, L, D] embedded target, memory [B, Lk, D], tgt_mask [B, L, L]
+    and src_mask [B, 1, Lk] (0 = blocked) -> out [B, L, D]."""
+    check_standard(cfg, is_training)
+    L = tgt.shape[1]
+    x = tgt + position_signal(max(max_time, L), cfg.dim_model, tgt.device)[:, :L]
+    for lp in params["layers"]:
+        generator, k = split(generator)
+        x = decoder_layer(lp, x, memory, cfg.num_heads, self_mask=tgt_mask,
+                          cross_mask=src_mask, generator=k,
+                          dropout_rate=cfg.dropout, training=is_training)
+    return layer_norm(params["norm"], x, eps=1e-5)  # torch default eps, ref: TFDec.py:58
 
 
 def tf_decoder_init_cache_chain(params: Dict, cfg: ModelConfig,

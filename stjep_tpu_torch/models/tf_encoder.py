@@ -1,9 +1,13 @@
-"""Transformer text encoder, standard type, eval only (port of
+"""Transformer text encoder, standard type (port of
 stjep_tpu/models/tf_encoder.py).
 
 The time signal is added once before the stack; the final LayerNorm uses
-eps 1e-6 (ref: models/TFEnc.py:61-89). The universal type and ACT are not
-ported yet. Plain PyTorch: the JAX package runs this stage in XLA, with no
+eps 1e-6 (ref: models/TFEnc.py:61-89). With `is_training`, dropout at
+cfg.dropout (and attention-probability dropout at 0.1) draws from
+`generator`, split once per layer as the JAX code splits its key. The
+universal type, ACT and `cfg.remat` are not ported yet (remat raises:
+torch.utils.checkpoint would re-run the layer and draw its dropout masks
+anew). Plain PyTorch: the JAX package runs this stage in XLA, with no
 kernel of its own.
 """
 
@@ -20,16 +24,21 @@ from stjep_tpu_torch.ops.transformer import (
     encoder_layer_init,
     layer_norm,
     layer_norm_init,
+    split,
 )
 
 UPPERBOUND_SEQ_LEN = 500  # ref: TFEnc.py:35
 
 
-def check_standard(cfg: ModelConfig):
+def check_standard(cfg: ModelConfig, is_training: bool = False):
     if cfg.transformer_type != "standard" or cfg.act:
         raise NotImplementedError(
             "only the standard transformer is ported; universal/ACT wait "
             "(ROADMAP Queue A item 14)")
+    if cfg.remat and is_training:
+        raise NotImplementedError(
+            "cfg.remat is not ported: torch.utils.checkpoint would re-run "
+            "each layer and draw its dropout masks anew")
 
 
 def tf_encoder_init(generator: torch.Generator, cfg: ModelConfig,
@@ -45,12 +54,16 @@ def tf_encoder_init(generator: torch.Generator, cfg: ModelConfig,
 
 def tf_encoder_forward(params: Dict, cfg: ModelConfig, src: torch.Tensor,
                        src_mask: Optional[torch.Tensor] = None,
-                       max_time: int = UPPERBOUND_SEQ_LEN) -> torch.Tensor:
+                       max_time: int = UPPERBOUND_SEQ_LEN,
+                       generator: Optional[torch.Generator] = None,
+                       is_training: bool = False) -> torch.Tensor:
     """src [B, L, D] embedded input, src_mask [B, 1, L] (0 = blocked) ->
     encoded [B, L, D]."""
-    check_standard(cfg)
+    check_standard(cfg, is_training)
     L = src.shape[1]
     x = src + position_signal(max(max_time, L), cfg.dim_model, src.device)[:, :L]
     for lp in params["layers"]:
-        x = encoder_layer(lp, x, cfg.num_heads, mask=src_mask)
+        generator, k = split(generator)
+        x = encoder_layer(lp, x, cfg.num_heads, mask=src_mask, generator=k,
+                          dropout_rate=cfg.dropout, training=is_training)
     return layer_norm(params["norm"], x, eps=1e-6)

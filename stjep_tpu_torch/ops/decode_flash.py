@@ -32,6 +32,8 @@ from stjep_tpu_torch.ops.transformer import ATTN_MASK_FILL as NEG
 from stjep_tpu_torch.ops.transformer import layer_norm
 
 BLOCK = 16  # self-cache length is padded to a multiple of this
+# what to differentiate through instead of K3/K4 (their CUDA routes have no backward)
+TRAINABLE = "the full-sequence decoder (models/tf_decoder.py tf_decoder_forward)"
 CROSS_BLOCK = 32  # memory length is padded to a multiple of this
 
 CHAIN_KEYS = (
@@ -192,6 +194,9 @@ def decode_chain_step_flash(stacked, norm_params, out_params, x_new, cache_k,
                                        cache_k, cache_v, mem_k, mem_v, pos,
                                        n_head, anc, group, mem_mask,
                                        self_mask_k, topk)
+    kernels.refuse_grad("decode_chain_step_flash", TRAINABLE, x_new, mem_k,
+                        mem_v, *stacked, *norm_params.values(),
+                        *out_params.values())
     _check_cuda_args(cache_k, anc, self_mask_k, mem_mask)
     x = _layers_cuda(stacked, x_new.contiguous(), cache_k, cache_v, mem_k,
                      mem_v, pos, n_head, anc, group, mem_mask, self_mask_k)
@@ -268,6 +273,9 @@ def decode_beam_step_flash(stacked, norm_params, out_params, emb_table,
                                       anc, maskk, mem_mask, scores, eos, lenm,
                                       cache_k, cache_v, mem_k, mem_v, n_head,
                                       group, penalty_factor)
+    kernels.refuse_grad("decode_beam_step_flash", TRAINABLE, emb_table,
+                        time_sig, scores, mem_k, mem_v, *stacked,
+                        *norm_params.values(), *out_params.values())
     _check_cuda_args(cache_k, anc, maskk, mem_mask)
     for t, dt, nm in ((last_tok, torch.int32, "last_tok"),
                       (preds, torch.int32, "preds"),

@@ -15,6 +15,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from stjep_tpu_torch import kernels
+from stjep_tpu_torch.bridge import leaves
 from stjep_tpu_torch.ops.attention import attend, linear
 from stjep_tpu_torch.ops.lstm import lstm_cell_step
 
@@ -77,6 +78,9 @@ def las_greedy_flash(params: Dict, cfg, wk: torch.Tensor,
     if not wk.is_cuda:
         return las_greedy_plain(params, cfg, wk, att_values, lens_k, sym0,
                                 n_steps, ref_tokens)
+    kernels.refuse_grad("las_greedy_flash",
+                        "the teacher-forced LAS decoder (las_tf_scan)",
+                        wk, att_values, *leaves(params))
     dev = wk.device
     f32, i32 = torch.float32, torch.int32
     B, Tk, Hd = wk.shape
@@ -116,11 +120,12 @@ def las_greedy_flash(params: Dict, cfg, wk: torch.Tensor,
             kernels.gemm(xin[i], ws[i], bias=bs[i], out=pre)
             out_dst = xin[i + 1][:, :Hd] if i < n - 1 else q
             resid = xin[i][:, :Hd] if 0 < i < n - 1 else None
-            kernels.launch("lstm_gates", pre, cs[i], xin[i][:, in_w[i]:],
+            kernels.launch("lstm_gates", pre, cs[i], None, xin[i][:, in_w[i]:],
                            xin[i].stride(0), out_dst, out_dst.stride(0),
-                           resid, xin[i].stride(0), B, Hd)
+                           resid, xin[i].stride(0), None, None, B, Hd)
         kernels.launch("bilinear_attend", q, ff_in.stride(0), wk, att_values,
-                       lens, ff_in, ff_in.stride(0), B, Tk, Hd, Ha2)
+                       lens, ff_in, ff_in.stride(0), None, None, B, Tk, Hd,
+                       Ha2)
         kernels.gemm(ff_in, w_ffn, out=embs[:, step])
         kernels.gemm(embs[:, step], params["acous_out"]["w"],
                      bias=params["acous_out"]["b"], out=logits)

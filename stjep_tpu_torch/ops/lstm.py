@@ -37,15 +37,19 @@ def bilstm_init(generator: torch.Generator, input_size: int, hidden_size: int,
             "bwd": lstm_init(generator, input_size, hidden_size, device)}
 
 
-def lstm_gates(pre: torch.Tensor, c: torch.Tensor, hidden_size: int
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(i, f, g, o) nonlinearities on pre [B, 4H]; returns (h', c')."""
+def lstm_gates(pre: torch.Tensor, c: torch.Tensor, hidden_size: int,
+               with_gates: bool = False):
+    """(i, f, g, o) nonlinearities on pre [B, 4H]; returns (h', c'), or
+    with_gates=True (h', c', concat(i, f, g, o)) for the kernels' plain
+    versions that save gate activations."""
     H = hidden_size
     i = torch.sigmoid(pre[:, 0 * H:1 * H])
     f = torch.sigmoid(pre[:, 1 * H:2 * H])
     g = torch.tanh(pre[:, 2 * H:3 * H])
     o = torch.sigmoid(pre[:, 3 * H:4 * H])
     c_new = f * c + i * g
+    if with_gates:
+        return o * torch.tanh(c_new), c_new, torch.cat([i, f, g, o], dim=-1)
     return o * torch.tanh(c_new), c_new
 
 

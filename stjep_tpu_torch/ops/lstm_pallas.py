@@ -5,7 +5,8 @@ On a CUDA tensor the wrapper runs the input projections as one GEMM per
 direction and the whole time sweep of both directions in one launch of
 `csrc/bilstm.cu` (design notes there). On a CPU tensor it runs
 `bilstm_plain`, the same function in plain PyTorch. Inference only: the
-trainable variant (`lstm_pallas_bwd.py`) is not ported yet.
+CUDA route has no backward and refuses inputs that require grad; the
+trainable variant is K8, `lstm_pallas_bwd.bilstm_pallas_trainable`.
 """
 
 from __future__ import annotations
@@ -29,6 +30,9 @@ def bilstm_pallas(params_fwd: Dict, params_bwd: Dict, x: torch.Tensor,
     """[B, T, Din] -> [B, T, 2H] with packed-length semantics."""
     if not x.is_cuda:
         return bilstm_plain(params_fwd, params_bwd, x, lengths)
+    kernels.refuse_grad("bilstm_pallas", "bilstm_pallas_trainable "
+                        "(ops/lstm_pallas_bwd.py)", x, *params_fwd.values(),
+                        *params_bwd.values())
     B, T, Din = x.shape
     H = params_fwd["w_hh"].shape[0]
     x2 = x.reshape(B * T, Din).contiguous()

@@ -1,21 +1,60 @@
 """Transformer building blocks, pre-LN and batch-first (port of
-stjep_tpu/ops/transformer.py, eval only).
+stjep_tpu/ops/transformer.py).
 
 Reference quirks kept for checkpoint parity (ref: modules/layers.py):
 LayerNorm on the query input only, keys/values projected from the raw
-inputs; -1e9 fill where mask == 0; eps 1e-6; FFN LN -> w1 -> relu -> w2 ->
-+residual. Dropout is not ported (inference only).
+inputs; -1e9 fill where mask == 0, on an einsum softmax (torch's SDPA
+returns NaN on fully masked rows); eps 1e-6; FFN LN -> w1 -> relu -> w2 ->
+dropout -> +residual; attention-probability dropout fixed at 0.1 whatever
+the configured rate.
+
+Randomness: a JAX key becomes a host `torch.Generator` on the CPU, and
+`split` stands where the JAX code calls `jax.random.split`, so the places
+where randomness is drawn correspond one to one (the streams differ). A
+draw for a CUDA tensor uses a generator on the tensor's device, seeded
+from the host generator, so no draw waits for the device.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
 from stjep_tpu_torch.ops.attention import linear, linear_init
 
 ATTN_MASK_FILL = -1e9  # ref: modules/layers.py:224
+ATTN_DROPOUT = 0.1  # ref: modules/layers.py:207
+
+
+def split(generator: Optional[torch.Generator], n: int = 2) -> List:
+    """n independent host generators seeded from `generator` (None -> n
+    Nones): the counterpart of jax.random.split."""
+    if generator is None:
+        return [None] * n
+    seeds = torch.randint(0, 2 ** 62, (n,), generator=generator).tolist()
+    return [torch.Generator().manual_seed(s) for s in seeds]
+
+
+def on_device(generator: torch.Generator, device) -> torch.Generator:
+    """A generator on `device` for a draw there: the host generator itself
+    on the CPU, else a device generator seeded from it."""
+    if torch.device(device).type == "cpu":
+        return generator
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def dropout(generator: Optional[torch.Generator], x: torch.Tensor, rate: float,
+            training: bool) -> torch.Tensor:
+    """Inverted dropout: keep with probability 1 - rate and scale by
+    1 / (1 - rate), as `jnp.where(mask, x / keep, 0)`."""
+    if not training or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    u = torch.rand(x.shape, generator=on_device(generator, x.device),
+                   device=x.device)
+    return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
 def layer_norm_init(dim: int, device=None) -> Dict[str, torch.Tensor]:
@@ -43,18 +82,23 @@ def mha_init(generator: torch.Generator, n_head: int, d_model: int, d_k: int,
 
 def scaled_dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          temperature: float,
-                         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         mask: Optional[torch.Tensor] = None,
+                         generator: Optional[torch.Generator] = None,
+                         training: bool = False) -> torch.Tensor:
     """q, k, v [B, L, n, d]; mask broadcastable to [B, 1, Lq, Lk] with
     0 = blocked. Returns [B, Lq, n, d]."""
     attn = torch.einsum("bqnd,bknd->bnqk", q / temperature, k)
     if mask is not None:
         attn = attn.masked_fill(mask == 0, ATTN_MASK_FILL)
     attn = torch.softmax(attn, dim=-1)
+    attn = dropout(generator, attn, ATTN_DROPOUT, training)
     return torch.einsum("bnqk,bknd->bqnd", attn, v)
 
 
 def mha(params: Dict, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-        n_head: int, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        n_head: int, mask: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None, dropout_rate: float = 0.0,
+        training: bool = False) -> torch.Tensor:
     """Multi-head attention with the residual; mask [B, Lq|1, Lk]."""
     d_k = params["w_qs"]["w"].shape[1] // n_head
     qn = layer_norm(params["layer_norm"], q, eps=1e-6)
@@ -62,11 +106,14 @@ def mha(params: Dict, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     def heads(x):
         return x.reshape(x.shape[0], x.shape[1], n_head, -1)
 
+    r1, r2 = split(generator)
     out = scaled_dot_attention(
         heads(linear(params["w_qs"], qn)), heads(linear(params["w_ks"], k)),
         heads(linear(params["w_vs"], v)), d_k ** 0.5,
-        mask=mask[:, None] if mask is not None else None)
-    return linear(params["fc"], out.reshape(out.shape[0], out.shape[1], -1)) + q
+        mask=mask[:, None] if mask is not None else None, generator=r1,
+        training=training)
+    out = linear(params["fc"], out.reshape(out.shape[0], out.shape[1], -1))
+    return dropout(r2, out, dropout_rate, training) + q
 
 
 def ffn_init(generator: torch.Generator, d_in: int, d_hid: int, device=None) -> Dict:
@@ -75,9 +122,11 @@ def ffn_init(generator: torch.Generator, d_in: int, d_hid: int, device=None) -> 
             "layer_norm": layer_norm_init(d_in, device)}
 
 
-def ffn(params: Dict, x: torch.Tensor) -> torch.Tensor:
+def ffn(params: Dict, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+        dropout_rate: float = 0.0, training: bool = False) -> torch.Tensor:
     y = layer_norm(params["layer_norm"], x, eps=1e-6)
-    return linear(params["w_2"], torch.relu(linear(params["w_1"], y))) + x
+    y = linear(params["w_2"], torch.relu(linear(params["w_1"], y)))
+    return dropout(generator, y, dropout_rate, training) + x
 
 
 def encoder_layer_init(generator: torch.Generator, d_model: int, n_head: int,
@@ -88,8 +137,14 @@ def encoder_layer_init(generator: torch.Generator, d_model: int, n_head: int,
 
 
 def encoder_layer(params: Dict, x: torch.Tensor, n_head: int,
-                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    return ffn(params["pos_ffn"], mha(params["slf_attn"], x, x, x, n_head, mask))
+                  mask: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None,
+                  dropout_rate: float = 0.0, training: bool = False) -> torch.Tensor:
+    r1, r2 = split(generator)
+    y = mha(params["slf_attn"], x, x, x, n_head, mask, generator=r1,
+            dropout_rate=dropout_rate, training=training)
+    return ffn(params["pos_ffn"], y, generator=r2, dropout_rate=dropout_rate,
+               training=training)
 
 
 def decoder_layer_init(generator: torch.Generator, d_model: int, n_head: int,
@@ -98,3 +153,19 @@ def decoder_layer_init(generator: torch.Generator, d_model: int, n_head: int,
     return {"decslf_attn": mha_init(generator, n_head, d_model, d_k, d_k, device),
             "encdec_attn": mha_init(generator, n_head, d_model, d_k, d_k, device),
             "pos_ffn": ffn_init(generator, d_model, d_ff, device)}
+
+
+def decoder_layer(params: Dict, x: torch.Tensor, memory: torch.Tensor,
+                  n_head: int, self_mask: Optional[torch.Tensor] = None,
+                  cross_mask: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None,
+                  dropout_rate: float = 0.0, training: bool = False) -> torch.Tensor:
+    """Self-attention, cross-attention over `memory`, FFN
+    (ref: modules/layers.py:66-112)."""
+    r1, r2, r3 = split(generator, 3)
+    y = mha(params["decslf_attn"], x, x, x, n_head, self_mask, generator=r1,
+            dropout_rate=dropout_rate, training=training)
+    y = mha(params["encdec_attn"], y, memory, memory, n_head, cross_mask,
+            generator=r2, dropout_rate=dropout_rate, training=training)
+    return ffn(params["pos_ffn"], y, generator=r3, dropout_rate=dropout_rate,
+               training=training)

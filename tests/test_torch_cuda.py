@@ -2,10 +2,14 @@
 
 Small shapes chosen for the edges the flagship run of chip_smoke.py does not
 reach: batches that do not fill a tile, fully masked rows, finished beams, a
-length penalty other than 1, strided GEMM operands. Both sides run on the
-card in f32 with TF32 off; they differ only in summation order, hence the
-tolerances below. Integer outputs (symbols, ids, back-copies) must be equal:
-with random weights at these sizes no two candidates tie.
+length penalty other than 1, strided GEMM operands, rows of length 0. Both
+sides run on the card in f32 with TF32 off; they differ only in summation
+order, hence the tolerances below. Integer outputs (symbols, ids,
+back-copies) must be equal: with random weights at these sizes no two
+candidates tie. The trainable kernels (K8, K9) are held forward and
+backward, stream by stream, and through their autograd.Function against the
+same Function on CPU copies; the inference kernels (K1-K4) must refuse
+inputs that require grad.
 
 Every test needs a CUDA card and skips without one. Run them on a GPU host
 (the tests' conftest imports JAX, which that host need not have):
@@ -18,7 +22,7 @@ import pytest
 import torch
 
 from stjep_tpu_torch import kernels
-from stjep_tpu_torch.bridge import params_to
+from stjep_tpu_torch.bridge import leaves, params_to
 from stjep_tpu_torch.config import BOS, PAD, ModelConfig
 from stjep_tpu_torch.infer.beam import beam_search
 from stjep_tpu_torch.infer.forward import forward_translate
@@ -34,6 +38,8 @@ from stjep_tpu_torch.ops.decode_flash import (
     pad_len,
     stack_decoder_layers,
 )
+from stjep_tpu_torch.ops import las_tf_flash as k9
+from stjep_tpu_torch.ops import lstm_pallas_bwd as k8
 from stjep_tpu_torch.ops.las_flash import las_greedy_flash, las_greedy_plain
 from stjep_tpu_torch.ops.lstm import bilstm_init
 from stjep_tpu_torch.ops.lstm_pallas import bilstm_pallas, bilstm_plain
@@ -78,6 +84,12 @@ def _randn(rng, *shape, dev=None):
 def _close(a, b, tol):
     err = float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
     assert err <= tol, err
+
+
+def _close_rel(a, b, tol=TOL):
+    """Within tol of b's largest magnitude (at least 1): gradients and
+    backward streams, whose scale grows with the steps summed."""
+    _close(a, b, tol * max(1.0, float(b.abs().max())))
 
 
 @pytest.mark.parametrize("M,K,N,epilogue", [
@@ -265,3 +277,159 @@ def test_forward_translate_card_matches_cpu(dev, params):
                               beam_width=3, max_seq_len=MAX_LEN)
     assert torch.equal(out_g.cpu(), out_c)
     assert out_c.shape == (B, MAX_LEN) and (out_c[:, 0] == BOS).all()
+
+
+def _grad_leaves(tree, dev):
+    """A copy of the tree on dev whose leaves require grad."""
+    if isinstance(tree, dict):
+        return {k: _grad_leaves(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_grad_leaves(v, dev) for v in tree]
+    return tree.detach().to(dev).clone().requires_grad_(True)
+
+
+@pytest.mark.parametrize("Bn,T,Din,H", [(3, 21, 8, 64), (9, 40, 24, 256)])
+def test_bilstm_trainable_kernels_match_plain(dev, Bn, T, Din, H):
+    """K8 forward streams, backward stream and the Function's gradients; one
+    row of length 0, one of length T, batches that do not fill the 8-row
+    tile."""
+    rng = np.random.RandomState(T + 1)
+    p = bilstm_init(torch.Generator().manual_seed(T), Din, H, "cpu")
+    x = _randn(rng, Bn, T, Din)
+    lens = torch.from_numpy(rng.randint(1, T + 1, size=(Bn,)))
+    lens[0], lens[-1] = T, 0
+    g_out = _randn(rng, Bn, T, 2 * H)
+    w = lambda d, k: p[("fwd", "bwd")[d]][k].to(dev)
+    args = ((w(0, "w_ih"), w(1, "w_ih")), (w(0, "w_hh"), w(1, "w_hh")),
+            (w(0, "b_ih") + w(0, "b_hh"), w(1, "b_ih") + w(1, "b_hh")),
+            x.to(dev), lens.to(dev))
+    before = (k8.bilstm_fwd_save.launches, k8.bilstm_bwd.launches)
+    fwd_k, fwd_p = k8.bilstm_fwd_save(*args), k8.bilstm_fwd_save_plain(*args)
+    for a, b in zip(fwd_k, fwd_p):
+        _close(a, b, TOL_LSTM)
+    bargs = (g_out.to(dev), fwd_p[2], fwd_p[3], args[1], args[4])
+    _close_rel(k8.bilstm_bwd(*bargs), k8.bilstm_bwd_plain(*bargs))
+    assert (k8.bilstm_fwd_save.launches, k8.bilstm_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    grads = []
+    for d in ("cpu", dev):
+        q = _grad_leaves(p, d)
+        xd = _grad_leaves(x, d)
+        out = k8.bilstm_pallas_trainable(q["fwd"], q["bwd"], xd, lens.to(d))
+        out.backward(g_out.to(d))
+        grads.append([xd.grad] + [t.grad for t in leaves(q)])
+    for a, b in zip(*grads):  # card against the CPU route
+        _close_rel(b.cpu(), a)
+
+
+@pytest.mark.parametrize("use_masks", [False, True])
+def test_las_tf_kernels_match_plain(dev, params, use_masks):
+    """K9 forward streams, backward streams and the Function's gradients,
+    with a fully masked row (lens_k 0) and an odd batch."""
+    pc, _ = params
+    dec = pc["las"]["decoder"]
+    rng = np.random.RandomState(11 + use_masks)
+    S, Bn, Tk = 6, 5, 9
+    Hd, Ha2 = CFG.dim_model, 2 * CFG.acous_hidden_size
+    E = CFG.enc_embedding_size
+    pre0 = _randn(rng, S, Bn, 4 * Hd)
+    acous = _randn(rng, Bn, Tk, Ha2)
+    lens_k = torch.tensor([9, 1, 4, 0, 6])
+    g_cell = _randn(rng, S, Bn, Hd)
+    masks = None
+    if use_masks:
+        masks = (torch.from_numpy((rng.rand(S, 3, Bn, Hd) < 0.8).astype(np.float32) / 0.8),
+                 torch.from_numpy((rng.rand(S, Bn, 1, Ha2) < 0.8).astype(np.float32) / 0.8))
+    stack = {k: dec[k] for k in ("dec_l0", "dec_l1", "dec_l2")}
+    att_w, ffn_w = dec["acous_att"]["linear_att_w"]["w"], dec["acous_ffn"]["w"]
+
+    w = k9.scan_weights(*(t.to(dev) for t in (
+        stack["dec_l0"]["w_ih"], stack["dec_l0"]["w_hh"], stack["dec_l1"]["w_ih"],
+        stack["dec_l1"]["w_hh"], stack["dec_l1"]["b_ih"], stack["dec_l1"]["b_hh"],
+        stack["dec_l2"]["w_ih"], stack["dec_l2"]["w_hh"], stack["dec_l2"]["b_ih"],
+        stack["dec_l2"]["b_hh"], ffn_w)))
+    m = None if masks is None else k9.Masks(masks[0].to(dev).contiguous(),
+                                            masks[1][:, :, 0].to(dev).contiguous())
+    ac = acous.to(dev)
+    wk = (ac @ att_w.to(dev)).contiguous()
+    fargs = (w, pre0.to(dev), wk, ac, lens_k.to(dev), m)
+    before = (k9.las_tf_fwd.launches, k9.las_tf_bwd.launches)
+    st_k, st_p = k9.las_tf_fwd(*fargs), k9.las_tf_fwd_plain(*fargs)
+    for a, b in zip(st_k, st_p):
+        _close(a, b, TOL)
+    bargs = (w, st_p, g_cell.to(dev), wk, ac, m)
+    for a, b in zip(k9.las_tf_bwd(*bargs), k9.las_tf_bwd_plain(*bargs)):
+        _close_rel(a, b)
+    assert (k9.las_tf_fwd.launches, k9.las_tf_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    grads = []
+    for d in ("cpu", dev):
+        st = _grad_leaves(stack, d)
+        aw, fw = _grad_leaves([att_w, ffn_w], d)
+        p0, ad = _grad_leaves([pre0, acous], d)
+        md = None if masks is None else tuple(t.to(d) for t in masks)
+        out = k9.las_tf_scan(st, aw, fw, p0, ad, lens_k.to(d), md)
+        out.backward(g_cell.to(d))
+        grads.append([p0.grad, ad.grad, aw.grad, fw.grad]
+                     + [t.grad for t in leaves(st) if t.grad is not None])
+    for a, b in zip(*grads):  # card against the CPU route
+        _close_rel(b.cpu(), a)
+
+
+def _k1_call(pg, dev):
+    enc = pg["las"]["encoder"]["acous_enc_l1"]
+    x = torch.zeros((2, 16, CFG.acous_dim), device=dev)
+    return lambda: bilstm_pallas(enc["fwd"], enc["bwd"], x, torch.tensor([16, 9], device=dev))
+
+
+def _k2_call(pg, dev):
+    dec = pg["las"]["decoder"]
+    acous = torch.zeros((2, 4, 2 * CFG.acous_hidden_size), device=dev)
+    wk = precompute_keys(dec["acous_att"], acous, "bilinear")["wk"]
+    return lambda: las_greedy_flash(dec, CFG, wk.detach(), acous,
+                                    torch.tensor([4, 2], device=dev),
+                                    torch.full((2,), BOS, device=dev), 3)
+
+
+def _k3_call(pg, dev):
+    rng = np.random.RandomState(0)
+    cache, _, anc, maskk, mem_mask = _decode_state(pg, 1, 0, rng, dev)
+    maskk[0] = 1
+    stacked = stack_decoder_layers(pg["dec_tgt"])
+    x = _randn(rng, B, CFG.dim_model, dev=dev)
+    return lambda: decode_chain_step_flash(
+        stacked, pg["dec_tgt"]["norm"], pg["out_tgt"], x, cache.self_k,
+        cache.self_v, cache.mem_k, cache.mem_v, 0, CFG.num_heads, anc, 1,
+        mem_mask, maskk, 1)
+
+
+def _k4_call(pg, dev):
+    rng = np.random.RandomState(1)
+    K, i = 2, 3
+    cache, preds, anc, maskk, mem_mask = _decode_state(pg, K, i - 1, rng, dev)
+    BK = B * K
+    z = lambda dt: torch.zeros(BK, device=dev, dtype=dt)
+    stacked = stack_decoder_layers(pg["dec_tgt"])
+    return lambda: decode_beam_step_flash(
+        stacked, pg["dec_tgt"]["norm"], pg["out_tgt"],
+        _dec_embedder(pg, CFG).contiguous(),
+        position_signal(500, CFG.dim_model, dev)[0].contiguous(), i,
+        preds[:, i - 1].contiguous(), preds, anc, maskk, mem_mask,
+        z(torch.float32), z(torch.int32), z(torch.float32) + 1, cache.self_k,
+        cache.self_v, cache.mem_k, cache.mem_v, CFG.num_heads, K, 1.0)
+
+
+@pytest.mark.parametrize("make_call", [_k1_call, _k2_call, _k3_call, _k4_call],
+                         ids=["K1", "K2", "K3", "K4"])
+def test_inference_kernels_refuse_autograd(dev, make_call):
+    """With a weight that requires grad, the CUDA route raises instead of
+    returning outputs without a grad_fn; under no_grad it runs."""
+    p = init_seq2seq(CFG, torch.Generator().manual_seed(0), "cpu")
+    pg = params_to(p, dev)
+    call = make_call(pg, dev)
+    with torch.no_grad():
+        call()
+    for t in leaves(pg):
+        t.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        call()
