@@ -10,39 +10,53 @@ non-zero without printing a result:
 1. device: the card's name and power limit (nvidia-smi), TF32 off.
 2. build: compile the CUDA kernels (one nvcc per source, in parallel), with
    the seconds it took.
-3. kernels K1-K4 at the flagship shapes on seeded inputs: each kernel
-   against its plain PyTorch version on the card (floats within a stated
-   tolerance; integer outputs equal wherever the plain version's top-2 gap
-   exceeds 1e-5), with median times from CUDA events.
-4. end to end: forward_translate(mode="ST", beam_width=5) on 3 requests of
-   B=16 at the flagship configuration (bench.py's), random weights from
-   init_seq2seq(seed); utt/s, a B=1 latency, the kernels' launch counts on
-   that run; then the same call on CPU copies (the plain route) for one
-   request, with every row that differs explained by a tie: at the first
-   divergence, the plain arm's own log-probs (LAS symbols) or kept beam
-   scores (beam hypotheses) of the two choices agree within 1e-3.
+3. kernels K1-K5, K4's select alone, K3's gather variant and K7 at the
+   flagship shapes on seeded inputs: each kernel against its plain PyTorch version on the
+   card (floats within a stated tolerance; integer outputs equal wherever
+   the plain version's gap to the next rank exceeds 1e-5), with median
+   times from CUDA events; K7 also at a 30 000-word target vocabulary.
+4. the decode main paths, each driven with every launch count zeroed just
+   before it and read just after, at the flagship configuration
+   (bench.py's), random weights from init_seq2seq(seed):
+   - e2e: forward_translate(mode="ST", beam_width=5) on 3 requests of B=16
+     (standard decoder: K1-K4); utt/s, a B=1 latency; then the same call
+     on CPU copies (the plain route) for one request, with every row that
+     differs explained by a tie: at the first divergence, the plain arm's
+     own log-probs (LAS symbols) or kept beam scores (beam hypotheses) of
+     the two choices agree within 1e-3;
+   - e2e universal: the same on the universal transformer (the general
+     beam loop: K1, K2, K5 per hop, K7, K4's select; K3 and K4 must not
+     launch);
+   - dev eval, standard and universal: forward_eval("ASR_ST") with
+     reference ids at B=16 (K1, K2 with refs, then K3's gather variant or
+     K5 per hop + K7's gather variant); utt/s, and the card against CPU
+     copies: preds equal up to ties as above, picked_* within 1e-4.
 5. kernels K8 (trainable BiLSTM) and K9 (teacher-forced LAS scan) at the
    flagship train shapes on seeded inputs and cotangents: forward and
    backward each against its plain version on the card, every saved or
    emitted stream within a stated tolerance relative to its max-abs, with
    median times.
 6. train parity: one deterministic ASR_ST step (no dropout, no
-   SpecAugment) at full widths with B=2 and 256 frames, the kernel route
-   on the card against the plain route on CPU copies: loss, every
-   gradient leaf (relative norm), and the parameters after one Adam step
-   (each arm's step against Adam's formula from its own gradients).
+   SpecAugment) at full widths with B=2 and 256 frames, on inputs of its
+   own stream: the kernel route on the card, and the plain route on CPU
+   copies, both f32, each against the plain route in float64 on the same
+   ReLU pieces: the loss, every gradient leaf (within PARITY_TOL of its
+   norm), and the parameters after one Adam step (each arm's step against
+   Adam's formula from its own gradients).
 7. train end to end: make_train_step ASR_ST at the flagship (B=16, 1504
    frames, dropout 0.2, SpecAugment), 2 warm-up and 5 timed steps; steps/s,
    step ms, the losses (finite), peak device memory, K8/K9 launch counts
    on that run, and every trained parameter moved by a step.
 
-The last lines: a JSON object with one entry per kernel, the nvidia-smi
-line, then {"ok": true, "device": {...}}.
+The last lines: a JSON object with one entry per kernel (its launches
+summed over the main paths' runs), the total seconds, the nvidia-smi line,
+then {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -65,6 +79,10 @@ FLAGSHIP = dict(
 B, FRAMES, DECODE_LEN, BEAM = 16, 1504, 150, 5
 TRAIN_LR = 1e-4  # bench.py's train row
 PARITY_B, PARITY_FRAMES = 2, 256
+# train parity: each gradient leaf's distance from float64 on the same ReLU
+# pieces, relative to its norm. Both f32 arms read 1.2e-5 to 2.1e-5 over
+# seeds 0-7 (stjep_tpu_torch/scripts/train_parity_seeds.py on an H100)
+PARITY_TOL = 1e-4
 
 
 def say(phase: str, **kw):
@@ -171,15 +189,16 @@ def phase_k2(params, cfg, rng):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
 
 
-def decode_state(params, cfg, rng, pos):
-    """A seeded decode state at position `pos` for B=16, K=5: memory K/V of
-    89 encoder positions (padded to 96), caches filled below pos, a random
-    ancestry and random prefix tokens."""
+def decode_state(params, cfg, rng, pos, K=BEAM):
+    """A seeded decode state at position `pos` for B=16 and group K (the
+    beam's 5 by default): memory K/V of 89 encoder positions (padded to
+    96), caches filled below pos, a random ancestry with each row's own
+    slot at pos, and random prefix tokens."""
     from stjep_tpu_torch.config import BOS, PAD
     from stjep_tpu_torch.models.tf_decoder import tf_decoder_init_cache_chain
     from stjep_tpu_torch.ops.decode_flash import CROSS_BLOCK, pad_len
 
-    K, BK, Lk, D = BEAM, B * BEAM, cfg.max_seq_len_src - 1, cfg.dim_model
+    BK, Lk, D = B * K, cfg.max_seq_len_src - 1, cfg.dim_model
     enc = torch.from_numpy(rng.randn(B, Lk, D).astype(np.float32)).cuda()
     cache = tf_decoder_init_cache_chain(params["dec_tgt"], cfg, enc, DECODE_LEN, K)
     Lpad = cache.self_k.shape[3]
@@ -191,6 +210,7 @@ def decode_state(params, cfg, rng, pos):
     preds[:, 1:pos + 1] = torch.from_numpy(rng.randint(4, cfg.dec_vocab_size, (BK, pos)))
     preds[:, 0] = BOS
     anc = torch.from_numpy(rng.randint(0, K, (Lpad, BK))).int()
+    anc[pos] = torch.arange(BK, dtype=torch.int32) % K
     mem_len = rng.randint(1, Lk + 1, size=(B,))
     mem_mask = np.zeros((pad_len(Lk, CROSS_BLOCK), B), np.int32)
     for b, m in enumerate(mem_len):
@@ -216,7 +236,6 @@ def phase_k3(params, cfg, rng):
 
     K, BK = BEAM, B * BEAM
     st = decode_state(params, cfg, rng, 0)  # position 1 reads position 0 only
-    st["anc"][0] = torch.arange(BK, device="cuda", dtype=torch.int32) % K
     tok = torch.full((BK,), BOS, device="cuda", dtype=torch.int32)
     x = _embed_tgt_token(params, cfg, tok) + position_signal(500, cfg.dim_model, "cuda")[0, 0]
     dec = params["dec_tgt"]
@@ -313,6 +332,167 @@ def phase_k4(params, cfg, rng):
         max_abs_err=err, tol=tol, tied_groups=len(groups), ms=ms,
         plain_ms=plain_ms, EOS=EOS)
     need(err <= tol, f"K4 max_abs_err {err} > {tol}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def phase_k4_select(params, cfg, rng):
+    """K4's select kernel alone (`beam_select`, the general beam loop's
+    k^2 -> k update) at BK = 80, a mid position, a fifth of the rows
+    finished."""
+    from stjep_tpu_torch.ops.decode_flash import beam_select, beam_select_plain
+
+    K, BK, i = BEAM, B * BEAM, DECODE_LEN // 2
+    st = decode_state(params, cfg, rng, i - 1)
+    sc = torch.from_numpy(-np.sort(rng.uniform(0, 8, (BK, K)), 1).astype(np.float32)).cuda()
+    ids = torch.from_numpy(np.stack([rng.permutation(cfg.dec_vocab_size)[:K]
+                                     for _ in range(BK)]).astype(np.int32)).cuda()
+    eos = torch.from_numpy((rng.rand(BK) < 0.2).astype(np.int32)).cuda()
+    scores = torch.from_numpy(-rng.uniform(0, 3 * i, BK).astype(np.float32)).cuda()
+    lenm = torch.from_numpy(rng.randint(1, i, BK).astype(np.float32)).cuda()
+    args = (sc, ids, scores, eos, lenm, st["preds"], st["anc"], st["maskk"], i, K, 1.0)
+    out_k, out_p = beam_select(*args), beam_select_plain(*args)
+    names = ("preds", "anc", "maskk", "last_tok", "scores", "eos", "lenm", "flag")
+    err = 0.0
+    for nm, a, b in zip(names, out_k, out_p):
+        if nm in ("scores", "lenm"):
+            err = max(err, max_err(a, b))
+        else:
+            need(torch.equal(a.int(), b.int()), f"K4 select {nm} differs")
+    ms = cuda_ms(lambda: beam_select(*args), 20)
+    plain_ms = cuda_ms(lambda: beam_select_plain(*args), 10)
+    tol = 1e-3  # K4's: cumulative scores of magnitude up to ~450 in f32
+    say("kernel K4 select", BK=BK, i=i, eos_rows=int(eos.sum()), max_abs_err=err,
+        tol=tol, ms=ms, plain_ms=plain_ms)
+    need(err <= tol, f"K4 select max_abs_err {err} > {tol}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def phase_k5(params, cfg, rng):
+    """K5 (one decoder layer's decode step) at the universal beam's shapes:
+    BK = 80, a mid position of the 160-row caches, 96 memory rows."""
+    from stjep_tpu_torch.ops.decode_flash import (
+        decoder_layer_step_flash,
+        decoder_layer_step_plain,
+    )
+
+    K, BK, pos = BEAM, B * BEAM, DECODE_LEN // 2
+    st = decode_state(params, cfg, rng, pos)
+    x = torch.from_numpy(rng.randn(BK, cfg.dim_model).astype(np.float32)).cuda()
+    lp = params["dec_tgt"]["layers"][0]
+
+    def run(fn, cache):
+        return fn(lp, x, cache.self_k[0], cache.self_v[0], cache.mem_k[0],
+                  cache.mem_v[0], pos, cfg.num_heads, st["anc"], K,
+                  st["mem_mask"], st["maskk"])
+
+    ck, cp = clone_cache(st["cache"]), clone_cache(st["cache"])
+    y_k, y_p = run(decoder_layer_step_flash, ck), run(decoder_layer_step_plain, cp)
+    err = max(max_err(y_k, y_p), max_err(ck.self_k[0], cp.self_k[0]),
+              max_err(ck.self_v[0], cp.self_v[0]))
+    need(bool(ck.self_k[0][:, :, pos].abs().sum() > 0), "K5 wrote no cache row")
+    ms = cuda_ms(lambda: run(decoder_layer_step_flash, ck), 20)
+    plain_ms = cuda_ms(lambda: run(decoder_layer_step_plain, cp), 10)
+    # one layer's hidden state (|y| up to ~10) in f32, summed in another order
+    tol = 1e-4
+    Lpad, Lk_pad = st["cache"].self_k.shape[3], st["cache"].mem_k.shape[2]
+    say("kernel K5 decoder_layer_step", BK=BK, pos=pos, Lpad=Lpad, Lk_pad=Lk_pad,
+        max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms)
+    need(err <= tol, f"K5 max_abs_err {err} > {tol}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def check_topk(name, ids, ids_p, sc_p):
+    """ids [BK, k] equal to the plain arm's ids_p[:, :k] wherever its gap to
+    the next rank exceeds TIE (sc_p holds k + 1 ranks); returns the number
+    of rows that differ (all ties)."""
+    k = ids.shape[1]
+    bad = (ids != ids_p[:, :k]) & (sc_p[:, :k] - sc_p[:, 1:k + 1] > TIE)
+    need(not bool(bad.any()), f"{name}: ids differ beyond ties in rows "
+         f"{bad.any(1).nonzero().flatten().tolist()}")
+    return int((ids != ids_p[:, :k]).any(1).sum())
+
+
+def phase_k7(params, cfg, rng):
+    """K7 (decode_head, decode_head_gather) at the beam's BK = 80 and greedy
+    eval's BK = 16, with the model's V = 200 and a word-level V = 30 000.
+    Returns the times at the main paths' shapes (V = 200; BK 80 for the
+    head, 16 for the gather)."""
+    from stjep_tpu_torch.ops.decode_flash import (
+        decode_head,
+        decode_head_gather,
+        decode_head_gather_plain,
+        decode_head_plain,
+    )
+
+    norm = params["dec_tgt"]["norm"]
+    D, topk, res = cfg.dim_model, BEAM, {}
+    # a word-level target table at 1/sqrt(D), as init_seq2seq scales out_tgt
+    w_big = torch.from_numpy((rng.randn(D, 30000) / np.sqrt(D)).astype(np.float32)).cuda()
+    for V, out in ((cfg.dec_vocab_size, params["out_tgt"]), (30000, {"w": w_big})):
+        for BK in (B * BEAM, B):
+            x = torch.from_numpy(rng.randn(BK, D).astype(np.float32)).cuda()
+            gid = torch.from_numpy(rng.randint(0, V, BK).astype(np.int32)).cuda()
+            sc, ids = decode_head(norm, out, x, topk)
+            sc_g, ids_g, glp = decode_head_gather(norm, out, x, topk, gid)
+            sc_p, ids_p = decode_head_plain(norm, out, x, topk + 1)
+            _, _, glp_p = decode_head_gather_plain(norm, out, x, topk, gid)
+            rows = check_topk(f"K7 V={V} BK={BK}", ids, ids_p, sc_p)
+            need(torch.equal(ids, ids_g) and torch.equal(sc, sc_g),
+                 "K7 head and head_gather disagree")
+            err = max(max_err(sc, sc_p[:, :topk]), max_err(glp, glp_p))
+            t = dict(ms=cuda_ms(lambda: decode_head(norm, out, x, topk), 20),
+                     plain_ms=cuda_ms(lambda: decode_head_plain(norm, out, x, topk), 10),
+                     gather_ms=cuda_ms(lambda: decode_head_gather(norm, out, x, topk, gid), 20),
+                     gather_plain_ms=cuda_ms(
+                         lambda: decode_head_gather_plain(norm, out, x, topk, gid), 10))
+            # log-probs of magnitude <= ~12 in f32; one LayerNorm and one
+            # D = 512 product, summed in another order
+            tol = 1e-5
+            say("kernel K7 decode_head", V=V, BK=BK, topk=topk, max_abs_err=err,
+                tol=tol, tied_rows=rows, **t)
+            need(err <= tol, f"K7 V={V} BK={BK} max_abs_err {err} > {tol}")
+            if V == cfg.dec_vocab_size:
+                if BK == B * BEAM:
+                    res["head"] = dict(max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"])
+                else:
+                    res["head_gather"] = dict(max_abs_err=err, ms=t["gather_ms"],
+                                              plain_ms=t["gather_plain_ms"])
+    return res
+
+
+def phase_k3_gather(params, cfg, rng):
+    """K3's gather variant at greedy dev eval's shapes: BK = 16 (group 1),
+    a mid position, the log-prob at a reference id."""
+    from stjep_tpu_torch.ops.decode_flash import (
+        decode_chain_step_flash,
+        decode_chain_step_plain,
+        stack_decoder_layers,
+    )
+
+    pos = DECODE_LEN // 2
+    st = decode_state(params, cfg, rng, pos, K=1)
+    x = torch.from_numpy(rng.randn(B, cfg.dim_model).astype(np.float32)).cuda()
+    gid = torch.from_numpy(rng.randint(0, cfg.dec_vocab_size, B).astype(np.int32)).cuda()
+    dec = params["dec_tgt"]
+    stacked = stack_decoder_layers(dec)
+
+    def run(fn, cache, topk=2):
+        return fn(stacked, dec["norm"], params["out_tgt"], x, cache.self_k,
+                  cache.self_v, cache.mem_k, cache.mem_v, pos, cfg.num_heads,
+                  st["anc"], 1, st["mem_mask"], st["maskk"], topk, gather_ids=gid)
+
+    ck, cp = clone_cache(st["cache"]), clone_cache(st["cache"])
+    sc_k, ids_k, glp_k = run(decode_chain_step_flash, ck)
+    sc_p, ids_p, glp_p = run(decode_chain_step_plain, cp)
+    rows = check_topk("K3 gather", ids_k[:, :1], ids_p, sc_p)
+    err = max(max_err(sc_k, sc_p), max_err(glp_k, glp_p),
+              max_err(ck.self_k, cp.self_k), max_err(ck.self_v, cp.self_v))
+    ms = cuda_ms(lambda: run(decode_chain_step_flash, ck, 1), 20)
+    plain_ms = cuda_ms(lambda: run(decode_chain_step_plain, cp, 1), 10)
+    tol = 1e-4  # K3's: log-probs after 6 layers in f32, summed in another order
+    say("kernel K3 gather", BK=B, pos=pos, max_abs_err=err, tol=tol,
+        tied_rows=rows, ms=ms, plain_ms=plain_ms)
+    need(err <= tol, f"K3 gather max_abs_err {err} > {tol}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
 
 
@@ -426,9 +606,37 @@ def train_batch(rng, cfg, n, frames):
             "acous_feat": feats, "acouslen": lens}
 
 
-def phase_train_parity(seed, rng):
-    """The kernel route on the card against the plain route on CPU copies,
-    one deterministic step."""
+@contextlib.contextmanager
+def relu_patterns(replay=None):
+    """While active, torch.relu (the transformer FFNs' only nonlinearity
+    with a kink) records each call's pattern, input > 0, in call order; the
+    context yields that list. Given `replay`, another arm's recorded list,
+    it returns x * pattern instead: the same linear piece that arm's step
+    took, so that the two differ by rounding alone."""
+    seen, relu = [], torch.relu
+
+    def patched(x):
+        seen.append((x > 0).detach().cpu())
+        if replay is None:
+            return relu(x)
+        return x * replay[len(seen) - 1].to(x.device, x.dtype)
+
+    torch.relu = patched
+    try:
+        yield seen
+    finally:
+        torch.relu = relu
+
+
+def train_parity_readings(seed):
+    """One deterministic ASR_ST step, made from `seed` alone: the kernel
+    route on the card and the plain route on CPU copies, both f32, each
+    against the plain route in float64 that takes the same ReLU pieces (a
+    pre-activation within rounding of 0 flips the ReLU's gradient between
+    0 and 1, so an f32 arm and float64 may take different pieces: that
+    moves the FFN's leaves by a finite step and is no fault). Returns the
+    readings, with `leaves`: (name, card error, CPU error) per gradient
+    leaf, each the relative norm of the difference from its float64 arm."""
     from stjep_tpu_torch.bridge import leaves, named_leaves, params_to
     from stjep_tpu_torch.config import ModelConfig
     from stjep_tpu_torch.models.seq2seq import init_seq2seq
@@ -438,59 +646,83 @@ def phase_train_parity(seed, rng):
     cfg = ModelConfig(**{**FLAGSHIP, "dropout": 0.0, "spec_aug": False,
                          "embedding_dropout": 0.0})
     params_c = init_seq2seq(cfg, torch.Generator().manual_seed(seed + 1), "cpu")
-    mb = train_batch(rng, cfg, PARITY_B, PARITY_FRAMES)
-    arms, secs = {}, {}
-    for dev in ("cuda", "cpu"):
-        p = params_to(params_c, dev) if dev == "cuda" else params_c
+    mb = train_batch(np.random.RandomState(seed), cfg, PARITY_B, PARITY_FRAMES)
+    # copies made before any step, which updates its arm's tree in place
+    trees = {"card": params_to(params_c, "cuda"), "cpu": params_c,
+             "f64 card": params_to(params_c, torch.float64),
+             "f64 cpu": params_to(params_c, torch.float64)}
+    arms, secs, pats, flips = {}, {}, {}, {}
+    for arm, dev, dt in (("card", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+                         ("f64 card", "cpu", torch.float64), ("f64 cpu", "cpu", torch.float64)):
+        p = trees[arm]
+        batch = {k: v.to(dev, dt if v.is_floating_point() else v.dtype) for k, v in mb.items()}
+        replay = pats.get(arm.split()[-1]) if arm.startswith("f64") else None
         t0 = time.perf_counter()
-        losses, grads = compute_grads(cfg, "ASR_ST", p, [{k: v.to(dev) for k, v in mb.items()}],
-                                      torch.Generator().manual_seed(seed), is_training=False)
+        with relu_patterns(replay) as seen:
+            losses, grads = compute_grads(cfg, "ASR_ST", p, [batch],
+                                          torch.Generator().manual_seed(seed),
+                                          is_training=False)
+        if replay is None:
+            pats[arm] = seen
+        else:  # entries where float64's own sign differs from the replayed one
+            flips[arm] = sum(int((a != b).sum()) for a, b in zip(seen, replay))
         before = [t_.detach().clone() for t_ in leaves(p)]
         opt = make_optimizer(1.0)
         opt.update(grads, set_lr(opt.init(p), TRAIN_LR))
         if dev == "cuda":
             torch.cuda.synchronize()
-        secs[dev] = time.perf_counter() - t0
+        secs[arm] = time.perf_counter() - t0
         moved = [a.detach() - b for a, b in zip(leaves(p), before)]
-        arms[dev] = (float(sum(losses.values())), [g_.cpu() for g_ in grads],
-                     [m.cpu() for m in moved])
+        arms[arm] = (float(sum(losses.values())), [g_.cpu().double() for g_ in grads],
+                     [m.cpu().double() for m in moved])
     names = [n for n, _ in named_leaves(params_c)]
-    (loss_g, grads_g, moved_g), (loss_c, grads_c, moved_c) = arms["cuda"], arms["cpu"]
-    loss_rel = abs(loss_g - loss_c) / abs(loss_c)
 
-    def worst(xs, ys):
-        out = (0.0, None)
-        for nm, a, b in zip(names, xs, ys):
-            nb = float(b.double().norm())
-            r = float((a.double() - b.double()).norm()) / nb if nb > 0 else float(a.abs().max())
-            out = max(out, (r, nm), key=lambda v: v[0])
-        return out
+    def rel(xs, ys):
+        return [float((a - b).norm() / b.norm()) if float(b.norm()) > 0
+                else float(a.abs().max()) for a, b in zip(xs, ys)]
 
-    g_rel, g_leaf = worst(grads_g, grads_c)
+    e_card = rel(arms["card"][1], arms["f64 card"][1])
+    e_cpu = rel(arms["cpu"][1], arms["f64 cpu"][1])
+    e_pair = rel(arms["card"][1], arms["cpu"][1])  # card against CPU, no shared pieces
+    wc, wq, wp = (max(zip(e, names)) for e in (e_card, e_cpu, e_pair))
     # Adam's first step moves a coordinate by -lr * g / (|g| + eps), about
     # lr * sign(g): where g is near zero the arms' rounding can move it the
     # other way. So each arm's step is held to that formula from its OWN
-    # gradients (float64; 1e-2 lr covers f32 rounding of |p| < 8), and the
-    # arms' parameters then differ only as their gradients do
-    formula_err = {}
-    for dev, (_, grads, moved) in arms.items():
-        formula_err[dev] = max(float((m.double() - u).abs().max()) / TRAIN_LR
-                               for m, u in zip(moved, adam_first_step(grads)))
-    apart = sum(int(((a - b).abs() > 1e-3 * TRAIN_LR).sum())
-                for a, b in zip(moved_g, moved_c))
-    p_diff = max(float((a - b).abs().max()) for a, b in zip(moved_g, moved_c))
-    # f32 on both sides in another summation order: the loss to 1e-4, each
-    # gradient leaf to 1e-3 of its norm
-    say("train parity", B=PARITY_B, frames=PARITY_FRAMES, loss_card=loss_g,
-        loss_cpu=loss_c, loss_rel=loss_rel, tol=1e-4, worst_grad_rel=g_rel,
-        worst_grad_leaf=g_leaf, tol_grad=1e-3, lr=TRAIN_LR,
-        adam_step_err_lr_card=formula_err["cuda"], adam_step_err_lr_cpu=formula_err["cpu"],
-        tol_adam=1e-2, max_param_diff=p_diff, coords_moved_apart=apart,
-        of=sum(m.numel() for m in moved_c), card_s=round(secs["cuda"], 3),
-        cpu_s=round(secs["cpu"], 3))
-    need(loss_rel <= 1e-4, f"train parity loss {loss_g} vs {loss_c}")
-    need(g_rel <= 1e-3, f"train parity gradient {g_leaf}: {g_rel}")
-    need(max(formula_err.values()) <= 1e-2, f"train parity Adam step: {formula_err}")
+    # gradients (float64; 1e-2 lr covers f32 rounding of |p| < 8)
+    formula_err = {arm: max(float((m - u).abs().max()) / TRAIN_LR
+                            for m, u in zip(moved, adam_first_step(grads)))
+                   for arm, (_, grads, moved) in arms.items()}
+    loss_rel = {a: abs(arms[a][0] - arms[f"f64 {a}"][0]) / abs(arms[f"f64 {a}"][0])
+                for a in ("card", "cpu")}
+    return dict(seed=seed, loss_card=arms["card"][0], loss_f64=arms["f64 card"][0],
+                loss_rel_card=loss_rel["card"], loss_rel_cpu=loss_rel["cpu"],
+                worst_grad_card=wc[0], worst_leaf_card=wc[1],
+                worst_grad_cpu=wq[0], worst_leaf_cpu=wq[1],
+                relu_entries=sum(t.numel() for t in pats["card"]),
+                relu_flips_card_cpu=sum(int((a != b).sum())
+                                        for a, b in zip(pats["card"], pats["cpu"])),
+                relu_flips_card_f64=flips["f64 card"], relu_flips_cpu_f64=flips["f64 cpu"],
+                card_vs_cpu_worst_grad=wp[0], card_vs_cpu_worst_leaf=wp[1],
+                adam_step_err_lr_card=formula_err["card"],
+                adam_step_err_lr_cpu=formula_err["cpu"],
+                card_s=round(secs["card"], 3), cpu_s=round(secs["cpu"], 3),
+                f64_s=round(secs["f64 card"], 3), leaves=list(zip(names, e_card, e_cpu, e_pair)))
+
+
+def phase_train_parity(seed):
+    """train_parity_readings held to its limits: the loss to 1e-4 and every
+    gradient leaf to PARITY_TOL of its norm, against float64 on the same
+    ReLU pieces; each arm's Adam step to its formula."""
+    r = train_parity_readings(seed)
+    say("train parity", B=PARITY_B, frames=PARITY_FRAMES,
+        **{k: v for k, v in r.items() if k != "leaves"}, tol_loss=1e-4,
+        tol_grad=PARITY_TOL, tol_adam=1e-2)
+    need(r["loss_rel_card"] <= 1e-4, f"train parity loss {r['loss_card']} vs f64 {r['loss_f64']}")
+    need(r["worst_grad_card"] <= PARITY_TOL,
+         f"train parity gradient {r['worst_leaf_card']}: {r['worst_grad_card']} of its "
+         f"norm from float64 > {PARITY_TOL}")
+    need(max(r["adam_step_err_lr_card"], r["adam_step_err_lr_cpu"]) <= 1e-2,
+         f"train parity Adam step: card {r['adam_step_err_lr_card']}, cpu {r['adam_step_err_lr_cpu']}")
 
 
 def adam_first_step(grads, max_norm: float = 1.0, eps: float = 1e-8):
@@ -504,12 +736,11 @@ def adam_first_step(grads, max_norm: float = 1.0, eps: float = 1e-8):
 
 
 def phase_train_e2e(seed, rng):
-    """make_train_step at the flagship; returns the K8/K9 launch counts."""
+    """make_train_step at the flagship; returns the main path's launch
+    counts."""
     from stjep_tpu_torch.bridge import leaves, named_leaves, params_to
     from stjep_tpu_torch.config import ModelConfig
     from stjep_tpu_torch.models.seq2seq import init_seq2seq
-    from stjep_tpu_torch.ops import las_tf_flash as k9
-    from stjep_tpu_torch.ops import lstm_pallas_bwd as k8
     from stjep_tpu_torch.train.optim import make_optimizer
     from stjep_tpu_torch.train.trainer import make_train_step
 
@@ -521,10 +752,7 @@ def phase_train_e2e(seed, rng):
     opt_state = opt.init(params)
     step = make_train_step(cfg, "ASR_ST", opt)
     gen = torch.Generator().manual_seed(seed)
-    counters = {"K8 fwd": k8.bilstm_fwd_save, "K8 bwd": k8.bilstm_bwd,
-                "K9 fwd": k9.las_tf_fwd, "K9 bwd": k9.las_tf_bwd}
-    for c in counters.values():
-        c.launches = 0
+    zero_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = [t.detach().clone() for t in leaves(params)]
@@ -539,41 +767,47 @@ def phase_train_e2e(seed, rng):
             still = [nm for (nm, a), b in zip(named_leaves(params), before)
                      if torch.equal(a.detach(), b) and nm != "/emb_dyn_ave"]
             need(not still, f"parameters unchanged by a train step: {still}")
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = read_counts(("K8 fwd", "K8 bwd", "K9 fwd", "K9 bwd"))
     timed = secs[2:]
     say("train e2e", mode="ASR_ST", B=B, frames=FRAMES, steps_per_s=len(timed) / sum(timed),
         step_ms=[round(x * 1e3, 3) for x in timed],
         warmup_ms=[round(x * 1e3, 3) for x in secs[:2]], losses=losses,
-        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30, launches=launches)
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        launches={k: n for k, n in launches.items() if n})
     need(all(np.isfinite(losses)), f"non-finite train loss: {losses}")
-    need(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
     return launches
 
 
 def recorded_translate(params, cfg, feats, lens):
     """forward_translate ST beam-5 that also records, at every beam
-    position, the state the megastep hands on (tokens [BK, L] and kept
-    scores [BK], on the host), starting with the state after position 1.
-    Returns (tokens [B, L], ASR hypotheses, states)."""
+    position, the state handed on (tokens [BK, L] and kept scores [BK], on
+    the host), starting with the state after position 1: the megastep's
+    output for the standard decoder, the general loop's select for the
+    universal one. Returns (tokens [B, L], ASR hypotheses, states)."""
     import stjep_tpu_torch.infer.beam as beam_mod
     from stjep_tpu_torch.infer.forward import encode_st, forward_translate
 
-    step, states = beam_mod.decode_beam_step_flash, []
+    # the function that hands the state on, and where its input preds and
+    # kept scores sit among its arguments
+    name, i_preds, i_scores = (("decode_beam_step_flash", 7, 11)
+                               if cfg.transformer_type == "standard"
+                               else ("beam_select", 5, 2))
+    step, states = getattr(beam_mod, name), []
 
     def recording(*a):
         if not states:  # the state after position 1: the first step's input
-            states.append((a[7].cpu(), a[11].cpu()))
+            states.append((a[i_preds].cpu(), a[i_scores].cpu()))
         out = step(*a)
         states.append((out[0].cpu(), out[4].cpu()))
         return out
 
-    beam_mod.decode_beam_step_flash = recording
+    setattr(beam_mod, name, recording)
     try:
         toks = forward_translate(params, cfg, "ST", acous_feats=feats,
                                  acous_lens=lens, beam_width=BEAM,
                                  penalty_factor=1.0, max_seq_len=DECODE_LEN)
     finally:
-        beam_mod.decode_beam_step_flash = step
+        setattr(beam_mod, name, step)
     return toks.cpu(), encode_st(params, cfg, feats, lens)[2].cpu(), states
 
 
@@ -620,6 +854,171 @@ def explain_e2e(params_c, cfg, feats, lens, card, plain):
     return margins
 
 
+def counters():
+    """Every kernel wrapper's launch counter: name -> (wrapper, attribute)."""
+    from stjep_tpu_torch.ops import decode_flash as df
+    from stjep_tpu_torch.ops import las_tf_flash as k9
+    from stjep_tpu_torch.ops import lstm_pallas_bwd as k8
+    from stjep_tpu_torch.ops.las_flash import las_greedy_flash
+    from stjep_tpu_torch.ops.lstm_pallas import bilstm_pallas
+
+    return {"K1": (bilstm_pallas, "launches"), "K2": (las_greedy_flash, "launches"),
+            "K3": (df.decode_chain_step_flash, "launches"),
+            "K3 gather": (df.decode_chain_step_flash, "gather_launches"),
+            "K4": (df.decode_beam_step_flash, "launches"),
+            "K4 select": (df.beam_select, "launches"),
+            "K5": (df.decoder_layer_step_flash, "launches"),
+            "K7 head": (df.decode_head, "launches"),
+            "K7 head_gather": (df.decode_head_gather, "launches"),
+            "K8 fwd": (k8.bilstm_fwd_save, "launches"), "K8 bwd": (k8.bilstm_bwd, "launches"),
+            "K9 fwd": (k9.las_tf_fwd, "launches"), "K9 bwd": (k9.las_tf_bwd, "launches")}
+
+
+def zero_counts():
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
+
+
+def read_counts(ran, idle=()):
+    """The counts since zero_counts(); fails unless every kernel in `ran`
+    launched and none in `idle` did."""
+    got = {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
+    need(all(got[k] > 0 for k in ran) and not any(got[k] for k in idle),
+         f"launch counts {got}: expected > 0 for {list(ran)}, 0 for {list(idle)}")
+    return got
+
+
+def phase_beam_e2e(label, params, params_c, cfg, reqs, gen, ran, idle=()):
+    """forward_translate ST beam 5 on the requests (B=16 each) and a B=1
+    latency, then the plain arm on CPU copies for request 0 with every
+    differing row explained by a tie. Returns the main path's launch
+    counts (the timed requests only)."""
+    from stjep_tpu_torch.config import BOS
+    from stjep_tpu_torch.infer.forward import forward_translate
+
+    # host inputs: the call moves them to the card, inside the timed region
+    call = lambda f, l: forward_translate(params, cfg, "ST", acous_feats=f,
+                                          acous_lens=l, beam_width=BEAM,
+                                          penalty_factor=1.0,
+                                          max_seq_len=DECODE_LEN,
+                                          device="cuda", generator=gen)
+    zero_counts()
+    outs, secs = [], []
+    for f, l in reqs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(call(f, l))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches = read_counts(ran, idle)
+    for o in outs:
+        need(o.shape == (B, DECODE_LEN) and bool((o[:, 0] == BOS).all())
+             and bool(((o >= 0) & (o < cfg.dec_vocab_size)).all()),
+             f"{label} output shape/range")
+    f1, l1 = reqs[0][0][:1], reqs[0][1][:1]
+    lat = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call(f1, l1)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    say(label, transformer=cfg.transformer_type, requests=len(reqs), batch=B,
+        utt_per_s=round(B * len(reqs) / sum(secs), 3),
+        request_ms=[round(s * 1e3, 1) for s in secs],
+        b1_latency_ms=round(statistics.median(lat) * 1e3, 1),
+        launches={k: n for k, n in launches.items() if n})
+
+    # the plain arm: the same call on CPU copies, for request 0
+    feats, lens = reqs[0]
+    t0 = time.perf_counter()
+    plain = recorded_translate(params_c, cfg, feats, lens)
+    plain_s = time.perf_counter() - t0
+    card = recorded_translate(params, cfg, feats.cuda(), lens.cuda())
+    need(torch.equal(card[0], outs[0].cpu()), f"{label}: card run not reproducible")
+    margins = explain_e2e(params_c, cfg, feats, lens, card, plain)
+    say(f"{label} plain arm", device="cpu", seconds=round(plain_s, 1),
+        rows_differ=len(margins), of=B,
+        max_first_divergence_margin=max(margins, default=0.0), limit=E2E_MARGIN)
+    need(all(m <= E2E_MARGIN for m in margins),
+         f"{label} rows differ beyond ties: margins {margins}")
+    return launches
+
+
+def phase_dev_eval(label, params, params_c, cfg, rng, ran):
+    """forward_eval ASR_ST with reference ids (dev eval) at B=16: 3 timed
+    calls on the card, then the plain arm on CPU copies. preds_asr and
+    preds_st must be equal, or differ only by a tie at the first
+    divergence (the plain arm's log-probs of the two choices there, read
+    through forward_eval's own picked_* with each arm's tokens as refs,
+    within E2E_MARGIN); picked_* within 1e-4 on the rows that agree.
+    Returns the main path's launch counts."""
+    from stjep_tpu_torch.config import BOS
+    from stjep_tpu_torch.infer.forward import forward_eval
+
+    feats, lens = inputs(rng, B)
+    refs = {"ref_src": torch.from_numpy(rng.randint(5, cfg.enc_vocab_size, (B, cfg.max_seq_len_src))),
+            "ref_tgt": torch.from_numpy(rng.randint(5, cfg.dec_vocab_size, (B, cfg.max_seq_len_tgt)))}
+    for r in refs.values():
+        r[:, 0] = BOS
+
+    def run(p, dev, **kw):
+        kw = {**refs, **kw}
+        return forward_eval(p, cfg, "ASR_ST", acous_feats=feats.to(dev),
+                            acous_lens=lens.to(dev), **{k: v.to(dev) for k, v in kw.items()})
+
+    zero_counts()
+    secs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_g = run(params, "cuda")
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches = read_counts(ran)
+    out_g = {k: v.cpu() for k, v in out_g.items()}
+    t0 = time.perf_counter()
+    out_c = run(params_c, "cpu")
+    plain_s = time.perf_counter() - t0
+    need(set(out_g) == set(out_c), f"{label} keys {set(out_g)} vs {set(out_c)}")
+    for k, v in out_c.items():
+        need(out_g[k].shape == v.shape and bool(torch.isfinite(out_g[k].float()).all()),
+             f"{label} {k}: shape {tuple(out_g[k].shape)} vs {tuple(v.shape)} or not finite")
+    asr_rows, st_rows = (first_diff(out_g[k], out_c[k]) for k in ("preds_asr", "preds_st"))
+    margins = []
+    if any(c is not None for c in asr_rows + st_rows):
+        # each arm's tokens as the refs of the plain arm: picked_* are then
+        # the plain log-probs of the card's and of its own choices
+        with_bos = lambda p: torch.cat([torch.full_like(p[:, :1], BOS), p], 1)
+        at = {nm: run(params_c, "cpu", ref_src=with_bos(o["preds_asr"]), ref_tgt=o["preds_st"])
+              for nm, o in (("card", out_g), ("own", out_c))}
+        for r, (ca, cs) in enumerate(zip(asr_rows, st_rows)):
+            if ca is not None:
+                stage, col, key = "las", ca, "picked_asr"
+            elif cs is not None:
+                stage, col, key = "greedy", cs - 1, "picked_st"  # picked_st[j] scores slot j+1
+            else:
+                continue
+            m = float(abs(at["own"][key][r, col] - at["card"][key][r, col]))
+            say(f"{label} differing row", row=r, stage=stage, col=col, margin=m)
+            margins.append(m)
+    same = [ca is None and cs is None for ca, cs in zip(asr_rows, st_rows)]
+    same_asr = [ca is None for ca in asr_rows]
+    err = max(max_err(out_g["picked_asr"][same_asr], out_c["picked_asr"][same_asr]),
+              max_err(out_g["picked_st"][same], out_c["picked_st"][same]))
+    tol = 1e-4  # log-probs through the free-running decoders in f32, summed in another order
+    say(label, transformer=cfg.transformer_type, batch=B, calls=len(secs),
+        utt_per_s=round(B * len(secs) / sum(secs), 3),
+        call_ms=[round(x * 1e3, 1) for x in secs], plain_cpu_s=round(plain_s, 1),
+        rows_differ=len(margins), of=B, max_first_divergence_margin=max(margins, default=0.0),
+        limit=E2E_MARGIN, picked_max_abs_err=err, tol=tol,
+        launches={k: n for k, n in launches.items() if n})
+    need(all(m <= E2E_MARGIN for m in margins),
+         f"{label} rows differ beyond ties: margins {margins}")
+    need(err <= tol, f"{label} picked max_abs_err {err} > {tol}")
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -631,15 +1030,8 @@ def main() -> int:
         return 2
     from stjep_tpu_torch import kernels
     from stjep_tpu_torch.bridge import params_to
-    from stjep_tpu_torch.config import BOS, ModelConfig
-    from stjep_tpu_torch.infer.forward import forward_translate
+    from stjep_tpu_torch.config import ModelConfig
     from stjep_tpu_torch.models.seq2seq import init_seq2seq
-    from stjep_tpu_torch.ops.decode_flash import (
-        decode_beam_step_flash,
-        decode_chain_step_flash,
-    )
-    from stjep_tpu_torch.ops.las_flash import las_greedy_flash
-    from stjep_tpu_torch.ops.lstm_pallas import bilstm_pallas
 
     # 1. device
     smi = subprocess.run(
@@ -665,86 +1057,60 @@ def main() -> int:
 
     # 3. kernels vs their plain versions
     results = {"K1": phase_k1(params, cfg, rng), "K2": phase_k2(params, cfg, rng),
-               "K3": phase_k3(params, cfg, rng), "K4": phase_k4(params, cfg, rng)}
+               "K3": phase_k3(params, cfg, rng), "K4": phase_k4(params, cfg, rng),
+               "K4 select": phase_k4_select(params, cfg, rng),
+               "K5": phase_k5(params, cfg, rng),
+               "K3 gather": phase_k3_gather(params, cfg, rng)}
+    k7 = phase_k7(params, cfg, rng)
+    results["K7 head"], results["K7 head_gather"] = k7["head"], k7["head_gather"]
 
-    # 4. end to end: 3 requests of B=16, ST beam 5
+    # 4. the main paths, each driven with every launch count zeroed just
+    # before it and read just after; the kernels line sums them
     reqs = [inputs(rng, B) for _ in range(3)]
-    # host inputs: the call moves them to the card, inside the timed region
-    call = lambda f, l: forward_translate(params, cfg, "ST", acous_feats=f,
-                                          acous_lens=l, beam_width=BEAM,
-                                          penalty_factor=1.0,
-                                          max_seq_len=DECODE_LEN,
-                                          device="cuda", generator=gen)
-    wrappers = {"K1": bilstm_pallas, "K2": las_greedy_flash,
-                "K3": decode_chain_step_flash, "K4": decode_beam_step_flash}
-    for w in wrappers.values():
-        w.launches = 0
-    outs, secs = [], []
-    for f, l in reqs:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        outs.append(call(f, l))
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-    launches = {k: w.launches for k, w in wrappers.items()}
-    for o in outs:
-        need(o.shape == (B, DECODE_LEN) and bool((o[:, 0] == BOS).all())
-             and bool(((o >= 0) & (o < cfg.dec_vocab_size)).all()),
-             "e2e output shape/range")
-    need(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
-    f1, l1 = reqs[0][0][:1], reqs[0][1][:1]
-    lat = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        call(f1, l1)
-        torch.cuda.synchronize()
-        lat.append(time.perf_counter() - t0)
-    say("e2e", requests=len(reqs), batch=B, utt_per_s=round(B * len(reqs) / sum(secs), 3),
-        request_ms=[round(s * 1e3, 1) for s in secs],
-        b1_latency_ms=round(statistics.median(lat) * 1e3, 1), launches=launches)
-
-    # the plain arm: the same call on CPU copies, for request 0
-    feats, lens = reqs[0]
-    t0 = time.perf_counter()
-    plain = recorded_translate(params_c, cfg, feats, lens)
-    plain_s = time.perf_counter() - t0
-    card = recorded_translate(params, cfg, feats.cuda(), lens.cuda())
-    need(torch.equal(card[0], outs[0].cpu()), "card run not reproducible")
-    margins = explain_e2e(params_c, cfg, feats, lens, card, plain)
-    say("e2e plain arm", device="cpu", seconds=round(plain_s, 1),
-        rows_differ=len(margins), of=B,
-        max_first_divergence_margin=max(margins, default=0.0), limit=E2E_MARGIN)
-    need(all(m <= E2E_MARGIN for m in margins),
-         f"e2e rows differ beyond ties: margins {margins}")
+    ucfg = ModelConfig(**{**FLAGSHIP, "transformer_type": "universal"})
+    uparams_c = init_seq2seq(ucfg, torch.Generator().manual_seed(args.seed + 3), "cpu")
+    uparams = params_to(uparams_c, "cuda")
+    runs = [
+        phase_beam_e2e("e2e", params, params_c, cfg, reqs, gen,
+                       ran=("K1", "K2", "K3", "K4"), idle=("K4 select",)),
+        phase_beam_e2e("e2e universal", uparams, uparams_c, ucfg, reqs, gen,
+                       ran=("K1", "K2", "K5", "K7 head", "K4 select"),
+                       idle=("K3", "K3 gather", "K4")),
+        phase_dev_eval("dev eval", params, params_c, cfg, rng,
+                       ran=("K1", "K2", "K3 gather")),
+        phase_dev_eval("dev eval universal", uparams, uparams_c, ucfg, rng,
+                       ran=("K1", "K2", "K5", "K7 head_gather")),
+    ]
 
     # 5-7. the train path: its kernels, a parity step, the flagship step
     k8_res, k9_res = phase_k8(params, cfg, rng), phase_k9(params, cfg, rng)
     for d in ("fwd", "bwd"):
         results[f"K8 {d}"], results[f"K9 {d}"] = k8_res[d], k9_res[d]
-    phase_train_parity(args.seed, rng)
-    launches.update(phase_train_e2e(args.seed, rng))
+    phase_train_parity(args.seed)
+    runs.append(phase_train_e2e(args.seed, rng))
+    launches = {k: sum(r.get(k, 0) for r in runs) for k in counters()}
 
-    sources = {"K1": ("bilstm", "stjep_tpu_torch/csrc/bilstm.cu",
-                      "stjep_tpu/ops/lstm_pallas.py:206"),
-               "K2": ("las_greedy", "stjep_tpu_torch/csrc/las_greedy.cu",
-                      "stjep_tpu/ops/las_flash.py:168"),
-               "K3": ("decode_chain_step", "stjep_tpu_torch/csrc/decode.cu",
-                      "stjep_tpu/ops/decode_flash.py:1078"),
-               "K4": ("decode_beam_step", "stjep_tpu_torch/csrc/decode.cu",
-                      "stjep_tpu/ops/decode_flash.py:1412"),
-               "K8 fwd": ("bilstm_fwd_save", "stjep_tpu_torch/csrc/bilstm.cu",
-                          "stjep_tpu/ops/lstm_pallas_bwd.py:174"),
-               "K8 bwd": ("bilstm_bwd", "stjep_tpu_torch/csrc/bilstm_bwd.cu",
-                          "stjep_tpu/ops/lstm_pallas_bwd.py:262"),
-               "K9 fwd": ("las_tf_fwd", "stjep_tpu_torch/csrc/las_tf.cu",
-                          "stjep_tpu/ops/las_tf_flash.py:263"),
-               "K9 bwd": ("las_tf_bwd", "stjep_tpu_torch/csrc/las_tf.cu",
-                          "stjep_tpu/ops/las_tf_flash.py:364")}
+    src, rep = "stjep_tpu_torch/csrc/", "stjep_tpu/ops/"
+    sources = {"K1": ("bilstm", src + "bilstm.cu", rep + "lstm_pallas.py:206"),
+               "K2": ("las_greedy", src + "las_greedy.cu", rep + "las_flash.py:168"),
+               "K3": ("decode_chain_step", src + "decode.cu", rep + "decode_flash.py:1078"),
+               "K3 gather": ("decode_chain_step gather", src + "decode.cu",
+                             rep + "decode_flash.py:1078"),
+               "K4": ("decode_beam_step", src + "decode.cu", rep + "decode_flash.py:1412"),
+               "K4 select": ("beam_select", src + "decode.cu", rep + "decode_flash.py:1412"),
+               "K5": ("decoder_layer_step", src + "decode.cu", rep + "decode_flash.py:759"),
+               "K7 head": ("decode_head", src + "decode.cu", rep + "decode_flash.py:1595"),
+               "K7 head_gather": ("decode_head_gather", src + "decode.cu",
+                                  rep + "decode_flash.py:1628"),
+               "K8 fwd": ("bilstm_fwd_save", src + "bilstm.cu", rep + "lstm_pallas_bwd.py:174"),
+               "K8 bwd": ("bilstm_bwd", src + "bilstm_bwd.cu", rep + "lstm_pallas_bwd.py:262"),
+               "K9 fwd": ("las_tf_fwd", src + "las_tf.cu", rep + "las_tf_flash.py:263"),
+               "K9 bwd": ("las_tf_bwd", src + "las_tf.cu", rep + "las_tf_flash.py:364")}
+    need(all(launches[k] > 0 for k in sources), f"a kernel never launched: {launches}")
     print(json.dumps({"kernels": [
-        {"name": nm, "route": "cuda", "source": src, "replaces": rep,
+        {"name": nm, "route": "cuda", "source": s_, "replaces": r_,
          "launches": launches[k], **results[k]}
-        for k, (nm, src, rep) in sources.items()]}))
+        for k, (nm, s_, r_) in sources.items()]}))
     say("total", seconds=round(time.perf_counter() - t_start, 1))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,12 +1,15 @@
-// K3 / K4: the transformer beam-decode step kernels.
+// K3 / K4 / K5 / K7: the transformer decode-step kernels.
 //
-// K3 replaces stjep_tpu/ops/decode_flash.py `decode_chain_step_flash` (body
-// `_chain_kernel`: `_self_core`, `_cross_core`, `_ffn_core`, `_head_topk`)
-// and K4 replaces `decode_beam_step_flash` (body `_beam_step_kernel`). On
-// the TPU each was one launch per decode position; here a position is a
-// chain of launches per layer — layernorm, GEMMs (gemm.cu), and the two
-// attention kernels below — then the head (layernorm, GEMM, head_topk) and,
-// for K4, embed_time before and beam_select after.
+// They replace stjep_tpu/ops/decode_flash.py `decoder_layer_step_flash`
+// (K5, body `_layer_kernel`: `_self_core`, `_cross_core`, `_ffn_core`),
+// `decode_head` / `decode_head_gather` (K7, body `_head_kernel` ->
+// `_head_topk`), `decode_chain_step_flash` (K3, body `_chain_kernel`: every
+// layer's cores, then `_head_topk`) and `decode_beam_step_flash` (K4, body
+// `_beam_step_kernel`). On the TPU each was one launch. Here K5 is a chain
+// of launches — layernorm, GEMMs (gemm.cu), and the two attention kernels
+// below; K7 is layernorm, GEMM and head_topk; K3 is K5 per layer then K7;
+// K4 is embed_time, K3's layers and head, then beam_select, which the
+// general beam loop also launches alone after its own decode position.
 //
 // Cache semantics are the TPU kernel's: self caches [K, B, Lpad, D] per
 // layer are never reordered; row r = b*K + k writes its new K/V row at
@@ -175,42 +178,65 @@ __global__ void __launch_bounds__(ATT_THREADS) cross_attn_kernel(
                   part, red, out + (size_t)r * D + hoff);
 }
 
-// Decode head for one row per block: log-softmax over V, then top-K by
-// repeated arg-max with the lowest index winning ties (jax.lax.top_k's
-// order); a taken entry is set to -1e30 like the TPU kernel.
+constexpr int MAX_BEAM = 16;
+
+// K7, the decode head after its layernorm and GEMM (`_head_topk`, and the
+// gather of `_head_kernel`): one row per block. The logit row is read from
+// global memory, where L2 holds it (120 KB at a 30 000-word vocabulary), so
+// V has no bound. One pass gives the log-sum-exp (each thread keeps an
+// online max and a sum rescaled to it; the block combines them) and picks up
+// logit[gid] for glp = logit[gid] - lse (0 - lse for an id outside [0, V),
+// as the TPU kernel's masked sum gives). Then K arg-max passes with the
+// lowest index winning ties (jax.lax.top_k's order); each pass skips the ids
+// already taken, held in a shared list of at most MAX_BEAM, so the row is
+// never written.
 __global__ void head_topk_kernel(const float* __restrict__ logits,
+                                 const int* __restrict__ gid,
                                  float* __restrict__ sc, int* __restrict__ ids,
-                                 int V, int K) {
-  extern __shared__ float x[];  // [V]
+                                 float* __restrict__ glp, int V, int K) {
   __shared__ float rv[32];
   __shared__ int ri[32];
   __shared__ float red[32];
+  __shared__ int taken[MAX_BEAM];
+  __shared__ float glog;
   const int r = blockIdx.x;
-  for (int c = threadIdx.x; c < V; c += blockDim.x) x[c] = logits[(size_t)r * V + c];
+  const float* x = logits + (size_t)r * V;
+  const int g = gid ? gid[r] : -1;
+  if (threadIdx.x == 0) glog = 0.f;
   __syncthreads();
-  float m = -INFINITY;
-  for (int c = threadIdx.x; c < V; c += blockDim.x) m = fmaxf(m, x[c]);
-  m = block_max(m, red);
-  float z = 0.f;
-  for (int c = threadIdx.x; c < V; c += blockDim.x) z += expf(x[c] - m);
-  z = block_sum(z, red);
-  const float lse = m + logf(z);
+  float m = -INFINITY, z = 0.f;
+  for (int c = threadIdx.x; c < V; c += blockDim.x) {
+    const float v = x[c];
+    if (v > m) {
+      z = z * expf(m - v) + 1.f;
+      m = v;
+    } else {
+      z += expf(v - m);
+    }
+    if (c == g) glog = v;
+  }
+  const float mx = block_max(m, red);
+  const float lse = mx + logf(block_sum(m == -INFINITY ? 0.f : z * expf(m - mx), red));
+  if (glp && threadIdx.x == 0) glp[r] = glog - lse;
   for (int k = 0; k < K; ++k) {
     float bv = -INFINITY;
     int bi = 0x7fffffff;
-    for (int c = threadIdx.x; c < V; c += blockDim.x)
-      if (better(x[c], c, bv, bi)) { bv = x[c]; bi = c; }
+    for (int c = threadIdx.x; c < V; c += blockDim.x) {
+      const float v = x[c];
+      if (!better(v, c, bv, bi)) continue;
+      bool was_taken = false;
+      for (int j = 0; j < k; ++j) was_taken |= taken[j] == c;
+      if (!was_taken) { bv = v; bi = c; }
+    }
     block_argmax(bv, bi, rv, ri);
     if (threadIdx.x == 0) {
       sc[(size_t)r * K + k] = bv - lse;
       ids[(size_t)r * K + k] = bi;
-      x[bi] = -1e30f;
+      taken[k] = bi;
     }
     __syncthreads();
   }
 }
-
-constexpr int MAX_BEAM = 16;
 
 // The k^2 -> k beam update for one batch item per block, transcribing
 // stjep_tpu/infer/beam.py body() / decode_flash.py `_beam_step_kernel`:
@@ -314,10 +340,13 @@ extern "C" int cross_attn(const float* q, const float* mk, const float* mv,
   STJEP_RETURN_LAUNCH_STATUS();
 }
 
-extern "C" int head_topk(const float* logits, float* sc, int* ids, int BK,
-                         int V, int K, cudaStream_t stream) {
-  if (V * (int)sizeof(float) > 48 * 1024) return (int)cudaErrorInvalidValue;
-  head_topk_kernel<<<BK, 256, V * sizeof(float), stream>>>(logits, sc, ids, V, K);
+// gid and glp may be null (no gather).
+extern "C" int head_topk(const float* logits, const int* gid, float* sc,
+                         int* ids, float* glp, int BK, int V, int K,
+                         cudaStream_t stream) {
+  if (K < 1 || K > MAX_BEAM || K > V) return (int)cudaErrorInvalidValue;
+  head_topk_kernel<<<BK, V >= 4096 ? 1024 : 256, 0, stream>>>(logits, gid, sc,
+                                                              ids, glp, V, K);
   STJEP_RETURN_LAUNCH_STATUS();
 }
 

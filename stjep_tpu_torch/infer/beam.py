@@ -1,16 +1,23 @@
 """Batched beam search over the decode kernels (port of the kernel route of
 stjep_tpu/infer/beam.py `_beam_search_flash`).
 
-Position 1 runs K3 (`decode_chain_step_flash`) and keeps beam 0's K
-candidates (ref: Seq2seq.py:349-356); positions 2.. run K4
-(`decode_beam_step_flash`), the whole k^2 -> k step, until `max_seq_len`
-or until every beam has emitted EOS. The all-EOS flag is read on the host
-once per step. Caches are never reordered: the ancestry map `anc` records
-which slot holds each hypothesis's K/V per position. Returns beam 0 per
-batch item, as the reference's output does.
+Position 1 keeps beam 0's K candidates (ref: Seq2seq.py:349-356). Each
+position runs `decode_pos`: for the standard decoder K3
+(`decode_chain_step_flash`, all layers and the head); for the universal one
+K5 (`decoder_layer_step_flash`) per hop, then the head K7 (`decode_head`).
+From position 2 on, two loops, where JAX has them (beam.py:371-372):
 
-The megastep needs no decoder-side embedding projection and a target table
-of at most 4 MB (`beam.py:371-372`); the other routes are not ported yet.
+- the megastep K4 (`decode_beam_step_flash`, the whole k^2 -> k step in one
+  call) for a standard decoder without a decoder-side embedding projection
+  and with a target table of at most 4 MB;
+- otherwise the general loop: anc[pos] set to each row's own slot, then
+  `decode_pos`, and the k^2 -> k select with its back-copies
+  (`beam_select`: on the card K4's select kernel, the megastep's own).
+
+Both run until `max_seq_len` or until every beam has emitted EOS; the
+all-EOS flag is read on the host once per step. Caches are never reordered:
+the ancestry map `anc` records which slot holds each hypothesis's K/V per
+position. Returns beam 0 per batch item, as the reference's output does.
 """
 
 from __future__ import annotations
@@ -23,17 +30,22 @@ import torch.nn.functional as F
 from stjep_tpu_torch.config import BOS, EOS, PAD, ModelConfig
 from stjep_tpu_torch.models.seq2seq import _dec_embedder, _embed_tgt_token
 from stjep_tpu_torch.models.tf_decoder import (
+    decode_signals,
     tf_decoder_chain_step,
     tf_decoder_init_cache_chain,
+    tf_decoder_step_flash,
 )
 from stjep_tpu_torch.ops.decode_flash import (
     BLOCK,
     CROSS_BLOCK,
+    beam_select,
     decode_beam_step_flash,
+    decode_head,
     pad_len,
     stack_decoder_layers,
 )
-from stjep_tpu_torch.ops.masks import position_signal
+
+MEGASTEP_TABLE_BYTES = 4 * 1024 * 1024  # ref: beam.py:371-372
 
 
 def beam_search(params: Dict, cfg: ModelConfig, enc_outputs: torch.Tensor,
@@ -43,11 +55,6 @@ def beam_search(params: Dict, cfg: ModelConfig, enc_outputs: torch.Tensor,
     """enc_outputs [B, Lk, D], mem_mask_b [B, Lk] bool (True = attend).
     Returns (preds [B, max_seq_len] best-beam tokens, BOS first,
     PAD-padded; scores [B])."""
-    emb_table = _dec_embedder(params, cfg)
-    if cfg.dec_emb_proj_flag or emb_table.numel() * 4 > 4 * 1024 * 1024:
-        raise NotImplementedError(
-            "only the beam megastep route is ported (no dec_emb_proj, target "
-            "table <= 4 MB); see ROADMAP Queue B")
     dev = enc_outputs.device
     i32 = torch.int32
     B, Lk, D = enc_outputs.shape
@@ -61,18 +68,28 @@ def beam_search(params: Dict, cfg: ModelConfig, enc_outputs: torch.Tensor,
     mem_mask_t = F.pad(mem_mask_b.to(i32), (0, Lk_pad - Lk)).T.contiguous()
 
     dec = params["dec_tgt"]
+    use_chain = cfg.transformer_type == "standard"  # ref: chain_supported
     cache = tf_decoder_init_cache_chain(dec, cfg, enc_outputs, max_seq_len, K)
     preds = torch.full((BK, Lbuf), PAD, dtype=i32, device=dev)
     preds[:, 0] = BOS
     own = torch.arange(BK, device=dev, dtype=i32) % K
     anc = own[None, :].repeat(Lbuf, 1)
     maskk = (preds != PAD).T.to(i32).contiguous()
+    stacked = stack_decoder_layers(dec) if use_chain else None
+    tsig, lsig = decode_signals(cfg, max_time, dev)
+
+    def decode_pos(tok, pos, anc, maskk):
+        emb = _embed_tgt_token(params, cfg, tok)
+        if use_chain:
+            return tf_decoder_chain_step(
+                stacked, dec["norm"], params["out_tgt"], cfg, emb, cache, pos,
+                anc, K, mem_mask_t, maskk, K, tsig)
+        x = tf_decoder_step_flash(dec, cfg, emb, cache, pos, anc, K, mem_mask_t,
+                                  maskk, tsig, lsig)
+        return decode_head(dec["norm"], params["out_tgt"], x, K)
 
     # position 1: keep beam 0's K candidates; ancestry stays all-self
-    emb = _embed_tgt_token(params, cfg, preds[:, 0])
-    score_k, pred_k = tf_decoder_chain_step(
-        dec, params["out_tgt"], cfg, emb, cache, 0, anc, K, mem_mask_t, maskk,
-        K, max_time=max_time)
+    score_k, pred_k = decode_pos(preds[:, 0], 0, anc, maskk)
     scores = score_k.reshape(B, K * K)[:, :K].reshape(-1).contiguous()
     last_tok = pred_k.reshape(B, K * K)[:, :K].reshape(-1).contiguous()
     preds[:, 1] = last_tok
@@ -81,17 +98,25 @@ def beam_search(params: Dict, cfg: ModelConfig, enc_outputs: torch.Tensor,
     lenm = 1.0 + (eos == 0).to(torch.float32)
     done = bool(eos.all())
 
-    stacked = stack_decoder_layers(dec)
-    tsig = position_signal(max_time, cfg.dim_model, dev)[0].contiguous()
-    table = emb_table.contiguous()
+    emb_table = _dec_embedder(params, cfg)
+    use_mega = (use_chain and not cfg.dec_emb_proj_flag
+                and emb_table.numel() * 4 <= MEGASTEP_TABLE_BYTES)
+    if use_mega:
+        table = emb_table.contiguous()
     i = 2
     while i < max_seq_len and not done:
-        (preds, anc, maskk, last_tok, scores, eos, lenm,
-         flag) = decode_beam_step_flash(
-            stacked, dec["norm"], params["out_tgt"], table, tsig, i, last_tok,
-            preds, anc, maskk, mem_mask_t, scores, eos, lenm, cache.self_k,
-            cache.self_v, cache.mem_k, cache.mem_v, cfg.num_heads, K,
-            penalty_factor)
+        if use_mega:
+            out = decode_beam_step_flash(
+                stacked, dec["norm"], params["out_tgt"], table, tsig, i,
+                last_tok, preds, anc, maskk, mem_mask_t, scores, eos, lenm,
+                cache.self_k, cache.self_v, cache.mem_k, cache.mem_v,
+                cfg.num_heads, K, penalty_factor)
+        else:
+            anc[i - 1] = own  # position i-1's K/V is written into each row itself
+            sc, ids = decode_pos(last_tok, i - 1, anc, maskk)
+            out = beam_select(sc, ids, scores, eos, lenm, preds, anc, maskk,
+                              i, K, penalty_factor)
+        preds, anc, maskk, last_tok, scores, eos, lenm, flag = out
         done = bool(flag.item())  # one host read per step
         i += 1
     return (preds.reshape(B, K, Lbuf)[:, 0, :max_seq_len],

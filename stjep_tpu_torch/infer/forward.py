@@ -1,12 +1,15 @@
 """forward_translate: beam-search inference (port of
-stjep_tpu/infer/forward.py, modes ST and ASR).
+stjep_tpu/infer/forward.py, modes ST and ASR), and `forward_eval`, the dev
+eval with reference ids (defined in models/seq2seq.py as in the JAX
+package, exported here beside the other eval entry point).
 
 ST: the LAS free-running pass gives dynamic embeddings and ASR hypotheses;
 their static embeddings and the dynamic ones pass through `enc_emb_proj`
 into the transformer encoder, masked by the LAS lengths, and the
-transformer decodes by beam search (ref: Seq2seq.py:641-796). ASR returns
-the LAS hypotheses. The eval entry points draw no random numbers and run
-under torch.no_grad(): their kernels (K1-K4) have no backward.
+transformer (standard or universal) decodes by beam search (ref:
+Seq2seq.py:641-796). ASR returns the LAS hypotheses. The eval entry points
+draw no random numbers and run under torch.no_grad(): their kernels (K1-K5,
+K7) have no backward.
 """
 
 from __future__ import annotations
@@ -22,7 +25,10 @@ from stjep_tpu_torch.models.seq2seq import (
     _encoder_en,
     _get_src_emb,
     _length_src_mask,
+    forward_eval,
 )
+
+__all__ = ["encode_st", "forward_eval", "forward_translate"]
 
 
 def encode_st(params: Dict, cfg: ModelConfig, acous_feats: torch.Tensor,

@@ -48,7 +48,7 @@ _SIGS = {
     "embed_time": "pppppp" + "iiii",
     "self_attn_anc": "pppppppp" + "iiiiii",
     "cross_attn": "ppppp" + "iiiii",
-    "head_topk": "ppp" + "iii",
+    "head_topk": "ppppp" + "iii",
     "beam_select": "pppppppp" + "pppppppp" + "iiii" + "f",
 }
 _CT = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}

@@ -19,6 +19,7 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from stjep_tpu_torch.config import BOS, EOS, PAD, ModelConfig
 from stjep_tpu_torch.ops.attention import (
@@ -131,9 +132,12 @@ def las_decoder_forward(params: Dict, cfg: ModelConfig,
                         ref_tokens: Optional[torch.Tensor] = None):
     """Free running: greedy decode over max_seq_len - 1 steps, returning
     (sequence_embs [B, L-1, Hs], None, symbols [B, L-1], lengths [B]), the
-    JAX function's return with want_logps=False. Teacher-forced on tgt
-    [B, L]: (sequence_embs, logps [B, L-1, V] or, with ref_tokens, the
-    picked log-probs [B, L-1] at ref_tokens[:, :L-1], symbols, lengths)."""
+    JAX function's return with want_logps=False; with ref_tokens, the
+    second entry is the picked log-probs [B, L-1] at ref_tokens[:, :L-1]
+    (PAD-padded to L-1, as las_decoder.py:308-312 pads them). Teacher-forced
+    on tgt [B, L]: (sequence_embs, logps [B, L-1, V] or, with ref_tokens,
+    the picked log-probs [B, L-1] at ref_tokens[:, :L-1], symbols,
+    lengths)."""
     B, Tk, _ = acous_outputs.shape
     if acous_lens is not None:
         lens_k = round_up8(acous_lens.long()) // 8  # ref: Dec.py:173-179
@@ -147,6 +151,12 @@ def las_decoder_forward(params: Dict, cfg: ModelConfig,
     L = max_seq_len if max_seq_len is not None else cfg.max_seq_len_src
     pre_keys = precompute_keys(params["acous_att"], acous_outputs, cfg.acous_att_mode)
     sym0 = torch.full((B,), BOS, dtype=torch.int64, device=acous_outputs.device)
-    embs, preds, _ = las_greedy_flash(params, cfg, pre_keys["wk"], acous_outputs,
-                                      lens_k, sym0, L - 1)
-    return embs, None, preds, lengths_from_preds(preds, L)
+    refs = None
+    if ref_tokens is not None:  # K2 reads them as contiguous [B, L-1] int32
+        r = ref_tokens[:, :L - 1].to(torch.int32)
+        refs = F.pad(r, (0, L - 1 - r.shape[1]), value=PAD).contiguous()
+    embs, preds, picked = las_greedy_flash(params, cfg, pre_keys["wk"],
+                                           acous_outputs, lens_k, sym0, L - 1,
+                                           ref_tokens=refs)
+    return (embs, picked if refs is not None else None, preds,
+            lengths_from_preds(preds, L))

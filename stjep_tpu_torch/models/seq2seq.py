@@ -6,27 +6,44 @@ layouts, so `bridge.params_from_numpy` carries JAX params over unchanged.
 `enc_emb_proj` (static + dynamic -> dim_model) is always created and
 applied, as in the reference (ref: Seq2seq.py:123-125). `forward_train`
 runs modes ASR, MT and ASR_ST; ST alone (training through the free-running
-LAS) and the AE modes, forward_eval and the greedy decoders are not ported
-yet.
+LAS) and the AE modes are not ported yet. `forward_eval` is the dev eval
+with reference ids, over the free-running LAS (K2) and the kernel greedy
+decoder `_greedy_decode_flash`; without reference ids (the dense logps
+buffers) and in the AE modes it is not ported yet.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
-from stjep_tpu_torch.config import ModelConfig
+from stjep_tpu_torch.config import BOS, EOS, PAD, ModelConfig
 from stjep_tpu_torch.models.las import las_forward, las_init
 from stjep_tpu_torch.models.las_decoder import embed, embedding_init
-from stjep_tpu_torch.models.tf_decoder import tf_decoder_forward, tf_decoder_init
+from stjep_tpu_torch.models.tf_decoder import (
+    decode_signals,
+    tf_decoder_chain_step,
+    tf_decoder_forward,
+    tf_decoder_init,
+    tf_decoder_init_cache_chain,
+    tf_decoder_step_flash,
+)
 from stjep_tpu_torch.models.tf_encoder import (
     UPPERBOUND_SEQ_LEN,
     tf_encoder_forward,
     tf_encoder_init,
 )
 from stjep_tpu_torch.ops.attention import linear, linear_init
+from stjep_tpu_torch.ops.decode_flash import (
+    BLOCK,
+    CROSS_BLOCK,
+    decode_head_gather,
+    pad_len,
+    stack_decoder_layers,
+)
 from stjep_tpu_torch.ops.masks import pad_mask, subsequent_mask
 from stjep_tpu_torch.ops.transformer import dropout, split
 
@@ -246,4 +263,137 @@ def forward_train(params: Dict, cfg: ModelConfig, mode: str, src: torch.Tensor,
         out["emb_st"] = emb_src
         out["preds_st"] = preds_tgt
         out["picked_st" if ref_pick else "logps_st"] = logps_tgt
+    return out
+
+
+def _greedy_decode_flash(params: Dict, cfg: ModelConfig,
+                         enc_outputs: torch.Tensor,
+                         mem_mask_b: Optional[torch.Tensor], length_out: int,
+                         max_time: int, ref_tokens: torch.Tensor):
+    """Greedy transformer decode over the decode kernels (group 1), with
+    the buffer semantics of the reference's greedy eval (ref:
+    Seq2seq.py:260-304): tokens PAD-filled with BOS in slot 0, early exit
+    once every row has emitted EOS (one host read of the flag per step).
+    Instead of the [B, L, V] log-prob buffer it returns picked [B, L], the
+    log-prob at ref_tokens[:, i] for each written slot i; unwritten slots
+    keep the dense buffer's log(1/V) (ref: seq2seq.py:485-583). Standard
+    decoders run K3 with its gather per position; other types K5 per hop
+    and then K7's gather variant. Returns (tokens [B, length_out], picked
+    [B, length_out])."""
+    B, Lk, _ = enc_outputs.shape
+    dev = enc_outputs.device
+    i32 = torch.int32
+    Lbuf = pad_len(length_out, BLOCK)
+    Lk_pad = pad_len(Lk, CROSS_BLOCK)
+    if mem_mask_b is None:
+        mem_mask_b = torch.ones((B, Lk), dtype=torch.bool, device=dev)
+    mem_mask_t = F.pad(mem_mask_b.to(i32), (0, Lk_pad - Lk)).T.contiguous()
+    refs = F.pad(ref_tokens.to(i32), (0, max(0, Lbuf - ref_tokens.shape[1])))
+    anc = torch.zeros((Lbuf, B), dtype=i32, device=dev)  # every row is its own group
+    dec, out_p = params["dec_tgt"], params["out_tgt"]
+    cache = tf_decoder_init_cache_chain(dec, cfg, enc_outputs, length_out, 1)
+    tokens = torch.full((B, Lbuf), PAD, dtype=i32, device=dev)
+    tokens[:, 0] = BOS
+    picked = torch.full((B, Lbuf), math.log(1.0 / cfg.dec_vocab_size),
+                        dtype=torch.float32, device=dev)
+    maskk = (tokens != PAD).T.to(i32).contiguous()
+    eos = torch.zeros((B,), dtype=torch.bool, device=dev)
+    use_chain = cfg.transformer_type == "standard"  # ref: chain_supported
+    stacked = stack_decoder_layers(dec) if use_chain else None
+    tsig, lsig = decode_signals(cfg, max_time, dev)
+    for i in range(1, length_out):
+        pos = i - 1
+        emb = _embed_tgt_token(params, cfg, tokens[:, pos])
+        gid = refs[:, i].contiguous()
+        if use_chain:
+            _, pred1, ref_lp = tf_decoder_chain_step(
+                stacked, dec["norm"], out_p, cfg, emb, cache, pos, anc, 1,
+                mem_mask_t, maskk, 1, tsig, gather_ids=gid)
+        else:
+            x = tf_decoder_step_flash(dec, cfg, emb, cache, pos, anc, 1,
+                                      mem_mask_t, maskk, tsig, lsig)
+            _, pred1, ref_lp = decode_head_gather(dec["norm"], out_p, x, 1, gid)
+        pred = pred1[:, 0]
+        tokens[:, i] = pred
+        picked[:, i] = ref_lp
+        maskk[i] = (pred != PAD).to(i32)
+        eos |= pred == EOS
+        if bool(eos.all()):
+            break
+    return tokens[:, :length_out], picked[:, :length_out]
+
+
+@torch.no_grad()
+def forward_eval(params: Dict, cfg: ModelConfig, mode: str,
+                 src: Optional[torch.Tensor] = None,
+                 acous_feats: Optional[torch.Tensor] = None,
+                 acous_lens: Optional[torch.Tensor] = None,
+                 ref_src: Optional[torch.Tensor] = None,
+                 ref_tgt: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """Free-running greedy dev eval with reference ids, modes ASR, ST,
+    ASR_ST and MT (ref: Seq2seq.py:512-638; seq2seq.py:586-724).
+
+    ref_src [B, Ls] / ref_tgt [B, Lt] (BOS first) turn the per-vocab
+    outputs into `picked_*` [B, L-1]: the free-running log-prob at the
+    reference token, aligned with refs[:, 1:], which is what dev NLL reads.
+    Returns the JAX keys: emb_asr, preds_asr, picked_asr, lengths_asr
+    (ASR); emb_mt, preds_mt, picked_mt (MT); emb_st, preds_st, picked_st
+    (ST). Inputs and params on one device: CUDA tensors take the kernels,
+    CPU tensors their plain versions. Eval draws no random numbers, so the
+    JAX function's `rng` has no counterpart. LM fusion is not ported."""
+    mode = mode.upper()
+    if "AE" in mode:
+        raise NotImplementedError(
+            f"forward_eval mode {mode!r} is not ported yet: the AE head "
+            "(ROADMAP Queue A item 11)")
+    if ("ASR" in mode and ref_src is None) or (
+            ("ST" in mode or "MT" in mode) and ref_tgt is None):
+        raise NotImplementedError(
+            "forward_eval without reference ids (the dense logps_* buffers) "
+            "is not ported yet (ROADMAP Queue A item 11)")
+    if ("ST" in mode or "ASR" in mode) and acous_feats is None:
+        raise ValueError(f"mode {mode} needs acous_feats")
+    if "MT" in mode and src is None:
+        raise ValueError(f"mode {mode} needs src")
+    out: Dict[str, torch.Tensor] = {}
+    length_out = cfg.max_seq_len_tgt
+    max_time = max(UPPERBOUND_SEQ_LEN, length_out)
+
+    if "ASR" in mode:
+        emb, picked, preds, lengths = _encoder_acous(
+            params, cfg, acous_feats, acous_lens,
+            max_seq_len=cfg.max_seq_len_src, ref_tokens=ref_src[:, 1:])
+        out.update(emb_asr=emb, preds_asr=preds, lengths_asr=lengths,
+                   picked_asr=picked)
+
+    def greedy_head(enc_out, src_mask_input, key):
+        preds, picked = _greedy_decode_flash(
+            params, cfg, enc_out, src_mask_input[:, 0, :], length_out,
+            max_time, ref_tgt)
+        out["preds_" + key] = preds
+        out["picked_" + key] = picked[:, 1:][:, :ref_tgt.shape[1] - 1]
+
+    if "MT" in mode:
+        src_trim = _pre_proc_src(src)
+        B, Ls = src_trim.shape
+        emb_dyn = params["emb_dyn_ave"][None, None, :].expand(B, Ls, cfg.dim_model)
+        _, emb_src, src_mask_input = _get_src_emb(params, cfg, src_trim, emb_dyn)
+        enc_out = _encoder_en(params, cfg, emb_src, src_mask=src_mask_input)
+        out["emb_mt"] = emb_src
+        greedy_head(enc_out, src_mask_input, "mt")
+
+    if "ST" in mode:
+        if "ASR" in mode:
+            emb_dyn, preds_src, lengths = (out["emb_asr"], out["preds_asr"],
+                                           out["lengths_asr"])
+        else:
+            emb_dyn, _, preds_src, lengths = _encoder_acous(
+                params, cfg, acous_feats, acous_lens,
+                max_seq_len=cfg.max_seq_len_src)
+        # static embeddings of the ASR *hypotheses* (ref: Seq2seq.py:608)
+        _, emb_src, _ = _get_src_emb(params, cfg, preds_src, emb_dyn)
+        src_mask_input = _length_src_mask(lengths, emb_src.shape[1])
+        enc_out = _encoder_en(params, cfg, emb_src, src_mask=src_mask_input)
+        out["emb_st"] = emb_src
+        greedy_head(enc_out, src_mask_input, "st")
     return out

@@ -1,29 +1,34 @@
-"""Transformer decoder, standard type (port of
+"""Transformer decoder, standard and universal types (port of
 stjep_tpu/models/tf_decoder.py).
 
 `tf_decoder_forward` is the full-sequence (teacher-forced) decoder of
 training, in plain PyTorch as the JAX package leaves it to XLA, with
-dropout as the encoder's. `tf_decoder_init_cache_chain` and
-`tf_decoder_chain_step` are the KV-cached decode position of the beam,
-through K3 (`ops/decode_flash.py`). The final LayerNorm uses torch's
-default eps 1e-5, unlike the encoder's 1e-6 (ref: TFDec.py:58).
+dropout as the encoder's. The universal type shares one layer across its
+hops and adds the layer signal before every hop, as the encoder does. The
+KV-cached decode position of the beam and of greedy eval has two routes
+over the caches of `tf_decoder_init_cache_chain`: `tf_decoder_chain_step`
+runs all layers and the head through K3 (standard type only, JAX's
+`chain_supported`), `tf_decoder_step_flash` one K5 per hop (either type),
+before the separate head K7 (`ops/decode_flash.py`). The final LayerNorm
+uses torch's default eps 1e-5, unlike the encoder's 1e-6 (ref: TFDec.py:58).
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from stjep_tpu_torch.config import ModelConfig
+from stjep_tpu_torch.models.tf_encoder import _layer_params, check_supported
 from stjep_tpu_torch.ops.attention import linear
 from stjep_tpu_torch.ops.decode_flash import (
     BLOCK,
     CROSS_BLOCK,
     decode_chain_step_flash,
+    decoder_layer_step_flash,
     pad_len,
-    stack_decoder_layers,
 )
 from stjep_tpu_torch.ops.masks import position_signal
 from stjep_tpu_torch.ops.transformer import (
@@ -33,14 +38,13 @@ from stjep_tpu_torch.ops.transformer import (
     layer_norm_init,
     split,
 )
-from stjep_tpu_torch.models.tf_encoder import check_standard
 
 UPPERBOUND_SEQ_LEN = 500  # ref: TFDec.py:35
 
 
 class TFDecCache(NamedTuple):
-    """Stacked decode caches: self K/V [nl, group, B, Lpad, D] (zeros until
-    written, never reordered) and memory K/V [nl, B, Lk_pad, D]."""
+    """Decode caches, one per hop: self K/V [nl, group, B, Lpad, D] (zeros
+    until written, never reordered) and memory K/V [nl, B, Lk_pad, D]."""
 
     self_k: torch.Tensor
     self_v: torch.Tensor
@@ -50,11 +54,12 @@ class TFDecCache(NamedTuple):
 
 def tf_decoder_init(generator: torch.Generator, cfg: ModelConfig,
                     device=None) -> Dict:
-    check_standard(cfg)
+    check_supported(cfg)
+    n = 1 if cfg.transformer_type == "universal" else cfg.dec_layers
     return {
         "layers": [decoder_layer_init(generator, cfg.dim_model, cfg.num_heads,
                                       cfg.dim_feedforward, device)
-                   for _ in range(cfg.dec_layers)],
+                   for _ in range(n)],
         "norm": layer_norm_init(cfg.dim_model, device),
     }
 
@@ -68,12 +73,16 @@ def tf_decoder_forward(params: Dict, cfg: ModelConfig, tgt: torch.Tensor,
                        is_training: bool = False) -> torch.Tensor:
     """tgt [B, L, D] embedded target, memory [B, Lk, D], tgt_mask [B, L, L]
     and src_mask [B, 1, Lk] (0 = blocked) -> out [B, L, D]."""
-    check_standard(cfg, is_training)
+    check_supported(cfg, is_training)
     L = tgt.shape[1]
     x = tgt + position_signal(max(max_time, L), cfg.dim_model, tgt.device)[:, :L]
-    for lp in params["layers"]:
+    layer_sig = position_signal(cfg.dec_layers, cfg.dim_model, tgt.device)[0]
+    for hop in range(cfg.dec_layers):
+        if cfg.transformer_type == "universal":
+            x = x + layer_sig[hop]
         generator, k = split(generator)
-        x = decoder_layer(lp, x, memory, cfg.num_heads, self_mask=tgt_mask,
+        x = decoder_layer(_layer_params(params, cfg, hop), x, memory,
+                          cfg.num_heads, self_mask=tgt_mask,
                           cross_mask=src_mask, generator=k,
                           dropout_rate=cfg.dropout, training=is_training)
     return layer_norm(params["norm"], x, eps=1e-5)  # torch default eps, ref: TFDec.py:58
@@ -84,30 +93,75 @@ def tf_decoder_init_cache_chain(params: Dict, cfg: ModelConfig,
                                 group: int) -> TFDecCache:
     """Zero self caches padded to pad_len(max_len, BLOCK), and the memory
     K/V projected once (memory zero-padded to pad_len(Lk, CROSS_BLOCK);
-    padded rows project to 0 and are masked at attention time)."""
+    padded rows project to 0 and are masked at attention time). The hops
+    of a universal decoder share one encdec_attn, so its memory K/V are
+    projected once and every hop's entry is a view of them."""
     B, Lk, D = memory.shape
     mem = F.pad(memory, (0, 0, 0, pad_len(Lk, CROSS_BLOCK) - Lk))
-    layers = params["layers"]
-    mem_k = torch.stack([linear(lp["encdec_attn"]["w_ks"], mem) for lp in layers])
-    mem_v = torch.stack([linear(lp["encdec_attn"]["w_vs"], mem) for lp in layers])
-    shape = (len(layers), group, B, pad_len(max_len, BLOCK), D)
+    nl = cfg.dec_layers
+
+    def project(key):
+        if cfg.transformer_type == "universal":
+            m = linear(params["layers"][0]["encdec_attn"][key], mem)
+            return m.expand(nl, *m.shape)
+        return torch.stack([linear(lp["encdec_attn"][key], mem)
+                            for lp in params["layers"]]).contiguous()
+
+    shape = (nl, group, B, pad_len(max_len, BLOCK), D)
     return TFDecCache(
         self_k=torch.zeros(shape, device=memory.device, dtype=memory.dtype),
         self_v=torch.zeros(shape, device=memory.device, dtype=memory.dtype),
-        mem_k=mem_k.contiguous(), mem_v=mem_v.contiguous())
+        mem_k=project("w_ks"), mem_v=project("w_vs"))
 
 
-def tf_decoder_chain_step(params: Dict, out_params: Dict, cfg: ModelConfig,
+def decode_signals(cfg: ModelConfig, max_time: int,
+                   device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The position tables a decode loop adds, built on the device once per
+    loop: the time signal [max_time, D] (row `pos` at position pos) and the
+    layer signal [dec_layers, D] (row `hop` before hop hop, universal)."""
+    return (position_signal(max_time, cfg.dim_model, device)[0],
+            position_signal(cfg.dec_layers, cfg.dim_model, device)[0])
+
+
+def tf_decoder_step_flash(params: Dict, cfg: ModelConfig, x_new: torch.Tensor,
+                          cache: TFDecCache, pos: int, anc: torch.Tensor,
+                          group: int, mem_mask_pad: torch.Tensor,
+                          self_mask_k: torch.Tensor, time_sig: torch.Tensor,
+                          layer_sig: torch.Tensor) -> torch.Tensor:
+    """Decode position `pos` for x_new [B*K, D] (the embedded token), hop
+    by hop: time_sig[pos], then per hop layer_sig[hop] (universal) and K5
+    over that hop's caches, updated in place (the tables of
+    decode_signals). Returns [B*K, D] before the final LayerNorm, which the
+    head K7 applies."""
+    check_supported(cfg)
+    x = x_new + time_sig[pos]
+    for hop in range(cfg.dec_layers):
+        if cfg.transformer_type == "universal":
+            x = x + layer_sig[hop]
+        x = decoder_layer_step_flash(
+            _layer_params(params, cfg, hop), x, cache.self_k[hop],
+            cache.self_v[hop], cache.mem_k[hop], cache.mem_v[hop], pos,
+            cfg.num_heads, anc, group, mem_mask_pad, self_mask_k)
+    return x
+
+
+def tf_decoder_chain_step(stacked: Tuple[torch.Tensor, ...], norm_params: Dict,
+                          out_params: Dict, cfg: ModelConfig,
                           x_new: torch.Tensor, cache: TFDecCache, pos: int,
                           anc: torch.Tensor, group: int,
                           mem_mask_pad: torch.Tensor, self_mask_k: torch.Tensor,
-                          topk: int, max_time: int = UPPERBOUND_SEQ_LEN):
+                          topk: int, time_sig: torch.Tensor,
+                          gather_ids: Optional[torch.Tensor] = None):
     """Decode position `pos` for x_new [B*K, D] (the embedded token): adds
-    the time signal and runs all layers and the head through K3. Returns
-    (scores [B*K, topk], ids [B*K, topk]); the caches update in place."""
-    check_standard(cfg)
-    x = x_new + position_signal(max_time, cfg.dim_model, x_new.device)[0, pos]
+    time_sig[pos] and runs all layers and the head through K3. `stacked` is
+    stack_decoder_layers of the decoder's params, which a decode loop
+    computes once; norm_params its final LayerNorm. Returns (scores
+    [B*K, topk], ids [B*K, topk]) and, with gather_ids [B*K], the log-probs
+    at those ids; the caches update in place. Standard type only."""
+    if cfg.transformer_type != "standard":
+        raise ValueError("the chain step runs the standard decoder; use "
+                         "tf_decoder_step_flash for the universal one")
     return decode_chain_step_flash(
-        stack_decoder_layers(params), params["norm"], out_params, x,
-        cache.self_k, cache.self_v, cache.mem_k, cache.mem_v, pos,
-        cfg.num_heads, anc, group, mem_mask_pad, self_mask_k, topk)
+        stacked, norm_params, out_params, x_new + time_sig[pos], cache.self_k,
+        cache.self_v, cache.mem_k, cache.mem_v, pos, cfg.num_heads, anc, group,
+        mem_mask_pad, self_mask_k, topk, gather_ids=gather_ids)

@@ -1,11 +1,13 @@
-"""Transformer text encoder, standard type (port of
+"""Transformer text encoder, standard and universal types (port of
 stjep_tpu/models/tf_encoder.py).
 
-The time signal is added once before the stack; the final LayerNorm uses
-eps 1e-6 (ref: models/TFEnc.py:61-89). With `is_training`, dropout at
-cfg.dropout (and attention-probability dropout at 0.1) draws from
-`generator`, split once per layer as the JAX code splits its key. The
-universal type, ACT and `cfg.remat` are not ported yet (remat raises:
+Standard: N independently parameterised pre-LN layers. Universal: one
+shared layer applied N times, with a per-hop sinusoidal layer signal added
+before every hop (ref: TFEnc.py:53-59). The time signal is added once
+before the stack; the final LayerNorm uses eps 1e-6 (ref: models/TFEnc.py:61-89).
+With `is_training`, dropout at cfg.dropout (and attention-probability
+dropout at 0.1) draws from `generator`, split once per hop as the JAX code
+splits its key. ACT and `cfg.remat` are not ported yet (remat raises:
 torch.utils.checkpoint would re-run the layer and draw its dropout masks
 anew). Plain PyTorch: the JAX package runs this stage in XLA, with no
 kernel of its own.
@@ -30,24 +32,31 @@ from stjep_tpu_torch.ops.transformer import (
 UPPERBOUND_SEQ_LEN = 500  # ref: TFEnc.py:35
 
 
-def check_standard(cfg: ModelConfig, is_training: bool = False):
-    if cfg.transformer_type != "standard" or cfg.act:
+def check_supported(cfg: ModelConfig, is_training: bool = False):
+    if cfg.transformer_type not in ("standard", "universal"):
+        raise ValueError(f"not implemented transformer type {cfg.transformer_type}")
+    if cfg.act:
         raise NotImplementedError(
-            "only the standard transformer is ported; universal/ACT wait "
-            "(ROADMAP Queue A item 14)")
+            "ACT is not ported yet (ROADMAP Queue A item 14)")
     if cfg.remat and is_training:
         raise NotImplementedError(
             "cfg.remat is not ported: torch.utils.checkpoint would re-run "
             "each layer and draw its dropout masks anew")
 
 
+def _layer_params(params: Dict, cfg: ModelConfig, i: int) -> Dict:
+    """Hop i's layer: the one shared layer of a universal transformer."""
+    return params["layers"][0 if cfg.transformer_type == "universal" else i]
+
+
 def tf_encoder_init(generator: torch.Generator, cfg: ModelConfig,
                     device=None) -> Dict:
-    check_standard(cfg)
+    check_supported(cfg)
+    n = 1 if cfg.transformer_type == "universal" else cfg.enc_layers
     return {
         "layers": [encoder_layer_init(generator, cfg.dim_model, cfg.num_heads,
                                       cfg.dim_feedforward, device)
-                   for _ in range(cfg.enc_layers)],
+                   for _ in range(n)],
         "norm": layer_norm_init(cfg.dim_model, device),
     }
 
@@ -59,11 +68,15 @@ def tf_encoder_forward(params: Dict, cfg: ModelConfig, src: torch.Tensor,
                        is_training: bool = False) -> torch.Tensor:
     """src [B, L, D] embedded input, src_mask [B, 1, L] (0 = blocked) ->
     encoded [B, L, D]."""
-    check_standard(cfg, is_training)
+    check_supported(cfg, is_training)
     L = src.shape[1]
     x = src + position_signal(max(max_time, L), cfg.dim_model, src.device)[:, :L]
-    for lp in params["layers"]:
+    layer_sig = position_signal(cfg.enc_layers, cfg.dim_model, src.device)[0]
+    for hop in range(cfg.enc_layers):
+        if cfg.transformer_type == "universal":
+            x = x + layer_sig[hop]
         generator, k = split(generator)
-        x = encoder_layer(lp, x, cfg.num_heads, mask=src_mask, generator=k,
-                          dropout_rate=cfg.dropout, training=is_training)
+        x = encoder_layer(_layer_params(params, cfg, hop), x, cfg.num_heads,
+                          mask=src_mask, generator=k, dropout_rate=cfg.dropout,
+                          training=is_training)
     return layer_norm(params["norm"], x, eps=1e-6)

@@ -1,28 +1,33 @@
-"""K3 / K4: transformer decode-step kernels (port of
-stjep_tpu/ops/decode_flash.py `decode_chain_step_flash` and
+"""K3 / K4 / K5 / K7: transformer decode-step kernels (port of
+stjep_tpu/ops/decode_flash.py `decoder_layer_step_flash`, `decode_head`,
+`decode_head_gather`, `decode_chain_step_flash` and
 `decode_beam_step_flash`).
 
-K3 runs one decode position through every decoder layer and the decode
-head; K4 is the whole beam while-body: embed + time signal, K3's layers and
-head, and the k^2 -> k select with its back-copies. Design notes are in
-`csrc/decode.cu`.
+K5 runs one decode position through one decoder layer. K7 is the decode
+head: final LayerNorm, output projection, log-softmax and top-K, and with
+gather ids the log-prob at a reference id. K3 runs one position through
+every layer (K5 per layer) and the head (K7). K4 is the whole beam
+while-body: embed + time signal, K3's layers and head, and the k^2 -> k
+select with its back-copies; `beam_select` is that select alone, for the
+general beam loop. Design notes are in `csrc/decode.cu`.
 
-Layouts are the JAX kernels': self caches [nl, K, B, Lpad, D], never
-reordered, read through the ancestry map anc [Lpad, B*K] (row r reads
-position l from slot (anc[l, r], r // K)); memory K/V [nl, B, Lk_pad, D];
-masks transposed (maskk [Lpad, B*K], mem_mask [Lk_pad, B]) and int32. Both
-routes update the caches in place (the new K/V row at `pos`), and K4 also
-sets anc[pos] to each row's own slot in place.
+Layouts are the JAX kernels': self caches [K, B, Lpad, D] per layer
+([nl, K, B, Lpad, D] stacked for K3/K4), never reordered, read through the
+ancestry map anc [Lpad, B*K] (row r reads position l from slot
+(anc[l, r], r // K)); memory K/V [B, Lk_pad, D] per layer; masks transposed
+(maskk [Lpad, B*K], mem_mask [Lk_pad, B]) and int32. Every route updates
+the caches in place (the new K/V row at `pos`), and K4 also sets anc[pos]
+to each row's own slot in place. Hidden states are [B*K, D].
 
 On CUDA tensors the wrappers launch the kernels; on CPU tensors they run
 the `_plain` versions, which compute the same function in PyTorch, with the
 same ancestry semantics, in the order of the JAX package's dense XLA path.
-The int8 weight path (`quant=True`) is not ported yet.
+The int8 weight path (`quant=True`, `_layer_kernel_q8`) is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -32,7 +37,7 @@ from stjep_tpu_torch.ops.transformer import ATTN_MASK_FILL as NEG
 from stjep_tpu_torch.ops.transformer import layer_norm
 
 BLOCK = 16  # self-cache length is padded to a multiple of this
-# what to differentiate through instead of K3/K4 (their CUDA routes have no backward)
+# what to differentiate through instead of K3-K7 (their CUDA routes have no backward)
 TRAINABLE = "the full-sequence decoder (models/tf_decoder.py tf_decoder_forward)"
 CROSS_BLOCK = 32  # memory length is padded to a multiple of this
 
@@ -52,20 +57,24 @@ def pad_len(n: int, block: int = BLOCK) -> int:
     return ((n + block - 1) // block) * block
 
 
+def layer_weights(lp: Dict) -> Tuple[torch.Tensor, ...]:
+    """One decoder layer's weights, in CHAIN_KEYS order."""
+    if "w_s" in lp["decslf_attn"]["w_qs"]:
+        raise NotImplementedError("int8 decoder weights are not ported yet")
+    out = []
+    for path in CHAIN_KEYS:
+        t = lp
+        for p in path:
+            t = t[p]
+        out.append(t)
+    return tuple(out)
+
+
 def stack_decoder_layers(dec_params: Dict) -> Tuple[torch.Tensor, ...]:
     """Each per-layer weight stacked into one contiguous [nl, ...] tensor,
     in CHAIN_KEYS order."""
-    lps = list(dec_params["layers"])
-    if "w_s" in lps[0]["decslf_attn"]["w_qs"]:
-        raise NotImplementedError("int8 decoder weights are not ported yet")
-
-    def leaf(lp, path):
-        for p in path:
-            lp = lp[p]
-        return lp
-
-    return tuple(torch.stack([leaf(lp, k) for lp in lps], 0).contiguous()
-                 for k in CHAIN_KEYS)
+    per_layer = [layer_weights(lp) for lp in dec_params["layers"]]
+    return tuple(torch.stack(ts, 0).contiguous() for ts in zip(*per_layer))
 
 
 def _ln(x, scale, bias, eps):
@@ -83,8 +92,9 @@ def _attend_plain(q, k, v, valid, n_head):
     return torch.einsum("rnl,rlnd->rnd", p, v.view(BK, L, n_head, d)).reshape(BK, D)
 
 
-def _layers_plain(stacked, x, cache_k, cache_v, mem_k, mem_v, pos, n_head,
-                  anc, group, mem_mask, maskk):
+def _layer_plain(w, x, ck, cv, mk, mv, pos, n_head, anc, group, mem_mask, maskk):
+    """One layer at `pos` in plain PyTorch: w in CHAIN_KEYS order, caches
+    ck/cv [K, B, Lpad, D], memory mk/mv [B, Lk_pad, D]."""
     BK, D = x.shape
     row = torch.arange(BK, device=x.device)
     own, b = row % group, row // group
@@ -92,22 +102,89 @@ def _layers_plain(stacked, x, cache_k, cache_v, mem_k, mem_v, pos, n_head,
     ancp = anc[:pos + 1].T.long()  # [BK, pos+1]
     valid_self = maskk[:pos + 1].T != 0
     valid_mem = mem_mask.T[b] != 0  # [BK, Lk]
+    (slns, slnb, swq, swk, swv, swo, clns, clnb, cwq, cwo,
+     flns, flnb, w1, b1, w2, b2) = w
+    q = _ln(x, slns, slnb, 1e-6) @ swq
+    ck[own, b, pos] = x @ swk
+    cv[own, b, pos] = x @ swv
+    ksel = ck[ancp, b[:, None], lidx[None, :]]  # [BK, pos+1, D]
+    vsel = cv[ancp, b[:, None], lidx[None, :]]
+    x = _attend_plain(q, ksel, vsel, valid_self, n_head) @ swo + x
+    q = _ln(x, clns, clnb, 1e-6) @ cwq
+    x = _attend_plain(q, mk[b], mv[b], valid_mem, n_head) @ cwo + x
+    h = torch.relu(_ln(x, flns, flnb, 1e-6) @ w1 + b1)
+    return h @ w2 + b2 + x
+
+
+def _layer_cuda(w, x, ck, cv, mk, mv, pos, n_head, anc, group, mem_mask, maskk):
+    """K5's launch sequence: the same layer as _layer_plain."""
+    BK, D = x.shape
+    Lpad, Lk = ck.shape[2], mk.shape[1]
+    (slns, slnb, swq, swk, swv, swo, clns, clnb, cwq, cwo,
+     flns, flnb, w1, b1, w2, b2) = w
+    q = kernels.gemm(kernels.layernorm(x, slns, slnb, 1e-6), swq)
+    k_new, v_new = kernels.gemm(x, swk), kernels.gemm(x, swv)
+    att = torch.empty_like(x)
+    kernels.launch("self_attn_anc", q, k_new, v_new, ck, cv, anc, maskk, att,
+                   pos, BK, group, Lpad, D, n_head)
+    x = kernels.gemm(att, swo, residual=x)
+    q = kernels.gemm(kernels.layernorm(x, clns, clnb, 1e-6), cwq)
+    kernels.launch("cross_attn", q, mk, mv, mem_mask, att, BK, group, Lk, D,
+                   n_head)
+    x = kernels.gemm(att, cwo, residual=x)
+    h = kernels.gemm(kernels.layernorm(x, flns, flnb, 1e-6), w1, bias=b1,
+                     relu=True)
+    return kernels.gemm(h, w2, bias=b2, residual=x)
+
+
+def _run_layers(layer_fn, stacked, x, cache_k, cache_v, mem_k, mem_v, *args):
+    """layer_fn over the stacked layers, layer l on its slices of the
+    stacked weights and caches."""
     for layer in range(cache_k.shape[0]):
-        (slns, slnb, swq, swk, swv, swo, clns, clnb, cwq, cwo,
-         flns, flnb, w1, b1, w2, b2) = (t[layer] for t in stacked)
-        ck, cv = cache_k[layer], cache_v[layer]
-        q = _ln(x, slns, slnb, 1e-6) @ swq
-        ck[own, b, pos] = x @ swk
-        cv[own, b, pos] = x @ swv
-        ksel = ck[ancp, b[:, None], lidx[None, :]]  # [BK, pos+1, D]
-        vsel = cv[ancp, b[:, None], lidx[None, :]]
-        x = _attend_plain(q, ksel, vsel, valid_self, n_head) @ swo + x
-        q = _ln(x, clns, clnb, 1e-6) @ cwq
-        x = _attend_plain(q, mem_k[layer][b], mem_v[layer][b], valid_mem,
-                          n_head) @ cwo + x
-        h = torch.relu(_ln(x, flns, flnb, 1e-6) @ w1 + b1)
-        x = h @ w2 + b2 + x
+        x = layer_fn(tuple(t[layer] for t in stacked), x, cache_k[layer],
+                     cache_v[layer], mem_k[layer], mem_v[layer], *args)
     return x
+
+
+def _check_cuda_args(cache_k, cache_v, mem_k, mem_v, anc, maskk, mem_mask):
+    for t, nm in ((cache_k, "cache_k"), (cache_v, "cache_v"), (mem_k, "mem_k"),
+                  (mem_v, "mem_v")):
+        kernels.check(t, torch.float32, nm)
+    for t, nm in ((anc, "anc"), (maskk, "self_mask_k"), (mem_mask, "mem_mask")):
+        kernels.check(t, torch.int32, nm)
+
+
+def decoder_layer_step_plain(params: Dict, x_new, cache_k, cache_v, mem_k,
+                             mem_v, pos: int, n_head: int, anc, group: int,
+                             mem_mask, self_mask_k):
+    """Plain PyTorch version of K5; same arguments and results."""
+    return _layer_plain(layer_weights(params), x_new, cache_k, cache_v, mem_k,
+                        mem_v, pos, n_head, anc, group, mem_mask, self_mask_k)
+
+
+def decoder_layer_step_flash(params: Dict, x_new, cache_k, cache_v, mem_k,
+                             mem_v, pos: int, n_head: int, anc, group: int,
+                             mem_mask, self_mask_k):
+    """One decoder layer's decode step (K5): params is one layer's tree
+    (decslf_attn / encdec_attn / pos_ffn), x_new [BK, D] its input at `pos`,
+    cache_k/v [K, B, Lpad, D] the layer's self caches (updated in place at
+    `pos`), mem_k/v [B, Lk_pad, D]; anc[pos] must hold each row's own slot.
+    Returns the layer's output [BK, D]."""
+    if not x_new.is_cuda:
+        return decoder_layer_step_plain(params, x_new, cache_k, cache_v, mem_k,
+                                        mem_v, pos, n_head, anc, group,
+                                        mem_mask, self_mask_k)
+    w = layer_weights(params)
+    kernels.refuse_grad("decoder_layer_step_flash", TRAINABLE, x_new, mem_k,
+                        mem_v, *w)
+    _check_cuda_args(cache_k, cache_v, mem_k, mem_v, anc, self_mask_k, mem_mask)
+    y = _layer_cuda(w, x_new.contiguous(), cache_k, cache_v, mem_k, mem_v,
+                    pos, n_head, anc, group, mem_mask, self_mask_k)
+    decoder_layer_step_flash.launches += 1
+    return y
+
+
+decoder_layer_step_flash.launches = 0
 
 
 def topk_lowest_index(x: torch.Tensor, k: int):
@@ -124,88 +201,124 @@ def topk_lowest_index(x: torch.Tensor, k: int):
     return torch.cat(vals, -1), torch.cat(ids, -1)
 
 
-def _head_plain(x, norm_params, out_params, topk):
-    logits = layer_norm(norm_params, x, 1e-5) @ out_params["w"]
-    sc, ids = topk_lowest_index(torch.log_softmax(logits, dim=-1), topk)
-    return sc, ids.to(torch.int32)
+def _head_plain(norm_params, out_params, x, topk, gather_ids=None):
+    logp = torch.log_softmax(layer_norm(norm_params, x, 1e-5) @ out_params["w"],
+                             dim=-1)
+    sc, ids = topk_lowest_index(logp, topk)
+    if gather_ids is None:
+        return sc, ids.to(torch.int32)
+    return sc, ids.to(torch.int32), logp.gather(1, gather_ids.long()[:, None])[:, 0]
 
 
-def decode_chain_step_plain(stacked, norm_params, out_params, x_new, cache_k,
-                            cache_v, mem_k, mem_v, pos: int, n_head: int, anc,
-                            group: int, mem_mask, self_mask_k, topk: int):
-    """Plain PyTorch version of K3; same arguments and results."""
-    x = _layers_plain(stacked, x_new, cache_k, cache_v, mem_k, mem_v, pos,
-                      n_head, anc, group, mem_mask, self_mask_k)
-    return _head_plain(x, norm_params, out_params, topk)
-
-
-def _layers_cuda(stacked, x, cache_k, cache_v, mem_k, mem_v, pos, n_head,
-                 anc, group, mem_mask, maskk):
-    BK, D = x.shape
-    Lpad, Lk = cache_k.shape[3], mem_k.shape[2]
-    for layer in range(cache_k.shape[0]):
-        (slns, slnb, swq, swk, swv, swo, clns, clnb, cwq, cwo,
-         flns, flnb, w1, b1, w2, b2) = (t[layer] for t in stacked)
-        q = kernels.gemm(kernels.layernorm(x, slns, slnb, 1e-6), swq)
-        k_new, v_new = kernels.gemm(x, swk), kernels.gemm(x, swv)
-        att = torch.empty_like(x)
-        kernels.launch("self_attn_anc", q, k_new, v_new, cache_k[layer],
-                       cache_v[layer], anc, maskk, att, pos, BK, group, Lpad,
-                       D, n_head)
-        x = kernels.gemm(att, swo, residual=x)
-        q = kernels.gemm(kernels.layernorm(x, clns, clnb, 1e-6), cwq)
-        kernels.launch("cross_attn", q, mem_k[layer], mem_v[layer], mem_mask,
-                       att, BK, group, Lk, D, n_head)
-        x = kernels.gemm(att, cwo, residual=x)
-        h = kernels.gemm(kernels.layernorm(x, flns, flnb, 1e-6), w1, bias=b1,
-                         relu=True)
-        x = kernels.gemm(h, w2, bias=b2, residual=x)
-    return x
-
-
-def _head_cuda(x, norm_params, out_params, topk):
+def _head_cuda(norm_params, out_params, x, topk, gather_ids=None):
+    """K7's launch sequence: layernorm (eps 1e-5), the GEMM, head_topk."""
     logits = kernels.gemm(
         kernels.layernorm(x, norm_params["scale"], norm_params["bias"], 1e-5),
         out_params["w"])
     BK, V = logits.shape
-    sc = torch.empty((BK, topk), device=x.device, dtype=torch.float32)
-    ids = torch.empty((BK, topk), device=x.device, dtype=torch.int32)
-    kernels.launch("head_topk", logits, sc, ids, BK, V, topk)
-    return sc, ids
+    dev = x.device
+    sc = torch.empty((BK, topk), device=dev, dtype=torch.float32)
+    ids = torch.empty((BK, topk), device=dev, dtype=torch.int32)
+    if gather_ids is None:
+        kernels.launch("head_topk", logits, None, sc, ids, None, BK, V, topk)
+        return sc, ids
+    gid = kernels.check(gather_ids.to(torch.int32).contiguous(), torch.int32,
+                        "gather_ids")
+    glp = torch.empty((BK,), device=dev, dtype=torch.float32)
+    kernels.launch("head_topk", logits, gid, sc, ids, glp, BK, V, topk)
+    return sc, ids, glp
 
 
-def _check_cuda_args(cache_k, anc, maskk, mem_mask):
-    for t, nm in ((cache_k, "cache_k"), (anc, "anc"), (maskk, "self_mask_k"),
-                  (mem_mask, "mem_mask")):
-        kernels.check(t, torch.float32 if nm == "cache_k" else torch.int32, nm)
+def decode_head_plain(norm_params: Dict, out_params: Dict, x, topk: int):
+    """Plain PyTorch version of K7 (decode_head); same arguments and results."""
+    return _head_plain(norm_params, out_params, x, topk)
+
+
+def decode_head_gather_plain(norm_params: Dict, out_params: Dict, x, topk: int,
+                             gather_ids):
+    """Plain PyTorch version of K7's gather variant; same arguments and
+    results."""
+    return _head_plain(norm_params, out_params, x, topk, gather_ids)
+
+
+def decode_head(norm_params: Dict, out_params: Dict, x, topk: int):
+    """K7: final LayerNorm (eps 1e-5) -> x @ out_params["w"] -> log-softmax
+    -> top-K for x [BK, D], the decoder output before its final norm.
+    Returns (scores [BK, topk], ids [BK, topk] int32), ties to the lowest
+    id."""
+    if not x.is_cuda:
+        return decode_head_plain(norm_params, out_params, x, topk)
+    kernels.refuse_grad("decode_head", TRAINABLE, x, *norm_params.values(),
+                        *out_params.values())
+    out = _head_cuda(norm_params, out_params, x.contiguous(), topk)
+    decode_head.launches += 1
+    return out
+
+
+decode_head.launches = 0
+
+
+def decode_head_gather(norm_params: Dict, out_params: Dict, x, topk: int,
+                       gather_ids):
+    """K7 plus glp [BK], the log-softmax at gather_ids [BK] (the reference
+    token greedy dev eval scores). Returns (scores, ids, glp)."""
+    if not x.is_cuda:
+        return decode_head_gather_plain(norm_params, out_params, x, topk,
+                                        gather_ids)
+    kernels.refuse_grad("decode_head_gather", TRAINABLE, x,
+                        *norm_params.values(), *out_params.values())
+    out = _head_cuda(norm_params, out_params, x.contiguous(), topk, gather_ids)
+    decode_head_gather.launches += 1
+    return out
+
+
+decode_head_gather.launches = 0
+
+
+def decode_chain_step_plain(stacked, norm_params, out_params, x_new, cache_k,
+                            cache_v, mem_k, mem_v, pos: int, n_head: int, anc,
+                            group: int, mem_mask, self_mask_k, topk: int,
+                            gather_ids: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of K3; same arguments and results."""
+    x = _run_layers(_layer_plain, stacked, x_new, cache_k, cache_v, mem_k,
+                    mem_v, pos, n_head, anc, group, mem_mask, self_mask_k)
+    return _head_plain(norm_params, out_params, x, topk, gather_ids)
 
 
 def decode_chain_step_flash(stacked, norm_params, out_params, x_new, cache_k,
                             cache_v, mem_k, mem_v, pos: int, n_head: int, anc,
-                            group: int, mem_mask, self_mask_k, topk: int):
+                            group: int, mem_mask, self_mask_k, topk: int,
+                            gather_ids: Optional[torch.Tensor] = None):
     """One decode position through all layers and the head.
 
     x_new [BK, D] (token embedding + time signal at `pos`); caches as in the
     module docstring, updated in place at `pos`; anc[pos] must hold each
     row's own slot. Returns (scores [BK, topk] log-probs, ids [BK, topk]
-    int32), ties to the lowest id."""
+    int32), ties to the lowest id, and with gather_ids [BK] also glp [BK],
+    the log-prob at those ids. `launches` counts the calls without
+    gather_ids, `gather_launches` those with."""
     if not x_new.is_cuda:
         return decode_chain_step_plain(stacked, norm_params, out_params, x_new,
                                        cache_k, cache_v, mem_k, mem_v, pos,
                                        n_head, anc, group, mem_mask,
-                                       self_mask_k, topk)
+                                       self_mask_k, topk, gather_ids)
     kernels.refuse_grad("decode_chain_step_flash", TRAINABLE, x_new, mem_k,
                         mem_v, *stacked, *norm_params.values(),
                         *out_params.values())
-    _check_cuda_args(cache_k, anc, self_mask_k, mem_mask)
-    x = _layers_cuda(stacked, x_new.contiguous(), cache_k, cache_v, mem_k,
-                     mem_v, pos, n_head, anc, group, mem_mask, self_mask_k)
-    out = _head_cuda(x, norm_params, out_params, topk)
-    decode_chain_step_flash.launches += 1
+    _check_cuda_args(cache_k, cache_v, mem_k, mem_v, anc, self_mask_k, mem_mask)
+    x = _run_layers(_layer_cuda, stacked, x_new.contiguous(), cache_k, cache_v,
+                    mem_k, mem_v, pos, n_head, anc, group, mem_mask,
+                    self_mask_k)
+    out = _head_cuda(norm_params, out_params, x, topk, gather_ids)
+    if gather_ids is None:
+        decode_chain_step_flash.launches += 1
+    else:
+        decode_chain_step_flash.gather_launches += 1
     return out
 
 
 decode_chain_step_flash.launches = 0
+decode_chain_step_flash.gather_launches = 0
 
 
 def beam_candidates(sc, scores, eos, lenm, penalty_factor: float):
@@ -222,25 +335,18 @@ def beam_candidates(sc, scores, eos, lenm, penalty_factor: float):
     return ((scores[:, None] + sm) / lp[:, None]).reshape(BK // K, K * K), lp
 
 
-def decode_beam_step_plain(stacked, norm_params, out_params, emb_table,
-                           time_sig, i: int, last_tok, preds, anc, maskk,
-                           mem_mask, scores, eos, lenm, cache_k, cache_v,
-                           mem_k, mem_v, n_head: int, group: int,
-                           penalty_factor: float):
-    """Plain PyTorch version of K4; same arguments and results."""
-    BK, L = preds.shape
+def beam_select_plain(sc, ids, scores, eos, lenm, preds, anc, maskk, i: int,
+                      group: int, penalty_factor: float):
+    """The k^2 -> k update of beam position i from the head's sc / ids
+    [BK, K] (ref: beam.py body(), Seq2seq.py:358-391): top-K of the
+    candidates with the lowest flat index first; the kept score multiplied
+    back by the OLD slot's penalty; eos / lenm stay slot-indexed; preds
+    [BK, Lpad], anc and maskk [Lpad, BK] back-copied from the source rows,
+    token i written. Returns (preds, anc, maskk, last_tok, scores, eos,
+    lenm, all_eos_flag [1]) as new tensors, as K4 does."""
+    BK = preds.shape[0]
     K = group
     B = BK // K
-    pos = i - 1
-    row = torch.arange(BK, device=preds.device)
-    anc[pos] = (row % K).to(anc.dtype)
-    tok = last_tok.long()
-    x = emb_table[tok] * (tok != PAD)[:, None].to(emb_table.dtype) + time_sig[pos]
-    x = _layers_plain(stacked, x, cache_k, cache_v, mem_k, mem_v, pos, n_head,
-                      anc, K, mem_mask, maskk)
-    sc, ids = _head_plain(x, norm_params, out_params, K)
-
-    eosb = eos != 0
     st, lp = beam_candidates(sc, scores, eos, lenm, penalty_factor)
     sel, flat = topk_lowest_index(st, K)
     src = (torch.arange(B, device=preds.device)[:, None] * K + flat // K).view(-1)
@@ -250,11 +356,70 @@ def decode_beam_step_plain(stacked, norm_params, out_params, emb_table,
     anc_n = anc[:, src].contiguous()
     maskk_n = maskk[:, src]
     maskk_n[i] = (tok_sel != PAD).to(maskk.dtype)
-    eos_n = eosb | (tok_sel == EOS)
+    eos_n = (eos != 0) | (tok_sel == EOS)
     lenm_n = lenm + torch.where(eos_n, 0.0, 1.0)
     flag = eos_n.all().to(torch.int32).reshape(1)
     return (preds_n, anc_n, maskk_n, tok_sel.to(torch.int32),
             sel.reshape(-1) * lp, eos_n.to(torch.int32), lenm_n, flag)
+
+
+def _select_cuda(sc, ids, scores, eos, lenm, preds, anc, maskk, flag, i: int,
+                 group: int, penalty_factor: float):
+    """K4's select kernel into new tensors; flag [1] must hold 1 and is
+    and-ed with each group's all-EOS bit."""
+    BK, L = preds.shape
+    outs = (torch.empty_like(preds), torch.empty_like(anc),
+            torch.empty_like(maskk),
+            torch.empty((BK,), device=preds.device, dtype=torch.int32),
+            torch.empty_like(scores), torch.empty_like(eos),
+            torch.empty_like(lenm))
+    kernels.launch("beam_select", sc, ids, scores, eos, lenm, preds, anc, maskk,
+                   *outs, flag, i, BK // group, group, L, float(penalty_factor))
+    return (*outs, flag)
+
+
+def beam_select(sc, ids, scores, eos, lenm, preds, anc, maskk, i: int,
+                group: int, penalty_factor: float):
+    """The k^2 -> k update of beam position i, with beam_select_plain's
+    arguments and results. On CUDA tensors it launches K4's select kernel,
+    so the general beam loop and the megastep share one select on the
+    card."""
+    if not preds.is_cuda:
+        return beam_select_plain(sc, ids, scores, eos, lenm, preds, anc, maskk,
+                                 i, group, penalty_factor)
+    kernels.refuse_grad("beam_select", "beam_select_plain", sc, scores, lenm)
+    f32, i32 = torch.float32, torch.int32
+    for t, dt, nm in ((sc, f32, "sc"), (ids, i32, "ids"), (scores, f32, "scores"),
+                      (eos, i32, "eos"), (lenm, f32, "lenm"), (preds, i32, "preds"),
+                      (anc, i32, "anc"), (maskk, i32, "maskk")):
+        kernels.check(t, dt, nm)
+    flag = torch.ones((1,), device=preds.device, dtype=i32)
+    out = _select_cuda(sc, ids, scores, eos, lenm, preds, anc, maskk, flag, i,
+                       group, penalty_factor)
+    beam_select.launches += 1
+    return out
+
+
+beam_select.launches = 0
+
+
+def decode_beam_step_plain(stacked, norm_params, out_params, emb_table,
+                           time_sig, i: int, last_tok, preds, anc, maskk,
+                           mem_mask, scores, eos, lenm, cache_k, cache_v,
+                           mem_k, mem_v, n_head: int, group: int,
+                           penalty_factor: float):
+    """Plain PyTorch version of K4; same arguments and results."""
+    K = group
+    pos = i - 1
+    row = torch.arange(preds.shape[0], device=preds.device)
+    anc[pos] = (row % K).to(anc.dtype)
+    tok = last_tok.long()
+    x = emb_table[tok] * (tok != PAD)[:, None].to(emb_table.dtype) + time_sig[pos]
+    x = _run_layers(_layer_plain, stacked, x, cache_k, cache_v, mem_k, mem_v,
+                    pos, n_head, anc, K, mem_mask, maskk)
+    sc, ids = _head_plain(norm_params, out_params, x, K)
+    return beam_select_plain(sc, ids, scores, eos, lenm, preds, anc, maskk, i,
+                             K, penalty_factor)
 
 
 def decode_beam_step_flash(stacked, norm_params, out_params, emb_table,
@@ -276,7 +441,7 @@ def decode_beam_step_flash(stacked, norm_params, out_params, emb_table,
     kernels.refuse_grad("decode_beam_step_flash", TRAINABLE, emb_table,
                         time_sig, scores, mem_k, mem_v, *stacked,
                         *norm_params.values(), *out_params.values())
-    _check_cuda_args(cache_k, anc, maskk, mem_mask)
+    _check_cuda_args(cache_k, cache_v, mem_k, mem_v, anc, maskk, mem_mask)
     for t, dt, nm in ((last_tok, torch.int32, "last_tok"),
                       (preds, torch.int32, "preds"),
                       (scores, torch.float32, "scores"),
@@ -284,26 +449,20 @@ def decode_beam_step_flash(stacked, norm_params, out_params, emb_table,
                       (emb_table, torch.float32, "emb_table"),
                       (time_sig, torch.float32, "time_sig")):
         kernels.check(t, dt, nm)
-    BK, L = preds.shape
-    D = emb_table.shape[1]
+    BK, D = preds.shape[0], emb_table.shape[1]
     K = group
     dev = preds.device
     x = torch.empty((BK, D), device=dev, dtype=torch.float32)
     flag = torch.empty((1,), device=dev, dtype=torch.int32)
     kernels.launch("embed_time", emb_table, last_tok, time_sig, x, anc, flag,
                    i - 1, BK, K, D)
-    x = _layers_cuda(stacked, x, cache_k, cache_v, mem_k, mem_v, i - 1, n_head,
-                     anc, K, mem_mask, maskk)
-    sc, ids = _head_cuda(x, norm_params, out_params, K)
-    preds_n, anc_n, maskk_n = (torch.empty_like(preds), torch.empty_like(anc),
-                               torch.empty_like(maskk))
-    tok_n, eos_n = torch.empty_like(last_tok), torch.empty_like(eos)
-    scores_n, lenm_n = torch.empty_like(scores), torch.empty_like(lenm)
-    kernels.launch("beam_select", sc, ids, scores, eos, lenm, preds, anc,
-                   maskk, preds_n, anc_n, maskk_n, tok_n, scores_n, eos_n,
-                   lenm_n, flag, i, BK // K, K, L, float(penalty_factor))
+    x = _run_layers(_layer_cuda, stacked, x, cache_k, cache_v, mem_k, mem_v,
+                    i - 1, n_head, anc, K, mem_mask, maskk)
+    sc, ids = _head_cuda(norm_params, out_params, x, K)
+    out = _select_cuda(sc, ids, scores, eos, lenm, preds, anc, maskk, flag, i,
+                       K, penalty_factor)
     decode_beam_step_flash.launches += 1
-    return preds_n, anc_n, maskk_n, tok_n, scores_n, eos_n, lenm_n, flag
+    return out
 
 
 decode_beam_step_flash.launches = 0

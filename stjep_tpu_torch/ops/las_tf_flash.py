@@ -78,7 +78,7 @@ def _new_streams(pre0: torch.Tensor, w: Weights, Tk: int) -> Streams:
     S, B, _ = pre0.shape
     Hd = w.w1.shape[1] // 4
     Hs, Ha2 = w.ffn.shape[1], w.ffn.shape[0] - Hd
-    z = lambda *shape: torch.zeros(shape, device=pre0.device, dtype=torch.float32)
+    z = lambda *shape: torch.zeros(shape, device=pre0.device, dtype=pre0.dtype)
     return Streams(x0=z(S + 1, B, Hs + Hd), x1=z(S + 1, B, 2 * Hd),
                    x2=z(S + 1, B, 2 * Hd), ff=z(S, B, Ha2 + Hd),
                    c=z(3, S + 1, B, Hd), g=z(3, S, B, 4 * Hd), attn=z(S, B, Tk))

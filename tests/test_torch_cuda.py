@@ -8,14 +8,18 @@ order, hence the tolerances below. Integer outputs (symbols, ids,
 back-copies) must be equal: with random weights at these sizes no two
 candidates tie. The trainable kernels (K8, K9) are held forward and
 backward, stream by stream, and through their autograd.Function against the
-same Function on CPU copies; the inference kernels (K1-K4) must refuse
-inputs that require grad.
+same Function on CPU copies; the inference kernels (K1-K5, K7) must refuse
+inputs that require grad. The decode head K7 is also held at target
+vocabularies of 13 000 and 30 000 words, and with exact ties; the general
+beam loop and dev eval (forward_eval) run on the card against CPU copies.
 
 Every test needs a CUDA card and skips without one. Run them on a GPU host
 (the tests' conftest imports JAX, which that host need not have):
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -25,16 +29,24 @@ from stjep_tpu_torch import kernels
 from stjep_tpu_torch.bridge import leaves, params_to
 from stjep_tpu_torch.config import BOS, PAD, ModelConfig
 from stjep_tpu_torch.infer.beam import beam_search
-from stjep_tpu_torch.infer.forward import forward_translate
+from stjep_tpu_torch.infer.forward import forward_eval, forward_translate
 from stjep_tpu_torch.models.seq2seq import _dec_embedder, init_seq2seq
 from stjep_tpu_torch.models.tf_decoder import tf_decoder_init_cache_chain
 from stjep_tpu_torch.ops.attention import precompute_keys
 from stjep_tpu_torch.ops.decode_flash import (
     CROSS_BLOCK,
+    beam_select,
+    beam_select_plain,
     decode_beam_step_flash,
     decode_beam_step_plain,
     decode_chain_step_flash,
     decode_chain_step_plain,
+    decode_head,
+    decode_head_gather,
+    decode_head_gather_plain,
+    decode_head_plain,
+    decoder_layer_step_flash,
+    decoder_layer_step_plain,
     pad_len,
     stack_decoder_layers,
 )
@@ -166,12 +178,12 @@ def test_las_greedy_kernel_matches_plain(dev, params):
     _close(picked, picked_p, TOL)
 
 
-def _decode_state(pg, K, pos, rng, dev):
+def _decode_state(pg, K, pos, rng, dev, Bn=B):
     """Caches filled below pos, a random ancestry and prefix, row 1's self
     mask all zero and batch entry 2's memory fully masked (both must give
     uniform attention, not NaN)."""
-    BK = B * K
-    enc = _randn(rng, B, LK, CFG.dim_model, dev=dev)
+    BK = Bn * K
+    enc = _randn(rng, Bn, LK, CFG.dim_model, dev=dev)
     cache = tf_decoder_init_cache_chain(pg["dec_tgt"], CFG, enc, MAX_LEN, K)
     Lpad = cache.self_k.shape[3]
     cache.self_k[:, :, :, :pos] = _randn(rng, *cache.self_k[:, :, :, :pos].shape, dev=dev)
@@ -182,10 +194,10 @@ def _decode_state(pg, K, pos, rng, dev):
     anc = torch.from_numpy(rng.randint(0, K, (Lpad, BK))).int()
     anc[pos] = torch.arange(BK, dtype=torch.int32) % K
     maskk = (preds != PAD).T.int().contiguous()
-    maskk[:, 1] = 0
-    mem_mask = torch.zeros((pad_len(LK, CROSS_BLOCK), B), dtype=torch.int32)
+    maskk[:, 1:2] = 0
+    mem_mask = torch.zeros((pad_len(LK, CROSS_BLOCK), Bn), dtype=torch.int32)
     mem_mask[:LK, 0] = 1
-    mem_mask[:5, 1] = 1
+    mem_mask[:5, 1:2] = 1
     return cache, preds.to(dev), anc.to(dev), maskk.to(dev), mem_mask.to(dev)
 
 
@@ -215,6 +227,113 @@ def test_chain_step_kernel_matches_plain(dev, params, K, pos):
     _close(sc, sc_p, TOL)
     _close(ck.self_k, cp.self_k, TOL)
     _close(ck.self_v, cp.self_v, TOL)
+
+
+@pytest.mark.parametrize("Bn,K,pos", [(1, 1, 0), (3, 1, 0), (3, 3, 6), (2, 2, MAX_LEN - 1)])
+def test_layer_step_kernel_matches_plain(dev, params, Bn, K, pos):
+    """K5 on layer 1's caches: the output and every cache row (the new one
+    at pos, the rest untouched)."""
+    _, pg = params
+    rng = np.random.RandomState(1000 + 10 * K + pos)
+    cache, _, anc, maskk, mem_mask = _decode_state(pg, K, pos, rng, dev, Bn=Bn)
+    maskk[pos] = 1
+    x = _randn(rng, Bn * K, CFG.dim_model, dev=dev)
+    lp = pg["dec_tgt"]["layers"][1]
+    before = decoder_layer_step_flash.launches
+    outs = []
+    for fn in (decoder_layer_step_flash, decoder_layer_step_plain):
+        c = _clone(cache)
+        y = fn(lp, x, c.self_k[1], c.self_v[1], c.mem_k[1], c.mem_v[1], pos,
+               CFG.num_heads, anc, K, mem_mask, maskk)
+        outs.append((y, c))
+    assert decoder_layer_step_flash.launches == before + 1
+    (y, ck), (y_p, cp) = outs
+    assert torch.isfinite(y).all()
+    _close(y, y_p, TOL)
+    _close(ck.self_k, cp.self_k, TOL)
+    _close(ck.self_v, cp.self_v, TOL)
+    assert torch.equal(ck.self_k[0], cache.self_k[0])  # other layers untouched
+
+
+def _head_params(rng, V, dev, ties=False):
+    D = CFG.dim_model
+    norm = {"scale": 1 + 0.1 * _randn(rng, D, dev=dev), "bias": 0.1 * _randn(rng, D, dev=dev)}
+    w = _randn(rng, D, V, dev=dev) / D ** 0.5
+    if ties:
+        # two live LayerNorm features, so each logit is the same sum in any
+        # summation order, and every column repeated 8 ids later: exact ties
+        # that must resolve to the lowest copy
+        norm["scale"] = torch.zeros(D, device=dev)
+        norm["scale"][[5, 77]] = torch.tensor([1.3, -0.8], device=dev)
+        norm["bias"] = torch.zeros(D, device=dev)
+        w = w[:, torch.arange(V, device=dev) % 8].contiguous()
+    return norm, {"w": w}
+
+
+def _same_ids_up_to_ties(ids, ids_p, sc_p):
+    """ids equal wherever the plain arm's top-K gap at that rank (to the next
+    rank) exceeds 1e-5; returns the number of tied rows."""
+    gaps = torch.cat([sc_p[:, :-1] - sc_p[:, 1:],
+                      torch.full_like(sc_p[:, :1], float("inf"))], 1)
+    bad = (ids != ids_p) & (gaps > 1e-5)
+    assert not bad.any(), (ids[bad.any(1)], ids_p[bad.any(1)])
+    return int((ids != ids_p).any(1).sum())
+
+
+@pytest.mark.parametrize("BK,V,topk,ties", [
+    (1, 1, 1, False), (5, 40, 3, False), (80, 200, 5, False), (7, 200, 16, False),
+    (16, 13000, 5, False), (80, 30000, 5, False), (6, 40, 4, True),
+    (6, 3000, 4, True), (6, 13000, 4, True)])
+def test_head_kernels_match_plain(dev, BK, V, topk, ties):
+    """K7 (decode_head) and its gather variant, head_topk without a bound
+    on V; gather ids include 0 and V-1. The tie cases at V > the block's
+    thread count put equal columns in one thread's scan as well as across
+    threads."""
+    rng = np.random.RandomState(BK + V + topk)
+    norm, out = _head_params(rng, V, dev, ties)
+    x = _randn(rng, BK, CFG.dim_model, dev=dev)
+    gid = torch.from_numpy(rng.randint(0, V, BK).astype(np.int32)).to(dev)
+    gid[0], gid[-1] = V - 1, 0
+    before = (decode_head.launches, decode_head_gather.launches)
+    sc, ids = decode_head(norm, out, x, topk)
+    sc_g, ids_g, glp = decode_head_gather(norm, out, x, topk, gid)
+    assert (decode_head.launches, decode_head_gather.launches) == (before[0] + 1, before[1] + 1)
+    sc_p, ids_p = decode_head_plain(norm, out, x, topk)
+    _, _, glp_p = decode_head_gather_plain(norm, out, x, topk, gid)
+    assert ids.dtype == ids_g.dtype == torch.int32 and ids.shape == (BK, topk)
+    assert torch.equal(ids, ids_g) and torch.equal(sc, sc_g)
+    _same_ids_up_to_ties(ids, ids_p, sc_p)
+    _close(sc, sc_p, 1e-5)
+    _close(glp, glp_p, 1e-5)
+    if ties:
+        assert torch.equal(ids, ids_p)
+        assert (ids[:, 1:] - ids[:, :-1] == 8).all()
+
+
+@pytest.mark.parametrize("K,pos", [(1, 0), (1, 9)])
+def test_chain_step_gather_matches_plain(dev, params, K, pos):
+    """K3's gather variant: the greedy dev-eval step."""
+    _, pg = params
+    rng = np.random.RandomState(50 + pos)
+    cache, _, anc, maskk, mem_mask = _decode_state(pg, K, pos, rng, dev)
+    maskk[pos] = 1
+    x = _randn(rng, B * K, CFG.dim_model, dev=dev)
+    gid = torch.from_numpy(rng.randint(0, CFG.dec_vocab_size, B * K).astype(np.int32)).to(dev)
+    stacked = stack_decoder_layers(pg["dec_tgt"])
+    before = (decode_chain_step_flash.launches, decode_chain_step_flash.gather_launches)
+    outs = []
+    for fn in (decode_chain_step_flash, decode_chain_step_plain):
+        c = _clone(cache)
+        outs.append(fn(stacked, pg["dec_tgt"]["norm"], pg["out_tgt"], x, c.self_k,
+                       c.self_v, c.mem_k, c.mem_v, pos, CFG.num_heads, anc, K,
+                       mem_mask, maskk, 2, gather_ids=gid) + (c,))
+    assert (decode_chain_step_flash.launches,
+            decode_chain_step_flash.gather_launches) == (before[0], before[1] + 1)
+    (sc, ids, glp, ck), (sc_p, ids_p, glp_p, cp) = outs
+    assert torch.equal(ids, ids_p)
+    _close(sc, sc_p, TOL)
+    _close(glp, glp_p, TOL)
+    _close(ck.self_k, cp.self_k, TOL)
 
 
 @pytest.mark.parametrize("K,i,pf", [(1, 5, 1.0), (3, 7, 1.0), (3, 7, 0.7), (2, 12, 1.3)])
@@ -249,6 +368,36 @@ def test_beam_step_kernel_matches_plain(dev, params, K, i, pf):
     _close(ck.self_v, cp.self_v, TOL)
 
 
+@pytest.mark.parametrize("K,i,pf,eos_share", [
+    (1, 5, 1.0, 0.3), (3, 7, 0.7, 0.3), (4, 2, 1.0, 1.0), (16, 9, 1.3, 0.3)])
+def test_beam_select_kernel_matches_plain(dev, params, K, i, pf, eos_share):
+    """The general loop's select alone (K4's select kernel), up to
+    K = MAX_BEAM and with every row finished (the all-EOS flag set)."""
+    _, pg = params
+    rng = np.random.RandomState(300 + K + i)
+    BK = B * K
+    _, preds, anc, maskk, _ = _decode_state(pg, K, i - 1, rng, dev)
+    sc = torch.from_numpy(-np.sort(rng.uniform(0, 8, (BK, K)), 1)
+                          .astype(np.float32)).to(dev)
+    ids = torch.from_numpy(np.stack([rng.permutation(CFG.dec_vocab_size)[:K]
+                                     for _ in range(BK)]).astype(np.int32)).to(dev)
+    eos = torch.from_numpy((rng.rand(BK) < eos_share).astype(np.int32)).to(dev)
+    scores = torch.from_numpy(-rng.uniform(0, 3 * i, BK).astype(np.float32)).to(dev)
+    lenm = torch.from_numpy(rng.randint(1, i + 1, BK).astype(np.float32)).to(dev)
+    args = (sc, ids, scores, eos, lenm, preds, anc, maskk, i, K, pf)
+    before = beam_select.launches
+    out_k = beam_select(*args)
+    assert beam_select.launches == before + 1
+    out_p = beam_select_plain(*args)
+    names = ("preds", "anc", "maskk", "last_tok", "scores", "eos", "lenm", "flag")
+    for nm, a, b in zip(names, out_k, out_p):
+        if nm in ("scores", "lenm"):
+            _close(a, b, TOL)
+        else:
+            assert torch.equal(a.int(), b.int()), nm
+    assert int(out_k[7]) == int(eos_share == 1.0)
+
+
 @pytest.mark.parametrize("K", [1, 2, 3, 5])
 def test_beam_search_card_matches_cpu(dev, params, K):
     pc, pg = params
@@ -277,6 +426,66 @@ def test_forward_translate_card_matches_cpu(dev, params):
                               beam_width=3, max_seq_len=MAX_LEN)
     assert torch.equal(out_g.cpu(), out_c)
     assert out_c.shape == (B, MAX_LEN) and (out_c[:, 0] == BOS).all()
+
+
+UNIVERSAL = dataclasses.replace(CFG, transformer_type="universal")
+GENERAL_CFGS = {"universal": UNIVERSAL,
+                "dec_emb_proj": dataclasses.replace(CFG, dec_emb_proj=True)}
+
+
+@pytest.mark.parametrize("kind,K", [("universal", 1), ("universal", 3),
+                                    ("universal", 5), ("dec_emb_proj", 2)])
+def test_general_beam_card_matches_cpu(dev, kind, K):
+    """The general beam loop: K5 per hop + K7 (universal), or K3 (standard
+    with dec_emb_proj), then K4's select kernel; never the megastep."""
+    cfg = GENERAL_CFGS[kind]
+    pc = init_seq2seq(cfg, torch.Generator().manual_seed(K), "cpu")
+    pg = params_to(pc, dev)
+    rng = np.random.RandomState(20 + K)
+    enc = _randn(rng, B, LK, CFG.dim_model)
+    mem_mask = torch.arange(LK)[None, :] < torch.tensor([11, 6, 9])[:, None]
+    wrappers = (decoder_layer_step_flash, decode_head, decode_chain_step_flash,
+                beam_select, decode_beam_step_flash)
+    before = [w.launches for w in wrappers]
+    preds_g, scores_g = beam_search(pg, cfg, enc.to(dev), mem_mask.to(dev), K,
+                                    1.0, MAX_LEN)
+    ran = [w.launches > n for w, n in zip(wrappers, before)]
+    assert ran == ([True, True, False, True, False] if kind == "universal"
+                   else [False, False, True, True, False])
+    preds_c, scores_c = beam_search(pc, cfg, enc, mem_mask, K, 1.0, MAX_LEN)
+    assert torch.equal(preds_g.cpu(), preds_c)
+    _close(scores_g.cpu(), scores_c, TOL)
+
+
+@pytest.mark.parametrize("kind", ["standard", "universal"])
+def test_forward_eval_card_matches_cpu(dev, kind):
+    """Dev eval (ASR_ST with refs): K1, K2 with refs, then K3's gather
+    variant (standard) or K5 per hop + K7's gather variant (universal)."""
+    cfg = CFG if kind == "standard" else UNIVERSAL
+    pc = init_seq2seq(cfg, torch.Generator().manual_seed(5), "cpu")
+    pg = params_to(pc, dev)
+    rng = np.random.RandomState(9)
+    kw = dict(acous_feats=_randn(rng, B, 64, CFG.acous_dim),
+              acous_lens=torch.tensor([64, 29, 47]),
+              ref_src=torch.from_numpy(rng.randint(4, CFG.enc_vocab_size, (B, CFG.max_seq_len_src))),
+              ref_tgt=torch.from_numpy(rng.randint(4, CFG.dec_vocab_size, (B, 9))))
+    kw["ref_src"][:, 0] = kw["ref_tgt"][:, 0] = BOS
+    counts = lambda: (decode_chain_step_flash.gather_launches,
+                      decoder_layer_step_flash.launches, decode_head_gather.launches,
+                      las_greedy_flash.launches)
+    before = counts()
+    out_g = forward_eval(pg, cfg, "ASR_ST", **{k: v.to(dev) for k, v in kw.items()})
+    ran = [a > b for a, b in zip(counts(), before)]
+    assert ran == ([True, False, False, True] if kind == "standard"
+                   else [False, True, True, True])
+    out_c = forward_eval(pc, cfg, "ASR_ST", **kw)
+    assert set(out_g) == set(out_c)
+    for k, v in out_c.items():
+        if k.startswith(("preds", "lengths")):
+            assert torch.equal(out_g[k].cpu(), v), k
+        else:
+            _close(out_g[k].cpu(), v, TOL)
+    assert out_c["picked_st"].shape == (B, 8)
 
 
 def _grad_leaves(tree, dev):
@@ -391,16 +600,17 @@ def _k2_call(pg, dev):
                                     torch.full((2,), BOS, device=dev), 3)
 
 
-def _k3_call(pg, dev):
+def _k3_call(pg, dev, gather=False):
     rng = np.random.RandomState(0)
     cache, _, anc, maskk, mem_mask = _decode_state(pg, 1, 0, rng, dev)
     maskk[0] = 1
     stacked = stack_decoder_layers(pg["dec_tgt"])
     x = _randn(rng, B, CFG.dim_model, dev=dev)
+    gid = torch.zeros(B, device=dev, dtype=torch.int32) if gather else None
     return lambda: decode_chain_step_flash(
         stacked, pg["dec_tgt"]["norm"], pg["out_tgt"], x, cache.self_k,
         cache.self_v, cache.mem_k, cache.mem_v, 0, CFG.num_heads, anc, 1,
-        mem_mask, maskk, 1)
+        mem_mask, maskk, 1, gather_ids=gid)
 
 
 def _k4_call(pg, dev):
@@ -419,8 +629,42 @@ def _k4_call(pg, dev):
         cache.self_v, cache.mem_k, cache.mem_v, CFG.num_heads, K, 1.0)
 
 
-@pytest.mark.parametrize("make_call", [_k1_call, _k2_call, _k3_call, _k4_call],
-                         ids=["K1", "K2", "K3", "K4"])
+def _k5_call(pg, dev):
+    rng = np.random.RandomState(2)
+    cache, _, anc, maskk, mem_mask = _decode_state(pg, 1, 0, rng, dev)
+    maskk[0] = 1
+    x = _randn(rng, B, CFG.dim_model, dev=dev)
+    return lambda: decoder_layer_step_flash(
+        pg["dec_tgt"]["layers"][0], x, cache.self_k[0], cache.self_v[0],
+        cache.mem_k[0], cache.mem_v[0], 0, CFG.num_heads, anc, 1, mem_mask, maskk)
+
+
+def _k7_call(pg, dev, gather=False):
+    x = _randn(np.random.RandomState(3), B, CFG.dim_model, dev=dev)
+    if gather:
+        gid = torch.zeros(B, device=dev, dtype=torch.int32)
+        return lambda: decode_head_gather(pg["dec_tgt"]["norm"], pg["out_tgt"], x, 2, gid)
+    return lambda: decode_head(pg["dec_tgt"]["norm"], pg["out_tgt"], x, 2)
+
+
+def _select_call(pg, dev):
+    rng = np.random.RandomState(4)
+    K, i = 2, 3
+    _, preds, anc, maskk, _ = _decode_state(pg, K, i - 1, rng, dev)
+    BK = B * K
+    z = lambda dt: torch.zeros(BK, device=dev, dtype=dt)
+    ids = torch.arange(BK * K, device=dev, dtype=torch.int32).view(BK, K) % CFG.dec_vocab_size
+    # head scores that carry the output weight's autograd history
+    return lambda: beam_select((-pg["out_tgt"]["w"][:BK, :K].abs()).contiguous(), ids,
+                               z(torch.float32), z(torch.int32), z(torch.float32) + 1,
+                               preds, anc, maskk, i, K, 1.0)
+
+
+@pytest.mark.parametrize("make_call", [
+    _k1_call, _k2_call, _k3_call, lambda pg, dev: _k3_call(pg, dev, gather=True),
+    _k4_call, _select_call, _k5_call, _k7_call,
+    lambda pg, dev: _k7_call(pg, dev, gather=True)],
+    ids=["K1", "K2", "K3", "K3_gather", "K4", "K4_select", "K5", "K7", "K7_gather"])
 def test_inference_kernels_refuse_autograd(dev, make_call):
     """With a weight that requires grad, the CUDA route raises instead of
     returning outputs without a grad_fn; under no_grad it runs."""
