@@ -14,7 +14,13 @@ non-zero without printing a result:
    flagship shapes on seeded inputs: each kernel against its plain PyTorch version on the
    card (floats within a stated tolerance; integer outputs equal wherever
    the plain version's gap to the next rank exceeds 1e-5), with median
-   times from CUDA events; K7 also at a 30 000-word target vocabulary.
+   times from CUDA events; K7 also at a 30 000-word target vocabulary. The
+   serving kernels likewise: gemm_q8 (one layer's eight int8 products, at
+   M = 80 and 5), the bf16 attention kernels, K5 in int8, bf16 and
+   int8+bf16, K3 and K4 in int8+bf16. Each kernel's bound (bytes over HBM
+   bandwidth or operations over peak, from this run's inputs) and, where
+   one PyTorch call computes the same function, its time: cuDNN's LSTM for
+   K1 and K8, scaled_dot_product_attention for the bf16 cross attention.
 4. the decode main paths, each driven with every launch count zeroed just
    before it and read just after, at the flagship configuration
    (bench.py's), random weights from init_seq2seq(seed):
@@ -31,6 +37,14 @@ non-zero without printing a result:
      reference ids at B=16 (K1, K2 with refs, then K3's gather variant or
      K5 per hop + K7's gather variant); utt/s, and the card against CPU
      copies: preds equal up to ties as above, picked_* within 1e-4.
+   - serving, standard model: bf16 caches at B=16 (3 requests, utt/s),
+     B=1 (median of 3) and B=64 (one request); int8 weights + bf16 caches
+     at B=1 and B=16; with the decoder snapped onto the int8 grid (lossless
+     quantization) the int8 route decodes the f32 route's tokens in 16/16
+     rows; the bf16 route against its plain route on CPU copies for 2 rows,
+     differing rows explained by a tie within SERVE_MARGIN;
+   - serving, universal model at B=16: int8 + bf16 and bf16 (K5 variants;
+     K3 and K4 idle), and the int8-grid check.
 5. kernels K8 (trainable BiLSTM) and K9 (teacher-forced LAS scan) at the
    flagship train shapes on seeded inputs and cotangents: forward and
    backward each against its plain version on the card, every saved or
@@ -68,6 +82,18 @@ import torch
 
 TIE = 1e-5  # integer outputs may differ only where the plain top-2 gap is below this
 E2E_MARGIN = 1e-3  # first-divergence margin that explains a differing e2e row
+# bf16 caches, card against the plain route: both round at the same points,
+# but the f32 values they round come from GEMMs summed in other orders, so
+# a value near a bf16 rounding boundary lands one bf16 step (2^-8
+# relative) apart. That moves a hidden state or log-prob by up to ~1e-3,
+# so two beam candidates closer than SERVE_MARGIN may swap: a tie at that
+# margin explains a differing row
+SERVE_MARGIN = 1e-2
+# the least time the card could take (H100 SXM datasheet peaks at 700 W): bytes over HBM bandwidth, operations over the peak of
+# their type; these kernels use no tensor cores, so f32 operations count
+# against the CUDA cores' 67 TFLOP/s and bf16 products against 989
+HBM_BYTES_PER_S = 3.35e12
+PEAK = {"f32": 67e12, "bf16": 989e12}
 
 # bench.py's flagship workload (bench.py:24-38,120-129)
 FLAGSHIP = dict(
@@ -113,6 +139,104 @@ def max_err(a, b) -> float:
     return float((a.double().cpu() - b.double().cpu()).abs().max())
 
 
+def cache_err(a, b, bf16) -> float:
+    """Cache rows [nl, ...] (or one layer's), kernel a against plain b: max
+    abs error (f32). For bf16, layer 0 (whose inputs the two share) in bf16
+    steps: its largest difference over 2^-7 of the value plus 1e-4 for f32
+    rows that differ near zero by summation order, at most 1 when the two
+    rounded the same value or its neighbour; the deeper layers' rows carry
+    the earlier layers' differences (SERVE_TOL's), so they are held to
+    DEEP_CACHE_REL of the cache's largest magnitude."""
+    if not bf16:
+        return max_err(a, b)
+    a, b = a.double(), b.double()
+    if a.dim() == 5 and a.shape[0] > 1:
+        deep = max_err(a[1:], b[1:]) / float(b[1:].abs().max())
+        need(deep <= DEEP_CACHE_REL, f"bf16 cache rows past layer 0 differ by {deep} of "
+             f"their scale > {DEEP_CACHE_REL}")
+        a, b = a[0], b[0]
+    return float(((a - b).abs() / (2.0 ** -7 * b.abs() + 1e-4)).max())
+
+
+DEEP_CACHE_REL = 2e-2  # a few bf16 steps (2^-7 = 7.8e-3) of the rows' scale
+
+
+def nbytes(*xs) -> int:
+    """Bytes of every tensor in xs (nested in tuples, lists and dicts)."""
+    total = 0
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            total += x.numel() * x.element_size()
+        elif isinstance(x, dict):
+            total += nbytes(*x.values())
+        elif isinstance(x, (tuple, list)):
+            total += nbytes(*x)
+    return total
+
+
+def bound(n_bytes, flops, peak="f32"):
+    """bound_ms, the larger of bytes over HBM bandwidth and operations
+    over the peak of their type, and which of the two sets it."""
+    t_b, t_o = n_bytes / HBM_BYTES_PER_S, flops / PEAK[peak]
+    return dict(bound_ms=max(t_b, t_o) * 1e3, bound_by="bytes" if t_b >= t_o else "operations")
+
+
+def layer_weight_bytes(cfg, quant) -> int:
+    """One decoder layer's streamed bytes: 6 D x D and 2 D x FF matrices
+    (f32, or int8 with f32 scales per column), LayerNorms and FFN biases."""
+    D, FF = cfg.dim_model, cfg.dim_feedforward
+    cols, small = 7 * D + FF, 4 * (6 * D + FF + D)
+    mats = 6 * D * D + 2 * D * FF
+    return (mats + 4 * cols if quant else 4 * mats) + small
+
+
+def decode_bound(cfg, nl, K, pos, anc, mem_mask, cache_itemsize, quant, V=0, topk=0):
+    """Bytes and operations that nl decode layers at `pos` must spend (K5;
+    with V, the head after them: K3), counted from this call's data: the
+    distinct self-cache rows the ancestry reads below pos, the new rows
+    written, the valid memory rows, the weights once; the layers' products,
+    both attentions, and the head's product."""
+    D, FF = cfg.dim_model, cfg.dim_feedforward
+    BK = anc.shape[1]
+    Bn = BK // K
+    b = torch.arange(BK) // K
+    keys = anc[:pos].long().cpu() * Bn + b + torch.arange(pos)[:, None] * K * Bn
+    rows, mem_rows = keys.unique().numel(), int(mem_mask.sum())
+    per_layer = (layer_weight_bytes(cfg, quant)
+                 + (2 * rows + 2 * BK + 2 * mem_rows) * D * cache_itemsize)
+    n_bytes = nl * per_layer + 4 * BK * D + 8 * (pos + 1) * BK + 4 * mem_mask.numel()
+    flops = nl * (2 * BK * (6 * D * D + 2 * D * FF) + 4 * BK * (pos + 1) * D
+                  + 4 * K * mem_rows * D)
+    if V:
+        n_bytes += 4 * (2 * D + D * V) + 8 * BK * topk
+        flops += 2 * BK * D * V
+    return n_bytes, flops
+
+
+def lstm_flops(lens, din, H) -> int:
+    """Both directions' input and recurrent products over the valid frames."""
+    return 2 * int(lens.sum()) * (2 * din * 4 * H + 2 * H * 4 * H)
+
+
+def cudnn_bilstm(p, din, H, train=False):
+    """torch.nn.LSTM (cuDNN, bidirectional) holding a K1/K8 layer's weights:
+    the library yardstick, timed beside the kernels and used nowhere else."""
+    m = torch.nn.LSTM(din, H, batch_first=True, bidirectional=True).cuda()
+    with torch.no_grad():
+        for sfx, d in (("", "fwd"), ("_reverse", "bwd")):
+            getattr(m, "weight_ih_l0" + sfx).copy_(p[d]["w_ih"].t())
+            getattr(m, "weight_hh_l0" + sfx).copy_(p[d]["w_hh"].t())
+            getattr(m, "bias_ih_l0" + sfx).copy_(p[d]["b_ih"])
+            getattr(m, "bias_hh_l0" + sfx).copy_(p[d]["b_hh"])
+    m.requires_grad_(train)
+    return m
+
+
+def packed(x, lens):
+    return torch.nn.utils.rnn.pack_padded_sequence(x, lens.cpu(), batch_first=True,
+                                                   enforce_sorted=False)
+
+
 def inputs(rng, n):
     """Seeded fbank-shaped features and lengths, as bench.py makes them."""
     feats = rng.randn(n, FRAMES, 40).astype(np.float32)
@@ -133,26 +257,39 @@ def phase_k1(params, cfg, rng):
     enc = params["las"]["encoder"]
     lens = torch.from_numpy(rng.randint(FRAMES // 2, FRAMES, size=(B,))).cuda()
     T, din, err, ms, plain_ms = FRAMES, cfg.acous_dim, 0.0, 0.0, 0.0
-    shapes = []
+    H = cfg.acous_hidden_size
+    shapes, n_bytes, flops, lib_ms, lib_err = [], 0, 0, 0.0, 0.0
     for li in range(cfg.num_pyramid_layers):
         shapes.append(f"({T},{din})")
         p = enc[f"acous_enc_l{li + 1}"]
         x = torch.from_numpy(rng.uniform(-1, 1, (B, T, din)).astype(np.float32)).cuda()
         args = (p["fwd"], p["bwd"], x, lens)
-        err = max(err, max_err(bilstm_pallas(*args), bilstm_plain(*args)))
+        out = bilstm_pallas(*args)
+        err = max(err, max_err(out, bilstm_plain(*args)))
         ms += cuda_ms(lambda: bilstm_pallas(*args), 5)
         plain_ms += cuda_ms(lambda: bilstm_plain(*args), 2)
-        T, din, lens = T // 2, 4 * cfg.acous_hidden_size, lens // 2
+        n_bytes += nbytes(p, x, lens, out)
+        flops += lstm_flops(lens, din, H)
+        lstm, xp = cudnn_bilstm(p, din, H), packed(x, lens)
+        with torch.no_grad():
+            lib = torch.nn.utils.rnn.pad_packed_sequence(lstm(xp)[0], batch_first=True,
+                                                         total_length=T)[0]
+            lib_err = max(lib_err, max_err(lib, out))
+            lib_ms += cuda_ms(lambda: lstm(xp), 5)
+        T, din, lens = T // 2, 4 * H, lens // 2
     # outputs are LSTM states in (-1, 1); f32 on both sides, summed in another
     # order (GEMM tiles vs ATen) over up to 1504 contractive recurrent steps
     tol = 1e-4
+    b = bound(n_bytes, flops)
     say("kernel K1 bilstm", B=B, T_Din=",".join(shapes),
-        max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms)
+        max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        library_max_abs_err=lib_err, **b)
     need(err <= tol, f"K1 max_abs_err {err} > {tol}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **b)
 
 
 def phase_k2(params, cfg, rng):
+    from stjep_tpu_torch.bridge import leaves
     from stjep_tpu_torch.config import BOS
     from stjep_tpu_torch.ops.attention import precompute_keys
     from stjep_tpu_torch.ops.las_flash import las_greedy_flash, las_greedy_plain
@@ -183,17 +320,26 @@ def phase_k2(params, cfg, rng):
     # dynamic embeddings are unbounded FFN outputs fed back through 89
     # recurrent steps; f32 on both sides, summed in another order
     tol = 1e-3
+    # every step reads the step weights (not the keys' projection, applied
+    # once outside) and one embedding row per utterance; its products and
+    # the attention over the Tk keys and values
+    step_w = {k: v for k, v in dec.items() if k not in ("embedder", "acous_att")}
+    mats = sum(t.numel() for t in leaves(step_w) if t.dim() == 2)
+    n_bytes = (nbytes(step_w, wk, acous, lens_k, embs_k, preds_k, picked_k)
+               + n * B * dec["embedder"].shape[1] * 4)
+    flops = n * (2 * B * mats + 2 * B * Tk * (wk.shape[2] + acous.shape[2]))
+    b = bound(n_bytes, flops)
     say("kernel K2 las_greedy", steps=n, V=cfg.enc_vocab_size, max_abs_err=err,
-        tol=tol, tied_rows=rows, ms=ms, plain_ms=plain_ms)
+        tol=tol, tied_rows=rows, ms=ms, plain_ms=plain_ms, **b)
     need(err <= tol, f"K2 max_abs_err {err} > {tol}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
 
 
-def decode_state(params, cfg, rng, pos, K=BEAM):
+def decode_state(params, cfg, rng, pos, K=BEAM, bf16=False):
     """A seeded decode state at position `pos` for B=16 and group K (the
     beam's 5 by default): memory K/V of 89 encoder positions (padded to
-    96), caches filled below pos, a random ancestry with each row's own
-    slot at pos, and random prefix tokens."""
+    96), caches filled below pos (cast to bf16 with bf16), a random ancestry
+    with each row's own slot at pos, and random prefix tokens."""
     from stjep_tpu_torch.config import BOS, PAD
     from stjep_tpu_torch.models.tf_decoder import tf_decoder_init_cache_chain
     from stjep_tpu_torch.ops.decode_flash import CROSS_BLOCK, pad_len
@@ -206,6 +352,8 @@ def decode_state(params, cfg, rng, pos, K=BEAM):
                                     .astype(np.float32)).cuda()
     cache.self_k[:, :, :, :pos] = fill()
     cache.self_v[:, :, :, :pos] = fill()
+    if bf16:
+        cache = type(cache)(*(t.to(torch.bfloat16) for t in cache))
     preds = torch.full((BK, Lpad), PAD, dtype=torch.int32)
     preds[:, 1:pos + 1] = torch.from_numpy(rng.randint(4, cfg.dec_vocab_size, (BK, pos)))
     preds[:, 0] = BOS
@@ -224,7 +372,23 @@ def clone_cache(c):
     return type(c)(*(t.clone() for t in c))
 
 
-def phase_k3(params, cfg, rng):
+def serving_decoder(params, quant):
+    from stjep_tpu_torch.ops.decode_flash import quantize_decoder_weights
+
+    return quantize_decoder_weights(params["dec_tgt"]) if quant else params["dec_tgt"]
+
+
+def variant_label(quant, bf16):
+    return "+".join(n for n, on in (("int8", quant), ("bf16", bf16)) if on) or "f32"
+
+
+# serving variants against plain on the card: bf16 caches round where plain
+# rounds, from f32 values summed in another order (SERVE_MARGIN's reason):
+# hidden states and log-probs of magnitude <= ~10 move by up to a few 1e-3
+SERVE_TOL = 5e-3
+
+
+def phase_k3(params, cfg, rng, quant=False, bf16=False):
     from stjep_tpu_torch.config import BOS
     from stjep_tpu_torch.models.seq2seq import _embed_tgt_token
     from stjep_tpu_torch.ops.decode_flash import (
@@ -235,10 +399,10 @@ def phase_k3(params, cfg, rng):
     from stjep_tpu_torch.ops.masks import position_signal
 
     K, BK = BEAM, B * BEAM
-    st = decode_state(params, cfg, rng, 0)  # position 1 reads position 0 only
+    st = decode_state(params, cfg, rng, 0, bf16=bf16)  # position 1 reads position 0 only
     tok = torch.full((BK,), BOS, device="cuda", dtype=torch.int32)
     x = _embed_tgt_token(params, cfg, tok) + position_signal(500, cfg.dim_model, "cuda")[0, 0]
-    dec = params["dec_tgt"]
+    dec = serving_decoder(params, quant)
     stacked = stack_decoder_layers(dec)
 
     def run(fn, cache, topk):
@@ -249,25 +413,32 @@ def phase_k3(params, cfg, rng):
     ck, cp = clone_cache(st["cache"]), clone_cache(st["cache"])
     sc_k, ids_k = run(decode_chain_step_flash, ck, K + 1)
     sc_p, ids_p = run(decode_chain_step_plain, cp, K + 1)
-    err = max(max_err(sc_k, sc_p), max_err(ck.self_k, cp.self_k),
-              max_err(ck.self_v, cp.self_v))
+    c_err = max(cache_err(ck.self_k, cp.self_k, bf16), cache_err(ck.self_v, cp.self_v, bf16))
+    err = max_err(sc_k, sc_p) if bf16 else max(max_err(sc_k, sc_p), c_err)
+    # log-probs of magnitude <= ~10 after 6 layers in f32, summed in another
+    # order; with bf16 caches six layers of SERVE_TOL's rounding flips
+    # (3.7e-3 read on an H100), so twice K5's limit
+    tol = 2 * SERVE_TOL if bf16 else 1e-4
+    need(not bf16 or c_err <= 1, f"K3 bf16 cache rows {c_err} bf16 steps apart")
+    tie = tol if bf16 else TIE
     rows = 0
     for r, c in enumerate(first_diff(ids_k[:, :K], ids_p[:, :K])):
         if c is not None:
             rows += 1
             gap = float((sc_p[r, :K] - sc_p[r, 1:K + 1]).min())
-            need(gap <= TIE, f"K3 row {r}: ids differ, plain top-k gap {gap}")
+            need(gap <= tie, f"K3 row {r}: ids differ, plain top-k gap {gap}")
     ms = cuda_ms(lambda: run(decode_chain_step_flash, ck, K), 20)
     plain_ms = cuda_ms(lambda: run(decode_chain_step_plain, cp, K), 10)
-    # log-probs of magnitude <= ~10 after 6 layers in f32, summed in another order
-    tol = 1e-4
-    say("kernel K3 decode_chain_step", BK=BK, pos=0, max_abs_err=err, tol=tol,
-        tied_rows=rows, ms=ms, plain_ms=plain_ms)
+    b = bound(*decode_bound(cfg, cfg.dec_layers, K, 0, st["anc"], st["mem_mask"],
+                            ck.self_k.element_size(), quant, cfg.dec_vocab_size, K))
+    say(f"kernel K3 decode_chain_step {variant_label(quant, bf16)}", BK=BK, pos=0,
+        max_abs_err=err, tol=tol, cache_err=c_err, tied_rows=rows, ms=ms, plain_ms=plain_ms,
+        **b)
     need(err <= tol, f"K3 max_abs_err {err} > {tol}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
 
 
-def phase_k4(params, cfg, rng):
+def phase_k4(params, cfg, rng, quant=False, bf16=False):
     from stjep_tpu_torch.config import EOS
     from stjep_tpu_torch.models.seq2seq import _dec_embedder, _embed_tgt_token
     from stjep_tpu_torch.ops.decode_flash import (
@@ -280,12 +451,12 @@ def phase_k4(params, cfg, rng):
     from stjep_tpu_torch.ops.masks import position_signal
 
     K, BK, i = BEAM, B * BEAM, DECODE_LEN // 2  # a mid-decode position
-    st = decode_state(params, cfg, rng, i - 1)
+    st = decode_state(params, cfg, rng, i - 1, bf16=bf16)
     eos = torch.from_numpy((rng.rand(BK) < 0.2).astype(np.int32)).cuda()
     scores = torch.from_numpy(-rng.uniform(0, 3 * i, BK).astype(np.float32)).cuda()
     lenm = torch.from_numpy(rng.randint(1, i, BK).astype(np.float32)).cuda()
     last_tok = st["preds"][:, i - 1].contiguous()
-    dec = params["dec_tgt"]
+    dec = serving_decoder(params, quant)
     stacked = stack_decoder_layers(dec)
     table = _dec_embedder(params, cfg).contiguous()
     tsig = position_signal(500, cfg.dim_model, "cuda")[0].contiguous()
@@ -309,30 +480,45 @@ def phase_k4(params, cfg, rng):
                                     anc_p, K, st["mem_mask"], st["maskk"], K)
     cand = beam_candidates(sc, scores, eos, lenm, 1.0)[0].sort(dim=1, descending=True)[0]
     gaps = (cand[:, :K] - cand[:, 1:K + 1]).min(dim=1)[0]
+    # cumulative scores of magnitude up to ~450 in f32 (rel. 2e-6), plus K3's
+    # error; with bf16 caches K3's SERVE_TOL, and ties at that margin
+    tol, tie = (2 * SERVE_TOL, SERVE_TOL) if bf16 else (1e-3, TIE)
     names = ("preds", "anc", "maskk", "last_tok", "scores", "eos", "lenm")
     grp = torch.arange(BK, device="cuda") // K
     err, groups = 0.0, set()
     for nm, a, b in zip(names, out_k, out_p):
         if nm in ("scores", "lenm"):
-            err = max(err, max_err(a, b))
+            err = max(err, max_err(a[~bad_groups(groups, grp)], b[~bad_groups(groups, grp)]))
             continue
         bad = (a != b)
         bad = bad.any(dim=1) if nm == "preds" else bad.any(dim=0) if a.dim() == 2 else bad
         for g in grp[bad].unique().tolist():
             groups.add(g)
-            need(float(gaps[g]) <= TIE,
+            need(float(gaps[g]) <= tie,
                  f"K4 {nm} differs in group {g}, plain candidate gap {float(gaps[g])}")
     need(bool((out_k[7] == out_p[7]).all()) or groups, "K4 all-EOS flag differs")
-    err = max(err, max_err(ck.self_k, cp.self_k), max_err(ck.self_v, cp.self_v))
+    c_err = max(cache_err(ck.self_k, cp.self_k, bf16), cache_err(ck.self_v, cp.self_v, bf16))
+    need(not bf16 or c_err <= 1, f"K4 bf16 cache rows {c_err} bf16 steps apart")
+    err = err if bf16 else max(err, c_err)
     ms = cuda_ms(lambda: run(decode_beam_step_flash, ck, anc_k), 20)
     plain_ms = cuda_ms(lambda: run(decode_beam_step_plain, cp, anc_p), 10)
-    # cumulative scores of magnitude up to ~450 in f32 (rel. 2e-6), plus K3's error
-    tol = 1e-3
-    say("kernel K4 decode_beam_step", BK=BK, i=i, eos_rows=int(eos.sum()),
-        max_abs_err=err, tol=tol, tied_groups=len(groups), ms=ms,
-        plain_ms=plain_ms, EOS=EOS)
+    n_bytes, flops = decode_bound(cfg, cfg.dec_layers, K, i - 1, st["anc"], st["mem_mask"],
+                                  ck.self_k.element_size(), quant, cfg.dec_vocab_size, K)
+    # the token rows and the time signal in; the select's state in and out
+    n_bytes += 4 * BK * cfg.dim_model + 4 * cfg.dim_model + 2 * nbytes(out_k)
+    b = bound(n_bytes, flops)
+    say(f"kernel K4 decode_beam_step {variant_label(quant, bf16)}", BK=BK, i=i,
+        eos_rows=int(eos.sum()), max_abs_err=err, tol=tol, cache_err=c_err,
+        tied_groups=len(groups), ms=ms,
+        plain_ms=plain_ms, EOS=EOS, **b)
     need(err <= tol, f"K4 max_abs_err {err} > {tol}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
+
+
+def bad_groups(groups, grp):
+    """Rows of the beam groups whose selection differed by a tie (their
+    scores are another candidate's, not comparable)."""
+    return torch.isin(grp, torch.tensor(sorted(groups), dtype=grp.dtype, device=grp.device))
 
 
 def phase_k4_select(params, cfg, rng):
@@ -361,13 +547,14 @@ def phase_k4_select(params, cfg, rng):
     ms = cuda_ms(lambda: beam_select(*args), 20)
     plain_ms = cuda_ms(lambda: beam_select_plain(*args), 10)
     tol = 1e-3  # K4's: cumulative scores of magnitude up to ~450 in f32
+    b = bound(nbytes(args[:8], out_k), 0)
     say("kernel K4 select", BK=BK, i=i, eos_rows=int(eos.sum()), max_abs_err=err,
-        tol=tol, ms=ms, plain_ms=plain_ms)
+        tol=tol, ms=ms, plain_ms=plain_ms, **b)
     need(err <= tol, f"K4 select max_abs_err {err} > {tol}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
 
 
-def phase_k5(params, cfg, rng):
+def phase_k5(params, cfg, rng, quant=False, bf16=False):
     """K5 (one decoder layer's decode step) at the universal beam's shapes:
     BK = 80, a mid position of the 160-row caches, 96 memory rows."""
     from stjep_tpu_torch.ops.decode_flash import (
@@ -376,9 +563,9 @@ def phase_k5(params, cfg, rng):
     )
 
     K, BK, pos = BEAM, B * BEAM, DECODE_LEN // 2
-    st = decode_state(params, cfg, rng, pos)
+    st = decode_state(params, cfg, rng, pos, bf16=bf16)
     x = torch.from_numpy(rng.randn(BK, cfg.dim_model).astype(np.float32)).cuda()
-    lp = params["dec_tgt"]["layers"][0]
+    lp = serving_decoder(params, quant)["layers"][0]
 
     def run(fn, cache):
         return fn(lp, x, cache.self_k[0], cache.self_v[0], cache.mem_k[0],
@@ -387,18 +574,125 @@ def phase_k5(params, cfg, rng):
 
     ck, cp = clone_cache(st["cache"]), clone_cache(st["cache"])
     y_k, y_p = run(decoder_layer_step_flash, ck), run(decoder_layer_step_plain, cp)
-    err = max(max_err(y_k, y_p), max_err(ck.self_k[0], cp.self_k[0]),
-              max_err(ck.self_v[0], cp.self_v[0]))
+    c_err = max(cache_err(ck.self_k[0], cp.self_k[0], bf16),
+                cache_err(ck.self_v[0], cp.self_v[0], bf16))
+    need(not bf16 or c_err <= 1, f"K5 bf16 cache rows {c_err} bf16 steps apart")
+    err = max_err(y_k, y_p) if bf16 else max(max_err(y_k, y_p), c_err)
     need(bool(ck.self_k[0][:, :, pos].abs().sum() > 0), "K5 wrote no cache row")
     ms = cuda_ms(lambda: run(decoder_layer_step_flash, ck), 20)
     plain_ms = cuda_ms(lambda: run(decoder_layer_step_plain, cp), 10)
-    # one layer's hidden state (|y| up to ~10) in f32, summed in another order
-    tol = 1e-4
+    # one layer's hidden state (|y| up to ~10) in f32, summed in another
+    # order; SERVE_TOL with bf16 caches
+    tol = SERVE_TOL if bf16 else 1e-4
     Lpad, Lk_pad = st["cache"].self_k.shape[3], st["cache"].mem_k.shape[2]
-    say("kernel K5 decoder_layer_step", BK=BK, pos=pos, Lpad=Lpad, Lk_pad=Lk_pad,
-        max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms)
+    b = bound(*decode_bound(cfg, 1, K, pos, st["anc"], st["mem_mask"],
+                            ck.self_k.element_size(), quant))
+    say(f"kernel K5 decoder_layer_step {variant_label(quant, bf16)}", BK=BK, pos=pos,
+        Lpad=Lpad, Lk_pad=Lk_pad, max_abs_err=err, tol=tol, cache_err=c_err, ms=ms,
+        plain_ms=plain_ms, **b)
     need(err <= tol, f"K5 max_abs_err {err} > {tol}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
+
+
+def phase_gemm_q8(params, cfg, rng):
+    """gemm_q8 on the decoder's quantized matrices at the shapes a layer
+    streams them: [M, 512] x [512, 512] (six per layer), x [512, 1024] and
+    [M, 1024] x [1024, 512], at M = 80 (B=16, beam 5) and M = 5 (B=1). The
+    line's numbers are one layer's eight products at M = 80; also held
+    bit-equal to gemm_f32 on the dequantized matrix."""
+    from stjep_tpu_torch import kernels
+
+    ff = serving_decoder(params, True)["layers"][0]
+    mats = {"512x512": ff["decslf_attn"]["w_qs"], "512x1024": ff["pos_ffn"]["w_1"],
+            "1024x512": ff["pos_ffn"]["w_2"]}
+    per_layer = {"512x512": 6, "512x1024": 1, "1024x512": 1}
+    err, out, layer = 0.0, {}, dict(ms=0.0, plain_ms=0.0, n_bytes=0, flops=0)
+    for M in (80, 5):
+        for nm, leaf in mats.items():
+            q, sc = leaf["w"], leaf["w_s"]
+            Kd, N = q.shape
+            a = torch.from_numpy(rng.randn(M, Kd).astype(np.float32)).cuda()
+            y = kernels.gemm(a, q, w_scale=sc)
+            w = q.float() * sc
+            need(torch.equal(y, kernels.gemm(a, w)), f"gemm_q8 {M}x{nm} differs from gemm_f32")
+            err = max(err, max_err(y, a @ w))
+            ms = cuda_ms(lambda: kernels.gemm(a, q, w_scale=sc), 20)
+            plain_ms = cuda_ms(lambda: a @ (q.float() * sc), 20)
+            n_bytes, flops = nbytes(a, q, sc, y), 2 * M * Kd * N
+            out[f"M{M}_{nm}"] = dict(ms=ms, plain_ms=plain_ms, **bound(n_bytes, flops))
+            if M == 80:
+                n = per_layer[nm]
+                layer["ms"] += n * ms
+                layer["plain_ms"] += n * plain_ms
+                layer["n_bytes"] += n * n_bytes
+                layer["flops"] += n * flops
+    # f32 products of |y| <= ~60 summed in the same order as gemm_f32 (held
+    # bit-equal above); against ATen's order ~1e-5 relative
+    tol = 1e-3
+    b = bound(layer["n_bytes"], layer["flops"])
+    say("kernel gemm_q8", max_abs_err=err, tol=tol, layer_ms=layer["ms"],
+        layer_plain_ms=layer["plain_ms"], **b,
+        shapes={k: {kk: round(vv, 5) if isinstance(vv, float) else vv for kk, vv in v.items()}
+                for k, v in out.items()})
+    need(err <= tol, f"gemm_q8 max_abs_err {err} > {tol}")
+    return dict(max_abs_err=err, ms=layer["ms"], plain_ms=layer["plain_ms"],
+                library_ms=None, **b)
+
+
+def phase_attn_bf16(params, cfg, rng):
+    """The bf16 attention kernels alone at K5's flagship shapes (BK = 80,
+    pos 75 of 160 cache rows; 96 memory rows): self_attn_anc_bf16 against
+    its plain version (the cache rows it writes bit-equal), cross_attn_bf16
+    against its plain version and, as the library yardstick, one
+    scaled_dot_product_attention call on the same bf16 memory."""
+    from stjep_tpu_torch.ops import decode_flash as df
+
+    K, BK, pos, D, nh = BEAM, B * BEAM, DECODE_LEN // 2, cfg.dim_model, cfg.num_heads
+    st = decode_state(params, cfg, rng, pos, bf16=True)
+    c = st["cache"]
+    q, kn, vn = (torch.from_numpy(rng.randn(BK, D).astype(np.float32)).cuda() for _ in range(3))
+    ckk, cvk = c.self_k[0].clone(), c.self_v[0].clone()
+    ckp, cvp = c.self_k[0].clone(), c.self_v[0].clone()
+    sargs = (st["anc"], st["maskk"], pos, K, nh)
+    y_k = df.self_attn_anc(q, kn, vn, ckk, cvk, *sargs)
+    y_p = df.self_attn_anc_plain(q, kn, vn, ckp, cvp, *sargs)
+    need(torch.equal(ckk, ckp) and torch.equal(cvk, cvp), "self_attn_anc_bf16 cache rows differ")
+    res = {}
+    # f32 contexts of unit scale from identical bf16 products, summed in
+    # another order
+    tol = 1e-4
+    self_bytes, self_flops = decode_bound(cfg, 1, K, pos, st["anc"], st["mem_mask"], 2, True)
+    lw = layer_weight_bytes(cfg, True)
+    mem_bytes = 2 * int(st["mem_mask"].sum()) * D * 2
+    res["self"] = dict(
+        max_abs_err=max_err(y_k, y_p), ms=cuda_ms(lambda: df.self_attn_anc(q, kn, vn, ckk, cvk,
+                                                                          *sargs), 20),
+        plain_ms=cuda_ms(lambda: df.self_attn_anc_plain(q, kn, vn, ckp, cvp, *sargs), 10),
+        library_ms=None,
+        # decode_bound's layer without its weights, memory and products;
+        # q, k_new, v_new in, the context out
+        **bound(self_bytes - lw - mem_bytes + 3 * 4 * BK * D,
+                4 * BK * (pos + 1) * D, "bf16"))
+    mk, mv, mm = c.mem_k[0], c.mem_v[0], st["mem_mask"]
+    y_k = df.cross_attn(q, mk, mv, mm, K, nh)
+    y_p = df.cross_attn_plain(q, mk, mv, mm, K, nh)
+    d = D // nh
+    qs = (q / d ** 0.5).to(torch.bfloat16).view(B, K, nh, d).transpose(1, 2)
+    ks, vs = (t.view(B, -1, nh, d).transpose(1, 2) for t in (mk, mv))
+    amask = (mm.T != 0)[:, None, None, :]
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=amask,
+                                                                    scale=1.0)
+    lib = sdpa().transpose(1, 2).reshape(BK, D).float()
+    res["cross"] = dict(
+        max_abs_err=max_err(y_k, y_p), ms=cuda_ms(lambda: df.cross_attn(q, mk, mv, mm, K, nh), 20),
+        plain_ms=cuda_ms(lambda: df.cross_attn_plain(q, mk, mv, mm, K, nh), 10),
+        library_ms=cuda_ms(sdpa, 20),
+        **bound(mem_bytes + 2 * 4 * BK * D + nbytes(mm), 4 * K * int(mm.sum()) * D, "bf16"))
+    for k in ("self", "cross"):
+        say(f"kernel {k}_attn bf16", BK=BK, pos=pos, tol=tol, **res[k],
+            **({"library_max_abs_err": max_err(lib, y_p)} if k == "cross" else {}))
+        need(res[k]["max_abs_err"] <= tol, f"{k}_attn bf16 max_abs_err > {tol}")
+    return res
 
 
 def check_topk(name, ids, ids_p, sc_p):
@@ -452,11 +746,15 @@ def phase_k7(params, cfg, rng):
                 tol=tol, tied_rows=rows, **t)
             need(err <= tol, f"K7 V={V} BK={BK} max_abs_err {err} > {tol}")
             if V == cfg.dec_vocab_size:
+                # the row, the norm and the weight in; top-k (and glp) out
+                n_bytes = nbytes(x, norm, out, sc, ids)
                 if BK == B * BEAM:
-                    res["head"] = dict(max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"])
+                    res["head"] = dict(max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
+                                       library_ms=None, **bound(n_bytes, 2 * BK * D * V))
                 else:
-                    res["head_gather"] = dict(max_abs_err=err, ms=t["gather_ms"],
-                                              plain_ms=t["gather_plain_ms"])
+                    res["head_gather"] = dict(
+                        max_abs_err=err, ms=t["gather_ms"], plain_ms=t["gather_plain_ms"],
+                        library_ms=None, **bound(n_bytes + nbytes(gid, glp), 2 * BK * D * V))
     return res
 
 
@@ -490,10 +788,13 @@ def phase_k3_gather(params, cfg, rng):
     ms = cuda_ms(lambda: run(decode_chain_step_flash, ck, 1), 20)
     plain_ms = cuda_ms(lambda: run(decode_chain_step_plain, cp, 1), 10)
     tol = 1e-4  # K3's: log-probs after 6 layers in f32, summed in another order
+    n_bytes, flops = decode_bound(cfg, cfg.dec_layers, 1, pos, st["anc"], st["mem_mask"], 4,
+                                  False, cfg.dec_vocab_size, 1)
+    b = bound(n_bytes + nbytes(gid, glp_k), flops)
     say("kernel K3 gather", BK=B, pos=pos, max_abs_err=err, tol=tol,
-        tied_rows=rows, ms=ms, plain_ms=plain_ms)
+        tied_rows=rows, ms=ms, plain_ms=plain_ms, **b)
     need(err <= tol, f"K3 gather max_abs_err {err} > {tol}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
 
 
 def rel_err(a, b) -> float:
@@ -513,7 +814,8 @@ def phase_k8(params, cfg, rng):
     T, din = FRAMES, cfg.acous_dim
     err = {"fwd": 0.0, "bwd": 0.0}
     rel = {"fwd": 0.0, "bwd": 0.0}
-    ms = {k: 0.0 for k in ("fwd", "bwd", "plain_fwd", "plain_bwd")}
+    ms = {k: 0.0 for k in ("fwd", "bwd", "plain_fwd", "plain_bwd", "lib_fwd", "lib_bwd")}
+    n_bytes, flops = {"fwd": 0, "bwd": 0}, {"fwd": 0, "bwd": 0}
     for li in range(cfg.num_pyramid_layers):
         p = enc[f"acous_enc_l{li + 1}"]
         w = tuple((p["fwd"][k], p["bwd"][k]) for k in ("w_ih", "w_hh"))
@@ -522,7 +824,8 @@ def phase_k8(params, cfg, rng):
         g = torch.from_numpy(rng.randn(B, T, 2 * H).astype(np.float32)).cuda()
         fargs = (*w, bias, x, lens)
         plain = k8.bilstm_fwd_save_plain(*fargs)
-        for a, b in zip(k8.bilstm_fwd_save(*fargs), plain):
+        fwd = k8.bilstm_fwd_save(*fargs)
+        for a, b in zip(fwd, plain):
             err["fwd"], rel["fwd"] = max(err["fwd"], max_err(a, b)), max(rel["fwd"], rel_err(a, b))
         bargs = (g, plain[2], plain[3], w[1], lens)
         a, b = k8.bilstm_bwd(*bargs), k8.bilstm_bwd_plain(*bargs)
@@ -531,18 +834,31 @@ def phase_k8(params, cfg, rng):
         ms["plain_fwd"] += cuda_ms(lambda: k8.bilstm_fwd_save_plain(*fargs), 1)
         ms["bwd"] += cuda_ms(lambda: k8.bilstm_bwd(*bargs), 3)
         ms["plain_bwd"] += cuda_ms(lambda: k8.bilstm_bwd_plain(*bargs), 1)
+        n_bytes["fwd"] += nbytes(fargs, fwd)
+        n_bytes["bwd"] += nbytes(bargs, a)
+        flops["fwd"] += lstm_flops(lens, din, H)
+        flops["bwd"] += 2 * int(lens.sum()) * 2 * H * 4 * H  # dPre @ W_hh^T per direction
+        # cuDNN's training forward, and its backward (every gradient) alone
+        lstm, xp = cudnn_bilstm(p, din, H, train=True), packed(x.requires_grad_(True), lens)
+        ms["lib_fwd"] += cuda_ms(lambda: lstm(xp), 3)
+        yp = lstm(xp)[0]
+        gp = packed(g, lens).data
+        ms["lib_bwd"] += cuda_ms(lambda: torch.autograd.grad(
+            yp.data, [x, *lstm.parameters()], gp, retain_graph=True), 3)
+        x.requires_grad_(False)
         T, din, lens = T // 2, 4 * H, lens // 2
     # f32 on both sides, other summation orders in the 256-long products of
     # each step, carried through up to 1504 serial steps: the forward's
     # states are bounded (|h| < 1), the backward's carried dc is not
     tol = {"fwd": 1e-4, "bwd": 1e-3}
+    res = {}
     for k in ("fwd", "bwd"):
+        res[k] = dict(max_abs_err=err[k], ms=ms[k], plain_ms=ms[f"plain_{k}"],
+                      library_ms=ms[f"lib_{k}"], **bound(n_bytes[k], flops[k]))
         say(f"kernel K8 bilstm_{k}", B=B, layers=cfg.num_pyramid_layers,
-            max_abs_err=err[k], max_rel_err=rel[k], tol_rel=tol[k], ms=ms[k],
-            plain_ms=ms[f"plain_{k}"])
+            max_rel_err=rel[k], tol_rel=tol[k], **res[k])
         need(rel[k] <= tol[k], f"K8 {k} relative error {rel[k]} > {tol[k]}")
-    return {k: dict(max_abs_err=err[k], ms=ms[k], plain_ms=ms[f"plain_{k}"])
-            for k in ("fwd", "bwd")}
+    return res
 
 
 def phase_k9(params, cfg, rng):
@@ -586,12 +902,21 @@ def phase_k9(params, cfg, rng):
     # recurrent steps (K2's tolerance), and the backward sums over them;
     # f32 on both sides, summed in another order
     tol = 1e-3
+    # per step: the three cells' and the FFN's products, the attention over
+    # the Tk keys and values; backward the same products through the
+    # transposed weights and twice the attention's
+    mats = sum(t.numel() for t in (w.w0, w.w1, w.w2, w.ffn))
+    att = 2 * B * Tk * (Hd + Ha2)
+    step_flops = {"fwd": 2 * B * mats + att, "bwd": 2 * B * mats + 2 * att}
+    io = {"fwd": nbytes(fargs, st), "bwd": nbytes(bargs, k9.las_tf_bwd(*bargs))}
+    res = {}
     for k in ("fwd", "bwd"):
-        say(f"kernel K9 las_tf_{k}", steps=S, B=B, Tk=Tk, max_abs_err=err[k],
-            max_rel_err=rel[k], tol_rel=tol, ms=ms[k], plain_ms=ms[f"plain_{k}"])
+        res[k] = dict(max_abs_err=err[k], ms=ms[k], plain_ms=ms[f"plain_{k}"],
+                      library_ms=None, **bound(io[k], S * step_flops[k]))
+        say(f"kernel K9 las_tf_{k}", steps=S, B=B, Tk=Tk, max_rel_err=rel[k], tol_rel=tol,
+            **res[k])
         need(rel[k] <= tol, f"K9 {k} relative error {rel[k]} > {tol}")
-    return {k: dict(max_abs_err=err[k], ms=ms[k], plain_ms=ms[f"plain_{k}"])
-            for k in ("fwd", "bwd")}
+    return res
 
 
 def train_batch(rng, cfg, n, frames):
@@ -750,7 +1075,7 @@ def phase_train_e2e(seed, rng):
     mb = {k: v.cuda() for k, v in train_batch(rng, cfg, B, FRAMES).items()}
     opt = make_optimizer(1.0)
     opt_state = opt.init(params)
-    step = make_train_step(cfg, "ASR_ST", opt)
+    step = make_train_step(cfg, "ASR_ST", opt, device="cuda")
     gen = torch.Generator().manual_seed(seed)
     zero_counts()
     torch.cuda.synchronize()
@@ -778,12 +1103,13 @@ def phase_train_e2e(seed, rng):
     return launches
 
 
-def recorded_translate(params, cfg, feats, lens):
-    """forward_translate ST beam-5 that also records, at every beam
-    position, the state handed on (tokens [BK, L] and kept scores [BK], on
-    the host), starting with the state after position 1: the megastep's
-    output for the standard decoder, the general loop's select for the
-    universal one. Returns (tokens [B, L], ASR hypotheses, states)."""
+def recorded_translate(params, cfg, feats, lens, device, **opts):
+    """forward_translate ST beam-5 on `device` (opts: its serving options)
+    that also records, at every beam position, the state handed on (tokens
+    [BK, L] and kept scores [BK], on the host), starting with the state
+    after position 1: the megastep's output for the standard decoder, the
+    general loop's select for the universal one. Returns (tokens [B, L],
+    ASR hypotheses, states)."""
     import stjep_tpu_torch.infer.beam as beam_mod
     from stjep_tpu_torch.infer.forward import encode_st, forward_translate
 
@@ -805,9 +1131,11 @@ def recorded_translate(params, cfg, feats, lens):
     try:
         toks = forward_translate(params, cfg, "ST", acous_feats=feats,
                                  acous_lens=lens, beam_width=BEAM,
-                                 penalty_factor=1.0, max_seq_len=DECODE_LEN)
+                                 penalty_factor=1.0, max_seq_len=DECODE_LEN,
+                                 device=device, **opts)
     finally:
         setattr(beam_mod, name, step)
+    feats, lens = feats.to(device), lens.to(device)
     return toks.cpu(), encode_st(params, cfg, feats, lens)[2].cpu(), states
 
 
@@ -862,16 +1190,27 @@ def counters():
     from stjep_tpu_torch.ops.las_flash import las_greedy_flash
     from stjep_tpu_torch.ops.lstm_pallas import bilstm_pallas
 
-    return {"K1": (bilstm_pallas, "launches"), "K2": (las_greedy_flash, "launches"),
-            "K3": (df.decode_chain_step_flash, "launches"),
-            "K3 gather": (df.decode_chain_step_flash, "gather_launches"),
-            "K4": (df.decode_beam_step_flash, "launches"),
-            "K4 select": (df.beam_select, "launches"),
-            "K5": (df.decoder_layer_step_flash, "launches"),
-            "K7 head": (df.decode_head, "launches"),
-            "K7 head_gather": (df.decode_head_gather, "launches"),
-            "K8 fwd": (k8.bilstm_fwd_save, "launches"), "K8 bwd": (k8.bilstm_bwd, "launches"),
-            "K9 fwd": (k9.las_tf_fwd, "launches"), "K9 bwd": (k9.las_tf_bwd, "launches")}
+    from stjep_tpu_torch import kernels
+
+    out = {"K1": (bilstm_pallas, "launches"), "K2": (las_greedy_flash, "launches"),
+           "K3 gather": (df.decode_chain_step_flash, "gather_launches"),
+           "K4 select": (df.beam_select, "launches"),
+           "K7 head": (df.decode_head, "launches"),
+           "K7 head_gather": (df.decode_head_gather, "launches"),
+           "K8 fwd": (k8.bilstm_fwd_save, "launches"), "K8 bwd": (k8.bilstm_bwd, "launches"),
+           "K9 fwd": (k9.las_tf_fwd, "launches"), "K9 bwd": (k9.las_tf_bwd, "launches"),
+           "gemm_q8": (kernels.gemm, "q8_launches"),
+           "self_attn bf16": (df.self_attn_anc, "bf16_launches"),
+           "cross_attn bf16": (df.cross_attn, "bf16_launches")}
+    for k, fn in (("K3", df.decode_chain_step_flash), ("K4", df.decode_beam_step_flash),
+                  ("K5", df.decoder_layer_step_flash)):
+        for quant, bf16 in VARIANTS:
+            label = k if not (quant or bf16) else f"{k} {variant_label(quant, bf16)}"
+            out[label] = (fn, ("q8_" if quant else "") + ("bf16_" if bf16 else "") + "launches")
+    return out
+
+
+VARIANTS = ((False, False), (True, False), (False, True), (True, True))
 
 
 def zero_counts():
@@ -932,9 +1271,9 @@ def phase_beam_e2e(label, params, params_c, cfg, reqs, gen, ran, idle=()):
     # the plain arm: the same call on CPU copies, for request 0
     feats, lens = reqs[0]
     t0 = time.perf_counter()
-    plain = recorded_translate(params_c, cfg, feats, lens)
+    plain = recorded_translate(params_c, cfg, feats, lens, "cpu")
     plain_s = time.perf_counter() - t0
-    card = recorded_translate(params, cfg, feats.cuda(), lens.cuda())
+    card = recorded_translate(params, cfg, feats, lens, "cuda")
     need(torch.equal(card[0], outs[0].cpu()), f"{label}: card run not reproducible")
     margins = explain_e2e(params_c, cfg, feats, lens, card, plain)
     say(f"{label} plain arm", device="cpu", seconds=round(plain_s, 1),
@@ -943,6 +1282,145 @@ def phase_beam_e2e(label, params, params_c, cfg, reqs, gen, ran, idle=()):
     need(all(m <= E2E_MARGIN for m in margins),
          f"{label} rows differ beyond ties: margins {margins}")
     return launches
+
+
+def snap_int8_grid(params_c, seed):
+    """A copy of the params whose streamed decoder matrices sit on the int8
+    grid (scripts/check_int8_tpu.py `snap`): w = q * 2^-12, integer q with
+    127 in row 0 of every column, from the seed's own stream, so that
+    quantize_decoder_weights recovers (q, s) exactly and int8 decoding is
+    lossless."""
+    from stjep_tpu_torch.ops.decode_flash import QUANT_CROSS, QUANT_FFN, QUANT_SELF
+
+    rng = np.random.RandomState(seed + 3)
+    layers = []
+    for lp in params_c["dec_tgt"]["layers"]:
+        nl = dict(lp)
+        for sub, keys in (("decslf_attn", QUANT_SELF), ("encdec_attn", QUANT_CROSS),
+                          ("pos_ffn", QUANT_FFN)):
+            nl[sub] = dict(lp[sub])
+            for k in keys:
+                q = rng.randint(-127, 128, size=tuple(lp[sub][k]["w"].shape))
+                q[0] = 127
+                nl[sub][k] = {**lp[sub][k], "w": torch.from_numpy((q * 2.0 ** -12)
+                                                                  .astype(np.float32))}
+        layers.append(nl)
+    return {**params_c, "dec_tgt": {**params_c["dec_tgt"], "layers": layers}}
+
+
+def translate_timed(params, cfg, reqs, ran, idle=(), **opts):
+    """forward_translate ST beam-5 on the card over the requests (host
+    inputs, moved inside the call), every launch count zeroed just before
+    and read just after. Returns (outputs, seconds per request, launches)."""
+    from stjep_tpu_torch.config import BOS
+    from stjep_tpu_torch.infer.forward import forward_translate
+
+    zero_counts()
+    outs, secs = [], []
+    for f, l in reqs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(forward_translate(params, cfg, "ST", acous_feats=f, acous_lens=l,
+                                      beam_width=BEAM, penalty_factor=1.0,
+                                      max_seq_len=DECODE_LEN, device="cuda", **opts))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches = read_counts(ran, idle)
+    for o, (f, _) in zip(outs, reqs):
+        need(o.shape == (f.shape[0], DECODE_LEN) and bool((o[:, 0] == BOS).all())
+             and bool(((o >= 0) & (o < cfg.dec_vocab_size)).all()), "serving output shape/range")
+    return outs, secs, launches
+
+
+BF16_OPTS = {"cache_dtype": torch.bfloat16}
+SERVE_OPTS = {"cache_dtype": torch.bfloat16, "weight_dtype": "int8"}
+LAS_RAN = ("K1", "K2")
+
+
+def phase_serving(params, params_c, cfg, reqs, rng, seed):
+    """The serving decode on the standard model, each call a main path with
+    its launch counts: bf16 caches at B=16 (utt/s), B=1 (median latency)
+    and B=64 (one request); int8 weights + bf16 caches at B=1 and B=16.
+    Then: on weights snapped to the int8 grid the int8 route decodes the
+    f32 route's tokens on the card in every row; and the bf16 route on the
+    card against its plain route on CPU copies for 2 rows, every differing
+    row explained by a tie within SERVE_MARGIN. Returns the launch counts
+    of every run."""
+    from stjep_tpu_torch.bridge import params_to
+
+    b1 = [(f[:1], l[:1]) for f, l in reqs]
+    big = inputs(rng, 4 * B)
+    runs, rec = [], {}
+    bf16_ran = LAS_RAN + ("K3 bf16", "K4 bf16", "self_attn bf16", "cross_attn bf16")
+    serve_ran = LAS_RAN + ("K3 int8+bf16", "K4 int8+bf16", "gemm_q8", "self_attn bf16",
+                           "cross_attn bf16")
+    f32_idle = ("K3", "K4", "K5")
+    for label, rq, opts, ran in (("bf16 B=16", reqs, BF16_OPTS, bf16_ran),
+                                 ("bf16 B=1", b1, BF16_OPTS, bf16_ran),
+                                 ("bf16 B=64", [big], BF16_OPTS, bf16_ran),
+                                 ("int8+bf16 B=1", b1, SERVE_OPTS, serve_ran),
+                                 ("int8+bf16 B=16", reqs, SERVE_OPTS, serve_ran)):
+        idle = f32_idle if "int8" in label else f32_idle + ("gemm_q8",)
+        _, secs, launches = translate_timed(params, cfg, rq, ran, idle, **opts)
+        n = sum(f.shape[0] for f, _ in rq)
+        rec[label] = dict(utt_per_s=round(n / sum(secs), 3),
+                          request_ms=[round(x * 1e3, 1) for x in secs],
+                          median_ms=round(statistics.median(secs) * 1e3, 1))
+        say(f"serving {label}", requests=len(rq), batch=rq[0][0].shape[0], **rec[label],
+            launches={k: v for k, v in launches.items() if v})
+        runs.append(launches)
+
+    # int8 on the int8 grid: the f32 route's tokens, every row
+    snapped = params_to(snap_int8_grid(params_c, seed), "cuda")
+    f32_out = translate_timed(snapped, cfg, reqs[:1], LAS_RAN + ("K3", "K4"))[0][0]
+    q8_out, _, launches = translate_timed(snapped, cfg, reqs[:1],
+                                          LAS_RAN + ("K3 int8", "K4 int8", "gemm_q8"), ("K3", "K4"),
+                                          weight_dtype="int8")
+    runs.append(launches)
+    same = int((f32_out == q8_out[0]).all(dim=1).sum())
+    say("serving int8 on the int8 grid", rows_equal=same, of=B)
+    need(same == B, f"int8 on the int8 grid decoded other tokens than f32 in {B - same} rows")
+
+    # bf16 against its plain route on CPU copies, 2 rows
+    feats, lens = reqs[0][0][:2], reqs[0][1][:2]
+    t0 = time.perf_counter()
+    plain = recorded_translate(params_c, cfg, feats, lens, "cpu", **BF16_OPTS)
+    plain_s = time.perf_counter() - t0
+    card = recorded_translate(params, cfg, feats, lens, "cuda", **BF16_OPTS)
+    margins = explain_e2e(params_c, cfg, feats, lens, card, plain)
+    say("serving bf16 plain arm", device="cpu", seconds=round(plain_s, 1),
+        rows_differ=len(margins), of=feats.shape[0],
+        max_first_divergence_margin=max(margins, default=0.0), limit=SERVE_MARGIN)
+    need(all(m <= SERVE_MARGIN for m in margins),
+         f"serving bf16 rows differ beyond ties: margins {margins}")
+    return runs, rec
+
+
+def phase_serving_universal(uparams, uparams_c, ucfg, reqs, seed):
+    """The serving decode on the universal model at B=16 (K5 per hop, K7,
+    K4's select): int8 + bf16 and bf16 alone, one request each, K3 and K4
+    idle; and int8 on the int8 grid decoding the f32 route's tokens."""
+    from stjep_tpu_torch.bridge import params_to
+
+    runs = []
+    idle = ("K3", "K4", "K3 int8+bf16", "K4 int8+bf16", "K3 bf16", "K4 bf16")
+    for label, opts, ran in (("int8+bf16", SERVE_OPTS, ("K5 int8+bf16", "gemm_q8")),
+                             ("bf16", BF16_OPTS, ("K5 bf16",))):
+        _, secs, launches = translate_timed(uparams, ucfg, reqs[:1],
+                                            LAS_RAN + ran + ("K7 head", "K4 select"), idle,
+                                            **opts)
+        say(f"serving universal {label} B=16", utt_per_s=round(B / secs[0], 3),
+            request_ms=round(secs[0] * 1e3, 1), launches={k: v for k, v in launches.items() if v})
+        runs.append(launches)
+    snapped = params_to(snap_int8_grid(uparams_c, seed), "cuda")
+    f32_out = translate_timed(snapped, ucfg, reqs[:1], LAS_RAN + ("K5",))[0][0]
+    q8_out, _, launches = translate_timed(snapped, ucfg, reqs[:1], LAS_RAN + ("K5 int8",),
+                                          ("K5",), weight_dtype="int8")
+    runs.append(launches)
+    same = int((f32_out == q8_out[0]).all(dim=1).sum())
+    say("serving universal int8 on the int8 grid", rows_equal=same, of=B)
+    need(same == B, f"universal int8 on the grid decoded other tokens in {B - same} rows")
+    return runs
 
 
 def phase_dev_eval(label, params, params_c, cfg, rng, ran):
@@ -964,8 +1442,8 @@ def phase_dev_eval(label, params, params_c, cfg, rng, ran):
 
     def run(p, dev, **kw):
         kw = {**refs, **kw}
-        return forward_eval(p, cfg, "ASR_ST", acous_feats=feats.to(dev),
-                            acous_lens=lens.to(dev), **{k: v.to(dev) for k, v in kw.items()})
+        return forward_eval(p, cfg, "ASR_ST", acous_feats=feats, acous_lens=lens,
+                            device=dev, **kw)
 
     zero_counts()
     secs = []
@@ -1063,6 +1541,14 @@ def main() -> int:
                "K3 gather": phase_k3_gather(params, cfg, rng)}
     k7 = phase_k7(params, cfg, rng)
     results["K7 head"], results["K7 head_gather"] = k7["head"], k7["head_gather"]
+    # the serving kernels: int8 weights, bf16 caches, both
+    results["gemm_q8"] = phase_gemm_q8(params, cfg, rng)
+    attn = phase_attn_bf16(params, cfg, rng)
+    results["self_attn bf16"], results["cross_attn bf16"] = attn["self"], attn["cross"]
+    for quant, bf16 in VARIANTS[1:]:
+        results[f"K5 {variant_label(quant, bf16)}"] = phase_k5(params, cfg, rng, quant, bf16)
+    results["K3 int8+bf16"] = phase_k3(params, cfg, rng, True, True)
+    results["K4 int8+bf16"] = phase_k4(params, cfg, rng, True, True)
 
     # 4. the main paths, each driven with every launch count zeroed just
     # before it and read just after; the kernels line sums them
@@ -1081,6 +1567,12 @@ def main() -> int:
         phase_dev_eval("dev eval universal", uparams, uparams_c, ucfg, rng,
                        ran=("K1", "K2", "K5", "K7 head_gather")),
     ]
+    serving_runs, serving = phase_serving(params, params_c, cfg, reqs, rng, args.seed)
+    runs += serving_runs + phase_serving_universal(uparams, uparams_c, ucfg, reqs, args.seed)
+    say("serving summary", nvidia_smi=repr(smi),
+        **{k.replace(" ", "_").replace("=", "") + ("_ms" if k.endswith("B=1") else "_utt_per_s"):
+           v["median_ms"] if k.endswith("B=1") else v["utt_per_s"]
+           for k, v in serving.items()})
 
     # 5-7. the train path: its kernels, a parity step, the flagship step
     k8_res, k9_res = phase_k8(params, cfg, rng), phase_k9(params, cfg, rng)
@@ -1105,11 +1597,27 @@ def main() -> int:
                "K8 fwd": ("bilstm_fwd_save", src + "bilstm.cu", rep + "lstm_pallas_bwd.py:174"),
                "K8 bwd": ("bilstm_bwd", src + "bilstm_bwd.cu", rep + "lstm_pallas_bwd.py:262"),
                "K9 fwd": ("las_tf_fwd", src + "las_tf.cu", rep + "las_tf_flash.py:263"),
-               "K9 bwd": ("las_tf_bwd", src + "las_tf.cu", rep + "las_tf_flash.py:364")}
+               "K9 bwd": ("las_tf_bwd", src + "las_tf.cu", rep + "las_tf_flash.py:364"),
+               "gemm_q8": ("gemm_q8", src + "gemm.cu", rep + "decode_flash.py:708"),
+               "self_attn bf16": ("self_attn_anc_bf16", src + "decode.cu",
+                                  rep + "decode_flash.py:759"),
+               "cross_attn bf16": ("cross_attn_bf16", src + "decode.cu",
+                                   rep + "decode_flash.py:759"),
+               "K5 int8": ("decoder_layer_step int8", src + "gemm.cu",
+                           rep + "decode_flash.py:708"),
+               "K5 bf16": ("decoder_layer_step bf16", src + "decode.cu",
+                           rep + "decode_flash.py:759"),
+               "K5 int8+bf16": ("decoder_layer_step int8+bf16", src + "decode.cu",
+                                rep + "decode_flash.py:708"),
+               "K3 int8+bf16": ("decode_chain_step int8+bf16", src + "decode.cu",
+                                rep + "decode_flash.py:1078"),
+               "K4 int8+bf16": ("decode_beam_step int8+bf16", src + "decode.cu",
+                                rep + "decode_flash.py:1412")}
     need(all(launches[k] > 0 for k in sources), f"a kernel never launched: {launches}")
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": nm, "route": "cuda", "source": s_, "replaces": r_,
-         "launches": launches[k], **results[k]}
+         "launches": launches[k], **{x: results[k][x] for x in keys}}
         for k, (nm, s_, r_) in sources.items()]}))
     say("total", seconds=round(time.perf_counter() - t_start, 1))
     print(smi)

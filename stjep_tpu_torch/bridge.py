@@ -55,3 +55,18 @@ def params_to(tree: Any, device) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_to(v, device) for v in tree)
     return tree.to(device)
+
+
+def check_params_device(params: Any, device) -> torch.device:
+    """The device an entry point runs on, torch.device(device); raises
+    ValueError, naming both devices, when a leaf of params lies elsewhere
+    (the entry points never move params themselves)."""
+    dev = torch.device(device)
+    for name, t in named_leaves(params):
+        if t.device.type != dev.type or (dev.index is not None
+                                         and t.device.index != dev.index):
+            raise ValueError(
+                f"params leaf {name} is on {t.device} but the call runs on "
+                f"{dev}: move the params with bridge.params_to(params, "
+                f"{str(dev)!r}), or pass device={str(t.device)!r}")
+    return dev

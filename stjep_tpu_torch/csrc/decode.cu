@@ -24,8 +24,25 @@
 // block per (row, head) in the attention kernels, reading only the live
 // prefix 0..pos; exact two-pass softmax in shared memory (the lengths are
 // short); the new K/V row is used from registers at `pos` and written to
-// the cache in the same kernel. Fusing a layer into fewer launches, bf16
-// caches and CUDA graphs are later work.
+// the cache in the same kernel. Fusing a layer into fewer launches and CUDA
+// graphs are later work.
+//
+// bf16 caches (`self_attn_anc_bf16`, `cross_attn_bf16`): the TPU kernels take
+// the cache dtype as a parameter (decode_flash.py:795,843-855, and the
+// chain and beam kernels' scratch and outputs). Both attention kernels are
+// templates over the element type of the self caches or of the memory K/V,
+// float or __nv_bfloat16, and round where the JAX cores round: the scaled
+// query to the cache type, each q.k product to bf16 before the f32 sum over
+// the head's dims (`_self_core` :283-285, `_cross_core` :503-505), p.v summed
+// in f32 from the bf16 V (:296-298); softmax, max and sum stay f32. The new
+// K/V row is computed in f32 by the GEMM and stored rounded to nearest
+// (`__float2bfloat16_rn`), and attention at `pos` reads it back from the
+// cache, so it sees the rounded row as the TPU kernel's VMEM buffer does.
+// bf16 halves the cache and memory bytes, which bound these kernels at
+// B*K = 80 (2 x 6 x 80 x 160 x 512 x 2 B = 157 MB of self cache a position
+// at most); the loads are 2 bytes a thread, a later PR can widen them.
+
+#include <cuda_bf16.h>
 
 #include "common.cuh"
 
@@ -53,6 +70,31 @@ __global__ void embed_time_kernel(const float* __restrict__ table,
   }
 }
 
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// Store v into the cache element type, rounded to nearest.
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// The value x takes in element type T (the scaled query's rounding).
+template <typename T>
+__device__ __forceinline__ float in_type(float x) { return x; }
+template <>
+__device__ __forceinline__ float in_type<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// acc + q * k: one fused step in f32; for bf16 the product is rounded to
+// bf16 first (exact in f32, then rounded once), as the TPU core's bf16
+// elementwise product before its f32-accumulating head sum.
+__device__ __forceinline__ float dot_step(float q, float k, float acc) {
+  return fmaf(q, k, acc);
+}
+__device__ __forceinline__ float dot_step(float q, __nv_bfloat16 k, float acc) {
+  return acc + __bfloat162float(__float2bfloat16_rn(q * __bfloat162float(k)));
+}
+
 // Softmax over s[0..n) in shared memory, then the context
 // out[t] = sum_l p[l] * vrow(l)[t] for t < d. Threads split as
 // G = blockDim / d groups over l; `part` holds blockDim floats.
@@ -71,7 +113,7 @@ __device__ void softmax_context(float* s, int n, int d, VRow vrow,
   const int t = threadIdx.x % d, g = threadIdx.x / d;
   float acc = 0.f;
 #pragma unroll 4
-  for (int l = g; l < n; l += G) acc = fmaf(s[l], vrow(l)[t], acc);
+  for (int l = g; l < n; l += G) acc = fmaf(s[l], to_f(vrow(l)[t]), acc);
   part[threadIdx.x] = acc;
   __syncthreads();
   if (threadIdx.x < d) {
@@ -90,9 +132,9 @@ __device__ void scores(const float* qs, int n, int d, KRow krow,
   const int nw = blockDim.x >> 5;
 #pragma unroll 2
   for (int l = warp; l < n; l += nw) {
-    const float* kp = krow(l);
+    const auto* kp = krow(l);
     float acc = 0.f;
-    for (int t = lane; t < d; t += 32) acc = fmaf(qs[t], kp[t], acc);
+    for (int t = lane; t < d; t += 32) acc = dot_step(qs[t], kp[t], acc);
     acc = warp_sum(acc);
     if (lane == 0) s[l] = valid[l] ? acc : -1e9f;
   }
@@ -100,13 +142,16 @@ __device__ void scores(const float* qs, int n, int d, KRow krow,
 
 // Self-attention of one (row, head) over positions 0..pos through the
 // ancestry map; masked keys (maskk == 0) score -1e9, so a fully masked
-// row becomes uniform attention, never NaN. The ancestry column and mask
-// of the row are staged in shared memory first, so the position loops
-// issue their cache loads without waiting on an index load.
+// row becomes uniform attention, never NaN. The block first stores its new
+// K/V row (f32 from the GEMM) into its own slot at `pos`, in the cache
+// type, and stages the ancestry column and mask of the row in shared memory
+// (slot[pos] = own); after the barrier every position, `pos` included, is
+// read from the cache. No other block reads that slice at `pos`: each row
+// reads position pos from its own slot.
+template <typename T>
 __global__ void __launch_bounds__(ATT_THREADS) self_attn_kernel(
     const float* __restrict__ q, const float* __restrict__ knew,
-    const float* __restrict__ vnew, float* __restrict__ ck,
-    float* __restrict__ cv, const int* __restrict__ anc,
+    const float* __restrict__ vnew, T* ck, T* cv, const int* __restrict__ anc,
     const int* __restrict__ maskk, float* __restrict__ out, int pos, int BK,
     int K, int Lpad, int D, int d) {
   extern __shared__ float sm[];
@@ -120,14 +165,12 @@ __global__ void __launch_bounds__(ATT_THREADS) self_attn_kernel(
   const int r = blockIdx.x, h = blockIdx.y;
   const int B = BK / K, b = r / K, own = r % K;
   const size_t hoff = (size_t)h * d;
-  const float* kn = knew + (size_t)r * D + hoff;
-  const float* vn = vnew + (size_t)r * D + hoff;
   const float temp = sqrtf((float)d);
   for (int t = threadIdx.x; t < d; t += blockDim.x) {
-    qs[t] = q[(size_t)r * D + hoff + t] / temp;
+    qs[t] = in_type<T>(q[(size_t)r * D + hoff + t] / temp);
     const size_t dst = (((size_t)own * B + b) * Lpad + pos) * D + hoff + t;
-    ck[dst] = kn[t];
-    cv[dst] = vn[t];
+    store(ck + dst, knew[(size_t)r * D + hoff + t]);
+    store(cv + dst, vnew[(size_t)r * D + hoff + t]);
   }
   for (int l = threadIdx.x; l < n; l += blockDim.x) {
     slot[l] = l == pos ? own : anc[(size_t)l * BK + r];
@@ -135,24 +178,21 @@ __global__ void __launch_bounds__(ATT_THREADS) self_attn_kernel(
   }
   __syncthreads();
   const size_t lstride = (size_t)Lpad * D;
-  auto krow = [&](int l) -> const float* {
-    if (l == pos) return kn;
-    return ck + ((size_t)slot[l] * B + b) * lstride + (size_t)l * D + hoff;
+  auto row = [&](const T* c, int l) -> const T* {
+    return c + ((size_t)slot[l] * B + b) * lstride + (size_t)l * D + hoff;
   };
-  auto vrow = [&](int l) -> const float* {
-    if (l == pos) return vn;
-    return cv + ((size_t)slot[l] * B + b) * lstride + (size_t)l * D + hoff;
-  };
-  scores(qs, n, d, krow, valid, s);
+  scores(qs, n, d, [&](int l) { return row(ck, l); }, valid, s);
   __syncthreads();
-  softmax_context(s, n, d, vrow, part, red, out + (size_t)r * D + hoff);
+  softmax_context(s, n, d, [&](int l) { return row(cv, l); }, part, red,
+                  out + (size_t)r * D + hoff);
 }
 
 // Cross-attention of one (row, head) over the unexpanded memory of batch
 // entry r / K; padded memory positions are masked (memmask [Lk, B]).
+template <typename T>
 __global__ void __launch_bounds__(ATT_THREADS) cross_attn_kernel(
-    const float* __restrict__ q, const float* __restrict__ mk,
-    const float* __restrict__ mv, const int* __restrict__ memmask,
+    const float* __restrict__ q, const T* __restrict__ mk,
+    const T* __restrict__ mv, const int* __restrict__ memmask,
     float* __restrict__ out, int BK, int K, int Lk, int D, int d) {
   extern __shared__ float sm[];
   float* qs = sm;
@@ -165,17 +205,16 @@ __global__ void __launch_bounds__(ATT_THREADS) cross_attn_kernel(
   const size_t hoff = (size_t)h * d;
   const float temp = sqrtf((float)d);
   for (int t = threadIdx.x; t < d; t += blockDim.x)
-    qs[t] = q[(size_t)r * D + hoff + t] / temp;
+    qs[t] = in_type<T>(q[(size_t)r * D + hoff + t] / temp);
   for (int l = threadIdx.x; l < Lk; l += blockDim.x)
     valid[l] = memmask[(size_t)l * B + b];
   __syncthreads();
-  const float* kb = mk + (size_t)b * Lk * D + hoff;
-  const float* vb = mv + (size_t)b * Lk * D + hoff;
-  scores(qs, Lk, d, [&](int l) -> const float* { return kb + (size_t)l * D; },
-         valid, s);
+  const T* kb = mk + (size_t)b * Lk * D + hoff;
+  const T* vb = mv + (size_t)b * Lk * D + hoff;
+  scores(qs, Lk, d, [&](int l) { return kb + (size_t)l * D; }, valid, s);
   __syncthreads();
-  softmax_context(s, Lk, d, [&](int l) -> const float* { return vb + (size_t)l * D; },
-                  part, red, out + (size_t)r * D + hoff);
+  softmax_context(s, Lk, d, [&](int l) { return vb + (size_t)l * D; }, part,
+                  red, out + (size_t)r * D + hoff);
 }
 
 constexpr int MAX_BEAM = 16;
@@ -306,6 +345,31 @@ __global__ void beam_select_kernel(
 // qs[d] + part[ATT_THREADS] + s[n] + two int arrays [n]
 int attn_smem(int d, int n) { return (d + ATT_THREADS + 3 * n) * (int)sizeof(float); }
 
+template <typename T>
+int self_attn_launch(const float* q, const float* knew, const float* vnew,
+                     T* ck, T* cv, const int* anc, const int* maskk, float* out,
+                     int pos, int BK, int K, int Lpad, int D, int nh,
+                     cudaStream_t stream) {
+  const int d = D / nh;
+  if (d > ATT_THREADS || ATT_THREADS % d || attn_smem(d, Lpad) > 48 * 1024)
+    return (int)cudaErrorInvalidValue;
+  self_attn_kernel<T><<<dim3(BK, nh), ATT_THREADS, attn_smem(d, pos + 1), stream>>>(
+      q, knew, vnew, ck, cv, anc, maskk, out, pos, BK, K, Lpad, D, d);
+  STJEP_RETURN_LAUNCH_STATUS();
+}
+
+template <typename T>
+int cross_attn_launch(const float* q, const T* mk, const T* mv,
+                      const int* memmask, float* out, int BK, int K, int Lk,
+                      int D, int nh, cudaStream_t stream) {
+  const int d = D / nh;
+  if (d > ATT_THREADS || ATT_THREADS % d || attn_smem(d, Lk) > 48 * 1024)
+    return (int)cudaErrorInvalidValue;
+  cross_attn_kernel<T><<<dim3(BK, nh), ATT_THREADS, attn_smem(d, Lk), stream>>>(
+      q, mk, mv, memmask, out, BK, K, Lk, D, d);
+  STJEP_RETURN_LAUNCH_STATUS();
+}
+
 }  // namespace
 
 extern "C" int embed_time(const float* table, const int* tok, const float* tsig,
@@ -321,23 +385,31 @@ extern "C" int self_attn_anc(const float* q, const float* knew,
                              const int* anc, const int* maskk, float* out,
                              int pos, int BK, int K, int Lpad, int D, int nh,
                              cudaStream_t stream) {
-  const int d = D / nh;
-  if (d > ATT_THREADS || ATT_THREADS % d || attn_smem(d, Lpad) > 48 * 1024)
-    return (int)cudaErrorInvalidValue;
-  self_attn_kernel<<<dim3(BK, nh), ATT_THREADS, attn_smem(d, pos + 1), stream>>>(
-      q, knew, vnew, ck, cv, anc, maskk, out, pos, BK, K, Lpad, D, d);
-  STJEP_RETURN_LAUNCH_STATUS();
+  return self_attn_launch(q, knew, vnew, ck, cv, anc, maskk, out, pos, BK, K,
+                          Lpad, D, nh, stream);
+}
+
+extern "C" int self_attn_anc_bf16(const float* q, const float* knew,
+                                  const float* vnew, __nv_bfloat16* ck,
+                                  __nv_bfloat16* cv, const int* anc,
+                                  const int* maskk, float* out, int pos, int BK,
+                                  int K, int Lpad, int D, int nh,
+                                  cudaStream_t stream) {
+  return self_attn_launch(q, knew, vnew, ck, cv, anc, maskk, out, pos, BK, K,
+                          Lpad, D, nh, stream);
 }
 
 extern "C" int cross_attn(const float* q, const float* mk, const float* mv,
                           const int* memmask, float* out, int BK, int K,
                           int Lk, int D, int nh, cudaStream_t stream) {
-  const int d = D / nh;
-  if (d > ATT_THREADS || ATT_THREADS % d || attn_smem(d, Lk) > 48 * 1024)
-    return (int)cudaErrorInvalidValue;
-  cross_attn_kernel<<<dim3(BK, nh), ATT_THREADS, attn_smem(d, Lk), stream>>>(
-      q, mk, mv, memmask, out, BK, K, Lk, D, d);
-  STJEP_RETURN_LAUNCH_STATUS();
+  return cross_attn_launch(q, mk, mv, memmask, out, BK, K, Lk, D, nh, stream);
+}
+
+extern "C" int cross_attn_bf16(const float* q, const __nv_bfloat16* mk,
+                               const __nv_bfloat16* mv, const int* memmask,
+                               float* out, int BK, int K, int Lk, int D, int nh,
+                               cudaStream_t stream) {
+  return cross_attn_launch(q, mk, mv, memmask, out, BK, K, Lk, D, nh, stream);
 }
 
 // gid and glp may be null (no gather).

@@ -20,6 +20,20 @@
 // kernel sums the partials in a fixed order (deterministic, no atomics).
 // Bias, ReLU and residual are fused into the epilogue. wgmma/TMA tiles are
 // later work.
+//
+// gemm_q8 is the same kernel with an int8 weight: it replaces the int8
+// body of stjep_tpu/ops/decode_flash.py `_layer_kernel_q8` (:708) and
+// `_chain_unpack`'s `quant=True` branch (:987-997), where the TPU
+// dequantized each streamed matrix after its VMEM copy. Here the weight
+// [K, N] stays int8 in device memory with one f32 scale per column, and each
+// element is dequantized as its tile is loaded, float(q) * s[col]: one f32
+// rounding, the value of JAX's `dq`, so the products and the summation order
+// are those of gemm_f32 on the dequantized matrix. What bounds it: at decode
+// rows (M = 5 .. 80) the weight bytes, now a quarter of f32's, and launch
+// latency; the tile loop is the f32 one, so the kernel does not yet read
+// int8 faster than it reads f32 (1-byte loads, 32 B per warp).
+
+#include <cstdint>
 
 #include "common.cuh"
 
@@ -34,9 +48,26 @@ constexpr int BK = 16;
 // current one is multiplied from shared memory. With one split the epilogue
 // is applied here; with several, each split writes its raw partial tile to
 // ws[z] and splitk_reduce_kernel sums them in a fixed order.
-template <int TM>
+// Weight loaders: element (k, n) of the [K, N] weight, index k * ldb + n,
+// through the read-only data cache.
+struct F32Weight {
+  const float* w;
+  __device__ __forceinline__ float operator()(size_t idx, int k, int n) const {
+    return __ldg(w + idx);
+  }
+};
+
+struct Q8Weight {
+  const int8_t* q;
+  const float* s;  // [N] per-column scales
+  __device__ __forceinline__ float operator()(size_t idx, int k, int n) const {
+    return (float)__ldg(q + idx) * __ldg(s + n);
+  }
+};
+
+template <int TM, typename Weight>
 __global__ void __launch_bounds__(256) gemm_kernel(
-    const float* __restrict__ A, const float* __restrict__ Bm,
+    const float* __restrict__ A, const Weight Bm,
     const float* __restrict__ bias, const float* __restrict__ R,
     float* __restrict__ C, float* __restrict__ ws, int M, int N, int K,
     int lda, int ldb, int ldc, int ldr, int relu, int k_per_split) {
@@ -67,7 +98,7 @@ __global__ void __launch_bounds__(256) gemm_kernel(
     for (int q = 0; q < BL; ++q) {
       const int e = threadIdx.x + q * 256, k = e / BN, n = e % BN;
       const int gk = k0 + k, gn = col0 + n;
-      rb[q] = (gk < kend && gn < N) ? Bm[(size_t)gk * ldb + gn] : 0.f;
+      rb[q] = (gk < kend && gn < N) ? Bm((size_t)gk * ldb + gn, gk, gn) : 0.f;
     }
   };
   load(kbeg);
@@ -160,14 +191,10 @@ __global__ void layernorm_kernel(const float* __restrict__ X,
     y[c] = (x[c] - mean) * inv * g[c] + b[c];
 }
 
-}  // namespace
-
-// splits > 1: ws holds splits * M * N floats of partial tiles; the wrapper
-// picks the split count (stjep_tpu_torch/kernels.py `gemm`).
-extern "C" int gemm_f32(const float* A, const float* B, const float* bias,
-                        const float* R, float* C, float* ws, int M, int N,
-                        int K, int lda, int ldb, int ldc, int ldr, int relu,
-                        int splits, cudaStream_t stream) {
+template <typename Weight>
+int gemm_launch(const float* A, Weight B, const float* bias, const float* R,
+                float* C, float* ws, int M, int N, int K, int lda, int ldb,
+                int ldc, int ldr, int relu, int splits, cudaStream_t stream) {
   const int kps = ((K + splits - 1) / splits + BK - 1) / BK * BK;
   float* w = splits > 1 ? ws : nullptr;
   if (M <= 32) {
@@ -185,6 +212,28 @@ extern "C" int gemm_f32(const float* A, const float* B, const float* bias,
         ws, bias, R, C, M, N, splits, ldc, ldr, relu);
   }
   STJEP_RETURN_LAUNCH_STATUS();
+}
+
+}  // namespace
+
+// splits > 1: ws holds splits * M * N floats of partial tiles; the wrapper
+// picks the split count (stjep_tpu_torch/kernels.py `gemm`).
+extern "C" int gemm_f32(const float* A, const float* B, const float* bias,
+                        const float* R, float* C, float* ws, int M, int N,
+                        int K, int lda, int ldb, int ldc, int ldr, int relu,
+                        int splits, cudaStream_t stream) {
+  return gemm_launch(A, F32Weight{B}, bias, R, C, ws, M, N, K, lda, ldb, ldc,
+                     ldr, relu, splits, stream);
+}
+
+// B is the int8 weight [K, N] (row stride ldb) and scale its [N] f32 column
+// scales; everything else as gemm_f32.
+extern "C" int gemm_q8(const float* A, const int8_t* B, const float* scale,
+                       const float* bias, const float* R, float* C, float* ws,
+                       int M, int N, int K, int lda, int ldb, int ldc, int ldr,
+                       int relu, int splits, cudaStream_t stream) {
+  return gemm_launch(A, Q8Weight{B, scale}, bias, R, C, ws, M, N, K, lda, ldb,
+                     ldc, ldr, relu, splits, stream);
 }
 
 extern "C" int layernorm_f32(const float* X, const float* g, const float* b,

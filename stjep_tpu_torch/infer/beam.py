@@ -15,7 +15,11 @@ From position 2 on, two loops, where JAX has them (beam.py:371-372):
   (`beam_select`: on the card K4's select kernel, the megastep's own).
 
 Both run until `max_seq_len` or until every beam has emitted EOS; the
-all-EOS flag is read on the host once per step. Caches are never reordered:
+all-EOS flag is read on the host once per step. The serving options
+(beam.py:263-272 and the caches' dtype): `weight_dtype="int8"` quantizes
+the decoder once before the loop (`quantize_decoder_weights`), and
+`cache_dtype=torch.bfloat16` keeps the self caches and memory K/V in bf16;
+every route takes either, and both. Caches are never reordered:
 the ancestry map `anc` records which slot holds each hypothesis's K/V per
 position. Returns beam 0 per batch item, as the reference's output does.
 """
@@ -42,6 +46,7 @@ from stjep_tpu_torch.ops.decode_flash import (
     decode_beam_step_flash,
     decode_head,
     pad_len,
+    quantize_decoder_weights,
     stack_decoder_layers,
 )
 
@@ -50,11 +55,19 @@ MEGASTEP_TABLE_BYTES = 4 * 1024 * 1024  # ref: beam.py:371-372
 
 def beam_search(params: Dict, cfg: ModelConfig, enc_outputs: torch.Tensor,
                 mem_mask_b: Optional[torch.Tensor], beam_width: int,
-                penalty_factor: float, max_seq_len: int
+                penalty_factor: float, max_seq_len: int,
+                cache_dtype: Optional[torch.dtype] = None,
+                weight_dtype: Optional[str] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """enc_outputs [B, Lk, D], mem_mask_b [B, Lk] bool (True = attend).
-    Returns (preds [B, max_seq_len] best-beam tokens, BOS first,
-    PAD-padded; scores [B])."""
+    """enc_outputs [B, Lk, D], mem_mask_b [B, Lk] bool (True = attend);
+    cache_dtype None (f32), torch.float32 or torch.bfloat16; weight_dtype
+    None or "int8". Returns (preds [B, max_seq_len] best-beam tokens, BOS
+    first, PAD-padded; scores [B])."""
+    if weight_dtype not in (None, "int8"):
+        raise ValueError(f"weight_dtype must be None or 'int8', got {weight_dtype!r}")
+    if cache_dtype not in (None, torch.float32, torch.bfloat16):
+        raise ValueError("cache_dtype must be None, torch.float32 or "
+                         f"torch.bfloat16, got {cache_dtype!r}")
     dev = enc_outputs.device
     i32 = torch.int32
     B, Lk, D = enc_outputs.shape
@@ -68,8 +81,11 @@ def beam_search(params: Dict, cfg: ModelConfig, enc_outputs: torch.Tensor,
     mem_mask_t = F.pad(mem_mask_b.to(i32), (0, Lk_pad - Lk)).T.contiguous()
 
     dec = params["dec_tgt"]
+    if weight_dtype == "int8":
+        dec = quantize_decoder_weights(dec)  # once, outside the loop
     use_chain = cfg.transformer_type == "standard"  # ref: chain_supported
-    cache = tf_decoder_init_cache_chain(dec, cfg, enc_outputs, max_seq_len, K)
+    cache = tf_decoder_init_cache_chain(dec, cfg, enc_outputs, max_seq_len, K,
+                                        cache_dtype)
     preds = torch.full((BK, Lbuf), PAD, dtype=i32, device=dev)
     preds[:, 0] = BOS
     own = torch.arange(BK, device=dev, dtype=i32) % K

@@ -18,6 +18,7 @@ from typing import Dict, Optional
 
 import torch
 
+from stjep_tpu_torch.bridge import check_params_device
 from stjep_tpu_torch.config import ModelConfig
 from stjep_tpu_torch.infer.beam import beam_search
 from stjep_tpu_torch.models.seq2seq import (
@@ -47,22 +48,29 @@ def forward_translate(params: Dict, cfg: ModelConfig, mode: str,
                       acous_feats: Optional[torch.Tensor] = None,
                       acous_lens: Optional[torch.Tensor] = None,
                       beam_width: int = 1, penalty_factor: float = 1.0,
-                      max_seq_len: int = 900,
-                      device: Optional[torch.device] = None,
-                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                      max_seq_len: int = 900, device="cuda",
+                      generator: Optional[torch.Generator] = None,
+                      cache_dtype: Optional[torch.dtype] = None,
+                      weight_dtype: Optional[str] = None) -> torch.Tensor:
     """ST: [B, max_seq_len] best-beam tokens, BOS first, PAD-padded.
     ASR: [B, max_seq_len_src - 1] LAS tokens. Beam width 1 runs the beam
     path at width 1, which emits the greedy sequence.
 
-    `device`: where the call runs (the inputs move there; params must
-    already be there); None keeps the inputs' device, so CUDA tensors take
-    the kernels and CPU tensors their plain versions. `generator` stands
-    for the JAX function's `rng`: eval draws no random numbers, so it is
-    not read."""
-    if device is not None:
-        acous_feats = acous_feats.to(device)
-        if acous_lens is not None:
-            acous_lens = acous_lens.to(device)
+    `device`: where the call runs, the card unless the caller asks for the
+    CPU (the plain routes); the inputs move there, and params must already
+    lie there (ValueError otherwise). `cache_dtype` (torch.bfloat16) and
+    `weight_dtype` ("int8") are the serving options of the transformer beam
+    (infer/beam.py); ASR has no weight-streaming mode and raises on a
+    weight_dtype, as the JAX function does. `generator` stands for the JAX
+    function's `rng`: eval draws no random numbers, so it is not read."""
+    if mode == "ASR" and weight_dtype is not None:
+        raise ValueError(
+            f"weight_dtype={weight_dtype!r} only applies to the transformer "
+            "beam decode; ASR (LAS greedy) has no weight-streaming mode")
+    device = check_params_device(params, device)
+    acous_feats = acous_feats.to(device)
+    if acous_lens is not None:
+        acous_lens = acous_lens.to(device)
     if mode == "ASR":
         return _encoder_acous(params, cfg, acous_feats, acous_lens,
                               max_seq_len=cfg.max_seq_len_src)[2]
@@ -72,5 +80,6 @@ def forward_translate(params: Dict, cfg: ModelConfig, mode: str,
             "fusion: ROADMAP Queue A, slice 3)")
     enc_out, mem_mask_b, _ = encode_st(params, cfg, acous_feats, acous_lens)
     preds, _ = beam_search(params, cfg, enc_out, mem_mask_b, max(1, beam_width),
-                           penalty_factor, max_seq_len)
+                           penalty_factor, max_seq_len, cache_dtype=cache_dtype,
+                           weight_dtype=weight_dtype)
     return preds

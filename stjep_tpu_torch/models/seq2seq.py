@@ -20,6 +20,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from stjep_tpu_torch.bridge import check_params_device
 from stjep_tpu_torch.config import BOS, EOS, PAD, ModelConfig
 from stjep_tpu_torch.models.las import las_forward, las_init
 from stjep_tpu_torch.models.las_decoder import embed, embedding_init
@@ -329,7 +330,8 @@ def forward_eval(params: Dict, cfg: ModelConfig, mode: str,
                  acous_feats: Optional[torch.Tensor] = None,
                  acous_lens: Optional[torch.Tensor] = None,
                  ref_src: Optional[torch.Tensor] = None,
-                 ref_tgt: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                 ref_tgt: Optional[torch.Tensor] = None,
+                 device="cuda") -> Dict[str, torch.Tensor]:
     """Free-running greedy dev eval with reference ids, modes ASR, ST,
     ASR_ST and MT (ref: Seq2seq.py:512-638; seq2seq.py:586-724).
 
@@ -338,9 +340,11 @@ def forward_eval(params: Dict, cfg: ModelConfig, mode: str,
     reference token, aligned with refs[:, 1:], which is what dev NLL reads.
     Returns the JAX keys: emb_asr, preds_asr, picked_asr, lengths_asr
     (ASR); emb_mt, preds_mt, picked_mt (MT); emb_st, preds_st, picked_st
-    (ST). Inputs and params on one device: CUDA tensors take the kernels,
-    CPU tensors their plain versions. Eval draws no random numbers, so the
-    JAX function's `rng` has no counterpart. LM fusion is not ported."""
+    (ST). `device`: where the call runs, the card unless the caller asks
+    for the CPU (the plain routes); the inputs move there, and params must
+    already lie there (ValueError otherwise). Eval draws no random numbers,
+    so the JAX function's `rng` has no counterpart. LM fusion is not
+    ported."""
     mode = mode.upper()
     if "AE" in mode:
         raise NotImplementedError(
@@ -355,6 +359,10 @@ def forward_eval(params: Dict, cfg: ModelConfig, mode: str,
         raise ValueError(f"mode {mode} needs acous_feats")
     if "MT" in mode and src is None:
         raise ValueError(f"mode {mode} needs src")
+    device = check_params_device(params, device)
+    src, acous_feats, acous_lens, ref_src, ref_tgt = (
+        t if t is None else t.to(device)
+        for t in (src, acous_feats, acous_lens, ref_src, ref_tgt))
     out: Dict[str, torch.Tensor] = {}
     length_out = cfg.max_seq_len_tgt
     max_time = max(UPPERBOUND_SEQ_LEN, length_out)

@@ -90,27 +90,32 @@ def tf_decoder_forward(params: Dict, cfg: ModelConfig, tgt: torch.Tensor,
 
 def tf_decoder_init_cache_chain(params: Dict, cfg: ModelConfig,
                                 memory: torch.Tensor, max_len: int,
-                                group: int) -> TFDecCache:
+                                group: int,
+                                cache_dtype: Optional[torch.dtype] = None
+                                ) -> TFDecCache:
     """Zero self caches padded to pad_len(max_len, BLOCK), and the memory
     K/V projected once (memory zero-padded to pad_len(Lk, CROSS_BLOCK);
-    padded rows project to 0 and are masked at attention time). The hops
-    of a universal decoder share one encdec_attn, so its memory K/V are
-    projected once and every hop's entry is a view of them."""
+    padded rows project to 0 and are masked at attention time), all in
+    cache_dtype (memory's dtype by default): the memory K/V are projected
+    in memory's dtype, then cast (JAX tf_decoder_init_cache_flash). The
+    hops of a universal decoder share one encdec_attn, so its memory K/V
+    are projected once and every hop's entry is a view of them."""
     B, Lk, D = memory.shape
     mem = F.pad(memory, (0, 0, 0, pad_len(Lk, CROSS_BLOCK) - Lk))
     nl = cfg.dec_layers
+    dt = cache_dtype or memory.dtype
 
     def project(key):
         if cfg.transformer_type == "universal":
-            m = linear(params["layers"][0]["encdec_attn"][key], mem)
+            m = linear(params["layers"][0]["encdec_attn"][key], mem).to(dt)
             return m.expand(nl, *m.shape)
-        return torch.stack([linear(lp["encdec_attn"][key], mem)
+        return torch.stack([linear(lp["encdec_attn"][key], mem).to(dt)
                             for lp in params["layers"]]).contiguous()
 
     shape = (nl, group, B, pad_len(max_len, BLOCK), D)
     return TFDecCache(
-        self_k=torch.zeros(shape, device=memory.device, dtype=memory.dtype),
-        self_v=torch.zeros(shape, device=memory.device, dtype=memory.dtype),
+        self_k=torch.zeros(shape, device=memory.device, dtype=dt),
+        self_v=torch.zeros(shape, device=memory.device, dtype=dt),
         mem_k=project("w_ks"), mem_v=project("w_vs"))
 
 
@@ -131,8 +136,9 @@ def tf_decoder_step_flash(params: Dict, cfg: ModelConfig, x_new: torch.Tensor,
     """Decode position `pos` for x_new [B*K, D] (the embedded token), hop
     by hop: time_sig[pos], then per hop layer_sig[hop] (universal) and K5
     over that hop's caches, updated in place (the tables of
-    decode_signals). Returns [B*K, D] before the final LayerNorm, which the
-    head K7 applies."""
+    decode_signals). The layers may be quantize_decoder_weights'd (a
+    universal decoder's one shared layer included). Returns [B*K, D]
+    before the final LayerNorm, which the head K7 applies."""
     check_supported(cfg)
     x = x_new + time_sig[pos]
     for hop in range(cfg.dec_layers):
@@ -154,8 +160,9 @@ def tf_decoder_chain_step(stacked: Tuple[torch.Tensor, ...], norm_params: Dict,
                           gather_ids: Optional[torch.Tensor] = None):
     """Decode position `pos` for x_new [B*K, D] (the embedded token): adds
     time_sig[pos] and runs all layers and the head through K3. `stacked` is
-    stack_decoder_layers of the decoder's params, which a decode loop
-    computes once; norm_params its final LayerNorm. Returns (scores
+    stack_decoder_layers of the decoder's params (f32 or quantized), the
+    (tensors, quant) pair a decode loop computes once; norm_params its
+    final LayerNorm. Returns (scores
     [B*K, topk], ids [B*K, topk]) and, with gather_ids [B*K], the log-probs
     at those ids; the caches update in place. Standard type only."""
     if cfg.transformer_type != "standard":

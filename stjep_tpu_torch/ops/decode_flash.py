@@ -22,7 +22,21 @@ to each row's own slot in place. Hidden states are [B*K, D].
 On CUDA tensors the wrappers launch the kernels; on CPU tensors they run
 the `_plain` versions, which compute the same function in PyTorch, with the
 same ancestry semantics, in the order of the JAX package's dense XLA path.
-The int8 weight path (`quant=True`, `_layer_kernel_q8`) is not ported yet.
+
+Two serving options, as in the JAX kernels, in any combination:
+- int8 weights (`quantize_decoder_weights`, JAX `_layer_kernel_q8` and
+  `quant=True`): the eight matrices a layer streams per position are int8
+  with one f32 scale per output column; `layer_weights` and
+  `stack_decoder_layers` return (tensors, quant), and every layer step
+  dequantizes per matrix: the plain versions in PyTorch, the CUDA route in
+  the GEMM's tile loads (`gemm_q8`). Biases, LayerNorms, the cross K/V
+  projections and the head stay f32.
+- bf16 caches: self caches and memory K/V in bfloat16 (each stream's own
+  dtype selects its attention kernel), rounded where the JAX cores round
+  (`self_attn_anc_plain`, `cross_attn_plain`, `csrc/decode.cu`).
+Each wrapper counts its launches per variant: `launches` (f32 weights and
+caches), `q8_launches`, `bf16_launches`, `q8_bf16_launches`, and for K3's
+gather variant the same names after `gather_`.
 """
 
 from __future__ import annotations
@@ -51,105 +65,283 @@ CHAIN_KEYS = (
     ("pos_ffn", "w_1", "w"), ("pos_ffn", "w_1", "b"),
     ("pos_ffn", "w_2", "w"), ("pos_ffn", "w_2", "b"),
 )
+CHAIN_KEYS_Q8 = (
+    ("decslf_attn", "layer_norm", "scale"), ("decslf_attn", "layer_norm", "bias"),
+    ("decslf_attn", "w_qs", "w"), ("decslf_attn", "w_qs", "w_s"),
+    ("decslf_attn", "w_ks", "w"), ("decslf_attn", "w_ks", "w_s"),
+    ("decslf_attn", "w_vs", "w"), ("decslf_attn", "w_vs", "w_s"),
+    ("decslf_attn", "fc", "w"), ("decslf_attn", "fc", "w_s"),
+    ("encdec_attn", "layer_norm", "scale"), ("encdec_attn", "layer_norm", "bias"),
+    ("encdec_attn", "w_qs", "w"), ("encdec_attn", "w_qs", "w_s"),
+    ("encdec_attn", "fc", "w"), ("encdec_attn", "fc", "w_s"),
+    ("pos_ffn", "layer_norm", "scale"), ("pos_ffn", "layer_norm", "bias"),
+    ("pos_ffn", "w_1", "w"), ("pos_ffn", "w_1", "w_s"), ("pos_ffn", "w_1", "b"),
+    ("pos_ffn", "w_2", "w"), ("pos_ffn", "w_2", "w_s"), ("pos_ffn", "w_2", "b"),
+)
+QUANT_SELF = ("w_qs", "w_ks", "w_vs", "fc")
+QUANT_CROSS = ("w_qs", "fc")
+QUANT_FFN = ("w_1", "w_2")
+CACHE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def pad_len(n: int, block: int = BLOCK) -> int:
     return ((n + block - 1) // block) * block
 
 
-def layer_weights(lp: Dict) -> Tuple[torch.Tensor, ...]:
-    """One decoder layer's weights, in CHAIN_KEYS order."""
-    if "w_s" in lp["decslf_attn"]["w_qs"]:
-        raise NotImplementedError("int8 decoder weights are not ported yet")
+def _q8_leaf(leaf: Dict) -> Dict:
+    """{"w": [in, out]} -> {"w": int8, "w_s": f32 [1, out]}: symmetric per
+    output column, s = max|w| / 127 (1 for an all-zero column), q =
+    clip(round(w / s), -127, 127), ties to even as jnp.round."""
+    w = leaf["w"].to(torch.float32)
+    s = w.abs().amax(dim=0, keepdim=True) / 127.0
+    s = torch.where(s == 0.0, torch.ones_like(s), s)
+    out = dict(leaf)
+    out["w"] = torch.clamp(torch.round(w / s), -127.0, 127.0).to(torch.int8)
+    out["w_s"] = s
+    return out
+
+
+def quantize_decoder_weights(dec_params: Dict) -> Dict:
+    """A copy of the decoder tree (`dec_tgt`) whose streamed matrices (self
+    q/k/v/o, cross q/o, FFN w_1/w_2) are int8 with per-column scales; the
+    other leaves (LayerNorms, biases, the cross K/V projections, the final
+    norm) are shared. The layer steps detect the "w_s" key."""
+    layers = []
+    for lp in dec_params["layers"]:
+        nl = dict(lp)
+        for sub, keys in (("decslf_attn", QUANT_SELF), ("encdec_attn", QUANT_CROSS),
+                          ("pos_ffn", QUANT_FFN)):
+            nl[sub] = {**lp[sub], **{k: _q8_leaf(lp[sub][k]) for k in keys}}
+        layers.append(nl)
+    return {**dec_params, "layers": layers}
+
+
+def layer_weights(lp: Dict) -> Tuple[Tuple[torch.Tensor, ...], bool]:
+    """One decoder layer's weights, in CHAIN_KEYS order (CHAIN_KEYS_Q8 for
+    a quantize_decoder_weights'd layer), and whether it is quantized."""
+    quant = "w_s" in lp["decslf_attn"]["w_qs"]
     out = []
-    for path in CHAIN_KEYS:
+    for path in CHAIN_KEYS_Q8 if quant else CHAIN_KEYS:
         t = lp
-        for p in path:
-            t = t[p]
+        for key in path:
+            t = t[key]
         out.append(t)
-    return tuple(out)
+    return tuple(out), quant
 
 
-def stack_decoder_layers(dec_params: Dict) -> Tuple[torch.Tensor, ...]:
+def stack_decoder_layers(dec_params: Dict) -> Tuple[Tuple[torch.Tensor, ...], bool]:
     """Each per-layer weight stacked into one contiguous [nl, ...] tensor,
-    in CHAIN_KEYS order."""
+    in layer_weights' order; returns (stacked tensors, quantized?), the pair
+    K3 and K4 take as `stacked`."""
     per_layer = [layer_weights(lp) for lp in dec_params["layers"]]
-    return tuple(torch.stack(ts, 0).contiguous() for ts in zip(*per_layer))
+    quant = per_layer[0][1]
+    return (tuple(torch.stack(ts, 0).contiguous() for ts in zip(*(w for w, _ in per_layer))),
+            quant)
+
+
+# CHAIN_KEYS positions of the eight streamed matrices
+_MATS = (2, 3, 4, 5, 8, 9, 12, 14)
+
+
+def _pairs(w, quant: bool):
+    """Weights in CHAIN_KEYS(_Q8) order -> CHAIN_KEYS order with each
+    streamed matrix as a pair (w, w_s), w_s None for f32 (JAX
+    `_chain_unpack`)."""
+    if quant:
+        return (w[0], w[1], w[2:4], w[4:6], w[6:8], w[8:10], w[10], w[11],
+                w[12:14], w[14:16], w[16], w[17], w[18:20], w[20], w[21:23], w[23])
+    return tuple((t, None) if i in _MATS else t for i, t in enumerate(w))
+
+
+def _variant(quant: bool, cache: torch.Tensor) -> str:
+    return ("q8_" if quant else "") + ("bf16_" if cache.dtype == torch.bfloat16 else "")
+
+
+def _count(fn, variant: str):
+    name = variant + "launches"
+    setattr(fn, name, getattr(fn, name) + 1)
+
+
+def _init_counts(fn, variants, prefixes=("",)):
+    for p in prefixes:
+        for v in variants:
+            setattr(fn, p + v + "launches", 0)
+
+
+VARIANTS = ("", "q8_", "bf16_", "q8_bf16_")
 
 
 def _ln(x, scale, bias, eps):
     return layer_norm({"scale": scale, "bias": bias}, x, eps)
 
 
+def _mm(x, m):
+    """x @ the matrix of a (w, w_s) pair, dequantized as JAX's `dq`."""
+    w, s = m
+    return x @ (w if s is None else w.to(torch.float32) * s)
+
+
 def _attend_plain(q, k, v, valid, n_head):
-    """q [BK, D]; k, v [BK, L, D]; valid [BK, L] bool -> [BK, D]."""
+    """q [BK, D] f32; k, v [BK, L, D] in the cache dtype; valid [BK, L] bool
+    -> [BK, D] f32. With bf16 k and v the scaled query is rounded to bf16
+    and each q.k product too before the f32 head sum; p.v sums in f32."""
     BK, L, D = k.shape
     d = D // n_head
     qh = q.view(BK, n_head, d) / (d ** 0.5)
-    s = torch.einsum("rnd,rlnd->rnl", qh, k.view(BK, L, n_head, d))
+    if k.dtype == torch.float32:
+        s = torch.einsum("rnd,rlnd->rnl", qh, k.view(BK, L, n_head, d))
+    else:
+        prod = qh.to(k.dtype)[:, None] * k.view(BK, L, n_head, d)
+        s = prod.float().sum(-1).transpose(1, 2)
     s = s.masked_fill(~valid[:, None, :], NEG)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("rnl,rlnd->rnd", p, v.view(BK, L, n_head, d)).reshape(BK, D)
+    return torch.einsum("rnl,rlnd->rnd", p,
+                        v.float().view(BK, L, n_head, d)).reshape(BK, D)
 
 
-def _layer_plain(w, x, ck, cv, mk, mv, pos, n_head, anc, group, mem_mask, maskk):
-    """One layer at `pos` in plain PyTorch: w in CHAIN_KEYS order, caches
-    ck/cv [K, B, Lpad, D], memory mk/mv [B, Lk_pad, D]."""
-    BK, D = x.shape
-    row = torch.arange(BK, device=x.device)
+def self_attn_anc_plain(q, k_new, v_new, cache_k, cache_v, anc, self_mask_k,
+                        pos: int, group: int, n_head: int):
+    """Self-attention at `pos` through the ancestry map: q, k_new, v_new
+    [BK, D] f32 (q unscaled) from the layer's projections; the new K/V row
+    goes into each row's own slot of cache_k/v [K, B, Lpad, D] at `pos`,
+    rounded to the cache dtype, and row r reads position l from slot
+    (anc[l, r], r // K). Returns the context [BK, D] f32, before the output
+    projection."""
+    BK = q.shape[0]
+    row = torch.arange(BK, device=q.device)
     own, b = row % group, row // group
-    lidx = torch.arange(pos + 1, device=x.device)
+    cache_k[own, b, pos] = k_new.to(cache_k.dtype)
+    cache_v[own, b, pos] = v_new.to(cache_v.dtype)
+    lidx = torch.arange(pos + 1, device=q.device)
     ancp = anc[:pos + 1].T.long()  # [BK, pos+1]
-    valid_self = maskk[:pos + 1].T != 0
-    valid_mem = mem_mask.T[b] != 0  # [BK, Lk]
-    (slns, slnb, swq, swk, swv, swo, clns, clnb, cwq, cwo,
-     flns, flnb, w1, b1, w2, b2) = w
-    q = _ln(x, slns, slnb, 1e-6) @ swq
-    ck[own, b, pos] = x @ swk
-    cv[own, b, pos] = x @ swv
-    ksel = ck[ancp, b[:, None], lidx[None, :]]  # [BK, pos+1, D]
-    vsel = cv[ancp, b[:, None], lidx[None, :]]
-    x = _attend_plain(q, ksel, vsel, valid_self, n_head) @ swo + x
-    q = _ln(x, clns, clnb, 1e-6) @ cwq
-    x = _attend_plain(q, mk[b], mv[b], valid_mem, n_head) @ cwo + x
-    h = torch.relu(_ln(x, flns, flnb, 1e-6) @ w1 + b1)
-    return h @ w2 + b2 + x
+    ksel = cache_k[ancp, b[:, None], lidx[None, :]]  # [BK, pos+1, D]
+    vsel = cache_v[ancp, b[:, None], lidx[None, :]]
+    return _attend_plain(q, ksel, vsel, self_mask_k[:pos + 1].T != 0, n_head)
 
 
-def _layer_cuda(w, x, ck, cv, mk, mv, pos, n_head, anc, group, mem_mask, maskk):
-    """K5's launch sequence: the same layer as _layer_plain."""
-    BK, D = x.shape
-    Lpad, Lk = ck.shape[2], mk.shape[1]
+def cross_attn_plain(q, mem_k, mem_v, mem_mask, group: int, n_head: int):
+    """Cross-attention of q [BK, D] f32 (unscaled) over the unexpanded
+    memory mem_k/v [B, Lk_pad, D] (f32 or bf16) of row r's batch entry
+    r // group; mem_mask [Lk_pad, B]. Returns the context [BK, D] f32."""
+    b = torch.arange(q.shape[0], device=q.device) // group
+    return _attend_plain(q, mem_k[b], mem_v[b], mem_mask.T[b] != 0, n_head)
+
+
+def _self_attn_cuda(q, k_new, v_new, ck, cv, anc, maskk, pos, group, n_head):
+    bf16 = ck.dtype == torch.bfloat16
+    BK, D = q.shape
+    att = torch.empty_like(q)
+    kernels.launch("self_attn_anc_bf16" if bf16 else "self_attn_anc", q, k_new,
+                   v_new, ck, cv, anc, maskk, att, pos, BK, group, ck.shape[2],
+                   D, n_head)
+    _count(self_attn_anc, "bf16_" if bf16 else "")
+    return att
+
+
+def _cross_attn_cuda(q, mk, mv, mem_mask, group, n_head):
+    bf16 = mk.dtype == torch.bfloat16
+    BK, D = q.shape
+    att = torch.empty_like(q)
+    kernels.launch("cross_attn_bf16" if bf16 else "cross_attn", q, mk, mv,
+                   mem_mask, att, BK, group, mk.shape[1], D, n_head)
+    _count(cross_attn, "bf16_" if bf16 else "")
+    return att
+
+
+def _check_streams(*pairs):
+    """Each (a, b, name): two cache tensors of one dtype in CACHE_DTYPES."""
+    for a, b, nm in pairs:
+        if a.dtype not in CACHE_DTYPES:
+            raise ValueError(f"{nm} must be float32 or bfloat16, got {a.dtype}")
+        kernels.check(a, a.dtype, nm)
+        kernels.check(b, a.dtype, nm)
+
+
+def self_attn_anc(q, k_new, v_new, cache_k, cache_v, anc, self_mask_k,
+                  pos: int, group: int, n_head: int):
+    """The self-attention kernel of K5 alone, with self_attn_anc_plain's
+    arguments and results; f32 or bf16 caches (`launches`,
+    `bf16_launches`)."""
+    if not q.is_cuda:
+        return self_attn_anc_plain(q, k_new, v_new, cache_k, cache_v, anc,
+                                   self_mask_k, pos, group, n_head)
+    for t, nm in ((q, "q"), (k_new, "k_new"), (v_new, "v_new")):
+        kernels.check(t, torch.float32, nm)
+    _check_streams((cache_k, cache_v, "self caches"))
+    for t, nm in ((anc, "anc"), (self_mask_k, "self_mask_k")):
+        kernels.check(t, torch.int32, nm)
+    return _self_attn_cuda(q, k_new, v_new, cache_k, cache_v, anc, self_mask_k,
+                           pos, group, n_head)
+
+
+def cross_attn(q, mem_k, mem_v, mem_mask, group: int, n_head: int):
+    """The cross-attention kernel of K5 alone, with cross_attn_plain's
+    arguments and results; f32 or bf16 memory (`launches`,
+    `bf16_launches`)."""
+    if not q.is_cuda:
+        return cross_attn_plain(q, mem_k, mem_v, mem_mask, group, n_head)
+    kernels.check(q, torch.float32, "q")
+    _check_streams((mem_k, mem_v, "memory K/V"))
+    kernels.check(mem_mask, torch.int32, "mem_mask")
+    return _cross_attn_cuda(q, mem_k, mem_v, mem_mask, group, n_head)
+
+
+_init_counts(self_attn_anc, ("", "bf16_"))
+_init_counts(cross_attn, ("", "bf16_"))
+
+
+def _layer_plain(w, quant, x, ck, cv, mk, mv, pos, n_head, anc, group,
+                 mem_mask, maskk):
+    """One layer at `pos` in plain PyTorch: w in layer_weights' order,
+    caches ck/cv [K, B, Lpad, D], memory mk/mv [B, Lk_pad, D]."""
     (slns, slnb, swq, swk, swv, swo, clns, clnb, cwq, cwo,
-     flns, flnb, w1, b1, w2, b2) = w
-    q = kernels.gemm(kernels.layernorm(x, slns, slnb, 1e-6), swq)
-    k_new, v_new = kernels.gemm(x, swk), kernels.gemm(x, swv)
-    att = torch.empty_like(x)
-    kernels.launch("self_attn_anc", q, k_new, v_new, ck, cv, anc, maskk, att,
-                   pos, BK, group, Lpad, D, n_head)
-    x = kernels.gemm(att, swo, residual=x)
-    q = kernels.gemm(kernels.layernorm(x, clns, clnb, 1e-6), cwq)
-    kernels.launch("cross_attn", q, mk, mv, mem_mask, att, BK, group, Lk, D,
-                   n_head)
-    x = kernels.gemm(att, cwo, residual=x)
-    h = kernels.gemm(kernels.layernorm(x, flns, flnb, 1e-6), w1, bias=b1,
-                     relu=True)
-    return kernels.gemm(h, w2, bias=b2, residual=x)
+     flns, flnb, w1, b1, w2, b2) = _pairs(w, quant)
+    q = _mm(_ln(x, slns, slnb, 1e-6), swq)
+    att = self_attn_anc_plain(q, _mm(x, swk), _mm(x, swv), ck, cv, anc, maskk,
+                              pos, group, n_head)
+    x = _mm(att, swo) + x
+    q = _mm(_ln(x, clns, clnb, 1e-6), cwq)
+    x = _mm(cross_attn_plain(q, mk, mv, mem_mask, group, n_head), cwo) + x
+    h = torch.relu(_mm(_ln(x, flns, flnb, 1e-6), w1) + b1)
+    return _mm(h, w2) + b2 + x
+
+
+def _gemm(a, m, **kw):
+    w, s = m
+    return kernels.gemm(a, w, w_scale=s, **kw)
+
+
+def _layer_cuda(w, quant, x, ck, cv, mk, mv, pos, n_head, anc, group,
+                mem_mask, maskk):
+    """K5's launch sequence: the same layer as _layer_plain, each streamed
+    matrix through gemm_f32 or, int8, gemm_q8; the attention kernels in the
+    caches' dtype."""
+    (slns, slnb, swq, swk, swv, swo, clns, clnb, cwq, cwo,
+     flns, flnb, w1, b1, w2, b2) = _pairs(w, quant)
+    q = _gemm(kernels.layernorm(x, slns, slnb, 1e-6), swq)
+    att = _self_attn_cuda(q, _gemm(x, swk), _gemm(x, swv), ck, cv, anc, maskk,
+                          pos, group, n_head)
+    x = _gemm(att, swo, residual=x)
+    q = _gemm(kernels.layernorm(x, clns, clnb, 1e-6), cwq)
+    x = _gemm(_cross_attn_cuda(q, mk, mv, mem_mask, group, n_head), cwo,
+              residual=x)
+    h = _gemm(kernels.layernorm(x, flns, flnb, 1e-6), w1, bias=b1, relu=True)
+    return _gemm(h, w2, bias=b2, residual=x)
 
 
 def _run_layers(layer_fn, stacked, x, cache_k, cache_v, mem_k, mem_v, *args):
-    """layer_fn over the stacked layers, layer l on its slices of the
-    stacked weights and caches."""
+    """layer_fn over the stacked layers (the (tensors, quant) pair of
+    stack_decoder_layers), layer l on its slices of the stacked weights and
+    caches."""
+    tensors, quant = stacked
     for layer in range(cache_k.shape[0]):
-        x = layer_fn(tuple(t[layer] for t in stacked), x, cache_k[layer],
+        x = layer_fn(tuple(t[layer] for t in tensors), quant, x, cache_k[layer],
                      cache_v[layer], mem_k[layer], mem_v[layer], *args)
     return x
 
 
 def _check_cuda_args(cache_k, cache_v, mem_k, mem_v, anc, maskk, mem_mask):
-    for t, nm in ((cache_k, "cache_k"), (cache_v, "cache_v"), (mem_k, "mem_k"),
-                  (mem_v, "mem_v")):
-        kernels.check(t, torch.float32, nm)
+    _check_streams((cache_k, cache_v, "self caches"), (mem_k, mem_v, "memory K/V"))
     for t, nm in ((anc, "anc"), (maskk, "self_mask_k"), (mem_mask, "mem_mask")):
         kernels.check(t, torch.int32, nm)
 
@@ -158,33 +350,34 @@ def decoder_layer_step_plain(params: Dict, x_new, cache_k, cache_v, mem_k,
                              mem_v, pos: int, n_head: int, anc, group: int,
                              mem_mask, self_mask_k):
     """Plain PyTorch version of K5; same arguments and results."""
-    return _layer_plain(layer_weights(params), x_new, cache_k, cache_v, mem_k,
-                        mem_v, pos, n_head, anc, group, mem_mask, self_mask_k)
+    w, quant = layer_weights(params)
+    return _layer_plain(w, quant, x_new, cache_k, cache_v, mem_k, mem_v, pos,
+                        n_head, anc, group, mem_mask, self_mask_k)
 
 
 def decoder_layer_step_flash(params: Dict, x_new, cache_k, cache_v, mem_k,
                              mem_v, pos: int, n_head: int, anc, group: int,
                              mem_mask, self_mask_k):
     """One decoder layer's decode step (K5): params is one layer's tree
-    (decslf_attn / encdec_attn / pos_ffn), x_new [BK, D] its input at `pos`,
-    cache_k/v [K, B, Lpad, D] the layer's self caches (updated in place at
-    `pos`), mem_k/v [B, Lk_pad, D]; anc[pos] must hold each row's own slot.
-    Returns the layer's output [BK, D]."""
+    (decslf_attn / encdec_attn / pos_ffn), f32 or quantized; x_new [BK, D]
+    its input at `pos`, cache_k/v [K, B, Lpad, D] the layer's self caches
+    (updated in place at `pos`), mem_k/v [B, Lk_pad, D], each pair f32 or
+    bf16; anc[pos] must hold each row's own slot. Returns the layer's
+    output [BK, D] f32."""
+    w, quant = layer_weights(params)
     if not x_new.is_cuda:
-        return decoder_layer_step_plain(params, x_new, cache_k, cache_v, mem_k,
-                                        mem_v, pos, n_head, anc, group,
-                                        mem_mask, self_mask_k)
-    w = layer_weights(params)
+        return _layer_plain(w, quant, x_new, cache_k, cache_v, mem_k, mem_v,
+                            pos, n_head, anc, group, mem_mask, self_mask_k)
     kernels.refuse_grad("decoder_layer_step_flash", TRAINABLE, x_new, mem_k,
                         mem_v, *w)
     _check_cuda_args(cache_k, cache_v, mem_k, mem_v, anc, self_mask_k, mem_mask)
-    y = _layer_cuda(w, x_new.contiguous(), cache_k, cache_v, mem_k, mem_v,
+    y = _layer_cuda(w, quant, x_new.contiguous(), cache_k, cache_v, mem_k, mem_v,
                     pos, n_head, anc, group, mem_mask, self_mask_k)
-    decoder_layer_step_flash.launches += 1
+    _count(decoder_layer_step_flash, _variant(quant, cache_k))
     return y
 
 
-decoder_layer_step_flash.launches = 0
+_init_counts(decoder_layer_step_flash, VARIANTS)
 
 
 def topk_lowest_index(x: torch.Tensor, k: int):
@@ -291,34 +484,32 @@ def decode_chain_step_flash(stacked, norm_params, out_params, x_new, cache_k,
                             gather_ids: Optional[torch.Tensor] = None):
     """One decode position through all layers and the head.
 
-    x_new [BK, D] (token embedding + time signal at `pos`); caches as in the
-    module docstring, updated in place at `pos`; anc[pos] must hold each
-    row's own slot. Returns (scores [BK, topk] log-probs, ids [BK, topk]
-    int32), ties to the lowest id, and with gather_ids [BK] also glp [BK],
-    the log-prob at those ids. `launches` counts the calls without
-    gather_ids, `gather_launches` those with."""
+    stacked: the (tensors, quant) pair of stack_decoder_layers. x_new
+    [BK, D] (token embedding + time signal at `pos`); caches as in the
+    module docstring, f32 or bf16, updated in place at `pos`; anc[pos]
+    must hold each row's own slot. Returns (scores [BK, topk] log-probs,
+    ids [BK, topk] int32), ties to the lowest id, and with gather_ids [BK]
+    also glp [BK], the log-prob at those ids. Launches are counted per
+    variant (module docstring), with gather_ids under `gather_`."""
     if not x_new.is_cuda:
         return decode_chain_step_plain(stacked, norm_params, out_params, x_new,
                                        cache_k, cache_v, mem_k, mem_v, pos,
                                        n_head, anc, group, mem_mask,
                                        self_mask_k, topk, gather_ids)
     kernels.refuse_grad("decode_chain_step_flash", TRAINABLE, x_new, mem_k,
-                        mem_v, *stacked, *norm_params.values(),
+                        mem_v, *stacked[0], *norm_params.values(),
                         *out_params.values())
     _check_cuda_args(cache_k, cache_v, mem_k, mem_v, anc, self_mask_k, mem_mask)
     x = _run_layers(_layer_cuda, stacked, x_new.contiguous(), cache_k, cache_v,
                     mem_k, mem_v, pos, n_head, anc, group, mem_mask,
                     self_mask_k)
     out = _head_cuda(norm_params, out_params, x, topk, gather_ids)
-    if gather_ids is None:
-        decode_chain_step_flash.launches += 1
-    else:
-        decode_chain_step_flash.gather_launches += 1
+    _count(decode_chain_step_flash, ("" if gather_ids is None else "gather_")
+           + _variant(stacked[1], cache_k))
     return out
 
 
-decode_chain_step_flash.launches = 0
-decode_chain_step_flash.gather_launches = 0
+_init_counts(decode_chain_step_flash, VARIANTS, ("", "gather_"))
 
 
 def beam_candidates(sc, scores, eos, lenm, penalty_factor: float):
@@ -428,7 +619,9 @@ def decode_beam_step_flash(stacked, norm_params, out_params, emb_table,
                            mem_k, mem_v, n_head: int, group: int,
                            penalty_factor: float):
     """One beam position: embed last_tok [BK] + time_sig[i-1] -> layers ->
-    head -> k^2 -> k select. preds [BK, Lpad] / anc / maskk [Lpad, BK] int32,
+    head -> k^2 -> k select. stacked is the (tensors, quant) pair of
+    stack_decoder_layers; caches f32 or bf16 (launches counted per variant,
+    module docstring). preds [BK, Lpad] / anc / maskk [Lpad, BK] int32,
     scores / lenm [BK] f32, eos [BK] int32. Returns (preds, anc, maskk,
     last_tok, scores, eos, lenm, all_eos_flag [1]) as new tensors; the
     caches and anc[i-1] are updated in place."""
@@ -439,7 +632,7 @@ def decode_beam_step_flash(stacked, norm_params, out_params, emb_table,
                                       cache_k, cache_v, mem_k, mem_v, n_head,
                                       group, penalty_factor)
     kernels.refuse_grad("decode_beam_step_flash", TRAINABLE, emb_table,
-                        time_sig, scores, mem_k, mem_v, *stacked,
+                        time_sig, scores, mem_k, mem_v, *stacked[0],
                         *norm_params.values(), *out_params.values())
     _check_cuda_args(cache_k, cache_v, mem_k, mem_v, anc, maskk, mem_mask)
     for t, dt, nm in ((last_tok, torch.int32, "last_tok"),
@@ -461,8 +654,8 @@ def decode_beam_step_flash(stacked, norm_params, out_params, emb_table,
     sc, ids = _head_cuda(norm_params, out_params, x, K)
     out = _select_cuda(sc, ids, scores, eos, lenm, preds, anc, maskk, flag, i,
                        K, penalty_factor)
-    decode_beam_step_flash.launches += 1
+    _count(decode_beam_step_flash, _variant(stacked[1], cache_k))
     return out
 
 
-decode_beam_step_flash.launches = 0
+_init_counts(decode_beam_step_flash, VARIANTS)

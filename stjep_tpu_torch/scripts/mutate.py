@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Mutation check of the decode kernels (csrc/decode.cu) on one GPU.
+"""Mutation check of the decode kernels (csrc/decode.cu, csrc/gemm.cu) on one GPU.
 
     python3 stjep_tpu_torch/scripts/mutate.py [--workdir DIR]
 
 Copies the package and tests/test_torch_cuda.py into DIR (by default
 stjep_tpu_torch/build/mutants, which git ignores), first unchanged and then
-once per mutation below, each a one-line change of decode.cu; builds each
+once per mutation below, each a one-line change of a kernel source; builds each
 copy's kernels and runs the decode cases of the card tests against it. The
 unchanged copy must pass and every mutant should fail. Prints one line per
 run; exits non-zero if the unchanged copy fails or a mutant passes.
@@ -22,28 +22,41 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 SELECT = ("layer_step or head or gather or beam_step or beam_select or "
-          "general_beam or forward_eval")
+          "general_beam or forward_eval or gemm_q8 or attn_kernels or serving")
 
-# (what it breaks, the line as it is, the line as the mutant has it)
+# (what it breaks, the source in csrc/, the line as it is, the line as the
+# mutant has it)
 MUTATIONS = [
-    ("tie order in head_topk's row scan",
+    ("tie order in head_topk's row scan", "decode.cu",
      "      if (!better(v, c, bv, bi)) continue;",
      "      if (!(v >= bv)) continue;"),
-    ("glp without the log-sum-exp",
+    ("glp without the log-sum-exp", "decode.cu",
      "  if (glp && threadIdx.x == 0) glp[r] = glog - lse;",
      "  if (glp && threadIdx.x == 0) glp[r] = glog;"),
-    ("last taken id forgotten",
+    ("last taken id forgotten", "decode.cu",
      "      for (int j = 0; j < k; ++j) was_taken |= taken[j] == c;",
      "      for (int j = 0; j + 1 < k; ++j) was_taken |= taken[j] == c;"),
-    ("online sum not rescaled",
+    ("online sum not rescaled", "decode.cu",
      "      z = z * expf(m - v) + 1.f;",
      "      z = z + 1.f;"),
-    ("self attention reads the own slot at every position",
+    ("self attention reads the own slot at every position", "decode.cu",
      "    slot[l] = l == pos ? own : anc[(size_t)l * BK + r];",
      "    slot[l] = own;"),
-    ("select keeps the score without the old penalty",
+    ("select keeps the score without the old penalty", "decode.cu",
      "      scores_o[s] = bv * lp_old;",
      "      scores_o[s] = bv;"),
+    ("int8 scale applied along the wrong axis (row k, not column n)", "gemm.cu",
+     "    return (float)__ldg(q + idx) * __ldg(s + n);",
+     "    return (float)__ldg(q + idx) * __ldg(s + min(k, n));"),
+    ("new bf16 K/V row truncated, not rounded to nearest", "decode.cu",
+     "__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }",
+     "__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rz(v); }"),
+    ("bf16 q.k products summed unrounded", "decode.cu",
+     "  return acc + __bfloat162float(__float2bfloat16_rn(q * __bfloat162float(k)));",
+     "  return fmaf(q, __bfloat162float(k), acc);"),
+    ("bf16 scaled query not rounded to bf16", "decode.cu",
+     "  return __bfloat162float(__float2bfloat16_rn(x));",
+     "  return x;"),
 ]
 
 
@@ -56,9 +69,9 @@ def run(workdir: Path, label: str, mutation=None) -> int:
     (dst / "tests").mkdir(parents=True)
     shutil.copy(ROOT / "tests" / "test_torch_cuda.py", dst / "tests")
     if mutation is not None:
-        src = dst / "stjep_tpu_torch" / "csrc" / "decode.cu"
+        _, name, old, new = mutation
+        src = dst / "stjep_tpu_torch" / "csrc" / name
         text = src.read_text()
-        _, old, new = mutation
         if text.count(old) != 1:
             raise RuntimeError(f"mutation site not found once: {old!r}")
         src.write_text(text.replace(old, new))

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Profile the port's four decode paths at the flagship on one GPU.
+"""Profile the port's decode paths at the flagship on one GPU.
 
     python3 stjep_tpu_torch/scripts/profile_decode.py [--seed 0]
 
 The paths are chip_smoke.py's: ST beam-5 (forward_translate) and dev eval
 (forward_eval ASR_ST with reference ids), each on the standard and on the
-universal transformer, at B=16 with random weights. For each path: one
+universal transformer, at B=16 with random weights; and the serving decode,
+ST beam-5 on the standard model with bf16 caches and int8 weights, at B=16
+and at B=1. For each path: one
 warm-up call, one call timed on the host clock, then one call under
 torch.profiler. Prints per path the plain wall ms, the profiled wall ms
 (inflated by the profiler), device busy ms (the union of the device
@@ -106,6 +108,16 @@ def main() -> int:
             penalty_factor=1.0, max_seq_len=cs.DECODE_LEN, device="cuda"))
         profile(f"{kind} dev_eval", lambda: forward_eval(
             params, cfg, "ASR_ST", acous_feats=f, acous_lens=l, **refs))
+        if kind == "standard":
+            for n in (cs.B, 1):
+                fn, ln = f[:n], l[:n]
+                profile(f"standard serving int8+bf16 B={n}", lambda: forward_translate(
+                    params, cfg, "ST", acous_feats=fn, acous_lens=ln, beam_width=cs.BEAM,
+                    penalty_factor=1.0, max_seq_len=cs.DECODE_LEN, device="cuda",
+                    cache_dtype=torch.bfloat16, weight_dtype="int8"))
+    print(cs.subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                             "--format=csv,noheader"], capture_output=True, text=True,
+                            check=True).stdout.strip(), flush=True)
     return 0
 
 

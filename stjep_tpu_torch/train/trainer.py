@@ -17,7 +17,7 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
-from stjep_tpu_torch.bridge import leaves
+from stjep_tpu_torch.bridge import check_params_device, leaves
 from stjep_tpu_torch.config import PAD, ModelConfig
 from stjep_tpu_torch.models.seq2seq import forward_train
 from stjep_tpu_torch.ops.losses import normalise
@@ -101,16 +101,22 @@ def compute_grads(cfg: ModelConfig, mode: str, params: Dict,
     return {k: torch.as_tensor(v).detach() for k, v in sums.items()}, grads
 
 
-def make_train_step(cfg: ModelConfig, mode: str, optimizer: Optimizer):
+def make_train_step(cfg: ModelConfig, mode: str, optimizer: Optimizer,
+                    device="cuda"):
     """The step `step(params, opt_state, minibatches, generator, lr) ->
     (params, opt_state, losses)`: compute_grads in training mode, then the
     optimizer's clip and Adam with lr, updating params in place (the JAX
-    step donates and returns them)."""
+    step donates and returns them). It runs on `device`, the card unless
+    the caller asks for the CPU: the minibatches move there, and params
+    must already lie there (ValueError otherwise)."""
     _check_mode(mode)
+    device = torch.device(device)
 
     def step(params: Dict, opt_state, minibatches: List[Dict],
              generator: torch.Generator, lr: float):
-        losses, grads = compute_grads(cfg, mode, params, minibatches, generator)
+        check_params_device(params, device)
+        mbs = [{k: v.to(device) for k, v in mb.items()} for mb in minibatches]
+        losses, grads = compute_grads(cfg, mode, params, mbs, generator)
         optimizer.update(grads, set_lr(opt_state, lr))
         return params, opt_state, losses
 

@@ -12,6 +12,10 @@ same Function on CPU copies; the inference kernels (K1-K5, K7) must refuse
 inputs that require grad. The decode head K7 is also held at target
 vocabularies of 13 000 and 30 000 words, and with exact ties; the general
 beam loop and dev eval (forward_eval) run on the card against CPU copies.
+The serving options: gemm_q8 (bit-equal to gemm_f32 on the dequantized
+weight, whose values it reproduces), the bf16 attention kernels (the cache
+rows they write bit-equal to the plain version's), and K3, K4 and K5 with
+int8 weights, bf16 caches and both (TOL_BF16 below).
 
 Every test needs a CUDA card and skips without one. Run them on a GPU host
 (the tests' conftest imports JAX, which that host need not have):
@@ -33,6 +37,7 @@ from stjep_tpu_torch.infer.forward import forward_eval, forward_translate
 from stjep_tpu_torch.models.seq2seq import _dec_embedder, init_seq2seq
 from stjep_tpu_torch.models.tf_decoder import tf_decoder_init_cache_chain
 from stjep_tpu_torch.ops.attention import precompute_keys
+from stjep_tpu_torch.ops import decode_flash as tdf
 from stjep_tpu_torch.ops.decode_flash import (
     CROSS_BLOCK,
     beam_select,
@@ -62,6 +67,11 @@ pytestmark = pytest.mark.cuda
 
 TOL_LSTM = 1e-5  # states in (-1, 1) after <= 40 contractive steps
 TOL = 1e-4  # log-probs / projections of magnitude <= ~30 through a few layers
+# bf16 caches, kernel against plain on the card: both round at the same
+# points, but the f32 values they round come from GEMMs summed in other
+# orders, so one may land a bf16 step (2^-8 to 2^-7 relative) from the other
+TOL_BF16 = 2e-3
+BF16 = torch.bfloat16
 
 CFG = ModelConfig(
     enc_vocab_size=50, dec_vocab_size=40, enc_embedding_size=16,
@@ -423,7 +433,7 @@ def test_forward_translate_card_matches_cpu(dev, params):
                               beam_width=3, max_seq_len=MAX_LEN, device=dev)
     assert all(w.launches > n for w, n in zip(wrappers, before))
     out_c = forward_translate(pc, CFG, "ST", acous_feats=feats, acous_lens=lens,
-                              beam_width=3, max_seq_len=MAX_LEN)
+                              beam_width=3, max_seq_len=MAX_LEN, device="cpu")
     assert torch.equal(out_g.cpu(), out_c)
     assert out_c.shape == (B, MAX_LEN) and (out_c[:, 0] == BOS).all()
 
@@ -474,11 +484,11 @@ def test_forward_eval_card_matches_cpu(dev, kind):
                       decoder_layer_step_flash.launches, decode_head_gather.launches,
                       las_greedy_flash.launches)
     before = counts()
-    out_g = forward_eval(pg, cfg, "ASR_ST", **{k: v.to(dev) for k, v in kw.items()})
+    out_g = forward_eval(pg, cfg, "ASR_ST", device=dev, **kw)
     ran = [a > b for a, b in zip(counts(), before)]
     assert ran == ([True, False, False, True] if kind == "standard"
                    else [False, True, True, True])
-    out_c = forward_eval(pc, cfg, "ASR_ST", **kw)
+    out_c = forward_eval(pc, cfg, "ASR_ST", device="cpu", **kw)
     assert set(out_g) == set(out_c)
     for k, v in out_c.items():
         if k.startswith(("preds", "lengths")):
@@ -677,3 +687,251 @@ def test_inference_kernels_refuse_autograd(dev, make_call):
         t.requires_grad_(True)
     with pytest.raises(RuntimeError, match="no backward"):
         call()
+
+
+# ---------------------------------------------------------------------------
+# the serving options: int8 weights (gemm_q8) and bf16 caches
+# ---------------------------------------------------------------------------
+
+
+def _q8(rng, K, N, dev, zero_col=None):
+    """A random int8 weight [K, N] with per-column f32 scales [1, N]."""
+    q = torch.from_numpy(rng.randint(-127, 128, (K, N)).astype(np.int8)).to(dev)
+    s = torch.from_numpy((rng.uniform(0.5, 2.0, (1, N)) / 127).astype(np.float32)).to(dev)
+    if zero_col is not None:
+        q[:, zero_col] = 0
+        s[0, zero_col] = 1.0
+    return q, s
+
+
+@pytest.mark.parametrize("M,K,N,epilogue", [
+    (1, 512, 512, ""), (5, 512, 1024, "bias,relu"), (80, 1024, 512, "bias,resid"),
+    (80, 512, 512, "resid"), (320, 700, 333, "bias"), (5, 37, 9, "bias,relu,resid")])
+def test_gemm_q8_matches_plain(dev, M, K, N, epilogue):
+    """gemm_q8 at decode rows (1, 5, 80) and beyond, K and N off the
+    tile, a zero column: within TOL of the plain product on the
+    dequantized weight, and bit-equal to gemm_f32 on that weight (the same
+    tiles and order, the same dequantized values)."""
+    rng = np.random.RandomState(M + K + N)
+    a = _randn(rng, M, K + 3, dev=dev)[:, 1:K + 1]  # row-strided view
+    q, sc = _q8(rng, K, N, dev, zero_col=N // 2)
+    bias = _randn(rng, N, dev=dev) if "bias" in epilogue else None
+    resid = _randn(rng, M, N, dev=dev) if "resid" in epilogue else None
+    kw = dict(bias=bias, residual=resid, relu="relu" in epilogue)
+    before = (kernels.gemm.launches, kernels.gemm.q8_launches)
+    out = kernels.gemm(a, q, w_scale=sc, **kw)
+    assert (kernels.gemm.launches, kernels.gemm.q8_launches) == (before[0], before[1] + 1)
+    w = q.float() * sc
+    assert torch.equal(out, kernels.gemm(a, w, **kw))
+    ref = a @ w + (bias if bias is not None else 0)
+    if "relu" in epilogue:
+        ref = torch.relu(ref)
+    if resid is not None:
+        ref = ref + resid
+    _close(out, ref, TOL * max(1.0, float(ref.abs().max()) / 30))
+    with pytest.raises(ValueError):
+        kernels.gemm(a, q, **kw)  # int8 without its scales
+    with pytest.raises(ValueError):
+        kernels.gemm(a, q.float(), w_scale=sc, **kw)  # scales on an f32 weight
+
+
+def _attn_state(rng, dev, dtype, K=3, Bn=3, Lpad=160):
+    D = CFG.dim_model
+    BK = Bn * K
+    ck = _randn(rng, K, Bn, Lpad, D, dev=dev).to(dtype)
+    cv = _randn(rng, K, Bn, Lpad, D, dev=dev).to(dtype)
+    anc = torch.from_numpy(rng.randint(0, K, (Lpad, BK)).astype(np.int32)).to(dev)
+    maskk = torch.from_numpy((rng.rand(Lpad, BK) < 0.8).astype(np.int32)).to(dev)
+    maskk[:, 1] = 0  # a fully masked self row: uniform attention, not NaN
+    mk = _randn(rng, Bn, 96, D, dev=dev).to(dtype)
+    mv = _randn(rng, Bn, 96, D, dev=dev).to(dtype)
+    mem_mask = torch.zeros((96, Bn), dtype=torch.int32, device=dev)
+    mem_mask[:89, 0] = 1
+    mem_mask[:7, 2] = 1  # batch entry 1 fully masked
+    return ck, cv, anc, maskk, mk, mv, mem_mask, K
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("pos", [0, 15, 16, 159])
+def test_attn_kernels_match_plain(dev, pos, dtype):
+    """self_attn_anc and cross_attn alone, f32 and bf16: at pos 0, the
+    last row of a 16-row block, the first of the next and the last of 160;
+    a fully masked self row and a fully masked memory entry. The new K/V
+    row is bit-equal to the plain version's (both round the same f32 row)."""
+    rng = np.random.RandomState(pos + 7)
+    ck, cv, anc, maskk, mk, mv, mem_mask, K = _attn_state(rng, dev, dtype)
+    BK, D = anc.shape[1], CFG.dim_model
+    anc[pos] = torch.arange(BK, device=dev, dtype=torch.int32) % K
+    q, kn, vn = (_randn(rng, BK, D, dev=dev) for _ in range(3))
+    var = "bf16_" if dtype == BF16 else ""
+    counts = lambda: (getattr(tdf.self_attn_anc, var + "launches"),
+                      getattr(tdf.cross_attn, var + "launches"))
+    before = counts()
+    ckk, cvk, ckp, cvp = ck.clone(), cv.clone(), ck.clone(), cv.clone()
+    out = tdf.self_attn_anc(q, kn, vn, ckk, cvk, anc, maskk, pos, K, CFG.num_heads)
+    ref = tdf.self_attn_anc_plain(q, kn, vn, ckp, cvp, anc, maskk, pos, K, CFG.num_heads)
+    assert torch.isfinite(out).all()
+    _close(out, ref, 1e-5)
+    assert torch.equal(ckk, ckp) and torch.equal(cvk, cvp)
+    out = tdf.cross_attn(q, mk, mv, mem_mask, K, CFG.num_heads)
+    _close(out, tdf.cross_attn_plain(q, mk, mv, mem_mask, K, CFG.num_heads), 1e-5)
+    assert counts() == (before[0] + 1, before[1] + 1)
+
+
+def _serving_state(pg, K, pos, rng, dev, quant, bf16, Bn=B):
+    """_decode_state with the caches in bf16 and the decoder quantized as
+    asked; returns (dec, cache, preds, anc, maskk, mem_mask)."""
+    cache, preds, anc, maskk, mem_mask = _decode_state(pg, K, pos, rng, dev, Bn=Bn)
+    if bf16:
+        cache = type(cache)(*(t.to(BF16) for t in cache))
+    dec = tdf.quantize_decoder_weights(pg["dec_tgt"]) if quant else pg["dec_tgt"]
+    return dec, cache, preds, anc, maskk, mem_mask
+
+
+def _bf16_cache_close(a, b):
+    """Within one bf16 step (at most 2^-7 of the value), elementwise, plus
+    TOL_BF16: the two f32 rows rounded differ by the GEMMs' summation order
+    and, past the first layer, by the earlier layers' outputs (within
+    TOL_BF16), which matters near zero. The attention kernels alone hold
+    the rows bit-equal (test_attn_kernels_match_plain)."""
+    bad = (a.float() - b.float()).abs() > 2.0 ** -7 * b.float().abs() + TOL_BF16
+    assert not bad.any(), int(bad.sum())
+
+
+SERVING = [(True, False), (False, True), (True, True)]
+SERVING_IDS = ["int8", "bf16", "int8+bf16"]
+
+
+def _variant(quant, bf16):
+    return ("q8_" if quant else "") + ("bf16_" if bf16 else "") + "launches"
+
+
+@pytest.mark.parametrize("quant,bf16", SERVING, ids=SERVING_IDS)
+@pytest.mark.parametrize("Bn,K,pos", [(1, 1, 0), (3, 3, 6), (2, 2, MAX_LEN - 1)])
+def test_serving_layer_step_kernel_matches_plain(dev, params, Bn, K, pos, quant, bf16):
+    _, pg = params
+    rng = np.random.RandomState(2000 + 10 * K + pos)
+    dec, cache, _, anc, maskk, mem_mask = _serving_state(pg, K, pos, rng, dev, quant, bf16, Bn)
+    maskk[pos] = 1
+    x = _randn(rng, Bn * K, CFG.dim_model, dev=dev)
+    lp = dec["layers"][1]
+    name = _variant(quant, bf16)
+    before = getattr(decoder_layer_step_flash, name)
+    outs = []
+    for fn in (decoder_layer_step_flash, decoder_layer_step_plain):
+        c = _clone(cache)
+        outs.append((fn(lp, x, c.self_k[1], c.self_v[1], c.mem_k[1], c.mem_v[1], pos,
+                        CFG.num_heads, anc, K, mem_mask, maskk), c))
+    assert getattr(decoder_layer_step_flash, name) == before + 1
+    (y, ck), (y_p, cp) = outs
+    assert torch.isfinite(y).all() and y.dtype == torch.float32
+    _close(y, y_p, TOL_BF16 if bf16 else TOL)
+    for a, b in ((ck.self_k, cp.self_k), (ck.self_v, cp.self_v)):
+        _bf16_cache_close(a, b) if bf16 else _close(a, b, TOL)
+
+
+@pytest.mark.parametrize("quant,bf16", SERVING, ids=SERVING_IDS)
+@pytest.mark.parametrize("K,pos", [(1, 0), (3, 6)])
+def test_serving_chain_step_kernel_matches_plain(dev, params, K, pos, quant, bf16):
+    _, pg = params
+    rng = np.random.RandomState(3000 + 10 * K + pos)
+    dec, cache, _, anc, maskk, mem_mask = _serving_state(pg, K, pos, rng, dev, quant, bf16)
+    maskk[pos] = 1
+    x = _randn(rng, B * K, CFG.dim_model, dev=dev)
+    stacked = stack_decoder_layers(dec)
+    assert stacked[1] == quant
+    name = _variant(quant, bf16)
+    before = getattr(decode_chain_step_flash, name)
+    outs = []
+    for fn in (decode_chain_step_flash, decode_chain_step_plain):
+        c = _clone(cache)
+        sc, ids = fn(stacked, dec["norm"], pg["out_tgt"], x, c.self_k, c.self_v, c.mem_k,
+                     c.mem_v, pos, CFG.num_heads, anc, K, mem_mask, maskk, K + 1)
+        outs.append((sc, ids, c))
+    assert getattr(decode_chain_step_flash, name) == before + 1
+    (sc, ids, ck), (sc_p, ids_p, cp) = outs
+    _same_ids_up_to_ties(ids, ids_p, sc_p)
+    _close(sc, sc_p, TOL_BF16 if bf16 else TOL)
+    for a, b in ((ck.self_k, cp.self_k), (ck.self_v, cp.self_v)):
+        _bf16_cache_close(a, b) if bf16 else _close(a, b, TOL)
+
+
+@pytest.mark.parametrize("quant,bf16", SERVING, ids=SERVING_IDS)
+@pytest.mark.parametrize("K,i", [(1, 5), (3, 7)])
+def test_serving_beam_step_kernel_matches_plain(dev, params, K, i, quant, bf16):
+    _, pg = params
+    rng = np.random.RandomState(4000 + 100 * K + i)
+    BK = B * K
+    dec, cache, preds, anc, maskk, mem_mask = _serving_state(pg, K, i - 1, rng, dev, quant,
+                                                             bf16)
+    eos = torch.from_numpy((rng.rand(BK) < 0.3).astype(np.int32)).to(dev)
+    scores = torch.from_numpy(-rng.uniform(0, 3 * i, BK).astype(np.float32)).to(dev)
+    lenm = torch.from_numpy(rng.randint(1, i, BK).astype(np.float32)).to(dev)
+    last_tok = preds[:, i - 1].contiguous()
+    stacked = stack_decoder_layers(dec)
+    table = _dec_embedder(pg, CFG).contiguous()
+    tsig = position_signal(500, CFG.dim_model, dev)[0].contiguous()
+    name = _variant(quant, bf16)
+    before = getattr(decode_beam_step_flash, name)
+    outs = []
+    for fn in (decode_beam_step_flash, decode_beam_step_plain):
+        c, a = _clone(cache), anc.clone()
+        out = fn(stacked, dec["norm"], pg["out_tgt"], table, tsig, i, last_tok, preds, a,
+                 maskk, mem_mask, scores, eos, lenm, c.self_k, c.self_v, c.mem_k, c.mem_v,
+                 CFG.num_heads, K, 1.0)
+        outs.append((out, c))
+    assert getattr(decode_beam_step_flash, name) == before + 1
+    (out_k, ck), (out_p, cp) = outs
+    names = ("preds", "anc", "maskk", "last_tok", "scores", "eos", "lenm", "flag")
+    for nm, a, b in zip(names, out_k, out_p):
+        if nm in ("scores", "lenm"):
+            _close(a, b, TOL_BF16 if bf16 else TOL)
+        else:
+            assert torch.equal(a.int(), b.int()), nm
+    for a, b in ((ck.self_k, cp.self_k), (ck.self_v, cp.self_v)):
+        _bf16_cache_close(a, b) if bf16 else _close(a, b, TOL)
+
+
+@pytest.mark.parametrize("quant,bf16", SERVING, ids=SERVING_IDS)
+@pytest.mark.parametrize("kind,K", [("standard", 1), ("standard", 3), ("universal", 3)])
+def test_serving_beam_card_matches_cpu(dev, kind, K, quant, bf16):
+    """beam_search with the serving options on the card against CPU
+    copies: tokens equal, scores within TOL (int8) or TOL_BF16; the
+    variant's kernels launched (K3 and K4 on the standard decoder, K5 on
+    the universal one)."""
+    cfg = CFG if kind == "standard" else UNIVERSAL
+    pc = init_seq2seq(cfg, torch.Generator().manual_seed(40 + K), "cpu")
+    pg = params_to(pc, dev)
+    rng = np.random.RandomState(30 + K)
+    enc = _randn(rng, B, LK, CFG.dim_model)
+    mem_mask = torch.arange(LK)[None, :] < torch.tensor([11, 6, 9])[:, None]
+    kw = dict(cache_dtype=BF16 if bf16 else None, weight_dtype="int8" if quant else None)
+    name = _variant(quant, bf16)
+    wrappers = ((decode_chain_step_flash, decode_beam_step_flash) if kind == "standard"
+                else (decoder_layer_step_flash,))
+    before = [getattr(w, name) for w in wrappers]
+    before_q8 = kernels.gemm.q8_launches
+    preds_g, scores_g = beam_search(pg, cfg, enc.to(dev), mem_mask.to(dev), K, 1.0, MAX_LEN,
+                                    **kw)
+    assert all(getattr(w, name) > n for w, n in zip(wrappers, before))
+    assert (kernels.gemm.q8_launches > before_q8) == quant
+    preds_c, scores_c = beam_search(pc, cfg, enc, mem_mask, K, 1.0, MAX_LEN, **kw)
+    assert torch.equal(preds_g.cpu(), preds_c)
+    _close(scores_g.cpu(), scores_c, TOL_BF16 if bf16 else TOL)
+
+
+def test_serving_wrappers_reject_other_dtypes(dev, params):
+    """Caches or memory in another dtype than f32 or bf16 raise on the card;
+    nothing falls back."""
+    _, pg = params
+    rng = np.random.RandomState(5)
+    cache, _, anc, maskk, mem_mask = _decode_state(pg, 1, 0, rng, dev)
+    x = _randn(rng, B, CFG.dim_model, dev=dev)
+    lp = pg["dec_tgt"]["layers"][0]
+    half = lambda t: t.to(torch.float16)
+    for ck, mk in ((half(cache.self_k[0]), cache.mem_k[0]),
+                   (cache.self_k[0], half(cache.mem_k[0]))):
+        cv = ck.clone()
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            decoder_layer_step_flash(lp, x, ck, cv, mk, mk.clone(), 0, CFG.num_heads, anc,
+                                     1, mem_mask, maskk)

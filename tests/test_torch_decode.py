@@ -62,8 +62,8 @@ def test_topk_lowest_index_matches_lax_top_k():
 
 def test_stack_and_pad_len(setup):
     _, tp, _, _ = setup
-    stacked = stack_decoder_layers(tp["dec_tgt"])
-    assert len(stacked) == len(CHAIN_KEYS)
+    stacked, quant = stack_decoder_layers(tp["dec_tgt"])
+    assert not quant and len(stacked) == len(CHAIN_KEYS)
     assert stacked[2].shape == (CFG.dec_layers, CFG.dim_model, CFG.dim_model)
     assert all(t.is_contiguous() for t in stacked)
     assert (pad_len(150), pad_len(89, 32), pad_len(16)) == (160, 96, 16)

@@ -86,7 +86,7 @@ def _compare_eval(jp, cfg, mode, mb):
               acous_lens=mb["acouslen"], ref_src=mb["srcid"], ref_tgt=mb["tgtid"])
     ref = jax_forward_eval(jp, cfg, mode, use_flash=False,
                            **{k: jnp.asarray(v) for k, v in kw.items()})
-    out = forward_eval(params_from_numpy(jp), cfg, mode,
+    out = forward_eval(params_from_numpy(jp), cfg, mode, device="cpu",
                        **{k: torch.from_numpy(v) for k, v in kw.items()})
     assert set(out) == set(ref)
     for k in ref:
@@ -136,7 +136,7 @@ def _translate_pair(jp, cfg, beam, seed=7):
     out = forward_translate(
         params_from_numpy(jp), cfg, "ST", acous_feats=torch.from_numpy(mb["acous_feat"]),
         acous_lens=torch.from_numpy(mb["acouslen"]), beam_width=beam,
-        penalty_factor=1.0, max_seq_len=MAX_LEN)
+        penalty_factor=1.0, max_seq_len=MAX_LEN, device="cpu")
     assert out.shape == (B, MAX_LEN)
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
 
@@ -186,7 +186,8 @@ def test_unported_eval_routes_raise(models, mode, kw):
     args = {k: (torch.from_numpy(v) if v is not None else None)
             for k, v in {**args, **kw}.items()}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        forward_eval(params_from_numpy(models["standard"]), CFG, mode, **args)
+        forward_eval(params_from_numpy(models["standard"]), CFG, mode, device="cpu",
+                     **args)
 
 
 @pytest.mark.parametrize("mode", ["MT", "ASR_ST"])

@@ -288,7 +288,7 @@ def test_train_step_draws_from_its_generator():
     def run(seed):
         p = params_from_numpy(init)
         opt = optim.make_optimizer(1.0)
-        step = make_train_step(cfg, "ASR_ST", opt)
+        step = make_train_step(cfg, "ASR_ST", opt, device="cpu")
         _, _, ls = step(p, opt.init(p), mbs, torch.Generator().manual_seed(seed), 1e-3)
         return ls, _flat(p)
 

@@ -52,7 +52,7 @@ def test_st_tokens_line_identical(setup, beam):
                                 penalty_factor=1.0, max_seq_len=MAX_LEN)
     out = forward_translate(tp, CFG, "ST", acous_feats=torch.from_numpy(feats),
                             acous_lens=torch.from_numpy(lens), beam_width=beam,
-                            penalty_factor=1.0, max_seq_len=MAX_LEN)
+                            penalty_factor=1.0, max_seq_len=MAX_LEN, device="cpu")
     assert out.shape == (B, MAX_LEN)
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
 
@@ -62,7 +62,7 @@ def test_asr_mode_matches_jax(setup):
     ref = jax_forward_translate(jp, CFG, "ASR", acous_feats=jnp.asarray(feats),
                                 acous_lens=jnp.asarray(lens))
     out = forward_translate(tp, CFG, "ASR", acous_feats=torch.from_numpy(feats),
-                            acous_lens=torch.from_numpy(lens))
+                            acous_lens=torch.from_numpy(lens), device="cpu")
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
 
 
@@ -71,4 +71,4 @@ def test_unported_modes_raise(setup, mode):
     _, tp, feats, lens = setup
     with pytest.raises(NotImplementedError):
         forward_translate(tp, CFG, mode, acous_feats=torch.from_numpy(feats),
-                          acous_lens=torch.from_numpy(lens))
+                          acous_lens=torch.from_numpy(lens), device="cpu")
