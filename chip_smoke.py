@@ -17,10 +17,18 @@ non-zero without printing a result:
    times from CUDA events; K7 also at a 30 000-word target vocabulary. The
    serving kernels likewise: gemm_q8 (one layer's eight int8 products, at
    M = 80 and 5), the bf16 attention kernels, K5 in int8, bf16 and
-   int8+bf16, K3 and K4 in int8+bf16. Each kernel's bound (bytes over HBM
-   bandwidth or operations over peak, from this run's inputs) and, where
-   one PyTorch call computes the same function, its time: cuDNN's LSTM for
-   K1 and K8, scaled_dot_product_attention for the bf16 cross attention.
+   int8+bf16, K3 and K4 in int8+bf16. The tensor-parallel kernels at one
+   shard of 4 (Dq = 128, 2 local heads, BK = 80, pos 75, V/n = 50): K6a-c
+   (self_attn_step, cross_attn_step, ffn_step, their partials) and K7c
+   (decode_head_partial); K6b's attention kernel alone against
+   scaled_dot_product_attention, as an aside. The trio, which has no
+   kernel of its own, is checked on its own line: at shard width against
+   its plain version, at full width against K5, and the TP layer step
+   over 4 shards of the card, joined, against K5. Each kernel's bound
+   (bytes over HBM bandwidth or operations over peak, from this run's
+   inputs; the TP kernels' from scripts/tp_bounds.py) and, where one
+   PyTorch call computes the same function, its time: cuDNN's LSTM for K1
+   and K8, scaled_dot_product_attention for the bf16 cross attention.
 4. the decode main paths, each driven with every launch count zeroed just
    before it and read just after, at the flagship configuration
    (bench.py's), random weights from init_seq2seq(seed):
@@ -44,7 +52,14 @@ non-zero without printing a result:
      rows; the bf16 route against its plain route on CPU copies for 2 rows,
      differing rows explained by a tie within SERVE_MARGIN;
    - serving, universal model at B=16: int8 + bf16 and bf16 (K5 variants;
-     K3 and K4 idle), and the int8-grid check.
+     K3 and K4 idle), and the int8-grid check;
+   - tp beam: ST beam-5 through forward_translate on meshes (1, 2) and
+     (1, 4) whose shards all lie on the card (one warm-up, 2 timed requests
+     of B=16; K6a-c, K7c and K4's select launched, K3, K4 and K5
+     idle), tokens against the single-device card route's, differing rows
+     explained by a tie within E2E_MARGIN; tp dev eval: forward_eval
+     ASR_ST at n=2 against the single-device card route, picked_* within
+     1e-4.
 5. kernels K8 (trainable BiLSTM) and K9 (teacher-forced LAS scan) at the
    flagship train shapes on seeded inputs and cotangents: forward and
    backward each against its plain version on the card, every saved or
@@ -190,6 +205,16 @@ def layer_weight_bytes(cfg, quant) -> int:
     return (mats + 4 * cols if quant else 4 * mats) + small
 
 
+def distinct_rows(anc, K, pos) -> int:
+    """The distinct self-cache rows below pos that the ancestry anc [Lpad,
+    BK] reads (slot anc[l, r] of batch entry r // K at position l)."""
+    BK = anc.shape[1]
+    Bn = BK // K
+    b = torch.arange(BK) // K
+    keys = anc[:pos].long().cpu() * Bn + b + torch.arange(pos)[:, None] * K * Bn
+    return keys.unique().numel()
+
+
 def decode_bound(cfg, nl, K, pos, anc, mem_mask, cache_itemsize, quant, V=0, topk=0):
     """Bytes and operations that nl decode layers at `pos` must spend (K5;
     with V, the head after them: K3), counted from this call's data: the
@@ -198,10 +223,7 @@ def decode_bound(cfg, nl, K, pos, anc, mem_mask, cache_itemsize, quant, V=0, top
     both attentions, and the head's product."""
     D, FF = cfg.dim_model, cfg.dim_feedforward
     BK = anc.shape[1]
-    Bn = BK // K
-    b = torch.arange(BK) // K
-    keys = anc[:pos].long().cpu() * Bn + b + torch.arange(pos)[:, None] * K * Bn
-    rows, mem_rows = keys.unique().numel(), int(mem_mask.sum())
+    rows, mem_rows = distinct_rows(anc, K, pos), int(mem_mask.sum())
     per_layer = (layer_weight_bytes(cfg, quant)
                  + (2 * rows + 2 * BK + 2 * mem_rows) * D * cache_itemsize)
     n_bytes = nl * per_layer + 4 * BK * D + 8 * (pos + 1) * BK + 4 * mem_mask.numel()
@@ -797,6 +819,237 @@ def phase_k3_gather(params, cfg, rng):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
 
 
+TP_N = 4  # the TP kernel phases run one shard of 4
+TP_RAN = ("K6 self_attn_step", "K6 cross_attn_step", "K6 ffn_step", "K7 head_partial")
+
+
+def tp_shards(params, n):
+    """shard_params of the decoder and the head over a (1, n) mesh whose
+    shards all lie on the one card."""
+    from stjep_tpu_torch.parallel.mesh import make_mesh, shard_params
+
+    return shard_params({"dec_tgt": params["dec_tgt"], "out_tgt": params["out_tgt"]},
+                        make_mesh(1, n, ["cuda"] * n))
+
+
+def trio_plain(lp, x, ck, cv, mk, mv, pos, n_head, anc, group, mem_mask, maskk):
+    """The trio's plain version: K6a-c's plain versions, residuals on."""
+    from stjep_tpu_torch.ops import decode_flash as df
+
+    y = df.self_attn_step_plain(lp["decslf_attn"], x, ck, cv, pos, n_head, anc, group, maskk)
+    y = df.cross_attn_step_plain(lp["encdec_attn"], y, mk, mv, n_head, group, mem_mask)
+    return df.ffn_step_plain(lp["pos_ffn"], y)
+
+
+def phase_tp_kernels(params, cfg, rng):
+    """K6a-c and K7c at one shard of TP_N at the flagship: Dq = 128 (2
+    local heads), BK = 80, pos 75 of the 160-row caches, 96 memory rows,
+    V/n = 50; each against its plain version (the partial outputs, residual
+    off, as the TP path runs them). No PyTorch call computes a whole K6
+    step, so library_ms is null; K6b's attention kernel alone is timed
+    beside SDPA over the same memory on a line of its own. The trio (K6a-c
+    with residuals, no kernel of its own) on its own line too: at shard
+    width against its plain version, at full width against K5, and the TP
+    layer step over TP_N shards of the card, joined, against K5. Bounds
+    from scripts/tp_bounds.py on this run's counts."""
+    from stjep_tpu_torch.ops import decode_flash as df
+    from stjep_tpu_torch.ops.decode_flash_tp import ModelAxis, decoder_layer_step_flash_tp
+    from stjep_tpu_torch.ops.transformer import layer_norm
+    from stjep_tpu_torch.scripts.tp_bounds import tp_kernel_work
+
+    n, K, BK, pos = TP_N, BEAM, B * BEAM, DECODE_LEN // 2
+    D, nh = cfg.dim_model, cfg.num_heads // n
+    Dq, d = D // n, D // cfg.num_heads
+    shards = tp_shards(params, n)
+    s0 = shards[0]["dec_tgt"]["layers"][0]
+    st = decode_state(params, cfg, rng, pos)
+    c, anc, maskk, mm = st["cache"], st["anc"], st["maskk"], st["mem_mask"]
+    sl = lambda t, m=0: t[..., m * Dq:(m + 1) * Dq].contiguous()
+    x = torch.from_numpy(rng.randn(BK, D).astype(np.float32)).cuda()
+    work = tp_kernel_work(n, B=B, K=K, D=D, FF=cfg.dim_feedforward, V=cfg.dec_vocab_size,
+                          pos=pos, Lk=mm.shape[0], topk=K,
+                          self_rows=distinct_rows(anc, K, pos), mem_rows=int(mm.sum()))
+    res, tol = {}, 1e-4  # K5's: one layer's f32 outputs, summed in another order
+
+    def held(name, key, fn, plain, err=None, **extra):
+        """fn against plain (or err), both timed, with the bound of
+        tp_bounds' `key`; said with `extra` and returned."""
+        err = max_err(fn(), plain()) if err is None else err
+        r = dict(max_abs_err=err, ms=cuda_ms(fn, 20), plain_ms=cuda_ms(plain, 10),
+                 library_ms=None, **bound(*work[key]))
+        say(f"kernel {name}", n_model=n, BK=BK, pos=pos, Dq=Dq, tol=tol, **extra, **r)
+        need(err <= tol, f"{name} max_abs_err {err} > {tol}")
+        return r
+
+    # K6a: the new cache rows too
+    ck, cv = sl(c.self_k[0]), sl(c.self_v[0])
+    caches = [(ck.clone(), cv.clone()) for _ in range(2)]
+    self_k = lambda fn, i: fn(s0["decslf_attn"], x, *caches[i], pos, nh, anc, K, maskk,
+                              False)
+    y_k, y_p = self_k(df.self_attn_step, 0), self_k(df.self_attn_step_plain, 1)
+    err = max(max_err(y_k, y_p), max_err(caches[0][0], caches[1][0]),
+              max_err(caches[0][1], caches[1][1]))
+    res["K6 self_attn_step"] = held(
+        "K6 self_attn_step", "self_attn_step", lambda: self_k(df.self_attn_step, 0),
+        lambda: self_k(df.self_attn_step_plain, 1), err)
+    # K6b; its attention kernel alone beside SDPA over the same memory at
+    # the shard's width (K6b adds the pre-LN, Q and fc to it)
+    mk, mv = sl(c.mem_k[0]), sl(c.mem_v[0])
+    ca = s0["encdec_attn"]
+    cross = lambda fn: fn(ca, x, mk, mv, nh, K, mm, False)
+    res["K6 cross_attn_step"] = held(
+        "K6 cross_attn_step", "cross_attn_step", lambda: cross(df.cross_attn_step),
+        lambda: cross(df.cross_attn_step_plain))
+    q = layer_norm(ca["layer_norm"], x, 1e-6) @ ca["w_qs"]["w"]
+    qs = (q / d ** 0.5).view(B, K, nh, d).transpose(1, 2)
+    ks, vs = (t.view(B, -1, nh, d).transpose(1, 2) for t in (mk, mv))
+    amask = (mm.T != 0)[:, None, None, :]
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=amask,
+                                                                    scale=1.0)
+    say("kernel K6 cross_attn_step attention alone", Dq=Dq,
+        attention_ms=cuda_ms(lambda: df.cross_attn(q, mk, mv, mm, K, nh), 20),
+        sdpa_ms=cuda_ms(sdpa, 20))
+    # K6c: the hidden shard's partial
+    ff = s0["pos_ffn"]
+    res["K6 ffn_step"] = held("K6 ffn_step", "ffn_step", lambda: df.ffn_step(ff, x, True),
+                              lambda: df.ffn_step_plain(ff, x, True))
+    # the trio: at full width against K5, the TP layer step against K5, and
+    # at shard 0's shapes (residuals on) against its plain version
+    lp = params["dec_tgt"]["layers"][0]
+    full = [(c.self_k[0].clone(), c.self_v[0].clone()) for _ in range(2)]
+    y5 = df.decoder_layer_step_flash(lp, x, *full[0], c.mem_k[0], c.mem_v[0], pos,
+                                     cfg.num_heads, anc, K, mm, maskk)
+    yt = df.decoder_layer_step_flash_trio(lp, x, *full[1], c.mem_k[0], c.mem_v[0], pos,
+                                          cfg.num_heads, anc, K, mm, maskk)
+    err_k5 = max(max_err(yt, y5), max_err(full[1][0], full[0][0]))
+    ys = decoder_layer_step_flash_tp(
+        [sh["dec_tgt"]["layers"][0] for sh in shards], [x] * n,
+        [sl(c.self_k[0], m) for m in range(n)], [sl(c.self_v[0], m) for m in range(n)],
+        [sl(c.mem_k[0], m) for m in range(n)], [sl(c.mem_v[0], m) for m in range(n)],
+        pos, nh, [anc] * n, K, [mm] * n, [maskk] * n, ModelAxis(["cuda"] * n))
+    err_tp = max_err(ys[0], y5)
+    tc = [(ck.clone(), cv.clone()) for _ in range(2)]
+    trio = lambda fn, i: fn(s0, x, *tc[i], mk, mv, pos, nh, anc, K, mm, maskk)
+    err = max(err_k5, err_tp, max_err(trio(df.decoder_layer_step_flash_trio, 0),
+                                      trio(trio_plain, 1)))
+    held("K6 trio", "trio",  # a check, not a row of the kernels line
+         lambda: trio(df.decoder_layer_step_flash_trio, 0), lambda: trio(trio_plain, 1), err,
+         full_width_err=err_k5, tp_layer_step_err=err_tp)
+    # K7c: shard 0 of the head, gather ids in, above and below the shard
+    norm, out0 = params["dec_tgt"]["norm"], shards[0]["out_tgt"]
+    v = out0["w"].shape[1]
+    gid = torch.from_numpy(rng.randint(-v, 2 * v, BK).astype(np.int32)).cuda()
+    head = lambda fn, k=K: fn(norm, out0, x, k, gid)
+    got, ref = head(df.decode_head_partial), head(df.decode_head_partial_plain, K + 1)
+    check_topk("K7 head_partial", got[1], ref[1], ref[0])
+    err = max(max_err(got[0], ref[0][:, :K]), *(max_err(a, b) for a, b in zip(got[2:], ref[2:])))
+    res["K7 head_partial"] = held(
+        "K7 head_partial", "decode_head_partial", lambda: head(df.decode_head_partial),
+        lambda: head(df.decode_head_partial_plain), err)
+    return res
+
+
+def tp_mesh(n):
+    """Install (n > 1) or clear (n = 0) a (1, n) mesh on the one card."""
+    from stjep_tpu_torch.parallel.mesh import make_mesh
+    from stjep_tpu_torch.parallel.spmd import set_kernel_mesh
+
+    set_kernel_mesh(make_mesh(1, n, ["cuda"] * n) if n else None)
+
+
+def phase_tp_beam(params, cfg, reqs):
+    """ST beam-5 through forward_translate on meshes (1, 2) and (1, 4) of
+    the card: one warm-up and 2 timed requests of B=16 each, K3, K4 and K5
+    idle, the TP kernels launched. Tokens against the single-device card
+    route on the same requests: a differing row must differ by a tie at the
+    first beam position where the two runs' hypotheses part (kept scores
+    within E2E_MARGIN). Returns the runs' launch counts."""
+    ref = [translate_timed(params, cfg, [rq], LAS_RAN + ("K3", "K4"))[0][0] for rq in reqs[:2]]
+    runs = []
+    for n in (2, TP_N):
+        tp_mesh(n)
+        try:
+            outs, secs, launches = translate_timed(
+                params, cfg, reqs[:1] + reqs[:2], LAS_RAN + TP_RAN + ("K4 select",),
+                ("K3", "K4", "K5", "K7 head"))
+        finally:
+            tp_mesh(0)
+        runs.append(launches)
+        margins = []
+        for (f, l), o, r in zip(reqs[:2], outs[1:], ref):
+            if torch.equal(o.cpu(), r.cpu()):
+                continue
+            single = recorded_translate(params, cfg, f, l, "cuda")
+            tp_mesh(n)
+            try:
+                tp = recorded_translate(params, cfg, f, l, "cuda", step="beam_select")
+            finally:
+                tp_mesh(0)
+            need(torch.equal(tp[1], single[1]), f"tp beam n={n}: ASR hypotheses differ")
+            for row, col in enumerate(first_diff(tp[0], single[0])):
+                if col is not None:
+                    pos, m = beam_divergence(tp[2], single[2], row)
+                    say("tp beam differing row", n_model=n, row=row, position=pos, margin=m)
+                    margins.append(m)
+        say(f"tp beam n={n}", requests=2, batch=B, utt_per_s=round(2 * B / sum(secs[1:]), 3),
+            request_ms=[round(x * 1e3, 1) for x in secs[1:]],
+            warmup_ms=round(secs[0] * 1e3, 1), rows_differ=len(margins), of=2 * B,
+            max_first_divergence_margin=max(margins, default=0.0), limit=E2E_MARGIN,
+            launches={k: v for k, v in launches.items() if v})
+        need(all(m <= E2E_MARGIN for m in margins),
+             f"tp beam n={n} rows differ beyond ties: margins {margins}")
+    return runs
+
+
+def phase_tp_dev_eval(params, cfg, rng):
+    """forward_eval("ASR_ST") with refs at B=16 on mesh (1, 2) of the card
+    against the single-device card route: preds_asr equal, preds_st equal
+    or differing by a tie (the single-device route's log-probs of the two
+    choices, read as picked_st with each arm's tokens as refs, within
+    E2E_MARGIN), picked_* within 1e-4 on agreeing rows. Returns the main
+    path's launch counts."""
+    from stjep_tpu_torch.config import BOS
+    from stjep_tpu_torch.infer.forward import forward_eval
+
+    feats, lens = inputs(rng, B)
+    refs = {"ref_src": torch.from_numpy(rng.randint(5, cfg.enc_vocab_size, (B, cfg.max_seq_len_src))),
+            "ref_tgt": torch.from_numpy(rng.randint(5, cfg.dec_vocab_size, (B, cfg.max_seq_len_tgt)))}
+    for r in refs.values():
+        r[:, 0] = BOS
+    run = lambda **kw: {k: v.cpu() for k, v in forward_eval(
+        params, cfg, "ASR_ST", acous_feats=feats, acous_lens=lens, device="cuda",
+        **{**refs, **kw}).items()}
+    single = run()
+    tp_mesh(2)
+    try:
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        secs = time.perf_counter() - t0
+        launches = read_counts(LAS_RAN + TP_RAN, ("K3 gather", "K5", "K7 head_gather"))
+    finally:
+        tp_mesh(0)
+    need(torch.equal(out["preds_asr"], single["preds_asr"]), "tp dev eval: ASR preds differ")
+    rows = first_diff(out["preds_st"], single["preds_st"])
+    margins = []
+    if any(c is not None for c in rows):
+        at = {nm: run(ref_tgt=o["preds_st"])["picked_st"] for nm, o in (("tp", out),
+                                                                       ("own", single))}
+        margins = [float(abs(at["own"][r, c - 1] - at["tp"][r, c - 1]))
+                   for r, c in enumerate(rows) if c is not None]
+    same = [c is None for c in rows]
+    err = max(max_err(out["picked_asr"], single["picked_asr"]),
+              max_err(out["picked_st"][same], single["picked_st"][same]))
+    tol = 1e-4
+    say("tp dev eval n=2", batch=B, call_ms=round(secs * 1e3, 1), rows_differ=len(margins),
+        of=B, max_first_divergence_margin=max(margins, default=0.0), limit=E2E_MARGIN,
+        picked_max_abs_err=err, tol=tol, launches={k: v for k, v in launches.items() if v})
+    need(all(m <= E2E_MARGIN for m in margins), f"tp dev eval rows differ beyond ties: {margins}")
+    need(err <= tol, f"tp dev eval picked max_abs_err {err} > {tol}")
+    return launches
+
+
 def rel_err(a, b) -> float:
     """max |a - b| relative to max |b| (b: the plain version's tensor)."""
     scale = float(b.double().abs().max().cpu())
@@ -1103,21 +1356,23 @@ def phase_train_e2e(seed, rng):
     return launches
 
 
-def recorded_translate(params, cfg, feats, lens, device, **opts):
+def recorded_translate(params, cfg, feats, lens, device, step=None, **opts):
     """forward_translate ST beam-5 on `device` (opts: its serving options)
     that also records, at every beam position, the state handed on (tokens
     [BK, L] and kept scores [BK], on the host), starting with the state
     after position 1: the megastep's output for the standard decoder, the
-    general loop's select for the universal one. Returns (tokens [B, L],
-    ASR hypotheses, states)."""
+    general loop's select for the universal one; `step` names the hooked
+    function where the route is not the model's own (the general loop's
+    "beam_select" under tensor parallelism). Returns (tokens [B, L], ASR
+    hypotheses, states)."""
     import stjep_tpu_torch.infer.beam as beam_mod
     from stjep_tpu_torch.infer.forward import encode_st, forward_translate
 
     # the function that hands the state on, and where its input preds and
     # kept scores sit among its arguments
-    name, i_preds, i_scores = (("decode_beam_step_flash", 7, 11)
-                               if cfg.transformer_type == "standard"
-                               else ("beam_select", 5, 2))
+    step = step or ("decode_beam_step_flash" if cfg.transformer_type == "standard"
+                    else "beam_select")
+    name, i_preds, i_scores = (step, 7, 11) if step == "decode_beam_step_flash" else (step, 5, 2)
     step, states = getattr(beam_mod, name), []
 
     def recording(*a):
@@ -1169,17 +1424,22 @@ def explain_e2e(params_c, cfg, feats, lens, card, plain):
         if h is not None:
             stage, pos, m = "las", h, float(abs(at_own[r, h] - at_card[r, h]))
         else:
-            stage, pos, m = "beam", None, float("inf")
-            g = slice(r * BEAM, (r + 1) * BEAM)
-            for t, ((pc, sc), (pp, sp)) in enumerate(zip(st_c, st_p)):
-                if not torch.equal(pc[g], pp[g]):
-                    pos = t + 1
-                    m = float((sc[g].sort()[0] - sp[g].sort()[0]).abs().max())
-                    break
+            stage, (pos, m) = "beam", beam_divergence(st_c, st_p, r)
         say("e2e differing row", row=r, stage=stage, position=pos, col=c,
             margin=m)
         margins.append(m)
     return margins
+
+
+def beam_divergence(st_c, st_p, r):
+    """(position, margin): the first beam position where row r's K
+    hypotheses differ between two recorded runs, and the largest gap there
+    between the two runs' kept beam scores, sorted (inf if none differ)."""
+    g = slice(r * BEAM, (r + 1) * BEAM)
+    for t, ((pc, sc), (pp, sp)) in enumerate(zip(st_c, st_p)):
+        if not torch.equal(pc[g], pp[g]):
+            return t + 1, float((sc[g].sort()[0] - sp[g].sort()[0]).abs().max())
+    return None, float("inf")
 
 
 def counters():
@@ -1201,7 +1461,11 @@ def counters():
            "K9 fwd": (k9.las_tf_fwd, "launches"), "K9 bwd": (k9.las_tf_bwd, "launches"),
            "gemm_q8": (kernels.gemm, "q8_launches"),
            "self_attn bf16": (df.self_attn_anc, "bf16_launches"),
-           "cross_attn bf16": (df.cross_attn, "bf16_launches")}
+           "cross_attn bf16": (df.cross_attn, "bf16_launches"),
+           "K6 self_attn_step": (df.self_attn_step, "launches"),
+           "K6 cross_attn_step": (df.cross_attn_step, "launches"),
+           "K6 ffn_step": (df.ffn_step, "launches"),
+           "K7 head_partial": (df.decode_head_partial, "launches")}
     for k, fn in (("K3", df.decode_chain_step_flash), ("K4", df.decode_beam_step_flash),
                   ("K5", df.decoder_layer_step_flash)):
         for quant, bf16 in VARIANTS:
@@ -1549,6 +1813,8 @@ def main() -> int:
         results[f"K5 {variant_label(quant, bf16)}"] = phase_k5(params, cfg, rng, quant, bf16)
     results["K3 int8+bf16"] = phase_k3(params, cfg, rng, True, True)
     results["K4 int8+bf16"] = phase_k4(params, cfg, rng, True, True)
+    # the tensor-parallel kernels, one shard of TP_N
+    results.update(phase_tp_kernels(params, cfg, rng))
 
     # 4. the main paths, each driven with every launch count zeroed just
     # before it and read just after; the kernels line sums them
@@ -1569,6 +1835,9 @@ def main() -> int:
     ]
     serving_runs, serving = phase_serving(params, params_c, cfg, reqs, rng, args.seed)
     runs += serving_runs + phase_serving_universal(uparams, uparams_c, ucfg, reqs, args.seed)
+    # tensor-parallel decode on one card: the beam at n = 2 and 4, dev eval at 2
+    runs += phase_tp_beam(params, cfg, reqs)
+    runs.append(phase_tp_dev_eval(params, cfg, rng))
     say("serving summary", nvidia_smi=repr(smi),
         **{k.replace(" ", "_").replace("=", "") + ("_ms" if k.endswith("B=1") else "_utt_per_s"):
            v["median_ms"] if k.endswith("B=1") else v["utt_per_s"]
@@ -1612,7 +1881,14 @@ def main() -> int:
                "K3 int8+bf16": ("decode_chain_step int8+bf16", src + "decode.cu",
                                 rep + "decode_flash.py:1078"),
                "K4 int8+bf16": ("decode_beam_step int8+bf16", src + "decode.cu",
-                                rep + "decode_flash.py:1412")}
+                                rep + "decode_flash.py:1412"),
+               "K6 self_attn_step": ("self_attn_step", src + "decode.cu",
+                                     rep + "decode_flash.py:348"),
+               "K6 cross_attn_step": ("cross_attn_step", src + "decode.cu",
+                                      rep + "decode_flash.py:543"),
+               "K6 ffn_step": ("ffn_step", src + "gemm.cu", rep + "decode_flash.py:622"),
+               "K7 head_partial": ("decode_head_partial", src + "decode.cu",
+                                   rep + "decode_flash.py:1666")}
     need(all(launches[k] > 0 for k in sources), f"a kernel never launched: {launches}")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [

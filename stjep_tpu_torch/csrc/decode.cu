@@ -27,6 +27,16 @@
 // the cache in the same kernel. Fusing a layer into fewer launches and CUDA
 // graphs are later work.
 //
+// K6a-c, the tensor-parallel trio (`self_attn_step` :348, `cross_attn_step`
+// :543, `ffn_step` :622), are launch sequences on these kernels and gemm.cu
+// at a head shard's width: each shard of n holds Dq = D/n columns of the
+// Q/K/V projections (its caches and memory K/V are [.., Dq]) and D/n heads.
+// The attention kernels index every row by their D argument, which is then
+// Dq, so the head width d = Dq / (heads/n) = D / heads is the unsharded one
+// and softmax_context's blockDim % d == 0 holds as before. The row-parallel
+// products (fc, w_2) return partials with no residual: the caller sums the
+// shards (ops/decode_flash_tp.py). K7c is `head_topk_partial` below.
+//
 // bf16 caches (`self_attn_anc_bf16`, `cross_attn_bf16`): the TPU kernels take
 // the cache dtype as a parameter (decode_flash.py:795,843-855, and the
 // chain and beam kernels' scratch and outputs). Both attention kernels are
@@ -229,10 +239,25 @@ constexpr int MAX_BEAM = 16;
 // lowest index winning ties (jax.lax.top_k's order); each pass skips the ids
 // already taken, held in a shared list of at most MAX_BEAM, so the row is
 // never written.
+//
+// K7c, `decode_head_partial` (decode_flash.py:1666, `_head_kernel`'s
+// partial branch :1559-1592), is the same kernel with mx and se given: the
+// row is one vocabulary shard of a tensor-parallel head, and the caller
+// merges the shards (ops/decode_flash_tp.py decode_head_tp). It writes the
+// RAW top-K logits with their local ids, the row max mx and se = sum
+// exp(l - mx) (the online pass's own (m, z), combined at the block max),
+// and the raw logit at gid, 0 for an id outside [0, V) (the id arrives
+// offset into the shard, so an id of another shard is negative or >= V).
+// A shard may hold fewer than K ids: the passes past V write -1e30 at id 0,
+// the candidates the TPU kernel's repeated max extraction gives once every
+// logit is taken. Bounds: the [BK, V/n] logit row once from L2 and 4 + 2K
+// floats out, so the head's GEMM (layernorm, then [D, V/n]) dominates.
 __global__ void head_topk_kernel(const float* __restrict__ logits,
                                  const int* __restrict__ gid,
                                  float* __restrict__ sc, int* __restrict__ ids,
-                                 float* __restrict__ glp, int V, int K) {
+                                 float* __restrict__ glp,
+                                 float* __restrict__ mx_o,
+                                 float* __restrict__ se_o, int V, int K) {
   __shared__ float rv[32];
   __shared__ int ri[32];
   __shared__ float red[32];
@@ -255,9 +280,24 @@ __global__ void head_topk_kernel(const float* __restrict__ logits,
     if (c == g) glog = v;
   }
   const float mx = block_max(m, red);
-  const float lse = mx + logf(block_sum(m == -INFINITY ? 0.f : z * expf(m - mx), red));
-  if (glp && threadIdx.x == 0) glp[r] = glog - lse;
+  const float se = block_sum(m == -INFINITY ? 0.f : z * expf(m - mx), red);
+  const bool partial = mx_o != nullptr;
+  const float lse = partial ? 0.f : mx + logf(se);  // partial: raw logits out
+  if (threadIdx.x == 0) {
+    if (glp) glp[r] = glog - lse;
+    if (partial) {
+      mx_o[r] = mx;
+      se_o[r] = se;
+    }
+  }
   for (int k = 0; k < K; ++k) {
+    if (k >= V) {  // a shard narrower than K (partial only)
+      if (threadIdx.x == 0) {
+        sc[(size_t)r * K + k] = -1e30f;
+        ids[(size_t)r * K + k] = 0;
+      }
+      continue;
+    }
     float bv = -INFINITY;
     int bi = 0x7fffffff;
     for (int c = threadIdx.x; c < V; c += blockDim.x) {
@@ -417,8 +457,20 @@ extern "C" int head_topk(const float* logits, const int* gid, float* sc,
                          int* ids, float* glp, int BK, int V, int K,
                          cudaStream_t stream) {
   if (K < 1 || K > MAX_BEAM || K > V) return (int)cudaErrorInvalidValue;
-  head_topk_kernel<<<BK, V >= 4096 ? 1024 : 256, 0, stream>>>(logits, gid, sc,
-                                                              ids, glp, V, K);
+  head_topk_kernel<<<BK, V >= 4096 ? 1024 : 256, 0, stream>>>(
+      logits, gid, sc, ids, glp, nullptr, nullptr, V, K);
+  STJEP_RETURN_LAUNCH_STATUS();
+}
+
+// K7c: one vocabulary shard [BK, V] of a tensor-parallel head; raw top-K
+// logits and local ids, mx, se, and (gid and glog given, else null) the raw
+// logit at the shard-local id. K may exceed V (see head_topk_kernel).
+extern "C" int head_topk_partial(const float* logits, const int* gid, float* sc,
+                                 int* ids, float* glog, float* mx, float* se,
+                                 int BK, int V, int K, cudaStream_t stream) {
+  if (K < 1 || K > MAX_BEAM || V < 1) return (int)cudaErrorInvalidValue;
+  head_topk_kernel<<<BK, V >= 4096 ? 1024 : 256, 0, stream>>>(
+      logits, gid, sc, ids, glog, mx, se, V, K);
   STJEP_RETURN_LAUNCH_STATUS();
 }
 

@@ -22,6 +22,12 @@ the decoder once before the loop (`quantize_decoder_weights`), and
 every route takes either, and both. Caches are never reordered:
 the ancestry map `anc` records which slot holds each hypothesis's K/V per
 position. Returns beam 0 per batch item, as the reference's output does.
+
+Under a kernel mesh (parallel/spmd.py `set_kernel_mesh`) `beam_search`
+dispatches as JAX's does (beam.py:87-97): each data shard decodes its slice
+of the batch, and with a model axis the shards decode tensor-parallel
+(`tp`): `decode_pos` runs the trio per layer and `decode_head_tp` (the
+chain and the megastep are off, JAX beam.py:287), then `beam_select` once.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from stjep_tpu_torch.models.tf_decoder import (
     tf_decoder_chain_step,
     tf_decoder_init_cache_chain,
     tf_decoder_step_flash,
+    tf_decoder_tp_position,
 )
 from stjep_tpu_torch.ops.decode_flash import (
     BLOCK,
@@ -49,6 +56,8 @@ from stjep_tpu_torch.ops.decode_flash import (
     quantize_decoder_weights,
     stack_decoder_layers,
 )
+from stjep_tpu_torch.ops.decode_flash_tp import ModelAxis
+from stjep_tpu_torch.parallel import spmd
 
 MEGASTEP_TABLE_BYTES = 4 * 1024 * 1024  # ref: beam.py:371-372
 
@@ -62,12 +71,31 @@ def beam_search(params: Dict, cfg: ModelConfig, enc_outputs: torch.Tensor,
     """enc_outputs [B, Lk, D], mem_mask_b [B, Lk] bool (True = attend);
     cache_dtype None (f32), torch.float32 or torch.bfloat16; weight_dtype
     None or "int8". Returns (preds [B, max_seq_len] best-beam tokens, BOS
-    first, PAD-padded; scores [B])."""
+    first, PAD-padded; scores [B]). Under a kernel mesh the decode shards
+    (parallel/spmd.py beam_search_flash_dp); int8 weights under a model
+    axis raise a ValueError."""
     if weight_dtype not in (None, "int8"):
         raise ValueError(f"weight_dtype must be None or 'int8', got {weight_dtype!r}")
     if cache_dtype not in (None, torch.float32, torch.bfloat16):
         raise ValueError("cache_dtype must be None, torch.float32 or "
                          f"torch.bfloat16, got {cache_dtype!r}")
+    args = (params, cfg, enc_outputs, mem_mask_b, beam_width, penalty_factor,
+            max_seq_len, cache_dtype, weight_dtype)
+    if spmd.kernel_mesh() is not None:
+        return spmd.beam_search_flash_dp(*args)
+    return _beam_search_flash(*args)
+
+
+def _beam_search_flash(params, cfg: ModelConfig, enc_outputs: torch.Tensor,
+                       mem_mask_b: Optional[torch.Tensor], beam_width: int,
+                       penalty_factor: float, max_seq_len: int,
+                       cache_dtype: Optional[torch.dtype] = None,
+                       weight_dtype: Optional[str] = None,
+                       tp: Optional[ModelAxis] = None):
+    """The beam on one device, or tensor-parallel over `tp`: params is
+    then the list of shard_params' trees, one per shard of tp, and
+    enc_outputs and mem_mask_b lie on the first shard's device, where the
+    beam bookkeeping runs. beam_search's arguments and results."""
     dev = enc_outputs.device
     i32 = torch.int32
     B, Lk, D = enc_outputs.shape
@@ -80,12 +108,17 @@ def beam_search(params: Dict, cfg: ModelConfig, enc_outputs: torch.Tensor,
         mem_mask_b = torch.ones((B, Lk), dtype=torch.bool, device=dev)
     mem_mask_t = F.pad(mem_mask_b.to(i32), (0, Lk_pad - Lk)).T.contiguous()
 
-    dec = params["dec_tgt"]
-    if weight_dtype == "int8":
-        dec = quantize_decoder_weights(dec)  # once, outside the loop
-    use_chain = cfg.transformer_type == "standard"  # ref: chain_supported
-    cache = tf_decoder_init_cache_chain(dec, cfg, enc_outputs, max_seq_len, K,
-                                        cache_dtype)
+    if tp is None:
+        dec = params["dec_tgt"]
+        if weight_dtype == "int8":
+            dec = quantize_decoder_weights(dec)  # once, outside the loop
+        cache = tf_decoder_init_cache_chain(dec, cfg, enc_outputs, max_seq_len, K,
+                                            cache_dtype)
+    else:  # each shard's caches on its device; embedder and bookkeeping: shard 0
+        tp_position = tf_decoder_tp_position(params, cfg, enc_outputs, max_seq_len, K,
+                                             cache_dtype, tp)
+        params = params[0]
+    use_chain = tp is None and cfg.transformer_type == "standard"  # ref: chain_supported
     preds = torch.full((BK, Lbuf), PAD, dtype=i32, device=dev)
     preds[:, 0] = BOS
     own = torch.arange(BK, device=dev, dtype=i32) % K
@@ -100,6 +133,8 @@ def beam_search(params: Dict, cfg: ModelConfig, enc_outputs: torch.Tensor,
             return tf_decoder_chain_step(
                 stacked, dec["norm"], params["out_tgt"], cfg, emb, cache, pos,
                 anc, K, mem_mask_t, maskk, K, tsig)
+        if tp is not None:
+            return tp_position(emb, pos, anc, mem_mask_t, maskk, tsig, lsig, K)
         x = tf_decoder_step_flash(dec, cfg, emb, cache, pos, anc, K, mem_mask_t,
                                   maskk, tsig, lsig)
         return decode_head(dec["norm"], params["out_tgt"], x, K)

@@ -62,7 +62,12 @@ def forward_translate(params: Dict, cfg: ModelConfig, mode: str,
     `weight_dtype` ("int8") are the serving options of the transformer beam
     (infer/beam.py); ASR has no weight-streaming mode and raises on a
     weight_dtype, as the JAX function does. `generator` stands for the JAX
-    function's `rng`: eval draws no random numbers, so it is not read."""
+    function's `rng`: eval draws no random numbers, so it is not read.
+
+    Under a kernel mesh (parallel/spmd.py `set_kernel_mesh`) the beam
+    decodes per data shard and, with a model axis, tensor-parallel, e.g.
+    on one card: set_kernel_mesh(make_mesh(1, 4, ["cuda"] * 4)). The
+    encoder runs the whole batch where the call runs."""
     if mode == "ASR" and weight_dtype is not None:
         raise ValueError(
             f"weight_dtype={weight_dtype!r} only applies to the transformer "

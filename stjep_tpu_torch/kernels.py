@@ -52,6 +52,7 @@ _SIGS = {
     "cross_attn": "ppppp" + "iiiii",
     "cross_attn_bf16": "ppppp" + "iiiii",
     "head_topk": "ppppp" + "iii",
+    "head_topk_partial": "ppppppp" + "iii",
     "beam_select": "pppppppp" + "pppppppp" + "iiii" + "f",
 }
 _CT = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}

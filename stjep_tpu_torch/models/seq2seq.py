@@ -31,6 +31,7 @@ from stjep_tpu_torch.models.tf_decoder import (
     tf_decoder_init,
     tf_decoder_init_cache_chain,
     tf_decoder_step_flash,
+    tf_decoder_tp_position,
 )
 from stjep_tpu_torch.models.tf_encoder import (
     UPPERBOUND_SEQ_LEN,
@@ -45,8 +46,10 @@ from stjep_tpu_torch.ops.decode_flash import (
     pad_len,
     stack_decoder_layers,
 )
+from stjep_tpu_torch.ops.decode_flash_tp import ModelAxis
 from stjep_tpu_torch.ops.masks import pad_mask, subsequent_mask
 from stjep_tpu_torch.ops.transformer import dropout, split
+from stjep_tpu_torch.parallel.spmd import greedy_decode_flash_dp
 
 
 def init_seq2seq(cfg: ModelConfig, generator: torch.Generator,
@@ -270,7 +273,8 @@ def forward_train(params: Dict, cfg: ModelConfig, mode: str, src: torch.Tensor,
 def _greedy_decode_flash(params: Dict, cfg: ModelConfig,
                          enc_outputs: torch.Tensor,
                          mem_mask_b: Optional[torch.Tensor], length_out: int,
-                         max_time: int, ref_tokens: torch.Tensor):
+                         max_time: int, ref_tokens: torch.Tensor,
+                         tp: Optional[ModelAxis] = None):
     """Greedy transformer decode over the decode kernels (group 1), with
     the buffer semantics of the reference's greedy eval (ref:
     Seq2seq.py:260-304): tokens PAD-filled with BOS in slot 0, early exit
@@ -279,8 +283,14 @@ def _greedy_decode_flash(params: Dict, cfg: ModelConfig,
     log-prob at ref_tokens[:, i] for each written slot i; unwritten slots
     keep the dense buffer's log(1/V) (ref: seq2seq.py:485-583). Standard
     decoders run K3 with its gather per position; other types K5 per hop
-    and then K7's gather variant. Returns (tokens [B, length_out], picked
-    [B, length_out])."""
+    and then K7's gather variant. With `tp`, tensor-parallel: params is the
+    list of shard_params' trees and every position runs the trio per layer
+    and decode_head_tp with the gather at top-1 (JAX seq2seq.py:554-563);
+    the inputs lie on the first shard's device. Returns (tokens
+    [B, length_out], picked [B, length_out])."""
+    if tp is not None:
+        tp_position = tf_decoder_tp_position(params, cfg, enc_outputs, length_out, 1, None, tp)
+        params = params[0]
     B, Lk, _ = enc_outputs.shape
     dev = enc_outputs.device
     i32 = torch.int32
@@ -292,14 +302,15 @@ def _greedy_decode_flash(params: Dict, cfg: ModelConfig,
     refs = F.pad(ref_tokens.to(i32), (0, max(0, Lbuf - ref_tokens.shape[1])))
     anc = torch.zeros((Lbuf, B), dtype=i32, device=dev)  # every row is its own group
     dec, out_p = params["dec_tgt"], params["out_tgt"]
-    cache = tf_decoder_init_cache_chain(dec, cfg, enc_outputs, length_out, 1)
+    if tp is None:
+        cache = tf_decoder_init_cache_chain(dec, cfg, enc_outputs, length_out, 1)
     tokens = torch.full((B, Lbuf), PAD, dtype=i32, device=dev)
     tokens[:, 0] = BOS
     picked = torch.full((B, Lbuf), math.log(1.0 / cfg.dec_vocab_size),
                         dtype=torch.float32, device=dev)
     maskk = (tokens != PAD).T.to(i32).contiguous()
     eos = torch.zeros((B,), dtype=torch.bool, device=dev)
-    use_chain = cfg.transformer_type == "standard"  # ref: chain_supported
+    use_chain = tp is None and cfg.transformer_type == "standard"  # ref: chain_supported
     stacked = stack_decoder_layers(dec) if use_chain else None
     tsig, lsig = decode_signals(cfg, max_time, dev)
     for i in range(1, length_out):
@@ -310,6 +321,9 @@ def _greedy_decode_flash(params: Dict, cfg: ModelConfig,
             _, pred1, ref_lp = tf_decoder_chain_step(
                 stacked, dec["norm"], out_p, cfg, emb, cache, pos, anc, 1,
                 mem_mask_t, maskk, 1, tsig, gather_ids=gid)
+        elif tp is not None:
+            _, pred1, ref_lp = tp_position(emb, pos, anc, mem_mask_t, maskk, tsig, lsig, 1,
+                                           gather_ids=gid)
         else:
             x = tf_decoder_step_flash(dec, cfg, emb, cache, pos, anc, 1,
                                       mem_mask_t, maskk, tsig, lsig)
@@ -375,7 +389,7 @@ def forward_eval(params: Dict, cfg: ModelConfig, mode: str,
                    picked_asr=picked)
 
     def greedy_head(enc_out, src_mask_input, key):
-        preds, picked = _greedy_decode_flash(
+        preds, picked = greedy_decode_flash_dp(
             params, cfg, enc_out, src_mask_input[:, 0, :], length_out,
             max_time, ref_tgt)
         out["preds_" + key] = preds

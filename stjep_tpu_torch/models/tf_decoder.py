@@ -9,13 +9,15 @@ KV-cached decode position of the beam and of greedy eval has two routes
 over the caches of `tf_decoder_init_cache_chain`: `tf_decoder_chain_step`
 runs all layers and the head through K3 (standard type only, JAX's
 `chain_supported`), `tf_decoder_step_flash` one K5 per hop (either type),
-before the separate head K7 (`ops/decode_flash.py`). The final LayerNorm
+before the separate head K7 (`ops/decode_flash.py`); with a model axis
+`tf_decoder_step_flash` runs the tensor-parallel trio per hop over the
+shards' caches (`ops/decode_flash_tp.py`). The final LayerNorm
 uses torch's default eps 1e-5, unlike the encoder's 1e-6 (ref: TFDec.py:58).
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -29,6 +31,11 @@ from stjep_tpu_torch.ops.decode_flash import (
     decode_chain_step_flash,
     decoder_layer_step_flash,
     pad_len,
+)
+from stjep_tpu_torch.ops.decode_flash_tp import (
+    ModelAxis,
+    decode_head_tp,
+    decoder_layer_step_flash_tp,
 )
 from stjep_tpu_torch.ops.masks import position_signal
 from stjep_tpu_torch.ops.transformer import (
@@ -99,8 +106,11 @@ def tf_decoder_init_cache_chain(params: Dict, cfg: ModelConfig,
     cache_dtype (memory's dtype by default): the memory K/V are projected
     in memory's dtype, then cast (JAX tf_decoder_init_cache_flash). The
     hops of a universal decoder share one encdec_attn, so its memory K/V
-    are projected once and every hop's entry is a view of them."""
-    B, Lk, D = memory.shape
+    are projected once and every hop's entry is a view of them. The width
+    of every cache follows the K projections: dim_model, or D / n_model
+    for the params of one tensor-parallel shard (parallel/mesh.py)."""
+    B, Lk, _ = memory.shape
+    D = params["layers"][0]["decslf_attn"]["w_ks"]["w"].shape[1]
     mem = F.pad(memory, (0, 0, 0, pad_len(Lk, CROSS_BLOCK) - Lk))
     nl = cfg.dec_layers
     dt = cache_dtype or memory.dtype
@@ -132,15 +142,40 @@ def tf_decoder_step_flash(params: Dict, cfg: ModelConfig, x_new: torch.Tensor,
                           cache: TFDecCache, pos: int, anc: torch.Tensor,
                           group: int, mem_mask_pad: torch.Tensor,
                           self_mask_k: torch.Tensor, time_sig: torch.Tensor,
-                          layer_sig: torch.Tensor) -> torch.Tensor:
+                          layer_sig: torch.Tensor,
+                          tp: Optional[ModelAxis] = None):
     """Decode position `pos` for x_new [B*K, D] (the embedded token), hop
     by hop: time_sig[pos], then per hop layer_sig[hop] (universal) and K5
     over that hop's caches, updated in place (the tables of
     decode_signals). The layers may be quantize_decoder_weights'd (a
     universal decoder's one shared layer included). Returns [B*K, D]
-    before the final LayerNorm, which the head K7 applies."""
+    before the final LayerNorm, which the head K7 applies.
+
+    tp: the model axis of a tensor-parallel decode (ops/decode_flash_tp.py).
+    params and cache are then per-shard lists (shard_params' decoder trees,
+    each shard's caches of width D / n); every layer runs
+    decoder_layer_step_flash_tp with n_head_local = num_heads * Dq / D
+    (universal hops share the one sharded layer), and the result is the
+    per-shard list of outputs, alike on every shard. x_new, anc, the masks
+    and the signals lie on the first shard's device."""
     check_supported(cfg)
     x = x_new + time_sig[pos]
+    if tp is not None:
+        d_local = params[0]["layers"][0]["decslf_attn"]["w_qs"]["w"].shape[1]
+        n_head_local = cfg.num_heads * d_local // cfg.dim_model
+        xs = tp.replicate(x)
+        anc_s, mem_s, self_s = (tp.replicate(t) for t in (anc, mem_mask_pad,
+                                                         self_mask_k))
+        lsig = tp.replicate(layer_sig)
+        for hop in range(cfg.dec_layers):
+            if cfg.transformer_type == "universal":
+                xs = tp.fan(lambda s: xs[s] + lsig[s][hop])
+            xs = decoder_layer_step_flash_tp(
+                [_layer_params(p, cfg, hop) for p in params], xs,
+                [c.self_k[hop] for c in cache], [c.self_v[hop] for c in cache],
+                [c.mem_k[hop] for c in cache], [c.mem_v[hop] for c in cache],
+                pos, n_head_local, anc_s, group, mem_s, self_s, tp)
+        return xs
     for hop in range(cfg.dec_layers):
         if cfg.transformer_type == "universal":
             x = x + layer_sig[hop]
@@ -149,6 +184,35 @@ def tf_decoder_step_flash(params: Dict, cfg: ModelConfig, x_new: torch.Tensor,
             cache.self_v[hop], cache.mem_k[hop], cache.mem_v[hop], pos,
             cfg.num_heads, anc, group, mem_mask_pad, self_mask_k)
     return x
+
+
+def tf_decoder_tp_position(shards: Sequence[Dict], cfg: ModelConfig,
+                           memory: torch.Tensor, max_len: int, group: int,
+                           cache_dtype: Optional[torch.dtype],
+                           tp: ModelAxis) -> Callable:
+    """The tensor-parallel decode state of one loop over shard_params'
+    trees `shards` (one per shard of tp): each shard's caches on its own
+    device (tf_decoder_init_cache_chain of its decoder, the memory copied
+    there), and the function that decodes one position on them,
+
+        position(x_new, pos, anc, mem_mask_pad, self_mask_k, time_sig,
+                 layer_sig, topk, gather_ids=None)
+
+    which runs tf_decoder_step_flash over the shards, then decode_head_tp,
+    and returns shard 0's (scores, ids[, glp]) (alike on every shard)."""
+    decs = [p["dec_tgt"] for p in shards]
+    caches = [tf_decoder_init_cache_chain(d, cfg, memory.to(dv), max_len, group, cache_dtype)
+              for d, dv in zip(decs, tp.devices)]
+    norms, outs = [d["norm"] for d in decs], [p["out_tgt"] for p in shards]
+
+    def position(x_new, pos, anc, mem_mask_pad, self_mask_k, time_sig, layer_sig,
+                 topk, gather_ids=None):
+        xs = tf_decoder_step_flash(decs, cfg, x_new, caches, pos, anc, group,
+                                   mem_mask_pad, self_mask_k, time_sig, layer_sig, tp=tp)
+        return tuple(t[0] for t in decode_head_tp(norms, outs, xs, topk, tp,
+                                                  gather_ids=gather_ids))
+
+    return position
 
 
 def tf_decoder_chain_step(stacked: Tuple[torch.Tensor, ...], norm_params: Dict,

@@ -1,15 +1,21 @@
-"""K3 / K4 / K5 / K7: transformer decode-step kernels (port of
-stjep_tpu/ops/decode_flash.py `decoder_layer_step_flash`, `decode_head`,
-`decode_head_gather`, `decode_chain_step_flash` and
+"""K3 - K7: transformer decode-step kernels (port of
+stjep_tpu/ops/decode_flash.py `decoder_layer_step_flash`, `self_attn_step`,
+`cross_attn_step`, `ffn_step`, `decode_head`, `decode_head_gather`,
+`decode_head_partial`, `decode_chain_step_flash` and
 `decode_beam_step_flash`).
 
-K5 runs one decode position through one decoder layer. K7 is the decode
-head: final LayerNorm, output projection, log-softmax and top-K, and with
-gather ids the log-prob at a reference id. K3 runs one position through
-every layer (K5 per layer) and the head (K7). K4 is the whole beam
+K5 runs one decode position through one decoder layer. K6a-c are that step
+as three launches (self-attention, cross-attention, FFN), which also take a
+tensor-parallel shard's rectangular weights and return its partial without
+the residual; `decoder_layer_step_flash_trio` composes them into K5. K7 is
+the decode head: final LayerNorm, output projection, log-softmax and top-K,
+and with gather ids the log-prob at a reference id; K7c is one vocabulary
+shard of it (raw top-K logits, row max and sum-exp). K3 runs one position
+through every layer (K5 per layer) and the head (K7). K4 is the whole beam
 while-body: embed + time signal, K3's layers and head, and the k^2 -> k
 select with its back-copies; `beam_select` is that select alone, for the
-general beam loop. Design notes are in `csrc/decode.cu`.
+general beam loop. Design notes are in `csrc/decode.cu`; the
+tensor-parallel layer step and head are in `ops/decode_flash_tp.py`.
 
 Layouts are the JAX kernels': self caches [K, B, Lpad, D] per layer
 ([nl, K, B, Lpad, D] stacked for K3/K4), never reordered, read through the
@@ -36,7 +42,9 @@ Two serving options, as in the JAX kernels, in any combination:
   (`self_attn_anc_plain`, `cross_attn_plain`, `csrc/decode.cu`).
 Each wrapper counts its launches per variant: `launches` (f32 weights and
 caches), `q8_launches`, `bf16_launches`, `q8_bf16_launches`, and for K3's
-gather variant the same names after `gather_`.
+gather variant the same names after `gather_`. K6a-c and K7c take f32
+weights only (the tensor-parallel trio has no dequantizing path, as in
+JAX); K6a and K6b count `launches` and `bf16_launches` by cache dtype.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from stjep_tpu_torch import kernels
+from stjep_tpu_torch.bridge import leaves
 from stjep_tpu_torch.config import EOS, PAD
 from stjep_tpu_torch.ops.transformer import ATTN_MASK_FILL as NEG
 from stjep_tpu_torch.ops.transformer import layer_norm
@@ -380,6 +389,145 @@ def decoder_layer_step_flash(params: Dict, x_new, cache_k, cache_v, mem_k,
 _init_counts(decoder_layer_step_flash, VARIANTS)
 
 
+# ---------------------------------------------------------------------------
+# K6a-c: the layer step as three launches (JAX self_attn_step,
+# cross_attn_step, ffn_step), on a head shard under tensor parallelism
+# ---------------------------------------------------------------------------
+
+
+def _ln_of(p, x):
+    return _ln(x, p["layer_norm"]["scale"], p["layer_norm"]["bias"], 1e-6)
+
+
+def _ln_card(p, x):
+    return kernels.layernorm(x, p["layer_norm"]["scale"], p["layer_norm"]["bias"], 1e-6)
+
+
+def _check_width(params: Dict, key: str, stream, name: str):
+    dq = params[key]["w"].shape[1]
+    if stream.shape[-1] != dq:
+        raise ValueError(f"{name} are {stream.shape[-1]} wide, the projection "
+                         f"{key} gives {dq}")
+
+
+def self_attn_step_plain(params: Dict, x_new, cache_k, cache_v, pos: int,
+                         n_head: int, anc, group: int, mask_k,
+                         residual: bool = True):
+    """Plain PyTorch version of K6a (self_attn_step); same arguments and
+    results."""
+    q = _ln_of(params, x_new) @ params["w_qs"]["w"]
+    att = self_attn_anc_plain(q, x_new @ params["w_ks"]["w"],
+                              x_new @ params["w_vs"]["w"], cache_k, cache_v,
+                              anc, mask_k, pos, group, n_head)
+    y = att @ params["fc"]["w"]
+    return y + x_new if residual else y
+
+
+def self_attn_step(params: Dict, x_new, cache_k, cache_v, pos: int,
+                   n_head: int, anc, group: int, mask_k,
+                   residual: bool = True):
+    """K6a, the self-attention third of a layer step: pre-LN, Q from the
+    normed x and K/V from the raw x ([D, Dq] each), the new K/V row into
+    the caches [K, B, Lpad, Dq] at `pos` (in place, f32 or bf16), ancestry
+    attention over 0..pos, then fc [Dq, D], plus x with `residual`. Under
+    tensor parallelism params hold a head shard (Dq = D / n_model),
+    n_head is the local head count and residual=False returns the partial
+    the shards sum. x_new [BK, D]; anc and mask_k [Lpad, BK] int32.
+    Returns y [BK, D] f32 (`launches`, `bf16_launches`)."""
+    if not x_new.is_cuda:
+        return self_attn_step_plain(params, x_new, cache_k, cache_v, pos,
+                                    n_head, anc, group, mask_k, residual)
+    kernels.refuse_grad("self_attn_step", TRAINABLE, x_new, *leaves(params))
+    _check_streams((cache_k, cache_v, "self caches"))
+    _check_width(params, "w_ks", cache_k, "self caches")
+    for t, nm in ((anc, "anc"), (mask_k, "mask_k")):
+        kernels.check(t, torch.int32, nm)
+    x = x_new.contiguous()
+    q = kernels.gemm(_ln_card(params, x), params["w_qs"]["w"])
+    att = _self_attn_cuda(q, kernels.gemm(x, params["w_ks"]["w"]),
+                          kernels.gemm(x, params["w_vs"]["w"]), cache_k,
+                          cache_v, anc, mask_k, pos, group, n_head)
+    y = kernels.gemm(att, params["fc"]["w"], residual=x if residual else None)
+    _count(self_attn_step, _variant(False, cache_k))
+    return y
+
+
+def cross_attn_step_plain(params: Dict, x_new, mem_k, mem_v, n_head: int,
+                          group: int, mem_mask, residual: bool = True):
+    """Plain PyTorch version of K6b (cross_attn_step); same arguments and
+    results."""
+    q = _ln_of(params, x_new) @ params["w_qs"]["w"]
+    y = cross_attn_plain(q, mem_k, mem_v, mem_mask, group, n_head) @ params["fc"]["w"]
+    return y + x_new if residual else y
+
+
+def cross_attn_step(params: Dict, x_new, mem_k, mem_v, n_head: int,
+                    group: int, mem_mask, residual: bool = True):
+    """K6b, the cross-attention third: pre-LN, Q [D, Dq], attention over
+    the unexpanded memory K/V [B, Lk_pad, Dq] (f32 or bf16; mem_mask
+    [Lk_pad, B] int32), fc [Dq, D], plus x with `residual` (a head shard's
+    partial without). Returns y [BK, D] f32 (`launches`,
+    `bf16_launches`)."""
+    if not x_new.is_cuda:
+        return cross_attn_step_plain(params, x_new, mem_k, mem_v, n_head,
+                                     group, mem_mask, residual)
+    kernels.refuse_grad("cross_attn_step", TRAINABLE, x_new, mem_k, mem_v,
+                        *leaves(params))
+    _check_streams((mem_k, mem_v, "memory K/V"))
+    _check_width(params, "w_qs", mem_k, "memory K/V")
+    kernels.check(mem_mask, torch.int32, "mem_mask")
+    x = x_new.contiguous()
+    q = kernels.gemm(_ln_card(params, x), params["w_qs"]["w"])
+    y = kernels.gemm(_cross_attn_cuda(q, mem_k, mem_v, mem_mask, group, n_head),
+                     params["fc"]["w"], residual=x if residual else None)
+    _count(cross_attn_step, _variant(False, mem_k))
+    return y
+
+
+def ffn_step_plain(params: Dict, x_new, partial_tp: bool = False):
+    """Plain PyTorch version of K6c (ffn_step); same arguments and results."""
+    h = torch.relu(_ln_of(params, x_new) @ params["w_1"]["w"] + params["w_1"]["b"])
+    y = h @ params["w_2"]["w"]
+    return y if partial_tp else y + params["w_2"]["b"] + x_new
+
+
+def ffn_step(params: Dict, x_new, partial_tp: bool = False):
+    """K6c, the FFN third: LN -> w_1 + b_1 -> ReLU -> w_2, then + b_2 + x.
+    partial_tp: w_1 and b_1 hold a hidden shard (FF / n_model columns) and
+    w_2 its rows; the partial h @ w_2 is returned, and the caller adds
+    x + the shards' sum + b_2. Returns y [BK, D] f32 (`launches`)."""
+    if not x_new.is_cuda:
+        return ffn_step_plain(params, x_new, partial_tp)
+    kernels.refuse_grad("ffn_step", TRAINABLE, x_new, *leaves(params))
+    x = x_new.contiguous()
+    h = kernels.gemm(_ln_card(params, x), params["w_1"]["w"], bias=params["w_1"]["b"],
+                     relu=True)
+    y = (kernels.gemm(h, params["w_2"]["w"]) if partial_tp else
+         kernels.gemm(h, params["w_2"]["w"], bias=params["w_2"]["b"], residual=x))
+    ffn_step.launches += 1
+    return y
+
+
+_init_counts(self_attn_step, ("", "bf16_"))
+_init_counts(cross_attn_step, ("", "bf16_"))
+ffn_step.launches = 0
+
+
+def decoder_layer_step_flash_trio(params: Dict, x_new, cache_k, cache_v,
+                                  mem_k, mem_v, pos: int, n_head: int, anc,
+                                  group: int, mem_mask, self_mask_k):
+    """K5's layer step as K6a, K6b and K6c in turn, each with its residual
+    (JAX decode_flash.py:869): the single-device A/B check that the three
+    launches compute K5. Same arguments and results as
+    decoder_layer_step_flash (f32 weights); on CPU tensors the plain
+    versions."""
+    y = self_attn_step(params["decslf_attn"], x_new, cache_k, cache_v, pos,
+                       n_head, anc, group, self_mask_k)
+    y = cross_attn_step(params["encdec_attn"], y, mem_k, mem_v, n_head, group,
+                        mem_mask)
+    return ffn_step(params["pos_ffn"], y)
+
+
 def topk_lowest_index(x: torch.Tensor, k: int):
     """Top-k along the last dim by repeated arg-max: values descending, the
     lowest index first among ties (jax.lax.top_k's order; torch.topk
@@ -466,6 +614,61 @@ def decode_head_gather(norm_params: Dict, out_params: Dict, x, topk: int,
 
 
 decode_head_gather.launches = 0
+
+
+def decode_head_partial_plain(norm_params: Dict, out_params: Dict, x,
+                              topk: int, gather_ids=None):
+    """Plain PyTorch version of K7c (decode_head_partial); same arguments
+    and results. A shard narrower than topk gives -1e30 at id 0 past its
+    width, as the repeated arg-max of topk_lowest_index and of the TPU
+    kernel do."""
+    logits = layer_norm(norm_params, x, 1e-5) @ out_params["w"]
+    mx = logits.max(dim=-1).values
+    se = torch.exp(logits - mx[:, None]).sum(dim=-1)
+    sc, ids = topk_lowest_index(logits, topk)
+    if gather_ids is None:
+        return sc, ids.to(torch.int32), mx, se
+    g = gather_ids.long()
+    inside = (g >= 0) & (g < logits.shape[1])
+    glog = logits.gather(1, g.clamp(0, logits.shape[1] - 1)[:, None])[:, 0]
+    return sc, ids.to(torch.int32), mx, se, torch.where(inside, glog, 0.0)
+
+
+def decode_head_partial(norm_params: Dict, out_params: Dict, x, topk: int,
+                        gather_ids=None):
+    """K7c, one vocabulary shard of the decode head (JAX
+    decode_flash.py:1666): final LayerNorm (eps 1e-5) -> x @ out_params["w"]
+    [D, V/n] -> the RAW top-K logits [BK, topk] and their LOCAL ids int32
+    (lowest id first among ties), mx [BK] the row max and se [BK] = sum
+    exp(logit - mx); with gather_ids [BK], already offset into the shard,
+    also the raw logit there, 0 for an id outside [0, V/n). Returns (sc,
+    ids, mx, se[, glog]); ops/decode_flash_tp.py decode_head_tp merges the
+    shards (`launches`)."""
+    if not x.is_cuda:
+        return decode_head_partial_plain(norm_params, out_params, x, topk,
+                                         gather_ids)
+    kernels.refuse_grad("decode_head_partial", TRAINABLE, x,
+                        *norm_params.values(), *out_params.values())
+    logits = kernels.gemm(
+        kernels.layernorm(x.contiguous(), norm_params["scale"],
+                          norm_params["bias"], 1e-5), out_params["w"])
+    BK, V = logits.shape
+    f32 = dict(device=x.device, dtype=torch.float32)
+    sc, mx, se = (torch.empty((BK, topk), **f32), torch.empty((BK,), **f32),
+                  torch.empty((BK,), **f32))
+    ids = torch.empty((BK, topk), device=x.device, dtype=torch.int32)
+    gid = glog = None
+    if gather_ids is not None:
+        gid = kernels.check(gather_ids.to(torch.int32).contiguous(), torch.int32,
+                            "gather_ids")
+        glog = torch.empty((BK,), **f32)
+    kernels.launch("head_topk_partial", logits, gid, sc, ids, glog, mx, se, BK,
+                   V, topk)
+    decode_head_partial.launches += 1
+    return (sc, ids, mx, se) if gid is None else (sc, ids, mx, se, glog)
+
+
+decode_head_partial.launches = 0
 
 
 def decode_chain_step_plain(stacked, norm_params, out_params, x_new, cache_k,

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Mutation check of the decode kernels (csrc/decode.cu, csrc/gemm.cu) on one GPU.
+"""Mutation check of the decode kernels (csrc/decode.cu, csrc/gemm.cu) on one GPU,
+the tensor-parallel head (K7c) included.
 
     python3 stjep_tpu_torch/scripts/mutate.py [--workdir DIR]
 
@@ -22,7 +23,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 SELECT = ("layer_step or head or gather or beam_step or beam_select or "
-          "general_beam or forward_eval or gemm_q8 or attn_kernels or serving")
+          "general_beam or forward_eval or gemm_q8 or attn_kernels or serving or tp_")
 
 # (what it breaks, the source in csrc/, the line as it is, the line as the
 # mutant has it)
@@ -31,8 +32,8 @@ MUTATIONS = [
      "      if (!better(v, c, bv, bi)) continue;",
      "      if (!(v >= bv)) continue;"),
     ("glp without the log-sum-exp", "decode.cu",
-     "  if (glp && threadIdx.x == 0) glp[r] = glog - lse;",
-     "  if (glp && threadIdx.x == 0) glp[r] = glog;"),
+     "    if (glp) glp[r] = glog - lse;",
+     "    if (glp) glp[r] = glog;"),
     ("last taken id forgotten", "decode.cu",
      "      for (int j = 0; j < k; ++j) was_taken |= taken[j] == c;",
      "      for (int j = 0; j + 1 < k; ++j) was_taken |= taken[j] == c;"),
@@ -57,6 +58,15 @@ MUTATIONS = [
     ("bf16 scaled query not rounded to bf16", "decode.cu",
      "  return __bfloat162float(__float2bfloat16_rn(x));",
      "  return x;"),
+    ("a vocabulary shard's raw scores minus its own log-sum-exp", "decode.cu",
+     "  const float lse = partial ? 0.f : mx + logf(se);  // partial: raw logits out",
+     "  const float lse = mx + logf(se);"),
+    ("sum-exp not rescaled to the block max", "decode.cu",
+     "  const float se = block_sum(m == -INFINITY ? 0.f : z * expf(m - mx), red);",
+     "  const float se = block_sum(m == -INFINITY ? 0.f : z, red);"),
+    ("a shard narrower than K: 0, not -1e30, past its width", "decode.cu",
+     "        sc[(size_t)r * K + k] = -1e30f;",
+     "        sc[(size_t)r * K + k] = 0.f;"),
 ]
 
 

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Profile the port's decode paths at the flagship on one GPU.
 
-    python3 stjep_tpu_torch/scripts/profile_decode.py [--seed 0]
+    python3 stjep_tpu_torch/scripts/profile_decode.py [--seed 0] [--n_model N]
 
 The paths are chip_smoke.py's: ST beam-5 (forward_translate) and dev eval
 (forward_eval ASR_ST with reference ids), each on the standard and on the
 universal transformer, at B=16 with random weights; and the serving decode,
 ST beam-5 on the standard model with bf16 caches and int8 weights, at B=16
-and at B=1. For each path: one
+and at B=1. With --n_model N > 1 only the ST beam-5 on the standard
+model, tensor-parallel on a (1, N) mesh whose shards all lie on the card
+(parallel/spmd.py). For each path: one
 warm-up call, one call timed on the host clock, then one call under
 torch.profiler. Prints per path the plain wall ms, the profiled wall ms
 (inflated by the profiler), device busy ms (the union of the device
@@ -77,6 +79,8 @@ def profile(label: str, fn):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--n_model", type=int, default=1,
+                    help="> 1: profile the tensor-parallel beam on a (1, N) mesh of the card")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_decode: needs a CUDA device", file=sys.stderr)
@@ -86,12 +90,24 @@ def main() -> int:
     from stjep_tpu_torch.config import BOS, ModelConfig
     from stjep_tpu_torch.infer.forward import forward_eval, forward_translate
     from stjep_tpu_torch.models.seq2seq import init_seq2seq
+    from stjep_tpu_torch.parallel.mesh import make_mesh
+    from stjep_tpu_torch.parallel.spmd import set_kernel_mesh
 
     torch.backends.cuda.matmul.allow_tf32 = False
     kernels.lib()
     rng = np.random.RandomState(args.seed)
     feats, lens = cs.inputs(rng, cs.B)
-    for kind in ("standard", "universal"):
+    if args.n_model > 1:
+        cfg = ModelConfig(**cs.FLAGSHIP)
+        params = params_to(init_seq2seq(cfg, torch.Generator().manual_seed(args.seed), "cpu"),
+                           "cuda")
+        f, l = feats.cuda(), lens.cuda()
+        set_kernel_mesh(make_mesh(1, args.n_model, ["cuda"] * args.n_model))
+        profile(f"standard beam tp n={args.n_model}", lambda: forward_translate(
+            params, cfg, "ST", acous_feats=f, acous_lens=l, beam_width=cs.BEAM,
+            penalty_factor=1.0, max_seq_len=cs.DECODE_LEN, device="cuda"))
+        set_kernel_mesh(None)
+    for kind in ("standard", "universal") if args.n_model == 1 else ():
         cfg = ModelConfig(**{**cs.FLAGSHIP, "transformer_type": kind})
         params = params_to(init_seq2seq(cfg, torch.Generator().manual_seed(args.seed), "cpu"),
                            "cuda")

@@ -96,7 +96,8 @@ def test_position_signal_equal(d_model):
 def test_port_imports_no_jax():
     code = ("import sys; import stjep_tpu_torch.infer.forward, "
             "stjep_tpu_torch.bridge, stjep_tpu_torch.kernels, "
-            "stjep_tpu_torch.train.trainer; "
+            "stjep_tpu_torch.train.trainer, stjep_tpu_torch.parallel.spmd, "
+            "stjep_tpu_torch.ops.decode_flash_tp, stjep_tpu_torch.scripts.tp_bounds; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'stjep_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

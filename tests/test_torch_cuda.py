@@ -735,8 +735,7 @@ def test_gemm_q8_matches_plain(dev, M, K, N, epilogue):
         kernels.gemm(a, q.float(), w_scale=sc, **kw)  # scales on an f32 weight
 
 
-def _attn_state(rng, dev, dtype, K=3, Bn=3, Lpad=160):
-    D = CFG.dim_model
+def _attn_state(rng, dev, dtype, K=3, Bn=3, Lpad=160, D=CFG.dim_model):
     BK = Bn * K
     ck = _randn(rng, K, Bn, Lpad, D, dev=dev).to(dtype)
     cv = _randn(rng, K, Bn, Lpad, D, dev=dev).to(dtype)
@@ -935,3 +934,210 @@ def test_serving_wrappers_reject_other_dtypes(dev, params):
         with pytest.raises(ValueError, match="float32 or bfloat16"):
             decoder_layer_step_flash(lp, x, ck, cv, mk, mk.clone(), 0, CFG.num_heads, anc,
                                      1, mem_mask, maskk)
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel decode: K6a-c, K7c, and the TP routes on one card
+# ---------------------------------------------------------------------------
+
+
+def _tp_weights(rng, dev, Dq, D=512, FF=1024, n=None):
+    """A random decoder layer shard at width D: Q/K/V [D, Dq], fc [Dq, D]
+    (Dq / 64 local heads), the FFN's hidden shard FF * Dq / D, LayerNorms
+    and biases random."""
+    w = lambda *s: _randn(rng, *s, dev=dev) / s[0] ** 0.5
+    ln = lambda: {"scale": 1 + 0.1 * _randn(rng, D, dev=dev),
+                  "bias": 0.1 * _randn(rng, D, dev=dev)}
+    fh = FF * Dq // D
+    return {"decslf_attn": {"w_qs": {"w": w(D, Dq)}, "w_ks": {"w": w(D, Dq)},
+                            "w_vs": {"w": w(D, Dq)}, "fc": {"w": w(Dq, D)},
+                            "layer_norm": ln()},
+            "encdec_attn": {"w_qs": {"w": w(D, Dq)}, "fc": {"w": w(Dq, D)},
+                            "layer_norm": ln()},
+            "pos_ffn": {"w_1": {"w": w(D, fh), "b": 0.1 * _randn(rng, fh, dev=dev)},
+                        "w_2": {"w": w(fh, D), "b": 0.1 * _randn(rng, D, dev=dev)},
+                        "layer_norm": ln()}}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("pos", [0, 75])
+@pytest.mark.parametrize("Dq", [64, 128, 256])
+def test_tp_step_kernels_match_plain(dev, Dq, pos, dtype):
+    """K6a and K6b at a head shard of width Dq (1, 2 or 4 local heads of 64)
+    with and without the residual, f32 and bf16 caches, K = 5 rows a group
+    over B = 4 (a fully masked self row and memory entry among them); K6c
+    on the matching hidden shard, partial and whole. The new cache row is
+    bit-equal to the plain version's."""
+    rng = np.random.RandomState(Dq + pos)
+    K, nh, D = 5, Dq // 64, 512
+    ck, cv, anc, maskk, mk, mv, mem_mask, _ = _attn_state(rng, dev, dtype, K=K, Bn=4, D=Dq)
+    anc[pos] = torch.arange(anc.shape[1], device=dev, dtype=torch.int32) % K
+    p = _tp_weights(rng, dev, Dq)
+    x = _randn(rng, anc.shape[1], D, dev=dev)
+    var = "bf16_launches" if dtype == BF16 else "launches"
+    for residual in (True, False):
+        before = (getattr(tdf.self_attn_step, var), getattr(tdf.cross_attn_step, var))
+        ckk, cvk, ckp, cvp = ck.clone(), cv.clone(), ck.clone(), cv.clone()
+        y = tdf.self_attn_step(p["decslf_attn"], x, ckk, cvk, pos, nh, anc, K, maskk, residual)
+        y_p = tdf.self_attn_step_plain(p["decslf_attn"], x, ckp, cvp, pos, nh, anc, K, maskk,
+                                       residual)
+        assert torch.isfinite(y).all()
+        _close(y, y_p, TOL)
+        if dtype == BF16:
+            _bf16_cache_close(ckk, ckp)
+        else:
+            _close(ckk, ckp, TOL)
+        y = tdf.cross_attn_step(p["encdec_attn"], x, mk, mv, nh, K, mem_mask, residual)
+        _close(y, tdf.cross_attn_step_plain(p["encdec_attn"], x, mk, mv, nh, K, mem_mask,
+                                            residual), TOL)
+        assert (getattr(tdf.self_attn_step, var), getattr(tdf.cross_attn_step, var)) == (
+            before[0] + 1, before[1] + 1)
+    for partial in (True, False):
+        f = p["pos_ffn"]
+        if not partial:  # the whole FFN: w_1 [D, FF], w_2 [FF, D]
+            f = _tp_weights(rng, dev, D)["pos_ffn"]
+        before = tdf.ffn_step.launches
+        _close(tdf.ffn_step(f, x, partial), tdf.ffn_step_plain(f, x, partial), TOL)
+        assert tdf.ffn_step.launches == before + 1
+
+
+@pytest.mark.parametrize("topk", [1, 5, 16])
+@pytest.mark.parametrize("v_local", [7, 50, 7500])
+def test_head_partial_kernel_matches_plain(dev, v_local, topk):
+    """K7c on one vocabulary shard: raw top-K (ids equal up to ties), mx, se
+    (relative: the kernel's online sum rescales), and the raw logit at
+    gather ids in the shard (0, V/n - 1), above it and below it (0 there);
+    a shard narrower than K gives -1e30 at id 0 past its width."""
+    rng = np.random.RandomState(v_local + topk)
+    BK, D = 80, 512
+    norm = {"scale": 1 + 0.1 * _randn(rng, D, dev=dev), "bias": 0.1 * _randn(rng, D, dev=dev)}
+    out = {"w": _randn(rng, D, v_local, dev=dev) / D ** 0.5}
+    x = _randn(rng, BK, D, dev=dev)
+    gid = torch.from_numpy(rng.randint(-2 * v_local, 2 * v_local, BK).astype(np.int32)).to(dev)
+    gid[:4] = torch.tensor([0, v_local - 1, v_local, -1], dtype=torch.int32)
+    before = tdf.decode_head_partial.launches
+    got = tdf.decode_head_partial(norm, out, x, topk)
+    got_g = tdf.decode_head_partial(norm, out, x, topk, gid)
+    assert tdf.decode_head_partial.launches == before + 2
+    ref = tdf.decode_head_partial_plain(norm, out, x, topk)
+    ref_g = tdf.decode_head_partial_plain(norm, out, x, topk, gid)
+    for a, b in zip(got, got_g):
+        assert torch.equal(a, b)
+    assert got[1].dtype == torch.int32 and got[0].shape == (BK, topk)
+    k = min(topk, v_local)
+    _same_ids_up_to_ties(got[1][:, :k], ref[1][:, :k], ref[0][:, :k])
+    _close(got[0][:, :k], ref[0][:, :k], 1e-5)
+    _close(got[2], ref[2], 1e-5)
+    _close(got[3], ref[3], 1e-5 * float(ref[3].abs().max()))
+    _close(got_g[4], ref_g[4], 1e-5)
+    assert (got_g[4][2:4] == 0).all() and (got_g[4][(gid < 0) | (gid >= v_local)] == 0).all()
+    if topk > v_local:
+        assert (got[0][:, v_local:] == -1e30).all() and (got[1][:, v_local:] == 0).all()
+
+
+def test_tp_trio_and_layer_step_match_k5_on_card(dev, params):
+    """On the card, the trio (K6a-c with residuals) and the TP layer step
+    over 2 and 4 shards of one card, joined, against K5 at full width."""
+    from stjep_tpu_torch.ops.decode_flash_tp import ModelAxis, decoder_layer_step_flash_tp
+    from stjep_tpu_torch.parallel.mesh import _shard, param_pspec, map_with_path
+
+    _, pg = params
+    rng = np.random.RandomState(77)
+    K, pos, Bn = 3, 6, 3
+    cache, _, anc, maskk, mem_mask = _decode_state(pg, K, pos, rng, dev, Bn=Bn)
+    maskk[pos] = 1
+    x = _randn(rng, Bn * K, CFG.dim_model, dev=dev)
+    lp = pg["dec_tgt"]["layers"][1]
+    args = lambda c: (c.self_k[1], c.self_v[1], c.mem_k[1], c.mem_v[1], pos, CFG.num_heads,
+                      anc, K, mem_mask, maskk)
+    c5 = _clone(cache)
+    y5 = decoder_layer_step_flash(lp, x, *args(c5))
+    ct = _clone(cache)
+    _close(tdf.decoder_layer_step_flash_trio(lp, x, *args(ct)), y5, TOL)
+    _close(ct.self_k, c5.self_k, TOL)
+    for n in (2, 4):
+        dq = CFG.dim_model // n
+        shards = [map_with_path(lp, lambda nm, t, m=m: _shard(
+            t, param_pspec("dec_tgt.layers.1." + nm, t, n), m, n, dev)) for m in range(n)]
+        cs = [_clone(cache) for _ in range(n)]
+        sl = lambda t, m: t[..., m * dq:(m + 1) * dq].contiguous()
+        cks = [sl(c.self_k[1], m) for m, c in enumerate(cs)]
+        trio = (tdf.self_attn_step, tdf.cross_attn_step, tdf.ffn_step)
+        before = [f.launches for f in trio]
+        ys = decoder_layer_step_flash_tp(
+            shards, [x] * n, cks, [sl(c.self_v[1], m) for m, c in enumerate(cs)],
+            [sl(cache.mem_k[1], m) for m in range(n)], [sl(cache.mem_v[1], m) for m in range(n)],
+            pos, CFG.num_heads // n, [anc] * n, K, [mem_mask] * n, [maskk] * n,
+            ModelAxis([dev] * n))
+        assert [f.launches for f in trio] == [b + n for b in before]
+        _close(ys[0], y5, TOL)
+        _close(torch.cat(cks, -1), c5.self_k[1], TOL)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("kind", ["standard", "universal"])
+def test_tp_beam_and_eval_card_match_cpu(dev, kind, n):
+    """beam_search (width 3, f32 and bf16 caches) and forward_eval (MT with
+    refs) on mesh (1, n) of one card against the same mesh of CPU devices:
+    tokens equal, scores and picked within TOL (TOL_BF16 for bf16); the TP
+    kernels launched, K3, K4 and K5 not."""
+    from stjep_tpu_torch.parallel import spmd
+    from stjep_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = dataclasses.replace(CFG if kind == "standard" else UNIVERSAL, mode="MT")
+    pc = init_seq2seq(cfg, torch.Generator().manual_seed(60 + n), "cpu")
+    pg = params_to(pc, dev)
+    rng = np.random.RandomState(61)
+    enc = _randn(rng, B, LK, CFG.dim_model)
+    mem_mask = torch.arange(LK)[None, :] < torch.tensor([11, 6, 9])[:, None]
+    src = torch.from_numpy(rng.randint(4, CFG.enc_vocab_size, (B, CFG.max_seq_len_src)))
+    tgt = torch.from_numpy(rng.randint(4, CFG.dec_vocab_size, (B, 9)))
+    src[:, 0] = tgt[:, 0] = BOS
+    wrappers = (tdf.self_attn_step, tdf.cross_attn_step, tdf.ffn_step, tdf.decode_head_partial,
+                decode_chain_step_flash, decode_beam_step_flash, decoder_layer_step_flash)
+    try:
+        for cache_dtype in (None, BF16):
+            outs = []
+            for d in (dev, "cpu"):
+                spmd.set_kernel_mesh(make_mesh(1, n, [d] * n))
+                p = pg if d == dev else pc
+                before = [w.launches + getattr(w, "bf16_launches", 0) for w in wrappers]
+                outs.append(beam_search(p, cfg, enc.to(d), mem_mask.to(d), 3, 1.0, MAX_LEN,
+                                        cache_dtype=cache_dtype))
+                if d == dev:
+                    ran = [w.launches + getattr(w, "bf16_launches", 0) > b
+                           for w, b in zip(wrappers, before)]
+                    assert ran == [True] * 4 + [False] * 3, ran
+            assert torch.equal(outs[0][0].cpu(), outs[1][0])
+            _close(outs[0][1].cpu(), outs[1][1], TOL if cache_dtype is None else TOL_BF16)
+        ev = []
+        for d in (dev, "cpu"):
+            spmd.set_kernel_mesh(make_mesh(1, n, [d] * n))
+            ev.append(forward_eval(pg if d == dev else pc, cfg, "MT", src=src, ref_tgt=tgt,
+                                   device=d))
+        assert torch.equal(ev[0]["preds_mt"].cpu(), ev[1]["preds_mt"])
+        _close(ev[0]["picked_mt"].cpu(), ev[1]["picked_mt"], TOL)
+    finally:
+        spmd.set_kernel_mesh(None)
+
+
+def _k6_call(pg, dev):
+    rng = np.random.RandomState(5)
+    cache, _, anc, maskk, mem_mask = _decode_state(pg, 1, 0, rng, dev)
+    maskk[0] = 1
+    x = _randn(rng, B, CFG.dim_model, dev=dev)
+    return lambda: tdf.decoder_layer_step_flash_trio(
+        pg["dec_tgt"]["layers"][0], x, cache.self_k[0], cache.self_v[0],
+        cache.mem_k[0], cache.mem_v[0], 0, CFG.num_heads, anc, 1, mem_mask, maskk)
+
+
+def _k7c_call(pg, dev):
+    x = _randn(np.random.RandomState(6), B, CFG.dim_model, dev=dev)
+    return lambda: tdf.decode_head_partial(pg["dec_tgt"]["norm"], pg["out_tgt"], x, 2)
+
+
+@pytest.mark.parametrize("make_call", [_k6_call, _k7c_call], ids=["K6_trio", "K7c"])
+def test_tp_kernels_refuse_autograd(dev, make_call):
+    """K6a (the trio's first launch) and K7c refuse weights that require
+    grad on the card; under no_grad they run."""
+    test_inference_kernels_refuse_autograd(dev, make_call)
