@@ -4,8 +4,10 @@
     python3 chip_smoke.py [--seed 0]
 
 Needs one CUDA card and nvcc; builds the kernels from stjep_tpu_torch/csrc
-itself. Phases, each printed on its own line; any failure raises and exits
-non-zero without printing a result:
+itself. Phases, each printed on its own line; any failure prints its
+traceback on stderr and one line `[failed] phase=<phase> error=<error>` on
+stdout, and exits 1 without printing a result (no card, or run without the
+package beside it, included):
 
 1. device: the card's name and power limit (nvidia-smi), TF32 off.
 2. build: compile the CUDA kernels (one nvcc per source, in parallel), with
@@ -14,7 +16,10 @@ non-zero without printing a result:
    flagship shapes on seeded inputs: each kernel against its plain PyTorch version on the
    card (floats within a stated tolerance; integer outputs equal wherever
    the plain version's gap to the next rank exceeds 1e-5), with median
-   times from CUDA events; K7 also at a 30 000-word target vocabulary. The
+   times from CUDA events; K1 (the cluster sweep, its shape and block count
+   on the line) also at B=1 and B=64, each with the sweep alone timed
+   beside the whole call (input GEMMs included); K7 also at a 30 000-word
+   target vocabulary. The
    serving kernels likewise: gemm_q8 (one layer's eight int8 products, at
    M = 80 and 5), the bf16 attention kernels, K5 in int8, bf16 and
    int8+bf16, K3 and K4 in int8+bf16. The tensor-parallel kernels at one
@@ -64,7 +69,8 @@ non-zero without printing a result:
    flagship train shapes on seeded inputs and cotangents: forward and
    backward each against its plain version on the card, every saved or
    emitted stream within a stated tolerance relative to its max-abs, with
-   median times.
+   median times (K8's forward sweep also alone, and both sweeps' cluster
+   shapes).
 6. train parity: one deterministic ASR_ST step (no dropout, no
    SpecAugment) at full widths with B=2 and 256 frames, on inputs of its
    own stream: the kernel route on the card, and the plain route on CPU
@@ -91,6 +97,8 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -273,41 +281,83 @@ def first_diff(a, b):
     return [int(np.argmax(r)) if r.any() else None for r in d.numpy()]
 
 
+def sweep_call(p, x, lens, save=False):
+    """K1's (or, with save, K8's forward) recurrent sweep alone, on input
+    projections made once: a closure that launches only the cluster kernel."""
+    from stjep_tpu_torch import kernels
+    from stjep_tpu_torch.ops.lstm_pallas import input_projections, sweep_shape
+
+    B, T, _ = x.shape
+    H = p["fwd"]["w_hh"].shape[0]
+    xp = input_projections(x, (p["fwd"]["w_ih"], p["bwd"]["w_ih"]),
+                           tuple(q["b_ih"] + q["b_hh"] for q in (p["fwd"], p["bwd"])))
+    whh = [q["w_hh"].contiguous() for q in (p["fwd"], p["bwd"])]
+    lens = lens.to(torch.int32).contiguous()
+    out = torch.empty((B, T, 2 * H), device=x.device)
+    if save:
+        saves = [torch.empty((2, T, B, n), device=x.device) for n in (H, H, 4 * H)]
+        return lambda: kernels.launch("bilstm_fwd_save", *xp, *whh, lens, out, *saves,
+                                      B, T, H, *sweep_shape(B, H))
+    return lambda: kernels.launch("bilstm_recurrent", *xp, *whh, lens, out, B, T, H,
+                                  *sweep_shape(B, H))
+
+
+def plan_text(B, H, backward=False) -> str:
+    """The cluster sweep's launch at (B, H): BTxC, blocks, threads, shared
+    memory, where W_hh's slice lives, clusters the card holds at once."""
+    from stjep_tpu_torch.ops.lstm_pallas import sweep_plan
+
+    q = sweep_plan(B, H, backward)
+    return (f"BT{q['bt']}xC{q['c']}:{q['blocks']}blocks:{q['threads']}thr:"
+            f"{q['smem']}B:W_hh_{q['w_hh']}:max{q['max_clusters']}clusters")
+
+
 def phase_k1(params, cfg, rng):
+    """K1 over the four pyramid layers at B=16 (the kernels line's row),
+    and at B=1 and B=64 beside it: the whole call (input GEMMs and sweep),
+    the sweep alone, the plain version (B=16) and cuDNN's LSTM."""
     from stjep_tpu_torch.ops.lstm_pallas import bilstm_pallas, bilstm_plain
 
     enc = params["las"]["encoder"]
-    lens = torch.from_numpy(rng.randint(FRAMES // 2, FRAMES, size=(B,))).cuda()
-    T, din, err, ms, plain_ms = FRAMES, cfg.acous_dim, 0.0, 0.0, 0.0
     H = cfg.acous_hidden_size
-    shapes, n_bytes, flops, lib_ms, lib_err = [], 0, 0, 0.0, 0.0
-    for li in range(cfg.num_pyramid_layers):
-        shapes.append(f"({T},{din})")
-        p = enc[f"acous_enc_l{li + 1}"]
-        x = torch.from_numpy(rng.uniform(-1, 1, (B, T, din)).astype(np.float32)).cuda()
-        args = (p["fwd"], p["bwd"], x, lens)
-        out = bilstm_pallas(*args)
-        err = max(err, max_err(out, bilstm_plain(*args)))
-        ms += cuda_ms(lambda: bilstm_pallas(*args), 5)
-        plain_ms += cuda_ms(lambda: bilstm_plain(*args), 2)
-        n_bytes += nbytes(p, x, lens, out)
-        flops += lstm_flops(lens, din, H)
-        lstm, xp = cudnn_bilstm(p, din, H), packed(x, lens)
-        with torch.no_grad():
-            lib = torch.nn.utils.rnn.pad_packed_sequence(lstm(xp)[0], batch_first=True,
-                                                         total_length=T)[0]
-            lib_err = max(lib_err, max_err(lib, out))
-            lib_ms += cuda_ms(lambda: lstm(xp), 5)
-        T, din, lens = T // 2, 4 * H, lens // 2
     # outputs are LSTM states in (-1, 1); f32 on both sides, summed in another
     # order (GEMM tiles vs ATen) over up to 1504 contractive recurrent steps
     tol = 1e-4
-    b = bound(n_bytes, flops)
-    say("kernel K1 bilstm", B=B, T_Din=",".join(shapes),
-        max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        library_max_abs_err=lib_err, **b)
-    need(err <= tol, f"K1 max_abs_err {err} > {tol}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **b)
+    res = {}
+    for Bn in (B, 1, 64):
+        lens = torch.from_numpy(rng.randint(FRAMES // 2, FRAMES, size=(Bn,))).cuda()
+        T, din = FRAMES, cfg.acous_dim
+        err, lib_err, n_bytes, flops, shapes, steps = 0.0, 0.0, 0, 0, [], 0
+        ms = {k: 0.0 for k in ("ms", "sweep_ms", "plain_ms", "library_ms")}
+        for li in range(cfg.num_pyramid_layers):
+            shapes.append(f"({T},{din})")
+            steps += T
+            p = enc[f"acous_enc_l{li + 1}"]
+            x = torch.from_numpy(rng.uniform(-1, 1, (Bn, T, din)).astype(np.float32)).cuda()
+            args = (p["fwd"], p["bwd"], x, lens)
+            out = bilstm_pallas(*args)
+            err = max(err, max_err(out, bilstm_plain(*args)))
+            ms["ms"] += cuda_ms(lambda: bilstm_pallas(*args), 5)
+            ms["sweep_ms"] += cuda_ms(sweep_call(p, x, lens), 5)
+            if Bn == B:
+                ms["plain_ms"] += cuda_ms(lambda: bilstm_plain(*args), 2)
+            n_bytes += nbytes(p, x, lens, out)
+            flops += lstm_flops(lens, din, H)
+            lstm, xp = cudnn_bilstm(p, din, H), packed(x, lens)
+            with torch.no_grad():
+                lib = torch.nn.utils.rnn.pad_packed_sequence(lstm(xp)[0], batch_first=True,
+                                                             total_length=T)[0]
+                lib_err = max(lib_err, max_err(lib, out))
+                ms["library_ms"] += cuda_ms(lambda: lstm(xp), 5)
+            T, din, lens = T // 2, 4 * H, lens // 2
+        b = bound(n_bytes, flops)
+        res[Bn] = dict(max_abs_err=err, **ms, **b)
+        say(f"kernel K1 bilstm B={Bn}", T_Din=",".join(shapes), max_abs_err=err, tol=tol,
+            **{k: v for k, v in ms.items() if Bn == B or k != "plain_ms"},
+            sweep_steps=steps,
+            cluster=plan_text(Bn, H), library_max_abs_err=lib_err, **b)
+        need(err <= tol, f"K1 B={Bn} max_abs_err {err} > {tol}")
+    return {k: v for k, v in res[B].items() if k != "sweep_ms"}
 
 
 def phase_k2(params, cfg, rng):
@@ -1067,7 +1117,8 @@ def phase_k8(params, cfg, rng):
     T, din = FRAMES, cfg.acous_dim
     err = {"fwd": 0.0, "bwd": 0.0}
     rel = {"fwd": 0.0, "bwd": 0.0}
-    ms = {k: 0.0 for k in ("fwd", "bwd", "plain_fwd", "plain_bwd", "lib_fwd", "lib_bwd")}
+    ms = {k: 0.0 for k in ("fwd", "bwd", "plain_fwd", "plain_bwd", "lib_fwd", "lib_bwd",
+                           "sweep_fwd")}
     n_bytes, flops = {"fwd": 0, "bwd": 0}, {"fwd": 0, "bwd": 0}
     for li in range(cfg.num_pyramid_layers):
         p = enc[f"acous_enc_l{li + 1}"]
@@ -1084,6 +1135,7 @@ def phase_k8(params, cfg, rng):
         a, b = k8.bilstm_bwd(*bargs), k8.bilstm_bwd_plain(*bargs)
         err["bwd"], rel["bwd"] = max(err["bwd"], max_err(a, b)), max(rel["bwd"], rel_err(a, b))
         ms["fwd"] += cuda_ms(lambda: k8.bilstm_fwd_save(*fargs), 3)
+        ms["sweep_fwd"] += cuda_ms(sweep_call(p, x, lens, save=True), 3)
         ms["plain_fwd"] += cuda_ms(lambda: k8.bilstm_fwd_save_plain(*fargs), 1)
         ms["bwd"] += cuda_ms(lambda: k8.bilstm_bwd(*bargs), 3)
         ms["plain_bwd"] += cuda_ms(lambda: k8.bilstm_bwd_plain(*bargs), 1)
@@ -1108,8 +1160,12 @@ def phase_k8(params, cfg, rng):
     for k in ("fwd", "bwd"):
         res[k] = dict(max_abs_err=err[k], ms=ms[k], plain_ms=ms[f"plain_{k}"],
                       library_ms=ms[f"lib_{k}"], **bound(n_bytes[k], flops[k]))
+        # the backward launches the sweep alone (the weight gradients are
+        # stream matmuls after it), so its sweep time is its time
         say(f"kernel K8 bilstm_{k}", B=B, layers=cfg.num_pyramid_layers,
-            max_rel_err=rel[k], tol_rel=tol[k], **res[k])
+            max_rel_err=rel[k], tol_rel=tol[k], **res[k],
+            sweep_ms=ms["sweep_fwd"] if k == "fwd" else ms["bwd"],
+            cluster=plan_text(B, H, backward=k == "bwd"))
         need(rel[k] <= tol[k], f"K8 {k} relative error {rel[k]} > {tol[k]}")
     return res
 
@@ -1761,21 +1817,27 @@ def phase_dev_eval(label, params, params_c, cfg, rng, ran):
     return launches
 
 
+# the step of main() that runs, for the failure line when no phase_* function
+# is on the traceback
+STAGE = ["arguments"]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    STAGE[0] = "device"
     if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs only on a GPU",
-              file=sys.stderr)
-        return 2
+        raise RuntimeError("no CUDA device: this script runs only on a GPU")
+    STAGE[0] = "imports"
     from stjep_tpu_torch import kernels
     from stjep_tpu_torch.bridge import params_to
     from stjep_tpu_torch.config import ModelConfig
     from stjep_tpu_torch.models.seq2seq import init_seq2seq
 
     # 1. device
+    STAGE[0] = "device"
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -1786,11 +1848,13 @@ def main() -> int:
         cuda=torch.version.cuda)
 
     # 2. build
+    STAGE[0] = "build"
     t0 = time.perf_counter()
     lib = kernels.build()
     kernels.lib()
     say("build", seconds=round(time.perf_counter() - t0, 3), library=lib.name)
 
+    STAGE[0] = "params"
     cfg = ModelConfig(**FLAGSHIP)
     gen = torch.Generator().manual_seed(args.seed)
     params_c = init_seq2seq(cfg, gen, "cpu")
@@ -1889,6 +1953,7 @@ def main() -> int:
                "K6 ffn_step": ("ffn_step", src + "gemm.cu", rep + "decode_flash.py:622"),
                "K7 head_partial": ("decode_head_partial", src + "decode.cu",
                                    rep + "decode_flash.py:1666")}
+    STAGE[0] = "kernels line"
     need(all(launches[k] > 0 for k in sources), f"a kernel never launched: {launches}")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
@@ -1902,5 +1967,26 @@ def main() -> int:
     return 0
 
 
+def failed_phase(exc: BaseException) -> str:
+    """The innermost phase_* function of this script on exc's traceback, or
+    the step of main() that ran."""
+    here = Path(__file__).resolve()
+    names = [f.name for f in traceback.extract_tb(exc.__traceback__)
+             if Path(f.filename).resolve() == here and f.name.startswith("phase_")]
+    return names[-1] if names else STAGE[0]
+
+
+def run() -> int:
+    """main(); on any failure the traceback goes to stderr and one line
+    `[failed] phase=... error=...` to stdout, and the exit code is 1."""
+    try:
+        return main()
+    except Exception as e:  # noqa: BLE001 - reported, then the exit code says so
+        traceback.print_exc()
+        msg = " ".join(str(e).split())[:500]
+        print(f"[failed] phase={failed_phase(e)} error={type(e).__name__}: {msg}", flush=True)
+        return 1
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(run())

@@ -15,131 +15,250 @@
 // The TPU kernel reads bf16 residual streams and W_hh in bf16; this one is
 // the f32 variant, the JAX package's parity mode.
 //
-// What bounds it on the H100: as the forward, the serial chain. Each step
-// does the BT x 4H x H product dPre @ W_hh^T in one block and reads
-// W_hh^T (1 MB at H = 256) from L2. Design: K1's shape turned around: one
-// block per (batch tile of BT rows, direction), 4H threads, the time loop
-// inside. Threads j < H own column j of dh and dc (dc in registers, dh in
-// shared memory) and compute the cell backward; then thread (q, k) sums a
-// quarter of the contraction for output column k, reading W_hh^T
-// ([4H, H], so a warp's reads are contiguous) and dPre from shared memory
-// as broadcasts; the four quarter sums are added in a fixed order, so a
-// run is deterministic.
+// What bounds it on the H100: as the forward, the serial chain of T steps,
+// each a BT x 4H x H product dPre @ W_hh^T (the first design did it on
+// 4 SMs, reading W_hh^T, transposed by the wrapper on every call, from L2
+// every step). Design: the forward's cluster turned around (bilstm.cu).
+// Block k of a cluster of C owns units [k U, (k+1) U) and their gate
+// columns, and keeps W_hh's column slice, laid out [4U][H], in shared
+// memory for the whole sweep (or streams it from L2 where it does not
+// fit). Per step it
+//   1. runs the cell backward for its own (row, unit) pairs, dh and dc in
+//      the owning thread's registers, and writes its dPre columns;
+//   2. forms the partial dh over its own columns, dPre_own [BT, 4U] @
+//      W_hh[:, own]^T -> [BT, H], thread by (row quad, 4 units);
+//   3. reduce-scatters it through distributed shared memory: each [BT, U]
+//      piece goes to the piece's owner, into slot `rank` of its receive
+//      buffer, 4 rows a 16-byte store (BT x H floats a block a step,
+//      against 4x that for an all-gather of dPre);
+//   4. passes one cluster barrier, split in two: it arrives (release) once
+//      its pieces are sent, then copies the next step's saved streams into
+//      shared memory with cp.async and stores its dPre columns to global
+//      memory, and waits (acquire) last. At the next step each owner adds
+//      its C pieces in rank order 0..C-1, so a run is bit-for-bit
+//      repeatable. The receive buffer is double-buffered: a block
+// writes slot set s%2 at step s only after every peer has passed the
+// barrier of step s-1, by which each had read the set it wrote at s-2. No
+// block exits while a peer may still write into it: the last step ends
+// with the barrier, after which no one writes.
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int BT = 8;  // batch rows per block
+constexpr int BWD_THREADS = 256;
 
-__global__ void __launch_bounds__(1024) bilstm_bwd_kernel(
+template <bool RES>
+__global__ void __launch_bounds__(BWD_THREADS) bilstm_bwd_kernel(
     const float* __restrict__ gout, const float* __restrict__ cs,
-    const float* __restrict__ gates, const float* __restrict__ whtf,
-    const float* __restrict__ whtb, const int* __restrict__ lens,
-    float* __restrict__ dxp, int B, int T, int H) {
-  extern __shared__ float sm[];
-  const int H4 = 4 * H;
-  float* dh = sm;               // [BT][H] recurrent cotangent
-  float* dp = sm + BT * H;      // [BT][4H] this step's dPre
-  float* part = dp + BT * H4;   // [4][BT][H] quarter sums of dPre @ W_hh^T
+    const float* __restrict__ gates, const float* __restrict__ whf,
+    const float* __restrict__ whb, const int* __restrict__ lens,
+    float* __restrict__ dxp, int B, int T, int H, int BT) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
   const int dir = blockIdx.y;
-  const float* __restrict__ WT = dir ? whtb : whtf;
-  const int b0 = blockIdx.x * BT;
-  const int tid = threadIdx.x;  // blockDim == 4H
-  const int q = tid / H, k = tid % H;
+  const int b0 = (blockIdx.x / C) * BT;
+  const float* __restrict__ W = dir ? whb : whf;
+  const int H4 = 4 * H;
+  const int U = (H + C - 1) / C;
+  const int j0 = rank * U;
+  const int nu = max(0, min(U, H - j0));
+  const int NC = 4 * U;             // own gate columns, unit-major: 4 u + gate
+  const int Hp = (H + 3) & ~3, KQ = Hp / 4;
+  const int GT = (BT / 4) * KQ;     // (row quad, unit quad) tiles of the product
+  const int tid = threadIdx.x;
 
-  for (int e = tid; e < BT * H; e += blockDim.x) dh[e] = 0.f;
-  int len[BT];
-  float dc[BT];
-#pragma unroll
-  for (int r = 0; r < BT; ++r) {
-    len[r] = (b0 + r < B) ? lens[b0 + r] : 0;
-    dc[r] = 0.f;
+  extern __shared__ __align__(16) float sm[];
+  float* WsT = sm;                            // [NC][Hp] W_hh slice (RES)
+  float* dpT = sm + (RES ? NC * Hp : 0);      // [NC][BT] dPre, rows fastest
+  float* recv = dpT + NC * BT;                // [2][C][U][BT] dh pieces
+  float* pf = recv + 2 * C * BT * U;          // [2][BT][U][6] i f g o c g_out
+
+  for (int e = tid; e < NC * BT; e += blockDim.x) dpT[e] = 0.f;
+  if (RES) {
+    for (int e = tid; e < NC * Hp; e += blockDim.x) {
+      const int cc = e / Hp, k = e % Hp, uu = cc >> 2, g = cc & 3;
+      WsT[e] = uu < nu && k < H ? W[(size_t)k * H4 + g * H + j0 + uu] : 0.f;
+    }
   }
-  __syncthreads();
-
-  const float4* dp4 = reinterpret_cast<const float4*>(dp);
-  for (int step = 0; step < T; ++step) {
-    const int t = dir ? step : T - 1 - step;
-    if (tid < H) {
-      const int j = tid;
+  // this thread's (row, unit) pairs: at most 4 (BT * U <= 4 * BWD_THREADS)
+  int ir[4], iu[4], ilen[4];
+  bool pvalid[4];
+  float dh[4], dc[4];
 #pragma unroll
-      for (int r = 0; r < BT; ++r) {
-        const int b = b0 + r;
-        float p[4] = {0.f, 0.f, 0.f, 0.f};
-        if (b < B) {
-          const size_t row = ((size_t)dir * T + t) * B + b;
-          const float* g = gates + row * H4 + j;
-          const float dh_t = gout[((size_t)b * T + t) * 2 * H + dir * H + j] +
-                             dh[r * H + j];
-          const float dcn = lstm_cell_bwd(g[0], g[H], g[2 * H], g[3 * H],
-                                          cs[row * H + j], dh_t, dc[r], p, 1);
-          if (t < len[r]) {
-            dc[r] = dcn;
-          } else {
-            p[0] = p[1] = p[2] = p[3] = 0.f;
-          }
-          float* o = dxp + row * H4 + j;
-          o[0] = p[0];
-          o[H] = p[1];
-          o[2 * H] = p[2];
-          o[3 * H] = p[3];
-        }
-        dp[r * H4 + j] = p[0];
-        dp[r * H4 + H + j] = p[1];
-        dp[r * H4 + 2 * H + j] = p[2];
-        dp[r * H4 + 3 * H + j] = p[3];
+  for (int m = 0; m < 4; ++m) {
+    const int e = tid + m * blockDim.x;
+    ir[m] = e / U;
+    iu[m] = e % U;
+    const bool mine = e < BT * U && iu[m] < nu && b0 + ir[m] < B;
+    ilen[m] = mine ? lens[b0 + ir[m]] : -1;  // -1: not a pair of this block
+    pvalid[m] = false;
+    dh[m] = dc[m] = 0.f;
+  }
+  // the copy of step t's streams: thread tid moves unit tid % U of the
+  // (row, stream) pairs tid / U, tid / U + pstride, ...
+  const int pu = tid % U, pstride = blockDim.x / U;
+  auto prefetch = [&](int step, float* dst) {
+    const int t = dir ? step : T - 1 - step;
+    for (int rv = tid / U; rv < BT * 6 && pu < nu && tid < pstride * U; rv += pstride) {
+      const int r = rv / 6, v = rv % 6, b = b0 + r, uu = pu;
+      if (b >= B) continue;
+      const size_t row = ((size_t)dir * T + t) * B + b;
+      const int jj = j0 + uu;
+      const float* src = v < 4 ? gates + row * H4 + v * H + jj
+                       : v == 4 ? cs + row * H + jj
+                                : gout + ((size_t)b * T + t) * 2 * H + dir * H + jj;
+      cp_async4(dst + (r * U + uu) * 6 + v, src);
+    }
+    cp_async_commit();
+  };
+  prefetch(0, pf);
+  cluster.sync();  // every peer runs before anyone writes into it
+
+  for (int step = 0; step < T; ++step) {
+    const int cur = step & 1;
+    const int t = dir ? step : T - 1 - step;
+    if (step > 0) {  // the dh pieces of step - 1, added in rank order
+      const float* rv = recv + (cur ^ 1) * C * BT * U;
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        if (ilen[m] < 0) continue;
+        float a = 0.f;
+#pragma unroll 4
+        for (int q = 0; q < C; ++q) a += rv[(q * U + iu[m]) * BT + ir[m]];
+        if (pvalid[m]) dh[m] = a;
       }
+    }
+    cp_async_wait<0>();  // this step's streams copied
+    __syncthreads();
+    const float* f = pf + cur * BT * U * 6;
+    float p[4][4];  // dPre of each pair; to global memory after the arrive
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      if (ilen[m] < 0) continue;
+      const float* v = f + (ir[m] * U + iu[m]) * 6;
+      const bool valid = t < ilen[m];
+      const float dcn = lstm_cell_bwd(v[0], v[1], v[2], v[3], v[4], v[5] + dh[m],
+                                      dc[m], p[m], 1);
+      if (valid) {
+        dc[m] = dcn;
+      } else {
+        p[m][0] = p[m][1] = p[m][2] = p[m][3] = 0.f;
+      }
+      pvalid[m] = valid;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) dpT[(4 * iu[m] + g) * BT + ir[m]] = p[m][g];
     }
     __syncthreads();  // dPre complete
-    float acc[BT];
+    float* mine = recv + cur * C * BT * U;  // this step's slot set, in every peer
+    for (int tile = tid; tile < GT; tile += blockDim.x) {
+      const int rq = tile / KQ, kq = tile % KQ;
+      float acc[16];  // [row][unit of the quad]
 #pragma unroll
-    for (int r = 0; r < BT; ++r) acc[r] = 0.f;
-#pragma unroll 2
-    for (int jj = q * H; jj < (q + 1) * H; jj += 4) {
-      const float* w = WT + (size_t)jj * H + k;
-      const float w0 = w[0], w1 = w[H], w2 = w[2 * H], w3 = w[3 * H];
+      for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+#pragma unroll 4
+      for (int cc = 0; cc < NC; ++cc) {
+        const float4 dv = *reinterpret_cast<const float4*>(dpT + cc * BT + rq * 4);
+        float4 wv;
+        if (RES) {
+          wv = *reinterpret_cast<const float4*>(WsT + cc * Hp + kq * 4);
+        } else {
+          float w4[4];
+          const int uu = cc >> 2;
 #pragma unroll
-      for (int r = 0; r < BT; ++r) {
-        const float4 d = dp4[(r * H4 + jj) >> 2];
-        acc[r] = fmaf(d.x, w0, acc[r]);
-        acc[r] = fmaf(d.y, w1, acc[r]);
-        acc[r] = fmaf(d.z, w2, acc[r]);
-        acc[r] = fmaf(d.w, w3, acc[r]);
+          for (int kk = 0; kk < 4; ++kk) {
+            const int k = kq * 4 + kk;
+            w4[kk] = uu < nu && k < H
+                         ? __ldg(W + (size_t)k * H4 + (cc & 3) * H + j0 + uu) : 0.f;
+          }
+          wv = make_float4(w4[0], w4[1], w4[2], w4[3]);
+        }
+        const float dr[4] = {dv.x, dv.y, dv.z, dv.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[4 * i] = fmaf(dr[i], wv.x, acc[4 * i]);
+          acc[4 * i + 1] = fmaf(dr[i], wv.y, acc[4 * i + 1]);
+          acc[4 * i + 2] = fmaf(dr[i], wv.z, acc[4 * i + 2]);
+          acc[4 * i + 3] = fmaf(dr[i], wv.w, acc[4 * i + 3]);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int k = kq * 4 + kk;
+        if (k >= H) break;
+        const int q = k / U;  // the unit's owner; its 4 rows in one store
+        float* dst = cluster.map_shared_rank(mine, q) + (rank * U + k - q * U) * BT + rq * 4;
+        *reinterpret_cast<float4*>(dst) =
+            make_float4(acc[kk], acc[4 + kk], acc[8 + kk], acc[12 + kk]);
       }
     }
+    cluster_arrive();  // this block's pieces are with their owners
+    if (step + 1 < T) prefetch(step + 1, pf + (cur ^ 1) * BT * U * 6);
 #pragma unroll
-    for (int r = 0; r < BT; ++r) part[(q * BT + r) * H + k] = acc[r];
-    __syncthreads();  // quarter sums complete, every read of dh and dp done
-    if (tid < H) {
+    for (int m = 0; m < 4; ++m) {
+      if (ilen[m] < 0) continue;
+      float* o = dxp + (((size_t)dir * T + t) * B + b0 + ir[m]) * H4 + j0 + iu[m];
 #pragma unroll
-      for (int r = 0; r < BT; ++r) {
-        if (t >= len[r]) continue;  // padded (or absent) row: dh keeps its value
-        dh[r * H + k] = ((part[r * H + k] + part[(BT + r) * H + k]) +
-                         part[(2 * BT + r) * H + k]) +
-                        part[(3 * BT + r) * H + k];
-      }
+      for (int g = 0; g < 4; ++g) o[g * H] = p[m][g];
     }
-    __syncthreads();
+    cluster_wait();  // every piece of this step is here; every peer has read dPre
   }
+}
+
+// Dynamic shared memory of the backward sweep, and whether the slice is
+// resident; false for a shape it does not take.
+bool bwd_plan(int H, int BT, int C, size_t& smem, bool& resident) {
+  if (H < 1 || (BT != 4 && BT != 8 && BT != 16) || C < 1 || C > 16) return false;
+  const int U = (H + C - 1) / C;
+  if (U > 64) return false;
+  const size_t NC = 4 * U, Hp = (H + 3) & ~3;
+  const size_t base = sizeof(float) * (NC * BT + 2 * C * BT * U + 2 * BT * U * 6);
+  resident = base + sizeof(float) * NC * Hp <= smem_optin();
+  smem = resident ? base + sizeof(float) * NC * Hp : base;
+  return smem <= smem_optin();
+}
+
+int launch_bwd(const float* gout, const float* cs, const float* gates,
+               const float* whf, const float* whb, const int* lens, float* dxp,
+               int B, int T, int H, int BT, int C, cudaStream_t stream,
+               int* max_clusters = nullptr) {
+  size_t smem;
+  bool res;
+  if (!bwd_plan(H, BT, C, smem, res) || B < 0 || T < 0) return (int)cudaErrorInvalidValue;
+  if (B == 0 || T == 0) return 0;  // nothing to sweep
+  const dim3 grid(C * ((B + BT - 1) / BT), 2);
+  auto kern = res ? bilstm_bwd_kernel<true> : bilstm_bwd_kernel<false>;
+  return launch_cluster(kern, grid, BWD_THREADS, smem, C, stream, max_clusters,
+                        gout, cs, gates, whf, whb, lens, dxp, B, T, H, BT);
 }
 
 }  // namespace
 
 // gout [B][T][2H] (the output's cotangent), cs [2][T][B][H] (c_{t-1}),
-// gates [2][T][B][4H], whtf/whtb = W_hh^T [4H][H] per direction, lens [B];
-// writes dxp [2][T][B][4H].
+// gates [2][T][B][4H], whf/whb = W_hh [H][4H] per direction, lens [B];
+// writes dxp [2][T][B][4H]. BT rows per batch tile, clusters of C blocks.
 extern "C" int bilstm_bwd_recurrent(const float* gout, const float* cs,
-                                    const float* gates, const float* whtf,
-                                    const float* whtb, const int* lens,
-                                    float* dxp, int B, int T, int H,
-                                    cudaStream_t stream) {
-  if (4 * H > 1024 || H % 4) return (int)cudaErrorInvalidValue;
-  const int smem = BT * 9 * H * (int)sizeof(float);
-  cudaFuncSetAttribute(bilstm_bwd_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  dim3 grid((B + BT - 1) / BT, 2);
-  bilstm_bwd_kernel<<<grid, 4 * H, smem, stream>>>(gout, cs, gates, whtf, whtb,
-                                                   lens, dxp, B, T, H);
-  STJEP_RETURN_LAUNCH_STATUS();
+                                    const float* gates, const float* whf,
+                                    const float* whb, const int* lens,
+                                    float* dxp, int B, int T, int H, int BT,
+                                    int C, cudaStream_t stream) {
+  return launch_bwd(gout, cs, gates, whf, whb, lens, dxp, B, T, H, BT, C, stream);
+}
+
+// As bilstm_fwd_plan (bilstm.cu), for the backward sweep.
+extern "C" int bilstm_bwd_plan(int B, int H, int BT, int C, int* info,
+                               cudaStream_t stream) {
+  size_t smem;
+  bool res;
+  if (B < 1 || !bwd_plan(H, BT, C, smem, res)) return (int)cudaErrorInvalidValue;
+  info[0] = BWD_THREADS;
+  info[1] = (int)smem;
+  info[2] = res ? 1 : 2;  // W_hh's slice in shared memory, or streamed
+  return launch_bwd(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                    nullptr, B, 1, H, BT, C, stream, &info[3]);
 }

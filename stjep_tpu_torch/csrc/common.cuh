@@ -77,6 +77,82 @@ __device__ __forceinline__ void block_argmax(float& v, int& i, float* rv, int* r
 
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-x)); }
 
+// One barrier across every thread of every block of the cluster, in two
+// halves: writes a thread made before its arrive (to its block's own or to
+// a peer's shared memory) are visible to every thread of the cluster after
+// the wait. Every thread arrives, then waits, once per phase.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// 4-byte asynchronous copy global -> shared (cp.async), and its group
+// bookkeeping: wait_group<N> returns once at most N of this thread's
+// committed groups are still in flight.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Launch `kern` on `grid` in clusters of `csize` blocks along x (grid.x a
+// multiple of csize) with `smem` bytes of dynamic shared memory. A cluster
+// the card cannot hold (cudaOccupancyMaxActiveClusters = 0) is refused
+// before the launch; every refusal comes back as the error code. With
+// `max_clusters` non-null nothing launches: it gets the number of such
+// clusters the card can run at once.
+template <typename... Params, typename... Args>
+int launch_cluster(void (*kern)(Params...), dim3 grid, int threads, size_t smem,
+                   int csize, cudaStream_t stream, int* max_clusters,
+                   Args... args) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = csize;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, kern, &cfg);
+  if (e != cudaSuccess) return (int)e;
+  if (max_clusters) {
+    *max_clusters = n;
+    return 0;
+  }
+  if (n == 0) return (int)cudaErrorInvalidConfiguration;
+  e = cudaLaunchKernelEx(&cfg, kern, args...);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The largest dynamic shared memory a block may opt in to on this device.
+inline size_t smem_optin() {
+  int dev = 0, bytes = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return (size_t)bytes;
+}
+
 // One LSTM cell backward from the saved gate activations (i, f, g, o), the
 // previous cell c_prev and dh_t = dL/dh_t (external + recurrent): writes
 // dL/dpre for the four gates to dp[0], dp[H], dp[2H], dp[3H] and returns the

@@ -37,9 +37,11 @@ _SIGS = {
     "gemm_f32": "pppppp" + "iiiiiiiii",
     "gemm_q8": "ppppppp" + "iiiiiiiii",
     "layernorm_f32": "pppp" + "ii" + "f",
-    "bilstm_recurrent": "pppppp" + "iii",
-    "bilstm_fwd_save": "pppppp" + "ppp" + "iii",
-    "bilstm_bwd_recurrent": "ppppppp" + "iii",
+    "bilstm_recurrent": "pppppp" + "iii" + "ii",
+    "bilstm_fwd_save": "pppppp" + "ppp" + "iii" + "ii",
+    "bilstm_bwd_recurrent": "ppppppp" + "iii" + "ii",
+    "bilstm_fwd_plan": "iiii" + "p",
+    "bilstm_bwd_plan": "iiii" + "p",
     "las_embed_concat": "ppp" + "i" + "p" + "iiii",
     "lstm_gates": "pppp" + "i" + "p" + "i" + "p" + "i" + "pp" + "ii",
     "bilinear_attend": "p" + "i" + "pppp" + "i" + "pp" + "iiii",

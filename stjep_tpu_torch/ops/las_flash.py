@@ -5,7 +5,8 @@ On CUDA tensors a host loop over the steps launches the per-step kernels of
 `csrc/las_greedy.cu` and the shared GEMM; the emitted symbol stays on the
 card, so the loop never synchronises. On CPU tensors `las_greedy_plain`
 runs the same function in plain PyTorch, step for step as the JAX
-package's XLA scan (`las_decoder_forward` with `want_logps=False`).
+package's XLA scan (`las_decoder_forward` with `want_logps=False`),
+through the LAS decoder's step loop.
 """
 
 from __future__ import annotations
@@ -16,14 +17,14 @@ import torch
 
 from stjep_tpu_torch import kernels
 from stjep_tpu_torch.bridge import leaves
-from stjep_tpu_torch.ops.attention import attend, linear
-from stjep_tpu_torch.ops.lstm import lstm_cell_step
 
 
-def _embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    from stjep_tpu_torch.models.las_decoder import embed
-
-    return embed(table, ids)
+def las_flash_supported(cfg) -> bool:
+    """The widths and attention mode the kernel takes, as JAX's
+    `las_flash_supported` (stjep_tpu/ops/las_flash.py:64-72): bilinear
+    attention (the recipe's mode) and tile-friendly widths."""
+    return (cfg.acous_att_mode == "bilinear" and cfg.enc_embedding_size % 8 == 0
+            and cfg.dim_model % 128 == 0 and (2 * cfg.acous_hidden_size) % 128 == 0)
 
 
 def las_greedy_plain(params: Dict, cfg, wk: torch.Tensor,
@@ -31,39 +32,17 @@ def las_greedy_plain(params: Dict, cfg, wk: torch.Tensor,
                      sym0: torch.Tensor, n_steps: int,
                      ref_tokens: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel. Returns (embs [B, n, Hs],
-    preds [B, n] int64, picked [B, n]): the dynamic embeddings, the greedy
-    symbols, and the log-softmax at ref_tokens[:, step] (token 0 without
-    refs)."""
-    B, Tk, Hd = wk.shape
-    n = cfg.num_unilstm_dec
+    """Plain PyTorch version of the kernel: the LAS decoder's step loop
+    (models/las_decoder.py `_step_loop`) free running on the bilinear keys
+    wk. Returns (embs [B, n, Hs], preds [B, n] int64, picked [B, n]): the
+    dynamic embeddings, the greedy symbols, and the log-softmax at
+    ref_tokens[:, step] (token 0 without refs)."""
+    from stjep_tpu_torch.models.las_decoder import _att_mask, _step_loop
+
     dev = wk.device
-    h = [torch.zeros((B, Hd), device=dev) for _ in range(n)]
-    c = [torch.zeros((B, Hd), device=dev) for _ in range(n)]
-    cell = torch.zeros((B, params["acous_ffn"]["w"].shape[1]), device=dev)
-    sym = sym0.to(dev).long()
-    mask = torch.arange(Tk, device=dev)[None, :] >= lens_k.to(dev)[:, None]
-    if ref_tokens is None:
-        ref_tokens = torch.zeros((B, n_steps), dtype=torch.long, device=dev)
-    embs, preds, picked = [], [], []
-    for step in range(n_steps):
-        x = torch.cat([_embed(params["embedder"], sym), cell], dim=-1)
-        h[0], c[0] = lstm_cell_step(params["dec_l0"], x, h[0], c[0])
-        out = h[0]
-        for i in range(1, n):
-            h[i], c[i] = lstm_cell_step(params[f"dec_l{i}"], out, h[i], c[i])
-            out = h[i] + out if i < n - 1 else h[i]  # middle residuals
-        q = out[:, None, :]
-        ctx, _ = attend(params["acous_att"], {"wk": wk}, q, att_values,
-                        "bilinear", mask=mask)
-        cell = linear(params["acous_ffn"], torch.cat([ctx, q], dim=-1))[:, 0]
-        logp = torch.log_softmax(linear(params["acous_out"], cell), dim=-1)
-        sym = torch.argmax(logp, dim=-1)
-        embs.append(cell)
-        preds.append(sym)
-        picked.append(logp.gather(1, ref_tokens[:, step:step + 1].long())[:, 0])
-    return (torch.stack(embs, dim=1), torch.stack(preds, dim=1),
-            torch.stack(picked, dim=1))
+    return _step_loop(params, cfg, att_values.to(dev), _att_mask(lens_k.to(dev), wk.shape[1]),
+                      n_steps, sym0=sym0.to(dev).long(), ref_tokens=ref_tokens,
+                      pre_keys={"wk": wk}, mode="bilinear")
 
 
 def las_greedy_flash(params: Dict, cfg, wk: torch.Tensor,

@@ -281,6 +281,12 @@ las_tf_bwd.launches = 0
 # ---------------------------------------------------------------------------
 
 
+def las_tf_flash_supported(cfg) -> bool:
+    """As JAX's `las_tf_flash_supported` (stjep_tpu/ops/las_tf_flash.py:49-52)."""
+    return (cfg.acous_att_mode == "bilinear" and cfg.dim_model % 128 == 0
+            and (2 * cfg.acous_hidden_size) % 128 == 0)
+
+
 def scan_weights(w0_ih, w0_hh, w1_ih, w1_hh, b1_ih, b1_hh, w2_ih, w2_hh, b2_ih,
                  b2_hh, ffn_w) -> Weights:
     """The three LSTM layers' and the FFN's params as the steps read them."""

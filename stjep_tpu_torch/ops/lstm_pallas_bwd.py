@@ -12,11 +12,13 @@ output's cotangent there is dropped); dW_hh, dW_ih, db (the same for b_ih
 and b_hh) and dX are finished by stream matmuls outside the kernel, as the
 JAX code finishes them (`lstm_pallas_bwd.py:309-348`).
 
-On CUDA tensors the forward launches K1's sweep in its saving variant
-(`csrc/bilstm.cu`, after one GEMM per direction for the input projections)
-and the backward `csrc/bilstm_bwd.cu`; on CPU tensors the same Function
-runs `bilstm_fwd_save_plain` and `bilstm_bwd_plain`, explicit time loops
-that produce the same streams. The TPU kernels keep the streams in bf16;
+On CUDA tensors the forward launches K1's cluster sweep in its saving
+variant (`csrc/bilstm.cu`, after one GEMM per direction for the input
+projections) and the backward the reverse cluster sweep of
+`csrc/bilstm_bwd.cu`, which reads W_hh as it is (no transpose); both take
+their batch tile and cluster size from `lstm_pallas.sweep_shape`. On CPU
+tensors the same Function runs `bilstm_fwd_save_plain` and
+`bilstm_bwd_plain`, explicit time loops that produce the same streams. The TPU kernels keep the streams in bf16;
 the port keeps f32 (the JAX package's parity mode).
 """
 
@@ -28,6 +30,7 @@ import torch
 
 from stjep_tpu_torch import kernels
 from stjep_tpu_torch.ops.lstm import lstm_gates
+from stjep_tpu_torch.ops.lstm_pallas import input_projections, sweep_shape
 
 # ---------------------------------------------------------------------------
 # plain versions
@@ -99,18 +102,17 @@ def bilstm_fwd_save(w_ih: Tuple, w_hh: Tuple, bias: Tuple, x: torch.Tensor,
                     lengths: torch.Tensor):
     """K8 forward on the card; same arguments and results as
     bilstm_fwd_save_plain."""
-    B, T, Din = x.shape
+    B, T, _ = x.shape
     H = w_hh[0].shape[0]
-    x2 = x.reshape(B * T, Din).contiguous()
-    xp = [kernels.gemm(x2, w_ih[d].contiguous(), bias=bias[d].contiguous())
-          for d in range(2)]
+    shape = sweep_shape(B, H)
+    xp = input_projections(x, w_ih, bias)
     lens = lengths.to(device=x.device, dtype=torch.int32).contiguous()
     out = torch.empty((B, T, 2 * H), device=x.device, dtype=torch.float32)
     hs = torch.empty((2, T, B, H), device=x.device, dtype=torch.float32)
     cs = torch.empty_like(hs)
     gates = torch.empty((2, T, B, 4 * H), device=x.device, dtype=torch.float32)
     kernels.launch("bilstm_fwd_save", xp[0], xp[1], w_hh[0].contiguous(),
-                   w_hh[1].contiguous(), lens, out, hs, cs, gates, B, T, H)
+                   w_hh[1].contiguous(), lens, out, hs, cs, gates, B, T, H, *shape)
     bilstm_fwd_save.launches += 1
     return out, hs, cs, gates
 
@@ -125,11 +127,12 @@ def bilstm_bwd(g_out: torch.Tensor, cs: torch.Tensor, gates: torch.Tensor,
     _, T, B, H = cs.shape
     kernels.check(cs, name="cs")
     kernels.check(gates, name="gates")
+    shape = sweep_shape(B, H, backward=True)
     lens = lengths.to(device=cs.device, dtype=torch.int32).contiguous()
     dxp = torch.empty_like(gates)
     kernels.launch("bilstm_bwd_recurrent", g_out.contiguous(), cs, gates,
-                   w_hh[0].t().contiguous(), w_hh[1].t().contiguous(), lens,
-                   dxp, B, T, H)
+                   w_hh[0].contiguous(), w_hh[1].contiguous(), lens, dxp, B, T, H,
+                   *shape)
     bilstm_bwd.launches += 1
     return dxp
 

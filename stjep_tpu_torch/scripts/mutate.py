@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
-"""Mutation check of the decode kernels (csrc/decode.cu, csrc/gemm.cu) on one GPU,
-the tensor-parallel head (K7c) included.
+"""Mutation check of the kernels on one GPU: the decode kernels
+(csrc/decode.cu, csrc/gemm.cu, the tensor-parallel head K7c included) and
+the BiLSTM cluster sweeps (csrc/bilstm.cu, csrc/bilstm_bwd.cu).
 
-    python3 stjep_tpu_torch/scripts/mutate.py [--workdir DIR]
+    python3 stjep_tpu_torch/scripts/mutate.py [--workdir DIR] [--only TEXT]
 
 Copies the package and tests/test_torch_cuda.py into DIR (by default
 stjep_tpu_torch/build/mutants, which git ignores), first unchanged and then
-once per mutation below, each a one-line change of a kernel source; builds each
-copy's kernels and runs the decode cases of the card tests against it. The
-unchanged copy must pass and every mutant should fail. Prints one line per
-run; exits non-zero if the unchanged copy fails or a mutant passes.
+once per mutation below, each a change of one or two lines of a kernel
+source; builds each copy's kernels and runs the card tests that cover that
+source against it (each run within a time limit: a mutant that hangs
+counts as caught). The unchanged copy must pass and every mutant should
+fail. With --only, just the mutations whose source file name contains TEXT.
+Prints one line per run; exits non-zero if the unchanged copy fails or a
+mutant passes.
 """
 
 from __future__ import annotations
@@ -24,9 +28,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[2]
 SELECT = ("layer_step or head or gather or beam_step or beam_select or "
           "general_beam or forward_eval or gemm_q8 or attn_kernels or serving or tp_")
+SELECT_BILSTM = "bilstm"
+TIMEOUT_S = 900
 
 # (what it breaks, the source in csrc/, the line as it is, the line as the
-# mutant has it)
+# mutant has it; a tuple of lines for a change of several)
 MUTATIONS = [
     ("tie order in head_topk's row scan", "decode.cu",
      "      if (!better(v, c, bv, bi)) continue;",
@@ -67,6 +73,19 @@ MUTATIONS = [
     ("a shard narrower than K: 0, not -1e30, past its width", "decode.cu",
      "        sc[(size_t)r * K + k] = -1e30f;",
      "        sc[(size_t)r * K + k] = 0.f;"),
+    ("forward sweep without its cluster barrier", "bilstm.cu",
+     ("    cluster_arrive();  // this block's h slice is in every peer",
+      "    cluster_wait();  // every peer's slice is here, and every peer has read h_{t-1}"),
+     ("", "")),
+    ("h slice sent one unit off", "bilstm.cu",
+     "      const float4* src = reinterpret_cast<const float4*>(hnext + j0 * BT);",
+     "      const float4* src = reinterpret_cast<const float4*>(hnext + (j0 + 1) * BT);"),
+    ("a masked row sends its new h, not its kept h", "bilstm.cu",
+     "      hnext[j * BT + r] = h[i];  // a masked row sends its kept h",
+     "      hnext[j * BT + r] = hn;"),
+    ("dh pieces added out of rank order", "bilstm_bwd.cu",
+     "        for (int q = 0; q < C; ++q) a += rv[(q * U + iu[m]) * BT + ir[m]];",
+     "        for (int q = C - 1; q >= 0; --q) a += rv[(q * U + iu[m]) * BT + ir[m]];"),
 ]
 
 
@@ -78,18 +97,28 @@ def run(workdir: Path, label: str, mutation=None) -> int:
                     ignore=shutil.ignore_patterns("build", "__pycache__"))
     (dst / "tests").mkdir(parents=True)
     shutil.copy(ROOT / "tests" / "test_torch_cuda.py", dst / "tests")
+    select = SELECT
     if mutation is not None:
         _, name, old, new = mutation
         src = dst / "stjep_tpu_torch" / "csrc" / name
         text = src.read_text()
-        if text.count(old) != 1:
-            raise RuntimeError(f"mutation site not found once: {old!r}")
-        src.write_text(text.replace(old, new))
+        pairs = zip(old, new) if isinstance(old, tuple) else [(old, new)]
+        for o, n in pairs:
+            if text.count(o) != 1:
+                raise RuntimeError(f"mutation site not found once: {o!r}")
+            text = text.replace(o, n)
+        src.write_text(text)
+        select = SELECT_BILSTM if name.startswith("bilstm") else SELECT
     env = {**os.environ, "PYTHONPATH": str(dst)}
-    proc = subprocess.run(
-        [sys.executable, "-m", "pytest", "tests/test_torch_cuda.py", "-m", "cuda",
-         "--noconftest", "-q", "-p", "no:cacheprovider", "-k", SELECT],
-        cwd=dst, env=env, capture_output=True, text=True)
+    cmd = [sys.executable, "-m", "pytest", "tests/test_torch_cuda.py", "-m", "cuda",
+           "--noconftest", "-q", "-p", "no:cacheprovider", "-k",
+           select if mutation is not None else f"{SELECT} or {SELECT_BILSTM}"]
+    try:
+        proc = subprocess.run(cmd, cwd=dst, env=env, capture_output=True, text=True,
+                              timeout=TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        print(f"[{label}] timed out after {TIMEOUT_S} s", flush=True)
+        return 124
     lines = proc.stdout.strip().splitlines()
     print(f"[{label}] rc={proc.returncode} {lines[-1] if lines else proc.stderr[-500:]}",
           flush=True)
@@ -100,14 +129,15 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--workdir", type=Path,
                     default=ROOT / "stjep_tpu_torch" / "build" / "mutants")
+    ap.add_argument("--only", default="")
     args = ap.parse_args()
     args.workdir.mkdir(parents=True, exist_ok=True)
     if run(args.workdir, "unchanged") != 0:
         print("the unchanged copy fails its tests", flush=True)
         return 1
-    survived = [m[0] for i, m in enumerate(MUTATIONS)
-                if run(args.workdir, f"mutation {i}", m) == 0]
-    print(f"mutants caught: {len(MUTATIONS) - len(survived)} of {len(MUTATIONS)}; "
+    chosen = [(i, m) for i, m in enumerate(MUTATIONS) if args.only in m[1]]
+    survived = [m[0] for i, m in chosen if run(args.workdir, f"mutation {i}", m) == 0]
+    print(f"mutants caught: {len(chosen) - len(survived)} of {len(chosen)}; "
           f"not caught: {survived}", flush=True)
     shutil.rmtree(args.workdir, ignore_errors=True)
     return 1 if survived else 0

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Profile the port's decode paths at the flagship on one GPU.
 
-    python3 stjep_tpu_torch/scripts/profile_decode.py [--seed 0] [--n_model N]
+    python3 stjep_tpu_torch/scripts/profile_decode.py [--seed 0] [--n_model N] [--train]
 
 The paths are chip_smoke.py's: ST beam-5 (forward_translate) and dev eval
 (forward_eval ASR_ST with reference ids), each on the standard and on the
@@ -9,7 +9,9 @@ universal transformer, at B=16 with random weights; and the serving decode,
 ST beam-5 on the standard model with bf16 caches and int8 weights, at B=16
 and at B=1. With --n_model N > 1 only the ST beam-5 on the standard
 model, tensor-parallel on a (1, N) mesh whose shards all lie on the card
-(parallel/spmd.py). For each path: one
+(parallel/spmd.py). With --train only the ASR_ST train step at the
+flagship (make_train_step, B=16, dropout and SpecAugment on, as
+chip_smoke.py's train e2e phase), one step a call. For each path: one
 warm-up call, one call timed on the host clock, then one call under
 torch.profiler. Prints per path the plain wall ms, the profiled wall ms
 (inflated by the profiler), device busy ms (the union of the device
@@ -81,6 +83,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n_model", type=int, default=1,
                     help="> 1: profile the tensor-parallel beam on a (1, N) mesh of the card")
+    ap.add_argument("--train", action="store_true", help="profile the train step alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_decode: needs a CUDA device", file=sys.stderr)
@@ -97,6 +100,24 @@ def main() -> int:
     kernels.lib()
     rng = np.random.RandomState(args.seed)
     feats, lens = cs.inputs(rng, cs.B)
+    if args.train:
+        from stjep_tpu_torch.train.optim import make_optimizer
+        from stjep_tpu_torch.train.trainer import make_train_step
+
+        cfg = ModelConfig(**cs.FLAGSHIP)
+        state = {"params": params_to(init_seq2seq(cfg, torch.Generator().manual_seed(args.seed),
+                                                  "cpu"), "cuda")}
+        mb = {k: v.cuda() for k, v in cs.train_batch(rng, cfg, cs.B, cs.FRAMES).items()}
+        opt = make_optimizer(1.0)
+        state["opt"] = opt.init(state["params"])
+        step = make_train_step(cfg, "ASR_ST", opt, device="cuda")
+        gen = torch.Generator().manual_seed(args.seed)
+
+        def one_step():
+            state["params"], state["opt"], _ = step(state["params"], state["opt"], [mb], gen,
+                                                    cs.TRAIN_LR)
+        one_step()  # a second warm-up step: the first builds the optimizer's state
+        profile("train step ASR_ST", one_step)
     if args.n_model > 1:
         cfg = ModelConfig(**cs.FLAGSHIP)
         params = params_to(init_seq2seq(cfg, torch.Generator().manual_seed(args.seed), "cpu"),
@@ -107,7 +128,7 @@ def main() -> int:
             params, cfg, "ST", acous_feats=f, acous_lens=l, beam_width=cs.BEAM,
             penalty_factor=1.0, max_seq_len=cs.DECODE_LEN, device="cuda"))
         set_kernel_mesh(None)
-    for kind in ("standard", "universal") if args.n_model == 1 else ():
+    for kind in ("standard", "universal") if args.n_model == 1 and not args.train else ():
         cfg = ModelConfig(**{**cs.FLAGSHIP, "transformer_type": kind})
         params = params_to(init_seq2seq(cfg, torch.Generator().manual_seed(args.seed), "cpu"),
                            "cuda")

@@ -59,7 +59,13 @@ from stjep_tpu_torch.ops import las_tf_flash as k9
 from stjep_tpu_torch.ops import lstm_pallas_bwd as k8
 from stjep_tpu_torch.ops.las_flash import las_greedy_flash, las_greedy_plain
 from stjep_tpu_torch.ops.lstm import bilstm_init
-from stjep_tpu_torch.ops.lstm_pallas import bilstm_pallas, bilstm_plain
+from stjep_tpu_torch.ops.lstm_pallas import (
+    MAX_HIDDEN,
+    bilstm_pallas,
+    bilstm_plain,
+    sweep_plan,
+    sweep_shape,
+)
 from stjep_tpu_torch.ops.masks import position_signal
 from stjep_tpu_torch.ops.transformer import layer_norm
 
@@ -153,20 +159,59 @@ def test_wrappers_reject_bad_cuda_input(dev):
         kernels.gemm(torch.zeros((2, 4), device=dev), w.t())  # not contiguous
 
 
-@pytest.mark.parametrize("Bn,T,Din,H", [(3, 21, 8, 64), (9, 40, 24, 256)])
+# the cluster sweeps (K1, K8) at every batch and width the flags give: B 1
+# to 64, H 50 (not a multiple of 4) to 512 (W_hh's slice streamed from L2),
+# T up to the flagship's 1504 frames
+SWEEPS = [(1, 5, 8, 50), (3, 21, 8, 64), (9, 40, 24, 256), (3, 97, 8, 50),
+          (16, 60, 24, 200), (3, 300, 16, 512), (64, 33, 8, 512), (64, 188, 64, 256),
+          (1, 1504, 40, 256), (16, 1504, 40, 256)]
+SWEEP_IDS = [f"B{b}-T{t}-H{h}" for b, t, _, h in SWEEPS]
+
+
+def _sweep_lens(rng, Bn, T):
+    """Lengths with T, 0 and 1 in one batch (where it has three rows)."""
+    lens = torch.from_numpy(rng.randint(1, T + 1, size=(Bn,)))
+    lens[0] = T
+    if Bn >= 3:
+        lens[1], lens[2] = 0, 1
+    return lens
+
+
+@pytest.mark.parametrize("Bn,T,Din,H", SWEEPS, ids=SWEEP_IDS)
 def test_bilstm_kernel_matches_plain(dev, Bn, T, Din, H):
     rng = np.random.RandomState(T)
     p = bilstm_init(torch.Generator().manual_seed(T), Din, H, dev)
     x = _randn(rng, Bn, T, Din, dev=dev)
-    lens = torch.from_numpy(rng.randint(1, T + 1, size=(Bn,))).to(dev)
-    lens[0] = T
-    lens[-1] = 1
+    lens = _sweep_lens(rng, Bn, T).to(dev)
     before = bilstm_pallas.launches
     out = bilstm_pallas(p["fwd"], p["bwd"], x, lens)
     assert bilstm_pallas.launches == before + 1
     _close(out, bilstm_plain(p["fwd"], p["bwd"], x, lens), TOL_LSTM)
     valid = torch.arange(T, device=dev)[None, :] < lens[:, None]
     assert torch.all(out[~valid] == 0)
+    assert torch.equal(bilstm_pallas(p["fwd"], p["bwd"], x, lens), out)  # bit for bit
+    plan = sweep_plan(Bn, H)
+    assert plan["max_clusters"] > 0
+    # W_hh's slice in shared memory up to H = 256, streamed at H = 512
+    assert plan["w_hh"] == ("streamed" if H > 256 else "shared"), plan
+
+
+def test_bilstm_kernels_raise_where_they_cannot_run(dev):
+    """A width past the kernels' reach raises before any launch; a shape
+    the launcher refuses (a batch tile it does not take) raises too."""
+    p = bilstm_init(torch.Generator().manual_seed(0), 8, MAX_HIDDEN + 1, dev)
+    x = torch.zeros((2, 3, 8), device=dev)
+    with pytest.raises(ValueError, match="1 <= H"):
+        bilstm_pallas(p["fwd"], p["bwd"], x)
+    w = (p["fwd"]["w_ih"], p["bwd"]["w_ih"]), (p["fwd"]["w_hh"], p["bwd"]["w_hh"])
+    bias = (p["fwd"]["b_ih"], p["bwd"]["b_ih"])
+    with pytest.raises(ValueError, match="1 <= H"):
+        k8.bilstm_fwd_save(*w, bias, x, torch.tensor([3, 2], device=dev))
+    xp = torch.zeros((6, 4 * 64), device=dev)
+    wh = torch.zeros((64, 4 * 64), device=dev)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        kernels.launch("bilstm_recurrent", xp, xp, wh, wh, torch.ones(2, dtype=torch.int32,
+                       device=dev), torch.empty((2, 3, 128), device=dev), 2, 3, 64, 5, 8)
 
 
 def test_las_greedy_kernel_matches_plain(dev, params):
@@ -507,16 +552,15 @@ def _grad_leaves(tree, dev):
     return tree.detach().to(dev).clone().requires_grad_(True)
 
 
-@pytest.mark.parametrize("Bn,T,Din,H", [(3, 21, 8, 64), (9, 40, 24, 256)])
+@pytest.mark.parametrize("Bn,T,Din,H", SWEEPS, ids=SWEEP_IDS)
 def test_bilstm_trainable_kernels_match_plain(dev, Bn, T, Din, H):
-    """K8 forward streams, backward stream and the Function's gradients; one
-    row of length 0, one of length T, batches that do not fill the 8-row
-    tile."""
+    """K8 forward streams, backward stream and the Function's gradients;
+    rows of length 0, 1 and T, batches that do not fill a tile; each sweep
+    twice, bit for bit."""
     rng = np.random.RandomState(T + 1)
     p = bilstm_init(torch.Generator().manual_seed(T), Din, H, "cpu")
     x = _randn(rng, Bn, T, Din)
-    lens = torch.from_numpy(rng.randint(1, T + 1, size=(Bn,)))
-    lens[0], lens[-1] = T, 0
+    lens = _sweep_lens(rng, Bn, T)
     g_out = _randn(rng, Bn, T, 2 * H)
     w = lambda d, k: p[("fwd", "bwd")[d]][k].to(dev)
     args = ((w(0, "w_ih"), w(1, "w_ih")), (w(0, "w_hh"), w(1, "w_hh")),
@@ -526,10 +570,16 @@ def test_bilstm_trainable_kernels_match_plain(dev, Bn, T, Din, H):
     fwd_k, fwd_p = k8.bilstm_fwd_save(*args), k8.bilstm_fwd_save_plain(*args)
     for a, b in zip(fwd_k, fwd_p):
         _close(a, b, TOL_LSTM)
+    assert all(torch.equal(a, b) for a, b in zip(k8.bilstm_fwd_save(*args), fwd_k))
     bargs = (g_out.to(dev), fwd_p[2], fwd_p[3], args[1], args[4])
-    _close_rel(k8.bilstm_bwd(*bargs), k8.bilstm_bwd_plain(*bargs))
+    dxp = k8.bilstm_bwd(*bargs)
+    _close_rel(dxp, k8.bilstm_bwd_plain(*bargs))
+    assert torch.equal(k8.bilstm_bwd(*bargs), dxp)
     assert (k8.bilstm_fwd_save.launches, k8.bilstm_bwd.launches) == (
-        before[0] + 1, before[1] + 1)
+        before[0] + 2, before[1] + 2)
+    assert sweep_plan(Bn, H, backward=True)["max_clusters"] > 0
+    if T > 300:
+        return  # the Function's CPU route below loops over every step on the host
     grads = []
     for d in ("cpu", dev):
         q = _grad_leaves(p, d)
@@ -539,6 +589,34 @@ def test_bilstm_trainable_kernels_match_plain(dev, Bn, T, Din, H):
         grads.append([xd.grad] + [t.grad for t in leaves(q)])
     for a, b in zip(*grads):  # card against the CPU route
         _close_rel(b.cpu(), a)
+
+
+def test_bilstm_bwd_sums_pieces_in_rank_order(dev):
+    """The reduce-scatter's owner adds the C pieces of dh in rank order
+    0..C-1. Inputs where that order is visible: at t = 1 (the first step
+    of the forward direction's reverse sweep) every i-gate column carries
+    dPre = 1 exactly (gates i = g = o = f = 1/2, c_{t-1} = -1/2, so
+    tanh(c_t) = 0, and g_out = 16), and W_hh is zero but for one i-gate
+    column in each of ranks 0, 1 and 2, whose pieces of dh for unit k0 are
+    2^24, 1 and -2^24. In rank order they sum to 0 in f32; in any other
+    order that starts with rank 1 or 2 to 1. At t = 0 that dh shows in the
+    i gate's dPre: (dc + dh / 2) / 8 with dc = 4, so exactly 0.5."""
+    Bn, T, H = 1, 2, 64
+    bt, c = sweep_shape(Bn, H, backward=True)
+    U = -(-H // c)
+    k0 = 5
+    whh = torch.zeros((H, 4 * H))
+    for q, v in enumerate((2.0 ** 24, 1.0, -(2.0 ** 24))):
+        whh[k0, q * U] = v  # the i-gate column of rank q's first unit
+    cs = torch.full((2, T, Bn, H), -0.5)
+    gates = torch.full((2, T, Bn, 4 * H), 0.5)
+    g_out = torch.zeros((Bn, T, 2 * H))
+    g_out[:, 1, :H] = 16.0
+    lens = torch.tensor([T])
+    dxp = k8.bilstm_bwd(g_out.to(dev), cs.to(dev), gates.to(dev),
+                        (whh.to(dev), torch.zeros_like(whh).to(dev)), lens.to(dev))
+    assert float(dxp[0, 1, 0, k0]) == 1.0  # dPre_i at t = 1
+    assert float(dxp[0, 0, 0, k0]) == 0.5, float(dxp[0, 0, 0, k0])
 
 
 @pytest.mark.parametrize("use_masks", [False, True])
