@@ -19,10 +19,12 @@ package beside it, included):
    times from CUDA events; K1 (the cluster sweep, its shape and block count
    on the line) also at B=1 and B=64, each with the sweep alone timed
    beside the whole call (input GEMMs included); K7 also at a 30 000-word
-   target vocabulary. The
-   serving kernels likewise: gemm_q8 (one layer's eight int8 products, at
-   M = 80 and 5), the bf16 attention kernels, K5 in int8, bf16 and
-   int8+bf16, K3 and K4 in int8+bf16. The tensor-parallel kernels at one
+   target vocabulary. K4 and K5 are one cooperative launch each
+   (csrc/decode_fused.cu): their lines give the grid (blocks, blocks per
+   SM), the grid barriers a launch and the shared memory a block, and K5's
+   the time of the trio (K5 as K6a-c's three launch sequences) as trio_ms. The
+   serving kernels likewise: the bf16 attention kernels, K5 in int8, bf16
+   and int8+bf16, K3 and K4 in int8+bf16. The tensor-parallel kernels at one
    shard of 4 (Dq = 128, 2 local heads, BK = 80, pos 75, V/n = 50): K6a-c
    (self_attn_step, cross_attn_step, ffn_step, their partials) and K7c
    (decode_head_partial); K6b's attention kernel alone against
@@ -59,10 +61,15 @@ package beside it, included):
    - serving, universal model at B=16: int8 + bf16 and bf16 (K5 variants;
      K3 and K4 idle), and the int8-grid check;
    - tp beam: ST beam-5 through forward_translate on meshes (1, 2) and
-     (1, 4) whose shards all lie on the card (one warm-up, 2 timed requests
-     of B=16; K6a-c, K7c and K4's select launched, K3, K4 and K5
-     idle), tokens against the single-device card route's, differing rows
-     explained by a tie within E2E_MARGIN; tp dev eval: forward_eval
+     (1, 4) whose shards all lie on the card, and on (1, 2) with bf16
+     caches (one warm-up, 2 timed requests of B=16; K6a-c, K7c and K4's
+     select launched, and with bf16 the bf16 attention kernels, which no
+     other main path launches; K3, K4 and K5 idle), f32 tokens against the
+     single-device card route's, differing rows explained by a tie within
+     E2E_MARGIN; bf16 tokens against the same TP route on CPU copies on
+     the 16 rows of a request, ties within SERVE_MARGIN net of the drift
+     of the row's shared prefix;
+     tp dev eval: forward_eval
      ASR_ST at n=2 against the single-device card route, picked_* within
      1e-4.
 5. kernels K8 (trainable BiLSTM) and K9 (teacher-forced LAS scan) at the
@@ -460,6 +467,21 @@ def variant_label(quant, bf16):
 SERVE_TOL = 5e-3
 
 
+def fused_launch(cfg, BK, K, cache, quant, bf16, beam=False):
+    """The fused launch of K5 (or, with beam, K4) at this call's shapes:
+    the grid the card holds (blocks, blocks per SM), the grid barriers a
+    launch and the dynamic shared memory a block (ops/decode_flash.py
+    fused_plan, fused_grid)."""
+    from stjep_tpu_torch.ops.decode_flash import fused_grid, fused_plan
+
+    Lpad, Lk = cache.self_k.shape[3], cache.mem_k.shape[2]
+    plan = fused_plan(BK, cfg.dim_model, cfg.dim_feedforward, cfg.num_heads, Lpad, Lk, quant,
+                      beam, cfg.dec_layers, cfg.dec_vocab_size, K)
+    g = fused_grid(quant, bf16, beam, plan["smem"])
+    return dict(grid_blocks=g["blocks"], blocks_per_sm=g["blocks_per_sm"],
+                barriers=plan["barriers"], smem_bytes=plan["smem"])
+
+
 def phase_k3(params, cfg, rng, quant=False, bf16=False):
     from stjep_tpu_torch.config import BOS
     from stjep_tpu_torch.models.seq2seq import _embed_tgt_token
@@ -582,7 +604,7 @@ def phase_k4(params, cfg, rng, quant=False, bf16=False):
     say(f"kernel K4 decode_beam_step {variant_label(quant, bf16)}", BK=BK, i=i,
         eos_rows=int(eos.sum()), max_abs_err=err, tol=tol, cache_err=c_err,
         tied_groups=len(groups), ms=ms,
-        plain_ms=plain_ms, EOS=EOS, **b)
+        plain_ms=plain_ms, EOS=EOS, **b, **fused_launch(cfg, BK, K, ck, quant, bf16, True))
     need(err <= tol, f"K4 max_abs_err {err} > {tol}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
 
@@ -631,6 +653,7 @@ def phase_k5(params, cfg, rng, quant=False, bf16=False):
     BK = 80, a mid position of the 160-row caches, 96 memory rows."""
     from stjep_tpu_torch.ops.decode_flash import (
         decoder_layer_step_flash,
+        decoder_layer_step_flash_trio,
         decoder_layer_step_plain,
     )
 
@@ -653,6 +676,10 @@ def phase_k5(params, cfg, rng, quant=False, bf16=False):
     need(bool(ck.self_k[0][:, :, pos].abs().sum() > 0), "K5 wrote no cache row")
     ms = cuda_ms(lambda: run(decoder_layer_step_flash, ck), 20)
     plain_ms = cuda_ms(lambda: run(decoder_layer_step_plain, cp), 10)
+    # K5 as the trio, K6a-c's launch sequences in turn (f32 weights only), timed beside it
+    ct = clone_cache(st["cache"])
+    trio = {} if quant else {"trio_ms": cuda_ms(lambda: run(decoder_layer_step_flash_trio, ct),
+                                                20)}
     # one layer's hidden state (|y| up to ~10) in f32, summed in another
     # order; SERVE_TOL with bf16 caches
     tol = SERVE_TOL if bf16 else 1e-4
@@ -661,54 +688,9 @@ def phase_k5(params, cfg, rng, quant=False, bf16=False):
                             ck.self_k.element_size(), quant))
     say(f"kernel K5 decoder_layer_step {variant_label(quant, bf16)}", BK=BK, pos=pos,
         Lpad=Lpad, Lk_pad=Lk_pad, max_abs_err=err, tol=tol, cache_err=c_err, ms=ms,
-        plain_ms=plain_ms, **b)
+        plain_ms=plain_ms, **trio, **b, **fused_launch(cfg, BK, K, ck, quant, bf16))
     need(err <= tol, f"K5 max_abs_err {err} > {tol}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
-
-
-def phase_gemm_q8(params, cfg, rng):
-    """gemm_q8 on the decoder's quantized matrices at the shapes a layer
-    streams them: [M, 512] x [512, 512] (six per layer), x [512, 1024] and
-    [M, 1024] x [1024, 512], at M = 80 (B=16, beam 5) and M = 5 (B=1). The
-    line's numbers are one layer's eight products at M = 80; also held
-    bit-equal to gemm_f32 on the dequantized matrix."""
-    from stjep_tpu_torch import kernels
-
-    ff = serving_decoder(params, True)["layers"][0]
-    mats = {"512x512": ff["decslf_attn"]["w_qs"], "512x1024": ff["pos_ffn"]["w_1"],
-            "1024x512": ff["pos_ffn"]["w_2"]}
-    per_layer = {"512x512": 6, "512x1024": 1, "1024x512": 1}
-    err, out, layer = 0.0, {}, dict(ms=0.0, plain_ms=0.0, n_bytes=0, flops=0)
-    for M in (80, 5):
-        for nm, leaf in mats.items():
-            q, sc = leaf["w"], leaf["w_s"]
-            Kd, N = q.shape
-            a = torch.from_numpy(rng.randn(M, Kd).astype(np.float32)).cuda()
-            y = kernels.gemm(a, q, w_scale=sc)
-            w = q.float() * sc
-            need(torch.equal(y, kernels.gemm(a, w)), f"gemm_q8 {M}x{nm} differs from gemm_f32")
-            err = max(err, max_err(y, a @ w))
-            ms = cuda_ms(lambda: kernels.gemm(a, q, w_scale=sc), 20)
-            plain_ms = cuda_ms(lambda: a @ (q.float() * sc), 20)
-            n_bytes, flops = nbytes(a, q, sc, y), 2 * M * Kd * N
-            out[f"M{M}_{nm}"] = dict(ms=ms, plain_ms=plain_ms, **bound(n_bytes, flops))
-            if M == 80:
-                n = per_layer[nm]
-                layer["ms"] += n * ms
-                layer["plain_ms"] += n * plain_ms
-                layer["n_bytes"] += n * n_bytes
-                layer["flops"] += n * flops
-    # f32 products of |y| <= ~60 summed in the same order as gemm_f32 (held
-    # bit-equal above); against ATen's order ~1e-5 relative
-    tol = 1e-3
-    b = bound(layer["n_bytes"], layer["flops"])
-    say("kernel gemm_q8", max_abs_err=err, tol=tol, layer_ms=layer["ms"],
-        layer_plain_ms=layer["plain_ms"], **b,
-        shapes={k: {kk: round(vv, 5) if isinstance(vv, float) else vv for kk, vv in v.items()}
-                for k, v in out.items()})
-    need(err <= tol, f"gemm_q8 max_abs_err {err} > {tol}")
-    return dict(max_abs_err=err, ms=layer["ms"], plain_ms=layer["plain_ms"],
-                library_ms=None, **b)
 
 
 def phase_attn_bf16(params, cfg, rng):
@@ -999,55 +981,87 @@ def phase_tp_kernels(params, cfg, rng):
     return res
 
 
-def tp_mesh(n):
-    """Install (n > 1) or clear (n = 0) a (1, n) mesh on the one card."""
+def tp_mesh(n, device="cuda"):
+    """Install (n > 1) or clear (n = 0) a (1, n) mesh on the one card (or
+    on the host's CPU)."""
     from stjep_tpu_torch.parallel.mesh import make_mesh
     from stjep_tpu_torch.parallel.spmd import set_kernel_mesh
 
-    set_kernel_mesh(make_mesh(1, n, ["cuda"] * n) if n else None)
+    set_kernel_mesh(make_mesh(1, n, [device] * n) if n else None)
 
 
-def phase_tp_beam(params, cfg, reqs):
+def phase_tp_beam(params, params_c, cfg, reqs):
     """ST beam-5 through forward_translate on meshes (1, 2) and (1, 4) of
-    the card: one warm-up and 2 timed requests of B=16 each, K3, K4 and K5
-    idle, the TP kernels launched. Tokens against the single-device card
-    route on the same requests: a differing row must differ by a tie at the
-    first beam position where the two runs' hypotheses part (kept scores
-    within E2E_MARGIN). Returns the runs' launch counts."""
-    ref = [translate_timed(params, cfg, [rq], LAS_RAN + ("K3", "K4"))[0][0] for rq in reqs[:2]]
+    the card, and on (1, 2) with bf16 caches (the only path that launches
+    the bf16 attention kernels since K4 and K5 fused their own): one
+    warm-up and 2 timed requests of B=16 each, K3, K4 and K5 idle, the TP
+    kernels launched. f32: tokens against the single-device card route on
+    the same requests, a differing row explained by a tie at the first beam
+    position where the two runs' hypotheses part (kept scores within
+    E2E_MARGIN). bf16: the TP route rounds other values to bf16 than the
+    single-device route (per-shard products summed after), so the two part
+    in some rows; the card is held instead to the same TP route on CPU
+    copies (the plain versions, the same rounding points) on all 16 rows of
+    a request, each differing row explained by a tie within SERVE_MARGIN
+    net of the drift of its shared prefix (`net_divergence`). Returns the
+    runs' launch counts."""
+    ref = [translate_timed(params, cfg, [rq], LAS_RAN)[0][0] for rq in reqs[:2]]
     runs = []
-    for n in (2, TP_N):
+    idle = ("K3", "K4", "K5", "K7 head", "K3 bf16", "K4 bf16", "K5 bf16")
+    for n, opts in ((2, {}), (TP_N, {}), (2, BF16_OPTS)):
+        bf16 = bool(opts)
+        # with bf16 caches K6a and K6b count under their bf16 variant, whose
+        # attention kernels are the bf16 rows
+        ran = LAS_RAN + ("K4 select", "K6 ffn_step", "K7 head_partial") + (
+            ("self_attn bf16", "cross_attn bf16") if bf16 else TP_RAN[:2])
         tp_mesh(n)
         try:
-            outs, secs, launches = translate_timed(
-                params, cfg, reqs[:1] + reqs[:2], LAS_RAN + TP_RAN + ("K4 select",),
-                ("K3", "K4", "K5", "K7 head"))
+            outs, secs, launches = translate_timed(params, cfg, reqs[:1] + reqs[:2], ran, idle,
+                                                   **opts)
         finally:
             tp_mesh(0)
         runs.append(launches)
-        margins = []
-        for (f, l), o, r in zip(reqs[:2], outs[1:], ref):
-            if torch.equal(o.cpu(), r.cpu()):
-                continue
-            single = recorded_translate(params, cfg, f, l, "cuda")
-            tp_mesh(n)
+        if bf16:
+            f, l = reqs[0]
+            t0 = time.perf_counter()
+            tp_mesh(n, "cpu")
             try:
-                tp = recorded_translate(params, cfg, f, l, "cuda", step="beam_select")
+                other = recorded_translate(params_c, cfg, f, l, "cpu", step="beam_select", **opts)
             finally:
                 tp_mesh(0)
-            need(torch.equal(tp[1], single[1]), f"tp beam n={n}: ASR hypotheses differ")
-            for row, col in enumerate(first_diff(tp[0], single[0])):
+            cpu_s = time.perf_counter() - t0
+            pairs, limit = [(f, l, other)], SERVE_MARGIN
+        else:
+            pairs = [(f, l, None) for (f, l), o, r in zip(reqs[:2], outs[1:], ref)
+                     if not torch.equal(o.cpu(), r.cpu())]
+            limit = E2E_MARGIN
+        margins = []
+        for f, l, other in pairs:
+            other = other or recorded_translate(params, cfg, f, l, "cuda")
+            tp_mesh(n)
+            try:
+                tp = recorded_translate(params, cfg, f, l, "cuda", step="beam_select", **opts)
+            finally:
+                tp_mesh(0)
+            need(torch.equal(tp[1], other[1]), f"tp beam n={n}: ASR hypotheses differ")
+            for row, col in enumerate(first_diff(tp[0], other[0])):
                 if col is not None:
-                    pos, m = beam_divergence(tp[2], single[2], row)
-                    say("tp beam differing row", n_model=n, row=row, position=pos, margin=m)
-                    margins.append(m)
-        say(f"tp beam n={n}", requests=2, batch=B, utt_per_s=round(2 * B / sum(secs[1:]), 3),
+                    pos, m, d = net_divergence(tp[2], other[2], row)
+                    say("tp beam differing row", n_model=n, bf16=bf16, row=row, position=pos,
+                        margin=m, drift_before=d, net_margin=m - d)
+                    # bf16: the tie is what the gap gained at the parting
+                    # position, net of the drift of the shared prefix
+                    margins.append(m - d if bf16 else m)
+        say(f"tp beam n={n}" + (" bf16" if bf16 else ""), requests=2, batch=B,
+            utt_per_s=round(2 * B / sum(secs[1:]), 3),
             request_ms=[round(x * 1e3, 1) for x in secs[1:]],
-            warmup_ms=round(secs[0] * 1e3, 1), rows_differ=len(margins), of=2 * B,
-            max_first_divergence_margin=max(margins, default=0.0), limit=E2E_MARGIN,
-            launches={k: v for k, v in launches.items() if v})
-        need(all(m <= E2E_MARGIN for m in margins),
-             f"tp beam n={n} rows differ beyond ties: margins {margins}")
+            warmup_ms=round(secs[0] * 1e3, 1), rows_differ=len(margins),
+            of=B if bf16 else 2 * B, against="tp on cpu copies" if bf16 else "single device",
+            max_first_divergence_margin=max(margins, default=0.0), limit=limit,
+            launches={k: v for k, v in launches.items() if v},
+            **({"cpu_seconds": round(cpu_s, 1)} if bf16 else {}))
+        need(all(m <= limit for m in margins),
+             f"tp beam n={n} bf16={bf16} rows differ beyond ties: margins {margins}")
     return runs
 
 
@@ -1487,6 +1501,23 @@ def explain_e2e(params_c, cfg, feats, lens, card, plain):
     return margins
 
 
+def net_divergence(st_c, st_p, r):
+    """(position, margin, drift): beam_divergence's parting position and
+    margin for row r, and the row's drift at the position before, where
+    its hypotheses still agreed: the largest gap between the two runs'
+    sorted kept scores there (0 before the first recorded state). With bf16
+    caches two routes drift apart by ~3e-3 a position (rounding flips from
+    other summation orders; stjep_tpu_torch/scripts/bf16_drift.py), so over
+    a long shared prefix the margin holds that drift as well as the tie;
+    margin - drift is what the gap gained at the parting position."""
+    pos, m = beam_divergence(st_c, st_p, r)
+    if pos is None or pos < 2:
+        return pos, m, 0.0
+    g = slice(r * BEAM, (r + 1) * BEAM)
+    (_, sc), (_, sp) = st_c[pos - 2], st_p[pos - 2]
+    return pos, m, float((sc[g].sort()[0] - sp[g].sort()[0]).abs().max())
+
+
 def beam_divergence(st_c, st_p, r):
     """(position, margin): the first beam position where row r's K
     hypotheses differ between two recorded runs, and the largest gap there
@@ -1506,8 +1537,6 @@ def counters():
     from stjep_tpu_torch.ops.las_flash import las_greedy_flash
     from stjep_tpu_torch.ops.lstm_pallas import bilstm_pallas
 
-    from stjep_tpu_torch import kernels
-
     out = {"K1": (bilstm_pallas, "launches"), "K2": (las_greedy_flash, "launches"),
            "K3 gather": (df.decode_chain_step_flash, "gather_launches"),
            "K4 select": (df.beam_select, "launches"),
@@ -1515,7 +1544,6 @@ def counters():
            "K7 head_gather": (df.decode_head_gather, "launches"),
            "K8 fwd": (k8.bilstm_fwd_save, "launches"), "K8 bwd": (k8.bilstm_bwd, "launches"),
            "K9 fwd": (k9.las_tf_fwd, "launches"), "K9 bwd": (k9.las_tf_bwd, "launches"),
-           "gemm_q8": (kernels.gemm, "q8_launches"),
            "self_attn bf16": (df.self_attn_anc, "bf16_launches"),
            "cross_attn bf16": (df.cross_attn, "bf16_launches"),
            "K6 self_attn_step": (df.self_attn_step, "launches"),
@@ -1671,17 +1699,17 @@ def phase_serving(params, params_c, cfg, reqs, rng, seed):
     b1 = [(f[:1], l[:1]) for f, l in reqs]
     big = inputs(rng, 4 * B)
     runs, rec = [], {}
-    bf16_ran = LAS_RAN + ("K3 bf16", "K4 bf16", "self_attn bf16", "cross_attn bf16")
-    serve_ran = LAS_RAN + ("K3 int8+bf16", "K4 int8+bf16", "gemm_q8", "self_attn bf16",
-                           "cross_attn bf16")
-    f32_idle = ("K3", "K4", "K5")
+    bf16_ran = LAS_RAN + ("K3 bf16", "K4 bf16")
+    serve_ran = LAS_RAN + ("K3 int8+bf16", "K4 int8+bf16")
+    # the fused K4 and K5 run their own attention: the bf16 attention
+    # kernels launch only under tensor parallelism (phase_tp_beam)
+    f32_idle = ("K3", "K4", "K5", "self_attn bf16", "cross_attn bf16")
     for label, rq, opts, ran in (("bf16 B=16", reqs, BF16_OPTS, bf16_ran),
                                  ("bf16 B=1", b1, BF16_OPTS, bf16_ran),
                                  ("bf16 B=64", [big], BF16_OPTS, bf16_ran),
                                  ("int8+bf16 B=1", b1, SERVE_OPTS, serve_ran),
                                  ("int8+bf16 B=16", reqs, SERVE_OPTS, serve_ran)):
-        idle = f32_idle if "int8" in label else f32_idle + ("gemm_q8",)
-        _, secs, launches = translate_timed(params, cfg, rq, ran, idle, **opts)
+        _, secs, launches = translate_timed(params, cfg, rq, ran, f32_idle, **opts)
         n = sum(f.shape[0] for f, _ in rq)
         rec[label] = dict(utt_per_s=round(n / sum(secs), 3),
                           request_ms=[round(x * 1e3, 1) for x in secs],
@@ -1694,7 +1722,7 @@ def phase_serving(params, params_c, cfg, reqs, rng, seed):
     snapped = params_to(snap_int8_grid(params_c, seed), "cuda")
     f32_out = translate_timed(snapped, cfg, reqs[:1], LAS_RAN + ("K3", "K4"))[0][0]
     q8_out, _, launches = translate_timed(snapped, cfg, reqs[:1],
-                                          LAS_RAN + ("K3 int8", "K4 int8", "gemm_q8"), ("K3", "K4"),
+                                          LAS_RAN + ("K3 int8", "K4 int8"), ("K3", "K4"),
                                           weight_dtype="int8")
     runs.append(launches)
     same = int((f32_out == q8_out[0]).all(dim=1).sum())
@@ -1724,7 +1752,7 @@ def phase_serving_universal(uparams, uparams_c, ucfg, reqs, seed):
 
     runs = []
     idle = ("K3", "K4", "K3 int8+bf16", "K4 int8+bf16", "K3 bf16", "K4 bf16")
-    for label, opts, ran in (("int8+bf16", SERVE_OPTS, ("K5 int8+bf16", "gemm_q8")),
+    for label, opts, ran in (("int8+bf16", SERVE_OPTS, ("K5 int8+bf16",)),
                              ("bf16", BF16_OPTS, ("K5 bf16",))):
         _, secs, launches = translate_timed(uparams, ucfg, reqs[:1],
                                             LAS_RAN + ran + ("K7 head", "K4 select"), idle,
@@ -1870,7 +1898,6 @@ def main() -> int:
     k7 = phase_k7(params, cfg, rng)
     results["K7 head"], results["K7 head_gather"] = k7["head"], k7["head_gather"]
     # the serving kernels: int8 weights, bf16 caches, both
-    results["gemm_q8"] = phase_gemm_q8(params, cfg, rng)
     attn = phase_attn_bf16(params, cfg, rng)
     results["self_attn bf16"], results["cross_attn bf16"] = attn["self"], attn["cross"]
     for quant, bf16 in VARIANTS[1:]:
@@ -1900,7 +1927,7 @@ def main() -> int:
     serving_runs, serving = phase_serving(params, params_c, cfg, reqs, rng, args.seed)
     runs += serving_runs + phase_serving_universal(uparams, uparams_c, ucfg, reqs, args.seed)
     # tensor-parallel decode on one card: the beam at n = 2 and 4, dev eval at 2
-    runs += phase_tp_beam(params, cfg, reqs)
+    runs += phase_tp_beam(params, params_c, cfg, reqs)
     runs.append(phase_tp_dev_eval(params, cfg, rng))
     say("serving summary", nvidia_smi=repr(smi),
         **{k.replace(" ", "_").replace("=", "") + ("_ms" if k.endswith("B=1") else "_utt_per_s"):
@@ -1918,12 +1945,12 @@ def main() -> int:
     src, rep = "stjep_tpu_torch/csrc/", "stjep_tpu/ops/"
     sources = {"K1": ("bilstm", src + "bilstm.cu", rep + "lstm_pallas.py:206"),
                "K2": ("las_greedy", src + "las_greedy.cu", rep + "las_flash.py:168"),
-               "K3": ("decode_chain_step", src + "decode.cu", rep + "decode_flash.py:1078"),
-               "K3 gather": ("decode_chain_step gather", src + "decode.cu",
+               "K3": ("decode_chain_step", src + "decode_fused.cu", rep + "decode_flash.py:1078"),
+               "K3 gather": ("decode_chain_step gather", src + "decode_fused.cu",
                              rep + "decode_flash.py:1078"),
-               "K4": ("decode_beam_step", src + "decode.cu", rep + "decode_flash.py:1412"),
+               "K4": ("decode_beam_step", src + "decode_fused.cu", rep + "decode_flash.py:1412"),
                "K4 select": ("beam_select", src + "decode.cu", rep + "decode_flash.py:1412"),
-               "K5": ("decoder_layer_step", src + "decode.cu", rep + "decode_flash.py:759"),
+               "K5": ("decoder_layer_step", src + "decode_fused.cu", rep + "decode_flash.py:759"),
                "K7 head": ("decode_head", src + "decode.cu", rep + "decode_flash.py:1595"),
                "K7 head_gather": ("decode_head_gather", src + "decode.cu",
                                   rep + "decode_flash.py:1628"),
@@ -1931,20 +1958,19 @@ def main() -> int:
                "K8 bwd": ("bilstm_bwd", src + "bilstm_bwd.cu", rep + "lstm_pallas_bwd.py:262"),
                "K9 fwd": ("las_tf_fwd", src + "las_tf.cu", rep + "las_tf_flash.py:263"),
                "K9 bwd": ("las_tf_bwd", src + "las_tf.cu", rep + "las_tf_flash.py:364"),
-               "gemm_q8": ("gemm_q8", src + "gemm.cu", rep + "decode_flash.py:708"),
                "self_attn bf16": ("self_attn_anc_bf16", src + "decode.cu",
                                   rep + "decode_flash.py:759"),
                "cross_attn bf16": ("cross_attn_bf16", src + "decode.cu",
                                    rep + "decode_flash.py:759"),
-               "K5 int8": ("decoder_layer_step int8", src + "gemm.cu",
+               "K5 int8": ("decoder_layer_step int8", src + "decode_fused.cu",
                            rep + "decode_flash.py:708"),
-               "K5 bf16": ("decoder_layer_step bf16", src + "decode.cu",
+               "K5 bf16": ("decoder_layer_step bf16", src + "decode_fused.cu",
                            rep + "decode_flash.py:759"),
-               "K5 int8+bf16": ("decoder_layer_step int8+bf16", src + "decode.cu",
+               "K5 int8+bf16": ("decoder_layer_step int8+bf16", src + "decode_fused.cu",
                                 rep + "decode_flash.py:708"),
-               "K3 int8+bf16": ("decode_chain_step int8+bf16", src + "decode.cu",
+               "K3 int8+bf16": ("decode_chain_step int8+bf16", src + "decode_fused.cu",
                                 rep + "decode_flash.py:1078"),
-               "K4 int8+bf16": ("decode_beam_step int8+bf16", src + "decode.cu",
+               "K4 int8+bf16": ("decode_beam_step int8+bf16", src + "decode_fused.cu",
                                 rep + "decode_flash.py:1412"),
                "K6 self_attn_step": ("self_attn_step", src + "decode.cu",
                                      rep + "decode_flash.py:348"),

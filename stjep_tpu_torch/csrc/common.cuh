@@ -153,6 +153,38 @@ inline size_t smem_optin() {
   return (size_t)bytes;
 }
 
+// Let kern take as much dynamic shared memory as a block may opt in to,
+// less the kernel's static shared memory, once per kernel; *bytes (if
+// given) gets that amount. The attribute holds one value per kernel: were
+// it set to each launch's own need, a launch that asks for more than an
+// earlier, smaller one would be refused. A refusal is returned and cleared
+// from cudaGetLastError, so the next launch does not report it.
+inline cudaError_t smem_allow_max(const void* kern, int* bytes = nullptr) {
+  static const void* done[64];
+  static int most[64];
+  static int n = 0;
+  for (int i = 0; i < n; ++i)
+    if (done[i] == kern) {
+      if (bytes) *bytes = most[i];
+      return cudaSuccess;
+    }
+  cudaFuncAttributes fa = {};
+  cudaError_t e = cudaFuncGetAttributes(&fa, kern);
+  const int m = (int)smem_optin() - (int)fa.sharedSizeBytes;
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, m);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return e;
+  }
+  if (n < 64) {
+    done[n] = kern;
+    most[n++] = m;
+  }
+  if (bytes) *bytes = m;
+  return cudaSuccess;
+}
+
 // One LSTM cell backward from the saved gate activations (i, f, g, o), the
 // previous cell c_prev and dh_t = dL/dh_t (external + recurrent): writes
 // dL/dpre for the four gates to dp[0], dp[H], dp[2H], dp[3H] and returns the

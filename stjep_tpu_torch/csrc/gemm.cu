@@ -20,18 +20,6 @@
 // kernel sums the partials in a fixed order (deterministic, no atomics).
 // Bias, ReLU and residual are fused into the epilogue. wgmma/TMA tiles are
 // later work.
-//
-// gemm_q8 is the same kernel with an int8 weight: it replaces the int8
-// body of stjep_tpu/ops/decode_flash.py `_layer_kernel_q8` (:708) and
-// `_chain_unpack`'s `quant=True` branch (:987-997), where the TPU
-// dequantized each streamed matrix after its VMEM copy. Here the weight
-// [K, N] stays int8 in device memory with one f32 scale per column, and each
-// element is dequantized as its tile is loaded, float(q) * s[col]: one f32
-// rounding, the value of JAX's `dq`, so the products and the summation order
-// are those of gemm_f32 on the dequantized matrix. What bounds it: at decode
-// rows (M = 5 .. 80) the weight bytes, now a quarter of f32's, and launch
-// latency; the tile loop is the f32 one, so the kernel does not yet read
-// int8 faster than it reads f32 (1-byte loads, 32 B per warp).
 
 #include <cstdint>
 
@@ -54,14 +42,6 @@ struct F32Weight {
   const float* w;
   __device__ __forceinline__ float operator()(size_t idx, int k, int n) const {
     return __ldg(w + idx);
-  }
-};
-
-struct Q8Weight {
-  const int8_t* q;
-  const float* s;  // [N] per-column scales
-  __device__ __forceinline__ float operator()(size_t idx, int k, int n) const {
-    return (float)__ldg(q + idx) * __ldg(s + n);
   }
 };
 
@@ -224,16 +204,6 @@ extern "C" int gemm_f32(const float* A, const float* B, const float* bias,
                         int splits, cudaStream_t stream) {
   return gemm_launch(A, F32Weight{B}, bias, R, C, ws, M, N, K, lda, ldb, ldc,
                      ldr, relu, splits, stream);
-}
-
-// B is the int8 weight [K, N] (row stride ldb) and scale its [N] f32 column
-// scales; everything else as gemm_f32.
-extern "C" int gemm_q8(const float* A, const int8_t* B, const float* scale,
-                       const float* bias, const float* R, float* C, float* ws,
-                       int M, int N, int K, int lda, int ldb, int ldc, int ldr,
-                       int relu, int splits, cudaStream_t stream) {
-  return gemm_launch(A, Q8Weight{B, scale}, bias, R, C, ws, M, N, K, lda, ldb,
-                     ldc, ldr, relu, splits, stream);
 }
 
 extern "C" int layernorm_f32(const float* X, const float* g, const float* b,

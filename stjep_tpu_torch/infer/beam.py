@@ -12,7 +12,8 @@ From position 2 on, two loops, where JAX has them (beam.py:371-372):
   and with a target table of at most 4 MB;
 - otherwise the general loop: anc[pos] set to each row's own slot, then
   `decode_pos`, and the k^2 -> k select with its back-copies
-  (`beam_select`: on the card K4's select kernel, the megastep's own).
+  (`beam_select`: on the card the select the megastep runs as its last
+  phase).
 
 Both run until `max_seq_len` or until every beam has emitted EOS; the
 all-EOS flag is read on the host once per step. The serving options

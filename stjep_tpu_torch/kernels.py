@@ -35,7 +35,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # also takes the stream last (c_void_p) and returns a cudaError_t.
 _SIGS = {
     "gemm_f32": "pppppp" + "iiiiiiiii",
-    "gemm_q8": "ppppppp" + "iiiiiiiii",
     "layernorm_f32": "pppp" + "ii" + "f",
     "bilstm_recurrent": "pppppp" + "iii" + "ii",
     "bilstm_fwd_save": "pppppp" + "ppp" + "iii" + "ii",
@@ -48,7 +47,6 @@ _SIGS = {
     "lstm_cell_bwd": "pi" + "pi" + "pppp" + "pi" + "pp" + "ii",
     "attend_bwd": "pi" + "ppppppp" + "iiii",
     "head_argmax": "pp" + "i" + "pp" + "i" + "p" + "i" + "ii",
-    "embed_time": "pppppp" + "iiii",
     "self_attn_anc": "pppppppp" + "iiiiii",
     "self_attn_anc_bf16": "pppppppp" + "iiiiii",
     "cross_attn": "ppppp" + "iiiii",
@@ -56,6 +54,10 @@ _SIGS = {
     "head_topk": "ppppp" + "iii",
     "head_topk_partial": "ppppppp" + "iii",
     "beam_select": "pppppppp" + "pppppppp" + "iiii" + "f",
+    "decoder_layer_fused": "p" + "ii" + "p" * 11 + "i" * 11,
+    "decode_beam_fused": "p" + "ii" + "p" * 27 + "i" * 14 + "f",
+    "decode_fused_grid": "iiii" + "p",
+    "decode_fused_stamps": "p",
 }
 _CT = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
@@ -165,35 +167,24 @@ def check(t: torch.Tensor, dtype=torch.float32, name: str = "tensor"):
 
 
 # ---------------------------------------------------------------------------
-# the shared building block: tiled GEMM with bias / ReLU / residual, on an f32
-# weight or on an int8 weight with per-column scales
+# the shared building block: tiled GEMM with bias / ReLU / residual
 # ---------------------------------------------------------------------------
 
 
 def gemm(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None,
          residual: Optional[torch.Tensor] = None, relu: bool = False,
-         out: Optional[torch.Tensor] = None,
-         w_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+         out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """out[M, N] = act(a[M, K] @ w[K, N] + bias) + residual, in f32 on the
     card. `a`, `residual` and `out` may be row-strided 2-D views (unit
-    stride along the last dim); `w` and `bias` are contiguous. With
-    `w_scale` ([1, N] or [N] f32, from quantize_decoder_weights) `w` is
-    int8 and the product is a @ (w * w_scale), each weight element
-    dequantized as it is loaded (`gemm_q8`); `gemm.launches` and
-    `gemm.q8_launches` count the two kernels."""
+    stride along the last dim); `w` and `bias` are contiguous.
+    `gemm.launches` counts the launches."""
     M, K = a.shape
     K2, N = w.shape
     if K != K2:
         raise ValueError(f"gemm inner dims differ: {a.shape} @ {w.shape}")
     if not a.is_cuda or a.dtype != torch.float32 or a.stride(-1) != 1:
         raise ValueError("gemm a must be a CUDA f32 matrix with unit column stride")
-    if w_scale is None:
-        check(w, name="w")
-    else:
-        check(w, torch.int8, "w")
-        check(w_scale, name="w_scale")
-        if w_scale.numel() != N:
-            raise ValueError(f"w_scale has {w_scale.numel()} entries for {N} columns")
+    check(w, name="w")
     if bias is not None:
         check(bias, name="bias")
     if out is None:
@@ -206,20 +197,14 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None,
     splits = max(1, min(-(-264 // tiles), -(-K // 16) // 4))
     ws = (torch.empty((splits, M, N), device=a.device, dtype=torch.float32)
           if splits > 1 else None)
-    rest = (bias, residual, out, ws, M, N, K, a.stride(0), w.stride(0),
-            out.stride(0), residual.stride(0) if residual is not None else 0,
-            int(relu), splits)
-    if w_scale is None:
-        launch("gemm_f32", a, w, *rest)
-        gemm.launches += 1
-    else:
-        launch("gemm_q8", a, w, w_scale, *rest)
-        gemm.q8_launches += 1
+    launch("gemm_f32", a, w, bias, residual, out, ws, M, N, K, a.stride(0), w.stride(0),
+           out.stride(0), residual.stride(0) if residual is not None else 0,
+           int(relu), splits)
+    gemm.launches += 1
     return out
 
 
 gemm.launches = 0
-gemm.q8_launches = 0
 
 
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

@@ -12,10 +12,14 @@ the decode head: final LayerNorm, output projection, log-softmax and top-K,
 and with gather ids the log-prob at a reference id; K7c is one vocabulary
 shard of it (raw top-K logits, row max and sum-exp). K3 runs one position
 through every layer (K5 per layer) and the head (K7). K4 is the whole beam
-while-body: embed + time signal, K3's layers and head, and the k^2 -> k
+while-body: embed + time signal, the layers, the head, and the k^2 -> k
 select with its back-copies; `beam_select` is that select alone, for the
-general beam loop. Design notes are in `csrc/decode.cu`; the
-tensor-parallel layer step and head are in `ops/decode_flash_tp.py`.
+general beam loop. On the card K5 and K4 are one cooperative launch each
+(`csrc/decode_fused.cu`; from the shapes alone, `fused_tiles` gives the
+tile table they walk and `fused_plan` their phases, barriers, shared memory
+and workspace); the other kernels' design
+notes are in `csrc/decode.cu`; the tensor-parallel layer step and head are
+in `ops/decode_flash_tp.py`.
 
 Layouts are the JAX kernels': self caches [K, B, Lpad, D] per layer
 ([nl, K, B, Lpad, D] stacked for K3/K4), never reordered, read through the
@@ -34,8 +38,8 @@ Two serving options, as in the JAX kernels, in any combination:
   `quant=True`): the eight matrices a layer streams per position are int8
   with one f32 scale per output column; `layer_weights` and
   `stack_decoder_layers` return (tensors, quant), and every layer step
-  dequantizes per matrix: the plain versions in PyTorch, the CUDA route in
-  the GEMM's tile loads (`gemm_q8`). Biases, LayerNorms, the cross K/V
+  dequantizes per matrix: the plain versions in PyTorch, the fused kernels
+  as each weight tile is read. Biases, LayerNorms, the cross K/V
   projections and the head stay f32.
 - bf16 caches: self caches and memory K/V in bfloat16 (each stream's own
   dtype selects its attention kernel), rounded where the JAX cores round
@@ -49,6 +53,8 @@ JAX); K6a and K6b count `launches` and `bf16_launches` by cache dtype.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -315,27 +321,158 @@ def _layer_plain(w, quant, x, ck, cv, mk, mv, pos, n_head, anc, group,
     return _mm(h, w2) + b2 + x
 
 
-def _gemm(a, m, **kw):
-    w, s = m
-    return kernels.gemm(a, w, w_scale=s, **kw)
+# ---------------------------------------------------------------------------
+# K5 and K4 on the card: csrc/decode_fused.cu, one cooperative launch each
+# ---------------------------------------------------------------------------
+
+FUSED_KC = 64  # contraction depth of a product tile (decode_fused.cu KC)
+FUSED_BM, FUSED_BN = 16, 128  # rows and columns of a product tile
+FUSED_THREADS = 256
+# blocks of a fused launch; 0 launches every block the card keeps resident
+# (the card tests set it to hold the outputs independent of the grid)
+FUSED_GRID = 0
+# the product kinds of the tile table, in decode_fused.cu's order (P_QKV ..)
+FUSED_PRODUCTS = ("qkv", "fc", "cq", "co", "w1", "w2", "head")
+
+
+def gemm_tiles(M: int, N: int, Kd: int):
+    """The tiles of one product [M, Kd] @ [Kd, N] of the fused kernels
+    (column tile fastest, then row tile, then split): (split, first row,
+    first column); split s sums k in [s*KC, (s+1)*KC)."""
+    ct, rt, s = -(-N // FUSED_BN), -(-M // FUSED_BM), -(-Kd // FUSED_KC)
+    return [(t // (ct * rt), (t // ct) % rt * FUSED_BM, t % ct * FUSED_BN)
+            for t in range(s * rt * ct)]
+
+
+def _products(BK: int, D: int, FF: int, V: int = 0) -> Dict:
+    """{kind: [(M, N, Kd) per job]}, the jobs in decode_fused.cu
+    `layer_jobs` order (q, k, v for qkv); the head only with V."""
+    out = {"qkv": [(BK, D, D)] * 3, "fc": [(BK, D, D)], "cq": [(BK, D, D)],
+           "co": [(BK, D, D)], "w1": [(BK, FF, D)], "w2": [(BK, D, FF)]}
+    if V:
+        out["head"] = [(BK, V, D)]
+    return out
+
+
+def fused_tiles(BK: int, D: int, FF: int, V: int = 0) -> torch.Tensor:
+    """The tile table the fused kernels walk (`tiles`, decode_fused.cu
+    `phase`): int32, 8 offsets (the first tile of each kind of
+    FUSED_PRODUCTS, then the end), then one row (job, split, first row,
+    first column) per tile, a kind's jobs one after another."""
+    prods = _products(BK, D, FF, V)
+    rows, off = [], []
+    for kind in FUSED_PRODUCTS:
+        off.append(len(rows))
+        for j, (M, N, Kd) in enumerate(prods.get(kind, [])):
+            rows += [(j, s, r0, c0) for s, r0, c0 in gemm_tiles(M, N, Kd)]
+    off.append(len(rows))
+    return torch.tensor(off + [v for row in rows for v in row], dtype=torch.int32)
+
+
+@functools.lru_cache(maxsize=64)
+def _tiles_on(device, BK: int, D: int, FF: int, V: int) -> torch.Tensor:
+    return fused_tiles(BK, D, FF, V).to(device)
+
+
+@functools.lru_cache(maxsize=128)
+def fused_plan(BK: int, D: int, FF: int, n_head: int, Lpad: int, Lk: int,
+               quant: bool = False, beam: bool = False, nl: int = 1, V: int = 0,
+               K: int = 1) -> Dict:
+    """The launch of fused K5 (one layer) or, with beam, fused K4 (nl
+    layers, the head over V ids and the select of B = BK / K groups), from
+    the shapes alone: `products` {kind: [(M, N, Kd)]} per product job,
+    `phases` [(kind, work items)] in order (a product phase's items are its
+    tiles, an attention's (row, head) pairs, a row or top-K phase's rows,
+    the select's groups), `barriers` (grid barriers a launch), `smem`
+    (dynamic shared bytes a block) and `ws_floats` (f32 workspace); the
+    kernels walk `fused_tiles` of the same shapes. Cached: the wrappers ask
+    it at every launch; treat the result as read-only."""
+    products = _products(BK, D, FF, V if beam else 0)
+    tiles = {k: sum(len(gemm_tiles(*job)) for job in jobs) for k, jobs in products.items()}
+    att = BK * n_head
+    body = [("qkv", tiles["qkv"]), ("self", att), ("fc", tiles["fc"]), ("row", BK),
+            ("cq", tiles["cq"]), ("cross", att), ("co", tiles["co"]), ("row", BK),
+            ("w1", tiles["w1"]), ("w2", tiles["w2"]), ("row", BK)]
+    if beam:
+        phases = [("embed", BK)] + body * nl + [("head", tiles["head"]), ("topk", BK),
+                                                 ("select", BK // K)]
+    else:
+        phases = [("row", BK)] + body
+    kc = FUSED_KC
+    sd, sf = -(-D // kc), -(-FF // kc)
+    wbytes = 4 if beam or not quant else 1
+    d = D // n_head
+    smem = max(2 * (kc * FUSED_BN * wbytes + kc * FUSED_BM * 4),
+               FUSED_THREADS // 32 * (d + 3 * max(Lpad, Lk)) * 4)
+    pa = max(3 * sd * BK * D, sd * BK * FF, sd * BK * V)
+    ws = 5 * BK * D + pa + max(sd, sf) * BK * D + BK * V + 2 * BK * K
+    return dict(products=products, phases=phases, barriers=len(phases) - 1, smem=smem,
+                ws_floats=ws)
+
+
+def fused_grid(quant: bool, bf16: bool, beam: bool, smem: int) -> Dict[str, int]:
+    """The card's answer for a fused launch at smem bytes: blocks an SM
+    keeps resident and the SM count (their product is the grid)."""
+    out = (ctypes.c_int * 2)()
+    kernels.launch("decode_fused_grid", int(quant), int(bf16), int(beam), smem,
+                   ctypes.addressof(out))
+    return dict(blocks_per_sm=out[0], sms=out[1], blocks=out[0] * out[1])
+
+
+_POINTERS: Dict[tuple, ctypes.Array] = {}
+
+
+def _fused_pointers(w, quant: bool):
+    """A host array of the 24 pointers decode_fused.cu reads (`read_layer`):
+    the LayerNorm vectors and FFN biases, the eight matrices, their scales
+    (null for f32), from weights in layer_weights' order (one layer, or
+    stack_decoder_layers' [nl, ...] tensors). Checked once per set of
+    tensors (device, dtype, contiguity), then cached by address and dtype:
+    the beam loops pass the same weights at every position."""
+    key = (quant,) + tuple((t.data_ptr(), t.dtype) for t in w)
+    arr = _POINTERS.get(key)
+    if arr is not None:
+        return arr
+    p = _pairs(w, quant)
+    vecs = [p[i] for i in (0, 1, 6, 7, 10, 11, 13, 15)]
+    mats = [p[i] for i in _MATS]
+    wdt = torch.int8 if quant else torch.float32
+    for t in vecs + [m[1] for m in mats if m[1] is not None]:
+        kernels.check(t, torch.float32, "layer vectors and scales")
+    for m, _ in mats:
+        kernels.check(m, wdt, "streamed matrices")
+    ptrs = ([t.data_ptr() for t in vecs] + [m.data_ptr() for m, _ in mats]
+            + [0 if s is None else s.data_ptr() for _, s in mats])
+    if len(_POINTERS) >= 256:
+        _POINTERS.clear()
+    arr = _POINTERS[key] = (ctypes.c_void_p * 24)(*ptrs)
+    return arr
+
+
+def _check_fused(ck, mk):
+    if mk.dtype != ck.dtype:
+        raise ValueError(f"the fused decode kernels take self caches and memory K/V "
+                         f"of one dtype, got {ck.dtype} and {mk.dtype}")
 
 
 def _layer_cuda(w, quant, x, ck, cv, mk, mv, pos, n_head, anc, group,
                 mem_mask, maskk):
-    """K5's launch sequence: the same layer as _layer_plain, each streamed
-    matrix through gemm_f32 or, int8, gemm_q8; the attention kernels in the
-    caches' dtype."""
-    (slns, slnb, swq, swk, swv, swo, clns, clnb, cwq, cwo,
-     flns, flnb, w1, b1, w2, b2) = _pairs(w, quant)
-    q = _gemm(kernels.layernorm(x, slns, slnb, 1e-6), swq)
-    att = _self_attn_cuda(q, _gemm(x, swk), _gemm(x, swv), ck, cv, anc, maskk,
-                          pos, group, n_head)
-    x = _gemm(att, swo, residual=x)
-    q = _gemm(kernels.layernorm(x, clns, clnb, 1e-6), cwq)
-    x = _gemm(_cross_attn_cuda(q, mk, mv, mem_mask, group, n_head), cwo,
-              residual=x)
-    h = _gemm(kernels.layernorm(x, flns, flnb, 1e-6), w1, bias=b1, relu=True)
-    return _gemm(h, w2, bias=b2, residual=x)
+    """K5 on the card: one cooperative launch of decode_fused.cu
+    `decoder_layer_fused` (the same layer as _layer_plain, f32 or int8
+    weights, caches in their dtype)."""
+    _check_fused(ck, mk)
+    BK, D = x.shape
+    FF = w[12].shape[1] if not quant else w[18].shape[1]
+    Lpad, Lk = ck.shape[2], mk.shape[1]
+    plan = fused_plan(BK, D, FF, n_head, Lpad, Lk, quant, K=group)
+    ptrs = _fused_pointers(w, quant)
+    y = torch.empty_like(x)
+    ws = torch.empty((plan["ws_floats"],), device=x.device, dtype=torch.float32)
+    kernels.launch("decoder_layer_fused", ctypes.addressof(ptrs), int(quant),
+                   int(ck.dtype == torch.bfloat16), x, y, ck, cv, mk, mv, anc, maskk,
+                   mem_mask, ws, _tiles_on(x.device, BK, D, FF, 0), plan["ws_floats"], pos,
+                   BK, group, Lpad, Lk, D, FF, n_head, plan["smem"], FUSED_GRID)
+    return y
 
 
 def _run_layers(layer_fn, stacked, x, cache_k, cache_v, mem_k, mem_v, *args):
@@ -757,27 +894,13 @@ def beam_select_plain(sc, ids, scores, eos, lenm, preds, anc, maskk, i: int,
             sel.reshape(-1) * lp, eos_n.to(torch.int32), lenm_n, flag)
 
 
-def _select_cuda(sc, ids, scores, eos, lenm, preds, anc, maskk, flag, i: int,
-                 group: int, penalty_factor: float):
-    """K4's select kernel into new tensors; flag [1] must hold 1 and is
-    and-ed with each group's all-EOS bit."""
-    BK, L = preds.shape
-    outs = (torch.empty_like(preds), torch.empty_like(anc),
-            torch.empty_like(maskk),
-            torch.empty((BK,), device=preds.device, dtype=torch.int32),
-            torch.empty_like(scores), torch.empty_like(eos),
-            torch.empty_like(lenm))
-    kernels.launch("beam_select", sc, ids, scores, eos, lenm, preds, anc, maskk,
-                   *outs, flag, i, BK // group, group, L, float(penalty_factor))
-    return (*outs, flag)
-
-
 def beam_select(sc, ids, scores, eos, lenm, preds, anc, maskk, i: int,
                 group: int, penalty_factor: float):
     """The k^2 -> k update of beam position i, with beam_select_plain's
-    arguments and results. On CUDA tensors it launches K4's select kernel,
-    so the general beam loop and the megastep share one select on the
-    card."""
+    arguments and results. On CUDA tensors it launches csrc/decode.cu's
+    select kernel, whose body (csrc/head_select.cuh) is also the fused
+    megastep's last phase, so the general beam loop and the megastep share
+    one select on the card."""
     if not preds.is_cuda:
         return beam_select_plain(sc, ids, scores, eos, lenm, preds, anc, maskk,
                                  i, group, penalty_factor)
@@ -787,11 +910,15 @@ def beam_select(sc, ids, scores, eos, lenm, preds, anc, maskk, i: int,
                       (eos, i32, "eos"), (lenm, f32, "lenm"), (preds, i32, "preds"),
                       (anc, i32, "anc"), (maskk, i32, "maskk")):
         kernels.check(t, dt, nm)
-    flag = torch.ones((1,), device=preds.device, dtype=i32)
-    out = _select_cuda(sc, ids, scores, eos, lenm, preds, anc, maskk, flag, i,
-                       group, penalty_factor)
+    BK, L = preds.shape
+    outs = (torch.empty_like(preds), torch.empty_like(anc), torch.empty_like(maskk),
+            torch.empty((BK,), device=preds.device, dtype=i32), torch.empty_like(scores),
+            torch.empty_like(eos), torch.empty_like(lenm),
+            torch.ones((1,), device=preds.device, dtype=i32))  # the all-EOS flag, and-ed
+    kernels.launch("beam_select", sc, ids, scores, eos, lenm, preds, anc, maskk, *outs, i,
+                   BK // group, group, L, float(penalty_factor))
     beam_select.launches += 1
-    return out
+    return outs
 
 
 beam_select.launches = 0
@@ -845,20 +972,32 @@ def decode_beam_step_flash(stacked, norm_params, out_params, emb_table,
                       (emb_table, torch.float32, "emb_table"),
                       (time_sig, torch.float32, "time_sig")):
         kernels.check(t, dt, nm)
-    BK, D = preds.shape[0], emb_table.shape[1]
-    K = group
+    _check_fused(cache_k, mem_k)
+    for t, nm in ((norm_params["scale"], "norm scale"), (norm_params["bias"], "norm bias"),
+                  (out_params["w"], "out_params w")):
+        kernels.check(t, torch.float32, nm)
+    tensors, quant = stacked
+    nl, K, B, Lpad, D = cache_k.shape
+    BK, Lbuf = preds.shape
+    V, Lk = out_params["w"].shape[1], mem_k.shape[2]
+    FF = tensors[18 if quant else 12].shape[-1]
+    plan = fused_plan(BK, D, FF, n_head, Lpad, Lk, quant, beam=True, nl=nl, V=V, K=group)
+    ptrs = _fused_pointers(tensors, quant)
     dev = preds.device
-    x = torch.empty((BK, D), device=dev, dtype=torch.float32)
-    flag = torch.empty((1,), device=dev, dtype=torch.int32)
-    kernels.launch("embed_time", emb_table, last_tok, time_sig, x, anc, flag,
-                   i - 1, BK, K, D)
-    x = _run_layers(_layer_cuda, stacked, x, cache_k, cache_v, mem_k, mem_v,
-                    i - 1, n_head, anc, K, mem_mask, maskk)
-    sc, ids = _head_cuda(norm_params, out_params, x, K)
-    out = _select_cuda(sc, ids, scores, eos, lenm, preds, anc, maskk, flag, i,
-                       K, penalty_factor)
-    _count(decode_beam_step_flash, _variant(stacked[1], cache_k))
-    return out
+    outs = (torch.empty_like(preds), torch.empty_like(anc), torch.empty_like(maskk),
+            torch.empty((BK,), device=dev, dtype=torch.int32), torch.empty_like(scores),
+            torch.empty_like(eos), torch.empty_like(lenm),
+            torch.empty((1,), device=dev, dtype=torch.int32))
+    ws = torch.empty((plan["ws_floats"],), device=dev, dtype=torch.float32)
+    kernels.launch("decode_beam_fused", ctypes.addressof(ptrs), int(quant),
+                   int(cache_k.dtype == torch.bfloat16), norm_params["scale"],
+                   norm_params["bias"], out_params["w"], emb_table, time_sig, last_tok, preds,
+                   anc, maskk, mem_mask, scores, eos, lenm, cache_k, cache_v, mem_k, mem_v,
+                   *outs, ws, _tiles_on(dev, BK, D, FF, V), plan["ws_floats"], i, B, group,
+                   Lpad, Lbuf, Lk, D, FF, n_head, nl, V, plan["smem"], FUSED_GRID,
+                   float(penalty_factor))
+    _count(decode_beam_step_flash, _variant(quant, cache_k))
+    return outs
 
 
 _init_counts(decode_beam_step_flash, VARIANTS)

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Mutation check of the kernels on one GPU: the decode kernels
-(csrc/decode.cu, csrc/gemm.cu, the tensor-parallel head K7c included) and
-the BiLSTM cluster sweeps (csrc/bilstm.cu, csrc/bilstm_bwd.cu).
+"""Mutation check of the kernels on one GPU: the decode kernels (the fused
+K4 and K5 in csrc/decode_fused.cu, the attention, head and select bodies in
+csrc/attend.cuh and csrc/head_select.cuh, the tensor-parallel head K7c
+included) and the BiLSTM cluster sweeps (csrc/bilstm.cu, csrc/bilstm_bwd.cu).
 
-    python3 stjep_tpu_torch/scripts/mutate.py [--workdir DIR] [--only TEXT]
+    python3 stjep_tpu_torch/scripts/mutate.py [--workdir DIR] [--only TEXT[,TEXT]]
 
 Copies the package and tests/test_torch_cuda.py into DIR (by default
 stjep_tpu_torch/build/mutants, which git ignores), first unchanged and then
@@ -11,7 +12,8 @@ once per mutation below, each a change of one or two lines of a kernel
 source; builds each copy's kernels and runs the card tests that cover that
 source against it (each run within a time limit: a mutant that hangs
 counts as caught). The unchanged copy must pass and every mutant should
-fail. With --only, just the mutations whose source file name contains TEXT.
+fail. With --only, just the mutations whose source file name contains one
+of TEXT's comma-separated parts.
 Prints one line per run; exits non-zero if the unchanged copy fails or a
 mutant passes.
 """
@@ -27,50 +29,59 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 SELECT = ("layer_step or head or gather or beam_step or beam_select or "
-          "general_beam or forward_eval or gemm_q8 or attn_kernels or serving or tp_")
+          "general_beam or forward_eval or fused or attn_kernels or serving or tp_")
 SELECT_BILSTM = "bilstm"
 TIMEOUT_S = 900
 
 # (what it breaks, the source in csrc/, the line as it is, the line as the
 # mutant has it; a tuple of lines for a change of several)
 MUTATIONS = [
-    ("tie order in head_topk's row scan", "decode.cu",
+    ("tie order in head_topk's row scan", "head_select.cuh",
      "      if (!better(v, c, bv, bi)) continue;",
      "      if (!(v >= bv)) continue;"),
-    ("glp without the log-sum-exp", "decode.cu",
+    ("glp without the log-sum-exp", "head_select.cuh",
      "    if (glp) glp[r] = glog - lse;",
      "    if (glp) glp[r] = glog;"),
-    ("last taken id forgotten", "decode.cu",
+    ("last taken id forgotten", "head_select.cuh",
      "      for (int j = 0; j < k; ++j) was_taken |= taken[j] == c;",
      "      for (int j = 0; j + 1 < k; ++j) was_taken |= taken[j] == c;"),
-    ("online sum not rescaled", "decode.cu",
+    ("online sum not rescaled", "head_select.cuh",
      "      z = z * expf(m - v) + 1.f;",
      "      z = z + 1.f;"),
-    ("self attention reads the own slot at every position", "decode.cu",
+    ("self attention reads the own slot at every position", "attend.cuh",
      "    slot[l] = l == pos ? own : anc[(size_t)l * BK + r];",
      "    slot[l] = own;"),
-    ("select keeps the score without the old penalty", "decode.cu",
+    ("select keeps the score without the old penalty", "head_select.cuh",
      "      scores_o[s] = bv * lp_old;",
      "      scores_o[s] = bv;"),
-    ("int8 scale applied along the wrong axis (row k, not column n)", "gemm.cu",
-     "    return (float)__ldg(q + idx) * __ldg(s + n);",
-     "    return (float)__ldg(q + idx) * __ldg(s + min(k, n));"),
-    ("new bf16 K/V row truncated, not rounded to nearest", "decode.cu",
+    ("int8 weights dequantized with a neighbouring column's scale", "decode_fused.cu",
+     "  return make_float4((float)q.x * s.x, (float)q.y * s.y, (float)q.z * s.z, (float)q.w * s.w);",
+     "  return make_float4((float)q.x * s.x, (float)q.y * s.x, (float)q.z * s.z, (float)q.w * s.z);"),
+    ("a grid barrier dropped (fc partials read before they are complete)", "decode_fused.cu",
+     "  barrier(grid);  // fc partials complete",
+     ""),
+    ("the new K/V row written into the next beam slot", "attend.cuh",
+     "    const size_t dst = (((size_t)own * B + b) * Lpad + pos) * D + hoff + t;",
+     "    const size_t dst = (((size_t)((own + 1) % K) * B + b) * Lpad + pos) * D + hoff + t;"),
+    ("split partials summed in reverse order (within each group of eight)", "decode_fused.cu",
+     "    for (int j = 0; j < 8; ++j) if (s0 + j < S) v += x[j];",
+     "    for (int j = 7; j >= 0; --j) if (s0 + j < S) v += x[j];"),
+    ("new bf16 K/V row truncated, not rounded to nearest", "attend.cuh",
      "__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }",
      "__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rz(v); }"),
-    ("bf16 q.k products summed unrounded", "decode.cu",
+    ("bf16 q.k products summed unrounded", "attend.cuh",
      "  return acc + __bfloat162float(__float2bfloat16_rn(q * __bfloat162float(k)));",
      "  return fmaf(q, __bfloat162float(k), acc);"),
-    ("bf16 scaled query not rounded to bf16", "decode.cu",
+    ("bf16 scaled query not rounded to bf16", "attend.cuh",
      "  return __bfloat162float(__float2bfloat16_rn(x));",
      "  return x;"),
-    ("a vocabulary shard's raw scores minus its own log-sum-exp", "decode.cu",
+    ("a vocabulary shard's raw scores minus its own log-sum-exp", "head_select.cuh",
      "  const float lse = partial ? 0.f : mx + logf(se);  // partial: raw logits out",
      "  const float lse = mx + logf(se);"),
-    ("sum-exp not rescaled to the block max", "decode.cu",
+    ("sum-exp not rescaled to the block max", "head_select.cuh",
      "  const float se = block_sum(m == -INFINITY ? 0.f : z * expf(m - mx), red);",
      "  const float se = block_sum(m == -INFINITY ? 0.f : z, red);"),
-    ("a shard narrower than K: 0, not -1e30, past its width", "decode.cu",
+    ("a shard narrower than K: 0, not -1e30, past its width", "head_select.cuh",
      "        sc[(size_t)r * K + k] = -1e30f;",
      "        sc[(size_t)r * K + k] = 0.f;"),
     ("forward sweep without its cluster barrier", "bilstm.cu",
@@ -135,7 +146,8 @@ def main() -> int:
     if run(args.workdir, "unchanged") != 0:
         print("the unchanged copy fails its tests", flush=True)
         return 1
-    chosen = [(i, m) for i, m in enumerate(MUTATIONS) if args.only in m[1]]
+    chosen = [(i, m) for i, m in enumerate(MUTATIONS)
+              if any(part in m[1] for part in args.only.split(","))]
     survived = [m[0] for i, m in chosen if run(args.workdir, f"mutation {i}", m) == 0]
     print(f"mutants caught: {len(chosen) - len(survived)} of {len(chosen)}; "
           f"not caught: {survived}", flush=True)

@@ -16,8 +16,11 @@ warm-up call, one call timed on the host clock, then one call under
 torch.profiler. Prints per path the plain wall ms, the profiled wall ms
 (inflated by the profiler), device busy ms (the union of the device
 intervals), the idle share (1 - busy / profiled wall), the number of device
-operations and of host-side PyTorch operators, and the eight device kernels
-with the most time.
+operations and of host-side PyTorch operators, the decode positions the
+call ran (from the kernels' launch counts) and the device operations per
+position (those that start between the first and the last decode-step
+kernel: the fused K5 and K4, the head's top-K, the select, the attention
+kernels), and the eight device kernels with the most time.
 """
 
 from __future__ import annotations
@@ -49,7 +52,23 @@ def busy_ms(intervals) -> float:
     return total / 1e3
 
 
-def profile(label: str, fn):
+# device kernels that only a decode position launches; the decode loop's
+# window on the device runs from the first to the last of them
+STEP_KERNELS = ("layer_kernel", "beam_kernel", "head_topk", "beam_select", "self_attn_kernel",
+                "cross_attn_kernel")
+
+
+def positions(n_model: int) -> int:
+    """Decode positions since cs.zero_counts(): each runs one head (K3,
+    K4, or K7 and its gather variant; K7c once per shard)."""
+    got = {k: getattr(fn, attr) for k, (fn, attr) in cs.counters().items()}
+    single = sum(v for k, v in got.items()
+                 if k.split()[0] in ("K3", "K4") and k != "K4 select"
+                 or k in ("K7 head", "K7 head_gather"))
+    return single + got["K7 head_partial"] // n_model
+
+
+def profile(label: str, fn, n_model: int = 1):
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -57,19 +76,28 @@ def profile(label: str, fn):
     torch.cuda.synchronize()
     plain_wall = (time.perf_counter() - t0) * 1e3
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    cs.zero_counts()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    n_pos = positions(n_model)
     events = prof.events()
     dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     host_ops = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CPU
                    and e.name.startswith("aten::"))
     busy = busy_ms((e.time_range.start, e.time_range.end) for e in dev)
+    steps = [e.time_range for e in dev if any(k in e.name for k in STEP_KERNELS)]
+    per_pos = {}
+    if steps and n_pos:
+        a, b = min(r.start for r in steps), max(r.end for r in steps)
+        in_loop = sum(1 for e in dev if a <= e.time_range.start < b)
+        per_pos = dict(positions=n_pos, loop_device_ops=in_loop,
+                       device_ops_per_position=round(in_loop / n_pos, 2))
     cs.say(f"profile {label}", wall_ms=round(plain_wall, 3), profiled_wall_ms=round(wall, 3),
            device_busy_ms=round(busy, 3), idle_share=round(1 - busy / wall, 4),
-           device_ops=len(dev), host_aten_ops=host_ops)
+           device_ops=len(dev), host_aten_ops=host_ops, **per_pos)
     by_name = defaultdict(lambda: [0.0, 0])
     for e in dev:
         by_name[e.name][0] += (e.time_range.end - e.time_range.start) / 1e3
@@ -126,7 +154,7 @@ def main() -> int:
         set_kernel_mesh(make_mesh(1, args.n_model, ["cuda"] * args.n_model))
         profile(f"standard beam tp n={args.n_model}", lambda: forward_translate(
             params, cfg, "ST", acous_feats=f, acous_lens=l, beam_width=cs.BEAM,
-            penalty_factor=1.0, max_seq_len=cs.DECODE_LEN, device="cuda"))
+            penalty_factor=1.0, max_seq_len=cs.DECODE_LEN, device="cuda"), args.n_model)
         set_kernel_mesh(None)
     for kind in ("standard", "universal") if args.n_model == 1 and not args.train else ():
         cfg = ModelConfig(**{**cs.FLAGSHIP, "transformer_type": kind})

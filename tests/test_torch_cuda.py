@@ -12,10 +12,12 @@ same Function on CPU copies; the inference kernels (K1-K5, K7) must refuse
 inputs that require grad. The decode head K7 is also held at target
 vocabularies of 13 000 and 30 000 words, and with exact ties; the general
 beam loop and dev eval (forward_eval) run on the card against CPU copies.
-The serving options: gemm_q8 (bit-equal to gemm_f32 on the dequantized
-weight, whose values it reproduces), the bf16 attention kernels (the cache
-rows they write bit-equal to the plain version's), and K3, K4 and K5 with
-int8 weights, bf16 caches and both (TOL_BF16 below).
+The serving options: the bf16 attention kernels (the cache rows they write
+bit-equal to the plain version's), and K3, K4 and K5 with int8 weights,
+bf16 caches and both (TOL_BF16 below). The fused K5 and K4
+(csrc/decode_fused.cu) at the flagship width and off-tile shapes in every
+variant, bit-identical at two grid sizes, int8 on grid-snapped weights
+bit-equal to f32, and their split partials summed in split order.
 
 Every test needs a CUDA card and skips without one. Run them on a GPU host
 (the tests' conftest imports JAX, which that host need not have):
@@ -768,49 +770,8 @@ def test_inference_kernels_refuse_autograd(dev, make_call):
 
 
 # ---------------------------------------------------------------------------
-# the serving options: int8 weights (gemm_q8) and bf16 caches
+# the serving options: int8 weights and bf16 caches
 # ---------------------------------------------------------------------------
-
-
-def _q8(rng, K, N, dev, zero_col=None):
-    """A random int8 weight [K, N] with per-column f32 scales [1, N]."""
-    q = torch.from_numpy(rng.randint(-127, 128, (K, N)).astype(np.int8)).to(dev)
-    s = torch.from_numpy((rng.uniform(0.5, 2.0, (1, N)) / 127).astype(np.float32)).to(dev)
-    if zero_col is not None:
-        q[:, zero_col] = 0
-        s[0, zero_col] = 1.0
-    return q, s
-
-
-@pytest.mark.parametrize("M,K,N,epilogue", [
-    (1, 512, 512, ""), (5, 512, 1024, "bias,relu"), (80, 1024, 512, "bias,resid"),
-    (80, 512, 512, "resid"), (320, 700, 333, "bias"), (5, 37, 9, "bias,relu,resid")])
-def test_gemm_q8_matches_plain(dev, M, K, N, epilogue):
-    """gemm_q8 at decode rows (1, 5, 80) and beyond, K and N off the
-    tile, a zero column: within TOL of the plain product on the
-    dequantized weight, and bit-equal to gemm_f32 on that weight (the same
-    tiles and order, the same dequantized values)."""
-    rng = np.random.RandomState(M + K + N)
-    a = _randn(rng, M, K + 3, dev=dev)[:, 1:K + 1]  # row-strided view
-    q, sc = _q8(rng, K, N, dev, zero_col=N // 2)
-    bias = _randn(rng, N, dev=dev) if "bias" in epilogue else None
-    resid = _randn(rng, M, N, dev=dev) if "resid" in epilogue else None
-    kw = dict(bias=bias, residual=resid, relu="relu" in epilogue)
-    before = (kernels.gemm.launches, kernels.gemm.q8_launches)
-    out = kernels.gemm(a, q, w_scale=sc, **kw)
-    assert (kernels.gemm.launches, kernels.gemm.q8_launches) == (before[0], before[1] + 1)
-    w = q.float() * sc
-    assert torch.equal(out, kernels.gemm(a, w, **kw))
-    ref = a @ w + (bias if bias is not None else 0)
-    if "relu" in epilogue:
-        ref = torch.relu(ref)
-    if resid is not None:
-        ref = ref + resid
-    _close(out, ref, TOL * max(1.0, float(ref.abs().max()) / 30))
-    with pytest.raises(ValueError):
-        kernels.gemm(a, q, **kw)  # int8 without its scales
-    with pytest.raises(ValueError):
-        kernels.gemm(a, q.float(), w_scale=sc, **kw)  # scales on an f32 weight
 
 
 def _attn_state(rng, dev, dtype, K=3, Bn=3, Lpad=160, D=CFG.dim_model):
@@ -986,12 +947,12 @@ def test_serving_beam_card_matches_cpu(dev, kind, K, quant, bf16):
     name = _variant(quant, bf16)
     wrappers = ((decode_chain_step_flash, decode_beam_step_flash) if kind == "standard"
                 else (decoder_layer_step_flash,))
-    before = [getattr(w, name) for w in wrappers]
-    before_q8 = kernels.gemm.q8_launches
+    other = _variant(not quant, bf16)  # the other weight type's variant
+    before = [(getattr(w, name), getattr(w, other)) for w in wrappers]
     preds_g, scores_g = beam_search(pg, cfg, enc.to(dev), mem_mask.to(dev), K, 1.0, MAX_LEN,
                                     **kw)
-    assert all(getattr(w, name) > n for w, n in zip(wrappers, before))
-    assert (kernels.gemm.q8_launches > before_q8) == quant
+    assert all(getattr(w, name) > n and getattr(w, other) == m
+               for w, (n, m) in zip(wrappers, before))
     preds_c, scores_c = beam_search(pc, cfg, enc, mem_mask, K, 1.0, MAX_LEN, **kw)
     assert torch.equal(preds_g.cpu(), preds_c)
     _close(scores_g.cpu(), scores_c, TOL_BF16 if bf16 else TOL)
@@ -1012,6 +973,272 @@ def test_serving_wrappers_reject_other_dtypes(dev, params):
         with pytest.raises(ValueError, match="float32 or bfloat16"):
             decoder_layer_step_flash(lp, x, ck, cv, mk, mk.clone(), 0, CFG.num_heads, anc,
                                      1, mem_mask, maskk)
+
+
+# ---------------------------------------------------------------------------
+# the fused K5 and K4: one cooperative launch each (csrc/decode_fused.cu)
+# ---------------------------------------------------------------------------
+
+# the flagship decoder's widths (bench.py), two layers
+WIDE = dataclasses.replace(CFG, dec_vocab_size=200, dec_embedding_size=512, dim_model=512,
+                           dim_feedforward=1024, num_heads=8, max_seq_len_tgt=150)
+VARIANTS = [(False, False)] + SERVING
+VARIANT_IDS = ["f32"] + SERVING_IDS
+
+
+@pytest.fixture(scope="module")
+def wide_params(dev):
+    return params_to(init_seq2seq(WIDE, torch.Generator().manual_seed(7), "cpu"), dev)
+
+
+def _fused_state(pg, cfg, Bn, K, pos, rng, dev, quant=False, bf16=False, Lk=LK,
+                 snap=False):
+    """A decode state at `pos`: memory of Lk rows (the K/V cut to Lk, not
+    padded to 32), caches filled below pos, a random ancestry with each
+    row's own slot at pos, a fully masked self row and a memory entry with
+    5 valid rows. snap puts the streamed matrices on the int8 grid (q *
+    2^-12, 127 in row 0), where quantization is lossless. Returns (dec,
+    cache, preds, anc, maskk, mem_mask)."""
+    from stjep_tpu_torch.models.tf_decoder import TFDecCache
+
+    dec = pg["dec_tgt"]
+    if snap:
+        layers = []
+        for lp in dec["layers"]:
+            nl_ = {k: dict(v) for k, v in lp.items()}
+            for sub, keys in (("decslf_attn", tdf.QUANT_SELF), ("encdec_attn", tdf.QUANT_CROSS),
+                              ("pos_ffn", tdf.QUANT_FFN)):
+                for k in keys:
+                    q = rng.randint(-127, 128, size=tuple(lp[sub][k]["w"].shape))
+                    q[0] = 127
+                    nl_[sub][k] = {**lp[sub][k], "w": torch.from_numpy(
+                        (q * 2.0 ** -12).astype(np.float32)).to(dev)}
+            layers.append(nl_)
+        dec = {**dec, "layers": layers}
+    BK, D = Bn * K, cfg.dim_model
+    enc = _randn(rng, Bn, Lk, D, dev=dev)
+    c = tf_decoder_init_cache_chain(dec, cfg, enc, cfg.max_seq_len_tgt, K)
+    Lpad = c.self_k.shape[3]
+    for t in (c.self_k, c.self_v):
+        t[:, :, :, :pos] = _randn(rng, *t[:, :, :, :pos].shape, dev=dev)
+    cache = TFDecCache(c.self_k, c.self_v, c.mem_k[:, :, :Lk].contiguous(),
+                       c.mem_v[:, :, :Lk].contiguous())
+    if bf16:
+        cache = type(cache)(*(t.to(BF16) for t in cache))
+    preds = torch.full((BK, Lpad), PAD, dtype=torch.int32)
+    preds[:, 0] = BOS
+    preds[:, 1:pos + 1] = torch.from_numpy(rng.randint(4, cfg.dec_vocab_size, (BK, pos)))
+    anc = torch.from_numpy(rng.randint(0, K, (Lpad, BK))).int()
+    anc[pos] = torch.arange(BK, dtype=torch.int32) % K
+    maskk = (preds != PAD).T.int().contiguous()
+    maskk[:, min(1, BK - 1)] = 0
+    maskk[pos] = 1
+    mem_mask = torch.ones((Lk, Bn), dtype=torch.int32)
+    mem_mask[5:, Bn - 1] = 0
+    if quant:
+        dec = tdf.quantize_decoder_weights(dec)
+    return dec, cache, preds.to(dev), anc.to(dev), maskk.to(dev), mem_mask.to(dev)
+
+
+def _k5(dec, cache, x, pos, anc, K, mem_mask, maskk, fn=decoder_layer_step_flash, layer=1):
+    c = _clone(cache)
+    y = fn(dec["layers"][layer], x, c.self_k[layer], c.self_v[layer], c.mem_k[layer],
+           c.mem_v[layer], pos, WIDE.num_heads if x.shape[1] == WIDE.dim_model else CFG.num_heads,
+           anc, K, mem_mask, maskk)
+    return y, c
+
+
+FUSED_K5_CASES = [  # (config, Bn, K, pos, Lk): BK = 5, 320, 9, 80
+    ("small", 1, 5, 0, LK), ("small", 64, 5, 7, 45), ("small", 3, 3, MAX_LEN - 1, 45),
+    ("wide", 16, 5, 75, 89)]
+
+
+@pytest.mark.parametrize("quant,bf16", VARIANTS, ids=VARIANT_IDS)
+@pytest.mark.parametrize("kind,Bn,K,pos,Lk", FUSED_K5_CASES)
+def test_fused_layer_step_matches_plain(dev, params, wide_params, kind, Bn, K, pos, Lk, quant,
+                                        bf16):
+    """Fused K5 against decoder_layer_step_plain: the output, every cache
+    row (the new one at pos, the rest untouched), one launch counted."""
+    cfg, pg = (CFG, params[1]) if kind == "small" else (WIDE, wide_params)
+    rng = np.random.RandomState(6000 + Bn + pos)
+    dec, cache, _, anc, maskk, mem_mask = _fused_state(pg, cfg, Bn, K, pos, rng, dev, quant,
+                                                       bf16, Lk)
+    x = _randn(rng, Bn * K, cfg.dim_model, dev=dev)
+    name = _variant(quant, bf16)
+    before = getattr(decoder_layer_step_flash, name)
+    y, ck = _k5(dec, cache, x, pos, anc, K, mem_mask, maskk)
+    assert getattr(decoder_layer_step_flash, name) == before + 1
+    y_p, cp = _k5(dec, cache, x, pos, anc, K, mem_mask, maskk, decoder_layer_step_plain)
+    assert torch.isfinite(y).all()
+    _close(y, y_p, TOL_BF16 if bf16 else TOL)
+    for a, b in ((ck.self_k, cp.self_k), (ck.self_v, cp.self_v)):
+        _bf16_cache_close(a, b) if bf16 else _close(a, b, TOL)
+    assert torch.equal(ck.self_k[0], cache.self_k[0])  # other layers untouched
+
+
+def _k4(dec, pg, cfg, cache, preds, anc, maskk, mem_mask, i, K, fn=decode_beam_step_flash,
+        pf=1.0, seed=0):
+    rng = np.random.RandomState(seed)
+    BK = preds.shape[0]
+    dev = preds.device
+    eos = torch.from_numpy((rng.rand(BK) < 0.3).astype(np.int32)).to(dev)
+    scores = torch.from_numpy(-rng.uniform(0, 3 * i, BK).astype(np.float32)).to(dev)
+    lenm = torch.from_numpy(rng.randint(1, i, BK).astype(np.float32)).to(dev)
+    last_tok = preds[:, i - 1].contiguous()
+    table = _dec_embedder(pg, cfg).contiguous()
+    tsig = position_signal(500, cfg.dim_model, dev)[0].contiguous()
+    c, a = _clone(cache), anc.clone()
+    out = fn(stack_decoder_layers(dec), dec["norm"], pg["out_tgt"], table, tsig, i, last_tok,
+             preds, a, maskk, mem_mask, scores, eos, lenm, c.self_k, c.self_v, c.mem_k,
+             c.mem_v, cfg.num_heads, K, pf)
+    return out, c, a, (table, tsig, last_tok, scores, eos, lenm)
+
+
+FUSED_K4_CASES = [("small", 1, 5, 2, LK, 1.0), ("small", 3, 3, 7, 45, 0.7),
+                  ("small", 2, 2, MAX_LEN - 1, 45, 1.3), ("wide", 16, 5, 75, 89, 1.0)]
+
+
+@pytest.mark.parametrize("quant,bf16", VARIANTS, ids=VARIANT_IDS)
+@pytest.mark.parametrize("kind,Bn,K,i,Lk,pf", FUSED_K4_CASES)
+def test_fused_beam_step_matches_plain(dev, params, wide_params, kind, Bn, K, i, Lk, pf, quant,
+                                       bf16):
+    """Fused K4 against decode_beam_step_plain: the select's outputs equal
+    (scores and lenm within tolerance) except in a beam group whose plain
+    candidates tie within the tolerance, anc[i-1] set in place, the caches."""
+    cfg, pg = (CFG, params[1]) if kind == "small" else (WIDE, wide_params)
+    rng = np.random.RandomState(7000 + Bn + i)
+    dec, cache, preds, anc, maskk, mem_mask = _fused_state(pg, cfg, Bn, K, i - 1, rng, dev,
+                                                           quant, bf16, Lk)
+    name = _variant(quant, bf16)
+    before = getattr(decode_beam_step_flash, name)
+    out_k, ck, ak, ins = _k4(dec, pg, cfg, cache, preds, anc, maskk, mem_mask, i, K, pf=pf)
+    assert getattr(decode_beam_step_flash, name) == before + 1
+    out_p, cp, ap, _ = _k4(dec, pg, cfg, cache, preds, anc, maskk, mem_mask, i, K,
+                           decode_beam_step_plain, pf)
+    tol = TOL_BF16 if bf16 else TOL
+    # the plain candidates, to tell a tie from a fault
+    table, tsig, last_tok, scores, eos, lenm = ins
+    x = _dec_embedder(pg, cfg)[last_tok.long()] + tsig[i - 1]
+    c = _clone(cache)
+    sc, _ = decode_chain_step_plain(stack_decoder_layers(dec), dec["norm"], pg["out_tgt"], x,
+                                    c.self_k, c.self_v, c.mem_k, c.mem_v, i - 1, cfg.num_heads,
+                                    ap, K, mem_mask, maskk, K)
+    cand = tdf.beam_candidates(sc, scores, eos, lenm, pf)[0].sort(dim=1, descending=True)[0]
+    gaps = (cand[:, :K] - cand[:, 1:K + 1]).min(dim=1)[0] if K > 1 else cand[:, 0] * 0 + 1
+    grp = torch.arange(Bn * K, device=dev) // K
+    tied = torch.zeros(Bn, dtype=torch.bool, device=dev)
+    names = ("preds", "anc", "maskk", "last_tok", "scores", "eos", "lenm", "flag")
+    for nm, a, b in zip(names[:4] + names[5:6], out_k[:4] + out_k[5:6], out_p[:4] + out_p[5:6]):
+        bad = a != b
+        bad = bad.any(dim=1) if nm == "preds" else bad.any(dim=0) if a.dim() == 2 else bad
+        tied[grp[bad]] = True
+    assert bool((gaps[tied] <= tol).all()), (nm, gaps[tied])
+    keep = ~tied[grp]
+    _close(out_k[4][keep], out_p[4][keep], tol * 10)  # cumulative scores up to ~3 * i
+    _close(out_k[6][keep], out_p[6][keep], 0)
+    if not tied.any():
+        assert torch.equal(out_k[7], out_p[7])
+    assert torch.equal(ak, ap)  # anc[i-1] set in place to each row's own slot
+    for a, b in ((ck.self_k, cp.self_k), (ck.self_v, cp.self_v)):
+        _bf16_cache_close(a, b) if bf16 else _close(a, b, TOL)
+
+
+@pytest.mark.parametrize("quant,bf16", [(False, False), (True, True)], ids=["f32", "int8+bf16"])
+@pytest.mark.parametrize("step", ["K5", "K4"])
+def test_fused_kernels_bit_identical_at_two_grid_sizes(dev, wide_params, monkeypatch, step,
+                                                       quant, bf16):
+    """The same inputs on every block the card keeps resident and on 7
+    blocks: outputs and caches bit-identical (the tiling and every
+    summation order follow from the shapes alone)."""
+    rng = np.random.RandomState(8000)
+    pos = 40
+    dec, cache, preds, anc, maskk, mem_mask = _fused_state(wide_params, WIDE, 16, 5, pos, rng,
+                                                           dev, quant, bf16, 89)
+    x = _randn(rng, 80, WIDE.dim_model, dev=dev)
+    runs = []
+    for grid in (0, 7):
+        monkeypatch.setattr(tdf, "FUSED_GRID", grid)
+        if step == "K5":
+            y, c = _k5(dec, cache, x, pos, anc, 5, mem_mask, maskk)
+            runs.append((y, c.self_k, c.self_v))
+        else:
+            out, c, a, _ = _k4(dec, wide_params, WIDE, cache, preds, anc, maskk, mem_mask,
+                               pos + 1, 5)
+            runs.append((*out, c.self_k, c.self_v, a))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_fused_int8_on_grid_equals_f32(dev, wide_params, bf16):
+    """On weights that sit on the int8 grid, the int8 route of fused K5 and
+    K4 gives the f32 route's bits: the same tiles, the same order, and
+    float(q) * s is the f32 weight exactly."""
+    pos = 30
+    f32 = _fused_state(wide_params, WIDE, 16, 5, pos, np.random.RandomState(9), dev, False,
+                       bf16, 89, snap=True)
+    q8 = _fused_state(wide_params, WIDE, 16, 5, pos, np.random.RandomState(9), dev, True,
+                      bf16, 89, snap=True)
+    x = _randn(np.random.RandomState(10), 80, WIDE.dim_model, dev=dev)
+    (y_f, c_f), (y_q, c_q) = (_k5(s[0], s[1], x, pos, s[3], 5, s[5], s[4]) for s in (f32, q8))
+    assert torch.equal(y_f, y_q) and torch.equal(c_f.self_k, c_q.self_k)
+    outs = [_k4(s[0], wide_params, WIDE, s[1], s[2], s[3], s[4], s[5], pos + 1, 5)
+            for s in (f32, q8)]
+    for a, b in zip(outs[0][0] + (outs[0][1].self_v,), outs[1][0] + (outs[1][1].self_v,)):
+        assert torch.equal(a, b)
+
+
+def test_fused_partials_summed_in_split_order(dev, params):
+    """w_2's split partials are 2^24, 1 and -2^24 (h = relu(b_1) = 1, w_1 =
+    0, one nonzero row of w_2 in each of its first three 64-deep slices):
+    summed in split order they give 0, so the layer's output equals the one
+    with w_2 = 0 bit for bit; any other order gives 1 somewhere."""
+    _, pg = params
+    rng = np.random.RandomState(11)
+    dec, cache, _, anc, maskk, mem_mask = _fused_state(pg, CFG, 3, 3, 6, rng, dev)
+    lp = dec["layers"][1]
+    ffn = lp["pos_ffn"]
+    D, FF, kc = CFG.dim_model, CFG.dim_feedforward, tdf.FUSED_KC
+    assert FF >= 3 * kc
+    w2 = torch.zeros((FF, D), device=dev)
+    w2[0], w2[kc], w2[2 * kc] = 2.0 ** 24, 1.0, -(2.0 ** 24)
+    base = {**ffn, "w_1": {"w": torch.zeros_like(ffn["w_1"]["w"]),
+                           "b": torch.ones_like(ffn["w_1"]["b"])},
+            "w_2": {"w": torch.zeros_like(w2), "b": torch.zeros_like(ffn["w_2"]["b"])}}
+    x = _randn(rng, 9, D, dev=dev)
+    ys = []
+    for w in (base["w_2"]["w"], w2):
+        layer = {**lp, "pos_ffn": {**base, "w_2": {"w": w, "b": base["w_2"]["b"]}}}
+        d = {**dec, "layers": [dec["layers"][0], layer]}
+        ys.append(_k5(d, cache, x, 6, anc, 3, mem_mask, maskk)[0])
+    assert torch.equal(ys[0], ys[1])
+
+
+@pytest.mark.parametrize("step", ["K5", "K4"])
+def test_fused_launches_at_growing_and_shrinking_shared_memory(dev, wide_params, step):
+    """int8 weights, f32 caches, at 800 memory rows (the attention staging,
+    8 x (64 + 3 x 800) floats, sets the shared memory, past the product
+    stages), then 40 rows, then 800 again: every launch goes through (the
+    shared memory limit is one value per kernel) and matches the plain
+    version."""
+    for Lk in (800, 40, 800):
+        rng = np.random.RandomState(9000 + Lk)
+        pos = 10
+        dec, cache, preds, anc, maskk, mem_mask = _fused_state(wide_params, WIDE, 2, 5, pos, rng,
+                                                               dev, True, False, Lk)
+        if step == "K5":
+            x = _randn(rng, 10, WIDE.dim_model, dev=dev)
+            y, ck = _k5(dec, cache, x, pos, anc, 5, mem_mask, maskk)
+            y_p, cp = _k5(dec, cache, x, pos, anc, 5, mem_mask, maskk, decoder_layer_step_plain)
+            _close(y, y_p, TOL)
+        else:
+            _, ck, ak, _ = _k4(dec, wide_params, WIDE, cache, preds, anc, maskk, mem_mask,
+                               pos + 1, 5)
+            _, cp, ap, _ = _k4(dec, wide_params, WIDE, cache, preds, anc, maskk, mem_mask,
+                               pos + 1, 5, decode_beam_step_plain)
+            assert torch.equal(ak, ap)
+        for a, b in ((ck.self_k, cp.self_k), (ck.self_v, cp.self_v)):
+            _close(a, b, TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -1077,6 +1304,42 @@ def test_tp_step_kernels_match_plain(dev, Dq, pos, dtype):
         before = tdf.ffn_step.launches
         _close(tdf.ffn_step(f, x, partial), tdf.ffn_step_plain(f, x, partial), TOL)
         assert tdf.ffn_step.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("L", [600, 4000])
+def test_tp_attention_steps_over_long_memory(dev, L, dtype):
+    """K6b over L memory rows and K6a at position L - 1 of L cache rows,
+    past the ~490 rows that 8 warps' staging fits in 48 KB at d = 64: 600
+    (8 warps a block in opted-in shared memory) and 4000 (fewer warps a
+    block); then 96 rows and L again. Each against its plain version."""
+    rng = np.random.RandomState(L)
+    K, Bn, Dq, D = 5, 2, 128, 512
+    nh, BK = Dq // 64, K * Bn
+    p = _tp_weights(rng, dev, Dq)
+    x = _randn(rng, BK, D, dev=dev)
+    var = "bf16_launches" if dtype == BF16 else "launches"
+    for n in (L, 96, L):
+        mk, mv = (_randn(rng, Bn, n, Dq, dev=dev).to(dtype) for _ in range(2))
+        mem_mask = torch.ones((n, Bn), dtype=torch.int32, device=dev)
+        mem_mask[n // 3:, 1] = 0
+        before = getattr(tdf.cross_attn_step, var)
+        y = tdf.cross_attn_step(p["encdec_attn"], x, mk, mv, nh, K, mem_mask, True)
+        assert getattr(tdf.cross_attn_step, var) == before + 1
+        assert torch.isfinite(y).all()
+        _close(y, tdf.cross_attn_step_plain(p["encdec_attn"], x, mk, mv, nh, K, mem_mask, True),
+               TOL)
+        ck, cv = (_randn(rng, K, Bn, n, Dq, dev=dev).to(dtype) for _ in range(2))
+        anc = torch.from_numpy(rng.randint(0, K, (n, BK)).astype(np.int32)).to(dev)
+        anc[n - 1] = torch.arange(BK, device=dev, dtype=torch.int32) % K
+        maskk = torch.from_numpy((rng.rand(n, BK) < 0.8).astype(np.int32)).to(dev)
+        maskk[n - 1] = 1
+        ckk, cvk, ckp, cvp = ck.clone(), cv.clone(), ck.clone(), cv.clone()
+        y = tdf.self_attn_step(p["decslf_attn"], x, ckk, cvk, n - 1, nh, anc, K, maskk, True)
+        y_p = tdf.self_attn_step_plain(p["decslf_attn"], x, ckp, cvp, n - 1, nh, anc, K, maskk,
+                                       True)
+        assert torch.isfinite(y).all()
+        _close(y, y_p, TOL)
 
 
 @pytest.mark.parametrize("topk", [1, 5, 16])
