@@ -19,9 +19,11 @@ package beside it, included):
    times from CUDA events; K1 (the cluster sweep, its shape and block count
    on the line) also at B=1 and B=64, each with the sweep alone timed
    beside the whole call (input GEMMs included); K7 also at a 30 000-word
-   target vocabulary. K4 and K5 are one cooperative launch each
-   (csrc/decode_fused.cu): their lines give the grid (blocks, blocks per
-   SM), the grid barriers a launch and the shared memory a block, and K5's
+   target vocabulary. K2, K4 and K5 are one cooperative launch each
+   (csrc/las_fused.cu, csrc/decode_fused.cu): their lines give the grid
+   (blocks, blocks per SM), the grid barriers a launch and the shared
+   memory a block; K2's also its device operations a call (one) and the
+   floor of streaming its head every step (head_stream_floor_ms); K5's
    the time of the trio (K5 as K6a-c's three launch sequences) as trio_ms. The
    serving kernels likewise: the bf16 attention kernels, K5 in int8, bf16
    and int8+bf16, K3 and K4 in int8+bf16. The tensor-parallel kernels at one
@@ -72,12 +74,14 @@ package beside it, included):
      tp dev eval: forward_eval
      ASR_ST at n=2 against the single-device card route, picked_* within
      1e-4.
-5. kernels K8 (trainable BiLSTM) and K9 (teacher-forced LAS scan) at the
+5. kernels K8 (trainable BiLSTM) and K9 (teacher-forced LAS scan; its
+   phase runs right after K2's) at the
    flagship train shapes on seeded inputs and cotangents: forward and
    backward each against its plain version on the card, every saved or
    emitted stream within a stated tolerance relative to its max-abs, with
    median times (K8's forward sweep also alone, and both sweeps' cluster
-   shapes).
+   shapes; K9's fused launch: grid, barriers, shared memory, and its device
+   operations a call under torch.profiler, which must be one).
 6. train parity: one deterministic ASR_ST step (no dropout, no
    SpecAugment) at full widths with B=2 and 256 frames, on inputs of its
    own stream: the kernel route on the card, and the plain route on CPU
@@ -371,7 +375,7 @@ def phase_k2(params, cfg, rng):
     from stjep_tpu_torch.bridge import leaves
     from stjep_tpu_torch.config import BOS
     from stjep_tpu_torch.ops.attention import precompute_keys
-    from stjep_tpu_torch.ops.las_flash import las_greedy_flash, las_greedy_plain
+    from stjep_tpu_torch.ops.las_flash import las_greedy_flash, las_greedy_plain, las_plan
 
     dec = params["las"]["decoder"]
     Tk, n = FRAMES // 8, cfg.max_seq_len_src - 1
@@ -396,6 +400,11 @@ def phase_k2(params, cfg, rng):
             need(gap <= TIE, f"K2 row {r} step {c}: symbols differ, plain gap {gap}")
     ms = cuda_ms(lambda: las_greedy_flash(*args), 5)
     plain_ms = cuda_ms(lambda: las_greedy_plain(*args), 3)
+    n_ops, op_names = device_ops(lambda: las_greedy_flash(*args))
+    need(n_ops == 1, f"K2: {n_ops} device operations a call ({op_names}), not one launch")
+    plan = las_plan("greedy", B, Tk, wk.shape[2], embs_k.shape[2], acous.shape[2],
+                    E=cfg.enc_embedding_size, V=cfg.enc_vocab_size, nl=cfg.num_unilstm_dec,
+                    steps=n)
     # dynamic embeddings are unbounded FFN outputs fed back through 89
     # recurrent steps; f32 on both sides, summed in another order
     tol = 1e-3
@@ -408,8 +417,13 @@ def phase_k2(params, cfg, rng):
                + n * B * dec["embedder"].shape[1] * 4)
     flops = n * (2 * B * mats + 2 * B * Tk * (wk.shape[2] + acous.shape[2]))
     b = bound(n_bytes, flops)
+    # the head's [Hs, V] weights do not fit on chip: each step streams them
+    # from device memory, a floor above the bound's read-once count
+    head_floor = n * nbytes(dec["acous_out"]["w"]) / HBM_BYTES_PER_S * 1e3
     say("kernel K2 las_greedy", steps=n, V=cfg.enc_vocab_size, max_abs_err=err,
-        tol=tol, tied_rows=rows, ms=ms, plain_ms=plain_ms, **b)
+        tol=tol, tied_rows=rows, ms=ms, plain_ms=plain_ms, device_ops_per_call=n_ops,
+        device_kernels=",".join(op_names), fused=las_launch("greedy", plan),
+        head_stream_floor_ms=head_floor, **b)
     need(err <= tol, f"K2 max_abs_err {err} > {tol}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
 
@@ -1114,6 +1128,31 @@ def phase_tp_dev_eval(params, cfg, rng):
     return launches
 
 
+def device_ops(fn):
+    """The device operations of one call of fn under torch.profiler (fn
+    warmed up before): their count and their names (a kernel's without its
+    namespace and arguments)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    short = {n.replace("(anonymous namespace)::", "").split("(")[0].split("::")[-1].split()[-1]
+             for n in names}
+    return len(names), sorted(short)
+
+
+def las_launch(kind, plan):
+    """A fused K2 / K9 launch's shape (csrc/las_fused.cu): grid, grid
+    barriers a call, shared memory a block."""
+    from stjep_tpu_torch.ops.las_flash import las_grid
+
+    g = las_grid(kind, plan["smem"])
+    return (f"{g['blocks']}blocks({g['blocks_per_sm']}/SM):{plan['barriers']}barriers:"
+            f"{plan['smem']}B")
+
+
 def rel_err(a, b) -> float:
     """max |a - b| relative to max |b| (b: the plain version's tensor)."""
     scale = float(b.double().abs().max().cpu())
@@ -1188,6 +1227,7 @@ def phase_k9(params, cfg, rng):
     """K9 forward and backward at the main path's shapes: S = 89 steps,
     Tk = 188 keys, with dropout masks (keep 0.8)."""
     from stjep_tpu_torch.ops import las_tf_flash as k9
+    from stjep_tpu_torch.ops.las_flash import las_plan
 
     dec = params["las"]["decoder"]
     S, Tk = cfg.max_seq_len_src - 1, FRAMES // 8
@@ -1197,7 +1237,7 @@ def phase_k9(params, cfg, rng):
     w = k9.scan_weights(*(dec[k][n] for k, n in (
         ("dec_l0", "w_ih"), ("dec_l0", "w_hh"), ("dec_l1", "w_ih"), ("dec_l1", "w_hh"),
         ("dec_l1", "b_ih"), ("dec_l1", "b_hh"), ("dec_l2", "w_ih"), ("dec_l2", "w_hh"),
-        ("dec_l2", "b_ih"), ("dec_l2", "b_hh"))), dec["acous_ffn"]["w"])
+        ("dec_l2", "b_ih"), ("dec_l2", "b_hh"))), dec["acous_ffn"]["w"], pack=True)
     ids = torch.from_numpy(rng.randint(5, cfg.enc_vocab_size, (S, B))).cuda()
     p0 = dec["dec_l0"]
     pre0 = (dec["embedder"][ids] @ p0["w_ih"][:E] + p0["b_ih"] + p0["b_hh"]).contiguous()
@@ -1221,6 +1261,10 @@ def phase_k9(params, cfg, rng):
           "plain_fwd": cuda_ms(lambda: k9.las_tf_fwd_plain(*fargs), 3),
           "bwd": cuda_ms(lambda: k9.las_tf_bwd(*bargs), 5),
           "plain_bwd": cuda_ms(lambda: k9.las_tf_bwd_plain(*bargs), 3)}
+    ops = {"fwd": device_ops(lambda: k9.las_tf_fwd(*fargs)),
+           "bwd": device_ops(lambda: k9.las_tf_bwd(*bargs))}
+    for k, (n_ops, names) in ops.items():
+        need(n_ops == 1, f"K9 {k}: {n_ops} device operations a call ({names}), not one launch")
     # dynamic embeddings are unbounded FFN outputs fed back through 89
     # recurrent steps (K2's tolerance), and the backward sums over them;
     # f32 on both sides, summed in another order
@@ -1236,8 +1280,10 @@ def phase_k9(params, cfg, rng):
     for k in ("fwd", "bwd"):
         res[k] = dict(max_abs_err=err[k], ms=ms[k], plain_ms=ms[f"plain_{k}"],
                       library_ms=None, **bound(io[k], S * step_flops[k]))
+        plan = las_plan(f"tf_{k}", B, Tk, Hd, w.ffn.shape[1], Ha2, steps=S)
         say(f"kernel K9 las_tf_{k}", steps=S, B=B, Tk=Tk, max_rel_err=rel[k], tol_rel=tol,
-            **res[k])
+            device_ops_per_call=ops[k][0], device_kernels=",".join(ops[k][1]),
+            fused=las_launch(f"tf_{k}", plan), **res[k])
         need(rel[k] <= tol, f"K9 {k} relative error {rel[k]} > {tol}")
     return res
 
@@ -1890,11 +1936,14 @@ def main() -> int:
     rng = np.random.RandomState(args.seed)
 
     # 3. kernels vs their plain versions
-    results = {"K1": phase_k1(params, cfg, rng), "K2": phase_k2(params, cfg, rng),
-               "K3": phase_k3(params, cfg, rng), "K4": phase_k4(params, cfg, rng),
+    results = {"K1": phase_k1(params, cfg, rng), "K2": phase_k2(params, cfg, rng)}
+    # K9 right after K2: later in the script torch.profiler recorded no
+    # device event at all, so the one-launch check could not see K9's kernel
+    k9_res = phase_k9(params, cfg, rng)
+    results.update({"K3": phase_k3(params, cfg, rng), "K4": phase_k4(params, cfg, rng),
                "K4 select": phase_k4_select(params, cfg, rng),
                "K5": phase_k5(params, cfg, rng),
-               "K3 gather": phase_k3_gather(params, cfg, rng)}
+               "K3 gather": phase_k3_gather(params, cfg, rng)})
     k7 = phase_k7(params, cfg, rng)
     results["K7 head"], results["K7 head_gather"] = k7["head"], k7["head_gather"]
     # the serving kernels: int8 weights, bf16 caches, both
@@ -1935,7 +1984,7 @@ def main() -> int:
            for k, v in serving.items()})
 
     # 5-7. the train path: its kernels, a parity step, the flagship step
-    k8_res, k9_res = phase_k8(params, cfg, rng), phase_k9(params, cfg, rng)
+    k8_res = phase_k8(params, cfg, rng)
     for d in ("fwd", "bwd"):
         results[f"K8 {d}"], results[f"K9 {d}"] = k8_res[d], k9_res[d]
     phase_train_parity(args.seed)
@@ -1944,7 +1993,7 @@ def main() -> int:
 
     src, rep = "stjep_tpu_torch/csrc/", "stjep_tpu/ops/"
     sources = {"K1": ("bilstm", src + "bilstm.cu", rep + "lstm_pallas.py:206"),
-               "K2": ("las_greedy", src + "las_greedy.cu", rep + "las_flash.py:168"),
+               "K2": ("las_greedy", src + "las_fused.cu", rep + "las_flash.py:168"),
                "K3": ("decode_chain_step", src + "decode_fused.cu", rep + "decode_flash.py:1078"),
                "K3 gather": ("decode_chain_step gather", src + "decode_fused.cu",
                              rep + "decode_flash.py:1078"),
@@ -1956,8 +2005,8 @@ def main() -> int:
                                   rep + "decode_flash.py:1628"),
                "K8 fwd": ("bilstm_fwd_save", src + "bilstm.cu", rep + "lstm_pallas_bwd.py:174"),
                "K8 bwd": ("bilstm_bwd", src + "bilstm_bwd.cu", rep + "lstm_pallas_bwd.py:262"),
-               "K9 fwd": ("las_tf_fwd", src + "las_tf.cu", rep + "las_tf_flash.py:263"),
-               "K9 bwd": ("las_tf_bwd", src + "las_tf.cu", rep + "las_tf_flash.py:364"),
+               "K9 fwd": ("las_tf_fwd", src + "las_fused.cu", rep + "las_tf_flash.py:263"),
+               "K9 bwd": ("las_tf_bwd", src + "las_fused.cu", rep + "las_tf_flash.py:364"),
                "self_attn bf16": ("self_attn_anc_bf16", src + "decode.cu",
                                   rep + "decode_flash.py:759"),
                "cross_attn bf16": ("cross_attn_bf16", src + "decode.cu",

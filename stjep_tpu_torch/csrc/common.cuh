@@ -185,6 +185,61 @@ inline cudaError_t smem_allow_max(const void* kern, int* bytes = nullptr) {
   return cudaSuccess;
 }
 
+// Blocks a multiprocessor keeps resident for kern at `threads` threads and
+// smem bytes, and the SM count. The kernel may take up to the opt-in
+// maximum of shared memory (`smem_allow_max`), so a launch at any smem the
+// card holds is allowed; the answer is asked of the card once per (kernel,
+// smem) and cached.
+template <typename Kern>
+int resident(Kern kern, int threads, int smem, int* per_sm, int* sms) {
+  static const void* keys[32];
+  static int smems[32], vals[32];
+  static int n_sm = 0;
+  cudaError_t e;
+  if (!n_sm) {
+    int dev = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+    if ((e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return (int)e;
+  }
+  *sms = n_sm;
+  for (int i = 0; i < 32; ++i)
+    if (keys[i] == (const void*)kern && smems[i] == smem) {
+      *per_sm = vals[i];
+      return 0;
+    }
+  if ((e = smem_allow_max((const void*)kern)) != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kern, threads, smem);
+  if (e != cudaSuccess) return (int)e;
+  for (int i = 0; i < 32; ++i)
+    if (!keys[i]) {
+      keys[i] = (const void*)kern;
+      smems[i] = smem;
+      vals[i] = *per_sm;
+      break;
+    }
+  return 0;
+}
+
+// Launch kern cooperatively (its one argument `args`, by value): `grid`
+// blocks, or with grid 0 every block the card keeps resident. A grid the
+// card cannot hold is an error, returned; nothing falls back.
+template <typename Kern, typename Args>
+int launch_coop(Kern kern, const Args& args, int threads, int smem, int grid,
+                cudaStream_t stream) {
+  int per_sm = 0, sms = 0;
+  int e = resident(kern, threads, smem, &per_sm, &sms);
+  if (e) return e;
+  const int most = per_sm * sms;
+  if (grid == 0) grid = most;
+  if (most == 0 || grid > most || grid < 0) return (int)cudaErrorCooperativeLaunchTooLarge;
+  void* params[] = {(void*)&args};
+  e = (int)cudaLaunchCooperativeKernel((const void*)kern, dim3(grid), dim3(threads), params,
+                                       (size_t)smem, stream);
+  if (e) return e;
+  return (int)cudaGetLastError();
+}
+
 // One LSTM cell backward from the saved gate activations (i, f, g, o), the
 // previous cell c_prev and dh_t = dL/dh_t (external + recurrent): writes
 // dL/dpre for the four gates to dp[0], dp[H], dp[2H], dp[3H] and returns the

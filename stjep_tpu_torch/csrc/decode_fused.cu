@@ -593,58 +593,6 @@ int smem_need(int wbytes, int d, int Lpad, int Lk) {
   return prod > att ? prod : att;
 }
 
-// Blocks a multiprocessor keeps resident for kern at smem bytes, and the
-// SM count. The kernel may take up to the opt-in maximum of shared memory
-// (`smem_allow_max`), so a launch at any smem the card holds is allowed;
-// the answer is asked of the card once per (kernel, smem) and cached.
-template <typename Kern>
-int resident(Kern kern, int smem, int* per_sm, int* sms) {
-  static const void* keys[32];
-  static int smems[32], vals[32];
-  static int n_sm = 0;
-  cudaError_t e;
-  if (!n_sm) {
-    int dev = 0;
-    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-    if ((e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-      return (int)e;
-  }
-  *sms = n_sm;
-  for (int i = 0; i < 32; ++i)
-    if (keys[i] == (const void*)kern && smems[i] == smem) {
-      *per_sm = vals[i];
-      return 0;
-    }
-  if ((e = smem_allow_max((const void*)kern)) != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kern, THREADS, smem);
-  if (e != cudaSuccess) return (int)e;
-  for (int i = 0; i < 32; ++i)
-    if (!keys[i]) {
-      keys[i] = (const void*)kern;
-      smems[i] = smem;
-      vals[i] = *per_sm;
-      break;
-    }
-  return 0;
-}
-
-// Launch kern cooperatively: `grid` blocks, or with grid 0 every block the
-// card keeps resident. A grid the card cannot hold is an error.
-template <typename Kern, typename Args>
-int launch_coop(Kern kern, const Args& args, int smem, int grid, cudaStream_t stream) {
-  int per_sm = 0, sms = 0;
-  int e = resident(kern, smem, &per_sm, &sms);
-  if (e) return e;
-  const int most = per_sm * sms;
-  if (grid == 0) grid = most;
-  if (most == 0 || grid > most || grid < 0) return (int)cudaErrorCooperativeLaunchTooLarge;
-  void* params[] = {(void*)&args};
-  e = (int)cudaLaunchCooperativeKernel((const void*)kern, dim3(grid), dim3(THREADS), params,
-                                       (size_t)smem, stream);
-  if (e) return e;
-  return (int)cudaGetLastError();
-}
-
 // The 24 pointers of a layer, in decode_flash.py `_fused_pointers` order:
 // the eight vectors, the eight matrices, their eight scales (null for f32).
 LayerW read_layer(const void* const* w) {
@@ -668,12 +616,12 @@ bool shapes_ok(int quant, int D, int FF, int nh) {
 
 template <typename WT, typename CT>
 int layer_launch(const LayerArgs& a, int smem, int grid, cudaStream_t stream) {
-  return launch_coop(layer_kernel<WT, CT>, a, smem, grid, stream);
+  return launch_coop(layer_kernel<WT, CT>, a, THREADS, smem, grid, stream);
 }
 
 template <typename WT, typename CT>
 int beam_launch(const BeamArgs& a, int smem, int grid, cudaStream_t stream) {
-  return launch_coop(beam_kernel<WT, CT>, a, smem, grid, stream);
+  return launch_coop(beam_kernel<WT, CT>, a, THREADS, smem, grid, stream);
 }
 
 }  // namespace
@@ -802,15 +750,12 @@ extern "C" int decode_beam_fused(
 // out[1] the SM count, for K5 (beam 0) or K4 (beam 1) at smem bytes.
 extern "C" int decode_fused_grid(int quant, int bf16, int beam, int smem, int* out,
                                  cudaStream_t stream) {
+  const auto ask = [&](auto kern) { return resident(kern, THREADS, smem, out, out + 1); };
   if (beam)
-    return quant ? (bf16 ? resident(beam_kernel<int8_t, __nv_bfloat16>, smem, out, out + 1)
-                         : resident(beam_kernel<int8_t, float>, smem, out, out + 1))
-                 : (bf16 ? resident(beam_kernel<float, __nv_bfloat16>, smem, out, out + 1)
-                         : resident(beam_kernel<float, float>, smem, out, out + 1));
-  return quant ? (bf16 ? resident(layer_kernel<int8_t, __nv_bfloat16>, smem, out, out + 1)
-                       : resident(layer_kernel<int8_t, float>, smem, out, out + 1))
-               : (bf16 ? resident(layer_kernel<float, __nv_bfloat16>, smem, out, out + 1)
-                       : resident(layer_kernel<float, float>, smem, out, out + 1));
+    return quant ? (bf16 ? ask(beam_kernel<int8_t, __nv_bfloat16>) : ask(beam_kernel<int8_t, float>))
+                 : (bf16 ? ask(beam_kernel<float, __nv_bfloat16>) : ask(beam_kernel<float, float>));
+  return quant ? (bf16 ? ask(layer_kernel<int8_t, __nv_bfloat16>) : ask(layer_kernel<int8_t, float>))
+               : (bf16 ? ask(layer_kernel<float, __nv_bfloat16>) : ask(layer_kernel<float, float>));
 }
 
 // The timer buffer of a library built with -DSTJEP_FUSED_STAMPS (unsigned

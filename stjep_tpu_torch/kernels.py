@@ -41,12 +41,6 @@ _SIGS = {
     "bilstm_bwd_recurrent": "ppppppp" + "iii" + "ii",
     "bilstm_fwd_plan": "iiii" + "p",
     "bilstm_bwd_plan": "iiii" + "p",
-    "las_embed_concat": "ppp" + "i" + "p" + "iiii",
-    "lstm_gates": "pppp" + "i" + "p" + "i" + "p" + "i" + "pp" + "ii",
-    "bilinear_attend": "p" + "i" + "pppp" + "i" + "pp" + "iiii",
-    "lstm_cell_bwd": "pi" + "pi" + "pppp" + "pi" + "pp" + "ii",
-    "attend_bwd": "pi" + "ppppppp" + "iiii",
-    "head_argmax": "pp" + "i" + "pp" + "i" + "p" + "i" + "ii",
     "self_attn_anc": "pppppppp" + "iiiiii",
     "self_attn_anc_bf16": "pppppppp" + "iiiiii",
     "cross_attn": "ppppp" + "iiiii",
@@ -58,6 +52,11 @@ _SIGS = {
     "decode_beam_fused": "p" + "ii" + "p" * 27 + "i" * 14 + "f",
     "decode_fused_grid": "iiii" + "p",
     "decode_fused_stamps": "p",
+    "las_greedy_fused": "p" * 16 + "i" * 14,
+    "las_tf_fwd_fused": "p" * 21 + "i" * 11,
+    "las_tf_bwd_fused": "p" * 18 + "i" * 11,
+    "las_fused_grid": "ii" + "p",
+    "las_fused_stamps": "pp",
 }
 _CT = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

@@ -25,12 +25,12 @@ Layer 0's embedding-side rows of W_ih and its biases get zero here: their
 gradient flows through `pre0_steps`, which the caller computes with plain
 autograd from the same `dec_l0.w_ih`, so autograd sums the two parts.
 
-On CUDA tensors the Function launches the kernels of `csrc/las_tf.cu` (with
-K2's per-step kernels and the shared GEMM) from host loops that never
-synchronise; on CPU tensors it runs `las_tf_fwd_plain` and
-`las_tf_bwd_plain`, explicit time loops that produce the same streams. The
-TPU kernels keep streams and weights in bf16; the port keeps f32 (the JAX
-package's parity mode).
+On CUDA tensors the Function launches one cooperative persistent kernel of
+`csrc/las_fused.cu` a direction (`las_tf_fwd_fused`, `las_tf_bwd_fused`,
+the plan `ops/las_flash.py las_plan`); on CPU tensors it runs
+`las_tf_fwd_plain` and `las_tf_bwd_plain`, explicit time loops that produce
+the same streams. The TPU kernels keep streams and weights in bf16; the
+port keeps f32 (the JAX package's parity mode).
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from stjep_tpu_torch import kernels
+from stjep_tpu_torch.ops import las_flash
 from stjep_tpu_torch.ops.attention import MASK_FILL
 from stjep_tpu_torch.ops.lstm import lstm_gates
 
@@ -53,6 +54,11 @@ class Weights(NamedTuple):
     w2: torch.Tensor
     b2: torch.Tensor
     ffn: torch.Tensor  # [Ha2+Hd, Hs]
+    # w0, w1, w2 with a unit's four gates adjacent (las_flash.pack_gates):
+    # the forward kernel's layout (scan_weights(..., pack=True)), or None
+    p0: Optional[torch.Tensor] = None
+    p1: Optional[torch.Tensor] = None
+    p2: Optional[torch.Tensor] = None
 
 
 class Streams(NamedTuple):
@@ -74,11 +80,11 @@ class Masks(NamedTuple):
     ctx: torch.Tensor
 
 
-def _new_streams(pre0: torch.Tensor, w: Weights, Tk: int) -> Streams:
+def _new_streams(pre0: torch.Tensor, w: Weights, Tk: int, new=torch.zeros) -> Streams:
     S, B, _ = pre0.shape
     Hd = w.w1.shape[1] // 4
     Hs, Ha2 = w.ffn.shape[1], w.ffn.shape[0] - Hd
-    z = lambda *shape: torch.zeros(shape, device=pre0.device, dtype=pre0.dtype)
+    z = lambda *shape: new(shape, device=pre0.device, dtype=pre0.dtype)
     return Streams(x0=z(S + 1, B, Hs + Hd), x1=z(S + 1, B, 2 * Hd),
                    x2=z(S + 1, B, 2 * Hd), ff=z(S, B, Ha2 + Hd),
                    c=z(3, S + 1, B, Hd), g=z(3, S, B, 4 * Hd), attn=z(S, B, Tk))
@@ -185,39 +191,45 @@ def las_tf_bwd_plain(w: Weights, st: Streams, g_cell: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def _fused(kind: str, w: Weights, S: int, B: int, Tk: int):
+    """The plan of a K9 launch, checked, and its workspace and item table."""
+    Hd = w.w1.shape[1] // 4
+    Hs, Ha2 = w.ffn.shape[1], w.ffn.shape[0] - Hd
+    plan = las_flash.las_plan(kind, B, Tk, Hd, Hs, Ha2, steps=S)
+    las_flash.check_widths(B, Tk, Hd, Hs, Ha2, ws_floats=plan["ws_floats"], smem=plan["smem"])
+    for t_, nm in zip(w, Weights._fields):
+        if t_ is not None:
+            kernels.check(t_, name=nm)
+    dev = w.w1.device
+    ws = torch.empty((plan["ws_floats"],), device=dev, dtype=torch.float32)
+    tiles = las_flash._tiles_on(dev, kind, B, Tk, Hd, Hs, Ha2, 0)
+    return (ws, tiles, plan["ws_floats"], S, B, Tk, Hd, Hs, Ha2, plan["nc"], plan["tc"],
+            plan["smem"], las_flash.LAS_GRID)
+
+
+def _masks(masks: Optional[Masks]):
+    if masks is None:
+        return None, None
+    return (kernels.check(masks.lstm, name="masks.lstm"),
+            kernels.check(masks.ctx, name="masks.ctx"))
+
+
 def las_tf_fwd(w: Weights, pre0: torch.Tensor, wk: torch.Tensor,
                values: torch.Tensor, lens_k: torch.Tensor,
                masks: Optional[Masks]) -> Streams:
-    """K9 forward on the card; same arguments and result as
+    """K9 forward on the card, one launch; same arguments and result as
     las_tf_fwd_plain."""
     S, B, _ = pre0.shape
     Tk = values.shape[1]
-    Hd = w.w1.shape[1] // 4
-    Hs, Ha2 = w.ffn.shape[1], w.ffn.shape[0] - Hd
-    for t_, nm in ((pre0, "pre0"), (wk, "wk"), (values, "values"), *zip(w, Weights._fields)):
+    if w.p0 is None:
+        raise ValueError("las_tf_fwd reads the packed weights: scan_weights(..., pack=True)")
+    for t_, nm in ((pre0, "pre0"), (wk, "wk"), (values, "values")):
         kernels.check(t_, name=nm)
-    lens = lens_k.to(dtype=torch.int32).contiguous()
-    st = _new_streams(pre0, w, Tk)
-    pre = torch.empty((B, 4 * Hd), device=pre0.device, dtype=torch.float32)
-    ld0, ld1, ldf = st.x0.stride(1), st.x1.stride(1), st.ff.stride(1)
-    for t in range(S):
-        m = (None,) * 3 if masks is None else masks.lstm[t]
-        kernels.gemm(st.x0[t], w.w0, residual=pre0[t], out=pre)
-        kernels.launch("lstm_gates", pre, st.c[0, t], st.c[0, t + 1],
-                       st.x0[t + 1, :, Hs:], ld0, st.x1[t, :, :Hd], ld1, None, 0,
-                       m[0], st.g[0, t], B, Hd)
-        kernels.gemm(st.x1[t], w.w1, bias=w.b1, out=pre)
-        kernels.launch("lstm_gates", pre, st.c[1, t], st.c[1, t + 1],
-                       st.x1[t + 1, :, Hd:], ld1, st.x2[t, :, :Hd], ld1,
-                       st.x1[t, :, :Hd], ld1, m[1], st.g[1, t], B, Hd)
-        kernels.gemm(st.x2[t], w.w2, bias=w.b2, out=pre)
-        kernels.launch("lstm_gates", pre, st.c[2, t], st.c[2, t + 1],
-                       st.x2[t + 1, :, Hd:], ld1, st.ff[t, :, Ha2:], ldf, None, 0,
-                       m[2], st.g[2, t], B, Hd)
-        kernels.launch("bilinear_attend", st.ff[t, :, Ha2:], ldf, wk, values,
-                       lens, st.ff[t], ldf, st.attn[t],
-                       None if masks is None else masks.ctx[t], B, Tk, Hd, Ha2)
-        kernels.gemm(st.ff[t], w.ffn, out=st.x0[t + 1, :, :Hs])
+    lens = lens_k.to(device=pre0.device, dtype=torch.int64).contiguous()
+    st = _new_streams(pre0, w, Tk, torch.empty)  # the kernel writes every element
+    kernels.launch("las_tf_fwd_fused", w.p0, w.p1, w.p2, w.b1, w.b2, w.ffn, pre0, wk, values,
+                   lens, *_masks(masks), *st,
+                   *_fused("tf_fwd", w, S, B, Tk))
     las_tf_fwd.launches += 1
     return st
 
@@ -227,50 +239,23 @@ las_tf_fwd.launches = 0
 
 def las_tf_bwd(w: Weights, st: Streams, g_cell: torch.Tensor, wk: torch.Tensor,
                values: torch.Tensor, masks: Optional[Masks]):
-    """K9 backward on the card; same arguments and results as
+    """K9 backward on the card, one launch; same arguments and results as
     las_tf_bwd_plain."""
     S, B, Hs = g_cell.shape
-    Tk = values.shape[1]
-    Hd = w.w1.shape[1] // 4
-    Ha2 = values.shape[-1]
-    dev, f32 = g_cell.device, torch.float32
+    Tk, Ha2 = values.shape[1], values.shape[-1]
     g_cell = g_cell.contiguous()
-    wT = [t_.t().contiguous() for t_ in (w.w0, w.w1, w.w2, w.ffn)]
-    # dx0[t] = d[cell_{t-1} ; h0_{t-1}]: layer 0's GEMM adds gc[t] = [g_cell[t-1] ; 0],
-    # so dx0[t][:, :Hs] is the full cotangent of cell_{t-1}
-    gc = torch.zeros((S + 1, B, Hs + Hd), device=dev, dtype=f32)
-    gc[1:, :, :Hs] = g_cell
-    dx0 = torch.zeros_like(gc)
-    dx0[S] = gc[S]
-    dx1 = torch.zeros((S + 1, B, 2 * Hd), device=dev, dtype=f32)
-    dx2 = torch.zeros_like(dx1)
-    dc = torch.zeros((3, B, Hd), device=dev, dtype=f32)
+    for t_, nm in ((g_cell, "g_cell"), (wk, "wk"), (values, "values"), (st.g, "st.g"),
+                   (st.c, "st.c"), (st.attn, "st.attn")):
+        kernels.check(t_, name=nm)
     dpre = torch.empty_like(st.g)
     dsc = torch.empty_like(st.attn)
-    dctx = torch.empty((S, B, Ha2), device=dev, dtype=f32)
-    dff = torch.empty((B, Ha2 + Hd), device=dev, dtype=f32)
-    dq = torch.empty((B, Hd), device=dev, dtype=f32)
-    dy1 = torch.empty_like(dq)
-    ld0, ld1 = dx0.stride(1), dx1.stride(1)
-    for t in range(S - 1, -1, -1):
-        m = (None,) * 3 if masks is None else masks.lstm[t]
-        kernels.gemm(dx0[t + 1, :, :Hs], wT[3], out=dff)
-        kernels.launch("attend_bwd", dff, dff.stride(0),
-                       None if masks is None else masks.ctx[t], st.attn[t],
-                       values, wk, dsc[t], dctx[t], dq, B, Tk, Ha2, Hd)
-        kernels.launch("lstm_cell_bwd", dq, Hd, None, 0, m[2], None, st.g[2, t],
-                       st.c[2, t], dx2[t + 1, :, Hd:], ld1, dc[2], dpre[2, t], B, Hd)
-        kernels.gemm(dpre[2, t], wT[2], out=dx2[t])
-        kernels.launch("lstm_cell_bwd", dx2[t, :, :Hd], ld1, None, 0, m[1], dy1,
-                       st.g[1, t], st.c[1, t], dx1[t + 1, :, Hd:], ld1, dc[1],
-                       dpre[1, t], B, Hd)
-        kernels.gemm(dpre[1, t], wT[1], out=dx1[t])
-        kernels.launch("lstm_cell_bwd", dy1, Hd, dx1[t, :, :Hd], ld1, m[0], None,
-                       st.g[0, t], st.c[0, t], dx0[t + 1, :, Hs:], ld0, dc[0],
-                       dpre[0, t], B, Hd)
-        kernels.gemm(dpre[0, t], wT[0], residual=gc[t], out=dx0[t])
+    dctx = torch.empty((S, B, Ha2), device=g_cell.device, dtype=torch.float32)
+    dcell = torch.empty_like(g_cell)
+    kernels.launch("las_tf_bwd_fused", w.w0, w.w1, w.w2, w.ffn, st.g, st.c, st.attn, wk, values,
+                   *_masks(masks), g_cell, dpre, dsc, dctx, dcell,
+                   *_fused("tf_bwd", w, S, B, Tk))
     las_tf_bwd.launches += 1
-    return dpre, dsc, dctx, dx0[1:, :, :Hs]
+    return dpre, dsc, dctx, dcell
 
 
 las_tf_bwd.launches = 0
@@ -288,14 +273,16 @@ def las_tf_flash_supported(cfg) -> bool:
 
 
 def scan_weights(w0_ih, w0_hh, w1_ih, w1_hh, b1_ih, b1_hh, w2_ih, w2_hh, b2_ih,
-                 b2_hh, ffn_w) -> Weights:
-    """The three LSTM layers' and the FFN's params as the steps read them."""
+                 b2_hh, ffn_w, pack: bool = False) -> Weights:
+    """The three LSTM layers' and the FFN's params as the steps read them;
+    with pack, also the forward kernel's packed copies."""
     E = w0_ih.shape[0] - ffn_w.shape[1]  # layer-0 input = [emb (E) ; cell (Hs)]
-    return Weights(w0=torch.cat([w0_ih[E:], w0_hh], 0).contiguous(),
-                   w1=torch.cat([w1_ih, w1_hh], 0).contiguous(),
-                   b1=(b1_ih + b1_hh).contiguous(),
-                   w2=torch.cat([w2_ih, w2_hh], 0).contiguous(),
-                   b2=(b2_ih + b2_hh).contiguous(), ffn=ffn_w.contiguous())
+    ws = [torch.cat(pair, 0).contiguous()
+          for pair in ((w0_ih[E:], w0_hh), (w1_ih, w1_hh), (w2_ih, w2_hh))]
+    packed = [las_flash.pack_gates(x) for x in ws] if pack else [None] * 3
+    return Weights(w0=ws[0], w1=ws[1], b1=(b1_ih + b1_hh).contiguous(), w2=ws[2],
+                   b2=(b2_ih + b2_hh).contiguous(), ffn=ffn_w.contiguous(), p0=packed[0],
+                   p1=packed[1], p2=packed[2])
 
 
 class _LasTFScan(torch.autograd.Function):
@@ -303,7 +290,7 @@ class _LasTFScan(torch.autograd.Function):
     def forward(ctx, pre0, acous, lens_k, m_lstm, m_ctx, att_w, w0_ih, w0_hh,
                 w1_ih, w1_hh, b1_ih, b1_hh, w2_ih, w2_hh, b2_ih, b2_hh, ffn_w):
         w = scan_weights(w0_ih, w0_hh, w1_ih, w1_hh, b1_ih, b1_hh, w2_ih, w2_hh,
-                     b2_ih, b2_hh, ffn_w)
+                         b2_ih, b2_hh, ffn_w, pack=pre0.is_cuda)
         masks = None if m_lstm is None else Masks(m_lstm.contiguous(),
                                                   m_ctx.contiguous())
         acous = acous.contiguous()
@@ -311,7 +298,8 @@ class _LasTFScan(torch.autograd.Function):
         fwd = las_tf_fwd if pre0.is_cuda else las_tf_fwd_plain
         st = fwd(w, pre0.contiguous(), wk, acous, lens_k, masks)
         ctx.save_for_backward(acous, att_w, w0_ih, ffn_w)
-        ctx.scan = (w, st, wk, masks)
+        # the backward reads the unpacked weights: the packed copies go now
+        ctx.scan = (w._replace(p0=None, p1=None, p2=None), st, wk, masks)
         return st.x0[1:, :, :ffn_w.shape[1]].contiguous()
 
     @staticmethod

@@ -2,7 +2,8 @@
 """Mutation check of the kernels on one GPU: the decode kernels (the fused
 K4 and K5 in csrc/decode_fused.cu, the attention, head and select bodies in
 csrc/attend.cuh and csrc/head_select.cuh, the tensor-parallel head K7c
-included) and the BiLSTM cluster sweeps (csrc/bilstm.cu, csrc/bilstm_bwd.cu).
+included), the BiLSTM cluster sweeps (csrc/bilstm.cu, csrc/bilstm_bwd.cu)
+and the fused LAS decoder kernels K2 and K9 (csrc/las_fused.cu).
 
     python3 stjep_tpu_torch/scripts/mutate.py [--workdir DIR] [--only TEXT[,TEXT]]
 
@@ -31,6 +32,7 @@ ROOT = Path(__file__).resolve().parents[2]
 SELECT = ("layer_step or head or gather or beam_step or beam_select or "
           "general_beam or forward_eval or fused or attn_kernels or serving or tp_")
 SELECT_BILSTM = "bilstm"
+SELECT_LAS = "las"
 TIMEOUT_S = 900
 
 # (what it breaks, the source in csrc/, the line as it is, the line as the
@@ -97,6 +99,31 @@ MUTATIONS = [
     ("dh pieces added out of rank order", "bilstm_bwd.cu",
      "        for (int q = 0; q < C; ++q) a += rv[(q * U + iu[m]) * BT + ir[m]];",
      "        for (int q = C - 1; q >= 0; --q) a += rv[(q * U + iu[m]) * BT + ir[m]];"),
+    ("attention fill from one key past lens_k", "las_fused.cu",
+     "      s = t >= len ? MASK_FILL : s;",
+     "      s = t > len ? MASK_FILL : s;"),
+    ("head ties resolved to the highest index", "las_fused.cu",
+     "    if (better(ov, oi, v, i)) {",
+     "    if (ov > v || (ov == v && oi > i)) {"),
+    ("residual on layer 0 of the teacher-forced scan", "las_fused.cu",
+     "            float y = l == 1 ? h + xt[(size_t)b * xw + u] : h;",
+     "            float y = l <= 1 ? h + xt[(size_t)b * xw + u] : h;"),
+    ("context dropout mask dropped", "las_fused.cu",
+     "    if (a.mctx) v *= a.mctx[(size_t)b * Ha2 + d];",
+     ""),
+    ("a grid barrier dropped (K2's FFN reads the context before it is complete)",
+     "las_fused.cu",
+     "    barrier(grid);  // every row's context complete",
+     ""),
+    ("a narrow item's warp partials summed in reverse order", "las_fused.cu",
+     "    for (int q = 0; q < WARPS; ++q) v += red[q * BM * NJ + threadIdx.x];",
+     "    for (int q = WARPS - 1; q >= 0; --q) v += red[q * BM * NJ + threadIdx.x];"),
+    ("gc[t] dropped from the backward's layer-0 product", "las_fused.cu",
+     "          a.dcell[e] = v + a.g_cell[e];",
+     "          a.dcell[e] = v;"),
+    ("the PAD symbol's embedding row read", "las_fused.cu",
+     "    return o.p0 && id != STJEP_PAD ? o.p0 + (size_t)id * o.ld0 + k : nullptr;",
+     "    return o.p0 ? o.p0 + (size_t)id * o.ld0 + k : nullptr;"),
 ]
 
 
@@ -119,11 +146,12 @@ def run(workdir: Path, label: str, mutation=None) -> int:
                 raise RuntimeError(f"mutation site not found once: {o!r}")
             text = text.replace(o, n)
         src.write_text(text)
-        select = SELECT_BILSTM if name.startswith("bilstm") else SELECT
+        select = (SELECT_BILSTM if name.startswith("bilstm")
+                  else SELECT_LAS if name == "las_fused.cu" else SELECT)
     env = {**os.environ, "PYTHONPATH": str(dst)}
     cmd = [sys.executable, "-m", "pytest", "tests/test_torch_cuda.py", "-m", "cuda",
            "--noconftest", "-q", "-p", "no:cacheprovider", "-k",
-           select if mutation is not None else f"{SELECT} or {SELECT_BILSTM}"]
+           select if mutation is not None else f"{SELECT} or {SELECT_BILSTM} or {SELECT_LAS}"]
     try:
         proc = subprocess.run(cmd, cwd=dst, env=env, capture_output=True, text=True,
                               timeout=TIMEOUT_S)

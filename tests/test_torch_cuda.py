@@ -17,7 +17,11 @@ bit-equal to the plain version's), and K3, K4 and K5 with int8 weights,
 bf16 caches and both (TOL_BF16 below). The fused K5 and K4
 (csrc/decode_fused.cu) at the flagship width and off-tile shapes in every
 variant, bit-identical at two grid sizes, int8 on grid-snapped weights
-bit-equal to f32, and their split partials summed in split order.
+bit-equal to f32, and their split partials summed in split order. The
+fused K2 and K9 (csrc/las_fused.cu) at the flagship's LAS widths over
+batches, key lengths, vocabularies and layer counts, with forced head ties
+and a PAD symbol fed back, bit-identical at two grid sizes, at alternating
+key lengths, and one device kernel a call.
 
 Every test needs a CUDA card and skips without one. Run them on a GPU host
 (the tests' conftest imports JAX, which that host need not have):
@@ -36,6 +40,7 @@ from stjep_tpu_torch.bridge import leaves, params_to
 from stjep_tpu_torch.config import BOS, PAD, ModelConfig
 from stjep_tpu_torch.infer.beam import beam_search
 from stjep_tpu_torch.infer.forward import forward_eval, forward_translate
+from stjep_tpu_torch.models.las_decoder import las_decoder_init
 from stjep_tpu_torch.models.seq2seq import _dec_embedder, init_seq2seq
 from stjep_tpu_torch.models.tf_decoder import tf_decoder_init_cache_chain
 from stjep_tpu_torch.ops.attention import precompute_keys
@@ -57,6 +62,7 @@ from stjep_tpu_torch.ops.decode_flash import (
     pad_len,
     stack_decoder_layers,
 )
+from stjep_tpu_torch.ops import las_flash as k2
 from stjep_tpu_torch.ops import las_tf_flash as k9
 from stjep_tpu_torch.ops import lstm_pallas_bwd as k8
 from stjep_tpu_torch.ops.las_flash import las_greedy_flash, las_greedy_plain
@@ -646,7 +652,7 @@ def test_las_tf_kernels_match_plain(dev, params, use_masks):
         stack["dec_l0"]["w_ih"], stack["dec_l0"]["w_hh"], stack["dec_l1"]["w_ih"],
         stack["dec_l1"]["w_hh"], stack["dec_l1"]["b_ih"], stack["dec_l1"]["b_hh"],
         stack["dec_l2"]["w_ih"], stack["dec_l2"]["w_hh"], stack["dec_l2"]["b_ih"],
-        stack["dec_l2"]["b_hh"], ffn_w)))
+        stack["dec_l2"]["b_hh"], ffn_w)), pack=True)
     m = None if masks is None else k9.Masks(masks[0].to(dev).contiguous(),
                                             masks[1][:, :, 0].to(dev).contiguous())
     ac = acous.to(dev)
@@ -1482,3 +1488,244 @@ def test_tp_kernels_refuse_autograd(dev, make_call):
     """K6a (the trio's first launch) and K7c refuse weights that require
     grad on the card; under no_grad they run."""
     test_inference_kernels_refuse_autograd(dev, make_call)
+
+
+# ---------------------------------------------------------------------------
+# the fused K2 and K9 (csrc/las_fused.cu)
+# ---------------------------------------------------------------------------
+
+# K2's embeddings are unbounded FFN outputs fed back through the steps, at
+# the flagship's widths summed over ~1000-term products in another order
+# than the plain version's (chip_smoke.py holds K2 at the same 1e-3)
+TOL_K2 = 1e-3
+
+
+def _las_cfg(V, nl):
+    """The flagship's LAS decoder widths (bench.py): E 200, 2Ha = Hd = Hs =
+    512; V source ids and nl decoder LSTMs."""
+    return dataclasses.replace(CFG, enc_vocab_size=V, enc_embedding_size=200,
+                               acous_hidden_size=256, dim_model=512, num_unilstm_dec=nl)
+
+
+@pytest.fixture(scope="module")
+def las_decoders(dev):
+    """(cfg, LAS decoder params on the card) by (V, nl), made once each."""
+    made = {}
+
+    def get(V, nl):
+        if (V, nl) not in made:
+            cfg = _las_cfg(V, nl)
+            made[V, nl] = cfg, params_to(
+                las_decoder_init(torch.Generator().manual_seed(V + nl), cfg), dev)
+        return made[V, nl]
+    return get
+
+
+def _k2_args(dec, cfg, Bn, Tk, n, rng, dev):
+    """K2's arguments on uniform keys, every row's lens_k < Tk (one row of
+    a single key), and int32 reference ids."""
+    acous = torch.from_numpy(rng.uniform(-1, 1, (Bn, Tk, 2 * cfg.acous_hidden_size))
+                             .astype(np.float32)).to(dev)
+    wk = precompute_keys(dec["acous_att"], acous, "bilinear")["wk"]
+    lens = torch.from_numpy(rng.randint(max(1, Tk // 2), Tk, size=Bn)).to(dev)
+    lens[-1] = 1
+    refs = torch.from_numpy(rng.randint(0, cfg.enc_vocab_size, (Bn, n)).astype(np.int32)).to(dev)
+    return (dec, cfg, wk, acous, lens, torch.full((Bn,), BOS, device=dev), n), refs
+
+
+def _k2_against_plain(args, refs, tol):
+    """K2 against las_greedy_plain on the card: a row's symbols may part
+    only where the plain arm's own log-probs of the two symbols tie within
+    TOL; embeddings and picked values within tol up to there."""
+    before = las_greedy_flash.launches
+    embs, preds, picked = las_greedy_flash(*args, ref_tokens=refs)
+    assert las_greedy_flash.launches == before + 1
+    embs_p, preds_p, picked_p = las_greedy_plain(*args, ref_tokens=refs)
+    at_k = las_greedy_plain(*args, ref_tokens=preds)[2]
+    at_p = las_greedy_plain(*args, ref_tokens=preds_p)[2]
+    assert preds.dtype == torch.int64 and torch.isfinite(embs).all()
+    for r in range(preds.shape[0]):
+        d = (preds[r] != preds_p[r]).nonzero()
+        end = int(d[0]) + 1 if len(d) else preds.shape[1]
+        _close(embs[r, :end], embs_p[r, :end], tol)
+        _close(picked[r, :end], picked_p[r, :end], tol)
+        if len(d):
+            assert float(at_p[r, end - 1] - at_k[r, end - 1]) <= TOL, (r, end)
+    return embs, preds, picked
+
+
+@pytest.mark.parametrize("Bn,Tk,V,nl,n", [
+    (16, 188, 30000, 3, 6), (1, 37, 32, 1, 3), (16, 3000, 32, 3, 4), (3, 37, 30000, 4, 2),
+    (1, 188, 30000, 3, 4)])
+def test_las_greedy_fused_matches_plain(dev, las_decoders, Bn, Tk, V, nl, n):
+    """The fused K2 at the flagship's widths: B 1 and 16, 37 to 3000 keys,
+    32 and 30 000 ids, 1, 3 and 4 decoder LSTMs."""
+    cfg, dec = las_decoders(V, nl)
+    args, refs = _k2_args(dec, cfg, Bn, Tk, n, np.random.RandomState(Bn + Tk + V + nl), dev)
+    _k2_against_plain(args, refs, TOL_K2)
+
+
+@pytest.mark.parametrize("forced", ["tie", "pad"])
+def test_las_greedy_fused_ties_and_pad(dev, las_decoders, forced):
+    """Head columns 3, 5 and 200 equal and far above the rest: the kernel
+    picks 3 (lowest index, within a 128-id tile and across tiles), and the
+    tied ids' embedding rows are equal so both arms go on alike. Or PAD far
+    above the rest: every step feeds PAD back, whose embedding row (random
+    here) must read 0."""
+    cfg, base = las_decoders(300, 3)
+    table = base["embedder"].clone()
+    w, b = base["acous_out"]["w"].clone(), base["acous_out"]["b"].clone()
+    table[PAD] = _randn(np.random.RandomState(1), table.shape[1], dev=dev)
+    if forced == "tie":
+        w[:, 5] = w[:, 200] = w[:, 3]
+        b[3] = b[5] = b[200] = 50.0
+        table[5] = table[200] = table[3]
+        want = 3
+    else:
+        b[PAD] = 50.0
+        want = PAD
+    dec = {**base, "embedder": table, "acous_out": {"w": w, "b": b}}
+    args, refs = _k2_args(dec, cfg, 4, 37, 5, np.random.RandomState(2), dev)
+    _, preds, _ = _k2_against_plain(args, refs, TOL_K2)
+    assert bool((preds == want).all()), preds
+
+
+def _k9_args(dec, S, Bn, Tk, rng, dev, use_masks=True):
+    """K9's forward and backward arguments at the decoder's widths, as
+    chip_smoke.py makes them: pre0 from random ids, uniform keys, lens_k <
+    Tk, dropout masks (keep 0.8) or none, a random head cotangent."""
+    Hd, E = dec["dec_l1"]["w_hh"].shape[0], dec["embedder"].shape[1]
+    Ha2 = dec["acous_ffn"]["w"].shape[0] - Hd
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    w = k9.scan_weights(*(dec[k][nm] for k, nm in (
+        ("dec_l0", "w_ih"), ("dec_l0", "w_hh"), ("dec_l1", "w_ih"), ("dec_l1", "w_hh"),
+        ("dec_l1", "b_ih"), ("dec_l1", "b_hh"), ("dec_l2", "w_ih"), ("dec_l2", "w_hh"),
+        ("dec_l2", "b_ih"), ("dec_l2", "b_hh"))), dec["acous_ffn"]["w"], pack=True)
+    ids = torch.from_numpy(rng.randint(5, dec["embedder"].shape[0], (S, Bn))).to(dev)
+    p0 = dec["dec_l0"]
+    pre0 = (dec["embedder"][ids] @ p0["w_ih"][:E] + p0["b_ih"] + p0["b_hh"]).contiguous()
+    acous = t(rng.uniform(-1, 1, (Bn, Tk, Ha2)))
+    wk = (acous @ dec["acous_att"]["linear_att_w"]["w"]).contiguous()
+    lens = torch.from_numpy(rng.randint(max(1, Tk // 2), Tk, size=Bn)).to(dev)
+    masks = None
+    if use_masks:
+        masks = k9.Masks(t((rng.rand(S, 3, Bn, Hd) < 0.8) / 0.8),
+                         t((rng.rand(S, Bn, Ha2) < 0.8) / 0.8))
+    return (w, pre0, wk, acous, lens, masks), t(rng.randn(S, Bn, dec["acous_ffn"]["w"].shape[1]))
+
+
+def _k9_against_plain(fargs, g):
+    """K9 forward and backward against their plain versions on the card,
+    every stream within TOL of its scale; returns both kernels' outputs."""
+    before = (k9.las_tf_fwd.launches, k9.las_tf_bwd.launches)
+    st, st_p = k9.las_tf_fwd(*fargs), k9.las_tf_fwd_plain(*fargs)
+    for a, b in zip(st, st_p):
+        _close_rel(a, b)
+    w, _, wk, acous, _, masks = fargs
+    bargs = (w, st_p, g, wk, acous, masks)
+    back = k9.las_tf_bwd(*bargs)
+    for a, b in zip(back, k9.las_tf_bwd_plain(*bargs)):
+        _close_rel(a, b)
+    assert (k9.las_tf_fwd.launches, k9.las_tf_bwd.launches) == (before[0] + 1, before[1] + 1)
+    return tuple(st) + tuple(back)
+
+
+@pytest.mark.parametrize("use_masks", [False, True])
+def test_las_tf_fused_matches_plain_at_flagship_widths(dev, las_decoders, use_masks):
+    """K9 forward and backward at the flagship's widths, B 16 and 188
+    keys, with and without dropout masks."""
+    _, dec = las_decoders(32, 3)
+    fargs, g = _k9_args(dec, 8, 16, 188, np.random.RandomState(20 + use_masks), dev, use_masks)
+    _k9_against_plain(fargs, g)
+
+
+@pytest.mark.parametrize("step", ["K2", "K9"])
+def test_las_fused_bit_identical_at_two_grid_sizes(dev, las_decoders, monkeypatch, step):
+    """The same inputs on every block the card keeps resident and on 7
+    blocks: every output bit-identical (the item table and every summation
+    order follow from the shapes alone; a ticket only picks which block
+    merges)."""
+    runs = []
+    for grid in (0, 7):
+        monkeypatch.setattr(k2, "LAS_GRID", grid)
+        rng = np.random.RandomState(30)
+        if step == "K2":
+            cfg, dec = las_decoders(30000, 3)
+            args, refs = _k2_args(dec, cfg, 16, 188, 4, rng, dev)
+            runs.append(las_greedy_flash(*args, ref_tokens=refs))
+        else:
+            _, dec = las_decoders(32, 3)
+            fargs, g = _k9_args(dec, 4, 16, 188, rng, dev)
+            st = k9.las_tf_fwd(*fargs)
+            runs.append(tuple(st) + k9.las_tf_bwd(fargs[0], st, g, *fargs[2:4], fargs[5]))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_las_fused_launches_at_alternating_key_lengths(dev, las_decoders):
+    """K2 and K9 at 3000, then 37, then 3000 keys: every launch goes
+    through (one shared memory limit a kernel) and matches its plain
+    version."""
+    for Tk in (3000, 37, 3000):
+        rng = np.random.RandomState(Tk)
+        cfg, dec = las_decoders(32, 3)
+        args, refs = _k2_args(dec, cfg, 2, Tk, 2, rng, dev)
+        _k2_against_plain(args, refs, TOL_K2)
+        fargs, g = _k9_args(dec, 3, 2, Tk, rng, dev)
+        _k9_against_plain(fargs, g)
+
+
+@pytest.mark.parametrize("route", ["K2", "K9 fwd", "K9 bwd"])
+def test_las_fused_one_device_kernel_per_call(dev, las_decoders, route):
+    """After a warm-up call (the packed weights and the item table cached),
+    a call of las_greedy_flash, las_tf_fwd or las_tf_bwd is one device
+    operation under torch.profiler: its las_fused.cu kernel."""
+    rng = np.random.RandomState(40)
+    if route == "K2":
+        cfg, dec = las_decoders(30000, 3)
+        args, refs = _k2_args(dec, cfg, 16, 188, 3, rng, dev)
+        fn, name = lambda: las_greedy_flash(*args, ref_tokens=refs), "greedy_kernel"
+    else:
+        _, dec = las_decoders(32, 3)
+        fargs, g = _k9_args(dec, 3, 16, 188, rng, dev)
+        st = k9.las_tf_fwd(*fargs)
+        if route == "K9 fwd":
+            fn, name = lambda: k9.las_tf_fwd(*fargs), "tf_fwd_kernel"
+        else:
+            fn, name = (lambda: k9.las_tf_bwd(fargs[0], st, g, *fargs[2:4], fargs[5]),
+                        "tf_bwd_kernel")
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(ops) == 1 and name in ops[0], ops
+
+
+def test_las_fused_partials_summed_in_warp_order(dev, params):
+    """K9 backward's first product, dcell @ W_ffn^T, at one step: the
+    cotangent is 1 at columns 0, 32 and 64 of dcell, which three warps of
+    a narrow item take, and W_ffn's columns there are 2^24, 1 and -2^24, so
+    the warps' partials summed in warp order give exactly 0 for every dctx
+    entry; any other order gives 1 somewhere."""
+    pc, _ = params
+    dec = pc["las"]["decoder"]
+    rng = np.random.RandomState(50)
+    Hd, Ha2 = CFG.dim_model, 2 * CFG.acous_hidden_size
+    ffn = torch.zeros_like(dec["acous_ffn"]["w"])
+    ffn[:, 0], ffn[:, 32], ffn[:, 64] = 2.0 ** 24, 1.0, -(2.0 ** 24)
+    w = k9.scan_weights(*(dec[k][nm].to(dev) for k, nm in (
+        ("dec_l0", "w_ih"), ("dec_l0", "w_hh"), ("dec_l1", "w_ih"), ("dec_l1", "w_hh"),
+        ("dec_l1", "b_ih"), ("dec_l1", "b_hh"), ("dec_l2", "w_ih"), ("dec_l2", "w_hh"),
+        ("dec_l2", "b_ih"), ("dec_l2", "b_hh"))), ffn.to(dev), pack=True)
+    Bn, Tk = 3, 9
+    pre0 = _randn(rng, 1, Bn, 4 * Hd, dev=dev)
+    acous = _randn(rng, Bn, Tk, Ha2, dev=dev)
+    wk = (acous @ dec["acous_att"]["linear_att_w"]["w"].to(dev)).contiguous()
+    st = k9.las_tf_fwd(w, pre0, wk, acous, torch.full((Bn,), Tk, device=dev), None)
+    g = torch.zeros((1, Bn, ffn.shape[1]), device=dev)
+    g[..., 0] = g[..., 32] = g[..., 64] = 1.0
+    dctx = k9.las_tf_bwd(w, st, g, wk, acous, None)[2]
+    assert torch.equal(dctx, torch.zeros_like(dctx)), dctx.abs().max()
