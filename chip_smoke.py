@@ -24,20 +24,22 @@ package beside it, included):
    (blocks, blocks per SM), the grid barriers a launch and the shared
    memory a block; K2's also its device operations a call (one) and the
    floor of streaming its head every step (head_stream_floor_ms); K5's
-   the time of the trio (K5 as K6a-c's three launch sequences) as trio_ms. The
-   serving kernels likewise: the bf16 attention kernels, K5 in int8, bf16
-   and int8+bf16, K3 and K4 in int8+bf16. The tensor-parallel kernels at one
-   shard of 4 (Dq = 128, 2 local heads, BK = 80, pos 75, V/n = 50): K6a-c
+   the time of the trio (K5 as K6a-c in turn) as trio_ms. The
+   serving kernels likewise: K5 in int8, bf16 and int8+bf16, K3 and K4 in
+   int8+bf16. The tensor-parallel kernels (right after K9) at one shard of
+   4 (Dq = 128, 2 local heads, BK = 80, pos 75, V/n = 50): K6a-c
    (self_attn_step, cross_attn_step, ffn_step, their partials) and K7c
-   (decode_head_partial); K6b's attention kernel alone against
-   scaled_dot_product_attention, as an aside. The trio, which has no
-   kernel of its own, is checked on its own line: at shard width against
-   its plain version, at full width against K5, and the TP layer step
-   over 4 shards of the card, joined, against K5. Each kernel's bound
-   (bytes over HBM bandwidth or operations over peak, from this run's
-   inputs; the TP kernels' from scripts/tp_bounds.py) and, where one
-   PyTorch call computes the same function, its time: cuDNN's LSTM for K1
-   and K8, scaled_dot_product_attention for the bf16 cross attention.
+   (decode_head_partial), and K6a and K6b with bf16 caches and memory at
+   one shard of 2 (the bf16 TP beam's); K6a-c are one fused launch each
+   (csrc/decode_fused.cu), and their lines give the grid, barriers, shared
+   memory and device operations a call (one, with its device time). The
+   trio, which has no kernel of its own, is checked on its own line: at
+   shard width against its plain version, at full width against K5, and
+   the TP layer step over 4 shards of the card, joined, against K5. Each
+   kernel's bound (bytes over HBM bandwidth or operations over peak, from
+   this run's inputs; the TP kernels' from scripts/tp_bounds.py) and,
+   where one PyTorch call computes the same function, its time: cuDNN's
+   LSTM for K1 and K8.
 4. the decode main paths, each driven with every launch count zeroed just
    before it and read just after, at the flagship configuration
    (bench.py's), random weights from init_seq2seq(seed):
@@ -65,8 +67,9 @@ package beside it, included):
    - tp beam: ST beam-5 through forward_translate on meshes (1, 2) and
      (1, 4) whose shards all lie on the card, and on (1, 2) with bf16
      caches (one warm-up, 2 timed requests of B=16; K6a-c, K7c and K4's
-     select launched, and with bf16 the bf16 attention kernels, which no
-     other main path launches; K3, K4 and K5 idle), f32 tokens against the
+     select launched, and with bf16 K6a's and K6b's bf16 variants, which
+     no other main path launches; K3, K4 and K5 idle), f32 tokens against
+     the
      single-device card route's, differing rows explained by a tie within
      E2E_MARGIN; bf16 tokens against the same TP route on CPU copies on
      the 16 rows of a request, ties within SERVE_MARGIN net of the drift
@@ -208,10 +211,11 @@ def nbytes(*xs) -> int:
     return total
 
 
-def bound(n_bytes, flops, peak="f32"):
+def bound(n_bytes, flops, peak="f32", bf16_flops=0):
     """bound_ms, the larger of bytes over HBM bandwidth and operations
-    over the peak of their type, and which of the two sets it."""
-    t_b, t_o = n_bytes / HBM_BYTES_PER_S, flops / PEAK[peak]
+    over the peak of their type (flops at `peak`'s, bf16_flops at bf16's),
+    and which of the two sets it."""
+    t_b, t_o = n_bytes / HBM_BYTES_PER_S, flops / PEAK[peak] + bf16_flops / PEAK["bf16"]
     return dict(bound_ms=max(t_b, t_o) * 1e3, bound_by="bytes" if t_b >= t_o else "operations")
 
 
@@ -428,21 +432,22 @@ def phase_k2(params, cfg, rng):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
 
 
-def decode_state(params, cfg, rng, pos, K=BEAM, bf16=False):
+def decode_state(params, cfg, rng, pos, K=BEAM, bf16=False, device="cuda"):
     """A seeded decode state at position `pos` for B=16 and group K (the
     beam's 5 by default): memory K/V of 89 encoder positions (padded to
     96), caches filled below pos (cast to bf16 with bf16), a random ancestry
-    with each row's own slot at pos, and random prefix tokens."""
+    with each row's own slot at pos, and random prefix tokens; on `device`
+    (params there too)."""
     from stjep_tpu_torch.config import BOS, PAD
     from stjep_tpu_torch.models.tf_decoder import tf_decoder_init_cache_chain
     from stjep_tpu_torch.ops.decode_flash import CROSS_BLOCK, pad_len
 
     BK, Lk, D = B * K, cfg.max_seq_len_src - 1, cfg.dim_model
-    enc = torch.from_numpy(rng.randn(B, Lk, D).astype(np.float32)).cuda()
+    enc = torch.from_numpy(rng.randn(B, Lk, D).astype(np.float32)).to(device)
     cache = tf_decoder_init_cache_chain(params["dec_tgt"], cfg, enc, DECODE_LEN, K)
     Lpad = cache.self_k.shape[3]
     fill = lambda: torch.from_numpy(rng.randn(*cache.self_k[:, :, :, :pos].shape)
-                                    .astype(np.float32)).cuda()
+                                    .astype(np.float32)).to(device)
     cache.self_k[:, :, :, :pos] = fill()
     cache.self_v[:, :, :, :pos] = fill()
     if bf16:
@@ -456,9 +461,9 @@ def decode_state(params, cfg, rng, pos, K=BEAM, bf16=False):
     mem_mask = np.zeros((pad_len(Lk, CROSS_BLOCK), B), np.int32)
     for b, m in enumerate(mem_len):
         mem_mask[:m, b] = 1
-    return dict(cache=cache, preds=preds.cuda(), anc=anc.cuda(),
-                maskk=(preds != PAD).T.int().contiguous().cuda(),
-                mem_mask=torch.from_numpy(mem_mask).cuda())
+    return dict(cache=cache, preds=preds.to(device), anc=anc.to(device),
+                maskk=(preds != PAD).T.int().contiguous().to(device),
+                mem_mask=torch.from_numpy(mem_mask).to(device))
 
 
 def clone_cache(c):
@@ -707,62 +712,6 @@ def phase_k5(params, cfg, rng, quant=False, bf16=False):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
 
 
-def phase_attn_bf16(params, cfg, rng):
-    """The bf16 attention kernels alone at K5's flagship shapes (BK = 80,
-    pos 75 of 160 cache rows; 96 memory rows): self_attn_anc_bf16 against
-    its plain version (the cache rows it writes bit-equal), cross_attn_bf16
-    against its plain version and, as the library yardstick, one
-    scaled_dot_product_attention call on the same bf16 memory."""
-    from stjep_tpu_torch.ops import decode_flash as df
-
-    K, BK, pos, D, nh = BEAM, B * BEAM, DECODE_LEN // 2, cfg.dim_model, cfg.num_heads
-    st = decode_state(params, cfg, rng, pos, bf16=True)
-    c = st["cache"]
-    q, kn, vn = (torch.from_numpy(rng.randn(BK, D).astype(np.float32)).cuda() for _ in range(3))
-    ckk, cvk = c.self_k[0].clone(), c.self_v[0].clone()
-    ckp, cvp = c.self_k[0].clone(), c.self_v[0].clone()
-    sargs = (st["anc"], st["maskk"], pos, K, nh)
-    y_k = df.self_attn_anc(q, kn, vn, ckk, cvk, *sargs)
-    y_p = df.self_attn_anc_plain(q, kn, vn, ckp, cvp, *sargs)
-    need(torch.equal(ckk, ckp) and torch.equal(cvk, cvp), "self_attn_anc_bf16 cache rows differ")
-    res = {}
-    # f32 contexts of unit scale from identical bf16 products, summed in
-    # another order
-    tol = 1e-4
-    self_bytes, self_flops = decode_bound(cfg, 1, K, pos, st["anc"], st["mem_mask"], 2, True)
-    lw = layer_weight_bytes(cfg, True)
-    mem_bytes = 2 * int(st["mem_mask"].sum()) * D * 2
-    res["self"] = dict(
-        max_abs_err=max_err(y_k, y_p), ms=cuda_ms(lambda: df.self_attn_anc(q, kn, vn, ckk, cvk,
-                                                                          *sargs), 20),
-        plain_ms=cuda_ms(lambda: df.self_attn_anc_plain(q, kn, vn, ckp, cvp, *sargs), 10),
-        library_ms=None,
-        # decode_bound's layer without its weights, memory and products;
-        # q, k_new, v_new in, the context out
-        **bound(self_bytes - lw - mem_bytes + 3 * 4 * BK * D,
-                4 * BK * (pos + 1) * D, "bf16"))
-    mk, mv, mm = c.mem_k[0], c.mem_v[0], st["mem_mask"]
-    y_k = df.cross_attn(q, mk, mv, mm, K, nh)
-    y_p = df.cross_attn_plain(q, mk, mv, mm, K, nh)
-    d = D // nh
-    qs = (q / d ** 0.5).to(torch.bfloat16).view(B, K, nh, d).transpose(1, 2)
-    ks, vs = (t.view(B, -1, nh, d).transpose(1, 2) for t in (mk, mv))
-    amask = (mm.T != 0)[:, None, None, :]
-    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=amask,
-                                                                    scale=1.0)
-    lib = sdpa().transpose(1, 2).reshape(BK, D).float()
-    res["cross"] = dict(
-        max_abs_err=max_err(y_k, y_p), ms=cuda_ms(lambda: df.cross_attn(q, mk, mv, mm, K, nh), 20),
-        plain_ms=cuda_ms(lambda: df.cross_attn_plain(q, mk, mv, mm, K, nh), 10),
-        library_ms=cuda_ms(sdpa, 20),
-        **bound(mem_bytes + 2 * 4 * BK * D + nbytes(mm), 4 * K * int(mm.sum()) * D, "bf16"))
-    for k in ("self", "cross"):
-        say(f"kernel {k}_attn bf16", BK=BK, pos=pos, tol=tol, **res[k],
-            **({"library_max_abs_err": max_err(lib, y_p)} if k == "cross" else {}))
-        need(res[k]["max_abs_err"] <= tol, f"{k}_attn bf16 max_abs_err > {tol}")
-    return res
-
-
 def check_topk(name, ids, ids_p, sc_p):
     """ids [BK, k] equal to the plain arm's ids_p[:, :k] wherever its gap to
     the next rank exceeds TIE (sc_p holds k + 1 ranks); returns the number
@@ -887,78 +836,136 @@ def trio_plain(lp, x, ck, cv, mk, mv, pos, n_head, anc, group, mem_mask, maskk):
     return df.ffn_step_plain(lp["pos_ffn"], y)
 
 
+def step_launch(plan, step, bf16, fn):
+    """A fused K6a, K6b or K6c launch (csrc/decode_fused.cu) at this call's
+    shapes: its grid (the plan's blocks, at most what the card keeps
+    resident), grid barriers, shared memory a block, and the device
+    operations of one call under torch.profiler after a warm-up call, which
+    must be one, with the kernel's device microseconds there."""
+    from stjep_tpu_torch.ops.decode_flash import fused_grid
+
+    g = fused_grid(False, bf16, False, plan["smem"], step)
+    fn()
+    n_ops, names, us = device_ops(fn, with_us=True)
+    need(n_ops == 1, f"{step} step: {n_ops} device operations a call ({names}), not 1")
+    return dict(grid_blocks=min(plan["blocks"], g["blocks"]), blocks_per_sm=g["blocks_per_sm"],
+                barriers=plan["barriers"], smem_bytes=plan["smem"], device_ops=n_ops,
+                profiled_kernel_us=us)
+
+
 def phase_tp_kernels(params, cfg, rng):
     """K6a-c and K7c at one shard of TP_N at the flagship: Dq = 128 (2
     local heads), BK = 80, pos 75 of the 160-row caches, 96 memory rows,
     V/n = 50; each against its plain version (the partial outputs, residual
-    off, as the TP path runs them). No PyTorch call computes a whole K6
-    step, so library_ms is null; K6b's attention kernel alone is timed
-    beside SDPA over the same memory on a line of its own. The trio (K6a-c
+    off, as the TP path runs them); K6a and K6b also with bf16 caches and
+    memory at one shard of 2 (Dq = 256, 4 local heads), the bf16 TP beam's
+    shapes. K6a-c are one fused launch each: their lines give the grid,
+    barriers, shared memory and device operations a call (one) with its
+    device time. No PyTorch call computes a whole K6 step, so library_ms is
+    null. The trio (K6a-c
     with residuals, no kernel of its own) on its own line too: at shard
     width against its plain version, at full width against K5, and the TP
     layer step over TP_N shards of the card, joined, against K5. Bounds
-    from scripts/tp_bounds.py on this run's counts."""
+    from scripts/tp_bounds.py on this run's counts (the bf16 steps'
+    attention products at the bf16 peak)."""
     from stjep_tpu_torch.ops import decode_flash as df
     from stjep_tpu_torch.ops.decode_flash_tp import ModelAxis, decoder_layer_step_flash_tp
-    from stjep_tpu_torch.ops.transformer import layer_norm
     from stjep_tpu_torch.scripts.tp_bounds import tp_kernel_work
 
     n, K, BK, pos = TP_N, BEAM, B * BEAM, DECODE_LEN // 2
     D, nh = cfg.dim_model, cfg.num_heads // n
-    Dq, d = D // n, D // cfg.num_heads
+    Dq = D // n
     shards = tp_shards(params, n)
     s0 = shards[0]["dec_tgt"]["layers"][0]
     st = decode_state(params, cfg, rng, pos)
     c, anc, maskk, mm = st["cache"], st["anc"], st["maskk"], st["mem_mask"]
-    sl = lambda t, m=0: t[..., m * Dq:(m + 1) * Dq].contiguous()
+    sl = lambda t, m=0, w=Dq: t[..., m * w:(m + 1) * w].contiguous()
     x = torch.from_numpy(rng.randn(BK, D).astype(np.float32)).cuda()
-    work = tp_kernel_work(n, B=B, K=K, D=D, FF=cfg.dim_feedforward, V=cfg.dec_vocab_size,
-                          pos=pos, Lk=mm.shape[0], topk=K,
-                          self_rows=distinct_rows(anc, K, pos), mem_rows=int(mm.sum()))
+    counts = dict(B=B, K=K, D=D, FF=cfg.dim_feedforward, V=cfg.dec_vocab_size, pos=pos,
+                  Lk=mm.shape[0], topk=K, self_rows=distinct_rows(anc, K, pos),
+                  mem_rows=int(mm.sum()))
+    work = tp_kernel_work(n, **counts)
     res, tol = {}, 1e-4  # K5's: one layer's f32 outputs, summed in another order
 
-    def held(name, key, fn, plain, err=None, **extra):
-        """fn against plain (or err), both timed, with the bound of
-        tp_bounds' `key`; said with `extra` and returned."""
+    def held(name, key, fn, plain, err=None, b=None, tol=tol, **extra):
+        """fn against plain (or err), both timed, with the bound b (by
+        default tp_bounds' `key`); said with `extra` and returned."""
         err = max_err(fn(), plain()) if err is None else err
         r = dict(max_abs_err=err, ms=cuda_ms(fn, 20), plain_ms=cuda_ms(plain, 10),
-                 library_ms=None, **bound(*work[key]))
-        say(f"kernel {name}", n_model=n, BK=BK, pos=pos, Dq=Dq, tol=tol, **extra, **r)
+                 library_ms=None, **(b or bound(*work[key])))
+        say(f"kernel {name}", BK=BK, pos=pos, tol=tol, **extra, **r)
         need(err <= tol, f"{name} max_abs_err {err} > {tol}")
         return r
 
+    def self_step(label, shard, nh_s, caches, bf16, b=None, **extra):
+        """K6a at a shard (its caches: [kernel's, plain's]) against its plain
+        version, the new cache rows too, with its fused launch."""
+        p = shard["decslf_attn"]
+        call = lambda fn, i: fn(p, x, *caches[i], pos, nh_s, anc, K, maskk, False)
+        y_k, y_p = call(df.self_attn_step, 0), call(df.self_attn_step_plain, 1)
+        c_err = max(cache_err(caches[0][0], caches[1][0], bf16),
+                    cache_err(caches[0][1], caches[1][1], bf16))
+        need(not bf16 or c_err <= 1, f"{label} bf16 cache rows {c_err} bf16 steps apart")
+        err = max_err(y_k, y_p) if bf16 else max(max_err(y_k, y_p), c_err)
+        Dq_s = p["w_qs"]["w"].shape[1]
+        plan = df.fused_plan(BK, D, 0, nh_s, caches[0][0].shape[2], 0, K=K, Dq=Dq_s,
+                             step="self", smem_max=df.step_smem_max("self", bf16))
+        return held(label, "self_attn_step", lambda: call(df.self_attn_step, 0),
+                     lambda: call(df.self_attn_step_plain, 1), err, b, Dq=Dq_s,
+                     cache_err=c_err, **extra,
+                     **step_launch(plan, "self", bf16, lambda: call(df.self_attn_step, 0)))
+
     # K6a: the new cache rows too
     ck, cv = sl(c.self_k[0]), sl(c.self_v[0])
-    caches = [(ck.clone(), cv.clone()) for _ in range(2)]
-    self_k = lambda fn, i: fn(s0["decslf_attn"], x, *caches[i], pos, nh, anc, K, maskk,
-                              False)
-    y_k, y_p = self_k(df.self_attn_step, 0), self_k(df.self_attn_step_plain, 1)
-    err = max(max_err(y_k, y_p), max_err(caches[0][0], caches[1][0]),
-              max_err(caches[0][1], caches[1][1]))
-    res["K6 self_attn_step"] = held(
-        "K6 self_attn_step", "self_attn_step", lambda: self_k(df.self_attn_step, 0),
-        lambda: self_k(df.self_attn_step_plain, 1), err)
-    # K6b; its attention kernel alone beside SDPA over the same memory at
-    # the shard's width (K6b adds the pre-LN, Q and fc to it)
+    res["K6 self_attn_step"] = self_step("K6 self_attn_step", s0, nh,
+                                         [(ck.clone(), cv.clone()) for _ in range(2)], False,
+                                         n_model=n)
+    # K6a and K6b with bf16 caches and memory at one shard of 2, as the bf16
+    # TP beam runs them; the attention's products at the bf16 peak, the
+    # projections at f32's
+    s2 = tp_shards(params, 2)[0]["dec_tgt"]["layers"][0]
+    c2 = [(sl(c.self_k[0], w=2 * Dq).to(torch.bfloat16), sl(c.self_v[0], w=2 * Dq)
+           .to(torch.bfloat16)) for _ in range(2)]
+    w2b, f2b = tp_kernel_work(2, cache_itemsize=2, **counts)["self_attn_step"]
+    att2 = 4 * BK * (pos + 1) * 2 * Dq
+    res["self_attn bf16"] = self_step("K6 self_attn_step bf16", s2, 2 * nh, c2, True,
+                                      bound(w2b, f2b - att2, bf16_flops=att2), n_model=2)
+
+    def cross_step(label, shard, nh_s, mk, mv, b=None, tol=tol, **extra):
+        """K6b at a shard over its memory K/V against its plain version,
+        with its fused launch."""
+        p = shard["encdec_attn"]
+        bf16 = mk.dtype == torch.bfloat16
+        call = lambda fn: fn(p, x, mk, mv, nh_s, K, mm, False)
+        Dq_s = mk.shape[-1]
+        plan = df.fused_plan(BK, D, 0, nh_s, 0, mk.shape[1], K=K, Dq=Dq_s, step="cross",
+                             smem_max=df.step_smem_max("cross", bf16))
+        return held(label, "cross_attn_step", lambda: call(df.cross_attn_step),
+                    lambda: call(df.cross_attn_step_plain), None, b, tol, Dq=Dq_s, **extra,
+                    **step_launch(plan, "cross", bf16, lambda: call(df.cross_attn_step)))
+
+    # K6b, f32 at one shard of n and with bf16 memory at one shard of 2
+    res["K6 cross_attn_step"] = cross_step("K6 cross_attn_step", s0, nh, sl(c.mem_k[0]),
+                                           sl(c.mem_v[0]), n_model=n)
+    w2b, f2b = tp_kernel_work(2, cache_itemsize=2, **counts)["cross_attn_step"]
+    att2 = 4 * K * counts["mem_rows"] * 2 * Dq
+    # bf16 memory: the kernel's query, summed split by split, rounds to the
+    # neighbouring bf16 value in a few entries where the plain version's
+    # does not; scripts/bf16_step_tol.py emulates that on the CPU at these
+    # shapes (seeds 0-15): up to 3.6e-4, against 1.4e-3 or more for a query,
+    # product or probability rounded in the wrong place
+    res["cross_attn bf16"] = cross_step(
+        "K6 cross_attn_step bf16", s2, 2 * nh,
+        *(sl(t[0], w=2 * Dq).to(torch.bfloat16) for t in (c.mem_k, c.mem_v)),
+        bound(w2b, f2b - att2, bf16_flops=att2), 1e-3, n_model=2)
     mk, mv = sl(c.mem_k[0]), sl(c.mem_v[0])
-    ca = s0["encdec_attn"]
-    cross = lambda fn: fn(ca, x, mk, mv, nh, K, mm, False)
-    res["K6 cross_attn_step"] = held(
-        "K6 cross_attn_step", "cross_attn_step", lambda: cross(df.cross_attn_step),
-        lambda: cross(df.cross_attn_step_plain))
-    q = layer_norm(ca["layer_norm"], x, 1e-6) @ ca["w_qs"]["w"]
-    qs = (q / d ** 0.5).view(B, K, nh, d).transpose(1, 2)
-    ks, vs = (t.view(B, -1, nh, d).transpose(1, 2) for t in (mk, mv))
-    amask = (mm.T != 0)[:, None, None, :]
-    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=amask,
-                                                                    scale=1.0)
-    say("kernel K6 cross_attn_step attention alone", Dq=Dq,
-        attention_ms=cuda_ms(lambda: df.cross_attn(q, mk, mv, mm, K, nh), 20),
-        sdpa_ms=cuda_ms(sdpa, 20))
     # K6c: the hidden shard's partial
     ff = s0["pos_ffn"]
-    res["K6 ffn_step"] = held("K6 ffn_step", "ffn_step", lambda: df.ffn_step(ff, x, True),
-                              lambda: df.ffn_step_plain(ff, x, True))
+    plan = df.fused_plan(BK, D, ff["w_1"]["w"].shape[1], 1, 0, 0, step="ffn")
+    res["K6 ffn_step"] = held(
+        "K6 ffn_step", "ffn_step", lambda: df.ffn_step(ff, x, True),
+        lambda: df.ffn_step_plain(ff, x, True), n_model=n,
+        **step_launch(plan, "ffn", False, lambda: df.ffn_step(ff, x, True)))
     # the trio: at full width against K5, the TP layer step against K5, and
     # at shard 0's shapes (residuals on) against its plain version
     lp = params["dec_tgt"]["layers"][0]
@@ -980,7 +987,7 @@ def phase_tp_kernels(params, cfg, rng):
                                       trio(trio_plain, 1)))
     held("K6 trio", "trio",  # a check, not a row of the kernels line
          lambda: trio(df.decoder_layer_step_flash_trio, 0), lambda: trio(trio_plain, 1), err,
-         full_width_err=err_k5, tp_layer_step_err=err_tp)
+         n_model=n, full_width_err=err_k5, tp_layer_step_err=err_tp)
     # K7c: shard 0 of the head, gather ids in, above and below the shard
     norm, out0 = params["dec_tgt"]["norm"], shards[0]["out_tgt"]
     v = out0["w"].shape[1]
@@ -991,7 +998,7 @@ def phase_tp_kernels(params, cfg, rng):
     err = max(max_err(got[0], ref[0][:, :K]), *(max_err(a, b) for a, b in zip(got[2:], ref[2:])))
     res["K7 head_partial"] = held(
         "K7 head_partial", "decode_head_partial", lambda: head(df.decode_head_partial),
-        lambda: head(df.decode_head_partial_plain), err)
+        lambda: head(df.decode_head_partial_plain), err, n_model=n)
     return res
 
 
@@ -1007,7 +1014,7 @@ def tp_mesh(n, device="cuda"):
 def phase_tp_beam(params, params_c, cfg, reqs):
     """ST beam-5 through forward_translate on meshes (1, 2) and (1, 4) of
     the card, and on (1, 2) with bf16 caches (the only path that launches
-    the bf16 attention kernels since K4 and K5 fused their own): one
+    the fused K6a's and K6b's bf16 variants): one
     warm-up and 2 timed requests of B=16 each, K3, K4 and K5 idle, the TP
     kernels launched. f32: tokens against the single-device card route on
     the same requests, a differing row explained by a tie at the first beam
@@ -1024,8 +1031,8 @@ def phase_tp_beam(params, params_c, cfg, reqs):
     idle = ("K3", "K4", "K5", "K7 head", "K3 bf16", "K4 bf16", "K5 bf16")
     for n, opts in ((2, {}), (TP_N, {}), (2, BF16_OPTS)):
         bf16 = bool(opts)
-        # with bf16 caches K6a and K6b count under their bf16 variant, whose
-        # attention kernels are the bf16 rows
+        # with bf16 caches K6a and K6b count under their bf16 variants, the
+        # bf16 rows
         ran = LAS_RAN + ("K4 select", "K6 ffn_step", "K7 head_partial") + (
             ("self_attn bf16", "cross_attn bf16") if bf16 else TP_RAN[:2])
         tp_mesh(n)
@@ -1128,19 +1135,27 @@ def phase_tp_dev_eval(params, cfg, rng):
     return launches
 
 
-def device_ops(fn):
+def device_ops(fn, with_us=False):
     """The device operations of one call of fn under torch.profiler (fn
     warmed up before): their count and their names (a kernel's without its
-    namespace and arguments)."""
+    namespace and arguments), and with with_us their summed device
+    microseconds. A profile that records no device operation at all is
+    taken again, up to three times (the profiler has recorded none late in
+    a long process, PERF.md section 7); the last one counts."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    short = {n.replace("(anonymous namespace)::", "").split("(")[0].split("::")[-1].split()[-1]
-             for n in names}
-    return len(names), sorted(short)
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if evs:
+            break
+    short = {e.name.replace("(anonymous namespace)::", "").split("(")[0].split("::")[-1]
+             .split()[-1] for e in evs}
+    if with_us:
+        return len(evs), sorted(short), sum(e.time_range.elapsed_us() for e in evs)
+    return len(evs), sorted(short)
 
 
 def las_launch(kind, plan):
@@ -1590,8 +1605,8 @@ def counters():
            "K7 head_gather": (df.decode_head_gather, "launches"),
            "K8 fwd": (k8.bilstm_fwd_save, "launches"), "K8 bwd": (k8.bilstm_bwd, "launches"),
            "K9 fwd": (k9.las_tf_fwd, "launches"), "K9 bwd": (k9.las_tf_bwd, "launches"),
-           "self_attn bf16": (df.self_attn_anc, "bf16_launches"),
-           "cross_attn bf16": (df.cross_attn, "bf16_launches"),
+           "self_attn bf16": (df.self_attn_step, "bf16_launches"),
+           "cross_attn bf16": (df.cross_attn_step, "bf16_launches"),
            "K6 self_attn_step": (df.self_attn_step, "launches"),
            "K6 cross_attn_step": (df.cross_attn_step, "launches"),
            "K6 ffn_step": (df.ffn_step, "launches"),
@@ -1747,8 +1762,9 @@ def phase_serving(params, params_c, cfg, reqs, rng, seed):
     runs, rec = [], {}
     bf16_ran = LAS_RAN + ("K3 bf16", "K4 bf16")
     serve_ran = LAS_RAN + ("K3 int8+bf16", "K4 int8+bf16")
-    # the fused K4 and K5 run their own attention: the bf16 attention
-    # kernels launch only under tensor parallelism (phase_tp_beam)
+    # the fused K4 and K5 run their own attention: the bf16 rows of the TP
+    # steps (K6a's and K6b's) launch only under tensor parallelism
+    # (phase_tp_beam)
     f32_idle = ("K3", "K4", "K5", "self_attn bf16", "cross_attn bf16")
     for label, rq, opts, ran in (("bf16 B=16", reqs, BF16_OPTS, bf16_ran),
                                  ("bf16 B=1", b1, BF16_OPTS, bf16_ran),
@@ -1940,6 +1956,9 @@ def main() -> int:
     # K9 right after K2: later in the script torch.profiler recorded no
     # device event at all, so the one-launch check could not see K9's kernel
     k9_res = phase_k9(params, cfg, rng)
+    # the tensor-parallel kernels, one shard of TP_N, early for the same
+    # reason: the fused K6a-c lines check one device operation a call
+    results.update(phase_tp_kernels(params, cfg, rng))
     results.update({"K3": phase_k3(params, cfg, rng), "K4": phase_k4(params, cfg, rng),
                "K4 select": phase_k4_select(params, cfg, rng),
                "K5": phase_k5(params, cfg, rng),
@@ -1947,14 +1966,10 @@ def main() -> int:
     k7 = phase_k7(params, cfg, rng)
     results["K7 head"], results["K7 head_gather"] = k7["head"], k7["head_gather"]
     # the serving kernels: int8 weights, bf16 caches, both
-    attn = phase_attn_bf16(params, cfg, rng)
-    results["self_attn bf16"], results["cross_attn bf16"] = attn["self"], attn["cross"]
     for quant, bf16 in VARIANTS[1:]:
         results[f"K5 {variant_label(quant, bf16)}"] = phase_k5(params, cfg, rng, quant, bf16)
     results["K3 int8+bf16"] = phase_k3(params, cfg, rng, True, True)
     results["K4 int8+bf16"] = phase_k4(params, cfg, rng, True, True)
-    # the tensor-parallel kernels, one shard of TP_N
-    results.update(phase_tp_kernels(params, cfg, rng))
 
     # 4. the main paths, each driven with every launch count zeroed just
     # before it and read just after; the kernels line sums them
@@ -2007,10 +2022,10 @@ def main() -> int:
                "K8 bwd": ("bilstm_bwd", src + "bilstm_bwd.cu", rep + "lstm_pallas_bwd.py:262"),
                "K9 fwd": ("las_tf_fwd", src + "las_fused.cu", rep + "las_tf_flash.py:263"),
                "K9 bwd": ("las_tf_bwd", src + "las_fused.cu", rep + "las_tf_flash.py:364"),
-               "self_attn bf16": ("self_attn_anc_bf16", src + "decode.cu",
-                                  rep + "decode_flash.py:759"),
-               "cross_attn bf16": ("cross_attn_bf16", src + "decode.cu",
-                                   rep + "decode_flash.py:759"),
+               "self_attn bf16": ("self_attn_step bf16", src + "decode_fused.cu",
+                                  rep + "decode_flash.py:348"),
+               "cross_attn bf16": ("cross_attn_step bf16", src + "decode_fused.cu",
+                                   rep + "decode_flash.py:543"),
                "K5 int8": ("decoder_layer_step int8", src + "decode_fused.cu",
                            rep + "decode_flash.py:708"),
                "K5 bf16": ("decoder_layer_step bf16", src + "decode_fused.cu",
@@ -2021,11 +2036,11 @@ def main() -> int:
                                 rep + "decode_flash.py:1078"),
                "K4 int8+bf16": ("decode_beam_step int8+bf16", src + "decode_fused.cu",
                                 rep + "decode_flash.py:1412"),
-               "K6 self_attn_step": ("self_attn_step", src + "decode.cu",
+               "K6 self_attn_step": ("self_attn_step", src + "decode_fused.cu",
                                      rep + "decode_flash.py:348"),
-               "K6 cross_attn_step": ("cross_attn_step", src + "decode.cu",
+               "K6 cross_attn_step": ("cross_attn_step", src + "decode_fused.cu",
                                       rep + "decode_flash.py:543"),
-               "K6 ffn_step": ("ffn_step", src + "gemm.cu", rep + "decode_flash.py:622"),
+               "K6 ffn_step": ("ffn_step", src + "decode_fused.cu", rep + "decode_flash.py:622"),
                "K7 head_partial": ("decode_head_partial", src + "decode.cu",
                                    rep + "decode_flash.py:1666")}
     STAGE[0] = "kernels line"

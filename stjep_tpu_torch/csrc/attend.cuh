@@ -1,11 +1,31 @@
 // Decode attention for one (row, head) by one warp: the bodies of the
-// attention kernels of decode.cu (`self_attn_anc*`, `cross_attn*`) and of
-// the attention phases of the fused layer step in decode_fused.cu. A warp
-// per item keeps every (row, head) of a phase in flight at once: an item is
-// a chain of dependent loads (the scores, then the context), so the phase
-// takes about one item's latency. Numerics follow
-// stjep_tpu/ops/decode_flash.py `_self_core` :144 and `_cross_core` :431;
-// see decode.cu's header.
+// attention phases of the fused layer step (K5), beam step (K4) and shard
+// steps (K6a, K6b) in decode_fused.cu. A warp per item keeps every
+// (row, head) of a phase in flight at once: an item is a chain of
+// dependent loads (the scores, then the context), so the phase takes about
+// one item's latency. Numerics follow stjep_tpu/ops/decode_flash.py
+// `_self_core` :144 and `_cross_core` :431.
+//
+// Cache semantics are the TPU kernel's: self caches [K, B, Lpad, D] per
+// layer are never reordered; row r = b*K + k writes its new K/V row at
+// `pos` in slot (k, b), and reads position l from slot (anc[l, r], b) —
+// the ancestry map the beam carries instead of permuting caches. Memory
+// K/V stay unexpanded [B, Lk, D]; row r reads batch entry r / K. A lane per
+// position for the scores (16-byte row loads), a lane per head entry for
+// the context; exact two-pass softmax in shared memory (the lengths are
+// short); the warp writes its new K/V row into the cache and reads it back
+// at `pos`.
+//
+// bf16 caches: the TPU kernels take the cache dtype as a parameter
+// (decode_flash.py:795,843-855). The bodies are templates over the element
+// type of the self caches or of the memory K/V, float or __nv_bfloat16, and
+// round where the JAX cores round: the scaled query to the cache type, each
+// q.k product to bf16 before the f32 sum over the head's dims (`_self_core`
+// :283-285, `_cross_core` :503-505), p.v summed in f32 from the bf16 V
+// (:296-298); softmax, max and sum stay f32. The new K/V row is computed in
+// f32 and stored rounded to nearest (`__float2bfloat16_rn`), and attention
+// at `pos` reads it back from the cache, so it sees the rounded row as the
+// TPU kernel's VMEM buffer does.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -1,18 +1,25 @@
-// K5 and K4 as cooperative persistent kernels: one launch per decoder layer
-// and position (K5, `decoder_layer_fused`), one launch per beam position
-// (K4, `decode_beam_fused`).
+// K5, K4 and K6a-c as cooperative persistent kernels: one launch per
+// decoder layer and position (K5, `decoder_layer_fused`), one launch per
+// beam position (K4, `decode_beam_fused`), and one launch per shard call of
+// the tensor-parallel self-attention, cross-attention and FFN steps (K6a
+// `self_attn_step_fused`, K6b `cross_attn_step_fused`, K6c
+// `ffn_step_fused`).
 //
 // They replace stjep_tpu/ops/decode_flash.py `decoder_layer_step_flash` :759
 // (bodies `_layer_kernel` :737 and `_layer_kernel_q8` :708: `_self_core`
-// :144, `_cross_core` :431, `_ffn_core` :599) and `decode_beam_step_flash`
-// :1412 (body `_beam_step_kernel` :1238). On the TPU each was one launch;
-// the port ran them as chains of ~21 and ~145 small launches (LayerNorms,
-// split-K GEMMs and their reductions, the attention kernels, the head and
-// the select), and launch and issue latency, not the work, set their time.
+// :144, `_cross_core` :431, `_ffn_core` :599), `decode_beam_step_flash`
+// :1412 (body `_beam_step_kernel` :1238), `self_attn_step` :348 (its
+// `pallas_call` :407, body `_self_core`), `cross_attn_step` :543 (:577,
+// `_cross_core`) and `ffn_step` :622 (:630, `_ffn_core`). On the TPU each
+// was one launch; the port ran them as chains of ~21, ~145, 6, 4 and 3
+// small launches (LayerNorms, split-K GEMMs and their reductions, the
+// attention kernels, the head and the select), and launch and issue
+// latency, not the work, set their time.
 //
 // Design. Every block of the grid stays resident for the whole call
 // (cudaLaunchCooperativeKernel; as many blocks as the card keeps resident,
-// asked once and cached) and walks through the phases of the step, which
+// asked once and cached; K6a-c as many as below) and walks through the
+// phases of the step, which
 // cooperative_groups' grid barrier separates. A layer is 11 phases:
 //   QKV   one product phase of three jobs: Q from LN1(x), K and V from x;
 //   self  self-attention per (row, head), a warp each, through the ancestry
@@ -32,20 +39,38 @@
 // top-K and one of beam_select's k^2 -> k update per batch item
 // (head_select.cuh): 3 + 11 * nl barriers.
 //
+// Shard width. Under tensor parallelism a shard of n holds Dq = D/n of the
+// attention width (Q, K, V [D, Dq], fc [Dq, D], caches [K, B, Lpad, Dq],
+// nh/n heads of the unsharded width d) and FF/n of the FFN's hidden width.
+// `Ctx` carries Dq and the hidden width FF; K5 and K4 are the case Dq = D
+// with the whole FF. K6a is a layer's phases from its LayerNorm to the fc
+// product, then a row phase that sums the fc partials (plus x with
+// `residual`): row, qkv, self, fc, row, 4 barriers. K6b likewise with the
+// cross attention: row, cq, cross, co, row, 4 barriers. K6c is row
+// (LayerNorm), w1, w2 (b_1 and the ReLU applied as w2 loads its operand),
+// row (the partials, plus b_2 and x unless partial_tp): 3 barriers. At a
+// shard's width a phase has few items (80 tiles a product of K6c at n = 4
+// and B*K = 80), so these launch as many blocks as their largest phase has
+// items, at most what the card keeps resident; a grid barrier costs ~1.3
+// us at 264 blocks and less at fewer.
+//
 // Products. Each product phase walks a fixed list of tiles, the plan's tile
-// table (ops/decode_flash.py `fused_tiles`, passed in as `tiles`): 16 rows x
-// 128 columns x KC (64) of the contraction, the weight tile copied into
+// table (ops/decode_flash.py `fused_tiles`, passed in as `tiles`): 16 rows
+// x 128 columns x KC (64) of the contraction, the weight tile copied into
 // shared memory with cp.async (16 bytes a copy; f32 or int8) and the next
 // tile's copy in flight while this one multiplies. A block issues its first
 // tile's weight copy of the NEXT product phase before it waits at the
 // barrier: the weights do not depend on the activations, so the wait hides
-// the fetch. Each tile writes its partial sum over its KC slice; the
-// consuming phase sums the partials in split order 0, 1, ... (`psum`), then
-// adds bias and residual. No atomics on values, and the table follows from
-// the shapes alone, so the result does not depend on the grid size. int8
-// weights are dequantized as read from shared memory, float(q) * s[col],
-// the value of JAX's `dq`, in the f32 route's order: on weights that sit on
-// the int8 grid the two routes give bit-identical outputs.
+// the fetch. K6a and K6c do the same; K6b issues its copies right after
+// the barrier, the faster placement for it on an H100 (PERF.md section 6:
+// 33.6 against 38.4 us at a shard of 4). Each tile writes its
+// partial sum over its KC slice; the consuming phase sums the partials in
+// split order 0, 1, ... (`psum`), then adds bias and residual. No atomics
+// on values, and the table follows from the shapes alone, so the result
+// does not depend on the grid size. int8 weights are dequantized as read
+// from shared memory, float(q) * s[col], the value of JAX's `dq`, in the
+// f32 route's order: on weights that sit on the int8 grid the two routes
+// give bit-identical outputs.
 //
 // What bounds it on the H100: at B*K = 80 rows a layer streams 2.6 M weight
 // entries (10.5 MB f32, 2.6 MB int8) and does 2 * 80 * 2.6 M = 420 MFLOP of
@@ -54,13 +79,19 @@
 // f32 reference (TF32 keeps ~3 digits), and at M = 80 a product does ~40
 // FLOP per weight byte, within ~2x of the byte bound on CUDA cores, so
 // wgmma would buy at most that factor. The floor of a call is then its 11
-// (K5) or 69 (K4) grid barriers plus the bytes.
+// (K5) or 69 (K4) grid barriers plus the bytes. A shard step of 4 moves
+// far less (scripts/tp_bounds.py, B*K = 80, position 75): K6a up to 7.7
+// MB, mostly cache rows, 2.3 us at HBM speed; K6c 1.4 MB and 42 MFLOP, 0.6
+// us; so its 3-4 barriers and the launch set its floor.
 //
 // Nothing falls back: a grid the card cannot hold, too little shared
 // memory or workspace, or a refused launch returns the CUDA error, and the
 // wrapper raises. A block stages one attention item a warp, 8 x (d + 3n)
-// floats at n = max(Lpad, Lk): with d = 64 the launch takes n up to ~2400
-// within the 227 KB a block may opt in to.
+// floats at n = max(Lpad, Lk): with d = 64 K5 and K4 take n up to ~2400
+// within the 227 KB a block may opt in to. K6a runs its attention on as
+// many of a block's 8 warps as the shared memory it is given stages
+// (`aw`), so it takes caches up to ~19 000 rows at d = 64, and K6b memories
+// as long.
 
 #include <cooperative_groups.h>
 
@@ -101,12 +132,19 @@ __device__ LayerW layer_at(const LayerW& L, int l, int D, int FF, int wbytes) {
   return o;
 }
 
-// The call's shapes and buffers. Workspace (f32): X0, X1, X2, XN (a row
-// LayerNorm's output), ATT (an attention's context), each [BK, D]; PA and
-// PB hold product partials [splits, BK, N]; LG the head's logits [BK, V];
-// SCK, IDK its top-K [BK, K]. tiles: the plan's tile table (`phase`).
+// The call's shapes and buffers. D is the model width, Dq the attention
+// width (Q, K, V, the caches and memory K/V; D but on a head shard), FF the
+// hidden width (FF / n on a hidden shard), nh the heads of width d over Dq,
+// aw the warps a block runs attention items on. Workspace (f32): X0, X1,
+// X2, XN (a row LayerNorm's output), ATT (an attention's context, [BK, Dq]),
+// each [BK, D]; PA and PB hold product partials [splits, BK, N]; LG the
+// head's logits [BK, V]; SCK, IDK its top-K [BK, K]. tiles: the plan's tile
+// table (`phase`). Dq and aw come last: placed among the others, the
+// compiler's register allocation left K4 ~0.7 % slower on an H100 (1211-
+// 1214 against 1204-1206 us) and K6a 8 us faster; K4 runs every position
+// of the standard beam, and K6a's device time hides behind its host cost.
 struct Ctx {
-  int BK, K, D, FF, nh, d, Lpad, Lk, pos;
+  int BK, K, D, FF, nh, d, Lpad, Lk, pos, Dq, aw;
   float *X0, *X1, *X2, *XN, *ATT, *PA, *PB, *LG, *SCK;
   int* IDK;
   const int *anc, *maskk, *memmask;
@@ -115,30 +153,47 @@ struct Ctx {
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// Workspace floats for a call (decode_flash.py fused_plan mirrors it).
-__host__ __device__ inline size_t ws_need(int BK, int K, int D, int FF, int V) {
-  const size_t sd = cdiv(D, KC), sf = cdiv(FF, KC), bk = BK;
-  size_t pa = 3 * sd * bk * D;
+// Floats of PA (q/k/v, w1 or the head's partials) and PB (fc, cq, co or
+// w2's partials) for a call.
+__host__ __device__ inline size_t pa_floats(int BK, int D, int Dq, int FF, int V) {
+  const size_t sd = cdiv(D, KC), bk = BK;
+  size_t pa = 3 * sd * bk * Dq;
   if (sd * bk * FF > pa) pa = sd * bk * FF;
   if (sd * bk * V > pa) pa = sd * bk * V;
-  const size_t pb = (sd > sf ? sd : sf) * bk * D;
-  return 5 * bk * D + pa + pb + bk * V + 2 * bk * K;
+  return pa;
+}
+__host__ __device__ inline size_t pb_floats(int BK, int D, int Dq, int FF) {
+  const size_t sq = cdiv(Dq, KC), sf = cdiv(FF, KC), cq = (size_t)cdiv(D, KC) * Dq;
+  const size_t pb = (sq > sf ? sq : sf) * D;
+  return (pb > cq ? pb : cq) * BK;
 }
 
-__host__ __device__ inline Ctx make_ctx(float* ws, int BK, int K, int D, int FF, int V) {
+// Workspace floats for a call (decode_flash.py fused_plan mirrors it).
+__host__ __device__ inline size_t ws_need(int BK, int K, int D, int Dq, int FF, int V) {
+  const size_t bk = BK;
+  return 5 * bk * D + pa_floats(BK, D, Dq, FF, V) + pb_floats(BK, D, Dq, FF) + bk * V +
+         2 * bk * K;
+}
+
+// The context of a call: its shapes and its workspace's regions. The
+// caller sets nh, d, aw, Lpad, Lk, pos, the index arrays and the tiles.
+__host__ __device__ inline Ctx make_ctx(float* ws, int BK, int K, int D, int Dq, int FF,
+                                        int V) {
   Ctx c = {};
-  const size_t sd = cdiv(D, KC), sf = cdiv(FF, KC), bk = BK;
-  size_t pa = 3 * sd * bk * D;
-  if (sd * bk * FF > pa) pa = sd * bk * FF;
-  if (sd * bk * V > pa) pa = sd * bk * V;
+  const size_t bk = BK;
+  c.BK = BK;
+  c.K = K;
+  c.D = D;
+  c.Dq = Dq;
+  c.FF = FF;
   c.X0 = ws;
   c.X1 = c.X0 + bk * D;
   c.X2 = c.X1 + bk * D;
   c.XN = c.X2 + bk * D;
   c.ATT = c.XN + bk * D;
   c.PA = c.ATT + bk * D;
-  c.PB = c.PA + pa;
-  c.LG = c.PB + (sd > sf ? sd : sf) * bk * D;
+  c.PB = c.PA + pa_floats(BK, D, Dq, FF, V);
+  c.LG = c.PB + pb_floats(BK, D, Dq, FF);
   c.SCK = c.LG + bk * V;
   c.IDK = (int*)(c.SCK + bk * K);
   return c;
@@ -356,10 +411,13 @@ __device__ void product_phase(const Phase& p, int M, char* smem) {
 }
 
 // Row phase, one block per row: x = psum(P) + bias + res (res alone with
-// S = 0), stored to xout where given; then LayerNorm(x) (g, b, eps) to XN
+// S = 0; bias where given; res always with ALWAYS_RES, else where given:
+// K5 and K4 always add it, and a test of res in this loop slowed K5 by ~4
+// %), stored to xout where given; then LayerNorm(x) (g, b, eps) to XN
 // where g is given, as csrc/gemm.cu layernorm_kernel computes it. A thread
 // keeps its columns of x in registers (D <= ROW_COLS * THREADS).
 constexpr int ROW_COLS = 4;
+template <bool ALWAYS_RES = true>
 __device__ void row_phase(const Ctx& c, const float* P, int S, const float* bias,
                           const float* res, float* xout, const float* g,
                           const float* b, float eps, float* red) {
@@ -374,7 +432,7 @@ __device__ void row_phase(const Ctx& c, const float* P, int S, const float* bias
       if (k >= D) continue;
       float v = S ? psum(P, S, c.BK, D, r, k) : 0.f;
       if (bias) v += bias[k];
-      v += res[(size_t)r * D + k];
+      if (ALWAYS_RES || res) v += res[(size_t)r * D + k];
       if (xout) xout[(size_t)r * D + k] = v;
       x[j] = v;
       sum += v;
@@ -399,18 +457,65 @@ struct LayerJobs {
   Job qkv[3], fc, cq, co, w1, w2;
 };
 __device__ LayerJobs layer_jobs(const Ctx& c, const LayerW& L, const float* xin) {
-  const int D = c.D, FF = c.FF;
-  const size_t part = (size_t)cdiv(D, KC) * c.BK * D;
+  const int D = c.D, Dq = c.Dq, FF = c.FF;
+  const size_t part = (size_t)cdiv(D, KC) * c.BK * Dq;
   LayerJobs J;
-  J.qkv[0] = {c.XN, nullptr, 0, L.w[WQ], L.s[WQ], c.PA, D, D};
-  J.qkv[1] = {xin, nullptr, 0, L.w[WK], L.s[WK], c.PA + part, D, D};
-  J.qkv[2] = {xin, nullptr, 0, L.w[WV], L.s[WV], c.PA + 2 * part, D, D};
-  J.fc = {c.ATT, nullptr, 0, L.w[WO], L.s[WO], c.PB, D, D};
-  J.cq = {c.XN, nullptr, 0, L.w[WCQ], L.s[WCQ], c.PB, D, D};
-  J.co = {c.ATT, nullptr, 0, L.w[WCO], L.s[WCO], c.PB, D, D};
+  J.qkv[0] = {c.XN, nullptr, 0, L.w[WQ], L.s[WQ], c.PA, Dq, D};
+  J.qkv[1] = {xin, nullptr, 0, L.w[WK], L.s[WK], c.PA + part, Dq, D};
+  J.qkv[2] = {xin, nullptr, 0, L.w[WV], L.s[WV], c.PA + 2 * part, Dq, D};
+  J.fc = {c.ATT, nullptr, 0, L.w[WO], L.s[WO], c.PB, D, Dq};
+  J.cq = {c.XN, nullptr, 0, L.w[WCQ], L.s[WCQ], c.PB, Dq, D};
+  J.co = {c.ATT, nullptr, 0, L.w[WCO], L.s[WCO], c.PB, D, Dq};
   J.w1 = {c.XN, nullptr, 0, L.w[W1], L.s[W1], c.PA, FF, D};
   J.w2 = {c.PA, L.v[B1], cdiv(D, KC), L.w[W2], L.s[W2], c.PB, D, FF};
   return J;
+}
+
+// A warp's attention staging in the dynamic shared memory.
+__device__ __forceinline__ float* warp_staging(const Ctx& c, char* smem) {
+  return (float*)smem + (threadIdx.x >> 5) * attend_smem_floats(c.d, c.Lpad > c.Lk ? c.Lpad : c.Lk);
+}
+
+// The self-attention phase: item (row r, head h) on warp it % aw of block
+// it / aw (mod the grid), from the q, k, v partials; the context into ATT
+// [BK, Dq], the new K/V rows into the caches [K, B, Lpad, Dq] at c.pos.
+template <typename CT>
+__device__ void self_phase(const Ctx& c, const LayerJobs& J, CT* ck, CT* cv, char* smem) {
+  const int M = c.BK, Dq = c.Dq, nh = c.nh, d = c.d, SD = cdiv(c.D, KC);
+  const int warp = threadIdx.x >> 5;
+  const float *Pq = J.qkv[0].P, *Pk = J.qkv[1].P, *Pv = J.qkv[2].P;
+  if (warp < c.aw) {
+    float* wsm = warp_staging(c, smem);
+    for (int it = blockIdx.x * c.aw + warp; it < M * nh; it += gridDim.x * c.aw) {
+      const int r = it / nh, h = it % nh;
+      const int o = h * d;
+      self_attend<CT>([&](int t) { return psum(Pq, SD, M, Dq, r, o + t); },
+                      [&](int t) { return psum(Pk, SD, M, Dq, r, o + t); },
+                      [&](int t) { return psum(Pv, SD, M, Dq, r, o + t); }, ck, cv, c.anc,
+                      c.maskk, c.ATT, c.pos, M, c.K, c.Lpad, Dq, d, r, h, wsm);
+    }
+  }
+  __syncthreads();
+}
+
+// The cross-attention phase: item (row r, head h) as in self_phase, from
+// the cross query's partials, over the memory K/V [B, Lk, Dq] of row r's
+// batch entry; the context into ATT [BK, Dq].
+template <typename CT>
+__device__ void cross_phase(const Ctx& c, const LayerJobs& J, const CT* mk, const CT* mv,
+                            char* smem) {
+  const int M = c.BK, Dq = c.Dq, nh = c.nh, d = c.d, SD = cdiv(c.D, KC);
+  const int warp = threadIdx.x >> 5;
+  if (warp < c.aw) {
+    float* wsm = warp_staging(c, smem);
+    for (int it = blockIdx.x * c.aw + warp; it < M * nh; it += gridDim.x * c.aw) {
+      const int r = it / nh, h = it % nh;
+      const int o = h * d;
+      cross_attend<CT>([&](int t) { return psum(J.cq.P, SD, M, Dq, r, o + t); }, mk, mv,
+                       c.memmask, c.ATT, M, c.K, c.Lk, Dq, d, r, h, wsm);
+    }
+  }
+  __syncthreads();
 }
 
 // One decoder layer at c.pos from xin (its LN1 already in XN, the QKV
@@ -425,49 +530,30 @@ __device__ void layer_body(const Ctx& c, const LayerW& L, const float* xin, floa
                            const float* b_next, float eps_next, const Phase* next,
                            bool next_f32, char* smem, float* red) {
   cg::grid_group grid = cg::this_grid();
-  const int M = c.BK, D = c.D, nh = c.nh, d = c.d;
-  const int SD = cdiv(D, KC);
+  const int M = c.BK, SQ = cdiv(c.Dq, KC);
   const LayerJobs J = layer_jobs(c, L, xin);
   const Phase qkv = phase(c, P_QKV, J.qkv), fc = phase(c, P_FC, &J.fc),
               cq = phase(c, P_CQ, &J.cq), co = phase(c, P_CO, &J.co),
               w1 = phase(c, P_W1, &J.w1), w2 = phase(c, P_W2, &J.w2);
-  const int warp = threadIdx.x >> 5, warps = THREADS / 32;
-  // a warp's attention staging
-  float* wsm = (float*)smem + warp * attend_smem_floats(d, c.Lpad > c.Lk ? c.Lpad : c.Lk);
   product_phase<WT>(qkv, M, smem);
   barrier(grid);  // q, k, v partials complete
-  const float *Pq = J.qkv[0].P, *Pk = J.qkv[1].P, *Pv = J.qkv[2].P;
-  for (int it = blockIdx.x * warps + warp; it < M * nh; it += gridDim.x * warps) {
-    const int r = it / nh, h = it % nh;
-    const int o = h * d;
-    self_attend<CT>([&](int t) { return psum(Pq, SD, M, D, r, o + t); },
-                    [&](int t) { return psum(Pk, SD, M, D, r, o + t); },
-                    [&](int t) { return psum(Pv, SD, M, D, r, o + t); }, ck, cv, c.anc,
-                    c.maskk, c.ATT, c.pos, M, c.K, c.Lpad, D, d, r, h, wsm);
-  }
-  __syncthreads();
+  self_phase<CT>(c, J, ck, cv, smem);
   prefetch<WT>(fc, smem);
   barrier(grid);  // self-attention context complete
   product_phase<WT>(fc, M, smem);
   barrier(grid);  // fc partials complete
   prefetch<WT>(cq, smem);
-  row_phase(c, J.fc.P, SD, nullptr, xin, c.X1, L.v[LN2G], L.v[LN2B], 1e-6f, red);
+  row_phase(c, J.fc.P, SQ, nullptr, xin, c.X1, L.v[LN2G], L.v[LN2B], 1e-6f, red);
   barrier(grid);  // x1 and LN2(x1) complete
   product_phase<WT>(cq, M, smem);
   barrier(grid);  // cross query partials complete
-  for (int it = blockIdx.x * warps + warp; it < M * nh; it += gridDim.x * warps) {
-    const int r = it / nh, h = it % nh;
-    const int o = h * d;
-    cross_attend<CT>([&](int t) { return psum(J.cq.P, SD, M, D, r, o + t); }, mk, mv,
-                     c.memmask, c.ATT, M, c.K, c.Lk, D, d, r, h, wsm);
-  }
-  __syncthreads();
+  cross_phase<CT>(c, J, mk, mv, smem);
   prefetch<WT>(co, smem);
   barrier(grid);  // cross-attention context complete
   product_phase<WT>(co, M, smem);
   barrier(grid);  // co partials complete
   prefetch<WT>(w1, smem);
-  row_phase(c, J.co.P, SD, nullptr, c.X1, c.X2, L.v[LN3G], L.v[LN3B], 1e-6f, red);
+  row_phase(c, J.co.P, SQ, nullptr, c.X1, c.X2, L.v[LN3G], L.v[LN3B], 1e-6f, red);
   barrier(grid);  // x2 and LN3(x2) complete
   product_phase<WT>(w1, M, smem);
   prefetch<WT>(w2, smem);
@@ -584,13 +670,119 @@ __global__ void __launch_bounds__(THREADS) beam_kernel(const BeamArgs a) {
   }
 }
 
-// Dynamic shared memory a call needs: two product stages (f32 weights
-// where any product is f32) or an attention item a warp, whichever is larger.
+// K6a-c: one shard's step, f32 weights. `add`: K6a and K6b add x
+// (residual); K6c adds b_2 and x (not partial_tp).
+struct StepArgs {
+  LayerW L;  // K6a: LN1G/LN1B, WQ, WK, WV, WO; K6b: LN2G/LN2B, WCQ, WCO; K6c: LN3G/LN3B, B1,
+             // B2, W1, W2
+  const float* x;
+  float* y;
+  void *ck, *cv;        // K6a: the self caches
+  const void *mk, *mv;  // K6b: the memory K/V
+  int add;
+  Ctx c;
+};
+
+// K6a: LN(x); q from it, k and v from x; self-attention at c.pos (the new
+// K/V row into the caches); fc; y = the fc partials summed (+ x).
+template <typename CT>
+__global__ void __launch_bounds__(THREADS) self_step_kernel(const StepArgs a) {
+  extern __shared__ __align__(16) char smem[];
+  __shared__ float red[32];
+  cg::grid_group grid = cg::this_grid();
+  const Ctx& c = a.c;
+  stamp();
+  const LayerJobs J = layer_jobs(c, a.L, a.x);
+  const Phase qkv = phase(c, P_QKV, J.qkv), fc = phase(c, P_FC, &J.fc);
+  prefetch<float>(qkv, smem);
+  row_phase(c, nullptr, 0, nullptr, a.x, nullptr, a.L.v[LN1G], a.L.v[LN1B], 1e-6f, red);
+  barrier(grid);  // LN(x) complete
+  product_phase<float>(qkv, c.BK, smem);
+  barrier(grid);  // q, k, v partials complete
+  self_phase<CT>(c, J, (CT*)a.ck, (CT*)a.cv, smem);
+  prefetch<float>(fc, smem);
+  barrier(grid);  // context complete
+  product_phase<float>(fc, c.BK, smem);
+  barrier(grid);  // the shard's fc partials complete
+  row_phase<false>(c, J.fc.P, cdiv(c.Dq, KC), nullptr, a.add ? a.x : nullptr, a.y, nullptr,
+                   nullptr, 0.f, red);
+}
+
+// K6b: LN(x); the cross query from it; cross-attention over the memory;
+// co; y = the co partials summed (+ x).
+template <typename CT>
+__global__ void __launch_bounds__(THREADS) cross_step_kernel(const StepArgs a) {
+  extern __shared__ __align__(16) char smem[];
+  __shared__ float red[32];
+  cg::grid_group grid = cg::this_grid();
+  const Ctx& c = a.c;
+  stamp();
+  const LayerJobs J = layer_jobs(c, a.L, a.x);
+  const Phase cq = phase(c, P_CQ, &J.cq), co = phase(c, P_CO, &J.co);
+  row_phase(c, nullptr, 0, nullptr, a.x, nullptr, a.L.v[LN2G], a.L.v[LN2B], 1e-6f, red);
+  barrier(grid);  // LN(x) complete
+  prefetch<float>(cq, smem);
+  product_phase<float>(cq, c.BK, smem);
+  barrier(grid);  // cross query partials complete
+  cross_phase<CT>(c, J, (const CT*)a.mk, (const CT*)a.mv, smem);
+  barrier(grid);  // context complete
+  prefetch<float>(co, smem);
+  product_phase<float>(co, c.BK, smem);
+  barrier(grid);  // co partials complete
+  row_phase<false>(c, J.co.P, cdiv(c.Dq, KC), nullptr, a.add ? a.x : nullptr, a.y, nullptr,
+                   nullptr, 0.f, red);
+}
+
+// K6c: LN(x); w1 (its partials); w2 from relu(sum + b_1); y = the w2
+// partials summed (+ b_2 + x).
+__global__ void __launch_bounds__(THREADS) ffn_step_kernel(const StepArgs a) {
+  extern __shared__ __align__(16) char smem[];
+  __shared__ float red[32];
+  cg::grid_group grid = cg::this_grid();
+  const Ctx& c = a.c;
+  stamp();
+  const LayerJobs J = layer_jobs(c, a.L, a.x);
+  const Phase w1 = phase(c, P_W1, &J.w1), w2 = phase(c, P_W2, &J.w2);
+  prefetch<float>(w1, smem);
+  row_phase(c, nullptr, 0, nullptr, a.x, nullptr, a.L.v[LN3G], a.L.v[LN3B], 1e-6f, red);
+  barrier(grid);  // LN(x) complete
+  product_phase<float>(w1, c.BK, smem);
+  prefetch<float>(w2, smem);
+  barrier(grid);  // w1 partials complete
+  product_phase<float>(w2, c.BK, smem);
+  barrier(grid);  // w2 partials complete
+  row_phase<false>(c, J.w2.P, cdiv(c.FF, KC), a.add ? a.L.v[B2] : nullptr,
+                   a.add ? a.x : nullptr, a.y, nullptr, nullptr, 0.f, red);
+}
+
+// Two product stages' shared bytes (weights of wbytes bytes).
+int prod_smem(int wbytes) { return 2 * (KC * BN * wbytes + KC * BM * (int)sizeof(float)); }
+
+// Dynamic shared memory a K5 or K4 call needs: two product stages (f32
+// weights where any product is f32) or an attention item a warp, whichever
+// is larger.
 int smem_need(int wbytes, int d, int Lpad, int Lk) {
-  const int prod = 2 * (KC * BN * wbytes + KC * BM * (int)sizeof(float));
+  const int prod = prod_smem(wbytes);
   const int n = Lpad > Lk ? Lpad : Lk;
   const int att = THREADS / 32 * attend_smem_floats(d, n) * (int)sizeof(float);
   return prod > att ? prod : att;
+}
+
+// The warps of a K6a or K6b block that run attention items: as many of
+// its 8 as `smem` bytes stage at head width d over n positions (0: none
+// fits).
+int step_warps(int smem, int d, int n) {
+  const int w = smem / (attend_smem_floats(d, n) * (int)sizeof(float));
+  return w < THREADS / 32 ? w : THREADS / 32;
+}
+
+// The shapes K6a and K6b take: heads of d % 8 == 0 columns (16-byte cache
+// row loads) over Dq <= D, D within a row phase's registers, groups of K
+// rows, the workspace and two product stages.
+bool attn_step_ok(int D, int Dq, int nh, int BK, int K, int ws_floats, int smem) {
+  return nh >= 1 && Dq % nh == 0 && (Dq / nh) % 8 == 0 && Dq <= D && D % 4 == 0 &&
+         D <= ROW_COLS * THREADS && K >= 1 && BK % K == 0 &&
+         (size_t)ws_floats >= ws_need(BK, K, D, Dq, 0, 0) && smem >= prod_smem(4);
 }
 
 // The 24 pointers of a layer, in decode_flash.py `_fused_pointers` order:
@@ -624,6 +816,31 @@ int beam_launch(const BeamArgs& a, int smem, int grid, cudaStream_t stream) {
   return launch_coop(beam_kernel<WT, CT>, a, THREADS, smem, grid, stream);
 }
 
+// K6a-c: `grid` blocks (> 0), at most what the card keeps resident.
+template <typename Kern>
+int step_launch(Kern kern, const StepArgs& a, int smem, int grid, cudaStream_t stream) {
+  int per_sm = 0, sms = 0;
+  const int e = resident(kern, THREADS, smem, &per_sm, &sms);
+  if (e) return e;
+  if (grid < 1) return (int)cudaErrorInvalidValue;
+  return launch_coop(kern, a, THREADS, smem, grid < per_sm * sms ? grid : per_sm * sms, stream);
+}
+
+// K5 and K4's context beyond make_ctx: full-width heads, 8 attention warps.
+void set_layer_ctx(Ctx& c, int nh, int Lpad, int Lk, int pos, const int* anc, const int* maskk,
+                   const int* memmask, const int* tiles) {
+  c.nh = nh;
+  c.d = c.Dq / nh;
+  c.aw = THREADS / 32;
+  c.Lpad = Lpad;
+  c.Lk = Lk;
+  c.pos = pos;
+  c.anc = anc;
+  c.maskk = maskk;
+  c.memmask = memmask;
+  c.tiles = (const int4*)tiles;
+}
+
 }  // namespace
 
 // K5: one decoder layer at `pos` (decode_flash.py decoder_layer_step_flash).
@@ -641,7 +858,7 @@ extern "C" int decoder_layer_fused(const void* const* w, int quant, int bf16, co
                                    int D, int FF, int nh, int smem, int grid,
                                    cudaStream_t stream) {
   if (!shapes_ok(quant, D, FF, nh) || BK % K || pos >= Lpad ||
-      (size_t)ws_floats < ws_need(BK, K, D, FF, 0) ||
+      (size_t)ws_floats < ws_need(BK, K, D, D, FF, 0) ||
       smem < smem_need(quant ? 1 : 4, D / nh, Lpad, Lk))
     return (int)cudaErrorInvalidValue;
   LayerArgs a;
@@ -652,21 +869,8 @@ extern "C" int decoder_layer_fused(const void* const* w, int quant, int bf16, co
   a.cv = cv;
   a.mk = mk;
   a.mv = mv;
-  a.c = make_ctx(ws, BK, K, D, FF, 0);
-  Ctx& c = a.c;
-  c.BK = BK;
-  c.K = K;
-  c.D = D;
-  c.FF = FF;
-  c.nh = nh;
-  c.d = D / nh;
-  c.Lpad = Lpad;
-  c.Lk = Lk;
-  c.pos = pos;
-  c.anc = anc;
-  c.maskk = maskk;
-  c.memmask = memmask;
-  c.tiles = (const int4*)tiles;
+  a.c = make_ctx(ws, BK, K, D, D, FF, 0);
+  set_layer_ctx(a.c, nh, Lpad, Lk, pos, anc, maskk, memmask, tiles);
   if (quant)
     return bf16 ? layer_launch<int8_t, __nv_bfloat16>(a, smem, grid, stream)
                 : layer_launch<int8_t, float>(a, smem, grid, stream);
@@ -690,7 +894,7 @@ extern "C" int decode_beam_fused(
     float pf, cudaStream_t stream) {
   const int BK = B * K;
   if (!shapes_ok(quant, D, FF, nh) || K < 1 || K > MAX_BEAM || K > V || i < 1 ||
-      i >= Lbuf || i - 1 >= Lpad || (size_t)ws_floats < ws_need(BK, K, D, FF, V) ||
+      i >= Lbuf || i - 1 >= Lpad || (size_t)ws_floats < ws_need(BK, K, D, D, FF, V) ||
       smem < smem_need(4, D / nh, Lpad, Lk))
     return (int)cudaErrorInvalidValue;
   BeamArgs a;
@@ -724,21 +928,8 @@ extern "C" int decode_beam_fused(
   a.flag = flag;
   a.scores_o = scores_o;
   a.lenm_o = lenm_o;
-  a.c = make_ctx(ws, BK, K, D, FF, V);
-  Ctx& c = a.c;
-  c.BK = BK;
-  c.K = K;
-  c.D = D;
-  c.FF = FF;
-  c.nh = nh;
-  c.d = D / nh;
-  c.Lpad = Lpad;
-  c.Lk = Lk;
-  c.pos = i - 1;
-  c.anc = anc;
-  c.maskk = maskk;
-  c.memmask = memmask;
-  c.tiles = (const int4*)tiles;
+  a.c = make_ctx(ws, BK, K, D, D, FF, V);
+  set_layer_ctx(a.c, nh, Lpad, Lk, i - 1, anc, maskk, memmask, tiles);
   if (quant)
     return bf16 ? beam_launch<int8_t, __nv_bfloat16>(a, smem, grid, stream)
                 : beam_launch<int8_t, float>(a, smem, grid, stream);
@@ -746,12 +937,130 @@ extern "C" int decode_beam_fused(
               : beam_launch<float, float>(a, smem, grid, stream);
 }
 
+// K6a: one head shard's self-attention step at `pos` (decode_flash.py
+// self_attn_step). ln_g, ln_b [D]; wq, wk, wv [D, Dq], wo [Dq, D] (f32);
+// bf16: caches in bf16; residual: y = fc + x, else the partial alone. x
+// [BK, D] in, y [BK, D] out; caches [K, B, Lpad, Dq] updated at pos; anc,
+// maskk [>= pos+1, BK]; ws: ws_floats of workspace; tiles, smem: the
+// plan's tile table (on the card) and shared bytes (the attention runs on
+// as many warps a block as smem stages); grid: blocks, at most what the
+// card keeps resident.
+extern "C" int self_attn_step_fused(const float* ln_g, const float* ln_b, const float* wq,
+                                    const float* wk, const float* wv, const float* wo,
+                                    const float* x, float* y, void* ck, void* cv,
+                                    const int* anc, const int* maskk, float* ws,
+                                    const int* tiles, int bf16, int residual, int ws_floats,
+                                    int pos, int BK, int K, int Lpad, int D, int Dq, int nh,
+                                    int smem, int grid, cudaStream_t stream) {
+  if (!attn_step_ok(D, Dq, nh, BK, K, ws_floats, smem) || pos < 0 || pos >= Lpad ||
+      step_warps(smem, Dq / nh, Lpad) < 1)
+    return (int)cudaErrorInvalidValue;
+  StepArgs a = {};
+  a.L.v[LN1G] = ln_g;
+  a.L.v[LN1B] = ln_b;
+  a.L.w[WQ] = wq;
+  a.L.w[WK] = wk;
+  a.L.w[WV] = wv;
+  a.L.w[WO] = wo;
+  a.x = x;
+  a.y = y;
+  a.ck = ck;
+  a.cv = cv;
+  a.add = residual;
+  a.c = make_ctx(ws, BK, K, D, Dq, 0, 0);
+  Ctx& c = a.c;
+  c.nh = nh;
+  c.d = Dq / nh;
+  c.aw = step_warps(smem, c.d, Lpad);
+  c.Lpad = Lpad;
+  c.pos = pos;
+  c.anc = anc;
+  c.maskk = maskk;
+  c.tiles = (const int4*)tiles;
+  return bf16 ? step_launch(self_step_kernel<__nv_bfloat16>, a, smem, grid, stream)
+              : step_launch(self_step_kernel<float>, a, smem, grid, stream);
+}
+
+// K6b: one head shard's cross-attention step (decode_flash.py
+// cross_attn_step). ln_g, ln_b [D]; wq [D, Dq], wo [Dq, D] (f32); bf16:
+// memory K/V in bf16; residual: y = co + x, else the partial alone. x [BK,
+// D] in, y [BK, D] out; memory K/V [B, Lk, Dq], memmask [Lk, B]; ws, tiles,
+// smem, grid as K6a's (the attention on as many warps as smem stages).
+extern "C" int cross_attn_step_fused(const float* ln_g, const float* ln_b, const float* wq,
+                                     const float* wo, const float* x, float* y, const void* mk,
+                                     const void* mv, const int* memmask, float* ws,
+                                     const int* tiles, int bf16, int residual, int ws_floats,
+                                     int BK, int K, int Lk, int D, int Dq, int nh, int smem,
+                                     int grid, cudaStream_t stream) {
+  if (!attn_step_ok(D, Dq, nh, BK, K, ws_floats, smem) || Lk < 1 ||
+      step_warps(smem, Dq / nh, Lk) < 1)
+    return (int)cudaErrorInvalidValue;
+  StepArgs a = {};
+  a.L.v[LN2G] = ln_g;
+  a.L.v[LN2B] = ln_b;
+  a.L.w[WCQ] = wq;
+  a.L.w[WCO] = wo;
+  a.x = x;
+  a.y = y;
+  a.mk = mk;
+  a.mv = mv;
+  a.add = residual;
+  a.c = make_ctx(ws, BK, K, D, Dq, 0, 0);
+  Ctx& c = a.c;
+  c.nh = nh;
+  c.d = Dq / nh;
+  c.aw = step_warps(smem, c.d, Lk);
+  c.Lk = Lk;
+  c.memmask = memmask;
+  c.tiles = (const int4*)tiles;
+  return bf16 ? step_launch(cross_step_kernel<__nv_bfloat16>, a, smem, grid, stream)
+              : step_launch(cross_step_kernel<float>, a, smem, grid, stream);
+}
+
+// K6c: the FFN step on a hidden shard of width FF (decode_flash.py
+// ffn_step). ln_g, ln_b, b2 [D]; w1 [D, FF], b1 [FF], w2 [FF, D] (f32);
+// partial_tp: y = the partial h @ w2, else + b2 + x. x [BK, D] in, y [BK, D]
+// out; ws, tiles, smem, grid as K6a's.
+extern "C" int ffn_step_fused(const float* ln_g, const float* ln_b, const float* w1,
+                              const float* b1, const float* w2, const float* b2,
+                              const float* x, float* y, float* ws, const int* tiles,
+                              int partial_tp, int ws_floats, int BK, int D, int FF, int smem,
+                              int grid, cudaStream_t stream) {
+  if (FF < 1 || D % 4 || D > ROW_COLS * THREADS || BK < 1 ||
+      (size_t)ws_floats < ws_need(BK, 1, D, 0, FF, 0) || smem < prod_smem(4))
+    return (int)cudaErrorInvalidValue;
+  StepArgs a = {};
+  a.L.v[LN3G] = ln_g;
+  a.L.v[LN3B] = ln_b;
+  a.L.v[B1] = b1;
+  a.L.v[B2] = b2;
+  a.L.w[W1] = w1;
+  a.L.w[W2] = w2;
+  a.x = x;
+  a.y = y;
+  a.add = !partial_tp;
+  a.c = make_ctx(ws, BK, 1, D, 0, FF, 0);
+  a.c.tiles = (const int4*)tiles;
+  return step_launch(ffn_step_kernel, a, smem, grid, stream);
+}
+
 // What a fused launch would be: out[0] the blocks an SM keeps resident,
-// out[1] the SM count, for K5 (beam 0) or K4 (beam 1) at smem bytes.
-extern "C" int decode_fused_grid(int quant, int bf16, int beam, int smem, int* out,
+// out[1] the SM count, for kind 0 (K5), 1 (K4), 2 (K6a), 3 (K6c) or 4
+// (K6b) at smem bytes (quant: int8 weights, K5 and K4 only; bf16: bf16
+// caches or memory, not K6c), and out[2] the dynamic shared memory a block
+// of that kernel may opt in to (`smem_allow_max`), which the shard steps'
+// plans stage their attention items within.
+extern "C" int decode_fused_grid(int quant, int bf16, int kind, int smem, int* out,
                                  cudaStream_t stream) {
-  const auto ask = [&](auto kern) { return resident(kern, THREADS, smem, out, out + 1); };
-  if (beam)
+  const auto ask = [&](auto kern) {
+    const cudaError_t e = smem_allow_max((const void*)kern, out + 2);
+    return e != cudaSuccess ? (int)e : resident(kern, THREADS, smem, out, out + 1);
+  };
+  if (kind == 4)
+    return bf16 ? ask(cross_step_kernel<__nv_bfloat16>) : ask(cross_step_kernel<float>);
+  if (kind == 3) return ask(ffn_step_kernel);
+  if (kind == 2) return bf16 ? ask(self_step_kernel<__nv_bfloat16>) : ask(self_step_kernel<float>);
+  if (kind == 1)
     return quant ? (bf16 ? ask(beam_kernel<int8_t, __nv_bfloat16>) : ask(beam_kernel<int8_t, float>))
                  : (bf16 ? ask(beam_kernel<float, __nv_bfloat16>) : ask(beam_kernel<float, float>));
   return quant ? (bf16 ? ask(layer_kernel<int8_t, __nv_bfloat16>) : ask(layer_kernel<int8_t, float>))

@@ -41,15 +41,14 @@ _SIGS = {
     "bilstm_bwd_recurrent": "ppppppp" + "iii" + "ii",
     "bilstm_fwd_plan": "iiii" + "p",
     "bilstm_bwd_plan": "iiii" + "p",
-    "self_attn_anc": "pppppppp" + "iiiiii",
-    "self_attn_anc_bf16": "pppppppp" + "iiiiii",
-    "cross_attn": "ppppp" + "iiiii",
-    "cross_attn_bf16": "ppppp" + "iiiii",
     "head_topk": "ppppp" + "iii",
     "head_topk_partial": "ppppppp" + "iii",
     "beam_select": "pppppppp" + "pppppppp" + "iiii" + "f",
     "decoder_layer_fused": "p" + "ii" + "p" * 11 + "i" * 11,
     "decode_beam_fused": "p" + "ii" + "p" * 27 + "i" * 14 + "f",
+    "self_attn_step_fused": "p" * 14 + "i" * 12,
+    "cross_attn_step_fused": "p" * 11 + "i" * 11,
+    "ffn_step_fused": "p" * 10 + "i" * 7,
     "decode_fused_grid": "iiii" + "p",
     "decode_fused_stamps": "p",
     "las_greedy_fused": "p" * 16 + "i" * 14,

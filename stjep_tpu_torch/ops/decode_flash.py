@@ -14,12 +14,12 @@ shard of it (raw top-K logits, row max and sum-exp). K3 runs one position
 through every layer (K5 per layer) and the head (K7). K4 is the whole beam
 while-body: embed + time signal, the layers, the head, and the k^2 -> k
 select with its back-copies; `beam_select` is that select alone, for the
-general beam loop. On the card K5 and K4 are one cooperative launch each
-(`csrc/decode_fused.cu`; from the shapes alone, `fused_tiles` gives the
-tile table they walk and `fused_plan` their phases, barriers, shared memory
-and workspace); the other kernels' design
-notes are in `csrc/decode.cu`; the tensor-parallel layer step and head are
-in `ops/decode_flash_tp.py`.
+general beam loop. On the card K5, K4 and K6a-c are one cooperative
+launch each (`csrc/decode_fused.cu`; from the shapes alone, `fused_tiles`
+gives the tile table they walk and `fused_plan` their phases, barriers,
+shared memory and workspace); the other kernels' design notes are in
+`csrc/decode.cu`; the tensor-parallel layer step and head are in
+`ops/decode_flash_tp.py`.
 
 Layouts are the JAX kernels': self caches [K, B, Lpad, D] per layer
 ([nl, K, B, Lpad, D] stacked for K3/K4), never reordered, read through the
@@ -42,8 +42,8 @@ Two serving options, as in the JAX kernels, in any combination:
   as each weight tile is read. Biases, LayerNorms, the cross K/V
   projections and the head stay f32.
 - bf16 caches: self caches and memory K/V in bfloat16 (each stream's own
-  dtype selects its attention kernel), rounded where the JAX cores round
-  (`self_attn_anc_plain`, `cross_attn_plain`, `csrc/decode.cu`).
+  dtype selects its kernel's variant), rounded where the JAX cores round
+  (`self_attn_anc_plain`, `cross_attn_plain`, `csrc/attend.cuh`).
 Each wrapper counts its launches per variant: `launches` (f32 weights and
 caches), `q8_launches`, `bf16_launches`, `q8_bf16_launches`, and for K3's
 gather variant the same names after `gather_`. K6a-c and K7c take f32
@@ -242,27 +242,6 @@ def cross_attn_plain(q, mem_k, mem_v, mem_mask, group: int, n_head: int):
     return _attend_plain(q, mem_k[b], mem_v[b], mem_mask.T[b] != 0, n_head)
 
 
-def _self_attn_cuda(q, k_new, v_new, ck, cv, anc, maskk, pos, group, n_head):
-    bf16 = ck.dtype == torch.bfloat16
-    BK, D = q.shape
-    att = torch.empty_like(q)
-    kernels.launch("self_attn_anc_bf16" if bf16 else "self_attn_anc", q, k_new,
-                   v_new, ck, cv, anc, maskk, att, pos, BK, group, ck.shape[2],
-                   D, n_head)
-    _count(self_attn_anc, "bf16_" if bf16 else "")
-    return att
-
-
-def _cross_attn_cuda(q, mk, mv, mem_mask, group, n_head):
-    bf16 = mk.dtype == torch.bfloat16
-    BK, D = q.shape
-    att = torch.empty_like(q)
-    kernels.launch("cross_attn_bf16" if bf16 else "cross_attn", q, mk, mv,
-                   mem_mask, att, BK, group, mk.shape[1], D, n_head)
-    _count(cross_attn, "bf16_" if bf16 else "")
-    return att
-
-
 def _check_streams(*pairs):
     """Each (a, b, name): two cache tensors of one dtype in CACHE_DTYPES."""
     for a, b, nm in pairs:
@@ -270,39 +249,6 @@ def _check_streams(*pairs):
             raise ValueError(f"{nm} must be float32 or bfloat16, got {a.dtype}")
         kernels.check(a, a.dtype, nm)
         kernels.check(b, a.dtype, nm)
-
-
-def self_attn_anc(q, k_new, v_new, cache_k, cache_v, anc, self_mask_k,
-                  pos: int, group: int, n_head: int):
-    """The self-attention kernel of K5 alone, with self_attn_anc_plain's
-    arguments and results; f32 or bf16 caches (`launches`,
-    `bf16_launches`)."""
-    if not q.is_cuda:
-        return self_attn_anc_plain(q, k_new, v_new, cache_k, cache_v, anc,
-                                   self_mask_k, pos, group, n_head)
-    for t, nm in ((q, "q"), (k_new, "k_new"), (v_new, "v_new")):
-        kernels.check(t, torch.float32, nm)
-    _check_streams((cache_k, cache_v, "self caches"))
-    for t, nm in ((anc, "anc"), (self_mask_k, "self_mask_k")):
-        kernels.check(t, torch.int32, nm)
-    return _self_attn_cuda(q, k_new, v_new, cache_k, cache_v, anc, self_mask_k,
-                           pos, group, n_head)
-
-
-def cross_attn(q, mem_k, mem_v, mem_mask, group: int, n_head: int):
-    """The cross-attention kernel of K5 alone, with cross_attn_plain's
-    arguments and results; f32 or bf16 memory (`launches`,
-    `bf16_launches`)."""
-    if not q.is_cuda:
-        return cross_attn_plain(q, mem_k, mem_v, mem_mask, group, n_head)
-    kernels.check(q, torch.float32, "q")
-    _check_streams((mem_k, mem_v, "memory K/V"))
-    kernels.check(mem_mask, torch.int32, "mem_mask")
-    return _cross_attn_cuda(q, mem_k, mem_v, mem_mask, group, n_head)
-
-
-_init_counts(self_attn_anc, ("", "bf16_"))
-_init_counts(cross_attn, ("", "bf16_"))
 
 
 def _layer_plain(w, quant, x, ck, cv, mk, mv, pos, n_head, anc, group,
@@ -328,9 +274,12 @@ def _layer_plain(w, quant, x, ck, cv, mk, mv, pos, n_head, anc, group,
 FUSED_KC = 64  # contraction depth of a product tile (decode_fused.cu KC)
 FUSED_BM, FUSED_BN = 16, 128  # rows and columns of a product tile
 FUSED_THREADS = 256
-# blocks of a fused launch; 0 launches every block the card keeps resident
-# (the card tests set it to hold the outputs independent of the grid)
+# blocks of a fused K5 or K4 launch; 0 launches every block the card keeps
+# resident; the card tests set it to hold the outputs independent of the grid
 FUSED_GRID = 0
+# blocks of a fused shard step's launch (K6a-c); None launches the plan's
+# `blocks`; any count is cut to the blocks the card keeps resident
+STEP_GRID: Optional[int] = None
 # the product kinds of the tile table, in decode_fused.cu's order (P_QKV ..)
 FUSED_PRODUCTS = ("qkv", "fc", "cq", "co", "w1", "w2", "head")
 
@@ -344,22 +293,32 @@ def gemm_tiles(M: int, N: int, Kd: int):
             for t in range(s * rt * ct)]
 
 
-def _products(BK: int, D: int, FF: int, V: int = 0) -> Dict:
+# the product kinds of the shard steps: K6a (self), K6b (cross), K6c (ffn)
+STEP_PRODUCTS = {"self": ("qkv", "fc"), "cross": ("cq", "co"), "ffn": ("w1", "w2")}
+
+
+def _products(BK: int, D: int, FF: int, V: int = 0, Dq: Optional[int] = None,
+              step: Optional[str] = None) -> Dict:
     """{kind: [(M, N, Kd) per job]}, the jobs in decode_fused.cu
-    `layer_jobs` order (q, k, v for qkv); the head only with V."""
-    out = {"qkv": [(BK, D, D)] * 3, "fc": [(BK, D, D)], "cq": [(BK, D, D)],
-           "co": [(BK, D, D)], "w1": [(BK, FF, D)], "w2": [(BK, D, FF)]}
+    `layer_jobs` order (q, k, v for qkv) at attention width Dq (D when
+    None) and hidden width FF; the head only with V; a shard step's kinds
+    only with step ("self", "cross" or "ffn")."""
+    Dq = D if Dq is None else Dq
+    out = {"qkv": [(BK, Dq, D)] * 3, "fc": [(BK, D, Dq)], "cq": [(BK, Dq, D)],
+           "co": [(BK, D, Dq)], "w1": [(BK, FF, D)], "w2": [(BK, D, FF)]}
     if V:
         out["head"] = [(BK, V, D)]
-    return out
+    return {k: out[k] for k in STEP_PRODUCTS[step]} if step else out
 
 
-def fused_tiles(BK: int, D: int, FF: int, V: int = 0) -> torch.Tensor:
+def fused_tiles(BK: int, D: int, FF: int, V: int = 0, Dq: Optional[int] = None,
+                step: Optional[str] = None) -> torch.Tensor:
     """The tile table the fused kernels walk (`tiles`, decode_fused.cu
     `phase`): int32, 8 offsets (the first tile of each kind of
     FUSED_PRODUCTS, then the end), then one row (job, split, first row,
-    first column) per tile, a kind's jobs one after another."""
-    prods = _products(BK, D, FF, V)
+    first column) per tile, a kind's jobs one after another; `_products`'
+    shapes."""
+    prods = _products(BK, D, FF, V, Dq, step)
     rows, off = [], []
     for kind in FUSED_PRODUCTS:
         off.append(len(rows))
@@ -370,14 +329,32 @@ def fused_tiles(BK: int, D: int, FF: int, V: int = 0) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=64)
-def _tiles_on(device, BK: int, D: int, FF: int, V: int) -> torch.Tensor:
-    return fused_tiles(BK, D, FF, V).to(device)
+def _tiles_on(device, BK: int, D: int, FF: int, V: int, Dq: Optional[int] = None,
+              step: Optional[str] = None) -> torch.Tensor:
+    return fused_tiles(BK, D, FF, V, Dq, step).to(device)
+
+
+def _ws_floats(BK: int, K: int, D: int, Dq: int, FF: int, V: int) -> int:
+    """decode_fused.cu `ws_need`: five [BK, D] activations, PA (q/k/v, w1
+    or the head's partials), PB (fc, cq, co or w2's), the logits and the
+    head's top-K."""
+    kc = FUSED_KC
+    sd, sq, sf = -(-D // kc), -(-Dq // kc), -(-FF // kc)
+    pa = max(3 * sd * BK * Dq, sd * BK * FF, sd * BK * V)
+    pb = max(max(sq, sf) * D, sd * Dq) * BK
+    return 5 * BK * D + pa + pb + BK * V + 2 * BK * K
+
+
+def _prod_smem(wbytes: int) -> int:
+    """Two product stages' shared bytes (decode_fused.cu `prod_smem`)."""
+    return 2 * (FUSED_KC * FUSED_BN * wbytes + FUSED_KC * FUSED_BM * 4)
 
 
 @functools.lru_cache(maxsize=128)
 def fused_plan(BK: int, D: int, FF: int, n_head: int, Lpad: int, Lk: int,
                quant: bool = False, beam: bool = False, nl: int = 1, V: int = 0,
-               K: int = 1) -> Dict:
+               K: int = 1, Dq: Optional[int] = None, step: Optional[str] = None,
+               smem_max: Optional[int] = None) -> Dict:
     """The launch of fused K5 (one layer) or, with beam, fused K4 (nl
     layers, the head over V ids and the select of B = BK / K groups), from
     the shapes alone: `products` {kind: [(M, N, Kd)]} per product job,
@@ -385,9 +362,16 @@ def fused_plan(BK: int, D: int, FF: int, n_head: int, Lpad: int, Lk: int,
     tiles, an attention's (row, head) pairs, a row or top-K phase's rows,
     the select's groups), `barriers` (grid barriers a launch), `smem`
     (dynamic shared bytes a block) and `ws_floats` (f32 workspace); the
-    kernels walk `fused_tiles` of the same shapes. Cached: the wrappers ask
-    it at every launch; treat the result as read-only."""
-    products = _products(BK, D, FF, V if beam else 0)
+    kernels walk `fused_tiles` of the same shapes. With step, a shard
+    step's launch instead (`_step_plan`; Lpad the self cache's rows for
+    K6a, Lk the memory's for K6b; smem_max the dynamic shared bytes a block
+    of K6a or K6b may opt in to, `step_smem_max` on the card). Cached: the
+    wrappers ask it at every launch; treat the result as read-only."""
+    if step:
+        return _step_plan(step, BK, D, FF, n_head, Lk if step == "cross" else Lpad, K,
+                          D if Dq is None else Dq, smem_max)
+    Dq = D if Dq is None else Dq
+    products = _products(BK, D, FF, V if beam else 0, Dq)
     tiles = {k: sum(len(gemm_tiles(*job)) for job in jobs) for k, jobs in products.items()}
     att = BK * n_head
     body = [("qkv", tiles["qkv"]), ("self", att), ("fc", tiles["fc"]), ("row", BK),
@@ -398,25 +382,79 @@ def fused_plan(BK: int, D: int, FF: int, n_head: int, Lpad: int, Lk: int,
                                                  ("select", BK // K)]
     else:
         phases = [("row", BK)] + body
-    kc = FUSED_KC
-    sd, sf = -(-D // kc), -(-FF // kc)
     wbytes = 4 if beam or not quant else 1
-    d = D // n_head
-    smem = max(2 * (kc * FUSED_BN * wbytes + kc * FUSED_BM * 4),
-               FUSED_THREADS // 32 * (d + 3 * max(Lpad, Lk)) * 4)
-    pa = max(3 * sd * BK * D, sd * BK * FF, sd * BK * V)
-    ws = 5 * BK * D + pa + max(sd, sf) * BK * D + BK * V + 2 * BK * K
+    d = Dq // n_head
+    smem = max(_prod_smem(wbytes), FUSED_THREADS // 32 * (d + 3 * max(Lpad, Lk)) * 4)
     return dict(products=products, phases=phases, barriers=len(phases) - 1, smem=smem,
-                ws_floats=ws)
+                ws_floats=_ws_floats(BK, K, D, Dq, FF, V if beam else 0))
 
 
-def fused_grid(quant: bool, bf16: bool, beam: bool, smem: int) -> Dict[str, int]:
-    """The card's answer for a fused launch at smem bytes: blocks an SM
-    keeps resident and the SM count (their product is the grid)."""
-    out = (ctypes.c_int * 2)()
-    kernels.launch("decode_fused_grid", int(quant), int(bf16), int(beam), smem,
+def _step_plan(step: str, BK: int, D: int, FF: int, n_head: int, L: int, K: int,
+               Dq: int, smem_max: Optional[int]) -> Dict:
+    """fused_plan of the shard steps, f32 weights. K6a ("self": the
+    attention width Dq, n_head local heads, L = Lpad cache rows, groups of K
+    rows; FF unused): row, qkv, self, fc, row. K6b ("cross": the same over
+    L = Lk memory rows): row, cq, cross, co, row. K6c ("ffn": the hidden
+    width FF; Dq, n_head, L unused): row, w1, w2, row. Also `att_warps`,
+    the warps a block runs attention items on (as many of 8 as smem_max
+    bytes stage), and `blocks`, the blocks the launch asks for:
+    as many as its largest phase has items (an attention phase's in
+    att_warps items a block)."""
+    if step == "ffn":
+        Dq, n_head, L, K = 0, 1, 0, 1
+    else:
+        FF = 0
+    products = _products(BK, D, FF, 0, Dq, step)
+    tiles = {k: sum(len(gemm_tiles(*job)) for job in jobs) for k, jobs in products.items()}
+    smem, aw = _prod_smem(4), 0
+    first, second = STEP_PRODUCTS[step]
+    phases = [("row", BK), (first, tiles[first])]
+    if step != "ffn":
+        if smem_max is None:
+            raise ValueError(f"the {step} step's plan needs smem_max, the card's limit "
+                             f"(step_smem_max)")
+        per = (Dq // n_head + 3 * L) * 4  # an attention item's staging
+        smem = max(smem, min(FUSED_THREADS // 32, smem_max // per) * per)
+        aw = min(FUSED_THREADS // 32, smem // per)
+        if aw < 1:
+            rows = "cache rows" if step == "self" else "memory rows"
+            raise ValueError(f"{step}_attn_step: {L} {rows} at head width {Dq // n_head} "
+                             f"stage past {smem_max} bytes a block")
+        phases.append((step, BK * n_head))
+    phases += [(second, tiles[second]), ("row", BK)]
+    blocks = max(-(-n // aw) if kind in STEP_PRODUCTS else n for kind, n in phases)
+    return dict(products=products, phases=phases, barriers=len(phases) - 1, smem=smem,
+                ws_floats=_ws_floats(BK, K, D, Dq, FF, 0), att_warps=aw, blocks=blocks)
+
+
+# decode_fused.cu `decode_fused_grid` kinds
+_GRID_KIND = {None: 0, "self": 2, "ffn": 3, "cross": 4}
+
+
+def fused_grid(quant: bool, bf16: bool, beam: bool, smem: int,
+               step: Optional[str] = None) -> Dict[str, int]:
+    """The card's answer for a fused launch (K5, K4 with beam, or the shard
+    step `step`) at smem bytes: blocks an SM keeps resident and the SM
+    count (their product is the most blocks a launch may have), and the
+    dynamic shared bytes a block of that kernel may opt in to."""
+    out = (ctypes.c_int * 3)()
+    kind = 1 if beam and not step else _GRID_KIND[step]
+    kernels.launch("decode_fused_grid", int(quant), int(bf16), kind, smem,
                    ctypes.addressof(out))
-    return dict(blocks_per_sm=out[0], sms=out[1], blocks=out[0] * out[1])
+    return dict(blocks_per_sm=out[0], sms=out[1], blocks=out[0] * out[1], smem_max=out[2])
+
+
+@functools.lru_cache(maxsize=8)
+def step_smem_max(step: str, bf16: bool) -> int:
+    """The dynamic shared bytes a block of the fused shard step `step`
+    ("self" or "cross", bf16 caches or memory or not) may opt in to on the
+    card: its opt-in maximum less its static shared memory, as the kernel's
+    launch allows it (common.cuh `smem_allow_max`)."""
+    return fused_grid(False, bf16, False, 0, step)["smem_max"]
+
+
+def _step_grid(plan: Dict) -> int:
+    return plan["blocks"] if STEP_GRID is None else STEP_GRID
 
 
 _POINTERS: Dict[tuple, ctypes.Array] = {}
@@ -536,8 +574,20 @@ def _ln_of(p, x):
     return _ln(x, p["layer_norm"]["scale"], p["layer_norm"]["bias"], 1e-6)
 
 
-def _ln_card(p, x):
-    return kernels.layernorm(x, p["layer_norm"]["scale"], p["layer_norm"]["bias"], 1e-6)
+def _step_weights(params: Dict, shapes, ln: Dict, D: int):
+    """The matrices a fused shard step reads, each checked f32, contiguous,
+    on the card and of its shape ((key, shape) pairs), and the LayerNorm's
+    [D] vectors: the kernel reads them by pointer at those shapes."""
+    for nm in ("scale", "bias"):
+        if kernels.check(ln[nm], torch.float32, f"layer_norm {nm}").numel() != D:
+            raise ValueError(f"layer_norm {nm} has {ln[nm].numel()} entries, not {D}")
+    mats = []
+    for key, shape in shapes:
+        w = kernels.check(params[key]["w"], torch.float32, f"{key} w")
+        if tuple(w.shape) != shape:
+            raise ValueError(f"{key} w is {tuple(w.shape)}, the step takes {shape}")
+        mats.append(w)
+    return mats
 
 
 def _check_width(params: Dict, key: str, stream, name: str):
@@ -574,17 +624,34 @@ def self_attn_step(params: Dict, x_new, cache_k, cache_v, pos: int,
     if not x_new.is_cuda:
         return self_attn_step_plain(params, x_new, cache_k, cache_v, pos,
                                     n_head, anc, group, mask_k, residual)
-    kernels.refuse_grad("self_attn_step", TRAINABLE, x_new, *leaves(params))
+    if torch.is_grad_enabled():  # leaves() costs ~8 us a call; the TP beam runs without grad
+        kernels.refuse_grad("self_attn_step", TRAINABLE, x_new, *leaves(params))
     _check_streams((cache_k, cache_v, "self caches"))
     _check_width(params, "w_ks", cache_k, "self caches")
     for t, nm in ((anc, "anc"), (mask_k, "mask_k")):
         kernels.check(t, torch.int32, nm)
-    x = x_new.contiguous()
-    q = kernels.gemm(_ln_card(params, x), params["w_qs"]["w"])
-    att = _self_attn_cuda(q, kernels.gemm(x, params["w_ks"]["w"]),
-                          kernels.gemm(x, params["w_vs"]["w"]), cache_k,
-                          cache_v, anc, mask_k, pos, group, n_head)
-    y = kernels.gemm(att, params["fc"]["w"], residual=x if residual else None)
+    x = kernels.check(x_new.contiguous(), torch.float32, "x_new")
+    BK, D = x.shape
+    if (cache_k.dim() != 4 or cache_k.shape[:2] != (group, BK // group)
+            or cache_v.shape != cache_k.shape
+            or any(t.dim() != 2 or t.shape[0] <= pos or t.shape[1] != BK for t in (anc, mask_k))):
+        raise ValueError(f"self_attn_step: caches {tuple(cache_k.shape)}, "
+                         f"{tuple(cache_v.shape)}, anc {tuple(anc.shape)} and mask_k "
+                         f"{tuple(mask_k.shape)} do not fit {BK} rows in groups of {group} "
+                         f"at position {pos}")
+    Dq, Lpad = cache_k.shape[-1], cache_k.shape[2]
+    ln = params["layer_norm"]
+    mats = _step_weights(params, (("w_qs", (D, Dq)), ("w_ks", (D, Dq)), ("w_vs", (D, Dq)),
+                                  ("fc", (Dq, D))), ln, D)
+    bf16 = cache_k.dtype == torch.bfloat16
+    plan = fused_plan(BK, D, 0, n_head, Lpad, 0, K=group, Dq=Dq, step="self",
+                      smem_max=step_smem_max("self", bf16))
+    y = torch.empty_like(x)
+    ws = torch.empty((plan["ws_floats"],), device=x.device, dtype=torch.float32)
+    kernels.launch("self_attn_step_fused", ln["scale"], ln["bias"], *mats, x, y, cache_k,
+                   cache_v, anc, mask_k, ws, _tiles_on(x.device, BK, D, 0, 0, Dq, "self"),
+                   int(bf16), int(residual), plan["ws_floats"], pos, BK, group, Lpad, D, Dq,
+                   n_head, plan["smem"], _step_grid(plan))
     _count(self_attn_step, _variant(False, cache_k))
     return y
 
@@ -608,15 +675,32 @@ def cross_attn_step(params: Dict, x_new, mem_k, mem_v, n_head: int,
     if not x_new.is_cuda:
         return cross_attn_step_plain(params, x_new, mem_k, mem_v, n_head,
                                      group, mem_mask, residual)
-    kernels.refuse_grad("cross_attn_step", TRAINABLE, x_new, mem_k, mem_v,
-                        *leaves(params))
+    if torch.is_grad_enabled():
+        kernels.refuse_grad("cross_attn_step", TRAINABLE, x_new, mem_k, mem_v,
+                            *leaves(params))
     _check_streams((mem_k, mem_v, "memory K/V"))
     _check_width(params, "w_qs", mem_k, "memory K/V")
     kernels.check(mem_mask, torch.int32, "mem_mask")
-    x = x_new.contiguous()
-    q = kernels.gemm(_ln_card(params, x), params["w_qs"]["w"])
-    y = kernels.gemm(_cross_attn_cuda(q, mem_k, mem_v, mem_mask, group, n_head),
-                     params["fc"]["w"], residual=x if residual else None)
+    x = kernels.check(x_new.contiguous(), torch.float32, "x_new")
+    BK, D = x.shape
+    B = BK // group
+    if (mem_k.dim() != 3 or mem_k.shape[0] != B or mem_v.shape != mem_k.shape
+            or tuple(mem_mask.shape) != (mem_k.shape[1], B) or BK % group):
+        raise ValueError(f"cross_attn_step: memory K/V {tuple(mem_k.shape)}, "
+                         f"{tuple(mem_v.shape)} and mem_mask {tuple(mem_mask.shape)} do not "
+                         f"fit {BK} rows in groups of {group}")
+    Dq, Lk = mem_k.shape[-1], mem_k.shape[1]
+    ln = params["layer_norm"]
+    mats = _step_weights(params, (("w_qs", (D, Dq)), ("fc", (Dq, D))), ln, D)
+    bf16 = mem_k.dtype == torch.bfloat16
+    plan = fused_plan(BK, D, 0, n_head, 0, Lk, K=group, Dq=Dq, step="cross",
+                      smem_max=step_smem_max("cross", bf16))
+    y = torch.empty_like(x)
+    ws = torch.empty((plan["ws_floats"],), device=x.device, dtype=torch.float32)
+    kernels.launch("cross_attn_step_fused", ln["scale"], ln["bias"], *mats, x, y, mem_k, mem_v,
+                   mem_mask, ws, _tiles_on(x.device, BK, D, 0, 0, Dq, "cross"),
+                   int(bf16), int(residual), plan["ws_floats"], BK, group, Lk, D, Dq, n_head,
+                   plan["smem"], _step_grid(plan))
     _count(cross_attn_step, _variant(False, mem_k))
     return y
 
@@ -635,12 +719,22 @@ def ffn_step(params: Dict, x_new, partial_tp: bool = False):
     x + the shards' sum + b_2. Returns y [BK, D] f32 (`launches`)."""
     if not x_new.is_cuda:
         return ffn_step_plain(params, x_new, partial_tp)
-    kernels.refuse_grad("ffn_step", TRAINABLE, x_new, *leaves(params))
-    x = x_new.contiguous()
-    h = kernels.gemm(_ln_card(params, x), params["w_1"]["w"], bias=params["w_1"]["b"],
-                     relu=True)
-    y = (kernels.gemm(h, params["w_2"]["w"]) if partial_tp else
-         kernels.gemm(h, params["w_2"]["w"], bias=params["w_2"]["b"], residual=x))
+    if torch.is_grad_enabled():
+        kernels.refuse_grad("ffn_step", TRAINABLE, x_new, *leaves(params))
+    x = kernels.check(x_new.contiguous(), torch.float32, "x_new")
+    BK, D = x.shape
+    FF = params["w_1"]["w"].shape[-1]
+    ln, b1, b2 = params["layer_norm"], params["w_1"]["b"], params["w_2"]["b"]
+    w1, w2 = _step_weights(params, (("w_1", (D, FF)), ("w_2", (FF, D))), ln, D)
+    for t, n, nm in ((b1, FF, "w_1 b"), (b2, D, "w_2 b")):
+        if kernels.check(t, torch.float32, nm).numel() != n:
+            raise ValueError(f"ffn_step: {nm} has {t.numel()} entries, not {n}")
+    plan = fused_plan(BK, D, FF, 1, 0, 0, step="ffn")
+    y = torch.empty_like(x)
+    ws = torch.empty((plan["ws_floats"],), device=x.device, dtype=torch.float32)
+    kernels.launch("ffn_step_fused", ln["scale"], ln["bias"], w1, b1, w2, b2, x, y, ws,
+                   _tiles_on(x.device, BK, D, FF, 0, None, "ffn"), int(partial_tp),
+                   plan["ws_floats"], BK, D, FF, plan["smem"], _step_grid(plan))
     ffn_step.launches += 1
     return y
 

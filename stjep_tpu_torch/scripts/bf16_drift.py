@@ -7,7 +7,8 @@ At chip_smoke.py's flagship (B=16, beam 5, bf16 caches, f32 weights), one
 request is decoded by five routes: the single-device route and the
 tensor-parallel (TP) route on a (1, n) mesh, each on the card (the CUDA
 kernels) and on CPU copies of the weights (the plain versions), and the TP
-route on the card with its attention kernels swapped for their plain
+route on the card with its attention steps (the fused K6a and K6b, whose
+attention runs inside their one launch each) swapped for their plain
 versions on the card. For each pair of routes it prints the rows whose
 tokens part, the position where each parts and the kept-score gap there
 (chip_smoke.py's first-divergence margin), and the drift before any row
@@ -69,6 +70,7 @@ def main() -> int:
     from stjep_tpu_torch.config import ModelConfig
     from stjep_tpu_torch.models.seq2seq import init_seq2seq
     from stjep_tpu_torch.ops import decode_flash as df
+    from stjep_tpu_torch.ops import decode_flash_tp as tp
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -93,12 +95,13 @@ def main() -> int:
     run("single cpu", params_c, "cpu", False)
     run("tp card", params, "cuda", True, step="beam_select")
     run("tp cpu", params_c, "cpu", True, step="beam_select")
-    kern = df._self_attn_cuda, df._cross_attn_cuda
-    df._self_attn_cuda, df._cross_attn_cuda = df.self_attn_anc_plain, df.cross_attn_plain
+    # the TP layer step calls K6a and K6b by the names it imported
+    kern = tp.self_attn_step, tp.cross_attn_step
+    tp.self_attn_step, tp.cross_attn_step = df.self_attn_step_plain, df.cross_attn_step_plain
     try:
         run("tp card plain attention", params, "cuda", True, step="beam_select")
     finally:
-        df._self_attn_cuda, df._cross_attn_cuda = kern
+        tp.self_attn_step, tp.cross_attn_step = kern
     cs.say("routes", n_model=n, batch=cs.B, beam=cs.BEAM, seconds=secs)
     for a, b in (("tp card", "tp cpu"), ("single card", "single cpu"), ("tp cpu", "single cpu"),
                  ("tp card", "single card"), ("tp card", "tp card plain attention"),

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Mutation check of the kernels on one GPU: the decode kernels (the fused
-K4 and K5 in csrc/decode_fused.cu, the attention, head and select bodies in
-csrc/attend.cuh and csrc/head_select.cuh, the tensor-parallel head K7c
-included), the BiLSTM cluster sweeps (csrc/bilstm.cu, csrc/bilstm_bwd.cu)
-and the fused LAS decoder kernels K2 and K9 (csrc/las_fused.cu).
+K4, K5 and K6a-c in csrc/decode_fused.cu, the attention, head and select
+bodies in csrc/attend.cuh and csrc/head_select.cuh, the tensor-parallel
+head K7c included), the BiLSTM cluster sweeps (csrc/bilstm.cu,
+csrc/bilstm_bwd.cu) and the fused LAS decoder kernels K2 and K9
+(csrc/las_fused.cu).
 
     python3 stjep_tpu_torch/scripts/mutate.py [--workdir DIR] [--only TEXT[,TEXT]]
 
@@ -12,9 +13,11 @@ stjep_tpu_torch/build/mutants, which git ignores), first unchanged and then
 once per mutation below, each a change of one or two lines of a kernel
 source; builds each copy's kernels and runs the card tests that cover that
 source against it (each run within a time limit: a mutant that hangs
-counts as caught). The unchanged copy must pass and every mutant should
-fail. With --only, just the mutations whose source file name contains one
-of TEXT's comma-separated parts.
+counts as caught; a mutation may name its own card tests, as the shard
+steps' do). The unchanged copy must pass and every mutant should fail.
+With --only, just the mutations whose source file name or description
+contains one of TEXT's comma-separated parts (`--only K6`: the shard
+steps' five).
 Prints one line per run; exits non-zero if the unchanged copy fails or a
 mutant passes.
 """
@@ -30,13 +33,15 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 SELECT = ("layer_step or head or gather or beam_step or beam_select or "
-          "general_beam or forward_eval or fused or attn_kernels or serving or tp_")
+          "general_beam or forward_eval or fused or serving or tp_")
 SELECT_BILSTM = "bilstm"
 SELECT_LAS = "las"
+SELECT_TP = "tp_step or tp_steps or tp_attention or tp_trio"
 TIMEOUT_S = 900
 
 # (what it breaks, the source in csrc/, the line as it is, the line as the
-# mutant has it; a tuple of lines for a change of several)
+# mutant has it; a tuple of lines for a change of several; optionally the
+# card tests to run, a -k expression)
 MUTATIONS = [
     ("tie order in head_topk's row scan", "head_select.cuh",
      "      if (!better(v, c, bv, bi)) continue;",
@@ -124,6 +129,22 @@ MUTATIONS = [
     ("the PAD symbol's embedding row read", "las_fused.cu",
      "    return o.p0 && id != STJEP_PAD ? o.p0 + (size_t)id * o.ld0 + k : nullptr;",
      "    return o.p0 ? o.p0 + (size_t)id * o.ld0 + k : nullptr;"),
+    ("K6c adds b_2 and x under partial_tp", "decode_fused.cu",
+     "  a.add = !partial_tp;",
+     "  a.add = 1;", SELECT_TP),
+    ("K6a's heads as wide as a full-width head (D / nh, not Dq / nh)", "decode_fused.cu",
+     "  c.d = Dq / nh;\n  c.aw = step_warps(smem, c.d, Lpad);",
+     "  c.d = D / nh;\n  c.aw = step_warps(smem, c.d, Lpad);", SELECT_TP),
+    ("K6c (and K5): b_1 dropped from w2's operand", "decode_fused.cu",
+     "        v = psum(j.A, j.SA, M, j.Kd, gm, gk) + j.abias[gk];",
+     "        v = psum(j.A, j.SA, M, j.Kd, gm, gk);", SELECT_TP),
+    ("K6b's LayerNorm scaled by its bias", "decode_fused.cu",
+     "  a.L.v[LN2G] = ln_g;",
+     "  a.L.v[LN2G] = ln_b;", SELECT_TP),
+    ("K6a's new K/V row written and read at pos + 1", "decode_fused.cu",
+     "  c.Lpad = Lpad;\n  c.pos = pos;\n  c.anc = anc;\n  c.maskk = maskk;\n  c.tiles",
+     "  c.Lpad = Lpad;\n  c.pos = pos + 1 < Lpad ? pos + 1 : pos - 1;\n  c.anc = anc;\n"
+     "  c.maskk = maskk;\n  c.tiles", SELECT_TP),
 ]
 
 
@@ -137,7 +158,7 @@ def run(workdir: Path, label: str, mutation=None) -> int:
     shutil.copy(ROOT / "tests" / "test_torch_cuda.py", dst / "tests")
     select = SELECT
     if mutation is not None:
-        _, name, old, new = mutation
+        _, name, old, new = mutation[:4]
         src = dst / "stjep_tpu_torch" / "csrc" / name
         text = src.read_text()
         pairs = zip(old, new) if isinstance(old, tuple) else [(old, new)]
@@ -146,8 +167,9 @@ def run(workdir: Path, label: str, mutation=None) -> int:
                 raise RuntimeError(f"mutation site not found once: {o!r}")
             text = text.replace(o, n)
         src.write_text(text)
-        select = (SELECT_BILSTM if name.startswith("bilstm")
-                  else SELECT_LAS if name == "las_fused.cu" else SELECT)
+        select = (mutation[4] if len(mutation) > 4 else SELECT_BILSTM
+                  if name.startswith("bilstm") else SELECT_LAS if name == "las_fused.cu"
+                  else SELECT)
     env = {**os.environ, "PYTHONPATH": str(dst)}
     cmd = [sys.executable, "-m", "pytest", "tests/test_torch_cuda.py", "-m", "cuda",
            "--noconftest", "-q", "-p", "no:cacheprovider", "-k",
@@ -175,7 +197,7 @@ def main() -> int:
         print("the unchanged copy fails its tests", flush=True)
         return 1
     chosen = [(i, m) for i, m in enumerate(MUTATIONS)
-              if any(part in m[1] for part in args.only.split(","))]
+              if any(part in m[1] or part in m[0] for part in args.only.split(","))]
     survived = [m[0] for i, m in chosen if run(args.workdir, f"mutation {i}", m) == 0]
     print(f"mutants caught: {len(chosen) - len(survived)} of {len(chosen)}; "
           f"not caught: {survived}", flush=True)

@@ -12,12 +12,16 @@ same Function on CPU copies; the inference kernels (K1-K5, K7) must refuse
 inputs that require grad. The decode head K7 is also held at target
 vocabularies of 13 000 and 30 000 words, and with exact ties; the general
 beam loop and dev eval (forward_eval) run on the card against CPU copies.
-The serving options: the bf16 attention kernels (the cache rows they write
-bit-equal to the plain version's), and K3, K4 and K5 with int8 weights,
-bf16 caches and both (TOL_BF16 below). The fused K5 and K4
+The serving options: K3, K4 and K5 with int8 weights, bf16 caches and
+both (TOL_BF16 below). The fused K5 and K4
 (csrc/decode_fused.cu) at the flagship width and off-tile shapes in every
 variant, bit-identical at two grid sizes, int8 on grid-snapped weights
 bit-equal to f32, and their split partials summed in split order. The
+fused tensor-parallel steps K6a-c (the same source at a shard's width) at
+head shards of 64-256 columns, the first and last cache position, f32 and
+bf16 caches and memories, with and without their residuals,
+bit-identical at three grid sizes, one device kernel a call, and refusing
+what they cannot run. The
 fused K2 and K9 (csrc/las_fused.cu) at the flagship's LAS widths over
 batches, key lengths, vocabularies and layer counts, with forced head ties
 and a PAD symbol fed back, bit-identical at two grid sizes, at alternating
@@ -795,33 +799,6 @@ def _attn_state(rng, dev, dtype, K=3, Bn=3, Lpad=160, D=CFG.dim_model):
     return ck, cv, anc, maskk, mk, mv, mem_mask, K
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("pos", [0, 15, 16, 159])
-def test_attn_kernels_match_plain(dev, pos, dtype):
-    """self_attn_anc and cross_attn alone, f32 and bf16: at pos 0, the
-    last row of a 16-row block, the first of the next and the last of 160;
-    a fully masked self row and a fully masked memory entry. The new K/V
-    row is bit-equal to the plain version's (both round the same f32 row)."""
-    rng = np.random.RandomState(pos + 7)
-    ck, cv, anc, maskk, mk, mv, mem_mask, K = _attn_state(rng, dev, dtype)
-    BK, D = anc.shape[1], CFG.dim_model
-    anc[pos] = torch.arange(BK, device=dev, dtype=torch.int32) % K
-    q, kn, vn = (_randn(rng, BK, D, dev=dev) for _ in range(3))
-    var = "bf16_" if dtype == BF16 else ""
-    counts = lambda: (getattr(tdf.self_attn_anc, var + "launches"),
-                      getattr(tdf.cross_attn, var + "launches"))
-    before = counts()
-    ckk, cvk, ckp, cvp = ck.clone(), cv.clone(), ck.clone(), cv.clone()
-    out = tdf.self_attn_anc(q, kn, vn, ckk, cvk, anc, maskk, pos, K, CFG.num_heads)
-    ref = tdf.self_attn_anc_plain(q, kn, vn, ckp, cvp, anc, maskk, pos, K, CFG.num_heads)
-    assert torch.isfinite(out).all()
-    _close(out, ref, 1e-5)
-    assert torch.equal(ckk, ckp) and torch.equal(cvk, cvp)
-    out = tdf.cross_attn(q, mk, mv, mem_mask, K, CFG.num_heads)
-    _close(out, tdf.cross_attn_plain(q, mk, mv, mem_mask, K, CFG.num_heads), 1e-5)
-    assert counts() == (before[0] + 1, before[1] + 1)
-
-
 def _serving_state(pg, K, pos, rng, dev, quant, bf16, Bn=B):
     """_decode_state with the caches in bf16 and the decoder quantized as
     asked; returns (dec, cache, preds, anc, maskk, mem_mask)."""
@@ -836,8 +813,7 @@ def _bf16_cache_close(a, b):
     """Within one bf16 step (at most 2^-7 of the value), elementwise, plus
     TOL_BF16: the two f32 rows rounded differ by the GEMMs' summation order
     and, past the first layer, by the earlier layers' outputs (within
-    TOL_BF16), which matters near zero. The attention kernels alone hold
-    the rows bit-equal (test_attn_kernels_match_plain)."""
+    TOL_BF16), which matters near zero."""
     bad = (a.float() - b.float()).abs() > 2.0 ** -7 * b.float().abs() + TOL_BF16
     assert not bad.any(), int(bad.sum())
 
@@ -1271,21 +1247,27 @@ def _tp_weights(rng, dev, Dq, D=512, FF=1024, n=None):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("pos", [0, 75])
+@pytest.mark.parametrize("pos", [0, 75, 159])
 @pytest.mark.parametrize("Dq", [64, 128, 256])
 def test_tp_step_kernels_match_plain(dev, Dq, pos, dtype):
     """K6a and K6b at a head shard of width Dq (1, 2 or 4 local heads of 64)
-    with and without the residual, f32 and bf16 caches, K = 5 rows a group
-    over B = 4 (a fully masked self row and memory entry among them); K6c
-    on the matching hidden shard, partial and whole. The new cache row is
-    bit-equal to the plain version's."""
+    with and without the residual, f32 and bf16 caches, at the first, a
+    middle and the last (Lpad - 1) cache position, K = 5 rows a group over
+    B = 4 (BK = 20, not a multiple of a tile's 16 rows; a fully masked self
+    row and memory entry among them); K6c on the matching hidden shard,
+    partial and whole. The new cache rows (K and V) within TOL of the plain
+    version's (one bf16 step with bf16 caches: both round f32 rows summed
+    in other orders), and nothing else of the caches touched."""
     rng = np.random.RandomState(Dq + pos)
     K, nh, D = 5, Dq // 64, 512
     ck, cv, anc, maskk, mk, mv, mem_mask, _ = _attn_state(rng, dev, dtype, K=K, Bn=4, D=Dq)
+    assert pos < ck.shape[2]
     anc[pos] = torch.arange(anc.shape[1], device=dev, dtype=torch.int32) % K
     p = _tp_weights(rng, dev, Dq)
     x = _randn(rng, anc.shape[1], D, dev=dev)
     var = "bf16_launches" if dtype == BF16 else "launches"
+    others = torch.ones(ck.shape[2], dtype=torch.bool, device=dev)
+    others[pos] = False
     for residual in (True, False):
         before = (getattr(tdf.self_attn_step, var), getattr(tdf.cross_attn_step, var))
         ckk, cvk, ckp, cvp = ck.clone(), cv.clone(), ck.clone(), cv.clone()
@@ -1294,10 +1276,13 @@ def test_tp_step_kernels_match_plain(dev, Dq, pos, dtype):
                                        residual)
         assert torch.isfinite(y).all()
         _close(y, y_p, TOL)
-        if dtype == BF16:
-            _bf16_cache_close(ckk, ckp)
-        else:
-            _close(ckk, ckp, TOL)
+        for a, b, c0 in ((ckk, ckp, ck), (cvk, cvp, cv)):
+            assert torch.equal(a[:, :, others], c0[:, :, others])
+            assert not torch.equal(a[:, :, pos], c0[:, :, pos])
+            if dtype == BF16:
+                _bf16_cache_close(a, b)
+            else:
+                _close(a, b, TOL)
         y = tdf.cross_attn_step(p["encdec_attn"], x, mk, mv, nh, K, mem_mask, residual)
         _close(y, tdf.cross_attn_step_plain(p["encdec_attn"], x, mk, mv, nh, K, mem_mask,
                                             residual), TOL)
@@ -1346,6 +1331,136 @@ def test_tp_attention_steps_over_long_memory(dev, L, dtype):
                                        True)
         assert torch.isfinite(y).all()
         _close(y, y_p, TOL)
+        # the fused K6a stages as many attention items a block as fit: 4
+        # warps at 4000 rows
+        plan = tdf.fused_plan(BK, D, 0, nh, n, 0, K=K, Dq=Dq, step="self",
+                              smem_max=tdf.step_smem_max("self", dtype == BF16))
+        assert plan["att_warps"] == (8 if n <= 900 else 4)
+
+
+def _tp_step_calls(dev, bf16, Dq=128, pos=75, Bn=16):
+    """K6a and K6b (residual off, then on) and K6c (partial_tp on, then
+    off) at a head and hidden shard of width Dq of the flagship (BK = 80 at
+    Bn = 16): a function running them on fresh cache copies and returning
+    every output and the caches."""
+    rng = np.random.RandomState(400 + Dq)
+    K, D = 5, 512
+    ck, cv, anc, maskk, mk, mv, mem_mask, _ = _attn_state(
+        rng, dev, BF16 if bf16 else torch.float32, K=K, Bn=Bn, D=Dq)
+    anc[pos] = torch.arange(anc.shape[1], device=dev, dtype=torch.int32) % K
+    p = _tp_weights(rng, dev, Dq)
+    x = _randn(rng, anc.shape[1], D, dev=dev)
+
+    def run():
+        c = [ck.clone(), cv.clone()]
+        ys = [tdf.self_attn_step(p["decslf_attn"], x, *c, pos, Dq // 64, anc, K, maskk, r)
+              for r in (False, True)]
+        ys += [tdf.cross_attn_step(p["encdec_attn"], x, mk, mv, Dq // 64, K, mem_mask, r)
+               for r in (False, True)]
+        ys += [tdf.ffn_step(p["pos_ffn"], x, partial) for partial in (True, False)]
+        return ys + c
+
+    return run
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("Dq", [128, 256])
+def test_tp_steps_bit_identical_at_any_grid(dev, monkeypatch, Dq, bf16):
+    """The fused K6a-c on 7 blocks, on the plan's blocks (as many as
+    the largest phase has items) and on every block the card keeps resident
+    (a grid asked past it is cut to it): outputs and caches bit-identical,
+    the tiling and every summation order following from the shapes alone."""
+    run = _tp_step_calls(dev, bf16, Dq)
+    runs = []
+    for grid in (7, None, 1 << 20):
+        monkeypatch.setattr(tdf, "STEP_GRID", grid)
+        runs.append(run())
+    for other in runs[1:]:
+        for a, b in zip(runs[0], other):
+            assert torch.equal(a, b)
+
+
+def _device_ops(fn):
+    """The names of the device operations of one call of fn under
+    torch.profiler. torch.profiler sometimes records no device event at all
+    in a long process; such a profile is taken again, up to three times, and
+    an empty list is returned if none records one (the callers then fail)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if ops:
+            return ops
+    return []
+
+
+@pytest.mark.parametrize("step", ["K6a f32", "K6a bf16", "K6b f32", "K6b bf16", "K6c"])
+def test_tp_steps_one_device_kernel_per_call(dev, step):
+    """After a warm-up call (the plan and the tile table cached), a call of
+    self_attn_step, cross_attn_step or ffn_step is one device operation under
+    torch.profiler: its decode_fused.cu kernel. A profile that records no
+    device operation is taken again, up to three times; if none records
+    one, the test fails."""
+    rng = np.random.RandomState(41)
+    K, Dq, D, pos = 5, 128, 512, 30
+    ck, cv, anc, maskk, mk, mv, mem_mask, _ = _attn_state(
+        rng, dev, BF16 if step.endswith("bf16") else torch.float32, K=K, Bn=16, D=Dq)
+    anc[pos] = torch.arange(anc.shape[1], device=dev, dtype=torch.int32) % K
+    p = _tp_weights(rng, dev, Dq)
+    x = _randn(rng, anc.shape[1], D, dev=dev)
+    if step == "K6c":
+        fn, name = lambda: tdf.ffn_step(p["pos_ffn"], x, True), "ffn_step_kernel"
+    elif step.startswith("K6b"):
+        fn, name = (lambda: tdf.cross_attn_step(p["encdec_attn"], x, mk, mv, 2, K, mem_mask,
+                                                False), "cross_step_kernel")
+    else:
+        fn, name = (lambda: tdf.self_attn_step(p["decslf_attn"], x, ck, cv, pos, 2, anc, K,
+                                               maskk, False), "self_step_kernel")
+    fn()
+    ops = _device_ops(fn)
+    assert len(ops) == 1 and name in ops[0], ops
+
+
+def test_tp_steps_refuse_what_they_cannot_run(dev):
+    """No fallback: int8 weights, a cache or a memory whose groups do not
+    fit the rows, a weight of another shape, and a position past the cache
+    raise before a launch; a shape the kernel refuses (a head width not a
+    multiple of 8) raises from the launch."""
+    rng = np.random.RandomState(42)
+    K, Dq, D = 5, 128, 512
+    ck, cv, anc, maskk, mk, mv, mem_mask, _ = _attn_state(rng, dev, torch.float32, K=K, Bn=3,
+                                                          D=Dq)
+    p = _tp_weights(rng, dev, Dq)
+    x = _randn(rng, anc.shape[1], D, dev=dev)
+    sa = p["decslf_attn"]
+    step = lambda prm, c=ck, pos=3, nh=2: tdf.self_attn_step(prm, x, c, cv, pos, nh, anc, K,
+                                                             maskk, False)
+    q8 = {**sa, "w_qs": {"w": sa["w_qs"]["w"].to(torch.int8)}}
+    with pytest.raises(ValueError):
+        step(q8)
+    with pytest.raises(ValueError):
+        step(sa, c=ck[:, :1].contiguous())
+    with pytest.raises(ValueError):
+        step({**sa, "fc": {"w": sa["fc"]["w"][:64]}})
+    with pytest.raises(ValueError):
+        step(sa, pos=ck.shape[2])
+    assert torch.isfinite(step(sa, nh=16)).all()  # 16 heads of 8 columns run
+    with pytest.raises(RuntimeError, match="self_attn_step_fused"):
+        step(sa, nh=32)  # heads of 4 columns: refused by the kernel
+    ca = p["encdec_attn"]
+    with pytest.raises(ValueError):  # memory of 2 batch entries for 3
+        tdf.cross_attn_step(ca, x, mk[:2].contiguous(), mv[:2].contiguous(), 2, K,
+                            mem_mask[:, :2].contiguous())
+    with pytest.raises(ValueError):
+        tdf.cross_attn_step({**ca, "w_qs": {"w": ca["w_qs"]["w"][:, :64].contiguous()}}, x, mk,
+                            mv, 2, K, mem_mask)
+    ff = p["pos_ffn"]
+    with pytest.raises(ValueError):
+        tdf.ffn_step({**ff, "w_2": {"w": ff["w_2"]["w"][:, :64].contiguous(),
+                                    "b": ff["w_2"]["b"]}}, x)
 
 
 @pytest.mark.parametrize("topk", [1, 5, 16])
@@ -1679,7 +1794,8 @@ def test_las_fused_launches_at_alternating_key_lengths(dev, las_decoders):
 def test_las_fused_one_device_kernel_per_call(dev, las_decoders, route):
     """After a warm-up call (the packed weights and the item table cached),
     a call of las_greedy_flash, las_tf_fwd or las_tf_bwd is one device
-    operation under torch.profiler: its las_fused.cu kernel."""
+    operation under torch.profiler: its las_fused.cu kernel (an empty
+    profile taken again, as `_device_ops` does)."""
     rng = np.random.RandomState(40)
     if route == "K2":
         cfg, dec = las_decoders(30000, 3)
@@ -1695,12 +1811,7 @@ def test_las_fused_one_device_kernel_per_call(dev, las_decoders, route):
             fn, name = (lambda: k9.las_tf_bwd(fargs[0], st, g, *fargs[2:4], fargs[5]),
                         "tf_bwd_kernel")
     fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    ops = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    ops = _device_ops(fn)
     assert len(ops) == 1 and name in ops[0], ops
 
 

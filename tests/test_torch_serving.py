@@ -330,7 +330,7 @@ def test_serving_options_run_on_cpu_without_launches():
     feats, lens = _feats()
     names = [(tdf.decode_chain_step_flash, "q8_bf16_launches"),
              (tdf.decode_beam_step_flash, "q8_bf16_launches"),
-             (tdf.self_attn_anc, "bf16_launches"), (tdf.cross_attn, "bf16_launches")]
+             (tdf.self_attn_step, "bf16_launches"), (tdf.cross_attn_step, "bf16_launches")]
     before = [getattr(f, a) for f, a in names]
     out = forward_translate(tp, CFG, "ST", acous_feats=feats, acous_lens=lens, beam_width=3,
                             max_seq_len=MAX_LEN, device="cpu", cache_dtype=BF16,
