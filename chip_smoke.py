@@ -19,23 +19,25 @@ package beside it, included):
    times from CUDA events; K1 (the cluster sweep, its shape and block count
    on the line) also at B=1 and B=64, each with the sweep alone timed
    beside the whole call (input GEMMs included); K7 also at a 30 000-word
-   target vocabulary. K2, K4 and K5 are one cooperative launch each
-   (csrc/las_fused.cu, csrc/decode_fused.cu): their lines give the grid
-   (blocks, blocks per SM), the grid barriers a launch and the shared
-   memory a block; K2's also its device operations a call (one) and the
-   floor of streaming its head every step (head_stream_floor_ms); K5's
-   the time of the trio (K5 as K6a-c in turn) as trio_ms. The
-   serving kernels likewise: K5 in int8, bf16 and int8+bf16, K3 and K4 in
-   int8+bf16. The tensor-parallel kernels (right after K9) at one shard of
-   4 (Dq = 128, 2 local heads, BK = 80, pos 75, V/n = 50): K6a-c
-   (self_attn_step, cross_attn_step, ffn_step, their partials) and K7c
-   (decode_head_partial), and K6a and K6b with bf16 caches and memory at
-   one shard of 2 (the bf16 TP beam's); K6a-c are one fused launch each
-   (csrc/decode_fused.cu), and their lines give the grid, barriers, shared
-   memory and device operations a call (one, with its device time). The
-   trio, which has no kernel of its own, is checked on its own line: at
-   shard width against its plain version, at full width against K5, and
-   the TP layer step over 4 shards of the card, joined, against K5. Each
+   target vocabulary. K2, K3, K4 and K5 are one cooperative launch each
+   (csrc/las_fused.cu, csrc/decode_chain.cu, csrc/decode_fused.cu): their
+   lines give the grid (blocks, blocks per SM), the grid barriers a launch
+   and the shared memory a block; K2's and K3's also their device operations a call (one,
+   K3's with its device time) and K2's the floor of streaming its head
+   every step (head_stream_floor_ms); K5's the time of the trio (K5 as
+   K6a-c in turn) as trio_ms. The serving kernels likewise: K5 in int8,
+   bf16 and int8+bf16, K3 (beside its f32 line) and K4 in int8+bf16. The
+   tensor-parallel kernels
+   (right after K9) at one shard of 4 (Dq = 128, 2 local heads, BK = 80,
+   pos 75, V/n = 50): K6a-c (self_attn_step, cross_attn_step, ffn_step,
+   their partials) and K7c (decode_head_partial), and K6a and K6b with bf16
+   caches and memory at one shard of 2 (the bf16 TP beam's); K6a-c and K7c
+   are one fused launch each (csrc/decode_fused.cu, csrc/decode_chain.cu),
+   and their lines give the grid, barriers, shared memory and device
+   operations a call (one, with its device time). The trio, which has no
+   kernel of its own, is checked on its own line: at shard width against
+   its plain version, at full width against K5, and the TP layer step over
+   4 shards of the card, joined, against K5. Each
    kernel's bound (bytes over HBM bandwidth or operations over peak, from
    this run's inputs; the TP kernels' from scripts/tp_bounds.py) and,
    where one PyTorch call computes the same function, its time: cuDNN's
@@ -486,19 +488,29 @@ def variant_label(quant, bf16):
 SERVE_TOL = 5e-3
 
 
-def fused_launch(cfg, BK, K, cache, quant, bf16, beam=False):
-    """The fused launch of K5 (or, with beam, K4) at this call's shapes:
-    the grid the card holds (blocks, blocks per SM), the grid barriers a
-    launch and the dynamic shared memory a block (ops/decode_flash.py
-    fused_plan, fused_grid)."""
+def fused_launch(cfg, BK, K, cache, quant, bf16, beam=False, chain=False):
+    """The fused launch of K5 (or, with beam, K4; with chain, K3) at this
+    call's shapes: the grid the card holds (blocks, blocks per SM), the
+    grid barriers a launch and the dynamic shared memory a block
+    (ops/decode_flash.py fused_plan, fused_grid)."""
     from stjep_tpu_torch.ops.decode_flash import fused_grid, fused_plan
 
     Lpad, Lk = cache.self_k.shape[3], cache.mem_k.shape[2]
     plan = fused_plan(BK, cfg.dim_model, cfg.dim_feedforward, cfg.num_heads, Lpad, Lk, quant,
-                      beam, cfg.dec_layers, cfg.dec_vocab_size, K)
-    g = fused_grid(quant, bf16, beam, plan["smem"])
+                      beam, cfg.dec_layers, cfg.dec_vocab_size, K, chain=chain)
+    g = fused_grid(quant, bf16, beam, plan["smem"], chain=chain)
     return dict(grid_blocks=g["blocks"], blocks_per_sm=g["blocks_per_sm"],
                 barriers=plan["barriers"], smem_bytes=plan["smem"])
+
+
+def one_launch(name, fn):
+    """The device operations of one call of fn under torch.profiler after
+    a warm-up call, which must be one, with that kernel's device
+    microseconds."""
+    fn()
+    n_ops, names, us = device_ops(fn, with_us=True)
+    need(n_ops == 1, f"{name}: {n_ops} device operations a call ({names}), not 1")
+    return dict(device_ops=n_ops, profiled_kernel_us=us)
 
 
 def phase_k3(params, cfg, rng, quant=False, bf16=False):
@@ -544,9 +556,11 @@ def phase_k3(params, cfg, rng, quant=False, bf16=False):
     plain_ms = cuda_ms(lambda: run(decode_chain_step_plain, cp, K), 10)
     b = bound(*decode_bound(cfg, cfg.dec_layers, K, 0, st["anc"], st["mem_mask"],
                             ck.self_k.element_size(), quant, cfg.dec_vocab_size, K))
-    say(f"kernel K3 decode_chain_step {variant_label(quant, bf16)}", BK=BK, pos=0,
-        max_abs_err=err, tol=tol, cache_err=c_err, tied_rows=rows, ms=ms, plain_ms=plain_ms,
-        **b)
+    label = f"K3 decode_chain_step {variant_label(quant, bf16)}"
+    say(f"kernel {label}", BK=BK, pos=0, max_abs_err=err, tol=tol, cache_err=c_err,
+        tied_rows=rows, ms=ms, plain_ms=plain_ms, **b,
+        **fused_launch(cfg, BK, K, ck, quant, bf16, chain=True),
+        **one_launch(label, lambda: run(decode_chain_step_flash, ck, K)))
     need(err <= tol, f"K3 max_abs_err {err} > {tol}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
 
@@ -809,7 +823,9 @@ def phase_k3_gather(params, cfg, rng):
                                   False, cfg.dec_vocab_size, 1)
     b = bound(n_bytes + nbytes(gid, glp_k), flops)
     say("kernel K3 gather", BK=B, pos=pos, max_abs_err=err, tol=tol,
-        tied_rows=rows, ms=ms, plain_ms=plain_ms, **b)
+        tied_rows=rows, ms=ms, plain_ms=plain_ms, **b,
+        **fused_launch(cfg, B, 1, ck, False, False, chain=True),
+        **one_launch("K3 gather", lambda: run(decode_chain_step_flash, ck, 1)))
     need(err <= tol, f"K3 gather max_abs_err {err} > {tol}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
 
@@ -837,20 +853,18 @@ def trio_plain(lp, x, ck, cv, mk, mv, pos, n_head, anc, group, mem_mask, maskk):
 
 
 def step_launch(plan, step, bf16, fn):
-    """A fused K6a, K6b or K6c launch (csrc/decode_fused.cu) at this call's
-    shapes: its grid (the plan's blocks, at most what the card keeps
-    resident), grid barriers, shared memory a block, and the device
-    operations of one call under torch.profiler after a warm-up call, which
-    must be one, with the kernel's device microseconds there."""
+    """A fused K6a, K6b, K6c or K7c launch (csrc/decode_fused.cu,
+    csrc/decode_chain.cu) at this call's shapes: its grid (the plan's
+    blocks, at most what the card keeps resident), grid barriers, shared
+    memory a block, and the device operations of one call under
+    torch.profiler after a warm-up call, which must be one, with the
+    kernel's device microseconds there."""
     from stjep_tpu_torch.ops.decode_flash import fused_grid
 
     g = fused_grid(False, bf16, False, plan["smem"], step)
-    fn()
-    n_ops, names, us = device_ops(fn, with_us=True)
-    need(n_ops == 1, f"{step} step: {n_ops} device operations a call ({names}), not 1")
     return dict(grid_blocks=min(plan["blocks"], g["blocks"]), blocks_per_sm=g["blocks_per_sm"],
-                barriers=plan["barriers"], smem_bytes=plan["smem"], device_ops=n_ops,
-                profiled_kernel_us=us)
+                barriers=plan["barriers"], smem_bytes=plan["smem"],
+                **one_launch(f"{step} step", fn))
 
 
 def phase_tp_kernels(params, cfg, rng):
@@ -859,10 +873,10 @@ def phase_tp_kernels(params, cfg, rng):
     V/n = 50; each against its plain version (the partial outputs, residual
     off, as the TP path runs them); K6a and K6b also with bf16 caches and
     memory at one shard of 2 (Dq = 256, 4 local heads), the bf16 TP beam's
-    shapes. K6a-c are one fused launch each: their lines give the grid,
-    barriers, shared memory and device operations a call (one) with its
-    device time. No PyTorch call computes a whole K6 step, so library_ms is
-    null. The trio (K6a-c
+    shapes. K6a-c and K7c are one fused launch each: their lines give the
+    grid, barriers, shared memory and device operations a call (one) with
+    its device time. No PyTorch call computes a whole K6 step or K7c, so
+    library_ms is null. The trio (K6a-c
     with residuals, no kernel of its own) on its own line too: at shard
     width against its plain version, at full width against K5, and the TP
     layer step over TP_N shards of the card, joined, against K5. Bounds
@@ -996,9 +1010,11 @@ def phase_tp_kernels(params, cfg, rng):
     got, ref = head(df.decode_head_partial), head(df.decode_head_partial_plain, K + 1)
     check_topk("K7 head_partial", got[1], ref[1], ref[0])
     err = max(max_err(got[0], ref[0][:, :K]), *(max_err(a, b) for a, b in zip(got[2:], ref[2:])))
+    plan = df.fused_plan(BK, D, 0, 1, 0, 0, V=v, step="head")
     res["K7 head_partial"] = held(
         "K7 head_partial", "decode_head_partial", lambda: head(df.decode_head_partial),
-        lambda: head(df.decode_head_partial_plain), err, n_model=n)
+        lambda: head(df.decode_head_partial_plain), err, n_model=n,
+        **step_launch(plan, "head", False, lambda: head(df.decode_head_partial)))
     return res
 
 
@@ -1135,15 +1151,20 @@ def phase_tp_dev_eval(params, cfg, rng):
     return launches
 
 
+PROFILE_TRIES = 8
+
+
 def device_ops(fn, with_us=False):
     """The device operations of one call of fn under torch.profiler (fn
     warmed up before): their count and their names (a kernel's without its
     namespace and arguments), and with with_us their summed device
     microseconds. A profile that records no device operation at all is
-    taken again, up to three times (the profiler has recorded none late in
-    a long process, PERF.md section 7); the last one counts."""
+    taken again, up to PROFILE_TRIES times, a little later each time (the
+    profiler records none in ~1 % of profiles, several in a row at times,
+    PERF.md section 7); the last one counts."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(3):
+    for attempt in range(PROFILE_TRIES):
+        time.sleep(0.1 * attempt)
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:
             fn()
@@ -1956,19 +1977,22 @@ def main() -> int:
     # K9 right after K2: later in the script torch.profiler recorded no
     # device event at all, so the one-launch check could not see K9's kernel
     k9_res = phase_k9(params, cfg, rng)
-    # the tensor-parallel kernels, one shard of TP_N, early for the same
-    # reason: the fused K6a-c lines check one device operation a call
+    # the tensor-parallel kernels, one shard of TP_N, and K3's variants
+    # early for the same reason: the fused K6a-c, K7c and K3 lines check one
+    # device operation a call (K3 int8+bf16 after K7's and the serving K5's
+    # phases saw none in 8 profiles, PERF.md section 7)
     results.update(phase_tp_kernels(params, cfg, rng))
-    results.update({"K3": phase_k3(params, cfg, rng), "K4": phase_k4(params, cfg, rng),
-               "K4 select": phase_k4_select(params, cfg, rng),
-               "K5": phase_k5(params, cfg, rng),
-               "K3 gather": phase_k3_gather(params, cfg, rng)})
+    results.update({"K3": phase_k3(params, cfg, rng),
+                    "K3 int8+bf16": phase_k3(params, cfg, rng, True, True),
+                    "K3 gather": phase_k3_gather(params, cfg, rng)})
+    results.update({"K4": phase_k4(params, cfg, rng),
+                    "K4 select": phase_k4_select(params, cfg, rng),
+                    "K5": phase_k5(params, cfg, rng)})
     k7 = phase_k7(params, cfg, rng)
     results["K7 head"], results["K7 head_gather"] = k7["head"], k7["head_gather"]
     # the serving kernels: int8 weights, bf16 caches, both
     for quant, bf16 in VARIANTS[1:]:
         results[f"K5 {variant_label(quant, bf16)}"] = phase_k5(params, cfg, rng, quant, bf16)
-    results["K3 int8+bf16"] = phase_k3(params, cfg, rng, True, True)
     results["K4 int8+bf16"] = phase_k4(params, cfg, rng, True, True)
 
     # 4. the main paths, each driven with every launch count zeroed just
@@ -2009,8 +2033,8 @@ def main() -> int:
     src, rep = "stjep_tpu_torch/csrc/", "stjep_tpu/ops/"
     sources = {"K1": ("bilstm", src + "bilstm.cu", rep + "lstm_pallas.py:206"),
                "K2": ("las_greedy", src + "las_fused.cu", rep + "las_flash.py:168"),
-               "K3": ("decode_chain_step", src + "decode_fused.cu", rep + "decode_flash.py:1078"),
-               "K3 gather": ("decode_chain_step gather", src + "decode_fused.cu",
+               "K3": ("decode_chain_step", src + "decode_chain.cu", rep + "decode_flash.py:1078"),
+               "K3 gather": ("decode_chain_step gather", src + "decode_chain.cu",
                              rep + "decode_flash.py:1078"),
                "K4": ("decode_beam_step", src + "decode_fused.cu", rep + "decode_flash.py:1412"),
                "K4 select": ("beam_select", src + "decode.cu", rep + "decode_flash.py:1412"),
@@ -2032,7 +2056,7 @@ def main() -> int:
                            rep + "decode_flash.py:759"),
                "K5 int8+bf16": ("decoder_layer_step int8+bf16", src + "decode_fused.cu",
                                 rep + "decode_flash.py:708"),
-               "K3 int8+bf16": ("decode_chain_step int8+bf16", src + "decode_fused.cu",
+               "K3 int8+bf16": ("decode_chain_step int8+bf16", src + "decode_chain.cu",
                                 rep + "decode_flash.py:1078"),
                "K4 int8+bf16": ("decode_beam_step int8+bf16", src + "decode_fused.cu",
                                 rep + "decode_flash.py:1412"),
@@ -2041,7 +2065,7 @@ def main() -> int:
                "K6 cross_attn_step": ("cross_attn_step", src + "decode_fused.cu",
                                       rep + "decode_flash.py:543"),
                "K6 ffn_step": ("ffn_step", src + "decode_fused.cu", rep + "decode_flash.py:622"),
-               "K7 head_partial": ("decode_head_partial", src + "decode.cu",
+               "K7 head_partial": ("decode_head_partial", src + "decode_chain.cu",
                                    rep + "decode_flash.py:1666")}
     STAGE[0] = "kernels line"
     need(all(launches[k] > 0 for k in sources), f"a kernel never launched: {launches}")

@@ -1,17 +1,16 @@
 // The decode kernels that run as launches of their own: the head's top-K
-// (K7, K7c) and the beam's select.
+// (K7) and the beam's select.
 //
 // They serve stjep_tpu/ops/decode_flash.py `decode_head` /
 // `decode_head_gather` (K7, body `_head_kernel` -> `_head_topk`: layernorm
-// and GEMM in gemm.cu, then head_topk here), `decode_chain_step_flash` (K3,
-// body `_chain_kernel`: the fused K5 per layer, then K7), the general beam
-// loop's select (`beam_select`, the k^2 -> k update of
-// `_beam_step_kernel`) and the tensor-parallel head K7c
-// (`head_topk_partial`). K5 (`decoder_layer_step_flash`), K4
-// (`decode_beam_step_flash`) and the tensor-parallel trio K6a-c are one
-// cooperative launch each in decode_fused.cu, which runs the attention
-// bodies (attend.cuh) and the same head top-K and select (head_select.cuh)
-// as phases of its persistent grid.
+// and GEMM in gemm.cu, then head_topk here) and the general beam loop's
+// select (`beam_select`, the k^2 -> k update of `_beam_step_kernel`). K3
+// (`decode_chain_step_flash`), K4 (`decode_beam_step_flash`), K5
+// (`decoder_layer_step_flash`), the tensor-parallel trio K6a-c and the
+// tensor-parallel head K7c (`decode_head_partial`) are one cooperative
+// launch each in decode_fused.cu and decode_chain.cu, which run the
+// attention bodies (attend.cuh) and the same head top-K and select
+// (head_select.cuh) as phases of their persistent grids.
 
 #include "head_select.cuh"
 
@@ -20,10 +19,8 @@ namespace {
 __global__ void head_topk_kernel(const float* __restrict__ logits,
                                  const int* __restrict__ gid,
                                  float* __restrict__ sc, int* __restrict__ ids,
-                                 float* __restrict__ glp,
-                                 float* __restrict__ mx_o,
-                                 float* __restrict__ se_o, int V, int K) {
-  head_topk_row(logits, gid, sc, ids, glp, mx_o, se_o, V, K, blockIdx.x);
+                                 float* __restrict__ glp, int V, int K) {
+  head_topk_row(logits, gid, sc, ids, glp, nullptr, nullptr, V, K, blockIdx.x);
 }
 
 __global__ void beam_select_kernel(
@@ -49,19 +46,7 @@ extern "C" int head_topk(const float* logits, const int* gid, float* sc,
                          cudaStream_t stream) {
   if (K < 1 || K > MAX_BEAM || K > V) return (int)cudaErrorInvalidValue;
   head_topk_kernel<<<BK, V >= 4096 ? 1024 : 256, 0, stream>>>(
-      logits, gid, sc, ids, glp, nullptr, nullptr, V, K);
-  STJEP_RETURN_LAUNCH_STATUS();
-}
-
-// K7c: one vocabulary shard [BK, V] of a tensor-parallel head; raw top-K
-// logits and local ids, mx, se, and (gid and glog given, else null) the raw
-// logit at the shard-local id. K may exceed V (see head_topk_kernel).
-extern "C" int head_topk_partial(const float* logits, const int* gid, float* sc,
-                                 int* ids, float* glog, float* mx, float* se,
-                                 int BK, int V, int K, cudaStream_t stream) {
-  if (K < 1 || K > MAX_BEAM || V < 1) return (int)cudaErrorInvalidValue;
-  head_topk_kernel<<<BK, V >= 4096 ? 1024 : 256, 0, stream>>>(
-      logits, gid, sc, ids, glog, mx, se, V, K);
+      logits, gid, sc, ids, glp, V, K);
   STJEP_RETURN_LAUNCH_STATUS();
 }
 

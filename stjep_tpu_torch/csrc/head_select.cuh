@@ -1,8 +1,8 @@
 // The decode head's top-K over one logit row, and the beam's k^2 -> k
 // select for one batch item: device functions that take the whole block,
-// shared by decode.cu's kernels (`head_topk`, `head_topk_partial`,
-// `beam_select`: one row or item per block) and the fused beam step of
-// decode_fused.cu (a block walks over batch items).
+// shared by decode.cu's kernels (`head_topk`, `beam_select`: one row or
+// item per block) and the fused kernels of decode_fused.cu (K4) and
+// decode_chain.cu (K3, K7c): a block walks over rows or batch items.
 #pragma once
 
 #include "common.cuh"
@@ -23,17 +23,19 @@ constexpr int MAX_BEAM = 16;
 // never written.
 //
 // K7c, `decode_head_partial` (decode_flash.py:1666, `_head_kernel`'s
-// partial branch :1559-1592), is the same kernel with mx and se given: the
-// row is one vocabulary shard of a tensor-parallel head, and the caller
-// merges the shards (ops/decode_flash_tp.py decode_head_tp). It writes the
-// RAW top-K logits with their local ids, the row max mx and se = sum
-// exp(l - mx) (the online pass's own (m, z), combined at the block max),
-// and the raw logit at gid, 0 for an id outside [0, V) (the id arrives
-// offset into the shard, so an id of another shard is negative or >= V).
-// A shard may hold fewer than K ids: the passes past V write -1e30 at id 0,
-// the candidates the TPU kernel's repeated max extraction gives once every
-// logit is taken. Bounds: the [BK, V/n] logit row once from L2 and 4 + 2K
-// floats out, so the head's GEMM (layernorm, then [D, V/n]) dominates.
+// partial branch :1559-1592), is the same row top-K with mx and se given
+// (decode_chain.cu's head_step_kernel runs it after its own LayerNorm and
+// product phases): the row is one vocabulary shard of a tensor-parallel
+// head, and the caller merges the shards (ops/decode_flash_tp.py
+// decode_head_tp). It writes the RAW top-K logits with their local ids, the
+// row max mx and se = sum exp(l - mx) (the online pass's own (m, z),
+// combined at the block max), and the raw logit at gid, 0 for an id
+// outside [0, V) (the id arrives offset into the shard, so an id of
+// another shard is negative or >= V). A shard may hold fewer than K ids:
+// the passes past V write -1e30 at id 0, the candidates the TPU kernel's
+// repeated max extraction gives once every logit is taken. Bounds: the
+// [BK, V/n] logit row once from L2 and 4 + 2K floats out, so the head's
+// product ([D, V/n]) dominates.
 //
 // head_topk_row does row r of the logits for the whole block.
 __device__ void head_topk_row(const float* __restrict__ logits,

@@ -42,15 +42,17 @@ _SIGS = {
     "bilstm_fwd_plan": "iiii" + "p",
     "bilstm_bwd_plan": "iiii" + "p",
     "head_topk": "ppppp" + "iii",
-    "head_topk_partial": "ppppppp" + "iii",
     "beam_select": "pppppppp" + "pppppppp" + "iiii" + "f",
     "decoder_layer_fused": "p" + "ii" + "p" * 11 + "i" * 11,
     "decode_beam_fused": "p" + "ii" + "p" * 27 + "i" * 14 + "f",
+    "decode_chain_fused": "p" + "ii" + "p" * 17 + "i" * 14,
     "self_attn_step_fused": "p" * 14 + "i" * 12,
     "cross_attn_step_fused": "p" * 11 + "i" * 11,
     "ffn_step_fused": "p" * 10 + "i" * 7,
+    "head_partial_fused": "p" * 12 + "i" * 7,
     "decode_fused_grid": "iiii" + "p",
     "decode_fused_stamps": "p",
+    "decode_chain_grid": "iiii" + "p",
     "las_greedy_fused": "p" * 16 + "i" * 14,
     "las_tf_fwd_fused": "p" * 21 + "i" * 11,
     "las_tf_bwd_fused": "p" * 18 + "i" * 11,

@@ -11,15 +11,16 @@ the residual; `decoder_layer_step_flash_trio` composes them into K5. K7 is
 the decode head: final LayerNorm, output projection, log-softmax and top-K,
 and with gather ids the log-prob at a reference id; K7c is one vocabulary
 shard of it (raw top-K logits, row max and sum-exp). K3 runs one position
-through every layer (K5 per layer) and the head (K7). K4 is the whole beam
-while-body: embed + time signal, the layers, the head, and the k^2 -> k
-select with its back-copies; `beam_select` is that select alone, for the
-general beam loop. On the card K5, K4 and K6a-c are one cooperative
-launch each (`csrc/decode_fused.cu`; from the shapes alone, `fused_tiles`
-gives the tile table they walk and `fused_plan` their phases, barriers,
-shared memory and workspace); the other kernels' design notes are in
-`csrc/decode.cu`; the tensor-parallel layer step and head are in
-`ops/decode_flash_tp.py`.
+through every layer and the head. K4 is the whole beam while-body: embed +
+time signal, the layers, the head, and the k^2 -> k select with its
+back-copies; `beam_select` is that select alone, for the general beam
+loop. On the card K3, K4, K5, K6a-c and K7c are one cooperative launch
+each (`csrc/decode_fused.cu`, and `csrc/decode_chain.cu` for K3 and K7c,
+on the phases of `csrc/decode_fused.cuh`; from the shapes alone,
+`fused_tiles` gives the tile table they walk and `fused_plan` their
+phases, barriers, shared memory and workspace); K7 and the select alone
+are `csrc/decode.cu`'s kernels; the tensor-parallel layer step and head
+are in `ops/decode_flash_tp.py`.
 
 Layouts are the JAX kernels': self caches [K, B, Lpad, D] per layer
 ([nl, K, B, Lpad, D] stacked for K3/K4), never reordered, read through the
@@ -268,19 +269,20 @@ def _layer_plain(w, quant, x, ck, cv, mk, mv, pos, n_head, anc, group,
 
 
 # ---------------------------------------------------------------------------
-# K5 and K4 on the card: csrc/decode_fused.cu, one cooperative launch each
+# K5, K4 and K3 on the card: csrc/decode_fused.cu and csrc/decode_chain.cu,
+# one cooperative launch each
 # ---------------------------------------------------------------------------
 
-FUSED_KC = 64  # contraction depth of a product tile (decode_fused.cu KC)
+FUSED_KC = 64  # contraction depth of a product tile (decode_fused.cuh KC)
 FUSED_BM, FUSED_BN = 16, 128  # rows and columns of a product tile
 FUSED_THREADS = 256
-# blocks of a fused K5 or K4 launch; 0 launches every block the card keeps
+# blocks of a fused K5, K4 or K3 launch; 0 launches every block the card keeps
 # resident; the card tests set it to hold the outputs independent of the grid
 FUSED_GRID = 0
-# blocks of a fused shard step's launch (K6a-c); None launches the plan's
+# blocks of a fused shard step's launch (K6a-c, K7c); None launches the plan's
 # `blocks`; any count is cut to the blocks the card keeps resident
 STEP_GRID: Optional[int] = None
-# the product kinds of the tile table, in decode_fused.cu's order (P_QKV ..)
+# the product kinds of the tile table, in decode_fused.cuh's order (P_QKV ..)
 FUSED_PRODUCTS = ("qkv", "fc", "cq", "co", "w1", "w2", "head")
 
 
@@ -293,16 +295,18 @@ def gemm_tiles(M: int, N: int, Kd: int):
             for t in range(s * rt * ct)]
 
 
-# the product kinds of the shard steps: K6a (self), K6b (cross), K6c (ffn)
-STEP_PRODUCTS = {"self": ("qkv", "fc"), "cross": ("cq", "co"), "ffn": ("w1", "w2")}
+# the product kinds of the shard steps: K6a (self), K6b (cross), K6c (ffn),
+# K7c (head)
+STEP_PRODUCTS = {"self": ("qkv", "fc"), "cross": ("cq", "co"), "ffn": ("w1", "w2"),
+                 "head": ("head",)}
 
 
 def _products(BK: int, D: int, FF: int, V: int = 0, Dq: Optional[int] = None,
               step: Optional[str] = None) -> Dict:
-    """{kind: [(M, N, Kd) per job]}, the jobs in decode_fused.cu
+    """{kind: [(M, N, Kd) per job]}, the jobs in decode_fused.cuh
     `layer_jobs` order (q, k, v for qkv) at attention width Dq (D when
     None) and hidden width FF; the head only with V; a shard step's kinds
-    only with step ("self", "cross" or "ffn")."""
+    only with step ("self", "cross", "ffn" or "head")."""
     Dq = D if Dq is None else Dq
     out = {"qkv": [(BK, Dq, D)] * 3, "fc": [(BK, D, Dq)], "cq": [(BK, Dq, D)],
            "co": [(BK, D, Dq)], "w1": [(BK, FF, D)], "w2": [(BK, D, FF)]}
@@ -313,7 +317,7 @@ def _products(BK: int, D: int, FF: int, V: int = 0, Dq: Optional[int] = None,
 
 def fused_tiles(BK: int, D: int, FF: int, V: int = 0, Dq: Optional[int] = None,
                 step: Optional[str] = None) -> torch.Tensor:
-    """The tile table the fused kernels walk (`tiles`, decode_fused.cu
+    """The tile table the fused kernels walk (`tiles`, decode_fused.cuh
     `phase`): int32, 8 offsets (the first tile of each kind of
     FUSED_PRODUCTS, then the end), then one row (job, split, first row,
     first column) per tile, a kind's jobs one after another; `_products`'
@@ -335,7 +339,7 @@ def _tiles_on(device, BK: int, D: int, FF: int, V: int, Dq: Optional[int] = None
 
 
 def _ws_floats(BK: int, K: int, D: int, Dq: int, FF: int, V: int) -> int:
-    """decode_fused.cu `ws_need`: five [BK, D] activations, PA (q/k/v, w1
+    """decode_fused.cuh `ws_need`: five [BK, D] activations, PA (q/k/v, w1
     or the head's partials), PB (fc, cq, co or w2's), the logits and the
     head's top-K."""
     kc = FUSED_KC
@@ -346,7 +350,7 @@ def _ws_floats(BK: int, K: int, D: int, Dq: int, FF: int, V: int) -> int:
 
 
 def _prod_smem(wbytes: int) -> int:
-    """Two product stages' shared bytes (decode_fused.cu `prod_smem`)."""
+    """Two product stages' shared bytes (decode_fused.cuh `prod_smem`)."""
     return 2 * (FUSED_KC * FUSED_BN * wbytes + FUSED_KC * FUSED_BM * 4)
 
 
@@ -354,24 +358,28 @@ def _prod_smem(wbytes: int) -> int:
 def fused_plan(BK: int, D: int, FF: int, n_head: int, Lpad: int, Lk: int,
                quant: bool = False, beam: bool = False, nl: int = 1, V: int = 0,
                K: int = 1, Dq: Optional[int] = None, step: Optional[str] = None,
-               smem_max: Optional[int] = None) -> Dict:
+               smem_max: Optional[int] = None, chain: bool = False) -> Dict:
     """The launch of fused K5 (one layer) or, with beam, fused K4 (nl
-    layers, the head over V ids and the select of B = BK / K groups), from
-    the shapes alone: `products` {kind: [(M, N, Kd)]} per product job,
-    `phases` [(kind, work items)] in order (a product phase's items are its
-    tiles, an attention's (row, head) pairs, a row or top-K phase's rows,
-    the select's groups), `barriers` (grid barriers a launch), `smem`
-    (dynamic shared bytes a block) and `ws_floats` (f32 workspace); the
-    kernels walk `fused_tiles` of the same shapes. With step, a shard
-    step's launch instead (`_step_plan`; Lpad the self cache's rows for
-    K6a, Lk the memory's for K6b; smem_max the dynamic shared bytes a block
-    of K6a or K6b may opt in to, `step_smem_max` on the card). Cached: the
-    wrappers ask it at every launch; treat the result as read-only."""
+    layers, the head over V ids and the select of B = BK / K groups), or,
+    with chain, fused K3 (nl layers and the head over V ids, in groups of
+    K rows; the top-K goes straight to its outputs, so topk is not a shape
+    of the plan), from the shapes alone: `products` {kind: [(M, N, Kd)]}
+    per product job, `phases` [(kind, work items)] in order (a product
+    phase's items are its tiles, an attention's (row, head) pairs, a row or
+    top-K phase's rows, the select's groups), `barriers` (grid barriers a
+    launch), `smem` (dynamic shared bytes a block) and `ws_floats` (f32
+    workspace); the kernels walk `fused_tiles` of the same shapes. With
+    step, a shard step's launch instead (`_step_plan`; Lpad the self
+    cache's rows for K6a, Lk the memory's for K6b, V the vocabulary shard's
+    ids for K7c; smem_max the dynamic shared bytes a block of K6a or K6b
+    may opt in to, `step_smem_max` on the card). Cached: the wrappers ask
+    it at every launch; treat the result as read-only."""
     if step:
         return _step_plan(step, BK, D, FF, n_head, Lk if step == "cross" else Lpad, K,
-                          D if Dq is None else Dq, smem_max)
+                          D if Dq is None else Dq, smem_max, V)
     Dq = D if Dq is None else Dq
-    products = _products(BK, D, FF, V if beam else 0, Dq)
+    head = beam or chain
+    products = _products(BK, D, FF, V if head else 0, Dq)
     tiles = {k: sum(len(gemm_tiles(*job)) for job in jobs) for k, jobs in products.items()}
     att = BK * n_head
     body = [("qkv", tiles["qkv"]), ("self", att), ("fc", tiles["fc"]), ("row", BK),
@@ -380,36 +388,44 @@ def fused_plan(BK: int, D: int, FF: int, n_head: int, Lpad: int, Lk: int,
     if beam:
         phases = [("embed", BK)] + body * nl + [("head", tiles["head"]), ("topk", BK),
                                                  ("select", BK // K)]
+    elif chain:
+        phases = [("row", BK)] + body * nl + [("head", tiles["head"]), ("topk", BK)]
     else:
         phases = [("row", BK)] + body
-    wbytes = 4 if beam or not quant else 1
+    wbytes = 4 if head or not quant else 1
     d = Dq // n_head
     smem = max(_prod_smem(wbytes), FUSED_THREADS // 32 * (d + 3 * max(Lpad, Lk)) * 4)
     return dict(products=products, phases=phases, barriers=len(phases) - 1, smem=smem,
-                ws_floats=_ws_floats(BK, K, D, Dq, FF, V if beam else 0))
+                ws_floats=_ws_floats(BK, K, D, Dq, FF, V if head else 0))
 
 
 def _step_plan(step: str, BK: int, D: int, FF: int, n_head: int, L: int, K: int,
-               Dq: int, smem_max: Optional[int]) -> Dict:
+               Dq: int, smem_max: Optional[int], V: int) -> Dict:
     """fused_plan of the shard steps, f32 weights. K6a ("self": the
     attention width Dq, n_head local heads, L = Lpad cache rows, groups of K
     rows; FF unused): row, qkv, self, fc, row. K6b ("cross": the same over
     L = Lk memory rows): row, cq, cross, co, row. K6c ("ffn": the hidden
-    width FF; Dq, n_head, L unused): row, w1, w2, row. Also `att_warps`,
-    the warps a block runs attention items on (as many of 8 as smem_max
-    bytes stage), and `blocks`, the blocks the launch asks for:
-    as many as its largest phase has items (an attention phase's in
-    att_warps items a block)."""
-    if step == "ffn":
+    width FF; Dq, n_head, L unused): row, w1, w2, row. K7c ("head": the
+    vocabulary shard's V ids; FF, Dq, n_head, L, K unused): row, head,
+    topk. Also `att_warps`, the warps a block runs attention items on (as
+    many of 8 as smem_max bytes stage), and `blocks`, the blocks the launch
+    asks for: as many as its largest phase has items (an attention phase's
+    in att_warps items a block)."""
+    if step in ("ffn", "head"):
         Dq, n_head, L, K = 0, 1, 0, 1
-    else:
+    if step != "ffn":
         FF = 0
-    products = _products(BK, D, FF, 0, Dq, step)
+    if step != "head":
+        V = 0
+    products = _products(BK, D, FF, V, Dq, step)
     tiles = {k: sum(len(gemm_tiles(*job)) for job in jobs) for k, jobs in products.items()}
     smem, aw = _prod_smem(4), 0
-    first, second = STEP_PRODUCTS[step]
-    phases = [("row", BK), (first, tiles[first])]
-    if step != "ffn":
+    if step == "head":
+        phases = [("row", BK), ("head", tiles["head"]), ("topk", BK)]
+    else:
+        first, second = STEP_PRODUCTS[step]
+        phases = [("row", BK), (first, tiles[first])]
+    if step in ("self", "cross"):
         if smem_max is None:
             raise ValueError(f"the {step} step's plan needs smem_max, the card's limit "
                              f"(step_smem_max)")
@@ -421,26 +437,33 @@ def _step_plan(step: str, BK: int, D: int, FF: int, n_head: int, L: int, K: int,
             raise ValueError(f"{step}_attn_step: {L} {rows} at head width {Dq // n_head} "
                              f"stage past {smem_max} bytes a block")
         phases.append((step, BK * n_head))
-    phases += [(second, tiles[second]), ("row", BK)]
-    blocks = max(-(-n // aw) if kind in STEP_PRODUCTS else n for kind, n in phases)
+    if step != "head":
+        phases += [(second, tiles[second]), ("row", BK)]
+    blocks = max(-(-n // aw) if kind in ("self", "cross") else n for kind, n in phases)
     return dict(products=products, phases=phases, barriers=len(phases) - 1, smem=smem,
-                ws_floats=_ws_floats(BK, K, D, Dq, FF, 0), att_warps=aw, blocks=blocks)
+                ws_floats=_ws_floats(BK, K, D, Dq, FF, V), att_warps=aw, blocks=blocks)
 
 
-# decode_fused.cu `decode_fused_grid` kinds
+# decode_fused.cu `decode_fused_grid` kinds; decode_chain.cu
+# `decode_chain_grid` answers for K3 (kind 0) and K7c (kind 1)
 _GRID_KIND = {None: 0, "self": 2, "ffn": 3, "cross": 4}
 
 
 def fused_grid(quant: bool, bf16: bool, beam: bool, smem: int,
-               step: Optional[str] = None) -> Dict[str, int]:
-    """The card's answer for a fused launch (K5, K4 with beam, or the shard
-    step `step`) at smem bytes: blocks an SM keeps resident and the SM
-    count (their product is the most blocks a launch may have), and the
-    dynamic shared bytes a block of that kernel may opt in to."""
+               step: Optional[str] = None, chain: bool = False) -> Dict[str, int]:
+    """The card's answer for a fused launch (K5, K4 with beam, K3 with
+    chain, or the shard step `step`, K7c's "head" among them) at smem
+    bytes: blocks an SM keeps resident and the SM count (their product is
+    the most blocks a launch may have), and the dynamic shared bytes a
+    block of that kernel may opt in to."""
     out = (ctypes.c_int * 3)()
-    kind = 1 if beam and not step else _GRID_KIND[step]
-    kernels.launch("decode_fused_grid", int(quant), int(bf16), kind, smem,
-                   ctypes.addressof(out))
+    if chain or step == "head":
+        kernels.launch("decode_chain_grid", int(quant), int(bf16), int(step == "head"), smem,
+                       ctypes.addressof(out))
+    else:
+        kernels.launch("decode_fused_grid", int(quant), int(bf16),
+                       1 if beam and not step else _GRID_KIND[step], smem,
+                       ctypes.addressof(out))
     return dict(blocks_per_sm=out[0], sms=out[1], blocks=out[0] * out[1], smem_max=out[2])
 
 
@@ -461,7 +484,7 @@ _POINTERS: Dict[tuple, ctypes.Array] = {}
 
 
 def _fused_pointers(w, quant: bool):
-    """A host array of the 24 pointers decode_fused.cu reads (`read_layer`):
+    """A host array of the 24 pointers decode_fused.cuh reads (`read_layer`):
     the LayerNorm vectors and FFN biases, the eight matrices, their scales
     (null for f32), from weights in layer_weights' order (one layer, or
     stack_decoder_layers' [nl, ...] tensors). Checked once per set of
@@ -513,14 +536,14 @@ def _layer_cuda(w, quant, x, ck, cv, mk, mv, pos, n_head, anc, group,
     return y
 
 
-def _run_layers(layer_fn, stacked, x, cache_k, cache_v, mem_k, mem_v, *args):
-    """layer_fn over the stacked layers (the (tensors, quant) pair of
+def _run_layers(stacked, x, cache_k, cache_v, mem_k, mem_v, *args):
+    """_layer_plain over the stacked layers (the (tensors, quant) pair of
     stack_decoder_layers), layer l on its slices of the stacked weights and
-    caches."""
+    caches: the plain versions of K3 and K4."""
     tensors, quant = stacked
     for layer in range(cache_k.shape[0]):
-        x = layer_fn(tuple(t[layer] for t in tensors), quant, x, cache_k[layer],
-                     cache_v[layer], mem_k[layer], mem_v[layer], *args)
+        x = _layer_plain(tuple(t[layer] for t in tensors), quant, x, cache_k[layer],
+                         cache_v[layer], mem_k[layer], mem_v[layer], *args)
     return x
 
 
@@ -874,16 +897,25 @@ def decode_head_partial(norm_params: Dict, out_params: Dict, x, topk: int,
     exp(logit - mx); with gather_ids [BK], already offset into the shard,
     also the raw logit there, 0 for an id outside [0, V/n). Returns (sc,
     ids, mx, se[, glog]); ops/decode_flash_tp.py decode_head_tp merges the
-    shards (`launches`)."""
+    shards. On the card one cooperative launch (`head_partial_fused`) of as
+    many blocks as its largest phase has items (STEP_GRID overrides it;
+    `launches`)."""
     if not x.is_cuda:
         return decode_head_partial_plain(norm_params, out_params, x, topk,
                                          gather_ids)
     kernels.refuse_grad("decode_head_partial", TRAINABLE, x,
                         *norm_params.values(), *out_params.values())
-    logits = kernels.gemm(
-        kernels.layernorm(x.contiguous(), norm_params["scale"],
-                          norm_params["bias"], 1e-5), out_params["w"])
-    BK, V = logits.shape
+    x = kernels.check(x.contiguous(), torch.float32, "x")
+    BK, D = x.shape
+    w = kernels.check(out_params["w"], torch.float32, "out_params w")
+    V = w.shape[1]
+    if w.shape[0] != D:
+        raise ValueError(f"decode_head_partial: out_params w is {tuple(w.shape)}, x is "
+                         f"{tuple(x.shape)}")
+    for nm in ("scale", "bias"):
+        if kernels.check(norm_params[nm], torch.float32, f"norm {nm}").numel() != D:
+            raise ValueError(f"norm {nm} has {norm_params[nm].numel()} entries, not {D}")
+    plan = fused_plan(BK, D, 0, 1, 0, 0, V=V, step="head")
     f32 = dict(device=x.device, dtype=torch.float32)
     sc, mx, se = (torch.empty((BK, topk), **f32), torch.empty((BK,), **f32),
                   torch.empty((BK,), **f32))
@@ -893,8 +925,10 @@ def decode_head_partial(norm_params: Dict, out_params: Dict, x, topk: int,
         gid = kernels.check(gather_ids.to(torch.int32).contiguous(), torch.int32,
                             "gather_ids")
         glog = torch.empty((BK,), **f32)
-    kernels.launch("head_topk_partial", logits, gid, sc, ids, glog, mx, se, BK,
-                   V, topk)
+    ws = torch.empty((plan["ws_floats"],), **f32)
+    kernels.launch("head_partial_fused", norm_params["scale"], norm_params["bias"], w, x, gid,
+                   sc, ids, mx, se, glog, ws, _tiles_on(x.device, BK, D, 0, V, None, "head"),
+                   plan["ws_floats"], BK, D, V, topk, plan["smem"], _step_grid(plan))
     decode_head_partial.launches += 1
     return (sc, ids, mx, se) if gid is None else (sc, ids, mx, se, glog)
 
@@ -907,9 +941,48 @@ def decode_chain_step_plain(stacked, norm_params, out_params, x_new, cache_k,
                             group: int, mem_mask, self_mask_k, topk: int,
                             gather_ids: Optional[torch.Tensor] = None):
     """Plain PyTorch version of K3; same arguments and results."""
-    x = _run_layers(_layer_plain, stacked, x_new, cache_k, cache_v, mem_k,
+    x = _run_layers(stacked, x_new, cache_k, cache_v, mem_k,
                     mem_v, pos, n_head, anc, group, mem_mask, self_mask_k)
     return _head_plain(norm_params, out_params, x, topk, gather_ids)
+
+
+def _chain_cuda(stacked, norm_params, out_params, x_new, cache_k, cache_v, mem_k,
+                mem_v, pos, n_head, anc, group, mem_mask, maskk, topk, gather_ids):
+    """K3 on the card: one cooperative launch of decode_chain.cu
+    `decode_chain_fused` (every stacked layer by its stride, no slicing
+    here, then the head)."""
+    _check_fused(cache_k, mem_k)
+    for t, nm in ((norm_params["scale"], "norm scale"), (norm_params["bias"], "norm bias"),
+                  (out_params["w"], "out_params w")):
+        kernels.check(t, torch.float32, nm)
+    x = kernels.check(x_new.contiguous(), torch.float32, "x_new")
+    tensors, quant = stacked
+    nl, K, B, Lpad, D = cache_k.shape
+    BK = x.shape[0]
+    V, Lk = out_params["w"].shape[1], mem_k.shape[2]
+    if tuple(x.shape) != (K * B, D) or K != group or mem_k.shape[:2] != (nl, B):
+        raise ValueError(f"decode_chain_step_flash: x_new {tuple(x.shape)}, caches "
+                         f"{tuple(cache_k.shape)} and memory {tuple(mem_k.shape)} do not fit "
+                         f"groups of {group}")
+    FF = tensors[18 if quant else 12].shape[-1]
+    plan = fused_plan(BK, D, FF, n_head, Lpad, Lk, quant, nl=nl, V=V, K=group, chain=True)
+    ptrs = _fused_pointers(tensors, quant)
+    dev = x.device
+    sc = torch.empty((BK, topk), device=dev, dtype=torch.float32)
+    ids = torch.empty((BK, topk), device=dev, dtype=torch.int32)
+    gid = glp = None
+    if gather_ids is not None:
+        gid = kernels.check(gather_ids.to(torch.int32).contiguous(), torch.int32,
+                            "gather_ids")
+        glp = torch.empty((BK,), device=dev, dtype=torch.float32)
+    ws = torch.empty((plan["ws_floats"],), device=dev, dtype=torch.float32)
+    kernels.launch("decode_chain_fused", ctypes.addressof(ptrs), int(quant),
+                   int(cache_k.dtype == torch.bfloat16), norm_params["scale"],
+                   norm_params["bias"], out_params["w"], x, gid, anc, maskk, mem_mask, cache_k,
+                   cache_v, mem_k, mem_v, sc, ids, glp, ws, _tiles_on(dev, BK, D, FF, V),
+                   plan["ws_floats"], pos, BK, group, Lpad, Lk, D, FF, n_head, nl, V, topk,
+                   plan["smem"], FUSED_GRID)
+    return (sc, ids) if gid is None else (sc, ids, glp)
 
 
 def decode_chain_step_flash(stacked, norm_params, out_params, x_new, cache_k,
@@ -923,8 +996,9 @@ def decode_chain_step_flash(stacked, norm_params, out_params, x_new, cache_k,
     module docstring, f32 or bf16, updated in place at `pos`; anc[pos]
     must hold each row's own slot. Returns (scores [BK, topk] log-probs,
     ids [BK, topk] int32), ties to the lowest id, and with gather_ids [BK]
-    also glp [BK], the log-prob at those ids. Launches are counted per
-    variant (module docstring), with gather_ids under `gather_`."""
+    also glp [BK], the log-prob at those ids. On the card one cooperative
+    launch (`decode_chain_fused`). Launches are counted per variant (module
+    docstring), with gather_ids under `gather_`."""
     if not x_new.is_cuda:
         return decode_chain_step_plain(stacked, norm_params, out_params, x_new,
                                        cache_k, cache_v, mem_k, mem_v, pos,
@@ -934,10 +1008,9 @@ def decode_chain_step_flash(stacked, norm_params, out_params, x_new, cache_k,
                         mem_v, *stacked[0], *norm_params.values(),
                         *out_params.values())
     _check_cuda_args(cache_k, cache_v, mem_k, mem_v, anc, self_mask_k, mem_mask)
-    x = _run_layers(_layer_cuda, stacked, x_new.contiguous(), cache_k, cache_v,
-                    mem_k, mem_v, pos, n_head, anc, group, mem_mask,
-                    self_mask_k)
-    out = _head_cuda(norm_params, out_params, x, topk, gather_ids)
+    out = _chain_cuda(stacked, norm_params, out_params, x_new, cache_k, cache_v, mem_k,
+                      mem_v, pos, n_head, anc, group, mem_mask, self_mask_k, topk,
+                      gather_ids)
     _count(decode_chain_step_flash, ("" if gather_ids is None else "gather_")
            + _variant(stacked[1], cache_k))
     return out
@@ -1030,7 +1103,7 @@ def decode_beam_step_plain(stacked, norm_params, out_params, emb_table,
     anc[pos] = (row % K).to(anc.dtype)
     tok = last_tok.long()
     x = emb_table[tok] * (tok != PAD)[:, None].to(emb_table.dtype) + time_sig[pos]
-    x = _run_layers(_layer_plain, stacked, x, cache_k, cache_v, mem_k, mem_v,
+    x = _run_layers(stacked, x, cache_k, cache_v, mem_k, mem_v,
                     pos, n_head, anc, K, mem_mask, maskk)
     sc, ids = _head_plain(norm_params, out_params, x, K)
     return beam_select_plain(sc, ids, scores, eos, lenm, preds, anc, maskk, i,

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Mutation check of the kernels on one GPU: the decode kernels (the fused
-K4, K5 and K6a-c in csrc/decode_fused.cu, the attention, head and select
-bodies in csrc/attend.cuh and csrc/head_select.cuh, the tensor-parallel
-head K7c included), the BiLSTM cluster sweeps (csrc/bilstm.cu,
+K4, K5 and K6a-c in csrc/decode_fused.cu, K3 and K7c in
+csrc/decode_chain.cu, their shared phases in csrc/decode_fused.cuh, the
+attention, head and select bodies in csrc/attend.cuh and
+csrc/head_select.cuh), the BiLSTM cluster sweeps (csrc/bilstm.cu,
 csrc/bilstm_bwd.cu) and the fused LAS decoder kernels K2 and K9
 (csrc/las_fused.cu).
 
@@ -17,7 +18,7 @@ counts as caught; a mutation may name its own card tests, as the shard
 steps' do). The unchanged copy must pass and every mutant should fail.
 With --only, just the mutations whose source file name or description
 contains one of TEXT's comma-separated parts (`--only K6`: the shard
-steps' five).
+steps' five; `--only K3,K7c`: the fused chain's and shard head's six).
 Prints one line per run; exits non-zero if the unchanged copy fails or a
 mutant passes.
 """
@@ -37,6 +38,7 @@ SELECT = ("layer_step or head or gather or beam_step or beam_select or "
 SELECT_BILSTM = "bilstm"
 SELECT_LAS = "las"
 SELECT_TP = "tp_step or tp_steps or tp_attention or tp_trio"
+SELECT_CHAIN = "chain or head_partial"
 TIMEOUT_S = 900
 
 # (what it breaks, the source in csrc/, the line as it is, the line as the
@@ -61,16 +63,16 @@ MUTATIONS = [
     ("select keeps the score without the old penalty", "head_select.cuh",
      "      scores_o[s] = bv * lp_old;",
      "      scores_o[s] = bv;"),
-    ("int8 weights dequantized with a neighbouring column's scale", "decode_fused.cu",
+    ("int8 weights dequantized with a neighbouring column's scale", "decode_fused.cuh",
      "  return make_float4((float)q.x * s.x, (float)q.y * s.y, (float)q.z * s.z, (float)q.w * s.w);",
      "  return make_float4((float)q.x * s.x, (float)q.y * s.x, (float)q.z * s.z, (float)q.w * s.z);"),
-    ("a grid barrier dropped (fc partials read before they are complete)", "decode_fused.cu",
+    ("a grid barrier dropped (fc partials read before they are complete)", "decode_fused.cuh",
      "  barrier(grid);  // fc partials complete",
      ""),
     ("the new K/V row written into the next beam slot", "attend.cuh",
      "    const size_t dst = (((size_t)own * B + b) * Lpad + pos) * D + hoff + t;",
      "    const size_t dst = (((size_t)((own + 1) % K) * B + b) * Lpad + pos) * D + hoff + t;"),
-    ("split partials summed in reverse order (within each group of eight)", "decode_fused.cu",
+    ("split partials summed in reverse order (within each group of eight)", "decode_fused.cuh",
      "    for (int j = 0; j < 8; ++j) if (s0 + j < S) v += x[j];",
      "    for (int j = 7; j >= 0; --j) if (s0 + j < S) v += x[j];"),
     ("new bf16 K/V row truncated, not rounded to nearest", "attend.cuh",
@@ -135,7 +137,7 @@ MUTATIONS = [
     ("K6a's heads as wide as a full-width head (D / nh, not Dq / nh)", "decode_fused.cu",
      "  c.d = Dq / nh;\n  c.aw = step_warps(smem, c.d, Lpad);",
      "  c.d = D / nh;\n  c.aw = step_warps(smem, c.d, Lpad);", SELECT_TP),
-    ("K6c (and K5): b_1 dropped from w2's operand", "decode_fused.cu",
+    ("K6c (and K5): b_1 dropped from w2's operand", "decode_fused.cuh",
      "        v = psum(j.A, j.SA, M, j.Kd, gm, gk) + j.abias[gk];",
      "        v = psum(j.A, j.SA, M, j.Kd, gm, gk);", SELECT_TP),
     ("K6b's LayerNorm scaled by its bias", "decode_fused.cu",
@@ -145,6 +147,27 @@ MUTATIONS = [
      "  c.Lpad = Lpad;\n  c.pos = pos;\n  c.anc = anc;\n  c.maskk = maskk;\n  c.tiles",
      "  c.Lpad = Lpad;\n  c.pos = pos + 1 < Lpad ? pos + 1 : pos - 1;\n  c.anc = anc;\n"
      "  c.maskk = maskk;\n  c.tiles", SELECT_TP),
+    ("K3's first row phase takes LN2 of its input, not LN1", "decode_chain.cu",
+     "  row_phase(c, nullptr, 0, nullptr, a.x, c.X0, a.L.v[LN1G], a.L.v[LN1B], 1e-6f, red);",
+     "  row_phase(c, nullptr, 0, nullptr, a.x, c.X0, a.L.v[LN2G], a.L.v[LN2B], 1e-6f, red);",
+     SELECT_CHAIN),
+    ("K3's every layer attends over layer 0's memory K", "decode_chain.cu",
+     "                       (const CT*)a.mk + l * mem_layer, (const CT*)a.mv + l * mem_layer,",
+     "                       (const CT*)a.mk, (const CT*)a.mv + l * mem_layer,", SELECT_CHAIN),
+    ("K3's gather ids dropped (glp read at no id)", "decode_chain.cu",
+     "  topk_rows(c, a.V, a.topk, a.gid, a.sc, a.ids, a.glp, nullptr, nullptr);",
+     "  topk_rows(c, a.V, a.topk, nullptr, a.sc, a.ids, a.glp, nullptr, nullptr);",
+     SELECT_CHAIN),
+    ("K3's and K7c's logits summed over one split fewer", "decode_chain.cu",
+     "      c.LG[(size_t)r * V + v] = psum(c.PA, SD, c.BK, V, r, v);",
+     "      c.LG[(size_t)r * V + v] = psum(c.PA, SD - 1, c.BK, V, r, v);", SELECT_CHAIN),
+    ("K7c's LayerNorm scaled by its bias", "decode_chain.cu",
+     "  row_phase(c, nullptr, 0, nullptr, a.x, nullptr, a.norm_g, a.norm_b, 1e-5f, red);",
+     "  row_phase(c, nullptr, 0, nullptr, a.x, nullptr, a.norm_b, a.norm_b, 1e-5f, red);",
+     SELECT_CHAIN),
+    ("K7c's top-K reads the head partials before they are complete", "decode_chain.cu",
+     "  barrier(grid);  // the shard's head partials complete",
+     "", SELECT_CHAIN),
 ]
 
 

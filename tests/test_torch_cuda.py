@@ -21,7 +21,10 @@ fused tensor-parallel steps K6a-c (the same source at a shard's width) at
 head shards of 64-256 columns, the first and last cache position, f32 and
 bf16 caches and memories, with and without their residuals,
 bit-identical at three grid sizes, one device kernel a call, and refusing
-what they cannot run. The
+what they cannot run. The fused K3 (every layer and the head in one
+launch) in every variant, with and without gather ids, at groups of 1, 3
+and 5 and positions 0, 1 and 75, and the fused K7c at shards of 7 to
+15 000 ids: bit-identical at any grid, one device kernel a call. The
 fused K2 and K9 (csrc/las_fused.cu) at the flagship's LAS widths over
 batches, key lengths, vocabularies and layer counts, with forced head ties
 and a PAD symbol fed back, bit-identical at two grid sizes, at alternating
@@ -337,12 +340,12 @@ def _head_params(rng, V, dev, ties=False):
     return norm, {"w": w}
 
 
-def _same_ids_up_to_ties(ids, ids_p, sc_p):
+def _same_ids_up_to_ties(ids, ids_p, sc_p, tie=1e-5):
     """ids equal wherever the plain arm's top-K gap at that rank (to the next
-    rank) exceeds 1e-5; returns the number of tied rows."""
+    rank) exceeds tie; returns the number of tied rows."""
     gaps = torch.cat([sc_p[:, :-1] - sc_p[:, 1:],
                       torch.full_like(sc_p[:, :1], float("inf"))], 1)
-    bad = (ids != ids_p) & (gaps > 1e-5)
+    bad = (ids != ids_p) & (gaps > tie)
     assert not bad.any(), (ids[bad.any(1)], ids_p[bad.any(1)])
     return int((ids != ids_p).any(1).sum())
 
@@ -1126,12 +1129,12 @@ def test_fused_beam_step_matches_plain(dev, params, wide_params, kind, Bn, K, i,
 
 
 @pytest.mark.parametrize("quant,bf16", [(False, False), (True, True)], ids=["f32", "int8+bf16"])
-@pytest.mark.parametrize("step", ["K5", "K4"])
+@pytest.mark.parametrize("step", ["K5", "K4", "K3"])
 def test_fused_kernels_bit_identical_at_two_grid_sizes(dev, wide_params, monkeypatch, step,
                                                        quant, bf16):
     """The same inputs on every block the card keeps resident and on 7
     blocks: outputs and caches bit-identical (the tiling and every
-    summation order follow from the shapes alone)."""
+    summation order follow from the shapes alone); K3 with gather ids."""
     rng = np.random.RandomState(8000)
     pos = 40
     dec, cache, preds, anc, maskk, mem_mask = _fused_state(wide_params, WIDE, 16, 5, pos, rng,
@@ -1143,12 +1146,109 @@ def test_fused_kernels_bit_identical_at_two_grid_sizes(dev, wide_params, monkeyp
         if step == "K5":
             y, c = _k5(dec, cache, x, pos, anc, 5, mem_mask, maskk)
             runs.append((y, c.self_k, c.self_v))
+        elif step == "K3":
+            gid = torch.arange(80, device=dev, dtype=torch.int32) * 7 % WIDE.dec_vocab_size
+            out, c = _k3(dec, wide_params, cache, x, pos, anc, 5, mem_mask, maskk, 6, gid)
+            runs.append((*out, c.self_k, c.self_v))
         else:
             out, c, a, _ = _k4(dec, wide_params, WIDE, cache, preds, anc, maskk, mem_mask,
                                pos + 1, 5)
             runs.append((*out, c.self_k, c.self_v, a))
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+def _k3(dec, pg, cache, x, pos, anc, K, mem_mask, maskk, topk, gid=None,
+        fn=decode_chain_step_flash):
+    """K3 (or fn) at the flagship's widths on a copy of the caches; returns
+    (its outputs, the caches)."""
+    c = _clone(cache)
+    out = fn(stack_decoder_layers(dec), dec["norm"], pg["out_tgt"], x, c.self_k, c.self_v,
+             c.mem_k, c.mem_v, pos, WIDE.num_heads, anc, K, mem_mask, maskk, topk,
+             gather_ids=gid)
+    return out, c
+
+
+def _random_norms(dec, rng, dev):
+    """dec with every LayerNorm (each layer's three and the final one) at
+    random scales and biases, so that no two are alike: init_seq2seq gives
+    them all ones and zeros, under which a kernel reading the wrong one
+    still matches."""
+    D = dec["norm"]["scale"].numel()
+    ln = lambda: {"scale": 1 + 0.1 * _randn(rng, D, dev=dev), "bias": 0.1 * _randn(rng, D, dev=dev)}
+    layers = [{k: {**v, "layer_norm": ln()} for k, v in lp.items()} for lp in dec["layers"]]
+    return {**dec, "layers": layers, "norm": ln()}
+
+
+# (K, pos, topk, gather): the beam's groups at positions 0 and 1 (topk K + 1,
+# as beam position 1 asks), greedy dev eval's group of 1 with gather ids, a
+# top-K of MAX_BEAM, and position 75 of the 160-row caches
+FUSED_K3_CASES = [(1, 0, 2, True), (1, 1, 1, True), (1, 75, 16, False), (3, 0, 4, False),
+                  (3, 1, 3, True), (3, 75, 4, True), (5, 0, 6, False), (5, 1, 5, False),
+                  (5, 75, 6, True)]
+
+
+@pytest.mark.parametrize("quant,bf16", VARIANTS, ids=VARIANT_IDS)
+@pytest.mark.parametrize("K,pos,topk,gather", FUSED_K3_CASES)
+def test_fused_chain_step_matches_plain(dev, wide_params, K, pos, topk, gather, quant, bf16):
+    """Fused K3 (one launch: every layer and the head) against
+    decode_chain_step_plain at the flagship's widths, B = 16: scores and
+    glp within TOL (bf16 caches: TOL_BF16), ids equal up to ties at that
+    margin, every cache row (each layer's new one at pos, the rest
+    untouched) within TOL (bf16: one bf16 step), one launch counted under
+    the variant's name. Every LayerNorm differs from every other."""
+    rng = np.random.RandomState(12000 + 100 * K + pos)
+    dec, cache, _, anc, maskk, mem_mask = _fused_state(wide_params, WIDE, 16, K, pos, rng, dev,
+                                                       quant, bf16, 89)
+    dec = _random_norms(dec, rng, dev)
+    BK = 16 * K
+    x = _randn(rng, BK, WIDE.dim_model, dev=dev)
+    gid = None
+    if gather:
+        gid = torch.from_numpy(rng.randint(0, WIDE.dec_vocab_size, BK).astype(np.int32)).to(dev)
+        gid[0], gid[-1] = WIDE.dec_vocab_size - 1, 0
+    name = ("gather_" if gather else "") + _variant(quant, bf16)
+    before = getattr(decode_chain_step_flash, name)
+    out, ck = _k3(dec, wide_params, cache, x, pos, anc, K, mem_mask, maskk, topk, gid)
+    assert getattr(decode_chain_step_flash, name) == before + 1
+    ref, cp = _k3(dec, wide_params, cache, x, pos, anc, K, mem_mask, maskk, topk, gid,
+                  decode_chain_step_plain)
+    tol = TOL_BF16 if bf16 else TOL
+    assert len(out) == (3 if gather else 2) and out[0].shape == (BK, topk)
+    assert torch.isfinite(out[0]).all() and out[1].dtype == torch.int32
+    _same_ids_up_to_ties(out[1], ref[1], ref[0], tol)
+    _close(out[0], ref[0], tol)
+    if gather:
+        _close(out[2], ref[2], tol)
+    for a, b in ((ck.self_k, cp.self_k), (ck.self_v, cp.self_v)):
+        _bf16_cache_close(a, b) if bf16 else _close(a, b, TOL)
+    assert torch.equal(ck.self_k[:, :, :, pos + 1:], cache.self_k[:, :, :, pos + 1:])
+
+
+def test_fused_chain_and_head_partial_refuse_what_they_cannot_run(dev, wide_params):
+    """No fallback: K3 with a top-K past MAX_BEAM or a position past the
+    cache is refused by the kernel, and rows that do not fit the caches'
+    groups before a launch; K7c with a top-K past MAX_BEAM is refused by
+    the kernel, and a shard whose rows are not D before a launch."""
+    rng = np.random.RandomState(12500)
+    dec, cache, _, anc, maskk, mem_mask = _fused_state(wide_params, WIDE, 2, 5, 3, rng, dev)
+    x = _randn(rng, 10, WIDE.dim_model, dev=dev)
+    k3 = lambda topk=5, pos=3, xx=x: _k3(dec, wide_params, cache, xx, pos, anc, 5, mem_mask,
+                                         maskk, topk)
+    assert torch.isfinite(k3(16)[0][0]).all()
+    with pytest.raises(RuntimeError, match="decode_chain_fused"):
+        k3(17)
+    with pytest.raises(RuntimeError, match="decode_chain_fused"):
+        k3(pos=cache.self_k.shape[3])
+    with pytest.raises(ValueError):
+        k3(xx=x[:9].contiguous())
+    norm = dec["norm"]
+    out = {"w": wide_params["out_tgt"]["w"][:, :50].contiguous()}
+    assert torch.isfinite(tdf.decode_head_partial(norm, out, x, 16)[0]).all()
+    with pytest.raises(RuntimeError, match="head_partial_fused"):
+        tdf.decode_head_partial(norm, out, x, 17)
+    with pytest.raises(ValueError):
+        tdf.decode_head_partial(norm, {"w": out["w"][:64].contiguous()}, x, 5)
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
@@ -1382,11 +1482,15 @@ def test_tp_steps_bit_identical_at_any_grid(dev, monkeypatch, Dq, bf16):
 
 def _device_ops(fn):
     """The names of the device operations of one call of fn under
-    torch.profiler. torch.profiler sometimes records no device event at all
-    in a long process; such a profile is taken again, up to three times, and
-    an empty list is returned if none records one (the callers then fail)."""
+    torch.profiler. torch.profiler records no device event at all in ~1 %
+    of profiles, several in a row at times; such a profile is taken again,
+    up to eight times, a little later each time, and an empty list is
+    returned if none records one (the callers then fail)."""
+    import time
+
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(3):
+    for attempt in range(8):
+        time.sleep(0.1 * attempt)
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:
             fn()
@@ -1402,7 +1506,7 @@ def test_tp_steps_one_device_kernel_per_call(dev, step):
     """After a warm-up call (the plan and the tile table cached), a call of
     self_attn_step, cross_attn_step or ffn_step is one device operation under
     torch.profiler: its decode_fused.cu kernel. A profile that records no
-    device operation is taken again, up to three times; if none records
+    device operation is taken again, up to eight times; if none records
     one, the test fails."""
     rng = np.random.RandomState(41)
     K, Dq, D, pos = 5, 128, 512, 30
@@ -1464,7 +1568,7 @@ def test_tp_steps_refuse_what_they_cannot_run(dev):
 
 
 @pytest.mark.parametrize("topk", [1, 5, 16])
-@pytest.mark.parametrize("v_local", [7, 50, 7500])
+@pytest.mark.parametrize("v_local", [7, 50, 7500, 15000])
 def test_head_partial_kernel_matches_plain(dev, v_local, topk):
     """K7c on one vocabulary shard: raw top-K (ids equal up to ties), mx, se
     (relative: the kernel's online sum rescales), and the raw logit at
@@ -1495,6 +1599,68 @@ def test_head_partial_kernel_matches_plain(dev, v_local, topk):
     assert (got_g[4][2:4] == 0).all() and (got_g[4][(gid < 0) | (gid >= v_local)] == 0).all()
     if topk > v_local:
         assert (got[0][:, v_local:] == -1e30).all() and (got[1][:, v_local:] == 0).all()
+
+
+def _k7c_calls(dev, v_local, BK=80, D=512):
+    """K7c on one vocabulary shard of v_local ids at the flagship's width,
+    without and with gather ids (in the shard, above and below it): a
+    function returning every output of both calls."""
+    rng = np.random.RandomState(600 + v_local)
+    norm = {"scale": 1 + 0.1 * _randn(rng, D, dev=dev), "bias": 0.1 * _randn(rng, D, dev=dev)}
+    out = {"w": _randn(rng, D, v_local, dev=dev) / D ** 0.5}
+    x = _randn(rng, BK, D, dev=dev)
+    gid = torch.from_numpy(rng.randint(-v_local, 2 * v_local, BK).astype(np.int32)).to(dev)
+    return lambda: (tdf.decode_head_partial(norm, out, x, 5)
+                    + tdf.decode_head_partial(norm, out, x, 5, gid))
+
+
+@pytest.mark.parametrize("v_local", [50, 15000])
+def test_head_partial_bit_identical_at_any_grid(dev, monkeypatch, v_local):
+    """The fused K7c on 7 blocks, on the plan's blocks and on every block
+    the card keeps resident (a grid asked past it is cut to it): every
+    output bit-identical."""
+    run = _k7c_calls(dev, v_local)
+    runs = []
+    for grid in (7, None, 1 << 20):
+        monkeypatch.setattr(tdf, "STEP_GRID", grid)
+        runs.append(run())
+    for other in runs[1:]:
+        for a, b in zip(runs[0], other):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("route", ["K3 f32", "K3 gather", "K3 int8+bf16", "K7c",
+                                   "K7c gather"])
+def test_chain_and_head_partial_one_device_kernel_per_call(dev, wide_params, route):
+    """After a warm-up call, a call of decode_chain_step_flash (every
+    variant, with and without gather ids) or of decode_head_partial is one
+    device operation under torch.profiler: its decode_chain.cu kernel. A
+    profile that records no device operation is taken again, up to eight
+    times; if none records one, the test fails."""
+    rng = np.random.RandomState(13000)
+    if route.startswith("K7c"):
+        norm = wide_params["dec_tgt"]["norm"]
+        out = {"w": wide_params["out_tgt"]["w"][:, :50].contiguous()}
+        x = _randn(rng, 80, WIDE.dim_model, dev=dev)
+        gid = torch.arange(80, device=dev, dtype=torch.int32) - 10
+        fn = lambda: tdf.decode_head_partial(norm, out, x, 5, gid if "gather" in route else None)
+        name = "head_step_kernel"
+    else:
+        both = route.endswith("int8+bf16")
+        K = 1 if route.endswith("gather") else 5
+        dec, cache, _, anc, maskk, mem_mask = _fused_state(wide_params, WIDE, 16, K, 30, rng,
+                                                           dev, both, both, 89)
+        x = _randn(rng, 16 * K, WIDE.dim_model, dev=dev)
+        gid = torch.arange(16, device=dev, dtype=torch.int32) if K == 1 else None
+        stacked = stack_decoder_layers(dec)
+        fn = lambda: decode_chain_step_flash(
+            stacked, dec["norm"], wide_params["out_tgt"], x, cache.self_k, cache.self_v,
+            cache.mem_k, cache.mem_v, 30, WIDE.num_heads, anc, K, mem_mask, maskk, K + 1,
+            gather_ids=gid)
+        name = "chain_kernel"
+    fn()
+    ops = _device_ops(fn)
+    assert len(ops) == 1 and name in ops[0], ops
 
 
 def test_tp_trio_and_layer_step_match_k5_on_card(dev, params):

@@ -1,7 +1,7 @@
 """The fused decode kernels' plan (ops/decode_flash.py `fused_tiles`,
 `fused_plan`) and the C signatures of every kernel entry point, on the CPU.
 
-The fused K5, K4 and K6a-c (csrc/decode_fused.cu) walk the tile table
+The fused K5, K4, K3, K6a-c and K7c (csrc/decode_fused.cu) walk the tile table
 that `fused_tiles` builds from the shapes alone, passed to them as `tiles`;
 these tests hold that table in numpy: every output element of every
 product phase is written by exactly one tile, each split covers its slice
@@ -10,7 +10,9 @@ workspace holds every phase's partials, and nothing depends on how many
 blocks the card keeps resident. K5's and K4's tables and plans are held
 byte-equal to the ones they had before the shard steps shared their code;
 the shard steps K6a-c at a shard of n = 1, 2, 4 and 8 (attention width
-D / n, hidden width FF / n). The second half parses every
+D / n, hidden width FF / n). K3's chain plan is K4's with a row phase in
+place of the embedding and no select; K7c's shard head at n = 1, 2, 4.
+The second half parses every
 `extern "C"` entry of csrc/*.cu and holds its parameter kinds against
 kernels._SIGS, the argument types ctypes passes.
 """
@@ -348,6 +350,158 @@ def test_attention_step_plans_need_the_cards_limit(step):
 
 
 # ---------------------------------------------------------------------------
+# K3 (decode_chain_fused): K4's plan less the embedding and the select
+# ---------------------------------------------------------------------------
+
+
+def _chain(shape, nl=2, quant=False, K=None):
+    BK, D, FF, nh, Lpad, Lk, V = SHAPES[shape]
+    K = K or (5 if BK % 5 == 0 else 1)
+    return fused_plan(BK, D, FF, nh, Lpad, Lk, quant, nl=nl, V=V, K=K, chain=True)
+
+
+@pytest.mark.parametrize("shape", list(SHAPES), ids=list(SHAPES))
+def test_chain_writes_every_output_element_once(shape):
+    """K3's products (every layer's and the head over V ids) against the
+    table K4 walks at the same shapes: every partial element written by
+    one tile, each split its KC slice once."""
+    BK, D, FF, _, _, _, V = SHAPES[shape]
+    plan = _chain(shape)
+    assert set(plan["products"]) == set(FUSED_PRODUCTS)
+    assert plan["products"]["head"] == [(BK, V, D)]
+    _each_output_once(plan, _table(BK, D, FF, V))
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("shape", list(SHAPES), ids=list(SHAPES))
+def test_chain_shared_memory_and_workspace_fit(shape, quant):
+    """Two f32 product stages (the head's weights are f32 in every
+    variant) or eight attention items fit a block; the workspace is K4's
+    layout with the head: five [BK, D] activations, PA (q/k/v, w1 or the
+    head's partials), PB, the [BK, V] logits and 2 BK K floats."""
+    BK, D, FF, nh, Lpad, Lk, V = SHAPES[shape]
+    K = 5 if BK % 5 == 0 else 1
+    plan = _chain(shape, 6, quant)
+    prod = 2 * (FUSED_KC * FUSED_BN * 4 + FUSED_KC * FUSED_BM * 4)
+    assert plan["smem"] == max(prod, 8 * (D // nh + 3 * max(Lpad, Lk)) * 4) <= SMEM_MAX
+    parts = {n: sum(-(-Kd // FUSED_KC) * M * N for M, N, Kd in jobs)
+             for n, jobs in plan["products"].items()}
+    pa = max(parts["qkv"], parts["w1"], parts["head"])
+    pb = max(parts["fc"], parts["cq"], parts["co"], parts["w2"])
+    assert plan["ws_floats"] == 5 * BK * D + pa + pb + BK * V + 2 * BK * K
+    k4 = fused_plan(BK, D, FF, nh, Lpad, Lk, quant, True, 6, V, K)
+    assert (plan["smem"], plan["ws_floats"]) == (k4["smem"], k4["ws_floats"])
+
+
+@pytest.mark.parametrize("nl", [1, 2, 6])
+def test_chain_phases_and_barriers(nl):
+    """K3: a row phase (its input and LN1 of layer 0), nl layers of 11
+    phases, the head's product and the top-K: K4's phases less the
+    embedding and the select, 2 + 11 nl barriers."""
+    BK, D, FF, nh, Lpad, Lk, V = SHAPES["flagship"]
+    plan = _chain("flagship", nl)
+    k4 = fused_plan(BK, D, FF, nh, Lpad, Lk, beam=True, nl=nl, V=V, K=5)
+    assert plan["phases"] == [("row", BK)] + k4["phases"][1:-1]
+    assert k4["phases"][0] == ("embed", BK) and k4["phases"][-1] == ("select", BK // 5)
+    assert plan["barriers"] == 2 + 11 * nl == len(plan["phases"]) - 1
+    assert plan["phases"][-2:] == [("head", 8 * 5 * 2), ("topk", BK)]
+
+
+@pytest.mark.parametrize("sms", [66, 114, 132])
+@pytest.mark.parametrize("per_sm", [1, 2, 3])
+def test_chain_tiling_does_not_change_with_the_grid(sms, per_sm):
+    """K3's plan and table take no SM count, and the block-strided walk
+    gives every item of every phase to one block at any grid size."""
+    BK, D, FF, nh, Lpad, Lk, V = SHAPES["flagship"]
+    plan = _chain("flagship")
+    assert fused_plan.__wrapped__(BK, D, FF, nh, Lpad, Lk, nl=2, V=V, K=5, chain=True) == plan
+    grid = sms * per_sm
+    for name, n in plan["phases"]:
+        seen = np.zeros(n, np.int64)
+        for b in range(grid):
+            seen[b:n:grid] += 1
+        assert (seen == 1).all(), name
+
+
+# ---------------------------------------------------------------------------
+# K7c (head_partial_fused): one vocabulary shard of the head
+# ---------------------------------------------------------------------------
+
+# (BK, D, V): the flagship beam, B=1, B=64, an off-tile width and a
+# 30 000-word vocabulary
+HEAD_SHAPES = {
+    "flagship": (80, 512, 200),
+    "B1": (5, 512, 200),
+    "flagship_B64": (320, 512, 200),
+    "ragged": (13, 96, 600),
+    "V30000": (80, 512, 30000),
+}
+HEAD_SHARDS = [1, 2, 4]
+
+
+def _head(shape, n):
+    BK, D, V = HEAD_SHAPES[shape]
+    return fused_plan(BK, D, 0, 1, 0, 0, V=V // n, step="head"), _table(BK, D, 0, V // n,
+                                                                        step="head")
+
+
+@pytest.mark.parametrize("n", HEAD_SHARDS)
+@pytest.mark.parametrize("shape", list(HEAD_SHAPES), ids=list(HEAD_SHAPES))
+def test_head_step_writes_every_output_element_once(shape, n):
+    """K7c's one product, x_n [BK, D] @ the shard's [D, V/n]: every partial
+    element written by one tile, each split its slice once, and no tile of
+    another kind."""
+    BK, D, V = HEAD_SHAPES[shape]
+    plan, table = _head(shape, n)
+    assert plan["products"] == {"head": [(BK, V // n, D)]}
+    _each_output_once(plan, table)
+
+
+@pytest.mark.parametrize("n", HEAD_SHARDS)
+@pytest.mark.parametrize("shape", list(HEAD_SHAPES), ids=list(HEAD_SHAPES))
+def test_head_step_shared_memory_and_workspace_fit(shape, n):
+    """Two f32 product stages and nothing else in shared memory; the
+    workspace holds the five [BK, D] activations (XN among them), the head's
+    partials in PA, the [BK, V/n] logits and the 2 BK floats of a top-K of
+    one the layout keeps (PB is empty)."""
+    BK, D, V = HEAD_SHAPES[shape]
+    plan, _ = _head(shape, n)
+    assert plan["smem"] == 2 * (FUSED_KC * FUSED_BN * 4 + FUSED_KC * FUSED_BM * 4) <= SMEM_MAX
+    assert plan["att_warps"] == 0
+    pa = -(-D // FUSED_KC) * BK * (V // n)
+    assert plan["ws_floats"] == 5 * BK * D + pa + BK * (V // n) + 2 * BK
+
+
+@pytest.mark.parametrize("n", HEAD_SHARDS)
+def test_head_step_phases_and_barriers(n):
+    """K7c: row (LayerNorm), head, topk: 2 barriers; the launch asks for
+    as many blocks as its largest phase has items (at the flagship's shard
+    of 4, the 80 rows; 40 head tiles)."""
+    plan, _ = _head("flagship", n)
+    V = 200 // n
+    tiles = 8 * 5 * -(-V // FUSED_BN)
+    assert plan["phases"] == [("row", 80), ("head", tiles), ("topk", 80)]
+    assert plan["barriers"] == 2
+    assert plan["blocks"] == max(80, tiles) == {1: 80, 2: 80, 4: 80}[n]
+    assert _head("V30000", n)[0]["blocks"] == 8 * 5 * -(-30000 // n // FUSED_BN)
+
+
+@pytest.mark.parametrize("grid", [1, 7, 80, 132, 264, 396])
+@pytest.mark.parametrize("n", HEAD_SHARDS)
+def test_head_step_tiling_does_not_change_with_the_grid(n, grid):
+    """K7c's plan and table take no block count, and the block-strided walk
+    gives every item of every phase to one block at any grid."""
+    plan, table = _head("flagship", n)
+    again = _head("flagship", n)
+    assert again[0] == plan and all((again[1][k] == table[k]).all() for k in table)
+    for name, items in plan["phases"]:
+        seen = np.zeros(items, np.int64)
+        for b in range(grid):
+            seen[b:items:grid] += 1
+        assert (seen == 1).all(), name
+
+
+# ---------------------------------------------------------------------------
 # the C entry points against the ctypes signatures
 # ---------------------------------------------------------------------------
 
@@ -388,6 +542,15 @@ def test_shard_step_entries_are_declared():
     assert entries["self_attn_step_fused"] == "p" * 14 + "i" * 12 + "s"
     assert entries["cross_attn_step_fused"] == "p" * 11 + "i" * 11 + "s"
     assert entries["ffn_step_fused"] == "p" * 10 + "i" * 7 + "s"
+
+
+def test_chain_and_head_entries_are_declared():
+    """The fused K3 and K7c entries, as ops/decode_flash.py passes them; the
+    old K7c chain's entry `head_topk_partial` is gone."""
+    entries = _entries()
+    assert entries["decode_chain_fused"] == "p" + "ii" + "p" * 17 + "i" * 14 + "s"
+    assert entries["head_partial_fused"] == "p" * 12 + "i" * 7 + "s"
+    assert "head_topk_partial" not in entries
 
 
 @pytest.mark.parametrize("name", sorted(kernels._SIGS))
