@@ -19,14 +19,16 @@ package beside it, included):
    times from CUDA events; K1 (the cluster sweep, its shape and block count
    on the line) also at B=1 and B=64, each with the sweep alone timed
    beside the whole call (input GEMMs included); K7 also at a 30 000-word
-   target vocabulary. K2, K3, K4 and K5 are one cooperative launch each
+   target vocabulary. K2, K3, K4, K5 and K7 are one cooperative launch each
    (csrc/las_fused.cu, csrc/decode_chain.cu, csrc/decode_fused.cu): their
    lines give the grid (blocks, blocks per SM), the grid barriers a launch
-   and the shared memory a block; K2's and K3's also their device operations a call (one,
-   K3's with its device time) and K2's the floor of streaming its head
+   and the shared memory a block; K2's, K3's and K7's also their device
+   operations a call (one, K3's and K7's with their device time, K7's with
+   the host's us to issue a call) and K2's the floor of streaming its head
    every step (head_stream_floor_ms); K5's the time of the trio (K5 as
    K6a-c in turn) as trio_ms. The serving kernels likewise: K5 in int8,
-   bf16 and int8+bf16, K3 (beside its f32 line) and K4 in int8+bf16. The
+   bf16 and int8+bf16, K3 (beside its f32 line) and K4 in int8+bf16; the K4
+   and K5 lines on LayerNorms drawn at random. The
    tensor-parallel kernels
    (right after K9) at one shard of 4 (Dq = 128, 2 local heads, BK = 80,
    pos 75, V/n = 50): K6a-c (self_attn_step, cross_attn_step, ffn_step,
@@ -62,8 +64,11 @@ package beside it, included):
      B=1 (median of 3) and B=64 (one request); int8 weights + bf16 caches
      at B=1 and B=16; with the decoder snapped onto the int8 grid (lossless
      quantization) the int8 route decodes the f32 route's tokens in 16/16
-     rows; the bf16 route against its plain route on CPU copies for 2 rows,
-     differing rows explained by a tie within SERVE_MARGIN;
+     rows; the bf16 route against its plain route on CPU copies on the 16
+     rows of a request, differing rows explained by a tie within
+     SERVE_MARGIN net of the drift of the row's shared prefix, that drift
+     at most BF16_DRIFT a position (rows 0 and 1 within SERVE_MARGIN
+     whole);
    - serving, universal model at B=16: int8 + bf16 and bf16 (K5 variants;
      K3 and K4 idle), and the int8-grid check;
    - tp beam: ST beam-5 through forward_translate on meshes (1, 2) and
@@ -75,7 +80,7 @@ package beside it, included):
      single-device card route's, differing rows explained by a tie within
      E2E_MARGIN; bf16 tokens against the same TP route on CPU copies on
      the 16 rows of a request, ties within SERVE_MARGIN net of the drift
-     of the row's shared prefix;
+     of the row's shared prefix (at most BF16_DRIFT a position);
      tp dev eval: forward_eval
      ASR_ST at n=2 against the single-device card route, picked_* within
      1e-4.
@@ -128,6 +133,10 @@ E2E_MARGIN = 1e-3  # first-divergence margin that explains a differing e2e row
 # so two beam candidates closer than SERVE_MARGIN may swap: a tie at that
 # margin explains a differing row
 SERVE_MARGIN = 1e-2
+# and over a shared prefix they drift apart by up to ~3e-3 a position
+# (stjep_tpu_torch/scripts/bf16_drift.py): a row held net of its prefix
+# drift may drift at most this much a position up to where it parts
+BF16_DRIFT = 3e-3
 # the least time the card could take (H100 SXM datasheet peaks at 700 W): bytes over HBM bandwidth, operations over the peak of
 # their type; these kernels use no tensor cores, so f32 operations count
 # against the CUDA cores' 67 TFLOP/s and bf16 products against 989
@@ -478,6 +487,18 @@ def serving_decoder(params, quant):
     return quantize_decoder_weights(params["dec_tgt"]) if quant else params["dec_tgt"]
 
 
+def random_norms(dec, rng):
+    """dec with every LayerNorm (each layer's three and the final one) at
+    random scales and biases, so that no two are alike: init_seq2seq gives
+    them all ones and zeros, under which a kernel reading the wrong one
+    still matches its plain version."""
+    D = dec["norm"]["scale"].numel()
+    ln = lambda: {k: torch.from_numpy((rng.randn(D) * 0.1 + (k == "scale")).astype(np.float32))
+                  .cuda() for k in ("scale", "bias")}
+    layers = [{k: {**v, "layer_norm": ln()} for k, v in lp.items()} for lp in dec["layers"]]
+    return {**dec, "layers": layers, "norm": ln()}
+
+
 def variant_label(quant, bf16):
     return "+".join(n for n, on in (("int8", quant), ("bf16", bf16)) if on) or "f32"
 
@@ -583,7 +604,7 @@ def phase_k4(params, cfg, rng, quant=False, bf16=False):
     scores = torch.from_numpy(-rng.uniform(0, 3 * i, BK).astype(np.float32)).cuda()
     lenm = torch.from_numpy(rng.randint(1, i, BK).astype(np.float32)).cuda()
     last_tok = st["preds"][:, i - 1].contiguous()
-    dec = serving_decoder(params, quant)
+    dec = random_norms(serving_decoder(params, quant), rng)
     stacked = stack_decoder_layers(dec)
     table = _dec_embedder(params, cfg).contiguous()
     tsig = position_signal(500, cfg.dim_model, "cuda")[0].contiguous()
@@ -683,7 +704,8 @@ def phase_k4_select(params, cfg, rng):
 
 def phase_k5(params, cfg, rng, quant=False, bf16=False):
     """K5 (one decoder layer's decode step) at the universal beam's shapes:
-    BK = 80, a mid position of the 160-row caches, 96 memory rows."""
+    BK = 80, a mid position of the 160-row caches, 96 memory rows, its
+    LayerNorms drawn at random (random_norms)."""
     from stjep_tpu_torch.ops.decode_flash import (
         decoder_layer_step_flash,
         decoder_layer_step_flash_trio,
@@ -693,7 +715,7 @@ def phase_k5(params, cfg, rng, quant=False, bf16=False):
     K, BK, pos = BEAM, B * BEAM, DECODE_LEN // 2
     st = decode_state(params, cfg, rng, pos, bf16=bf16)
     x = torch.from_numpy(rng.randn(BK, cfg.dim_model).astype(np.float32)).cuda()
-    lp = serving_decoder(params, quant)["layers"][0]
+    lp = random_norms(serving_decoder(params, quant), rng)["layers"][0]
 
     def run(fn, cache):
         return fn(lp, x, cache.self_k[0], cache.self_v[0], cache.mem_k[0],
@@ -737,44 +759,71 @@ def check_topk(name, ids, ids_p, sc_p):
     return int((ids != ids_p[:, :k]).any(1).sum())
 
 
+def host_us(fn, n=50) -> float:
+    """The host's microseconds to issue one call of fn, over n calls in a
+    row after a warm-up (the stream runs behind them)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / n
+    torch.cuda.synchronize()
+    return us
+
+
 def phase_k7(params, cfg, rng):
-    """K7 (decode_head, decode_head_gather) at the beam's BK = 80 and greedy
-    eval's BK = 16, with the model's V = 200 and a word-level V = 30 000.
-    Returns the times at the main paths' shapes (V = 200; BK 80 for the
-    head, 16 for the gather)."""
+    """K7 (decode_head, decode_head_gather) at the universal beam's BK = 80
+    (top-5) and universal dev eval's BK = 16 (top-1), with the model's V =
+    200 and a word-level V = 30 000: against the plain versions, with the
+    fused launch's grid, barriers and column slices, and for each call its
+    device operations (one) and device us under torch.profiler and the
+    host's us to issue it. Returns the times at the main paths' shapes (V =
+    200; BK 80 for the head, 16 for the gather)."""
     from stjep_tpu_torch.ops.decode_flash import (
         decode_head,
         decode_head_gather,
         decode_head_gather_plain,
         decode_head_plain,
+        fused_grid,
+        fused_plan,
     )
 
     norm = params["dec_tgt"]["norm"]
-    D, topk, res = cfg.dim_model, BEAM, {}
+    D, res = cfg.dim_model, {}
     # a word-level target table at 1/sqrt(D), as init_seq2seq scales out_tgt
     w_big = torch.from_numpy((rng.randn(D, 30000) / np.sqrt(D)).astype(np.float32)).cuda()
     for V, out in ((cfg.dec_vocab_size, params["out_tgt"]), (30000, {"w": w_big})):
-        for BK in (B * BEAM, B):
+        for BK, topk in ((B * BEAM, BEAM), (B, 1)):
             x = torch.from_numpy(rng.randn(BK, D).astype(np.float32)).cuda()
             gid = torch.from_numpy(rng.randint(0, V, BK).astype(np.int32)).cuda()
-            sc, ids = decode_head(norm, out, x, topk)
-            sc_g, ids_g, glp = decode_head_gather(norm, out, x, topk, gid)
+            head = lambda: decode_head(norm, out, x, topk)
+            gather = lambda: decode_head_gather(norm, out, x, topk, gid)
+            sc, ids = head()
+            sc_g, ids_g, glp = gather()
             sc_p, ids_p = decode_head_plain(norm, out, x, topk + 1)
             _, _, glp_p = decode_head_gather_plain(norm, out, x, topk, gid)
             rows = check_topk(f"K7 V={V} BK={BK}", ids, ids_p, sc_p)
             need(torch.equal(ids, ids_g) and torch.equal(sc, sc_g),
                  "K7 head and head_gather disagree")
             err = max(max_err(sc, sc_p[:, :topk]), max_err(glp, glp_p))
-            t = dict(ms=cuda_ms(lambda: decode_head(norm, out, x, topk), 20),
+            t = dict(ms=cuda_ms(head, 20),
                      plain_ms=cuda_ms(lambda: decode_head_plain(norm, out, x, topk), 10),
-                     gather_ms=cuda_ms(lambda: decode_head_gather(norm, out, x, topk, gid), 20),
+                     gather_ms=cuda_ms(gather, 20),
                      gather_plain_ms=cuda_ms(
                          lambda: decode_head_gather_plain(norm, out, x, topk, gid), 10))
+            plan = fused_plan(BK, D, 0, 1, 0, 0, V=V, step="full_head")
+            g = fused_grid(False, False, False, plan["smem"], "full_head")
+            h, hg = one_launch(f"K7 V={V} BK={BK}", head), one_launch(f"K7 gather V={V}", gather)
             # log-probs of magnitude <= ~12 in f32; one LayerNorm and one
             # D = 512 product, summed in another order
             tol = 1e-5
             say("kernel K7 decode_head", V=V, BK=BK, topk=topk, max_abs_err=err,
-                tol=tol, tied_rows=rows, **t)
+                tol=tol, tied_rows=rows, **t, grid_blocks=min(plan["blocks"], g["blocks"]),
+                barriers=plan["barriers"], slices=plan["slices"], device_ops=h["device_ops"],
+                device_us=h["profiled_kernel_us"], host_us=host_us(head),
+                gather_device_ops=hg["device_ops"], gather_device_us=hg["profiled_kernel_us"],
+                gather_host_us=host_us(gather))
             need(err <= tol, f"K7 V={V} BK={BK} max_abs_err {err} > {tol}")
             if V == cfg.dec_vocab_size:
                 # the row, the norm and the weight in; top-k (and glp) out
@@ -1546,13 +1595,16 @@ def recorded_translate(params, cfg, feats, lens, device, step=None, **opts):
     return toks.cpu(), encode_st(params, cfg, feats, lens)[2].cpu(), states
 
 
-def explain_e2e(params_c, cfg, feats, lens, card, plain):
+def explain_e2e(params_c, cfg, feats, lens, card, plain, net=False, raw_rows=()):
     """Every row where the card's tokens differ from the plain arm's must be
     explained by a tie at the first divergence, in the plain arm's own
     log-probs: if the ASR hypotheses differ, the plain LAS log-probs of the
     two symbols at their first difference; else, at the first beam position
     where the row's K hypotheses differ, the two arms' kept beam scores
-    (sums of log-probs), sorted, within E2E_MARGIN. Returns the margins."""
+    (sums of log-probs), sorted, within E2E_MARGIN; with net (bf16 caches,
+    which drift ~3e-3 a position between two routes) that gap less the
+    row's drift at the position before (`net_divergence`), except on the
+    rows in raw_rows, held at the whole gap. Returns the margins."""
     from stjep_tpu_torch.config import BOS
     from stjep_tpu_torch.models.las_encoder import las_encoder_forward
     from stjep_tpu_torch.ops.attention import precompute_keys
@@ -1573,13 +1625,16 @@ def explain_e2e(params_c, cfg, feats, lens, card, plain):
         if c is None:
             continue
         h = las_rows[r]
+        drift = 0.0
         if h is not None:
             stage, pos, m = "las", h, float(abs(at_own[r, h] - at_card[r, h]))
+        elif net:
+            stage, (pos, m, drift) = "beam", net_divergence(st_c, st_p, r)
         else:
             stage, (pos, m) = "beam", beam_divergence(st_c, st_p, r)
         say("e2e differing row", row=r, stage=stage, position=pos, col=c,
-            margin=m)
-        margins.append(m)
+            margin=m, **({"drift_before": drift, "net_margin": m - drift} if net else {}))
+        margins.append(m if r in raw_rows else m - drift)
     return margins
 
 
@@ -1591,13 +1646,18 @@ def net_divergence(st_c, st_p, r):
     caches two routes drift apart by ~3e-3 a position (rounding flips from
     other summation orders; stjep_tpu_torch/scripts/bf16_drift.py), so over
     a long shared prefix the margin holds that drift as well as the tie;
-    margin - drift is what the gap gained at the parting position."""
+    margin - drift is what the gap gained at the parting position. Fails
+    if the drift passes BF16_DRIFT times the parting position: a route
+    that drifts further computes another function, not a rounding."""
     pos, m = beam_divergence(st_c, st_p, r)
     if pos is None or pos < 2:
         return pos, m, 0.0
     g = slice(r * BEAM, (r + 1) * BEAM)
     (_, sc), (_, sp) = st_c[pos - 2], st_p[pos - 2]
-    return pos, m, float((sc[g].sort()[0] - sp[g].sort()[0]).abs().max())
+    drift = float((sc[g].sort()[0] - sp[g].sort()[0]).abs().max())
+    need(drift <= BF16_DRIFT * pos,
+         f"row {r} drifted {drift} before position {pos}, past {BF16_DRIFT} a position")
+    return pos, m, drift
 
 
 def beam_divergence(st_c, st_p, r):
@@ -1773,9 +1833,11 @@ def phase_serving(params, params_c, cfg, reqs, rng, seed):
     and B=64 (one request); int8 weights + bf16 caches at B=1 and B=16.
     Then: on weights snapped to the int8 grid the int8 route decodes the
     f32 route's tokens on the card in every row; and the bf16 route on the
-    card against its plain route on CPU copies for 2 rows, every differing
-    row explained by a tie within SERVE_MARGIN. Returns the launch counts
-    of every run."""
+    card against its plain route on CPU copies on the 16 rows of a request,
+    every differing row explained by a tie within SERVE_MARGIN net of the
+    drift of its shared prefix (`net_divergence`), as the bf16 TP beam is
+    held, and rows 0 and 1 within SERVE_MARGIN whole. Returns the launch
+    counts of every run."""
     from stjep_tpu_torch.bridge import params_to
 
     b1 = [(f[:1], l[:1]) for f, l in reqs]
@@ -1812,13 +1874,16 @@ def phase_serving(params, params_c, cfg, reqs, rng, seed):
     say("serving int8 on the int8 grid", rows_equal=same, of=B)
     need(same == B, f"int8 on the int8 grid decoded other tokens than f32 in {B - same} rows")
 
-    # bf16 against its plain route on CPU copies, 2 rows
-    feats, lens = reqs[0][0][:2], reqs[0][1][:2]
+    # bf16 against its plain route on CPU copies, the 16 rows of a request,
+    # each differing row's margin net of its prefix drift; rows 0 and 1 at
+    # the whole margin as well, so that no row is held looser than at the
+    # raw margin
+    feats, lens = reqs[0]
     t0 = time.perf_counter()
     plain = recorded_translate(params_c, cfg, feats, lens, "cpu", **BF16_OPTS)
     plain_s = time.perf_counter() - t0
     card = recorded_translate(params, cfg, feats, lens, "cuda", **BF16_OPTS)
-    margins = explain_e2e(params_c, cfg, feats, lens, card, plain)
+    margins = explain_e2e(params_c, cfg, feats, lens, card, plain, net=True, raw_rows=(0, 1))
     say("serving bf16 plain arm", device="cpu", seconds=round(plain_s, 1),
         rows_differ=len(margins), of=feats.shape[0],
         max_first_divergence_margin=max(margins, default=0.0), limit=SERVE_MARGIN)
@@ -1985,11 +2050,12 @@ def main() -> int:
     results.update({"K3": phase_k3(params, cfg, rng),
                     "K3 int8+bf16": phase_k3(params, cfg, rng, True, True),
                     "K3 gather": phase_k3_gather(params, cfg, rng)})
+    # K7's lines check one device operation a call too
+    k7 = phase_k7(params, cfg, rng)
+    results["K7 head"], results["K7 head_gather"] = k7["head"], k7["head_gather"]
     results.update({"K4": phase_k4(params, cfg, rng),
                     "K4 select": phase_k4_select(params, cfg, rng),
                     "K5": phase_k5(params, cfg, rng)})
-    k7 = phase_k7(params, cfg, rng)
-    results["K7 head"], results["K7 head_gather"] = k7["head"], k7["head_gather"]
     # the serving kernels: int8 weights, bf16 caches, both
     for quant, bf16 in VARIANTS[1:]:
         results[f"K5 {variant_label(quant, bf16)}"] = phase_k5(params, cfg, rng, quant, bf16)
@@ -2039,8 +2105,8 @@ def main() -> int:
                "K4": ("decode_beam_step", src + "decode_fused.cu", rep + "decode_flash.py:1412"),
                "K4 select": ("beam_select", src + "decode.cu", rep + "decode_flash.py:1412"),
                "K5": ("decoder_layer_step", src + "decode_fused.cu", rep + "decode_flash.py:759"),
-               "K7 head": ("decode_head", src + "decode.cu", rep + "decode_flash.py:1595"),
-               "K7 head_gather": ("decode_head_gather", src + "decode.cu",
+               "K7 head": ("decode_head", src + "decode_chain.cu", rep + "decode_flash.py:1595"),
+               "K7 head_gather": ("decode_head_gather", src + "decode_chain.cu",
                                   rep + "decode_flash.py:1628"),
                "K8 fwd": ("bilstm_fwd_save", src + "bilstm.cu", rep + "lstm_pallas_bwd.py:174"),
                "K8 bwd": ("bilstm_bwd", src + "bilstm_bwd.cu", rep + "lstm_pallas_bwd.py:262"),

@@ -1,27 +1,18 @@
-// The decode kernels that run as launches of their own: the head's top-K
-// (K7) and the beam's select.
+// The decode kernel that runs as a launch of its own: the beam's select.
 //
-// They serve stjep_tpu/ops/decode_flash.py `decode_head` /
-// `decode_head_gather` (K7, body `_head_kernel` -> `_head_topk`: layernorm
-// and GEMM in gemm.cu, then head_topk here) and the general beam loop's
-// select (`beam_select`, the k^2 -> k update of `_beam_step_kernel`). K3
+// It serves the general beam loop's select (`beam_select`, the k^2 -> k
+// update of stjep_tpu/ops/decode_flash.py `_beam_step_kernel`). K3
 // (`decode_chain_step_flash`), K4 (`decode_beam_step_flash`), K5
 // (`decoder_layer_step_flash`), the tensor-parallel trio K6a-c and the
-// tensor-parallel head K7c (`decode_head_partial`) are one cooperative
-// launch each in decode_fused.cu and decode_chain.cu, which run the
-// attention bodies (attend.cuh) and the same head top-K and select
-// (head_select.cuh) as phases of their persistent grids.
+// decode heads K7a/K7b (`decode_head`, `decode_head_gather`) and K7c
+// (`decode_head_partial`) are one cooperative launch each in
+// decode_fused.cu and decode_chain.cu, which run the attention bodies
+// (attend.cuh), the head top-K and the same select (head_select.cuh) as
+// phases of their persistent grids.
 
 #include "head_select.cuh"
 
 namespace {
-
-__global__ void head_topk_kernel(const float* __restrict__ logits,
-                                 const int* __restrict__ gid,
-                                 float* __restrict__ sc, int* __restrict__ ids,
-                                 float* __restrict__ glp, int V, int K) {
-  head_topk_row(logits, gid, sc, ids, glp, nullptr, nullptr, V, K, blockIdx.x);
-}
 
 __global__ void beam_select_kernel(
     const float* __restrict__ sc_k, const int* __restrict__ id_k,
@@ -39,16 +30,6 @@ __global__ void beam_select_kernel(
 }
 
 }  // namespace
-
-// gid and glp may be null (no gather).
-extern "C" int head_topk(const float* logits, const int* gid, float* sc,
-                         int* ids, float* glp, int BK, int V, int K,
-                         cudaStream_t stream) {
-  if (K < 1 || K > MAX_BEAM || K > V) return (int)cudaErrorInvalidValue;
-  head_topk_kernel<<<BK, V >= 4096 ? 1024 : 256, 0, stream>>>(
-      logits, gid, sc, ids, glp, V, K);
-  STJEP_RETURN_LAUNCH_STATUS();
-}
 
 extern "C" int beam_select(const float* sc_k, const int* id_k,
                            const float* scores, const int* eos,

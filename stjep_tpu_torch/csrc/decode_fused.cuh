@@ -434,7 +434,7 @@ __device__ void product_phase(const Phase& p, int M, char* smem) {
 // S = 0; bias where given; res always with ALWAYS_RES, else where given:
 // K5 and K4 always add it, and a test of res in this loop slowed K5 by ~4
 // %), stored to xout where given; then LayerNorm(x) (g, b, eps) to XN
-// where g is given, as csrc/gemm.cu layernorm_kernel computes it. A thread
+// where g is given, as ops/transformer.py layer_norm computes it. A thread
 // keeps its columns of x in registers (D <= ROW_COLS * THREADS).
 constexpr int ROW_COLS = 4;
 template <bool ALWAYS_RES = true>

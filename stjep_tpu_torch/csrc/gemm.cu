@@ -1,17 +1,14 @@
-// Tiled f32 GEMM and row LayerNorm: the shared building blocks of the
-// decode and LAS kernels.
+// Tiled f32 GEMM: the BiLSTM sweeps' input projections (K1,
+// ops/lstm_pallas.py `input_projections`).
 //
-// Replaces the in-body matrix products of the Pallas kernels
-// (stjep_tpu/ops/las_flash.py `_kernel`, stjep_tpu/ops/decode_flash.py
-// `_self_core`/`_cross_core`/`_ffn_core`/`_head_topk`, and the input
-// projection of stjep_tpu/ops/lstm_pallas.py `_bilstm_kernel`), which the
-// TPU ran on its MXU inside each kernel.
+// Replaces the input projection of stjep_tpu/ops/lstm_pallas.py
+// `_bilstm_kernel`, which the TPU ran on its MXU inside the kernel. The
+// decode kernels' products are phases of their fused launches
+// (decode_fused.cuh).
 //
-// What bounds it on the H100: at decode shapes (M = B*K = 80 rows, K = 512)
-// every weight is read once per launch, so the products are bound by the
-// weight bytes and by launch latency, not by FLOPs; the large ones (the
-// 512 x 30000 LAS head, the pyramid's input projections) by f32 CUDA-core
-// throughput (67 TFLOP/s peak), since this kernel uses no tensor cores.
+// What bounds it on the H100: the pyramid's input projections are large
+// products, bound by f32 CUDA-core throughput (67 TFLOP/s peak), since this
+// kernel uses no tensor cores.
 // Design: a plain shared-memory tiled SGEMM, 64 columns per block and
 // 16 or 64 rows (TM = 1 or 4 rows per thread) so a 16-row product does not
 // compute 48 wasted rows, with the next K tile prefetched into registers.
@@ -149,28 +146,6 @@ __global__ void splitk_reduce_kernel(const float* __restrict__ ws,
   C[(size_t)r * ldc + c] = v;
 }
 
-// y = (x - mean) / sqrt(var + eps) * scale + bias, one block per row.
-__global__ void layernorm_kernel(const float* __restrict__ X,
-                                 const float* __restrict__ g,
-                                 const float* __restrict__ b,
-                                 float* __restrict__ Y, int N, float eps) {
-  __shared__ float red[32];
-  const float* x = X + (size_t)blockIdx.x * N;
-  float* y = Y + (size_t)blockIdx.x * N;
-  float s = 0.f;
-  for (int c = threadIdx.x; c < N; c += blockDim.x) s += x[c];
-  const float mean = block_sum(s, red) / (float)N;
-  float v = 0.f;
-  for (int c = threadIdx.x; c < N; c += blockDim.x) {
-    const float d = x[c] - mean;
-    v += d * d;
-  }
-  const float var = block_sum(v, red) / (float)N;
-  const float inv = 1.f / sqrtf(var + eps);
-  for (int c = threadIdx.x; c < N; c += blockDim.x)
-    y[c] = (x[c] - mean) * inv * g[c] + b[c];
-}
-
 template <typename Weight>
 int gemm_launch(const float* A, Weight B, const float* bias, const float* R,
                 float* C, float* ws, int M, int N, int K, int lda, int ldb,
@@ -204,11 +179,4 @@ extern "C" int gemm_f32(const float* A, const float* B, const float* bias,
                         int splits, cudaStream_t stream) {
   return gemm_launch(A, F32Weight{B}, bias, R, C, ws, M, N, K, lda, ldb, ldc,
                      ldr, relu, splits, stream);
-}
-
-extern "C" int layernorm_f32(const float* X, const float* g, const float* b,
-                             float* Y, int M, int N, float eps,
-                             cudaStream_t stream) {
-  layernorm_kernel<<<M, 256, 0, stream>>>(X, g, b, Y, N, eps);
-  STJEP_RETURN_LAUNCH_STATUS();
 }

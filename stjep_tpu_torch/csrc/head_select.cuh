@@ -1,8 +1,9 @@
 // The decode head's top-K over one logit row, and the beam's k^2 -> k
 // select for one batch item: device functions that take the whole block,
-// shared by decode.cu's kernels (`head_topk`, `beam_select`: one row or
-// item per block) and the fused kernels of decode_fused.cu (K4) and
-// decode_chain.cu (K3, K7c): a block walks over rows or batch items.
+// shared by decode.cu's `beam_select` (one item per block) and the fused
+// kernels of decode_fused.cu (K4) and decode_chain.cu (K3, K7c): a block
+// walks over rows or batch items. K7a/K7b (decode_chain.cu `head_fused`)
+// take their top-K by column slices of their own, in registers.
 #pragma once
 
 #include "common.cuh"
@@ -11,10 +12,10 @@ namespace {
 
 constexpr int MAX_BEAM = 16;
 
-// K7, the decode head after its layernorm and GEMM (`_head_topk`, and the
-// gather of `_head_kernel`): one row per block. The logit row is read from
-// global memory, where L2 holds it (120 KB at a 30 000-word vocabulary), so
-// V has no bound. One pass gives the log-sum-exp (each thread keeps an
+// The head's top-K after its LayerNorm and product phases (`_head_topk`,
+// and the gather of `_head_kernel`; K3 and K4): one row per block. The
+// logit row is read from global memory, where L2 holds it, so V has no
+// bound. One pass gives the log-sum-exp (each thread keeps an
 // online max and a sum rescaled to it; the block combines them) and picks up
 // logit[gid] for glp = logit[gid] - lse (0 - lse for an id outside [0, V),
 // as the TPU kernel's masked sum gives). Then K arg-max passes with the

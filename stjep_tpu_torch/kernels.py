@@ -35,13 +35,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # also takes the stream last (c_void_p) and returns a cudaError_t.
 _SIGS = {
     "gemm_f32": "pppppp" + "iiiiiiiii",
-    "layernorm_f32": "pppp" + "ii" + "f",
     "bilstm_recurrent": "pppppp" + "iii" + "ii",
     "bilstm_fwd_save": "pppppp" + "ppp" + "iii" + "ii",
     "bilstm_bwd_recurrent": "ppppppp" + "iii" + "ii",
     "bilstm_fwd_plan": "iiii" + "p",
     "bilstm_bwd_plan": "iiii" + "p",
-    "head_topk": "ppppp" + "iii",
     "beam_select": "pppppppp" + "pppppppp" + "iiii" + "f",
     "decoder_layer_fused": "p" + "ii" + "p" * 11 + "i" * 11,
     "decode_beam_fused": "p" + "ii" + "p" * 27 + "i" * 14 + "f",
@@ -50,9 +48,11 @@ _SIGS = {
     "cross_attn_step_fused": "p" * 11 + "i" * 11,
     "ffn_step_fused": "p" * 10 + "i" * 7,
     "head_partial_fused": "p" * 12 + "i" * 7,
+    "head_fused": "p" * 10 + "i" * 7,
     "decode_fused_grid": "iiii" + "p",
     "decode_fused_stamps": "p",
     "decode_chain_grid": "iiii" + "p",
+    "decode_chain_stamps": "p",
     "las_greedy_fused": "p" * 16 + "i" * 14,
     "las_tf_fwd_fused": "p" * 21 + "i" * 11,
     "las_tf_bwd_fused": "p" * 18 + "i" * 11,
@@ -205,14 +205,3 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None,
 
 
 gemm.launches = 0
-
-
-def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-              eps: float) -> torch.Tensor:
-    """Row LayerNorm of a contiguous [M, N] f32 matrix."""
-    check(x, name="x")
-    M, N = x.shape
-    y = torch.empty_like(x)
-    launch("layernorm_f32", x, check(scale, name="scale"),
-           check(bias, name="bias"), y, M, N, float(eps))
-    return y

@@ -14,13 +14,13 @@ shard of it (raw top-K logits, row max and sum-exp). K3 runs one position
 through every layer and the head. K4 is the whole beam while-body: embed +
 time signal, the layers, the head, and the k^2 -> k select with its
 back-copies; `beam_select` is that select alone, for the general beam
-loop. On the card K3, K4, K5, K6a-c and K7c are one cooperative launch
-each (`csrc/decode_fused.cu`, and `csrc/decode_chain.cu` for K3 and K7c,
-on the phases of `csrc/decode_fused.cuh`; from the shapes alone,
+loop. On the card K3, K4, K5, K6a-c, K7 and K7c are one cooperative
+launch each (`csrc/decode_fused.cu`, and `csrc/decode_chain.cu` for K3, K7
+and K7c, on the phases of `csrc/decode_fused.cuh`; from the shapes alone,
 `fused_tiles` gives the tile table they walk and `fused_plan` their
-phases, barriers, shared memory and workspace); K7 and the select alone
-are `csrc/decode.cu`'s kernels; the tensor-parallel layer step and head
-are in `ops/decode_flash_tp.py`.
+phases, barriers, shared memory and workspace); the select alone is
+`csrc/decode.cu`'s kernel; the tensor-parallel layer step and head are in
+`ops/decode_flash_tp.py`.
 
 Layouts are the JAX kernels': self caches [K, B, Lpad, D] per layer
 ([nl, K, B, Lpad, D] stacked for K3/K4), never reordered, read through the
@@ -279,9 +279,16 @@ FUSED_THREADS = 256
 # blocks of a fused K5, K4 or K3 launch; 0 launches every block the card keeps
 # resident; the card tests set it to hold the outputs independent of the grid
 FUSED_GRID = 0
-# blocks of a fused shard step's launch (K6a-c, K7c); None launches the plan's
-# `blocks`; any count is cut to the blocks the card keeps resident
+# blocks of a fused shard step's or head's launch (K6a-c, K7c, K7); None
+# launches the plan's `blocks`; any count is cut to the blocks the card keeps
+# resident
 STEP_GRID: Optional[int] = None
+# K7's top-K takes a row in column slices of HEAD_SLICE ids (256 threads x 8
+# registers); a slice's record for the merge is HEAD_CAND floats: 16
+# (head_select.cuh MAX_BEAM) raw logits and ids, its max and sum-exp
+# (decode_chain.cu SLICE, CAND)
+HEAD_SLICE = 2048
+HEAD_CAND = 2 * 16 + 2
 # the product kinds of the tile table, in decode_fused.cuh's order (P_QKV ..)
 FUSED_PRODUCTS = ("qkv", "fc", "cq", "co", "w1", "w2", "head")
 
@@ -296,9 +303,9 @@ def gemm_tiles(M: int, N: int, Kd: int):
 
 
 # the product kinds of the shard steps: K6a (self), K6b (cross), K6c (ffn),
-# K7c (head)
+# K7c (head); and of the whole vocabulary's head, K7 (full_head)
 STEP_PRODUCTS = {"self": ("qkv", "fc"), "cross": ("cq", "co"), "ffn": ("w1", "w2"),
-                 "head": ("head",)}
+                 "head": ("head",), "full_head": ("head",)}
 
 
 def _products(BK: int, D: int, FF: int, V: int = 0, Dq: Optional[int] = None,
@@ -306,7 +313,7 @@ def _products(BK: int, D: int, FF: int, V: int = 0, Dq: Optional[int] = None,
     """{kind: [(M, N, Kd) per job]}, the jobs in decode_fused.cuh
     `layer_jobs` order (q, k, v for qkv) at attention width Dq (D when
     None) and hidden width FF; the head only with V; a shard step's kinds
-    only with step ("self", "cross", "ffn" or "head")."""
+    only with step ("self", "cross", "ffn", "head" or "full_head")."""
     Dq = D if Dq is None else Dq
     out = {"qkv": [(BK, Dq, D)] * 3, "fc": [(BK, D, Dq)], "cq": [(BK, Dq, D)],
            "co": [(BK, D, Dq)], "w1": [(BK, FF, D)], "w2": [(BK, D, FF)]}
@@ -371,9 +378,10 @@ def fused_plan(BK: int, D: int, FF: int, n_head: int, Lpad: int, Lk: int,
     workspace); the kernels walk `fused_tiles` of the same shapes. With
     step, a shard step's launch instead (`_step_plan`; Lpad the self
     cache's rows for K6a, Lk the memory's for K6b, V the vocabulary shard's
-    ids for K7c; smem_max the dynamic shared bytes a block of K6a or K6b
-    may opt in to, `step_smem_max` on the card). Cached: the wrappers ask
-    it at every launch; treat the result as read-only."""
+    ids for K7c, or the vocabulary's for K7 with step="full_head"; smem_max
+    the dynamic shared bytes a block of K6a or K6b may opt in to,
+    `step_smem_max` on the card). Cached: the wrappers ask it at every
+    launch; treat the result as read-only."""
     if step:
         return _step_plan(step, BK, D, FF, n_head, Lk if step == "cross" else Lpad, K,
                           D if Dq is None else Dq, smem_max, V)
@@ -407,21 +415,30 @@ def _step_plan(step: str, BK: int, D: int, FF: int, n_head: int, L: int, K: int,
     L = Lk memory rows): row, cq, cross, co, row. K6c ("ffn": the hidden
     width FF; Dq, n_head, L unused): row, w1, w2, row. K7c ("head": the
     vocabulary shard's V ids; FF, Dq, n_head, L, K unused): row, head,
-    topk. Also `att_warps`, the warps a block runs attention items on (as
-    many of 8 as smem_max bytes stage), and `blocks`, the blocks the launch
-    asks for: as many as its largest phase has items (an attention phase's
-    in att_warps items a block)."""
-    if step in ("ffn", "head"):
+    topk. K7 ("full_head": the vocabulary's V ids, the same unused): row,
+    head, then `slices` = ceil(V / HEAD_SLICE) items a row of the top-K by
+    column slices ("slice"), and above one slice a row the merge of each
+    row's slices ("merge"). Also `att_warps`, the warps a block runs
+    attention items on (as many of 8 as smem_max bytes stage), and
+    `blocks`, the blocks the launch asks for: as many as its largest phase
+    has items (an attention phase's in att_warps items a block)."""
+    head = step in ("head", "full_head")
+    if step == "ffn" or head:
         Dq, n_head, L, K = 0, 1, 0, 1
     if step != "ffn":
         FF = 0
-    if step != "head":
+    if not head:
         V = 0
     products = _products(BK, D, FF, V, Dq, step)
     tiles = {k: sum(len(gemm_tiles(*job)) for job in jobs) for k, jobs in products.items()}
-    smem, aw = _prod_smem(4), 0
+    smem, aw, extra = _prod_smem(4), 0, {}
     if step == "head":
         phases = [("row", BK), ("head", tiles["head"]), ("topk", BK)]
+    elif step == "full_head":
+        n_slices = -(-V // HEAD_SLICE)
+        phases = [("row", BK), ("head", tiles["head"]), ("slice", BK * n_slices)]
+        phases += [("merge", BK)] if n_slices > 1 else []
+        extra = dict(slices=n_slices)
     else:
         first, second = STEP_PRODUCTS[step]
         phases = [("row", BK), (first, tiles[first])]
@@ -437,29 +454,31 @@ def _step_plan(step: str, BK: int, D: int, FF: int, n_head: int, L: int, K: int,
             raise ValueError(f"{step}_attn_step: {L} {rows} at head width {Dq // n_head} "
                              f"stage past {smem_max} bytes a block")
         phases.append((step, BK * n_head))
-    if step != "head":
+    if not head:
         phases += [(second, tiles[second]), ("row", BK)]
     blocks = max(-(-n // aw) if kind in ("self", "cross") else n for kind, n in phases)
     return dict(products=products, phases=phases, barriers=len(phases) - 1, smem=smem,
-                ws_floats=_ws_floats(BK, K, D, Dq, FF, V), att_warps=aw, blocks=blocks)
+                ws_floats=_ws_floats(BK, K, D, Dq, FF, V), att_warps=aw, blocks=blocks,
+                **extra)
 
 
 # decode_fused.cu `decode_fused_grid` kinds; decode_chain.cu
-# `decode_chain_grid` answers for K3 (kind 0) and K7c (kind 1)
+# `decode_chain_grid` answers for K3 (kind 0), K7c (1) and K7 (2)
 _GRID_KIND = {None: 0, "self": 2, "ffn": 3, "cross": 4}
+_CHAIN_GRID_KIND = {"head": 1, "full_head": 2}
 
 
 def fused_grid(quant: bool, bf16: bool, beam: bool, smem: int,
                step: Optional[str] = None, chain: bool = False) -> Dict[str, int]:
     """The card's answer for a fused launch (K5, K4 with beam, K3 with
-    chain, or the shard step `step`, K7c's "head" among them) at smem
-    bytes: blocks an SM keeps resident and the SM count (their product is
-    the most blocks a launch may have), and the dynamic shared bytes a
-    block of that kernel may opt in to."""
+    chain, or the shard step `step`, K7c's "head" and K7's "full_head"
+    among them) at smem bytes: blocks an SM keeps resident and the SM
+    count (their product is the most blocks a launch may have), and the
+    dynamic shared bytes a block of that kernel may opt in to."""
     out = (ctypes.c_int * 3)()
-    if chain or step == "head":
-        kernels.launch("decode_chain_grid", int(quant), int(bf16), int(step == "head"), smem,
-                       ctypes.addressof(out))
+    if chain or step in _CHAIN_GRID_KIND:
+        kernels.launch("decode_chain_grid", int(quant), int(bf16),
+                       _CHAIN_GRID_KIND.get(step, 0), smem, ctypes.addressof(out))
     else:
         kernels.launch("decode_fused_grid", int(quant), int(bf16),
                        1 if beam and not step else _GRID_KIND[step], smem,
@@ -805,23 +824,40 @@ def _head_plain(norm_params, out_params, x, topk, gather_ids=None):
     return sc, ids.to(torch.int32), logp.gather(1, gather_ids.long()[:, None])[:, 0]
 
 
+def _head_args(name, norm_params, out_params, x, topk, gather_ids):
+    """K7's and K7c's checks and outputs: (x, w, D, V, sc [BK, topk], ids
+    [BK, topk] int32, gid [BK] int32 or None)."""
+    x = kernels.check(x.contiguous(), torch.float32, "x")
+    BK, D = x.shape
+    w = kernels.check(out_params["w"], torch.float32, "out_params w")
+    V = w.shape[1]
+    if w.shape[0] != D:
+        raise ValueError(f"{name}: out_params w is {tuple(w.shape)}, x is {tuple(x.shape)}")
+    for nm in ("scale", "bias"):
+        if kernels.check(norm_params[nm], torch.float32, f"norm {nm}").numel() != D:
+            raise ValueError(f"norm {nm} has {norm_params[nm].numel()} entries, not {D}")
+    sc = torch.empty((BK, topk), device=x.device, dtype=torch.float32)
+    ids = torch.empty((BK, topk), device=x.device, dtype=torch.int32)
+    gid = None if gather_ids is None else kernels.check(
+        gather_ids.to(torch.int32).contiguous(), torch.int32, "gather_ids")
+    return x, w, D, V, sc, ids, gid
+
+
 def _head_cuda(norm_params, out_params, x, topk, gather_ids=None):
-    """K7's launch sequence: layernorm (eps 1e-5), the GEMM, head_topk."""
-    logits = kernels.gemm(
-        kernels.layernorm(x, norm_params["scale"], norm_params["bias"], 1e-5),
-        out_params["w"])
-    BK, V = logits.shape
-    dev = x.device
-    sc = torch.empty((BK, topk), device=dev, dtype=torch.float32)
-    ids = torch.empty((BK, topk), device=dev, dtype=torch.int32)
-    if gather_ids is None:
-        kernels.launch("head_topk", logits, None, sc, ids, None, BK, V, topk)
-        return sc, ids
-    gid = kernels.check(gather_ids.to(torch.int32).contiguous(), torch.int32,
-                        "gather_ids")
-    glp = torch.empty((BK,), device=dev, dtype=torch.float32)
-    kernels.launch("head_topk", logits, gid, sc, ids, glp, BK, V, topk)
-    return sc, ids, glp
+    """K7 on the card: one cooperative launch of decode_chain.cu
+    `head_fused` (LayerNorm, the head's product, the top-K by column
+    slices) of as many blocks as its largest phase has items (STEP_GRID
+    overrides it)."""
+    x, w, D, V, sc, ids, gid = _head_args("decode_head", norm_params, out_params, x, topk,
+                                          gather_ids)
+    BK = x.shape[0]
+    plan = fused_plan(BK, D, 0, 1, 0, 0, V=V, step="full_head")
+    glp = None if gid is None else torch.empty((BK,), device=x.device, dtype=torch.float32)
+    ws = torch.empty((plan["ws_floats"],), device=x.device, dtype=torch.float32)
+    kernels.launch("head_fused", norm_params["scale"], norm_params["bias"], w, x, gid, sc,
+                   ids, glp, ws, _tiles_on(x.device, BK, D, 0, V, None, "full_head"),
+                   plan["ws_floats"], BK, D, V, topk, plan["smem"], _step_grid(plan))
+    return (sc, ids) if gid is None else (sc, ids, glp)
 
 
 def decode_head_plain(norm_params: Dict, out_params: Dict, x, topk: int):
@@ -840,12 +876,12 @@ def decode_head(norm_params: Dict, out_params: Dict, x, topk: int):
     """K7: final LayerNorm (eps 1e-5) -> x @ out_params["w"] -> log-softmax
     -> top-K for x [BK, D], the decoder output before its final norm.
     Returns (scores [BK, topk], ids [BK, topk] int32), ties to the lowest
-    id."""
+    id. On the card one cooperative launch (`head_fused`, `launches`)."""
     if not x.is_cuda:
         return decode_head_plain(norm_params, out_params, x, topk)
     kernels.refuse_grad("decode_head", TRAINABLE, x, *norm_params.values(),
                         *out_params.values())
-    out = _head_cuda(norm_params, out_params, x.contiguous(), topk)
+    out = _head_cuda(norm_params, out_params, x, topk)
     decode_head.launches += 1
     return out
 
@@ -862,7 +898,7 @@ def decode_head_gather(norm_params: Dict, out_params: Dict, x, topk: int,
                                         gather_ids)
     kernels.refuse_grad("decode_head_gather", TRAINABLE, x,
                         *norm_params.values(), *out_params.values())
-    out = _head_cuda(norm_params, out_params, x.contiguous(), topk, gather_ids)
+    out = _head_cuda(norm_params, out_params, x, topk, gather_ids)
     decode_head_gather.launches += 1
     return out
 
@@ -905,26 +941,13 @@ def decode_head_partial(norm_params: Dict, out_params: Dict, x, topk: int,
                                          gather_ids)
     kernels.refuse_grad("decode_head_partial", TRAINABLE, x,
                         *norm_params.values(), *out_params.values())
-    x = kernels.check(x.contiguous(), torch.float32, "x")
-    BK, D = x.shape
-    w = kernels.check(out_params["w"], torch.float32, "out_params w")
-    V = w.shape[1]
-    if w.shape[0] != D:
-        raise ValueError(f"decode_head_partial: out_params w is {tuple(w.shape)}, x is "
-                         f"{tuple(x.shape)}")
-    for nm in ("scale", "bias"):
-        if kernels.check(norm_params[nm], torch.float32, f"norm {nm}").numel() != D:
-            raise ValueError(f"norm {nm} has {norm_params[nm].numel()} entries, not {D}")
+    x, w, D, V, sc, ids, gid = _head_args("decode_head_partial", norm_params, out_params, x,
+                                          topk, gather_ids)
+    BK = x.shape[0]
     plan = fused_plan(BK, D, 0, 1, 0, 0, V=V, step="head")
     f32 = dict(device=x.device, dtype=torch.float32)
-    sc, mx, se = (torch.empty((BK, topk), **f32), torch.empty((BK,), **f32),
-                  torch.empty((BK,), **f32))
-    ids = torch.empty((BK, topk), device=x.device, dtype=torch.int32)
-    gid = glog = None
-    if gather_ids is not None:
-        gid = kernels.check(gather_ids.to(torch.int32).contiguous(), torch.int32,
-                            "gather_ids")
-        glog = torch.empty((BK,), **f32)
+    mx, se = torch.empty((BK,), **f32), torch.empty((BK,), **f32)
+    glog = None if gid is None else torch.empty((BK,), **f32)
     ws = torch.empty((plan["ws_floats"],), **f32)
     kernels.launch("head_partial_fused", norm_params["scale"], norm_params["bias"], w, x, gid,
                    sc, ids, mx, se, glog, ws, _tiles_on(x.device, BK, D, 0, V, None, "head"),

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""K3 and K7c of one checkout, and the decode paths that run them, timed for A/B runs on one GPU.
+"""K3, K7 and K7c of one checkout, and the decode paths that run them, timed for A/B runs on one GPU.
 
     python3 stjep_tpu_torch/scripts/chain_head_ab.py [--root DIR] [--label LABEL] [--seed 0]
+        [--only LABEL[,LABEL]]
 
 Imports chip_smoke.py and stjep_tpu_torch from --root (this checkout by
 default; for a parent commit, a checkout of it unpacked from `git
@@ -11,7 +12,10 @@ chip_smoke.py's flagship, f32 weights random from the seed:
   and caches and with int8 weights and bf16 caches; K3's gather variant at
   BK = 16, position 75 (greedy dev eval's shapes, top-1); K7c
   (decode_head_partial) at BK = 80 on a vocabulary shard of 4 (V/n = 50),
-  without and with gather ids. For each: the median ms of one call between
+  without and with gather ids; K7 (decode_head) at the universal beam's
+  BK = 80, top-5, and its gather variant (decode_head_gather) at universal
+  dev eval's BK = 16, top-1, each at the model's V = 200 and at a word-level
+  V = 30 000. For each: the median ms of one call between
   CUDA events (host included, chip_smoke.py's cuda_ms), the device
   operations of one call and their summed device us (torch.profiler, an
   empty profile taken again: chip_smoke.py's device_ops), and 200 calls
@@ -27,8 +31,10 @@ chip_smoke.py's flagship, f32 weights random from the seed:
   requests) and TP dev eval (3 calls) on meshes (1, 2) and (1, 4) of the
   card, each with its rows whose tokens equal the single-device card
   route's on the same inputs.
-Prints one JSON line `ab {...}` with the label, the nvidia-smi line and the
-numbers. To compare two trees, run them in one call on one card in turns:
+With --only, just the kernel calls whose label starts with one of the
+comma-separated parts (`--only K7`: the four K7 calls), and no K4/K5 or
+end-to-end timing. Prints one JSON line `ab {...}` with the label, the
+nvidia-smi line and the numbers. To compare two trees, run them in one call on one card in turns:
 parent, change, change, parent.
 """
 
@@ -58,9 +64,10 @@ def _sibling(name: str):
 
 
 def kernel_calls(cs, params, cfg, rng):
-    """{label: fn} of K3 (f32, int8+bf16, gather) and K7c (with and
-    without gather ids) at chip_smoke.py's shapes, as its phases call
-    them."""
+    """{label: fn} of K3 (f32, int8+bf16, gather), K7c (with and without
+    gather ids) and K7 (decode_head at BK = 80, top-5; decode_head_gather at
+    BK = 16, top-1; V = 200 and 30 000) at chip_smoke.py's shapes, as its
+    phases and the universal paths call them."""
     from stjep_tpu_torch.config import BOS
     from stjep_tpu_torch.models.seq2seq import _embed_tgt_token
     from stjep_tpu_torch.ops import decode_flash as df
@@ -92,6 +99,11 @@ def kernel_calls(cs, params, cfg, rng):
     gh = torch.from_numpy(rng.randint(-v, 2 * v, BK).astype(np.int32)).cuda()
     calls["K7c"] = lambda: df.decode_head_partial(norm, out0, xh, K)
     calls["K7c gather"] = lambda: df.decode_head_partial(norm, out0, xh, K, gh)
+    big = {"w": torch.from_numpy((rng.randn(D, 30000) / np.sqrt(D)).astype(np.float32)).cuda()}
+    for V, out in ((cfg.dec_vocab_size, out_w), (30000, big)):
+        g16 = torch.from_numpy(rng.randint(0, V, cs.B).astype(np.int32)).cuda()
+        calls[f"K7a V={V}"] = lambda out=out: df.decode_head(norm, out, xh, K)
+        calls[f"K7b V={V}"] = lambda out=out, g=g16: df.decode_head_gather(norm, out, x, 1, g)
     return calls
 
 
@@ -166,7 +178,9 @@ def main() -> int:
     ap.add_argument("--root", default=str(HERE.parents[1]))
     ap.add_argument("--label", default="")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", default="")
     args = ap.parse_args()
+    only = tuple(p for p in args.only.split(",") if p)
     if not torch.cuda.is_available():
         print("chain_head_ab: needs a CUDA device", file=sys.stderr)
         return 2
@@ -188,13 +202,16 @@ def main() -> int:
     rng = np.random.RandomState(args.seed)
     out = {"label": args.label, "root": args.root, "nvidia_smi": smi}
     for name, fn in kernel_calls(cs, params, cfg, rng).items():
+        if only and not name.startswith(only):
+            continue
         ms = cs.cuda_ms(fn, 20)  # warms fn up for the profile
         n_ops, names, us = cs.device_ops(fn, with_us=True)
         out[name] = {"ms": round(ms, 4), "device_ops": n_ops, "device_us": round(us, 2),
                      "kernels": names, "host_us, stream_us": tp_ab.back_to_back(fn)}
-    for name, fn in tp_ab.layer_calls(cs, params, cfg, rng).items():
-        out[name] = {"host_us, stream_us": tp_ab.back_to_back(fn)}
-    out.update(end_to_end(cs, cfg, args.seed, rng))
+    if not only:
+        for name, fn in tp_ab.layer_calls(cs, params, cfg, rng).items():
+            out[name] = {"host_us, stream_us": tp_ab.back_to_back(fn)}
+        out.update(end_to_end(cs, cfg, args.seed, rng))
     print("ab " + json.dumps(out), flush=True)
     return 0
 

@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""Where a launch of the fused K5, K4, K2 and K9 goes, phase by phase, on one GPU.
+"""Where a launch of the fused K5, K4, K2, K9 and K7 goes, phase by phase, on one GPU.
 
-    python3 stjep_tpu_torch/scripts/fused_phase_split.py [--seed 0] [--reps 20] [--only decode,las]
+    python3 stjep_tpu_torch/scripts/fused_phase_split.py [--seed 0] [--reps 20] [--only decode,las,head]
 
 At chip_smoke.py's flagship shapes: K5 and K4 at B=16, beam 5, position 75
 of 160 cache rows, 96 memory rows, f32 on the full grid and on one block per
 SM (132), and int8 weights with bf16 caches; K2 over 89 steps at B=16, 188
 keys and 30 000 ids, and K9's forward and backward over 89 steps, each on
-the full grid. The script builds the kernel library with
+the full grid; with --only head, K7 (decode_head at BK = 80, top-5, and
+decode_head_gather at BK = 16, top-1, at V = 200 and 30 000; K7's phases
+row, head, slice and past 2048 ids merge). The script builds the kernel library with
 -DSTJEP_FUSED_STAMPS (a library of its own; the default build has no timer
 reads), and each launch then records the global timer at its start and
 after every grid barrier (csrc/decode_fused.cu `stamp`,
-`decode_fused_stamps`; csrc/las_fused.cu `las_fused_stamps`, whose launches
+`decode_fused_stamps`; csrc/decode_chain.cu `decode_chain_stamps`;
+csrc/las_fused.cu `las_fused_stamps`, whose launches
 first pass 4 barriers that guard no work: `bare` below, a barrier's own
 cost). Prints, per launch kind, the grid and the launch's time from CUDA
 events, and the median microseconds of each phase kind summed over the
@@ -115,6 +118,22 @@ def split(label, fn, plan, reps, entry="decode_fused_stamps", bare=0, steps=0):
            barriers=n, us_by_phase=med, **extra)
 
 
+def split_head(args, params, cfg, rng):
+    """K7 at the universal paths' shapes and at a word-level vocabulary."""
+    from stjep_tpu_torch.ops import decode_flash as df
+
+    D, norm = cfg.dim_model, params["dec_tgt"]["norm"]
+    big = {"w": torch.from_numpy((rng.randn(D, 30000) / np.sqrt(D)).astype(np.float32)).cuda()}
+    for V, out in ((cfg.dec_vocab_size, params["out_tgt"]), (30000, big)):
+        for BK, topk in ((cs.B * cs.BEAM, cs.BEAM), (cs.B, 1)):
+            x = torch.from_numpy(rng.randn(BK, D).astype(np.float32)).cuda()
+            gid = torch.from_numpy(rng.randint(0, V, BK).astype(np.int32)).cuda()
+            plan = df.fused_plan(BK, D, 0, 1, 0, 0, V=V, step="full_head")
+            fn = ((lambda: df.decode_head(norm, out, x, topk)) if topk > 1 else
+                  (lambda: df.decode_head_gather(norm, out, x, topk, gid)))
+            split(f"K7 V={V} BK={BK}", fn, plan, args.reps, entry="decode_chain_stamps")
+
+
 def split_las(args, params, cfg, rng):
     """K2 and K9 at chip_smoke.py's flagship shapes, on the full grid."""
     from stjep_tpu_torch.config import BOS
@@ -160,7 +179,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--only", default="decode,las", help="decode (K5, K4), las (K2, K9)")
+    ap.add_argument("--only", default="decode,las",
+                    help="decode (K5, K4), las (K2, K9), head (K7)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("fused_phase_split: needs a CUDA device", file=sys.stderr)
@@ -184,6 +204,8 @@ def main() -> int:
     tsig = position_signal(500, cfg.dim_model, "cuda")[0].contiguous()
     if "las" in args.only:
         split_las(args, params, cfg, rng)
+    if "head" in args.only:
+        split_head(args, params, cfg, rng)
     variants = ((False, False, 0), (False, False, 132), (True, True, 0))
     for quant, bf16, grid_blocks in variants if "decode" in args.only else ():
         df.FUSED_GRID = grid_blocks

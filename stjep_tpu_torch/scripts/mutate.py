@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Mutation check of the kernels on one GPU: the decode kernels (the fused
-K4, K5 and K6a-c in csrc/decode_fused.cu, K3 and K7c in
+K4, K5 and K6a-c in csrc/decode_fused.cu, K3, K7 and K7c in
 csrc/decode_chain.cu, their shared phases in csrc/decode_fused.cuh, the
 attention, head and select bodies in csrc/attend.cuh and
 csrc/head_select.cuh), the BiLSTM cluster sweeps (csrc/bilstm.cu,
@@ -18,7 +18,9 @@ counts as caught; a mutation may name its own card tests, as the shard
 steps' do). The unchanged copy must pass and every mutant should fail.
 With --only, just the mutations whose source file name or description
 contains one of TEXT's comma-separated parts (`--only K6`: the shard
-steps' five; `--only K3,K7c`: the fused chain's and shard head's six).
+steps' five; `--only K3,K7c`: the fused chain's and shard head's six;
+`--only LN`: the four that read a wrong LayerNorm in K4 or K5;
+`--only K7 `: the whole-vocabulary head's six).
 Prints one line per run; exits non-zero if the unchanged copy fails or a
 mutant passes.
 """
@@ -39,13 +41,15 @@ SELECT_BILSTM = "bilstm"
 SELECT_LAS = "las"
 SELECT_TP = "tp_step or tp_steps or tp_attention or tp_trio"
 SELECT_CHAIN = "chain or head_partial"
+SELECT_LN = "layer_step or beam_step or chain_step"
+SELECT_K7 = "head_kernels or head_bit or refuse_what or general_beam or forward_eval"
 TIMEOUT_S = 900
 
 # (what it breaks, the source in csrc/, the line as it is, the line as the
 # mutant has it; a tuple of lines for a change of several; optionally the
 # card tests to run, a -k expression)
 MUTATIONS = [
-    ("tie order in head_topk's row scan", "head_select.cuh",
+    ("tie order in head_topk_row's scan", "head_select.cuh",
      "      if (!better(v, c, bv, bi)) continue;",
      "      if (!(v >= bv)) continue;"),
     ("glp without the log-sum-exp", "head_select.cuh",
@@ -162,12 +166,58 @@ MUTATIONS = [
      "      c.LG[(size_t)r * V + v] = psum(c.PA, SD, c.BK, V, r, v);",
      "      c.LG[(size_t)r * V + v] = psum(c.PA, SD - 1, c.BK, V, r, v);", SELECT_CHAIN),
     ("K7c's LayerNorm scaled by its bias", "decode_chain.cu",
-     "  row_phase(c, nullptr, 0, nullptr, a.x, nullptr, a.norm_g, a.norm_b, 1e-5f, red);",
-     "  row_phase(c, nullptr, 0, nullptr, a.x, nullptr, a.norm_b, a.norm_b, 1e-5f, red);",
+     "  row_phase(c, nullptr, 0, nullptr, a.x, nullptr, a.norm_g, a.norm_b, 1e-5f, red);\n"
+     "  barrier(grid);  // LN(x) complete\n  product_phase<float>(ph, c.BK, smem);\n"
+     "  barrier(grid);  // the shard's head partials complete",
+     "  row_phase(c, nullptr, 0, nullptr, a.x, nullptr, a.norm_b, a.norm_b, 1e-5f, red);\n"
+     "  barrier(grid);  // LN(x) complete\n  product_phase<float>(ph, c.BK, smem);\n"
+     "  barrier(grid);  // the shard's head partials complete",
      SELECT_CHAIN),
     ("K7c's top-K reads the head partials before they are complete", "decode_chain.cu",
      "  barrier(grid);  // the shard's head partials complete",
      "", SELECT_CHAIN),
+    ("K5's first LayerNorm reads LN2 (LN1 -> LN2)", "decode_fused.cu",
+     "  prefetch<WT>(phase(c, P_QKV, J.qkv), smem);\n"
+     "  row_phase(c, nullptr, 0, nullptr, a.x, nullptr, a.L.v[LN1G], a.L.v[LN1B], 1e-6f, red);",
+     "  prefetch<WT>(phase(c, P_QKV, J.qkv), smem);\n"
+     "  row_phase(c, nullptr, 0, nullptr, a.x, nullptr, a.L.v[LN2G], a.L.v[LN2B], 1e-6f, red);",
+     SELECT_LN),
+    ("a layer's LayerNorms 2 and 3 swapped (LN2 <-> LN3)", "decode_fused.cuh",
+     ("  row_phase(c, J.fc.P, SQ, nullptr, xin, c.X1, L.v[LN2G], L.v[LN2B], 1e-6f, red);",
+      "  row_phase(c, J.co.P, SQ, nullptr, c.X1, c.X2, L.v[LN3G], L.v[LN3B], 1e-6f, red);"),
+     ("  row_phase(c, J.fc.P, SQ, nullptr, xin, c.X1, L.v[LN3G], L.v[LN3B], 1e-6f, red);",
+      "  row_phase(c, J.co.P, SQ, nullptr, c.X1, c.X2, L.v[LN2G], L.v[LN2B], 1e-6f, red);"),
+     SELECT_LN),
+    ("every stacked layer's LNs read from layer 0", "decode_fused.cuh",
+     "  for (int j = 0; j < 8; ++j) o.v[j] = L.v[j] + (size_t)l * (j == B1 ? FF : D);",
+     "  for (int j = 0; j < 8; ++j) o.v[j] = L.v[j] + (j < B1 ? 0 : (size_t)l * (j == B1 ? FF : D));",
+     SELECT_LN),
+    ("K4's final LayerNorm read from the last layer's own LN1", "decode_fused.cu",
+     "                       last ? a.norm_g : N.v[LN1G], last ? a.norm_b : N.v[LN1B],",
+     "                       N.v[LN1G], N.v[LN1B],", SELECT_LN),
+    ("K7 's LayerNorm scaled by its bias", "decode_chain.cu",
+     "  row_phase(c, nullptr, 0, nullptr, a.x, nullptr, a.norm_g, a.norm_b, 1e-5f, red);\n"
+     "  barrier(grid);  // LN(x) complete\n  product_phase<float>(ph, c.BK, smem);\n"
+     "  barrier(grid);  // the head's partials complete",
+     "  row_phase(c, nullptr, 0, nullptr, a.x, nullptr, a.norm_b, a.norm_b, 1e-5f, red);\n"
+     "  barrier(grid);  // LN(x) complete\n  product_phase<float>(ph, c.BK, smem);\n"
+     "  barrier(grid);  // the head's partials complete", SELECT_K7),
+    ("K7 's log-softmax without its log-sum-exp (one slice a row)", "decode_chain.cu",
+     "  const float lse = nS == 1 ? mx + logf(se) : 0.f;",
+     "  const float lse = 0.f;", SELECT_K7),
+    ("K7 's merge: sum-exp not rescaled to the largest slice max", "decode_chain.cu",
+     "      se += row[s * CAND + 2 * MAX_BEAM + 1] * expf(row[s * CAND + 2 * MAX_BEAM] - mx);",
+     "      se += row[s * CAND + 2 * MAX_BEAM + 1];", SELECT_K7),
+    ("K7 's glp read at a neighbouring id", "decode_chain.cu",
+     "  return g >= 0 && g < a.V ? psum(c.PA, cdiv(c.D, KC), c.BK, a.V, r, g) : 0.f;",
+     "  return g >= 0 && g < a.V ? psum(c.PA, cdiv(c.D, KC), c.BK, a.V, r, g > 0 ? g - 1 : g) : 0.f;",
+     SELECT_K7),
+    ("K7 's slice winner not struck from its live mask", "decode_chain.cu",
+     "    if (bj >= 0 && mine == bi) live &= ~(1u << bj);",
+     "", SELECT_K7),
+    ("K7 's merge winner not struck from the taken mask", "decode_chain.cu",
+     "    if (bq >= 0 && mine == bi) taken |= 1u << bq;",
+     "", SELECT_K7),
 ]
 
 

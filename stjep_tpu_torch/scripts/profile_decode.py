@@ -19,8 +19,8 @@ intervals), the idle share (1 - busy / profiled wall), the number of device
 operations and of host-side PyTorch operators, the decode positions the
 call ran (from the kernels' launch counts) and the device operations per
 position (those that start between the first and the last decode-step
-kernel: the fused K3, K4, K5, K6a-c and K7c, the head's top-K, the
-select), and the eight device kernels with the most time.
+kernel: the fused K3, K4, K5, K6a-c, K7 and K7c, the select), and the
+eight device kernels with the most time.
 """
 
 from __future__ import annotations
@@ -54,8 +54,9 @@ def busy_ms(intervals) -> float:
 
 # device kernels that only a decode position launches; the decode loop's
 # window on the device runs from the first to the last of them
-STEP_KERNELS = ("layer_kernel", "beam_kernel", "chain_kernel", "head_topk", "beam_select",
-                "self_step_kernel", "cross_step_kernel", "ffn_step_kernel", "head_step_kernel")
+STEP_KERNELS = ("layer_kernel", "beam_kernel", "chain_kernel", "head_full_kernel",
+                "beam_select", "self_step_kernel", "cross_step_kernel", "ffn_step_kernel",
+                "head_step_kernel")
 
 
 def positions(n_model: int) -> int:

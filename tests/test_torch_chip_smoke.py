@@ -36,3 +36,43 @@ def test_chip_smoke_failure_names_phase_on_stdout(tmp_path, where, phase, error)
     assert lines[-1].startswith(f"[failed] phase={phase} error={error}"), proc.stdout
     assert not any('"ok": true' in ln for ln in lines)
     assert "Traceback" in proc.stderr
+
+
+def _chip_smoke():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_under_test", SCRIPT)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("pos,drift,ok", [
+    (1, 0.5, True),  # parts at the first position: no prefix, no drift
+    (2, 0.0059, True), (2, 0.0061, False), (8, 0.0075, True), (21, 0.0197, True),
+    (8, 0.025, False), (40, 0.2, False)])
+def test_net_divergence_caps_the_prefix_drift(pos, drift, ok):
+    """A row of two recorded bf16 runs that agree up to position pos - 1,
+    their kept scores apart by drift there, and part at pos: net_divergence
+    gives (pos, margin, drift) while the drift is within BF16_DRIFT a
+    position up to pos, and fails the check past it."""
+    import torch
+
+    cs = _chip_smoke()
+    K = cs.BEAM
+    base = torch.arange(K, dtype=torch.float32) * -0.5
+    st_c, st_p = [], []
+    for t in range(pos):
+        pc = torch.arange(K, dtype=torch.int32)
+        pp = pc.flip(0) if t == pos - 1 else pc
+        d = drift if t == pos - 2 else 0.0
+        st_c.append((pc, base + d))
+        st_p.append((pp, base.clone()))
+    assert cs.BF16_DRIFT == 3e-3
+    if ok:
+        got = cs.net_divergence(st_c, st_p, 0)
+        assert got[0] == pos and got[1] == 0.0
+        assert got[2] == pytest.approx(drift if pos > 1 else 0.0, abs=1e-6)
+    else:
+        with pytest.raises(RuntimeError, match="drifted"):
+            cs.net_divergence(st_c, st_p, 0)

@@ -9,14 +9,17 @@ back-copies) must be equal: with random weights at these sizes no two
 candidates tie. The trainable kernels (K8, K9) are held forward and
 backward, stream by stream, and through their autograd.Function against the
 same Function on CPU copies; the inference kernels (K1-K5, K7) must refuse
-inputs that require grad. The decode head K7 is also held at target
-vocabularies of 13 000 and 30 000 words, and with exact ties; the general
-beam loop and dev eval (forward_eval) run on the card against CPU copies.
+inputs that require grad. The decode head K7 (one launch in
+csrc/decode_chain.cu) is also held at target vocabularies of 13 000 and
+30 000 words, and with exact ties, bit-identical at any grid and one
+device kernel a call; the general beam loop and dev eval (forward_eval)
+run on the card against CPU copies.
 The serving options: K3, K4 and K5 with int8 weights, bf16 caches and
 both (TOL_BF16 below). The fused K5 and K4
 (csrc/decode_fused.cu) at the flagship width and off-tile shapes in every
 variant, bit-identical at two grid sizes, int8 on grid-snapped weights
-bit-equal to f32, and their split partials summed in split order. The
+bit-equal to f32, and their split partials summed in split order; the
+K4 and K5 tests and K3's draw every LayerNorm at random. The
 fused tensor-parallel steps K6a-c (the same source at a shard's width) at
 head shards of 64-256 columns, the first and last cache position, f32 and
 bf16 caches and memories, with and without their residuals,
@@ -24,7 +27,8 @@ bit-identical at three grid sizes, one device kernel a call, and refusing
 what they cannot run. The fused K3 (every layer and the head in one
 launch) in every variant, with and without gather ids, at groups of 1, 3
 and 5 and positions 0, 1 and 75, and the fused K7c at shards of 7 to
-15 000 ids: bit-identical at any grid, one device kernel a call. The
+15 000 ids (and with exact ties): bit-identical at any grid, one device
+kernel a call. The
 fused K2 and K9 (csrc/las_fused.cu) at the flagship's LAS widths over
 batches, key lengths, vocabularies and layer counts, with forced head ties
 and a PAD symbol fed back, bit-identical at two grid sizes, at alternating
@@ -82,7 +86,6 @@ from stjep_tpu_torch.ops.lstm_pallas import (
     sweep_shape,
 )
 from stjep_tpu_torch.ops.masks import position_signal
-from stjep_tpu_torch.ops.transformer import layer_norm
 
 pytestmark = pytest.mark.cuda
 
@@ -156,14 +159,6 @@ def test_gemm_matches_matmul(dev, M, K, N, epilogue):
         ref = ref + resid
     _close(out, ref, TOL)
     assert torch.all(out_full[:, N:] == 0)  # nothing written past the view
-
-
-def test_layernorm_matches_plain(dev):
-    rng = np.random.RandomState(0)
-    x, g, b = _randn(rng, 7, 130, dev=dev), _randn(rng, 130, dev=dev), _randn(rng, 130, dev=dev)
-    for eps in (1e-6, 1e-5):
-        _close(kernels.layernorm(x, g, b, eps),
-               layer_norm({"scale": g, "bias": b}, x, eps), 1e-5)
 
 
 def test_wrappers_reject_bad_cuda_input(dev):
@@ -301,14 +296,14 @@ def test_chain_step_kernel_matches_plain(dev, params, K, pos):
 
 @pytest.mark.parametrize("Bn,K,pos", [(1, 1, 0), (3, 1, 0), (3, 3, 6), (2, 2, MAX_LEN - 1)])
 def test_layer_step_kernel_matches_plain(dev, params, Bn, K, pos):
-    """K5 on layer 1's caches: the output and every cache row (the new one
-    at pos, the rest untouched)."""
+    """K5 on layer 1's caches, its three LayerNorms drawn at random: the
+    output and every cache row (the new one at pos, the rest untouched)."""
     _, pg = params
     rng = np.random.RandomState(1000 + 10 * K + pos)
     cache, _, anc, maskk, mem_mask = _decode_state(pg, K, pos, rng, dev, Bn=Bn)
     maskk[pos] = 1
     x = _randn(rng, Bn * K, CFG.dim_model, dev=dev)
-    lp = pg["dec_tgt"]["layers"][1]
+    lp = _random_norms(pg["dec_tgt"], rng, dev)["layers"][1]
     before = decoder_layer_step_flash.launches
     outs = []
     for fn in (decoder_layer_step_flash, decoder_layer_step_plain):
@@ -353,12 +348,13 @@ def _same_ids_up_to_ties(ids, ids_p, sc_p, tie=1e-5):
 @pytest.mark.parametrize("BK,V,topk,ties", [
     (1, 1, 1, False), (5, 40, 3, False), (80, 200, 5, False), (7, 200, 16, False),
     (16, 13000, 5, False), (80, 30000, 5, False), (6, 40, 4, True),
-    (6, 3000, 4, True), (6, 13000, 4, True)])
+    (6, 3000, 4, True), (6, 13000, 4, True), (16, 200, 1, False)])
 def test_head_kernels_match_plain(dev, BK, V, topk, ties):
-    """K7 (decode_head) and its gather variant, head_topk without a bound
-    on V; gather ids include 0 and V-1. The tie cases at V > the block's
-    thread count put equal columns in one thread's scan as well as across
-    threads."""
+    """K7 (decode_head) and its gather variant, one launch of head_fused,
+    up to 30 000 ids (15 column slices merged); gather ids include 0 and
+    V-1; the last case is universal dev eval's shape. The tie cases put
+    equal columns in one thread's registers, across threads and, past 2048
+    ids, across slices."""
     rng = np.random.RandomState(BK + V + topk)
     norm, out = _head_params(rng, V, dev, ties)
     x = _randn(rng, BK, CFG.dim_model, dev=dev)
@@ -1042,13 +1038,15 @@ FUSED_K5_CASES = [  # (config, Bn, K, pos, Lk): BK = 5, 320, 9, 80
 @pytest.mark.parametrize("kind,Bn,K,pos,Lk", FUSED_K5_CASES)
 def test_fused_layer_step_matches_plain(dev, params, wide_params, kind, Bn, K, pos, Lk, quant,
                                         bf16):
-    """Fused K5 against decoder_layer_step_plain: the output, every cache
-    row (the new one at pos, the rest untouched), one launch counted."""
+    """Fused K5 against decoder_layer_step_plain, every LayerNorm drawn at
+    random: the output, every cache row (the new one at pos, the rest
+    untouched), one launch counted."""
     cfg, pg = (CFG, params[1]) if kind == "small" else (WIDE, wide_params)
     rng = np.random.RandomState(6000 + Bn + pos)
     dec, cache, _, anc, maskk, mem_mask = _fused_state(pg, cfg, Bn, K, pos, rng, dev, quant,
                                                        bf16, Lk)
     x = _randn(rng, Bn * K, cfg.dim_model, dev=dev)
+    dec = _random_norms(dec, rng, dev)
     name = _variant(quant, bf16)
     before = getattr(decoder_layer_step_flash, name)
     y, ck = _k5(dec, cache, x, pos, anc, K, mem_mask, maskk)
@@ -1087,13 +1085,16 @@ FUSED_K4_CASES = [("small", 1, 5, 2, LK, 1.0), ("small", 3, 3, 7, 45, 0.7),
 @pytest.mark.parametrize("kind,Bn,K,i,Lk,pf", FUSED_K4_CASES)
 def test_fused_beam_step_matches_plain(dev, params, wide_params, kind, Bn, K, i, Lk, pf, quant,
                                        bf16):
-    """Fused K4 against decode_beam_step_plain: the select's outputs equal
-    (scores and lenm within tolerance) except in a beam group whose plain
-    candidates tie within the tolerance, anc[i-1] set in place, the caches."""
+    """Fused K4 against decode_beam_step_plain, every LayerNorm (each
+    layer's three and the final one) drawn at random: the select's outputs
+    equal (scores and lenm within tolerance) except in a beam group whose
+    plain candidates tie within the tolerance, anc[i-1] set in place, the
+    caches."""
     cfg, pg = (CFG, params[1]) if kind == "small" else (WIDE, wide_params)
     rng = np.random.RandomState(7000 + Bn + i)
     dec, cache, preds, anc, maskk, mem_mask = _fused_state(pg, cfg, Bn, K, i - 1, rng, dev,
                                                            quant, bf16, Lk)
+    dec = _random_norms(dec, rng, dev)
     name = _variant(quant, bf16)
     before = getattr(decode_beam_step_flash, name)
     out_k, ck, ak, ins = _k4(dec, pg, cfg, cache, preds, anc, maskk, mem_mask, i, K, pf=pf)
@@ -1229,7 +1230,8 @@ def test_fused_chain_and_head_partial_refuse_what_they_cannot_run(dev, wide_para
     """No fallback: K3 with a top-K past MAX_BEAM or a position past the
     cache is refused by the kernel, and rows that do not fit the caches'
     groups before a launch; K7c with a top-K past MAX_BEAM is refused by
-    the kernel, and a shard whose rows are not D before a launch."""
+    the kernel, and a shard whose rows are not D before a launch; K7 the
+    same, and a top-K past V by the kernel."""
     rng = np.random.RandomState(12500)
     dec, cache, _, anc, maskk, mem_mask = _fused_state(wide_params, WIDE, 2, 5, 3, rng, dev)
     x = _randn(rng, 10, WIDE.dim_model, dev=dev)
@@ -1249,6 +1251,13 @@ def test_fused_chain_and_head_partial_refuse_what_they_cannot_run(dev, wide_para
         tdf.decode_head_partial(norm, out, x, 17)
     with pytest.raises(ValueError):
         tdf.decode_head_partial(norm, {"w": out["w"][:64].contiguous()}, x, 5)
+    assert torch.isfinite(decode_head(norm, out, x, 16)[0]).all()
+    with pytest.raises(RuntimeError, match="head_fused"):
+        decode_head(norm, out, x, 17)
+    with pytest.raises(RuntimeError, match="head_fused"):
+        decode_head(norm, {"w": out["w"][:, :4].contiguous()}, x, 5)  # a top-K past V
+    with pytest.raises(ValueError):
+        decode_head(norm, {"w": out["w"][:64].contiguous()}, x, 5)
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
@@ -1629,16 +1638,72 @@ def test_head_partial_bit_identical_at_any_grid(dev, monkeypatch, v_local):
             assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("v_local", [40, 3000])
+def test_head_partial_resolves_ties_to_the_lowest_id(dev, v_local):
+    """K7c (and with it the head top-K K3 and K4 run) on exact ties, every
+    column repeated 8 ids later: raw top-K ids the plain version's, the
+    lowest copy first, across threads and within one thread's scan."""
+    rng = np.random.RandomState(700 + v_local)
+    norm, out = _head_params(rng, v_local, dev, ties=True)
+    x = _randn(rng, 6, CFG.dim_model, dev=dev)
+    got = tdf.decode_head_partial(norm, out, x, 4)
+    ref = tdf.decode_head_partial_plain(norm, out, x, 4)
+    assert torch.equal(got[1], ref[1])
+    assert (got[1][:, 1:] - got[1][:, :-1] == 8).all()
+    _close(got[0], ref[0], 1e-5)
+
+
+def _k7_calls(dev, BK, V, D=512):
+    """K7 at the flagship's width over V ids, without and with gather ids
+    (0 and V - 1 among them): a function returning every output of both."""
+    rng = np.random.RandomState(800 + BK + V)
+    norm = {"scale": 1 + 0.1 * _randn(rng, D, dev=dev), "bias": 0.1 * _randn(rng, D, dev=dev)}
+    out = {"w": _randn(rng, D, V, dev=dev) / D ** 0.5}
+    x = _randn(rng, BK, D, dev=dev)
+    gid = torch.from_numpy(rng.randint(0, V, BK).astype(np.int32)).to(dev)
+    gid[0], gid[-1] = V - 1, 0
+    topk = 1 if BK == 16 else 5
+    return lambda: decode_head(norm, out, x, topk) + decode_head_gather(norm, out, x, topk, gid)
+
+
+@pytest.mark.parametrize("BK", [16, 80])
+@pytest.mark.parametrize("V", [200, 30000])
+def test_head_bit_identical_at_any_grid(dev, monkeypatch, V, BK):
+    """K7 on 7 blocks, on the plan's blocks and on every block the card
+    keeps resident (a grid asked past it is cut to it): every output of
+    decode_head and decode_head_gather bit-identical, at the model's 200
+    ids (one slice a row) and at 30 000 (15 slices merged)."""
+    run = _k7_calls(dev, BK, V)
+    runs = []
+    for grid in (7, None, 1 << 20):
+        monkeypatch.setattr(tdf, "STEP_GRID", grid)
+        runs.append(run())
+    for other in runs[1:]:
+        for a, b in zip(runs[0], other):
+            assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("route", ["K3 f32", "K3 gather", "K3 int8+bf16", "K7c",
-                                   "K7c gather"])
+                                   "K7c gather", "K7a", "K7a gather"])
 def test_chain_and_head_partial_one_device_kernel_per_call(dev, wide_params, route):
     """After a warm-up call, a call of decode_chain_step_flash (every
-    variant, with and without gather ids) or of decode_head_partial is one
-    device operation under torch.profiler: its decode_chain.cu kernel. A
-    profile that records no device operation is taken again, up to eight
-    times; if none records one, the test fails."""
+    variant, with and without gather ids), of decode_head_partial, or of
+    decode_head and decode_head_gather (the universal beam's 80 rows, dev
+    eval's 16 at top-1) is one device operation under torch.profiler: its
+    decode_chain.cu kernel. A profile that records no device operation is
+    taken again, up to eight times; if none records one, the test fails."""
     rng = np.random.RandomState(13000)
-    if route.startswith("K7c"):
+    if route.startswith("K7a"):
+        norm, out = wide_params["dec_tgt"]["norm"], wide_params["out_tgt"]
+        if route.endswith("gather"):
+            x = _randn(rng, 16, WIDE.dim_model, dev=dev)
+            gid = torch.arange(16, device=dev, dtype=torch.int32)
+            fn = lambda: decode_head_gather(norm, out, x, 1, gid)
+        else:
+            x = _randn(rng, 80, WIDE.dim_model, dev=dev)
+            fn = lambda: decode_head(norm, out, x, 5)
+        name = "head_full_kernel"
+    elif route.startswith("K7c"):
         norm = wide_params["dec_tgt"]["norm"]
         out = {"w": wide_params["out_tgt"]["w"][:, :50].contiguous()}
         x = _randn(rng, 80, WIDE.dim_model, dev=dev)

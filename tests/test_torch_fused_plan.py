@@ -11,7 +11,11 @@ blocks the card keeps resident. K5's and K4's tables and plans are held
 byte-equal to the ones they had before the shard steps shared their code;
 the shard steps K6a-c at a shard of n = 1, 2, 4 and 8 (attention width
 D / n, hidden width FF / n). K3's chain plan is K4's with a row phase in
-place of the embedding and no select; K7c's shard head at n = 1, 2, 4.
+place of the embedding and no select; K7c's shard head at n = 1, 2, 4;
+K7's head over the whole vocabulary (`step="full_head"`), its top-K by
+column slices and the merge of a row's slices, whose arithmetic a numpy
+model of the kernel's slice and merge phases holds against the whole
+row's log-softmax top-K, the lowest id first among ties.
 The second half parses every
 `extern "C"` entry of csrc/*.cu and holds its parameter kinds against
 kernels._SIGS, the argument types ctypes passes.
@@ -31,6 +35,9 @@ from stjep_tpu_torch.ops.decode_flash import (
     FUSED_BN,
     FUSED_KC,
     FUSED_PRODUCTS,
+    FUSED_THREADS,
+    HEAD_CAND,
+    HEAD_SLICE,
     fused_plan,
     fused_tiles,
 )
@@ -502,6 +509,207 @@ def test_head_step_tiling_does_not_change_with_the_grid(n, grid):
 
 
 # ---------------------------------------------------------------------------
+# K7 (head_fused): the decode head over the whole vocabulary
+# ---------------------------------------------------------------------------
+
+# (BK, D, V): the universal beam (B=16 x beam 5), greedy dev eval (B=16,
+# top-1), B=64, the card tests' 128-wide head, one slice exactly, one id
+# past it, and word-level vocabularies of 13 000 and 30 000 ids
+FULL_SHAPES = {
+    "beam": (80, 512, 200),
+    "dev_eval": (16, 512, 200),
+    "B64": (320, 512, 200),
+    "tests": (7, 128, 40),
+    "one_slice": (16, 512, HEAD_SLICE),
+    "two_slices": (16, 512, HEAD_SLICE + 1),
+    "V13000": (16, 128, 13000),
+    "V30000": (80, 512, 30000),
+}
+
+
+def _full(shape):
+    BK, D, V = FULL_SHAPES[shape]
+    return (fused_plan(BK, D, 0, 1, 0, 0, V=V, step="full_head"),
+            _table(BK, D, 0, V, step="full_head"))
+
+
+@pytest.mark.parametrize("shape", list(FULL_SHAPES), ids=list(FULL_SHAPES))
+def test_full_head_writes_every_output_element_once(shape):
+    """K7's one product, x_n [BK, D] @ [D, V]: every partial element
+    written by one tile, each split its slice once; the table is K7c's at
+    one shard."""
+    BK, D, V = FULL_SHAPES[shape]
+    plan, table = _full(shape)
+    assert plan["products"] == {"head": [(BK, V, D)]}
+    _each_output_once(plan, table)
+    k7c = _table(BK, D, 0, V, step="head")
+    assert all((k7c[k] == table[k]).all() for k in table)
+
+
+@pytest.mark.parametrize("shape", list(FULL_SHAPES), ids=list(FULL_SHAPES))
+def test_full_head_shared_memory_and_workspace_fit(shape):
+    """Two f32 product stages in shared memory; K7c's workspace at one
+    shard, whose [BK, V] logit region holds the slices' records (HEAD_CAND
+    floats a row and slice) wherever a row has more than one slice: the
+    logits themselves are never stored."""
+    BK, D, V = FULL_SHAPES[shape]
+    plan, _ = _full(shape)
+    assert plan["smem"] == 2 * (FUSED_KC * FUSED_BN * 4 + FUSED_KC * FUSED_BM * 4) <= SMEM_MAX
+    pa = -(-D // FUSED_KC) * BK * V
+    assert plan["ws_floats"] == 5 * BK * D + pa + BK * V + 2 * BK
+    assert plan["ws_floats"] == fused_plan(BK, D, 0, 1, 0, 0, V=V, step="head")["ws_floats"]
+    if plan["slices"] > 1:
+        assert BK * plan["slices"] * HEAD_CAND <= BK * V
+
+
+@pytest.mark.parametrize("shape", list(FULL_SHAPES), ids=list(FULL_SHAPES))
+def test_full_head_phases_and_barriers(shape):
+    """K7: row (LayerNorm), head, slice (a row's top-K by column slices of
+    HEAD_SLICE ids, a (row, slice) an item), and past one slice a row the
+    merge: 2 or 3 barriers; the launch asks for as many blocks as its
+    largest phase has items."""
+    BK, D, V = FULL_SHAPES[shape]
+    plan, table = _full(shape)
+    n = -(-V // HEAD_SLICE)
+    phases = [("row", BK), ("head", len(table["head"])), ("slice", BK * n)]
+    assert plan["slices"] == n
+    assert plan["phases"] == phases + ([("merge", BK)] if n > 1 else [])
+    assert plan["barriers"] == (2 if n == 1 else 3)
+    assert plan["blocks"] == max(items for _, items in plan["phases"])
+
+
+def test_full_head_main_path_shapes():
+    """At the model's 200 ids: the universal beam's 80 rows are 8 splits x
+    5 row tiles x 2 column tiles = 80 head tiles and 80 top-K rows on 80
+    blocks; dev eval's 16 rows 16 tiles and 16 rows on 16 blocks; 2
+    barriers each. At 30 000 ids: 15 slices a row, 3 barriers, and 9400
+    head tiles at 80 rows."""
+    beam, dev_eval, big = _full("beam")[0], _full("dev_eval")[0], _full("V30000")[0]
+    assert beam["phases"] == [("row", 80), ("head", 80), ("slice", 80)]
+    assert (beam["blocks"], beam["barriers"]) == (80, 2)
+    assert dev_eval["phases"] == [("row", 16), ("head", 16), ("slice", 16)]
+    assert (dev_eval["blocks"], dev_eval["barriers"]) == (16, 2)
+    assert big["slices"] == 15 and big["barriers"] == 3
+    assert big["phases"][1:] == [("head", 9400), ("slice", 1200), ("merge", 80)]
+
+
+@pytest.mark.parametrize("grid", [1, 7, 16, 80, 132, 264, 396])
+@pytest.mark.parametrize("shape", ["beam", "dev_eval", "V30000"])
+def test_full_head_tiling_does_not_change_with_the_grid(shape, grid):
+    """K7's plan and table take no block count, and the block-strided walk
+    gives every item of every phase to one block at any grid."""
+    plan, table = _full(shape)
+    again = _full(shape)
+    assert again[0] == plan and all((again[1][k] == table[k]).all() for k in table)
+    for name, items in plan["phases"]:
+        seen = np.zeros(items, np.int64)
+        for b in range(grid):
+            seen[b:items:grid] += 1
+        assert (seen == 1).all(), name
+
+
+def test_full_head_constants_mirror_the_source():
+    """HEAD_SLICE and HEAD_CAND are decode_chain.cu's SLICE (SLICE_COLS
+    registers of THREADS threads) and CAND (2 MAX_BEAM + 2); MAX_SLICES
+    keeps the merge's nS * topk candidates within a 32-bit taken mask a
+    thread. K7's kernel takes K7c's argument struct (mx and se null)."""
+    src = (CSRC / "decode_chain.cu").read_text()
+    beam = int(re.search(r"constexpr int MAX_BEAM = (\d+);",
+                         (CSRC / "head_select.cuh").read_text()).group(1))
+    cols = int(re.search(r"constexpr int SLICE_COLS = (\d+);", src).group(1))
+    assert "constexpr int SLICE = SLICE_COLS * THREADS;" in src
+    assert "constexpr int CAND = 2 * MAX_BEAM + 2;" in src
+    assert "constexpr int MAX_SLICES = 32 * THREADS / MAX_BEAM;" in src
+    assert "head_full_kernel(const HeadArgs a)" in src and "struct HeadArgs" in src
+    assert src.count("struct ") == 2  # ChainArgs, HeadArgs
+    assert HEAD_SLICE == cols * FUSED_THREADS
+    assert HEAD_CAND == 2 * beam + 2
+    assert cols <= 32  # a slice's live ids fit a thread's 32-bit mask
+
+
+def _slice_cols(s, V):
+    """The ids of column slice s, thread by thread (thread t's register j
+    holds id s * HEAD_SLICE + j * FUSED_THREADS + t)."""
+    cols = s * HEAD_SLICE + np.arange(HEAD_SLICE).reshape(-1, FUSED_THREADS)
+    return cols[cols < V] if cols.max() >= V else cols.ravel()
+
+
+def _argmax_lowest(v, ids):
+    """decode_chain.cu's arg-max pass: the largest value, the lowest id
+    among equals (common.cuh `better`)."""
+    best = np.flatnonzero(v == v.max())
+    return best[np.argmin(ids[best])]
+
+
+def _k7_model(logits, topk):
+    """The kernel's slice and merge phases on one row in float64: each
+    slice's max, sum-exp at that max and raw top-K; one slice finishes the
+    row itself, else the merge takes lse from the slices in slice order and
+    the top-K of their candidates."""
+    V = logits.shape[0]
+    n = -(-V // HEAD_SLICE)
+    recs = []
+    for s in range(n):
+        cols = np.sort(_slice_cols(s, V).ravel())
+        v = logits[cols]
+        mx = v.max()
+        se = np.exp(v - mx).sum()
+        live = np.ones(len(cols), bool)
+        vals, ids = [], []
+        for _ in range(min(topk, len(cols))):
+            i = _argmax_lowest(np.where(live, v, -np.inf), np.where(live, cols, 1 << 31))
+            vals.append(v[i])
+            ids.append(cols[i])
+            live[i] = False
+        recs.append((vals, ids, mx, se))
+    mx = max(r[2] for r in recs)
+    se = sum(r[3] * np.exp(r[2] - mx) for r in recs)
+    lse = mx + np.log(se)
+    cv = np.array([v for r in recs for v in r[0]])
+    ci = np.array([i for r in recs for i in r[1]])
+    live = np.ones(len(cv), bool)
+    out_v, out_i = [], []
+    for _ in range(topk):
+        i = _argmax_lowest(np.where(live, cv, -np.inf), np.where(live, ci, 1 << 31))
+        out_v.append(cv[i] - lse)
+        out_i.append(ci[i])
+        live[i] = False
+    return np.array(out_v), np.array(out_i), lse
+
+
+# (V, topk): K7 takes a top-K of at most V
+MERGE_CASES = [(V, k) for V in (1, 40, 200, HEAD_SLICE, HEAD_SLICE + 1, 13000, 30000)
+               for k in (1, 5, 16) if k <= V]
+
+
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "ties"])
+@pytest.mark.parametrize("V,topk", MERGE_CASES)
+def test_full_head_slices_merge_to_the_rows_top_k(V, topk, ties):
+    """The slices cover each id once, in id order slice by slice, so the
+    merge in slice order with the lowest id winning ties gives the whole
+    row's log-softmax top-K in jax.lax.top_k's order, and lse the row's
+    log-sum-exp; with every value repeated 8 ids later (exact ties) the
+    ids step by 8 from the lowest copy, across slices too."""
+    rng = np.random.RandomState(V + topk)
+    logits = rng.randn(V) * 3
+    if ties:
+        logits = logits[np.arange(V) % 8]
+    n = -(-V // HEAD_SLICE)
+    every = np.concatenate([_slice_cols(s, V).ravel() for s in range(n)])
+    assert np.array_equal(np.sort(every), np.arange(V))
+    for s in range(n - 1):
+        assert _slice_cols(s, V).max() < _slice_cols(s + 1, V).min()
+    sc, ids, lse = _k7_model(logits, topk)
+    order = np.lexsort((np.arange(V), -logits))[:topk]
+    assert np.array_equal(ids, order)
+    full_lse = logits.max() + np.log(np.exp(logits - logits.max()).sum())
+    assert abs(lse - full_lse) < 1e-9
+    assert np.allclose(sc, logits[order] - full_lse, atol=1e-9)
+    if ties and topk > 1 and V >= 8 * topk:
+        assert (np.diff(ids) == 8).all()
+
+
+# ---------------------------------------------------------------------------
 # the C entry points against the ctypes signatures
 # ---------------------------------------------------------------------------
 
@@ -545,12 +753,14 @@ def test_shard_step_entries_are_declared():
 
 
 def test_chain_and_head_entries_are_declared():
-    """The fused K3 and K7c entries, as ops/decode_flash.py passes them; the
-    old K7c chain's entry `head_topk_partial` is gone."""
+    """The fused K3, K7c and K7 entries, as ops/decode_flash.py passes them;
+    the old chains' entries (K7c's `head_topk_partial`, K7's `head_topk`
+    and `layernorm_f32`) are gone."""
     entries = _entries()
     assert entries["decode_chain_fused"] == "p" + "ii" + "p" * 17 + "i" * 14 + "s"
     assert entries["head_partial_fused"] == "p" * 12 + "i" * 7 + "s"
-    assert "head_topk_partial" not in entries
+    assert entries["head_fused"] == "p" * 10 + "i" * 7 + "s"
+    assert not {"head_topk_partial", "head_topk", "layernorm_f32"} & set(entries)
 
 
 @pytest.mark.parametrize("name", sorted(kernels._SIGS))
