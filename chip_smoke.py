@@ -103,6 +103,27 @@ package beside it, included):
    frames, dropout 0.2, SpecAugment), 2 warm-up and 5 timed steps; steps/s,
    step ms, the losses (finite), peak device memory, K8/K9 launch counts
    on that run, and every trained parameter moved by a step.
+8. train cli: the port's train CLI (`stjep_tpu_torch/cli/train.py`, train.py's
+   flags) and Trainer at the flagship widths on a corpus the phase writes
+   from the seed (64 train and 16 dev utterances of 400-1504 frames, a
+   30 000-word source and 200-symbol target vocabulary, 40-dim fbank .npy,
+   per-speaker CMVN), B = 16:
+   a. ASR_ST, one epoch (4 steps) with dev eval every 2 steps, dropout
+      0.2, SpecAugment, per-step staging through the native loader: the
+      loop's steps/s (loader included, dev evals and checkpoint writes
+      left out) beside the bare step's of phase 7, dev-eval utt/s, peak
+      memory, the checkpoint written, and the launch counts (K8, K9 in
+      training; K1, K2, K3 gather in dev eval);
+   b. the Trainer's first step (dropout 0) against make_train_step on the
+      same staged batch and init: every leaf within 1e-6 of its norm;
+   c. --load_mode resume of the Trainer's checkpoint: the loaded params
+      bit-equal to the saved ones, resumed at the saved step, 2 more steps;
+   d. --dtype bfloat16, 4 steps: finite losses, bf16 params, and the Adam
+      state dtypes of optax's init (count int32, mu/nu bf16, step_size f32);
+   e. --device_cache True --feat_dtype int8 --train_window 4, 8 steps, each
+      window under torch.cuda.set_sync_debug_mode("error"): steps/s and the
+      cache's bytes on the card; and with dropout 0 one window within 1e-6
+      of each leaf's norm of 4 single steps on the same batches.
 
 The last lines: a JSON object with one entry per kernel (its launches
 summed over the main paths' runs), the total seconds, the nvidia-smi line,
@@ -114,6 +135,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -1554,6 +1576,294 @@ def phase_train_e2e(seed, rng):
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
         launches={k: n for k, n in launches.items() if n})
     need(all(np.isfinite(losses)), f"non-finite train loss: {losses}")
+    return launches, len(timed) / sum(timed)
+
+
+# the train cli phase's synthetic corpus (written with numpy from --seed)
+CLI_UTTS = {"train": 64, "dev": 16}
+CLI_FRAMES = (400, 1504)
+CLI_SPEAKERS = 4
+SPECIALS = ["<pad>", "<unk>", "<s>", "</s>", "<spc>"]
+
+
+def write_corpus(root: Path, seed: int, utts=None, frames=CLI_FRAMES) -> dict:
+    """A corpus in the reference layout: vocab files (the five specials,
+    then 29 995 source words and 195 target characters: bench's 30 000 and
+    200), src/tgt text, one 40-dim fbank .npy an utterance of `frames`
+    (low, high) frames (400-1504), an acoustic file list `path frames
+    speaker`, and per-speaker CMVN stats. utts: utterances a split
+    (CLI_UTTS)."""
+    rng = np.random.RandomState(seed + 11)
+    words = [f"w{i:05d}" for i in range(FLAGSHIP["enc_vocab_size"] - len(SPECIALS))]
+    chars = [chr(0x4E00 + i) for i in range(FLAGSHIP["dec_vocab_size"] - len(SPECIALS))]
+    (root / "fbk").mkdir(parents=True)
+    (root / "norm").mkdir()
+    (root / "vocab.src").write_text("\n".join(SPECIALS + words) + "\n", encoding="utf-8")
+    (root / "vocab.tgt").write_text("\n".join(SPECIALS + chars) + "\n", encoding="utf-8")
+    dim = FLAGSHIP["acous_dim"]
+    for s_ in range(CLI_SPEAKERS):
+        np.save(root / "norm" / f"spk{s_}.mu.npy", (rng.randn(dim) * 0.1).astype(np.float32))
+        np.save(root / "norm" / f"spk{s_}.std.npy", (1.0 + 0.1 * rng.rand(dim)).astype(np.float32))
+    paths = {"vocab_src": root / "vocab.src", "vocab_tgt": root / "vocab.tgt",
+             "norm": root / "norm"}
+    for split_, n in (utts or CLI_UTTS).items():
+        src, tgt, flis = [], [], []
+        for i in range(n):
+            ids = rng.randint(0, len(words), rng.randint(3, 30))
+            src.append(" ".join(words[w] for w in ids))
+            tgt.append(" ".join("".join(chars[(w * 7 + k) % len(chars)]
+                                        for k in range(1 + w % 3)) for w in ids))
+            n_frames = rng.randint(frames[0], frames[1] + 1)
+            f = root / "fbk" / f"{split_}_{i:03d}.npy"
+            np.save(f, rng.randn(n_frames, dim).astype(np.float32))
+            flis.append(f"{f} {n_frames} spk{i % CLI_SPEAKERS}.fbk")
+        for ext, lines in (("src", src), ("tgt", tgt), ("flis", flis)):
+            paths[f"{split_}_{ext}"] = root / f"{split_}.{ext}"
+            paths[f"{split_}_{ext}"].write_text("\n".join(lines) + "\n", encoding="utf-8")
+    return {k: str(v) for k, v in paths.items()}
+
+
+def cli_argv(corpus, save, seed, *extra, dev=False):
+    """train.py's flags for the flagship ASR_ST model (bench's widths, f32,
+    B = 16) on the corpus; `extra` overrides."""
+    argv = ["--mode", "ASR_ST", "--save", str(save),
+            "--st_train_path_src", corpus["train_src"], "--st_train_path_tgt", corpus["train_tgt"],
+            "--st_train_acous_path", corpus["train_flis"], "--st_acous_norm_path", corpus["norm"],
+            "--path_vocab_src", corpus["vocab_src"], "--path_vocab_tgt", corpus["vocab_tgt"],
+            "--embedding_size_enc", "200", "--embedding_size_dec", "512",
+            "--dim_model", "512", "--dim_feedforward", "1024", "--num_heads", "8",
+            "--enc_layers", "6", "--dec_layers", "6", "--las_acous_dim", "40",
+            "--las_acous_hidden_size", "256", "--max_seq_len_src", "90",
+            "--max_seq_len_tgt", "150", "--batch_size", str(B), "--minibatch_partition", "1",
+            "--dropout", "0.2", "--num_epochs", "1", "--learning_rate", str(TRAIN_LR),
+            "--learning_rate_init", str(TRAIN_LR), "--lr_warmup_steps", "0",
+            "--loss_nll_asr_coeff", "1.0", "--loss_nll_st_coeff", "1.0",
+            "--random_seed", str(seed), "--print_every", "2", "--checkpoint_every", "2",
+            "--device_cache", "False"]
+    if dev:
+        argv += ["--st_dev_path_src", corpus["dev_src"], "--st_dev_path_tgt", corpus["dev_tgt"],
+                 "--st_dev_acous_path", corpus["dev_flis"]]
+    return argv + list(extra)
+
+
+def loop_steps_per_s(t) -> float:
+    """Train steps a second of the Trainer's epoch loops, loader and
+    staging included, dev evals and checkpoint writes left out."""
+    tm = t.timing
+    return t.steps_run / (tm["loop_s"] - tm["eval_s"] - tm["save_s"])
+
+
+def leaf_rel_errs(a_tree, b_tree):
+    from stjep_tpu_torch.bridge import named_leaves
+
+    return {n: float((a.detach().float() - b.detach().float()).norm()
+                     / max(float(a.detach().float().norm()), 1e-12))
+            for (n, a), (_, b) in zip(named_leaves(a_tree), named_leaves(b_tree), strict=True)}
+
+
+def phase_train_cli(seed, bare_steps_per_s):
+    """The port's train CLI and Trainer at the flagship on a corpus of its
+    own: a. one f32 epoch with dev eval and checkpoints; b. the Trainer's
+    first step against make_train_step; c. resume; d. bf16; e. the int8
+    device cache with 4-step windows, each step under
+    set_sync_debug_mode("error").
+    Returns the launch counts of a."""
+    import tempfile
+
+    from stjep_tpu_torch.bridge import leaves, named_leaves
+    from stjep_tpu_torch.cli import train as cli
+    from stjep_tpu_torch.config import ModelConfig
+    from stjep_tpu_torch.data.dataset import Dataset
+    from stjep_tpu_torch.data.loader import NativeLoader, get_native_loader
+    from stjep_tpu_torch.models.seq2seq import init_seq2seq
+    from stjep_tpu_torch.ops.transformer import split
+    from stjep_tpu_torch.train import trainer as T
+    from stjep_tpu_torch.train.optim import make_optimizer
+    from stjep_tpu_torch.train.policies import trainable_mask
+
+    with tempfile.TemporaryDirectory(prefix="stjep_train_cli_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        corpus = write_corpus(tmp / "corpus", seed)
+        corpus_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        need(get_native_loader() is not None, "the native loader did not build (no g++?)")
+        say("train cli corpus", train=CLI_UTTS["train"], dev=CLI_UTTS["dev"],
+            frames=list(CLI_FRAMES), write_s=round(corpus_s, 3),
+            native_loader_build_s=round(time.perf_counter() - t0, 3))
+
+        # a. the CLI, f32, with a dev set; eval's launches apart
+        in_eval = dict.fromkeys(counters(), 0)
+        evaluate = T.Trainer._evaluate_batches
+
+        def counted_eval(self, *a, **kw):
+            before = {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
+            try:
+                return evaluate(self, *a, **kw)
+            finally:
+                for k, (fn, attr) in counters().items():
+                    in_eval[k] += getattr(fn, attr) - before[k]
+
+        calls0 = NativeLoader.calls
+        zero_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        T.Trainer._evaluate_batches = counted_eval
+        try:
+            t0 = time.perf_counter()
+            ta, (cfg, params) = cli.main(cli_argv(corpus, tmp / "a", seed, dev=True), device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            T.Trainer._evaluate_batches = evaluate
+        launches = read_counts(("K8 fwd", "K8 bwd", "K9 fwd", "K9 bwd", "K1", "K2", "K3 gather"))
+        in_train = {k: launches[k] - in_eval[k] for k in launches}
+        loaded = NativeLoader.calls - calls0
+        ckpt_dir = tmp / "a" / "checkpoints"
+        ckpts = sorted(os.listdir(ckpt_dir)) if ckpt_dir.is_dir() else []
+        losses = [float(v) for v in ta._last_losses().values()]
+        say("train cli a", mode="ASR_ST", steps=ta.steps_run, loop_steps_per_s=loop_steps_per_s(ta),
+            bare_step_steps_per_s=bare_steps_per_s, wall_s=round(wall, 3),
+            dev_eval_utt_per_s=ta.timing["eval_utts"] / ta.timing["eval_s"],
+            dev_evals_s=round(ta.timing["eval_s"], 3), checkpoint_write_s=round(ta.timing["save_s"], 3),
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            native_loader_batches=loaded, checkpoints=ckpts, last_losses=losses,
+            launches_train={k: n for k, n in in_train.items() if n},
+            launches_dev_eval={k: n for k, n in in_eval.items() if n})
+        need(ta.steps_run == CLI_UTTS["train"] // B, f"train cli a ran {ta.steps_run} steps")
+        need(all(in_train[k] > 0 for k in ("K8 fwd", "K8 bwd", "K9 fwd", "K9 bwd"))
+             and all(in_eval[k] > 0 for k in ("K1", "K2", "K3 gather"))
+             and not any(in_eval[k] for k in ("K8 fwd", "K8 bwd", "K9 fwd", "K9 bwd")),
+             f"train cli launches: train {in_train}, dev eval {in_eval}")
+        need(loaded > 0, "the native loader loaded no batch")
+        need(bool(ckpts), "train cli a wrote no checkpoint")
+        need(all(np.isfinite(losses)), f"train cli a losses {losses}")
+
+        # b. the Trainer's first step against a direct make_train_step call
+        cfg0 = ModelConfig(**{**FLAGSHIP, "dropout": 0.0})
+        ds = Dataset(path_src=corpus["train_src"], path_tgt=corpus["train_tgt"],
+                     path_vocab_src=corpus["vocab_src"], path_vocab_tgt=corpus["vocab_tgt"],
+                     acous_path=corpus["train_flis"], acous_norm_path=corpus["norm"],
+                     acous_norm=True, max_seq_len_src=cfg0.max_seq_len_src,
+                     max_seq_len_tgt=cfg0.max_seq_len_tgt, batch_size=B, mode="ST", seed=seed)
+        ds.construct_batches(is_train=False)
+        item = ds.materialise_batch(0)
+        init = lambda: init_seq2seq(cfg0, torch.Generator().manual_seed(seed + 5), device="cuda")
+        pa, pb = init(), init()
+        tb = T.Trainer_ASR_ST(expt_dir=str(tmp / "b"), batch_size=B, learning_rate=TRAIN_LR,
+                              learning_rate_init=TRAIN_LR, lr_warmup_steps=0, seed=seed,
+                              loss_coeff={"nll_asr": 1.0, "nll_st": 1.0}, device_cache=False,
+                              device="cuda")
+        pa, opt_a, _, _ = tb.setup(pa)
+        staged = tb._stage_batch(item)
+        tb._train_batch(cfg0, pa, opt_a, staged, 1)
+        opt = make_optimizer(1.0, trainable_mask(pb, lambda n: False))
+        step = T.make_train_step(cfg0, "ASR_ST", opt, device="cuda")
+        step(pb, opt.init(pb), [{k: v[0] for k, v in staged[0].items()}],
+             split(torch.Generator().manual_seed(seed))[1], TRAIN_LR)
+        errs = leaf_rel_errs(pb, pa)
+        worst = max(errs, key=errs.get)
+        say("train cli b", trainer_vs_make_train_step_worst_leaf=worst, rel_err=errs[worst], tol=1e-6)
+        need(errs[worst] <= 1e-6, f"Trainer step vs make_train_step: {worst} {errs[worst]}")
+        ckpt_b = tb._save(cfg0, pa, opt_a, 1, 1, ds).path
+
+        # c. resume the Trainer's checkpoint: 0 steps (the loaded params and
+        # Adam state, held against the in-memory ones tb._save wrote), then
+        # 2 more steps on half the corpus
+        tc0, (_, loaded_p) = cli.main(cli_argv(corpus, tmp / "c0", seed, "--load", ckpt_b,
+                                               "--load_mode", "resume", "--num_epochs", "0"),
+                                      device="cuda")
+        differ = {}
+        for what, mine, theirs in (
+                ("params", pa, loaded_p),
+                ("adam", tb._tx.state_tree(pa, opt_a),
+                 tc0._tx.state_tree(loaded_p, tc0._final_opt_state))):
+            a, b = dict(named_leaves(mine)), dict(named_leaves(theirs))
+            differ[what] = sorted(set(a) ^ set(b)) + [
+                n for n in a if n in b and not (a[n].dtype == b[n].dtype
+                                                and torch.equal(a[n].cpu(), b[n].cpu()))]
+        n_adam = len(named_leaves(tb._tx.state_tree(pa, opt_a)))
+        tc, _ = cli.main(cli_argv(corpus, tmp / "c", seed, "--load", ckpt_b, "--load_mode",
+                                  "resume", "--st_data_ratio", "0.5"), device="cuda")
+        say("train cli c", resumed_at=list(tc.start), saved_step=1,
+            params_bit_equal_to_saved=not differ["params"],
+            adam_state_bit_equal_to_saved=not differ["adam"], adam_leaves=n_adam,
+            steps_after_resume=tc.steps_run,
+            model_cont_cfg=(tmp / "c" / "model-cont.cfg").exists())
+        need(not differ["params"], f"resumed params differ from the saved ones: {differ['params'][:5]}")
+        need(not differ["adam"], f"resumed Adam state differs from the saved one: {differ['adam'][:5]}")
+        need(tc0.start == (1, 1) and tc.start == (1, 1) and tc.steps_run == 2,
+             f"resume: start {tc0.start}/{tc.start}, {tc.steps_run} steps")
+        need((tmp / "c" / "model-cont.cfg").exists(), "resume wrote no model-cont.cfg")
+
+        # d. bf16
+        td, (_, pd) = cli.main(cli_argv(corpus, tmp / "d", seed, "--dtype", "bfloat16"),
+                               device="cuda")
+        tree = td._tx.state_tree(pd, td._final_opt_state)["inner_states"]["train"]["inner_state"]
+        mu = [x for x in leaves(tree["1"]["mu"]) if torch.is_tensor(x)]
+        dtypes = {"params": sorted({str(x.dtype) for x in leaves(pd)}),
+                  "count": str(tree["1"]["count"].dtype),
+                  "mu_nu": sorted({str(x.dtype) for x in mu + leaves(tree["1"]["nu"])
+                                   if torch.is_tensor(x)}),
+                  "step_size": str(tree["2"]["hyperparams"]["step_size"].dtype)}
+        losses = [float(v) for v in td._last_losses().values()]
+        say("train cli d", dtype="bfloat16", steps=td.steps_run,
+            loop_steps_per_s=loop_steps_per_s(td), last_losses=losses, dtypes=dtypes)
+        need(td.steps_run == 4 and all(np.isfinite(losses)) and any(losses),
+             f"bf16: {td.steps_run} steps, losses {losses}")
+        # optax: make_optimizer(...).init(params_bf16) keeps mu/nu in the
+        # params' dtype, the counts int32 and step_size f32
+        need(dtypes == {"params": ["torch.bfloat16"], "count": "torch.int32",
+                        "mu_nu": ["torch.bfloat16"], "step_size": "torch.float32"},
+             f"bf16 dtypes {dtypes}")
+
+        # e. the int8 device cache with 4-step windows, no host sync in a step
+        train_batch = T.Trainer._train_batch
+
+        def strict_step(self, *a, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return train_batch(self, *a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+        T.Trainer._train_batch = strict_step
+        try:
+            te, _ = cli.main(cli_argv(corpus, tmp / "e", seed, "--device_cache", "True",
+                                      "--feat_dtype", "int8", "--train_window", "4",
+                                      "--num_epochs", "2", "--print_every", "4",
+                                      "--checkpoint_every", "4"), device="cuda")
+        finally:
+            T.Trainer._train_batch = train_batch
+        cache = te._feat_cache
+        # the window against 4 single steps, dropout 0, on the same batches
+        finals = {}
+        for win in (1, 4):
+            tw = T.Trainer_ASR_ST(expt_dir=str(tmp / f"w{win}"), batch_size=B,
+                                  learning_rate=TRAIN_LR, learning_rate_init=TRAIN_LR,
+                                  lr_warmup_steps=0, seed=seed, print_every=10 ** 9,
+                                  checkpoint_every=10 ** 9,
+                                  loss_coeff={"nll_asr": 1.0, "nll_st": 1.0},
+                                  device_cache=True, feat_dtype="int8", train_window=win,
+                                  device="cuda")
+            dsw = Dataset(path_src=corpus["train_src"], path_tgt=corpus["train_tgt"],
+                          path_vocab_src=corpus["vocab_src"], path_vocab_tgt=corpus["vocab_tgt"],
+                          acous_path=corpus["train_flis"], acous_norm_path=corpus["norm"],
+                          acous_norm=True, max_seq_len_src=cfg0.max_seq_len_src,
+                          max_seq_len_tgt=cfg0.max_seq_len_tgt, batch_size=B, mode="ST",
+                          seed=seed)
+            _, finals[win] = tw.train({"st": dsw}, (cfg0, init()), num_epochs=1)
+            need(tw.windows_run == (1 if win == 4 else 0), f"window runs {tw.windows_run}")
+        errs = leaf_rel_errs(finals[1], finals[4])
+        worst = max(errs, key=errs.get)
+        say("train cli e", feat_dtype="int8", train_window=4, steps=te.steps_run,
+            windows=te.windows_run, loop_steps_per_s=loop_steps_per_s(te),
+            cache_bytes_on_card=cache.nbytes, cache_shape=list(cache.feats.shape),
+            cache_device=str(cache.feats.device), sync_debug_mode="error",
+            window_vs_single_steps_worst_leaf=worst, rel_err=errs[worst], tol=1e-6)
+        need(te.steps_run == 8 and te.windows_run == 2 and cache.feats.is_cuda,
+             f"window run: {te.steps_run} steps, {te.windows_run} windows")
+        need(errs[worst] <= 1e-6, f"window vs single steps: {worst} {errs[worst]}")
     return launches
 
 
@@ -2093,7 +2403,10 @@ def main() -> int:
     for d in ("fwd", "bwd"):
         results[f"K8 {d}"], results[f"K9 {d}"] = k8_res[d], k9_res[d]
     phase_train_parity(args.seed)
-    runs.append(phase_train_e2e(args.seed, rng))
+    train_launches, bare_steps_per_s = phase_train_e2e(args.seed, rng)
+    runs.append(train_launches)
+    # 8. the train CLI and Trainer around that step
+    runs.append(phase_train_cli(args.seed, bare_steps_per_s))
     launches = {k: sum(r.get(k, 0) for r in runs) for k in counters()}
 
     src, rep = "stjep_tpu_torch/csrc/", "stjep_tpu/ops/"

@@ -21,7 +21,10 @@ def params_from_numpy(tree: Any, device=None) -> Any:
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_numpy(v, device) for v in tree)
-    return torch.from_numpy(np.array(tree, copy=True)).to(device)
+    arr = np.array(tree, copy=True)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes' bf16: same bits as torch's
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
 
 
 def params_to_numpy(tree: Any) -> Any:

@@ -1,22 +1,80 @@
-"""Token ids and the model configuration of the port.
+"""Token ids, config plumbing and the model configuration of the port.
 
-A copy of the data in stjep_tpu/config.py (ref: utils/config.py:1-7,
-models/Seq2seq.py:30-61), kept here so that the port and its GPU entry
-points load nothing of the JAX package. tests/test_torch_bridge.py pins the
-two copies equal: same ids, same fields and defaults, same derived
-properties. Either class may be passed to the port's functions.
+A copy of stjep_tpu/config.py (ref: utils/config.py:1-7,
+models/Seq2seq.py:30-61, utils/misc.py:174-231), kept here so that the port
+and its GPU entry points load nothing of the JAX package.
+tests/test_torch_bridge.py and tests/test_torch_data.py pin the two copies
+equal: same ids and token strings, same fields and defaults, same derived
+properties, and the same config files read and written. Either class may
+be passed to the port's functions.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Dict, Optional
+
+PAD_TOKEN = "<pad>"
+UNK_TOKEN = "<unk>"
+BOS_TOKEN = "<s>"
+EOS_TOKEN = "</s>"
+SPC_TOKEN = "<spc>"
 
 PAD = 0
 UNK = 1
 BOS = 2
 EOS = 3
 SPC = 4
+
+
+def validate_config(config: Dict[str, Any]) -> Dict[str, Any]:
+    """Normalise string booleans/none ('true'/'false'/'none' case-insensitive)
+    to Python values (ref: utils/misc.py:220-231)."""
+    for key, val in config.items():
+        if isinstance(val, str):
+            low = val.lower()
+            if low == "true":
+                config[key] = True
+            elif low == "false":
+                config[key] = False
+            elif low == "none":
+                config[key] = None
+    return config
+
+
+def save_config(config: Dict[str, Any], save_path: str) -> None:
+    """Write a `key:value` config snapshot (ref: utils/misc.py:212-217)."""
+    with open(save_path, "w") as f:
+        for key, val in config.items():
+            f.write("{}:{}\n".format(key, val))
+
+
+def _isfloat(s: str) -> bool:
+    try:
+        float(s)
+        return True
+    except ValueError:
+        return False
+
+
+def read_config(path: str) -> Dict[str, Any]:
+    """Read a `key=value` config file (ref: utils/misc.py:181-202)."""
+    config: Dict[str, Any] = {}
+    with open(path, "r") as f:
+        for line in f:
+            x = line.strip().split("=")
+            key = x[0]
+            raw = x[1]
+            if raw.isdigit():
+                val: Any = int(raw)
+            elif _isfloat(raw):
+                val = float(raw)
+            elif raw.lower() in ("true", "false"):
+                val = raw.lower() == "true"
+            else:
+                val = raw
+            config[key] = val
+    return config
 
 
 @dataclasses.dataclass

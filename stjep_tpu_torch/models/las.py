@@ -13,9 +13,10 @@ from stjep_tpu_torch.models.las_encoder import las_encoder_forward, las_encoder_
 from stjep_tpu_torch.ops.transformer import split
 
 
-def las_init(generator: torch.Generator, cfg: ModelConfig, device=None) -> Dict:
-    return {"encoder": las_encoder_init(generator, cfg, device),
-            "decoder": las_decoder_init(generator, cfg, device)}
+def las_init(generator: torch.Generator, cfg: ModelConfig, device=None,
+             dtype=torch.float32) -> Dict:
+    return {"encoder": las_encoder_init(generator, cfg, device, dtype),
+            "decoder": las_decoder_init(generator, cfg, device, dtype)}
 
 
 def las_forward(params: Dict, cfg: ModelConfig, acous_feats: torch.Tensor,
@@ -25,7 +26,9 @@ def las_forward(params: Dict, cfg: ModelConfig, acous_feats: torch.Tensor,
                 use_teacher_forcing: bool = False,
                 generator: Optional[torch.Generator] = None,
                 is_training: bool = False,
-                ref_tokens: Optional[torch.Tensor] = None):
+                ref_tokens: Optional[torch.Tensor] = None,
+                teacher_forcing_ratio: Optional[float] = None,
+                flash_ok: bool = True):
     """(sequence_embs, logps, symbols, lengths): see las_decoder_forward."""
     g_enc, g_dec = split(generator)
     acous_outputs, _ = las_encoder_forward(params["encoder"], cfg, acous_feats,
@@ -35,4 +38,6 @@ def las_forward(params: Dict, cfg: ModelConfig, acous_feats: torch.Tensor,
                                acous_lens=acous_lens, max_seq_len=max_seq_len,
                                tgt=tgt, use_teacher_forcing=use_teacher_forcing,
                                generator=g_dec, is_training=is_training,
-                               ref_tokens=ref_tokens)
+                               ref_tokens=ref_tokens,
+                               teacher_forcing_ratio=teacher_forcing_ratio,
+                               flash_ok=flash_ok)

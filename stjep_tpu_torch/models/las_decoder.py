@@ -15,8 +15,15 @@ its XLA scan of `las_decoder_step_core` instead of a kernel (attention other
 than bilinear, widths off the kernels' tiles, a stack of other than 3
 LSTMs for K9), the port runs the same step loop in plain PyTorch
 (`_step_loop`), dispatched on JAX's conditions (`las_flash_supported`,
-`use_tf_kernel`). The stochastic teacher-forcing coin and LM fusion are not
-ported yet.
+`use_tf_kernel`). The step loop also runs free-running decodes that are
+differentiated (ST-alone training, `flash_ok=False`), since K2 has no
+backward, as JAX runs its XLA scan there. The stochastic teacher-forcing
+coin (`teacher_forcing_ratio`) is one host draw from the generator where
+JAX draws a traced bernoulli: the branch it picks then runs as the static
+one. LM fusion is not ported yet.
+
+Under bf16 params the LAS head's input is cast to its weight's dtype and
+the picked log-softmax is reduced in f32 (las_decoder.py:411-447).
 """
 
 from __future__ import annotations
@@ -47,27 +54,29 @@ def embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 
 def embedding_init(generator: torch.Generator, vocab_size: int, dim: int,
-                   device=None) -> torch.Tensor:
+                   device=None, dtype=torch.float32) -> torch.Tensor:
     """torch nn.Embedding default init: N(0, 1), PAD row zeroed."""
     t = torch.randn((vocab_size, dim), generator=generator)
     t[PAD] = 0.0
-    return t.to(device)
+    return t.to(device, dtype)
 
 
 def las_decoder_init(generator: torch.Generator, cfg: ModelConfig,
-                     device=None) -> Dict:
+                     device=None, dtype=torch.float32) -> Dict:
     E, Ha, Hd = cfg.enc_embedding_size, cfg.acous_hidden_size, cfg.dim_model
     Hs = cfg.dim_model
     params: Dict = {
-        "embedder": embedding_init(generator, cfg.enc_vocab_size, E, device),
+        "embedder": embedding_init(generator, cfg.enc_vocab_size, E, device, dtype),
         "acous_att": attention_init(generator, query_size=Hd, key_size=2 * Ha,
-                                    mode=cfg.acous_att_mode, device=device),
-        "acous_ffn": linear_init(generator, 2 * Ha + Hd, Hs, bias=False, device=device),
-        "acous_out": linear_init(generator, Hs, cfg.enc_vocab_size, device=device),
-        "dec_l0": lstm_init(generator, E + Hs, Hd, device),
+                                    mode=cfg.acous_att_mode, device=device, dtype=dtype),
+        "acous_ffn": linear_init(generator, 2 * Ha + Hd, Hs, bias=False, device=device,
+                                 dtype=dtype),
+        "acous_out": linear_init(generator, Hs, cfg.enc_vocab_size, device=device,
+                                 dtype=dtype),
+        "dec_l0": lstm_init(generator, E + Hs, Hd, device, dtype),
     }
     for i in range(1, cfg.num_unilstm_dec):
-        params[f"dec_l{i}"] = lstm_init(generator, Hd, Hd, device)
+        params[f"dec_l{i}"] = lstm_init(generator, Hd, Hd, device, dtype)
     return params
 
 
@@ -80,13 +89,15 @@ def lengths_from_preds(preds: torch.Tensor, L: int) -> torch.Tensor:
 
 
 def _make_drop_masks(generator: torch.Generator, cfg: ModelConfig,
-                     n_steps: int, B: int, Ha2: int, device):
-    """Inverted-dropout masks for every step of the teacher-forced scan, in
-    two draws: (lstm [L-1, n, B, Hd], ctx [L-1, B, 1, Ha2])."""
+                     n_steps: int, B: int, Ha2: int, device, dtype=torch.float32):
+    """Inverted-dropout masks for every step of the decode loop, in two
+    draws: (lstm [L-1, n, B, Hd], ctx [L-1, B, 1, Ha2]), in `dtype` (the
+    activations': torch does not promote a bf16 stream through f32 masks
+    into its matmuls as JAX does)."""
     keep = 1.0 - cfg.dropout
     shapes = ((n_steps, cfg.num_unilstm_dec, B, cfg.dim_model), (n_steps, B, 1, Ha2))
-    return tuple((torch.rand(shape, generator=on_device(g, device), device=device)
-                  < keep).float() / keep
+    return tuple(((torch.rand(shape, generator=on_device(g, device), device=device)
+                   < keep).float() / keep).to(dtype)
                  for g, shape in zip(split(generator), shapes))
 
 
@@ -187,7 +198,8 @@ def _teacher_forced(params: Dict, cfg: ModelConfig, acous_outputs: torch.Tensor,
     masks = None
     if is_training and cfg.dropout > 0.0:
         generator, k = split(generator)
-        masks = _make_drop_masks(k, cfg, L - 1, B, Ha2, acous_outputs.device)
+        masks = _make_drop_masks(k, cfg, L - 1, B, Ha2, acous_outputs.device,
+                                 acous_outputs.dtype)
     p0 = params["dec_l0"]
     E = params["embedder"].shape[1]
     emb_steps = emb_tgt[:, :L - 1].transpose(0, 1)  # [L-1, B, E]
@@ -201,14 +213,20 @@ def _teacher_forced(params: Dict, cfg: ModelConfig, acous_outputs: torch.Tensor,
         embs = _step_loop(params, cfg, acous_outputs, _att_mask(lens_k, acous_outputs.shape[1]),
                           L - 1, pre0_steps=pre0, masks=masks)
     embs = embs.transpose(0, 1)  # [B, L-1, Hs]
-    logits = linear(params["acous_out"], embs)
+    head_w = params["acous_out"]["w"]
+    # the training NLL path feeds the head in its weight's dtype (bf16 under
+    # --dtype bfloat16; a no-op at f32) (las_decoder.py:411-420)
+    head_in = embs.to(head_w.dtype) if ref_tokens is not None else embs
+    logits = linear(params["acous_out"], head_in)
     symbols = torch.argmax(logits, dim=-1)  # == argmax of the log-softmax
     lengths = lengths_from_preds(symbols, L)
     if ref_tokens is None:
         return embs, torch.log_softmax(logits, dim=-1), symbols, lengths
-    # the log-softmax at the reference token, by gather minus logsumexp
+    # the log-softmax at the reference token, by gather minus logsumexp, in
+    # f32 (las_decoder.py:432-447)
     ids = ref_tokens[:, :L - 1].long()[..., None]
-    picked = logits.gather(-1, ids)[..., 0] - torch.logsumexp(logits, dim=-1)
+    lf = logits.float()
+    picked = lf.gather(-1, ids)[..., 0] - torch.logsumexp(lf, dim=-1)
     return embs, picked, symbols, lengths
 
 
@@ -220,38 +238,67 @@ def las_decoder_forward(params: Dict, cfg: ModelConfig,
                         use_teacher_forcing: bool = False,
                         generator: Optional[torch.Generator] = None,
                         is_training: bool = False,
-                        ref_tokens: Optional[torch.Tensor] = None):
-    """Free running: greedy decode over max_seq_len - 1 steps, returning
+                        ref_tokens: Optional[torch.Tensor] = None,
+                        teacher_forcing_ratio: Optional[float] = None,
+                        flash_ok: bool = True):
+    """Free running: greedy decode over max_seq_len - 1 steps (tgt.shape[1]
+    - 1 from tgt[:, 0] when tgt is given), returning
     (sequence_embs [B, L-1, Hs], None, symbols [B, L-1], lengths [B]), the
     JAX function's return with want_logps=False; with ref_tokens, the
     second entry is the picked log-probs [B, L-1] at ref_tokens[:, :L-1]
     (PAD-padded to L-1, as las_decoder.py:308-312 pads them). Teacher-forced
     on tgt [B, L]: (sequence_embs, logps [B, L-1, V] or, with ref_tokens,
     the picked log-probs [B, L-1] at ref_tokens[:, :L-1], symbols,
-    lengths)."""
+    lengths).
+
+    teacher_forcing_ratio, when given, is the reference's per-batch coin
+    `random.random() < ratio` (ref: Dec.py:196): >= 1.0 teacher-forced,
+    <= 0.0 free running, anything between one draw from `generator` (JAX
+    draws a traced bernoulli, las_decoder.py:256-266). The free-running
+    loop runs K2 when flash_ok and not is_training (the JAX gate,
+    las_decoder.py:288-292), else the differentiable step loop with the
+    training dropout masks."""
     B, Tk, _ = acous_outputs.shape
     if acous_lens is not None:
         lens_k = round_up8(acous_lens.long()) // 8  # ref: Dec.py:173-179
     else:
         lens_k = torch.full((B,), Tk, dtype=torch.int64, device=acous_outputs.device)
+    if teacher_forcing_ratio is not None:
+        if tgt is None:
+            raise ValueError("stochastic teacher forcing needs tgt")  # ref: Las.py:107
+        if 0.0 < teacher_forcing_ratio < 1.0:
+            generator, k = split(generator)
+            use_teacher_forcing = bool(
+                torch.rand((), generator=k) < teacher_forcing_ratio)
+        else:
+            use_teacher_forcing = teacher_forcing_ratio >= 1.0
     if use_teacher_forcing:
         if tgt is None:
             raise ValueError("teacher forcing needs tgt")
         return _teacher_forced(params, cfg, acous_outputs, lens_k, tgt,
                                generator, is_training, ref_tokens)
-    L = max_seq_len if max_seq_len is not None else cfg.max_seq_len_src
-    sym0 = torch.full((B,), BOS, dtype=torch.int64, device=acous_outputs.device)
+    dev = acous_outputs.device
+    if tgt is not None:
+        L, sym0 = tgt.shape[1], tgt[:, 0].long()
+    else:
+        L = max_seq_len if max_seq_len is not None else cfg.max_seq_len_src
+        sym0 = torch.full((B,), BOS, dtype=torch.int64, device=dev)
     refs = None
     if ref_tokens is not None:  # K2 reads them as contiguous [B, L-1] int32
         r = ref_tokens[:, :L - 1].to(torch.int32)
         refs = F.pad(r, (0, L - 1 - r.shape[1]), value=PAD).contiguous()
-    if las_flash_supported(cfg):
+    if flash_ok and not is_training and las_flash_supported(cfg):
         pre_keys = precompute_keys(params["acous_att"], acous_outputs, cfg.acous_att_mode)
         embs, preds, picked = las_greedy_flash(params, cfg, pre_keys["wk"],
                                                acous_outputs, lens_k, sym0, L - 1,
                                                ref_tokens=refs)
     else:
+        masks = None
+        if is_training and cfg.dropout > 0.0:
+            generator, k = split(generator)
+            masks = _make_drop_masks(k, cfg, L - 1, B, acous_outputs.shape[-1], dev,
+                                     acous_outputs.dtype)
         embs, preds, picked = _step_loop(params, cfg, acous_outputs, _att_mask(lens_k, Tk),
-                                         L - 1, sym0=sym0, ref_tokens=refs)
+                                         L - 1, sym0=sym0, masks=masks, ref_tokens=refs)
     return (embs, picked if refs is not None else None, preds,
             lengths_from_preds(preds, L))

@@ -30,12 +30,12 @@ from stjep_tpu_torch.ops.transformer import dropout, split
 
 
 def las_encoder_init(generator: torch.Generator, cfg: ModelConfig,
-                     device=None) -> Dict:
+                     device=None, dtype=torch.float32) -> Dict:
     params: Dict = {}
     in_dim = cfg.acous_dim
     for i in range(cfg.num_pyramid_layers):
         params[f"acous_enc_l{i + 1}"] = bilstm_init(
-            generator, in_dim, cfg.acous_hidden_size, device)
+            generator, in_dim, cfg.acous_hidden_size, device, dtype)
         in_dim = 4 * cfg.acous_hidden_size  # concat of adjacent 2H frames
     return params
 

@@ -5,8 +5,9 @@ The parameter tree has the JAX package's key paths and `[in, out]`
 layouts, so `bridge.params_from_numpy` carries JAX params over unchanged.
 `enc_emb_proj` (static + dynamic -> dim_model) is always created and
 applied, as in the reference (ref: Seq2seq.py:123-125). `forward_train`
-runs modes ASR, MT and ASR_ST; ST alone (training through the free-running
-LAS) and the AE modes are not ported yet. `forward_eval` is the dev eval
+runs modes ASR, MT, ST and ASR_ST (ST alone trains through the free-running
+LAS decoder's differentiable step loop, as JAX through its XLA scan); the
+AE modes are not ported yet. `forward_eval` is the dev eval
 with reference ids, over the free-running LAS (K2) and the kernel greedy
 decoder `_greedy_decode_flash`; without reference ids (the dense logps
 buffers) and in the AE modes it is not ported yet.
@@ -53,36 +54,36 @@ from stjep_tpu_torch.parallel.spmd import greedy_decode_flash_dp
 
 
 def init_seq2seq(cfg: ModelConfig, generator: torch.Generator,
-                 device=None) -> Dict:
-    """Random parameters with the key paths and shapes of
-    stjep_tpu.models.seq2seq.init_seq2seq (values differ: the generators
-    differ)."""
+                 device=None, dtype=torch.float32) -> Dict:
+    """Random parameters with the key paths, shapes and dtype (every leaf
+    `dtype`) of stjep_tpu.models.seq2seq.init_seq2seq (values differ: the
+    generators differ; each leaf is drawn in f32 and stored in dtype)."""
     g = generator
     params: Dict = {
         "enc_embedder": embedding_init(g, cfg.enc_vocab_size,
-                                       cfg.enc_embedding_size, device)}
+                                       cfg.enc_embedding_size, device, dtype)}
     if cfg.share_embedder:
         if cfg.enc_vocab_size != cfg.dec_vocab_size:
             raise ValueError("share_embedder needs equal vocab sizes")
         params["dec_embedder"] = params["enc_embedder"].clone()
     else:
         params["dec_embedder"] = embedding_init(g, cfg.dec_vocab_size,
-                                                cfg.dec_embedding_size, device)
+                                                cfg.dec_embedding_size, device, dtype)
     params["enc_emb_proj"] = linear_init(
         g, cfg.enc_embedding_size + cfg.dim_model, cfg.dim_model, bias=False,
-        device=device)
+        device=device, dtype=dtype)
     if cfg.dec_emb_proj_flag:
         params["dec_emb_proj"] = linear_init(g, cfg.dec_embedding_size,
                                              cfg.dim_model, bias=False,
-                                             device=device)
+                                             device=device, dtype=dtype)
     if cfg.has_las:
-        params["las"] = las_init(g, cfg, device)
+        params["las"] = las_init(g, cfg, device, dtype)
     if cfg.has_transformer:
-        params["enc_src"] = tf_encoder_init(g, cfg, device)
-        params["dec_tgt"] = tf_decoder_init(g, cfg, device)
+        params["enc_src"] = tf_encoder_init(g, cfg, device, dtype)
+        params["dec_tgt"] = tf_decoder_init(g, cfg, device, dtype)
         params["out_tgt"] = linear_init(g, cfg.dim_model, cfg.dec_vocab_size,
-                                        bias=False, device=device)
-    params["emb_dyn_ave"] = torch.zeros((cfg.dim_model,), device=device)
+                                        bias=False, device=device, dtype=dtype)
+    params["emb_dyn_ave"] = torch.zeros((cfg.dim_model,), device=device, dtype=dtype)
     return params
 
 
@@ -140,13 +141,20 @@ def _encoder_acous(params: Dict, cfg: ModelConfig, acous_feats: torch.Tensor,
                    teacher_forcing: bool = False,
                    generator: Optional[torch.Generator] = None,
                    is_training: bool = False,
-                   ref_tokens: Optional[torch.Tensor] = None):
+                   ref_tokens: Optional[torch.Tensor] = None,
+                   teacher_forcing_ratio: Optional[float] = None,
+                   flash_ok: bool = True):
     """LAS pass -> (dynamic embs, logps or picked logps or None, preds,
-    lengths); free running unless teacher_forcing (ref: Seq2seq.py:222-230)."""
+    lengths); free running unless teacher_forcing (ref: Seq2seq.py:222-230).
+    teacher_forcing_ratio: the reference's per-batch coin (las_decoder.py);
+    flash_ok=False keeps K2, which has no backward, out of a free-running
+    pass that is differentiated."""
     return las_forward(params["las"], cfg, acous_feats, acous_lens=acous_lens,
                        max_seq_len=max_seq_len, tgt=tgt,
                        use_teacher_forcing=teacher_forcing, generator=generator,
-                       is_training=is_training, ref_tokens=ref_tokens)
+                       is_training=is_training, ref_tokens=ref_tokens,
+                       teacher_forcing_ratio=teacher_forcing_ratio,
+                       flash_ok=flash_ok)
 
 
 def _encoder_en(params: Dict, cfg: ModelConfig, emb_src: torch.Tensor,
@@ -177,7 +185,7 @@ def _decoder_de(params: Dict, cfg: ModelConfig, emb_tgt: torch.Tensor,
     preds = torch.argmax(logits, dim=2)  # == argmax of the log-softmax
     if ref_pick_ids is None:
         return dec_out, logits, F.log_softmax(logits, dim=2), preds
-    lg = logits[:, :-1]
+    lg = logits[:, :-1].float()  # reduced in f32 under bf16 params (JAX's casts)
     picked = (lg.gather(2, ref_pick_ids.long()[:, :, None])[:, :, 0]
               - torch.logsumexp(lg, dim=-1))
     return dec_out, logits, picked, preds
@@ -196,8 +204,10 @@ def forward_train(params: Dict, cfg: ModelConfig, mode: str, src: torch.Tensor,
                   generator: Optional[torch.Generator] = None,
                   is_training: bool = True,
                   ref_pick: bool = False) -> Dict[str, torch.Tensor]:
-    """Teacher-forced training forward for modes ASR, MT and ASR_ST
-    (ref: Seq2seq.py:396-509). Returns the reference's out_dict keys; with
+    """Teacher-forced training forward for modes ASR, MT, ST and ASR_ST
+    (ref: Seq2seq.py:396-509); ST alone runs the LAS free, without dropout
+    or SpecAugment, on its differentiable step loop (ref:
+    Seq2seq.py:484-487). Returns the reference's out_dict keys; with
     ref_pick the heads give `picked_*` [B, L-1] (the log-softmax at the
     reference token) instead of `logps_*` [B, L-1, V].
 
@@ -206,11 +216,10 @@ def forward_train(params: Dict, cfg: ModelConfig, mode: str, src: torch.Tensor,
     is_training turns dropout and SpecAugment on; the teacher-forcing
     structure is the same either way."""
     mode = mode.upper()
-    if "AE" in mode or ("ST" in mode and "ASR" not in mode):
+    if "AE" in mode:
         raise NotImplementedError(
-            f"forward_train mode {mode!r} is not ported yet: ST alone trains "
-            "through the free-running LAS and AE through its own head "
-            "(ROADMAP Queue A item 7)")
+            f"forward_train mode {mode!r} is not ported yet: AE trains "
+            "through its own head (ROADMAP Queue A item 6)")
     if ("ST" in mode or "ASR" in mode) and acous_feats is None:
         raise ValueError(f"mode {mode} needs acous_feats")
     if ("ST" in mode or "MT" in mode) and tgt is None:
@@ -250,14 +259,20 @@ def forward_train(params: Dict, cfg: ModelConfig, mode: str, src: torch.Tensor,
         out["preds_mt"] = preds_tgt
         out["picked_mt" if ref_pick else "logps_mt"] = logps_tgt
 
-    if "ST" in mode:  # ASR_ST: the ASR head's dynamic embeddings and lengths
-        generator, k1, k2, k3, k4, _ = split(generator, 6)
+    if "ST" in mode:
+        generator, k1, k2, k3, k4, k5 = split(generator, 6)
         tgt_mask, emb_tgt = _get_tgt_emb(params, cfg, tgt, generator=k1,
                                          is_training=is_training)
+        if "ASR" in mode:  # the ASR head's dynamic embeddings and lengths
+            emb_dyn, lengths = out["emb_asr"], out["lengths_asr"]
+        else:  # the free-running LAS (ref: Seq2seq.py:484-487)
+            emb_dyn, _, _, lengths = _encoder_acous(
+                params, cfg, acous_feats, acous_lens, tgt=src, generator=k5,
+                is_training=False, flash_ok=False)
         src_trim = _pre_proc_src(src)
-        _, emb_src, _ = _get_src_emb(params, cfg, src_trim, out["emb_asr"],
+        _, emb_src, _ = _get_src_emb(params, cfg, src_trim, emb_dyn,
                                      generator=k2, is_training=is_training)
-        src_mask_input = _length_src_mask(out["lengths_asr"], emb_src.shape[1])
+        src_mask_input = _length_src_mask(lengths, emb_src.shape[1])
         enc_out = _encoder_en(params, cfg, emb_src, src_mask=src_mask_input,
                               generator=k3, is_training=is_training)
         _, _, logps_tgt, preds_tgt = _decoder_de(
@@ -363,12 +378,12 @@ def forward_eval(params: Dict, cfg: ModelConfig, mode: str,
     if "AE" in mode:
         raise NotImplementedError(
             f"forward_eval mode {mode!r} is not ported yet: the AE head "
-            "(ROADMAP Queue A item 11)")
+            "(ROADMAP Queue A item 6)")
     if ("ASR" in mode and ref_src is None) or (
             ("ST" in mode or "MT" in mode) and ref_tgt is None):
         raise NotImplementedError(
             "forward_eval without reference ids (the dense logps_* buffers) "
-            "is not ported yet (ROADMAP Queue A item 11)")
+            "is not ported yet (ROADMAP Queue A item 6)")
     if ("ST" in mode or "ASR" in mode) and acous_feats is None:
         raise ValueError(f"mode {mode} needs acous_feats")
     if "MT" in mode and src is None:

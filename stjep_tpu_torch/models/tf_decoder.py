@@ -60,14 +60,14 @@ class TFDecCache(NamedTuple):
 
 
 def tf_decoder_init(generator: torch.Generator, cfg: ModelConfig,
-                    device=None) -> Dict:
+                    device=None, dtype=torch.float32) -> Dict:
     check_supported(cfg)
     n = 1 if cfg.transformer_type == "universal" else cfg.dec_layers
     return {
         "layers": [decoder_layer_init(generator, cfg.dim_model, cfg.num_heads,
-                                      cfg.dim_feedforward, device)
+                                      cfg.dim_feedforward, device, dtype)
                    for _ in range(n)],
-        "norm": layer_norm_init(cfg.dim_model, device),
+        "norm": layer_norm_init(cfg.dim_model, device, dtype),
     }
 
 
@@ -82,8 +82,8 @@ def tf_decoder_forward(params: Dict, cfg: ModelConfig, tgt: torch.Tensor,
     and src_mask [B, 1, Lk] (0 = blocked) -> out [B, L, D]."""
     check_supported(cfg, is_training)
     L = tgt.shape[1]
-    x = tgt + position_signal(max(max_time, L), cfg.dim_model, tgt.device)[:, :L]
-    layer_sig = position_signal(cfg.dec_layers, cfg.dim_model, tgt.device)[0]
+    x = tgt + position_signal(max(max_time, L), cfg.dim_model, tgt.device)[:, :L].to(tgt.dtype)
+    layer_sig = position_signal(cfg.dec_layers, cfg.dim_model, tgt.device)[0].to(tgt.dtype)
     for hop in range(cfg.dec_layers):
         if cfg.transformer_type == "universal":
             x = x + layer_sig[hop]

@@ -50,14 +50,14 @@ def _layer_params(params: Dict, cfg: ModelConfig, i: int) -> Dict:
 
 
 def tf_encoder_init(generator: torch.Generator, cfg: ModelConfig,
-                    device=None) -> Dict:
+                    device=None, dtype=torch.float32) -> Dict:
     check_supported(cfg)
     n = 1 if cfg.transformer_type == "universal" else cfg.enc_layers
     return {
         "layers": [encoder_layer_init(generator, cfg.dim_model, cfg.num_heads,
-                                      cfg.dim_feedforward, device)
+                                      cfg.dim_feedforward, device, dtype)
                    for _ in range(n)],
-        "norm": layer_norm_init(cfg.dim_model, device),
+        "norm": layer_norm_init(cfg.dim_model, device, dtype),
     }
 
 
@@ -70,8 +70,8 @@ def tf_encoder_forward(params: Dict, cfg: ModelConfig, src: torch.Tensor,
     encoded [B, L, D]."""
     check_supported(cfg, is_training)
     L = src.shape[1]
-    x = src + position_signal(max(max_time, L), cfg.dim_model, src.device)[:, :L]
-    layer_sig = position_signal(cfg.enc_layers, cfg.dim_model, src.device)[0]
+    x = src + position_signal(max(max_time, L), cfg.dim_model, src.device)[:, :L].to(src.dtype)
+    layer_sig = position_signal(cfg.enc_layers, cfg.dim_model, src.device)[0].to(src.dtype)
     for hop in range(cfg.enc_layers):
         if cfg.transformer_type == "universal":
             x = x + layer_sig[hop]

@@ -22,18 +22,20 @@ import torch
 MASK_FILL = -1e12  # ref: modules/attention.py:252
 
 
-def _uniform(generator: torch.Generator, shape, bound: float, device):
+def _uniform(generator: torch.Generator, shape, bound: float, device,
+             dtype=torch.float32):
     u = torch.rand(shape, generator=generator, dtype=torch.float32)
-    return (u * (2 * bound) - bound).to(device)
+    return (u * (2 * bound) - bound).to(device, dtype)
 
 
 def linear_init(generator: torch.Generator, in_dim: int, out_dim: int,
-                bias: bool = True, device=None) -> Dict[str, torch.Tensor]:
+                bias: bool = True, device=None,
+                dtype=torch.float32) -> Dict[str, torch.Tensor]:
     """torch.nn.Linear's default init in `[in, out]` layout."""
     p = {"w": _uniform(generator, (in_dim, out_dim),
-                       math.sqrt(1.0 / in_dim) * math.sqrt(3.0), device)}
+                       math.sqrt(1.0 / in_dim) * math.sqrt(3.0), device, dtype)}
     if bias:
-        p["b"] = _uniform(generator, (out_dim,), 1.0 / math.sqrt(in_dim), device)
+        p["b"] = _uniform(generator, (out_dim,), 1.0 / math.sqrt(in_dim), device, dtype)
     return p
 
 
@@ -45,24 +47,25 @@ def linear(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
 
 
 def attention_init(generator: torch.Generator, query_size: int, key_size: int,
-                   mode: str = "bilinear", hidden_size: int = 1, device=None) -> Dict:
+                   mode: str = "bilinear", hidden_size: int = 1, device=None,
+                   dtype=torch.float32) -> Dict:
     """Parameters of one AttentionLayer in the JAX package's tree layout
     (stjep_tpu/ops/attention.py `attention_init`)."""
     if mode == "bilinear":
         return {"linear_att_w": linear_init(generator, key_size, query_size,
-                                            bias=False, device=device)}
+                                            bias=False, device=device, dtype=dtype)}
     if mode == "dot_prod":
         return {}
     if mode == "bahdanau":
-        return {"linear_att_q": linear_init(generator, query_size, hidden_size, device=device),
-                "linear_att_k": linear_init(generator, key_size, hidden_size, device=device),
-                "linear_att_o": linear_init(generator, hidden_size, 1, device=device)}
+        return {"linear_att_q": linear_init(generator, query_size, hidden_size, device=device, dtype=dtype),
+                "linear_att_k": linear_init(generator, key_size, hidden_size, device=device, dtype=dtype),
+                "linear_att_o": linear_init(generator, hidden_size, 1, device=device, dtype=dtype)}
     if mode == "hybrid":
         p = {}
         for n in ("a", "b", "c"):
-            p[f"linear_att_{n}q"] = linear_init(generator, query_size, hidden_size, device=device)
-            p[f"linear_att_{n}k"] = linear_init(generator, key_size, hidden_size, device=device)
-            p[f"linear_att_{n}o"] = linear_init(generator, hidden_size, 1, device=device)
+            p[f"linear_att_{n}q"] = linear_init(generator, query_size, hidden_size, device=device, dtype=dtype)
+            p[f"linear_att_{n}k"] = linear_init(generator, key_size, hidden_size, device=device, dtype=dtype)
+            p[f"linear_att_{n}o"] = linear_init(generator, hidden_size, 1, device=device, dtype=dtype)
         return p
     raise ValueError(f"unknown attention mode {mode}")
 

@@ -30,7 +30,9 @@ On CUDA tensors the Function launches one cooperative persistent kernel of
 the plan `ops/las_flash.py las_plan`); on CPU tensors it runs
 `las_tf_fwd_plain` and `las_tf_bwd_plain`, explicit time loops that produce
 the same streams. The TPU kernels keep streams and weights in bf16; the
-port keeps f32 (the JAX package's parity mode).
+port keeps f32 (the JAX package's parity mode), and under bf16 params
+`las_tf_scan` casts its inputs and weights to f32 at the Function's
+boundary and the output back, on either device.
 """
 
 from __future__ import annotations
@@ -336,9 +338,14 @@ def las_tf_scan(stack: Dict, att_w: torch.Tensor, ffn_w: torch.Tensor,
     inverted-dropout masks, or None. Returns the dynamic embeddings
     [S, B, Hs], time-major."""
     p0, p1, p2 = (stack[f"dec_l{i}"] for i in range(3))
-    m_lstm, m_ctx = (None, None) if masks is None else (masks[0], masks[1][:, :, 0])
+    m_lstm, m_ctx = (None, None) if masks is None else (masks[0].float(),
+                                                        masks[1][:, :, 0].float())
     lens = lens_k.to(device=pre0_steps.device, dtype=torch.int64)
-    return _LasTFScan.apply(pre0_steps, acous_outputs, lens, m_lstm, m_ctx, att_w,
-                            p0["w_ih"], p0["w_hh"], p1["w_ih"], p1["w_hh"],
-                            p1["b_ih"], p1["b_hh"], p2["w_ih"], p2["w_hh"],
-                            p2["b_ih"], p2["b_hh"], ffn_w)
+    dtype = torch.promote_types(pre0_steps.dtype, acous_outputs.dtype)
+    # the kernels are f32: other dtypes (bf16 params) are cast to f32 at the
+    # boundary and the output back, so the gradients are cast the same way
+    ws = (att_w, p0["w_ih"], p0["w_hh"], p1["w_ih"], p1["w_hh"], p1["b_ih"],
+          p1["b_hh"], p2["w_ih"], p2["w_hh"], p2["b_ih"], p2["b_hh"], ffn_w)
+    out = _LasTFScan.apply(pre0_steps.float(), acous_outputs.float(), lens, m_lstm,
+                           m_ctx, *(w.float() for w in ws))
+    return out.to(dtype)

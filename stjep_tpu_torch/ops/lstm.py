@@ -16,12 +16,13 @@ import torch
 
 
 def lstm_init(generator: torch.Generator, input_size: int, hidden_size: int,
-              device=None) -> Dict[str, torch.Tensor]:
-    """Uniform(-1/sqrt(H), 1/sqrt(H)), torch.nn.LSTM's default."""
+              device=None, dtype=torch.float32) -> Dict[str, torch.Tensor]:
+    """Uniform(-1/sqrt(H), 1/sqrt(H)), torch.nn.LSTM's default, drawn in
+    f32 and stored in `dtype`."""
     k = 1.0 / math.sqrt(hidden_size)
 
     def u(shape):
-        return (torch.rand(shape, generator=generator) * (2 * k) - k).to(device)
+        return (torch.rand(shape, generator=generator) * (2 * k) - k).to(device, dtype)
 
     return {
         "w_ih": u((input_size, 4 * hidden_size)),
@@ -32,9 +33,9 @@ def lstm_init(generator: torch.Generator, input_size: int, hidden_size: int,
 
 
 def bilstm_init(generator: torch.Generator, input_size: int, hidden_size: int,
-                device=None) -> Dict:
-    return {"fwd": lstm_init(generator, input_size, hidden_size, device),
-            "bwd": lstm_init(generator, input_size, hidden_size, device)}
+                device=None, dtype=torch.float32) -> Dict:
+    return {"fwd": lstm_init(generator, input_size, hidden_size, device, dtype),
+            "bwd": lstm_init(generator, input_size, hidden_size, device, dtype)}
 
 
 def lstm_gates(pre: torch.Tensor, c: torch.Tensor, hidden_size: int,

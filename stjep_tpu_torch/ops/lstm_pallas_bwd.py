@@ -19,7 +19,9 @@ projections) and the backward the reverse cluster sweep of
 their batch tile and cluster size from `lstm_pallas.sweep_shape`. On CPU
 tensors the same Function runs `bilstm_fwd_save_plain` and
 `bilstm_bwd_plain`, explicit time loops that produce the same streams. The TPU kernels keep the streams in bf16;
-the port keeps f32 (the JAX package's parity mode).
+the port keeps f32 (the JAX package's parity mode), and under bf16 params
+casts the layer's input and weights to f32 at the Function's boundary and
+its output back, on either device.
 """
 
 from __future__ import annotations
@@ -183,6 +185,9 @@ def bilstm_pallas_trainable(params_fwd: Dict, params_bwd: Dict, x: torch.Tensor,
         lengths = torch.full((B,), T, device=x.device)
     lengths = lengths.to(device=x.device, dtype=torch.int64)
     pf, pb = params_fwd, params_bwd
-    return _BiLSTMTrainable.apply(x, lengths, pf["w_ih"], pf["w_hh"], pf["b_ih"],
-                                  pf["b_hh"], pb["w_ih"], pb["w_hh"], pb["b_ih"],
-                                  pb["b_hh"])
+    ws = [p[k] for p in (pf, pb) for k in ("w_ih", "w_hh", "b_ih", "b_hh")]
+    dtype = torch.promote_types(x.dtype, pf["w_ih"].dtype)
+    # the kernels are f32: other dtypes (bf16 params) are cast to f32 at the
+    # boundary and the output back, so the gradients are cast the same way
+    out = _BiLSTMTrainable.apply(x.float(), lengths, *(w.float() for w in ws))
+    return out.to(dtype)

@@ -57,9 +57,9 @@ def dropout(generator: Optional[torch.Generator], x: torch.Tensor, rate: float,
     return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
-def layer_norm_init(dim: int, device=None) -> Dict[str, torch.Tensor]:
-    return {"scale": torch.ones((dim,), device=device),
-            "bias": torch.zeros((dim,), device=device)}
+def layer_norm_init(dim: int, device=None, dtype=torch.float32) -> Dict[str, torch.Tensor]:
+    return {"scale": torch.ones((dim,), device=device, dtype=dtype),
+            "bias": torch.zeros((dim,), device=device, dtype=dtype)}
 
 
 def layer_norm(p: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -70,13 +70,13 @@ def layer_norm(p: Dict[str, torch.Tensor], x: torch.Tensor,
 
 
 def mha_init(generator: torch.Generator, n_head: int, d_model: int, d_k: int,
-             d_v: int, device=None) -> Dict:
+             d_v: int, device=None, dtype=torch.float32) -> Dict:
     return {
-        "w_qs": linear_init(generator, d_model, n_head * d_k, bias=False, device=device),
-        "w_ks": linear_init(generator, d_model, n_head * d_k, bias=False, device=device),
-        "w_vs": linear_init(generator, d_model, n_head * d_v, bias=False, device=device),
-        "fc": linear_init(generator, n_head * d_v, d_model, bias=False, device=device),
-        "layer_norm": layer_norm_init(d_model, device),
+        "w_qs": linear_init(generator, d_model, n_head * d_k, bias=False, device=device, dtype=dtype),
+        "w_ks": linear_init(generator, d_model, n_head * d_k, bias=False, device=device, dtype=dtype),
+        "w_vs": linear_init(generator, d_model, n_head * d_v, bias=False, device=device, dtype=dtype),
+        "fc": linear_init(generator, n_head * d_v, d_model, bias=False, device=device, dtype=dtype),
+        "layer_norm": layer_norm_init(d_model, device, dtype),
     }
 
 
@@ -116,10 +116,11 @@ def mha(params: Dict, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dropout(r2, out, dropout_rate, training) + q
 
 
-def ffn_init(generator: torch.Generator, d_in: int, d_hid: int, device=None) -> Dict:
-    return {"w_1": linear_init(generator, d_in, d_hid, device=device),
-            "w_2": linear_init(generator, d_hid, d_in, device=device),
-            "layer_norm": layer_norm_init(d_in, device)}
+def ffn_init(generator: torch.Generator, d_in: int, d_hid: int, device=None,
+             dtype=torch.float32) -> Dict:
+    return {"w_1": linear_init(generator, d_in, d_hid, device=device, dtype=dtype),
+            "w_2": linear_init(generator, d_hid, d_in, device=device, dtype=dtype),
+            "layer_norm": layer_norm_init(d_in, device, dtype)}
 
 
 def ffn(params: Dict, x: torch.Tensor, generator: Optional[torch.Generator] = None,
@@ -130,10 +131,10 @@ def ffn(params: Dict, x: torch.Tensor, generator: Optional[torch.Generator] = No
 
 
 def encoder_layer_init(generator: torch.Generator, d_model: int, n_head: int,
-                       d_ff: int, device=None) -> Dict:
+                       d_ff: int, device=None, dtype=torch.float32) -> Dict:
     d_k = d_model // n_head
-    return {"slf_attn": mha_init(generator, n_head, d_model, d_k, d_k, device),
-            "pos_ffn": ffn_init(generator, d_model, d_ff, device)}
+    return {"slf_attn": mha_init(generator, n_head, d_model, d_k, d_k, device, dtype),
+            "pos_ffn": ffn_init(generator, d_model, d_ff, device, dtype)}
 
 
 def encoder_layer(params: Dict, x: torch.Tensor, n_head: int,
@@ -148,11 +149,11 @@ def encoder_layer(params: Dict, x: torch.Tensor, n_head: int,
 
 
 def decoder_layer_init(generator: torch.Generator, d_model: int, n_head: int,
-                       d_ff: int, device=None) -> Dict:
+                       d_ff: int, device=None, dtype=torch.float32) -> Dict:
     d_k = d_model // n_head
-    return {"decslf_attn": mha_init(generator, n_head, d_model, d_k, d_k, device),
-            "encdec_attn": mha_init(generator, n_head, d_model, d_k, d_k, device),
-            "pos_ffn": ffn_init(generator, d_model, d_ff, device)}
+    return {"decslf_attn": mha_init(generator, n_head, d_model, d_k, d_k, device, dtype),
+            "encdec_attn": mha_init(generator, n_head, d_model, d_k, d_k, device, dtype),
+            "pos_ffn": ffn_init(generator, d_model, d_ff, device, dtype)}
 
 
 def decoder_layer(params: Dict, x: torch.Tensor, memory: torch.Tensor,

@@ -2,6 +2,7 @@
 """Profile the port's decode paths at the flagship on one GPU.
 
     python3 stjep_tpu_torch/scripts/profile_decode.py [--seed 0] [--n_model N] [--train]
+        [--train_loop]
 
 The paths are chip_smoke.py's: ST beam-5 (forward_translate) and dev eval
 (forward_eval ASR_ST with reference ids), each on the standard and on the
@@ -11,7 +12,13 @@ and at B=1. With --n_model N > 1 only the ST beam-5 on the standard
 model, tensor-parallel on a (1, N) mesh whose shards all lie on the card
 (parallel/spmd.py). With --train only the ASR_ST train step at the
 flagship (make_train_step, B=16, dropout and SpecAugment on, as
-chip_smoke.py's train e2e phase), one step a call. For each path: one
+chip_smoke.py's train e2e phase), one step a call. With --train_loop
+only the Trainer's epoch loop (train/trainer.py) against the bare step at
+the same shapes, on a corpus written like chip_smoke.py's train cli one
+(320 utterances of 1504 frames, B=16: 20 steps an epoch): f32 with
+per-step staging, bf16 (--dtype bfloat16), and the int8 device cache with
+--train_window 1 and 4, each timed over 3 interleaved epochs after a
+warm-up epoch (`train_loop`), then one epoch a call profiled. For each path: one
 warm-up call, one call timed on the host clock, then one call under
 torch.profiler. Prints per path the plain wall ms, the profiled wall ms
 (inflated by the profiler), device busy ms (the union of the device
@@ -69,7 +76,7 @@ def positions(n_model: int) -> int:
     return single + got["K7 head_partial"] // n_model
 
 
-def profile(label: str, fn, n_model: int = 1):
+def profile(label: str, fn, n_model: int = 1, n_steps: int = 0):
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -96,6 +103,9 @@ def profile(label: str, fn, n_model: int = 1):
         in_loop = sum(1 for e in dev if a <= e.time_range.start < b)
         per_pos = dict(positions=n_pos, loop_device_ops=in_loop,
                        device_ops_per_position=round(in_loop / n_pos, 2))
+    if n_steps:
+        per_pos = dict(steps=n_steps, steps_per_s=round(n_steps * 1e3 / plain_wall, 3),
+                       host_aten_ops_per_step=round(host_ops / n_steps, 1))
     cs.say(f"profile {label}", wall_ms=round(plain_wall, 3), profiled_wall_ms=round(wall, 3),
            device_busy_ms=round(busy, 3), idle_share=round(1 - busy / wall, 4),
            device_ops=len(dev), host_aten_ops=host_ops, **per_pos)
@@ -107,12 +117,140 @@ def profile(label: str, fn, n_model: int = 1):
         print(f"    {name[:70]:70s} {ms:10.3f} ms  x{n}", flush=True)
 
 
+# the --train_loop corpus: train utterances (20 steps an epoch at B = 16),
+# every one cs.FRAMES frames, and the timed rounds
+LOOP_UTTS = 320
+LOOP_ROUNDS = 3
+
+
+def train_loop(seed: int):
+    """The Trainer's epoch loop against the bare step at the same shapes.
+    Four loops, each a Trainer of its own on one corpus: f32 with per-step
+    staging (native loader, pinned copies in the prefetch thread), bf16
+    (--dtype bfloat16), and the int8 device cache with --train_window 1 and
+    4; and the bare step (make_train_step, no loader, no loop) in f32 and
+    bf16 on the f32 loop's first staged batch. Each is warmed by one epoch
+    (kernel builds, the cache, the first steps). Then LOOP_ROUNDS rounds,
+    each timing one epoch of every loop and an epoch's count of bare steps
+    in turn on the host clock (an epoch's batch shuffle and prefetch start
+    included, checkpoint writes left out), with the time the loop waited
+    on its prefetch queue. Then one epoch of the f32, bf16 and window-4
+    loops under torch.profiler."""
+    import tempfile
+
+    from stjep_tpu_torch.config import ModelConfig
+    from stjep_tpu_torch.data.dataset import Dataset
+    from stjep_tpu_torch.models.seq2seq import init_seq2seq
+    from stjep_tpu_torch.train import trainer as T
+    from stjep_tpu_torch.train.optim import make_optimizer
+
+    cfg = ModelConfig(**cs.FLAGSHIP)
+    waited = [0.0]
+    prefetch = T.host_prefetch
+
+    def timed_prefetch(it, size=2):  # the loop's time blocked on staging
+        src = prefetch(it, size=size)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                item = next(src)
+            except StopIteration:
+                return
+            finally:
+                waited[0] += time.perf_counter() - t0
+            yield item
+
+    T.host_prefetch = timed_prefetch
+    with tempfile.TemporaryDirectory(prefix="stjep_profile_loop_") as tmp:
+        t0 = time.perf_counter()
+        corpus = cs.write_corpus(Path(tmp) / "corpus", seed, utts={"train": LOOP_UTTS},
+                                 frames=(cs.FRAMES, cs.FRAMES))
+        cs.say("train loop corpus", utterances=LOOP_UTTS, frames=cs.FRAMES, B=cs.B,
+               write_s=round(time.perf_counter() - t0, 3))
+        ways = {"f32": (torch.float32, {}),
+                "bf16": (torch.bfloat16, {"feat_dtype": "bfloat16"}),
+                "int8 cache window 1": (torch.float32, {"feat_dtype": "int8",
+                                                        "device_cache": True, "train_window": 1}),
+                "int8 cache window 4": (torch.float32, {"feat_dtype": "int8",
+                                                        "device_cache": True, "train_window": 4})}
+        runs = {}
+        for label, (dtype, opts) in ways.items():
+            opts = dict(opts)
+            t = T.Trainer_ASR_ST(expt_dir=str(Path(tmp) / label.replace(" ", "_")),
+                                 batch_size=cs.B, learning_rate=cs.TRAIN_LR,
+                                 learning_rate_init=cs.TRAIN_LR, lr_warmup_steps=0, seed=seed,
+                                 print_every=10 ** 9, checkpoint_every=10 ** 9,
+                                 loss_coeff={"nll_asr": 1.0, "nll_st": 1.0},
+                                 device_cache=opts.pop("device_cache", False), device="cuda",
+                                 **opts)
+            t._save = lambda *a, **kw: None  # checkpoint writes are not the loop's
+            ds = Dataset(path_src=corpus["train_src"], path_tgt=corpus["train_tgt"],
+                         path_vocab_src=corpus["vocab_src"], path_vocab_tgt=corpus["vocab_tgt"],
+                         acous_path=corpus["train_flis"], acous_norm_path=corpus["norm"],
+                         acous_norm=True, max_seq_len_src=cfg.max_seq_len_src,
+                         max_seq_len_tgt=cfg.max_seq_len_tgt, batch_size=cs.B, mode="ST",
+                         seed=seed, acous_max_len=3000)  # train.py's --las_acous_max_len
+            params = init_seq2seq(cfg, torch.Generator().manual_seed(seed), device="cuda",
+                                  dtype=dtype)
+            params, opt_state, _, _ = t.setup(params)
+            runs[label] = (lambda t=t, ds=ds, p=params, o=opt_state:
+                           t._train_epoches({"st": ds}, cfg, p, o, 1, 1, 0), t)
+            if label == "f32":
+                ds.construct_batches(is_train=False)
+                macro = t._stage_batch(ds.materialise_batch(0))[0]
+                n_steps = len(ds)
+        mb = {k: v[0] for k, v in macro.items()}
+        for label, dtype in (("bare f32", torch.float32), ("bare bf16", torch.bfloat16)):
+            p = init_seq2seq(cfg, torch.Generator().manual_seed(seed), device="cuda", dtype=dtype)
+            opt = make_optimizer(1.0)
+            state = {"p": p, "o": opt.init(p)}
+            step = T.make_train_step(cfg, "ASR_ST", opt, device="cuda")
+            bmb = dict(mb, acous_feat=mb["acous_feat"].to(dtype))
+            gen = torch.Generator().manual_seed(seed)
+
+            def bare(step=step, state=state, bmb=bmb, gen=gen):
+                for _ in range(n_steps):
+                    state["p"], state["o"], _ = step(state["p"], state["o"], [bmb], gen,
+                                                     cs.TRAIN_LR)
+            runs[label] = (bare, None)
+        cs.say("train loop shapes", steps_an_epoch=n_steps,
+               acous_feat=list(mb["acous_feat"].shape), srcid=list(mb["srcid"].shape),
+               tgtid=list(mb["tgtid"].shape))
+        for fn, _ in runs.values():  # warm-up: one epoch each
+            fn()
+        torch.cuda.synchronize()
+        rates = {label: [] for label in runs}
+        waits = {label: [] for label in runs}
+        for _ in range(LOOP_ROUNDS):
+            for label, (fn, t) in runs.items():
+                n0, waited[0] = (t.steps_run if t else 0), 0.0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                n = t.steps_run - n0 if t else n_steps
+                rates[label].append(n / dt)
+                waits[label].append(waited[0] * 1e3 / n)
+        for label, r in rates.items():
+            bare = rates["bare bf16" if label in ("bf16", "bare bf16") else "bare f32"]
+            cs.say(f"train loop timing {label}", steps_per_round=n_steps,
+                   steps_per_s=r, median_steps_per_s=float(np.median(r)),
+                   of_bare_step=[a / b for a, b in zip(r, bare)],
+                   prefetch_wait_ms_a_step=waits[label])
+        for label in ("f32", "bf16", "int8 cache window 4"):
+            profile(f"train loop {label}", runs[label][0], n_steps=n_steps)
+    T.host_prefetch = prefetch
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n_model", type=int, default=1,
                     help="> 1: profile the tensor-parallel beam on a (1, N) mesh of the card")
     ap.add_argument("--train", action="store_true", help="profile the train step alone")
+    ap.add_argument("--train_loop", action="store_true",
+                    help="profile the Trainer's epoch loop alone (f32, bf16, int8 window)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_decode: needs a CUDA device", file=sys.stderr)
@@ -147,6 +285,9 @@ def main() -> int:
                                                     cs.TRAIN_LR)
         one_step()  # a second warm-up step: the first builds the optimizer's state
         profile("train step ASR_ST", one_step)
+    if args.train_loop:
+        train_loop(args.seed)
+        return 0
     if args.n_model > 1:
         cfg = ModelConfig(**cs.FLAGSHIP)
         params = params_to(init_seq2seq(cfg, torch.Generator().manual_seed(args.seed), "cpu"),

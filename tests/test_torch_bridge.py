@@ -94,16 +94,27 @@ def test_position_signal_equal(d_model):
 
 
 def test_port_imports_no_jax():
-    code = ("import sys; import stjep_tpu_torch.infer.forward, "
-            "stjep_tpu_torch.bridge, stjep_tpu_torch.kernels, "
-            "stjep_tpu_torch.train.trainer, stjep_tpu_torch.parallel.spmd, "
-            "stjep_tpu_torch.ops.decode_flash_tp, stjep_tpu_torch.scripts.tp_bounds; "
+    """Every module of stjep_tpu_torch (pkgutil.walk_packages, the CLI
+    included) and every script under stjep_tpu_torch/scripts/ (a directory
+    without __init__.py, which walk_packages does not enter) imports in a
+    fresh process, on a host without a card, and loads no jax, jaxlib or
+    stjep_tpu module."""
+    code = ("import importlib, pkgutil, sys; from pathlib import Path; "
+            "import stjep_tpu_torch as p; "
+            "names = [m.name for m in pkgutil.walk_packages(p.__path__, 'stjep_tpu_torch.')]; "
+            "names += ['stjep_tpu_torch.scripts.' + f.stem for f in "
+            "sorted((Path(p.__file__).parent / 'scripts').glob('*.py'))]; "
+            "[importlib.import_module(n) for n in names]; "
+            "print(len(names), 'stjep_tpu_torch.cli.train' in names); "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'stjep_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True,
                          cwd=Path(__file__).resolve().parents[1])
-    assert out.stdout.strip() == "[]"
+    count, listed = out.stdout.strip().splitlines()
+    n, has_cli = count.split()
+    assert int(n) >= 55 and has_cli == "True", count
+    assert listed == "[]"
 
 
 def test_config_copy_matches_jax_package():

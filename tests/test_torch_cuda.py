@@ -2071,3 +2071,146 @@ def test_las_fused_partials_summed_in_warp_order(dev, params):
     g[..., 0] = g[..., 32] = g[..., 64] = 1.0
     dctx = k9.las_tf_bwd(w, st, g, wk, acous, None)[2]
     assert torch.equal(dctx, torch.zeros_like(dctx)), dctx.abs().max()
+
+
+# ----------------------------------------------------------------------
+# the train entry point's data path and window on the card
+# ----------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def train_corpus(dev, tmp_path_factory):
+    from tests.data_factory import make_corpus
+
+    return make_corpus(str(tmp_path_factory.mktemp("corpus")), n_sent=32)
+
+
+def _train_dataset(corpus):
+    from stjep_tpu_torch.data.dataset import Dataset
+
+    return Dataset(path_src=corpus["path_src"], path_tgt=corpus["path_tgt"],
+                   path_vocab_src=corpus["path_vocab_src"],
+                   path_vocab_tgt=corpus["path_vocab_tgt"], acous_path=corpus["acous_path"],
+                   acous_norm_path=corpus["acous_norm_path"], acous_norm=True,
+                   max_seq_len_src=12, max_seq_len_tgt=16, batch_size=8, use_type="char",
+                   mode="ST", seed=5)
+
+
+def _train_cfg(corpus):
+    return dataclasses.replace(CFG, enc_vocab_size=corpus["vocab_src_size"],
+                               dec_vocab_size=corpus["vocab_tgt_size"],
+                               acous_dim=corpus["acous_dim"])
+
+
+@pytest.mark.parametrize("feat_dtype", ["float32", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_features_on_card_matches_numpy(dev, train_corpus, feat_dtype, dtype):
+    """The resident corpus on the card and a minibatch gathered from it,
+    dequantized into the compute dtype, against numpy on the host copy of
+    the same features: q * scale with the scale in the compute dtype, the
+    product exact in f32 (8-bit q times an f32 or bf16 scale) and rounded
+    once to the compute dtype, as the card's multiply rounds it."""
+    from stjep_tpu_torch.data.device_cache import DeviceFeatureCache, gather_features
+
+    ds = _train_dataset(train_corpus)
+    cache = DeviceFeatureCache.build(ds, 64, feat_dtype, device=dev)
+    assert cache.feats.is_cuda and cache.feats.dtype == (torch.int8 if feat_dtype == "int8"
+                                                         else torch.float32)
+    idx = np.array([5, 0, 17, 5, 3], np.int32)
+    got = gather_features(cache.arrays, torch.from_numpy(idx).to(dev), 40, dtype)
+    assert got.is_cuda and got.dtype == dtype and tuple(got.shape) == (5, 40, 8)
+    feats = cache.feats.cpu().numpy()[idx, :40].astype(np.float32)
+    if feat_dtype == "int8":
+        scale = cache.scale.cpu()[idx].to(dtype).float().numpy()
+        feats = feats * scale[:, None, None]
+    want = torch.from_numpy(feats).to(dtype).float().numpy()
+    np.testing.assert_array_equal(got.float().cpu().numpy(), want)
+
+
+def test_train_window_no_host_sync_and_equals_single_steps(dev, train_corpus, tmp_path):
+    """4-step windows on the int8 device cache: every step of the windowed
+    run (after the single-step run has built the tables the kernels keep a
+    shape) runs under torch.cuda.set_sync_debug_mode("error") (a host read
+    inside raises), and the params after 2 windows equal 8 single steps
+    (dropout on: the generator splits are the same) within 1e-6 of each
+    leaf's norm."""
+    from stjep_tpu_torch.train import trainer as T
+
+    cfg = dataclasses.replace(_train_cfg(train_corpus), dropout=0.2, spec_aug=True)
+    train_batch = T.Trainer._train_batch
+
+    def strict(self, *a, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return train_batch(self, *a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    finals = {}
+    for win in (1, 4):
+        t = T.Trainer_ASR_ST(expt_dir=str(tmp_path / f"w{win}"), batch_size=8,
+                             learning_rate=1e-3, learning_rate_init=1e-3, lr_warmup_steps=0,
+                             seed=3, print_every=10 ** 9, checkpoint_every=10 ** 9,
+                             device_cache=True, feat_dtype="int8", train_window=win,
+                             device=dev)
+        if win == 4:
+            t._train_batch = strict.__get__(t)
+        params = init_seq2seq(cfg, torch.Generator().manual_seed(1), device=dev)
+        _, finals[win] = t.train({"st": _train_dataset(train_corpus)}, (cfg, params),
+                                 num_epochs=2)
+        assert t.steps_run == 8 and t.windows_run == (2 if win == 4 else 0)
+    from stjep_tpu_torch.bridge import named_leaves
+
+    for (name, a), b in zip(named_leaves(finals[1]), leaves(finals[4])):
+        a, b = a.detach(), b.detach()
+        err = float((a - b).norm() / max(float(a.norm()), 1e-12))
+        assert err <= 1e-6, (name, err)
+
+
+def test_native_loader_built_and_used_by_the_trainer(dev, train_corpus, tmp_path):
+    """The fastloader builds with the host compiler and loads every batch
+    of an epoch with per-step staging; the K8 and K9 kernels train."""
+    from stjep_tpu_torch.data.loader import NativeLoader, get_native_loader, library_path
+    from stjep_tpu_torch.train.trainer import Trainer_ASR_ST
+
+    assert get_native_loader() is not None and library_path().exists()
+    calls, fwd = NativeLoader.calls, k8.bilstm_fwd_save.launches
+    k9_fwd = k9.las_tf_fwd.launches
+    t = Trainer_ASR_ST(expt_dir=str(tmp_path / "n"), batch_size=8, learning_rate=1e-3,
+                       learning_rate_init=1e-3, lr_warmup_steps=0, device_cache=False,
+                       device=dev)
+    cfg = _train_cfg(train_corpus)
+    t.train({"st": _train_dataset(train_corpus)},
+            (cfg, init_seq2seq(cfg, torch.Generator().manual_seed(2), device=dev)), num_epochs=1)
+    assert NativeLoader.calls - calls == t.steps_run == 4
+    assert k8.bilstm_fwd_save.launches > fwd and k9.las_tf_fwd.launches > k9_fwd
+
+
+def test_bf16_train_step_on_card(dev, train_corpus):
+    """bf16 params through K8's and K9's f32 kernels (cast at their
+    boundary): bf16 gradients for every leaf, finite losses, both kernels
+    launched forward and backward, and the loss within 2e-2 of the same
+    step on CPU copies (bf16 rounds differently on the two devices)."""
+    from stjep_tpu_torch.bridge import params_to as to
+    from stjep_tpu_torch.train.trainer import compute_grads
+
+    cfg = _train_cfg(train_corpus)
+    p_cpu = init_seq2seq(cfg, torch.Generator().manual_seed(4), dtype=torch.bfloat16)
+    p_dev = to(p_cpu, dev)
+    rng = np.random.RandomState(4)
+    mb = {"srcid": torch.from_numpy(rng.randint(5, cfg.enc_vocab_size, (4, 12))),
+          "tgtid": torch.from_numpy(rng.randint(5, cfg.dec_vocab_size, (4, 16))),
+          "acous_feat": _randn(rng, 4, 48, 8).to(torch.bfloat16),
+          "acouslen": torch.tensor([48, 40, 17, 9])}
+    mb["srcid"][:, 0] = mb["tgtid"][:, 0] = BOS
+    before = (k8.bilstm_bwd.launches, k9.las_tf_bwd.launches)
+    out = {}
+    for name, p in (("card", p_dev), ("cpu", p_cpu)):
+        d = next(iter(leaves(p))).device
+        losses, grads = compute_grads(cfg, "ASR_ST", p, [{k: v.to(d) for k, v in mb.items()}],
+                                      torch.Generator().manual_seed(0), is_training=False)
+        assert all(g.dtype == torch.bfloat16 for g in grads)
+        out[name] = float(losses["nll_loss_en"] + losses["nll_loss_de"])
+    assert k8.bilstm_bwd.launches > before[0] and k9.las_tf_bwd.launches > before[1]
+    assert np.isfinite(out["card"])
+    assert abs(out["card"] - out["cpu"]) <= 2e-2 * abs(out["cpu"]), out

@@ -300,7 +300,7 @@ def test_train_step_draws_from_its_generator():
     assert set(p0) - set(moved) == {"/emb_dyn_ave"}  # no gradient by design
 
 
-@pytest.mark.parametrize("mode", ["ST", "AE_ASR", "ASR_AE"])
+@pytest.mark.parametrize("mode", ["AE_MT", "AE_ASR", "ASR_AE"])
 def test_unported_modes_raise(mode):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_train_step(CFG, mode, optim.make_optimizer())
