@@ -125,6 +125,33 @@ package beside it, included):
       cache's bytes on the card; and with dropout 0 one window within 1e-6
       of each leaf's norm of 4 single steps on the same batches.
 
+9. translate cli: the port's translate CLI (`stjep_tpu_torch/cli/translate.py`,
+   translate.py's flags) on the flagship params of phase 4 written as a
+   checkpoint, on a test split the phase writes from the seed (32
+   utterances of 400-1504 frames, 2 batches of B = 16, CMVN), beam 5, 150
+   target positions, each run a main path with its launch counts:
+   a. mode 3 (K1, K9's forward): dyn_emb_ave.npy within 1e-4 (relative)
+      of the same mean on the plain route (CPU copies);
+   b. mode 1 in gen modes ST, ASR, ASR-REF, ST-REF, MT (on a's
+      dyn_emb_ave) and ST_BASE, and ST with --feat_dtype int8 and with
+      --beam_cache_dtype bfloat16 --weight_dtype int8: the CLI's lines
+      equal those of forward_translate on the same staged batches on the
+      card, and batch 0's 16 rows (MT, ST-REF: rows 0-1) against the plain
+      arm on CPU copies,
+      every differing row a tie (E2E_MARGIN, at the first differing LAS
+      symbol, teacher forced in the REF modes, or beam position; the
+      serving run SERVE_MARGIN net of its prefix drift); the launches each
+      mode claims (K1, K2, K3, K4 for ST; K9's forward for the REF modes);
+   c. the CLI's ST utt/s against bare forward_translate on the same staged
+      batches, in turns;
+   d. ASR with an n-gram LM, as a pickled ARPA-style dict (the device
+      table) and as an object whose logscore applies the same backoff (the
+      host fuser): the same lines, but where the host's fused top-2 gap is
+      below TIE; no K2 under either; an ASR pass's ms under each against K2;
+   e. mode 2 over two checkpoints against their leaf-wise mean (bit-equal)
+      and its ckpts.log; mode 4 (K1, K2), which without tensorboard returns
+      None as JAX's does.
+
 The last lines: a JSON object with one entry per kernel (its launches
 summed over the main paths' runs), the total seconds, the nvidia-smi line,
 then {"ok": true, "device": {...}}.
@@ -1867,24 +1894,350 @@ def phase_train_cli(seed, bare_steps_per_s):
     return launches
 
 
-def recorded_translate(params, cfg, feats, lens, device, step=None, **opts):
-    """forward_translate ST beam-5 on `device` (opts: its serving options)
-    that also records, at every beam position, the state handed on (tokens
-    [BK, L] and kept scores [BK], on the host), starting with the state
-    after position 1: the megastep's output for the standard decoder, the
-    general loop's select for the universal one; `step` names the hooked
+# the translate cli phase: a test split of 2 batches of B, the LM's fusion weight
+TEST_UTTS = 2 * B
+LM_MODE = "s-4g_0.9"
+
+
+class ArpaLM:
+    """An n-gram export's scores through .logscore(word, context) over
+    stringified ids, with the device table's ARPA backoff recursion
+    (infer/lm_table.py) in float64: the host fuser's LM that scores as the
+    table does."""
+
+    def __init__(self, export):
+        self.entries, self.backoffs = export["entries"], export["backoffs"]
+
+    def logscore(self, word, context):
+        ctx, w, acc = tuple(int(x) for x in context), int(word), 0.0
+        while True:
+            if ctx + (w,) in self.entries:
+                return acc + self.entries[ctx + (w,)]
+            if not ctx:
+                return float("-inf")
+            acc += self.backoffs.get(ctx, 0.0)
+            ctx = ctx[1:]
+
+
+def lm_export(seed, V, hyps):
+    """An ARPA-style export {"entries", "backoffs"} from the seed: every
+    unigram of the source vocabulary, the 2- to 4-grams of `hyps` (ASR
+    hypotheses [N, L], so that a fused decode meets stored contexts) and
+    random ones, and backoff weights for most stored n-grams of orders 1-3."""
+    rng = np.random.RandomState(seed + 13)
+    entries = {(w,): float(-rng.uniform(2.0, 6.0)) for w in range(V)}
+    for row in hyps.tolist():
+        for n in (2, 3, 4):
+            for i in range(len(row) - n + 1):
+                if rng.rand() < 0.5:
+                    entries[tuple(row[i:i + n])] = float(-rng.uniform(0.2, 3.0))
+    for _ in range(5000):
+        key = tuple(int(x) for x in rng.randint(0, V, rng.randint(2, 5)))
+        entries[key] = float(-rng.uniform(0.2, 3.0))
+    # backoff weights on stored n-grams only, as an ARPA file attaches them:
+    # the table (JAX's) takes a key stored with a backoff alone as found, at
+    # MISS_SCORE, where an ARPA reader backs off past it
+    backoffs = {k: float(-rng.uniform(0.1, 1.5)) for k in entries
+                if len(k) < 4 and rng.rand() < 0.7}
+    return {"entries": entries, "backoffs": backoffs}
+
+
+def first_rows(rec, n):
+    """recorded_translate's return cut to its first n rows."""
+    toks, las, states = rec
+    return (toks[:n], None if las is None else las[:n],
+            [(p[:n * BEAM], sc[:n * BEAM]) for p, sc in states])
+
+
+def phase_translate_cli(seed, params_c, cfg):
+    """The port's translate CLI (`stjep_tpu_torch/cli/translate.py`,
+    translate.py's flags) at the flagship on a test split it writes from
+    the seed (TEST_UTTS utterances, B = 16) and a flagship checkpoint of
+    params_c; every run a main path, its launch counts zeroed before and
+    read after. Mode 3 against the plain route's mean (1e-4 relative);
+    mode 1 in gen modes ST (beam 5), ASR, ASR-REF, ST-REF, MT (on mode 3's
+    dyn_emb_ave) and ST_BASE: the CLI's lines equal those of
+    forward_translate on the same staged batches on the card, and batch
+    0's rows (MT, ST-REF: rows 0-1) against the plain arm on CPU copies,
+    every differing row a tie (`explain_e2e`); --feat_dtype int8 and --beam_cache_dtype bfloat16
+    --weight_dtype int8 the same, the latter within SERVE_MARGIN net of the
+    prefix drift; ASR with the device-table LM against the host-fuser LM
+    (the same scores), no K2 under either; mode 2 against a leaf-wise
+    mean; mode 4. Times the CLI's ST decode against bare forward_translate
+    on the same staged batches, and an ASR pass with each LM against K2.
+    Returns the runs' launch counts."""
+    import dataclasses
+    import pickle
+    import tempfile
+
+    from stjep_tpu_torch.bridge import named_leaves, params_to
+    from stjep_tpu_torch.cli import translate as tcli
+    from stjep_tpu_torch.data.dataset import Dataset
+    from stjep_tpu_torch.infer import lm_fusion
+    from stjep_tpu_torch.infer.lm_table import NGramTable, make_table_fuser
+    from stjep_tpu_torch.train.checkpoint import Checkpoint
+    from stjep_tpu_torch.train.policies import map_with_path
+
+    runs = []
+    with tempfile.TemporaryDirectory(prefix="stjep_translate_cli_") as tmp:
+        tmp = Path(tmp)
+        corpus = write_corpus(tmp / "corpus", seed, utts={"test": TEST_UTTS})
+        vocab = [Path(corpus[k]).read_text(encoding="utf-8").splitlines()
+                 for k in ("vocab_src", "vocab_tgt")]
+
+        def save(p, where):
+            t0 = time.perf_counter()
+            path = Checkpoint(params=p, input_vocab=vocab[0], output_vocab=vocab[1],
+                              model_config=dataclasses.asdict(cfg)).save_customise(str(tmp / where))
+            return path, time.perf_counter() - t0
+
+        ckpt, save_s = save(params_c, "ckpt")
+
+        def cli_run(label, ran, idle, *extra, load=ckpt):
+            """main() on the card with translate.py's flags; (its return,
+            seconds, launches)."""
+            argv = ["--test_path_src", corpus["test_src"], "--test_path_tgt", corpus["test_tgt"],
+                    "--test_acous_path", corpus["test_flis"], "--acous_norm", "True",
+                    "--acous_norm_path", corpus["norm"], "--load", load,
+                    "--test_path_out", str(tmp / label.replace(" ", "_")),
+                    "--batch_size", str(B), "--max_seq_len", str(DECODE_LEN),
+                    "--beam_width", str(BEAM), *extra]
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = tcli.main(argv, device="cuda")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = read_counts(ran, idle)
+            runs.append(launches)
+            return out, secs, launches
+
+        # the test set as main() builds it, for the arms held against the CLI
+        ds = Dataset(path_src=corpus["test_src"], path_tgt=corpus["test_tgt"],
+                     vocab_src_list=vocab[0], vocab_tgt_list=vocab[1], use_type="char",
+                     acous_path=corpus["test_flis"], acous_norm=True,
+                     acous_norm_path=corpus["norm"], acous_max_len=6000, max_seq_len_src=900,
+                     max_seq_len_tgt=900, batch_size=B, mode="ST")
+        ds.construct_batches(is_train=False)
+        items = [ds.materialise_batch(i) for i in range(len(ds))]
+        need(len(items) == TEST_UTTS // B, f"{len(items)} test batches")
+        say("translate cli corpus", test=TEST_UTTS, frames=list(CLI_FRAMES), batches=len(items),
+            checkpoint_write_s=round(save_s, 3))
+
+        # mode 3: the mean dynamic embedding (K1, K9's forward)
+        path, secs, launches = cli_run("mode 3", ("K1", "K9 fwd"), ("K2", "K3", "K4"),
+                                       "--eval_mode", "3")
+        dyn = np.load(path)
+        t0 = time.perf_counter()
+        plain = np.load(tcli.gather_emb(ds, cfg, params_c, str(tmp / "mode3_plain"),
+                                        logger_print=lambda *a: None, device="cpu"))
+        rel = float(np.linalg.norm(dyn - plain) / np.linalg.norm(plain))
+        say("translate cli mode 3", seconds=round(secs, 3), shape=list(dyn.shape),
+            rel_err_vs_plain=rel, tol=1e-4, plain_cpu_s=round(time.perf_counter() - t0, 1),
+            launches={k: v for k, v in launches.items() if v})
+        need(dyn.shape == (cfg.dim_model,) and bool(np.isfinite(dyn).all()) and rel <= 1e-4,
+             f"mode 3: shape {dyn.shape}, rel err {rel}")
+
+        # mode 1 on a checkpoint that carries mode 3's dyn_emb_ave (MT and
+        # ST_BASE read it)
+        pc = {**params_c, "emb_dyn_ave": torch.from_numpy(dyn)}
+        pg = params_to(pc, "cuda")
+        ckpt_dyn, _ = save(pc, "ckpt_dyn")
+        cfg150 = dataclasses.replace(cfg, max_seq_len_src=150)  # the CLI's LAS length
+
+        def held(label, gen, ran, idle, *extra, feat="float32", net=False, rows=B, **opts):
+            """The CLI in gen mode `gen` against forward_translate on the
+            same staged batches on the card (lines equal), and batch 0's
+            first `rows` rows against the plain arm on CPU copies of them
+            (ties only; each row decodes alone)."""
+            mode, _, hist = gen.partition("-")
+            refen = hist == "REF"
+            c = cfg150 if ("ASR" in mode or "ST" in mode) else cfg
+            path, secs, launches = cli_run(label, ran, idle, "--eval_mode", "1", "--gen_mode",
+                                           gen, *extra, load=ckpt_dyn)
+            lines = Path(path).read_text(encoding="utf8").splitlines()
+            cache = opts.get("cache_dtype")
+            staged = [tcli.unstage(**tcli.stage(it, 0, B, mode, refen, feat, cache, "cuda"))
+                      for it in items]
+            card = recorded_translate(pg, c, staged[0].get("acous_feats"),
+                                      staged[0].get("acous_lens"), "cuda", mode=mode,
+                                      src=staged[0].get("src"), refen=refen, **opts)
+            toks = [card[0]] + [forward_translate_in(pg, c, mode, kw.get("acous_feats"),
+                                                     kw.get("acous_lens"), "cuda",
+                                                     src=kw.get("src"), refen=refen,
+                                                     **opts).cpu() for kw in staged[1:]]
+            want = sum((tcli.hyp_lines(t.numpy(), ds, mode) for t in toks), [])
+            need(lines == want, f"{label}: the CLI's lines differ from forward_translate's "
+                 f"on the same staged batches ({sum(a != b for a, b in zip(lines, want))} rows)")
+            x = {k: v.cpu() for k, v in tcli.unstage(**tcli.stage(
+                items[0], 0, rows, mode, refen, feat, cache, "cpu")).items()}
+            t0 = time.perf_counter()
+            plain = recorded_translate(pc, c, x.get("acous_feats"), x.get("acous_lens"), "cpu",
+                                       mode=mode, src=x.get("src"), refen=refen, **opts)
+            plain_s = time.perf_counter() - t0
+            margins = explain_e2e(pc, c, x.get("acous_feats"), x.get("acous_lens"),
+                                  first_rows(card, rows), plain, net=net,
+                                  raw_rows=(0, 1) if net else (),
+                                  src=x.get("src") if refen else None)
+            limit = SERVE_MARGIN if net else E2E_MARGIN
+            say(f"translate cli {label}", gen_mode=gen, rows=len(lines), seconds=round(secs, 3),
+                utt_per_s_with_load=round(len(lines) / secs, 3), nonempty_rows=sum(map(bool, lines)),
+                plain_rows=rows, plain_cpu_s=round(plain_s, 1), rows_differ=len(margins),
+                max_first_divergence_margin=max(margins, default=0.0), limit=limit,
+                launches={k: v for k, v in launches.items() if v})
+            need(len(lines) == TEST_UTTS, f"{label}: {len(lines)} lines")
+            need(all(m <= limit for m in margins), f"{label} rows differ beyond ties: {margins}")
+            return card
+
+        held("ST", "ST", LAS_RAN + ("K3", "K4"), ("K9 fwd", "K5"))
+        asr = held("ASR", "ASR", LAS_RAN, ("K3", "K4", "K9 fwd"))
+        held("ASR-REF", "ASR-REF", ("K1", "K9 fwd"), ("K2", "K3", "K4"))
+        # the refen and MT memories span the source's 899 slots, and the
+        # plain beam's cross-attention gathers them for every beam row each
+        # step (~10 s a row on the card's host): rows 0-1
+        held("ST-REF", "ST-REF", ("K1", "K9 fwd", "K3", "K4"), ("K2",), rows=2)
+        held("MT", "MT", ("K3", "K4"), ("K1", "K2", "K9 fwd"), rows=2)
+        held("ST_BASE", "ST_BASE", LAS_RAN + ("K3", "K4"), ("K9 fwd",))
+        held("ST int8 features", "ST", LAS_RAN + ("K3", "K4"), ("K9 fwd",),
+             "--feat_dtype", "int8", feat="int8")
+        held("ST serving", "ST", LAS_RAN + ("K3 int8+bf16", "K4 int8+bf16"), ("K3", "K4"),
+             "--beam_cache_dtype", "bfloat16", "--weight_dtype", "int8", feat="bfloat16",
+             net=True, **SERVE_OPTS)
+
+        # the CLI's ST decode against bare forward_translate on the same
+        # staged batches, in turns (kernels built and warm)
+        staged = [tcli.stage(it, 0, B, "ST", False, "float32", None, "cuda") for it in items]
+        rates = {"cli": [], "bare": []}
+        for way in ("cli", "bare", "cli", "bare"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if way == "cli":
+                tcli.translate(ds, cfg, pg, str(tmp / "timed"), DECODE_LEN, BEAM, gen_mode="ST",
+                               logger_print=lambda *a: None, device="cuda")
+            else:
+                for kw in staged:
+                    u = tcli.unstage(**kw)
+                    forward_translate_in(pg, cfg150, "ST", u["acous_feats"], u["acous_lens"], "cuda")
+            torch.cuda.synchronize()
+            rates[way].append(TEST_UTTS / (time.perf_counter() - t0))
+        say("translate cli ST rate", cli_utt_per_s=rates["cli"], bare_utt_per_s=rates["bare"],
+            of_bare=[a / b for a, b in zip(rates["cli"], rates["bare"])])
+
+        # LM fusion: the device table and the host fuser on the same scores
+        export = lm_export(seed, cfg.enc_vocab_size, asr[0])
+        for nm, obj in (("table", export), ("host", ArpaLM(export))):
+            with open(tmp / f"lm_{nm}.pkl", "wb") as f:
+                pickle.dump(obj, f)
+        gaps = []
+        make_host = lm_fusion.make_ngram_fuser
+
+        def host_fuser(lm_model, lm_mode):
+            """The host fuser, recording each step's top-2 gap of its fused rows."""
+            fuse = make_host(lm_model, lm_mode)
+
+            def recording(logp, ctx, step):
+                out = fuse(logp, ctx, step)
+                top2 = np.sort(out, axis=1)[:, -2:]
+                gaps.append(top2[:, 1] - top2[:, 0])
+                return out
+            return recording
+
+        lm_lines = {}
+        for nm in ("table", "host"):
+            if nm == "host":
+                lm_fusion.make_ngram_fuser = host_fuser
+            try:
+                path, secs, launches = cli_run(f"ASR lm {nm}", ("K1",), ("K2", "K9 fwd"),
+                                               "--eval_mode", "1", "--gen_mode", "ASR",
+                                               "--lm_mode", LM_MODE,
+                                               "--lm_path", str(tmp / f"lm_{nm}.pkl"))
+            finally:
+                lm_fusion.make_ngram_fuser = make_host
+            lm_lines[nm] = Path(path).read_text(encoding="utf8").splitlines()
+            say(f"translate cli ASR lm {nm}", seconds=round(secs, 3),
+                launches={k: v for k, v in launches.items() if v})
+        unfused = tcli.hyp_lines(asr[0].numpy(), ds, "ASR")
+        # lines that differ between the two fusers: each at a host step
+        # whose fused top-2 gap is below TIE (the table rounds in f32)
+        n_steps = cfg150.max_seq_len_src - 1
+        g = np.stack(gaps).reshape(len(items), n_steps, B)  # [batch, step, row]
+        differ = [i for i, (a, b) in enumerate(zip(lm_lines["table"], lm_lines["host"])) if a != b]
+        min_gap = {i: float(g[i // B, :, i % B].min()) for i in differ}
+        say("translate cli lm table vs host", lm_mode=LM_MODE, entries=len(export["entries"]),
+            backoffs=len(export["backoffs"]), rows_differ=len(differ), min_gap_there=min_gap,
+            tie=TIE, rows_changed_by_the_lm=sum(a != b for a, b in zip(lm_lines["host"], unfused)))
+        need(all(v <= TIE for v in min_gap.values()), f"table vs host LM rows differ: {min_gap}")
+        need(lm_lines["host"][:B] != unfused, "the LM changed no ASR hypothesis")
+
+        # an ASR pass under each LM against K2, on batch 0
+        x = tcli.unstage(**tcli.stage(items[0], 0, B, "ASR", False, "float32", None, "cuda"))
+        table = NGramTable.from_ngrams(export["entries"], export["backoffs"], device="cuda")
+        fusers = {"k2": None, "table": make_table_fuser(table, LM_MODE),
+                  "host": make_host(ArpaLM(export), LM_MODE)}
+        pass_ms = {}
+        for nm, fuse in fusers.items():
+            call = lambda: forward_translate_in(pg, cfg150, "ASR", x["acous_feats"],
+                                                x["acous_lens"], "cuda", lm_fuse=fuse)
+            call()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            pass_ms[nm] = (time.perf_counter() - t0) * 1e3
+        say("translate cli ASR pass", batch=B, steps=n_steps, ms=pass_ms,
+            table_over_k2=pass_ms["table"] / pass_ms["k2"],
+            host_over_k2=pass_ms["host"] / pass_ms["k2"])
+
+        # mode 2: two checkpoints averaged, against a leaf-wise mean
+        rng = np.random.RandomState(seed + 17)
+        pb = map_with_path(pc, lambda _, t: t + 0.01 * torch.from_numpy(
+            rng.standard_normal(tuple(t.shape)).astype(np.float32)))
+        save(pc, "ckpts/a")
+        save(pb, "ckpts/b")
+        t0 = time.perf_counter()
+        saved = tcli.main(["--test_path_src", corpus["test_src"], "--test_acous_path",
+                           corpus["test_flis"], "--load", ckpt, "--test_path_out",
+                           str(tmp / "m2"), "--eval_mode", "2", "--combine_path",
+                           str(tmp / "ckpts")], device="cuda")
+        secs = time.perf_counter() - t0
+        got = Checkpoint.load(saved, params_template=pc).params
+        bad = [n for (n, a), (_, b), (_, g_) in zip(named_leaves(pc), named_leaves(pb),
+                                                    named_leaves(got), strict=True)
+               if not torch.equal(((a.double() + b.double()) / 2).to(a.dtype), g_)]
+        log = (tmp / "ckpts-combine" / "ckpts.log").read_text()
+        say("translate cli mode 2", seconds=round(secs, 3), leaves=len(named_leaves(got)),
+            leaves_not_the_mean=len(bad), ckpts_log=repr(log))
+        need(not bad and log == "a\nb\n", f"mode 2: {bad[:5]}, log {log!r}")
+
+        # mode 4: the projector dump (K1, K2), skipped without tensorboard
+        out, secs, launches = cli_run("mode 4", (), ("K9 fwd", "K3", "K4"), "--eval_mode", "4")
+        wrote = out is not None and any(Path(out).rglob("events.out.tfevents*"))
+        say("translate cli mode 4", seconds=round(secs, 3), tensorboard=out is not None,
+            wrote=wrote, launches={k: v for k, v in launches.items() if v})
+        need(out is None or (wrote and all(launches[k] for k in LAS_RAN)),
+             f"mode 4 returned {out}, launches {launches}")
+    return runs
+
+
+def recorded_translate(params, cfg, feats, lens, device, step=None, mode="ST", **opts):
+    """forward_translate beam-5 in `mode` on `device` (opts: its other
+    arguments, e.g. src, refen, the serving options) that also records the
+    LAS pass's symbols and, at every beam position, the state handed on
+    (tokens [BK, L] and kept scores [BK], on the host), starting with the
+    state after position 1: the megastep's output for the standard decoder,
+    the general loop's select for the universal one; `step` names the hooked
     function where the route is not the model's own (the general loop's
-    "beam_select" under tensor parallelism). Returns (tokens [B, L], ASR
-    hypotheses, states)."""
+    "beam_select" under tensor parallelism). Returns (tokens [B, L] (ASR:
+    the LAS symbols), the LAS symbols (None for MT), states)."""
     import stjep_tpu_torch.infer.beam as beam_mod
-    from stjep_tpu_torch.infer.forward import encode_st, forward_translate
+    import stjep_tpu_torch.infer.forward as fwd_mod
 
     # the function that hands the state on, and where its input preds and
     # kept scores sit among its arguments
     step = step or ("decode_beam_step_flash" if cfg.transformer_type == "standard"
                     else "beam_select")
     name, i_preds, i_scores = (step, 7, 11) if step == "decode_beam_step_flash" else (step, 5, 2)
-    step, states = getattr(beam_mod, name), []
+    step, las_pass, states, las = getattr(beam_mod, name), fwd_mod._las_pass, [], []
 
     def recording(*a):
         if not states:  # the state after position 1: the first step's input
@@ -1893,43 +2246,68 @@ def recorded_translate(params, cfg, feats, lens, device, step=None, **opts):
         states.append((out[0].cpu(), out[4].cpu()))
         return out
 
+    def recording_las(*a, **kw):
+        out = las_pass(*a, **kw)
+        las.append(out[1].cpu())
+        return out
+
     setattr(beam_mod, name, recording)
+    fwd_mod._las_pass = recording_las
     try:
-        toks = forward_translate(params, cfg, "ST", acous_feats=feats,
-                                 acous_lens=lens, beam_width=BEAM,
-                                 penalty_factor=1.0, max_seq_len=DECODE_LEN,
-                                 device=device, **opts)
+        toks = forward_translate_in(params, cfg, mode, feats, lens, device, **opts)
     finally:
         setattr(beam_mod, name, step)
-    feats, lens = feats.to(device), lens.to(device)
-    return toks.cpu(), encode_st(params, cfg, feats, lens)[2].cpu(), states
+        fwd_mod._las_pass = las_pass
+    return toks.cpu(), (las[0] if las else None), states
 
 
-def explain_e2e(params_c, cfg, feats, lens, card, plain, net=False, raw_rows=()):
-    """Every row where the card's tokens differ from the plain arm's must be
-    explained by a tie at the first divergence, in the plain arm's own
-    log-probs: if the ASR hypotheses differ, the plain LAS log-probs of the
-    two symbols at their first difference; else, at the first beam position
-    where the row's K hypotheses differ, the two arms' kept beam scores
-    (sums of log-probs), sorted, within E2E_MARGIN; with net (bf16 caches,
-    which drift ~3e-3 a position between two routes) that gap less the
-    row's drift at the position before (`net_divergence`), except on the
-    rows in raw_rows, held at the whole gap. Returns the margins."""
+def forward_translate_in(params, cfg, mode, feats, lens, device, **opts):
+    """forward_translate beam-5 in `mode`, DECODE_LEN positions, on `device`."""
+    from stjep_tpu_torch.infer.forward import forward_translate
+
+    return forward_translate(params, cfg, mode, acous_feats=feats, acous_lens=lens,
+                             beam_width=BEAM, penalty_factor=1.0, max_seq_len=DECODE_LEN,
+                             device=device, **opts)
+
+
+def las_log_probs(params_c, cfg, feats, lens, hyps, src=None):
+    """The plain arm's LAS log-probs of `hyps` [B, L-1] at each step, on
+    CPU copies: teacher forced on src (every step's state is the
+    reference's), else free running on its own symbols."""
     from stjep_tpu_torch.config import BOS
     from stjep_tpu_torch.models.las_encoder import las_encoder_forward
+    from stjep_tpu_torch.models.seq2seq import _encoder_acous
     from stjep_tpu_torch.ops.attention import precompute_keys
     from stjep_tpu_torch.ops.las_flash import las_greedy_plain
     from stjep_tpu_torch.ops.masks import round_up8
 
-    (toks_c, hyp_c, st_c), (toks_p, hyp_p, st_p) = card, plain
+    feats, lens = feats.cpu(), lens.cpu()
+    if src is not None:
+        return _encoder_acous(params_c, cfg, feats, lens, tgt=src.cpu(), teacher_forcing=True,
+                              ref_tokens=hyps)[1]
     dec = params_c["las"]["decoder"]
     acous, _ = las_encoder_forward(params_c["las"]["encoder"], cfg, feats, lens)
-    args = (dec, cfg, precompute_keys(dec["acous_att"], acous, "bilinear")["wk"],
-            acous, round_up8(lens) // 8, torch.full((feats.shape[0],), BOS),
-            cfg.max_seq_len_src - 1)
-    at_card = las_greedy_plain(*args, ref_tokens=hyp_c)[2]
-    at_own = las_greedy_plain(*args, ref_tokens=hyp_p)[2]
-    las_rows = first_diff(hyp_c, hyp_p)
+    return las_greedy_plain(dec, cfg, precompute_keys(dec["acous_att"], acous, "bilinear")["wk"],
+                            acous, round_up8(lens) // 8, torch.full((feats.shape[0],), BOS),
+                            cfg.max_seq_len_src - 1, ref_tokens=hyps)[2]
+
+
+def explain_e2e(params_c, cfg, feats, lens, card, plain, net=False, raw_rows=(), src=None):
+    """Every row where the card's tokens differ from the plain arm's must be
+    explained by a tie at the first divergence, in the plain arm's own
+    log-probs: if the LAS symbols differ, the plain LAS log-probs of the
+    two symbols at their first difference (teacher forced on src where the
+    pass was, `las_log_probs`); else, at the first beam position where the
+    row's K hypotheses differ, the two arms' kept beam scores (sums of
+    log-probs), sorted, within E2E_MARGIN; with net (bf16 caches, which
+    drift ~3e-3 a position between two routes) that gap less the row's
+    drift at the position before (`net_divergence`), except on the rows in
+    raw_rows, held at the whole gap. card and plain are recorded_translate's
+    returns (ASR: tokens = LAS symbols, no states; MT: no LAS symbols).
+    Returns the margins."""
+    (toks_c, hyp_c, st_c), (toks_p, hyp_p, st_p) = card, plain
+    las_rows = first_diff(hyp_c, hyp_p) if hyp_c is not None else [None] * toks_c.shape[0]
+    at = {}
     margins = []
     for r, c in enumerate(first_diff(toks_c, toks_p)):
         if c is None:
@@ -1937,7 +2315,10 @@ def explain_e2e(params_c, cfg, feats, lens, card, plain, net=False, raw_rows=())
         h = las_rows[r]
         drift = 0.0
         if h is not None:
-            stage, pos, m = "las", h, float(abs(at_own[r, h] - at_card[r, h]))
+            if not at:
+                at = {k: las_log_probs(params_c, cfg, feats, lens, hyp, src)
+                      for k, hyp in (("card", hyp_c), ("own", hyp_p))}
+            stage, pos, m = "las", h, float(abs(at["own"][r, h] - at["card"][r, h]))
         elif net:
             stage, (pos, m, drift) = "beam", net_divergence(st_c, st_p, r)
         else:
@@ -2407,6 +2788,8 @@ def main() -> int:
     runs.append(train_launches)
     # 8. the train CLI and Trainer around that step
     runs.append(phase_train_cli(args.seed, bare_steps_per_s))
+    # 9. the translate CLI, eval modes 1-4
+    runs += phase_translate_cli(args.seed, params_c, cfg)
     launches = {k: sum(r.get(k, 0) for r in runs) for k in counters()}
 
     src, rep = "stjep_tpu_torch/csrc/", "stjep_tpu/ops/"

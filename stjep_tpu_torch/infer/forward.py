@@ -1,15 +1,28 @@
-"""forward_translate: beam-search inference (port of
-stjep_tpu/infer/forward.py, modes ST and ASR), and `forward_eval`, the dev
-eval with reference ids (defined in models/seq2seq.py as in the JAX
-package, exported here beside the other eval entry point).
+"""forward_translate / forward_translate_refen: beam-search inference in
+every translate mode (port of stjep_tpu/infer/forward.py), and
+`forward_eval`, the dev eval with reference ids (defined in
+models/seq2seq.py as in the JAX package, exported here beside the other
+eval entry point).
 
-ST: the LAS free-running pass gives dynamic embeddings and ASR hypotheses;
-their static embeddings and the dynamic ones pass through `enc_emb_proj`
-into the transformer encoder, masked by the LAS lengths, and the
-transformer (standard or universal) decodes by beam search (ref:
-Seq2seq.py:641-796). ASR returns the LAS hypotheses. The eval entry points
-draw no random numbers and run under torch.no_grad(): their kernels (K1-K5,
-K7) have no backward.
+Modes (ref: Seq2seq.py:641-903):
+- ASR: the LAS hypotheses (greedy; beam search not used).
+- ST: the LAS free-running pass gives dynamic embeddings and ASR
+  hypotheses; their static embeddings and the dynamic ones pass through
+  `enc_emb_proj` into the transformer encoder, masked by the LAS lengths,
+  and the transformer (standard or universal) decodes by beam search.
+- MT: the average dynamic embedding (`params["emb_dyn_ave"]`, translate
+  mode 3's artifact) broadcast over the source, beam decode.
+- ST_BASE: the LAS hypotheses with the average dynamic embedding
+  (pre-finetune decode, ref: Seq2seq.py:741-794).
+With refen (`forward_translate_refen`), the LAS is teacher-forced on the
+reference source (K9's forward on the card, no backward under no_grad) and
+ST takes the reference's static embeddings (ref: Seq2seq.py:799-903).
+`lm_fuse` (infer/lm_fusion.py, infer/lm_table.py) fuses an n-gram LM into
+every LAS pass, free running and teacher forced, as the reference threads
+its LM into each (ST :702, ST_BASE :752, refen :816, :863); the LAS then
+runs the step loop, not K2 or K9, as in JAX. The eval entry points draw no
+random numbers and run under torch.no_grad(): their kernels (K1-K5, K7,
+K9's forward) have no backward there.
 """
 
 from __future__ import annotations
@@ -26,21 +39,61 @@ from stjep_tpu_torch.models.seq2seq import (
     _encoder_en,
     _get_src_emb,
     _length_src_mask,
+    _pre_proc_src,
     forward_eval,
 )
 
-__all__ = ["encode_st", "forward_eval", "forward_translate"]
+__all__ = ["forward_eval", "forward_translate", "forward_translate_refen"]
 
 
-def encode_st(params: Dict, cfg: ModelConfig, acous_feats: torch.Tensor,
-              acous_lens: Optional[torch.Tensor]):
-    """ST encoder memory: (enc_out [B, L-1, D], mem_mask [B, L-1] bool,
-    ASR hypotheses [B, L-1]) with L = cfg.max_seq_len_src."""
-    emb_dyn, _, preds_src, lengths = _encoder_acous(
-        params, cfg, acous_feats, acous_lens, max_seq_len=cfg.max_seq_len_src)
-    _, emb_src, _ = _get_src_emb(params, cfg, preds_src, emb_dyn)
-    src_mask = _length_src_mask(lengths, emb_src.shape[1])
-    return _encoder_en(params, cfg, emb_src, src_mask=src_mask), src_mask[:, 0, :], preds_src
+def _emb_dyn_ave(params: Dict, cfg: ModelConfig, B: int, L: int) -> torch.Tensor:
+    """The average dynamic embedding broadcast to [B, L, D]."""
+    return params["emb_dyn_ave"][None, None, :].expand(B, L, cfg.dim_model)
+
+
+def _las_pass(params, cfg, acous_feats, acous_lens, src, refen, lm_fuse):
+    """The LAS pass of an acoustic mode: teacher-forced on the reference
+    source with refen, else free running over cfg.max_seq_len_src - 1
+    steps. Returns (dynamic embs, symbols, lengths)."""
+    if refen:
+        emb, _, preds, lengths = _encoder_acous(params, cfg, acous_feats, acous_lens,
+                                                tgt=src, teacher_forcing=True,
+                                                lm_fuse=lm_fuse, want_logps=False)
+    else:
+        emb, _, preds, lengths = _encoder_acous(params, cfg, acous_feats, acous_lens,
+                                                max_seq_len=cfg.max_seq_len_src,
+                                                lm_fuse=lm_fuse)
+    return emb, preds, lengths
+
+
+def _encode_for_mode(params: Dict, cfg: ModelConfig, mode: str, src, acous_feats,
+                     acous_lens, refen: bool, lm_fuse=None):
+    """Encoder memory [B, Ls, D] and its mask [B, Ls] for each translate
+    mode (stjep_tpu/infer/forward.py:31-85)."""
+    if mode == "MT":
+        src_trim = _pre_proc_src(src)
+        B, Ls = src_trim.shape
+        _, emb_src, src_mask_input = _get_src_emb(params, cfg, src_trim,
+                                                  _emb_dyn_ave(params, cfg, B, Ls))
+        enc_out = _encoder_en(params, cfg, emb_src, src_mask=src_mask_input)
+        return enc_out, src_mask_input[:, 0, :]
+    if mode == "ST":
+        emb_dyn, preds_src, lengths = _las_pass(params, cfg, acous_feats, acous_lens,
+                                                src, refen, lm_fuse)
+        # static embeddings of the reference with refen (ref:
+        # Seq2seq.py:861-865), else of the hypotheses (:703)
+        static_ids = _pre_proc_src(src) if refen else preds_src
+        _, emb_src, _ = _get_src_emb(params, cfg, static_ids, emb_dyn)
+    elif mode == "ST_BASE":
+        _, preds_src, lengths = _las_pass(params, cfg, acous_feats, acous_lens, None,
+                                          False, lm_fuse)
+        B, Lp = preds_src.shape
+        _, emb_src, _ = _get_src_emb(params, cfg, preds_src, _emb_dyn_ave(params, cfg, B, Lp))
+    else:
+        raise ValueError(f"unknown translate mode {mode}")
+    src_mask_input = _length_src_mask(lengths, emb_src.shape[1])
+    enc_out = _encoder_en(params, cfg, emb_src, src_mask=src_mask_input)
+    return enc_out, src_mask_input[:, 0, :]
 
 
 @torch.no_grad()
@@ -51,11 +104,18 @@ def forward_translate(params: Dict, cfg: ModelConfig, mode: str,
                       max_seq_len: int = 900, device="cuda",
                       generator: Optional[torch.Generator] = None,
                       cache_dtype: Optional[torch.dtype] = None,
-                      weight_dtype: Optional[str] = None) -> torch.Tensor:
-    """ST: [B, max_seq_len] best-beam tokens, BOS first, PAD-padded.
-    ASR: [B, max_seq_len_src - 1] LAS tokens. Beam width 1 runs the beam
-    path at width 1, which emits the greedy sequence.
+                      weight_dtype: Optional[str] = None,
+                      src: Optional[torch.Tensor] = None, refen: bool = False,
+                      lm_fuse=None) -> torch.Tensor:
+    """Modes ST, MT, ST_BASE: [B, max_seq_len] best-beam tokens, BOS first,
+    PAD-padded. ASR: [B, max_seq_len_src - 1] LAS tokens (with refen
+    teacher-forced on src: [B, src.shape[1] - 1]). Beam width 1 runs the
+    beam path at width 1, which emits the greedy sequence. An unknown mode
+    raises ValueError.
 
+    src [B, Ls] (BOS first): the source ids MT encodes and the refen modes
+    feed the LAS. refen: the reference-history modes (ASR-REF, ST-REF).
+    lm_fuse: an n-gram LM fuser for every LAS pass (module docstring).
     `device`: where the call runs, the card unless the caller asks for the
     CPU (the plain routes); the inputs move there, and params must already
     lie there (ValueError otherwise). `cache_dtype` (torch.bfloat16) and
@@ -73,18 +133,22 @@ def forward_translate(params: Dict, cfg: ModelConfig, mode: str,
             f"weight_dtype={weight_dtype!r} only applies to the transformer "
             "beam decode; ASR (LAS greedy) has no weight-streaming mode")
     device = check_params_device(params, device)
-    acous_feats = acous_feats.to(device)
-    if acous_lens is not None:
-        acous_lens = acous_lens.to(device)
+    acous_feats, acous_lens, src = (t if t is None else t.to(device)
+                                    for t in (acous_feats, acous_lens, src))
     if mode == "ASR":
-        return _encoder_acous(params, cfg, acous_feats, acous_lens,
-                              max_seq_len=cfg.max_seq_len_src)[2]
-    if mode != "ST":
-        raise NotImplementedError(
-            f"mode {mode!r} is not ported yet (MT, ST_BASE, refen and LM "
-            "fusion: ROADMAP Queue A, slice 3)")
-    enc_out, mem_mask_b, _ = encode_st(params, cfg, acous_feats, acous_lens)
+        # the reference LM-fuses even the teacher-forced refen pass:
+        # emitted symbols are fused though inputs come from the reference
+        # history (ref: Seq2seq.py:816)
+        return _las_pass(params, cfg, acous_feats, acous_lens, src, refen, lm_fuse)[1]
+    enc_out, mem_mask_b = _encode_for_mode(params, cfg, mode, src, acous_feats,
+                                           acous_lens, refen, lm_fuse)
     preds, _ = beam_search(params, cfg, enc_out, mem_mask_b, max(1, beam_width),
                            penalty_factor, max_seq_len, cache_dtype=cache_dtype,
                            weight_dtype=weight_dtype)
     return preds
+
+
+def forward_translate_refen(params: Dict, cfg: ModelConfig, mode: str, **kw) -> torch.Tensor:
+    """forward_translate with the reference source history (ref:
+    Seq2seq.py:799-903)."""
+    return forward_translate(params, cfg, mode, refen=True, **kw)

@@ -28,8 +28,9 @@ def las_forward(params: Dict, cfg: ModelConfig, acous_feats: torch.Tensor,
                 is_training: bool = False,
                 ref_tokens: Optional[torch.Tensor] = None,
                 teacher_forcing_ratio: Optional[float] = None,
-                flash_ok: bool = True):
-    """(sequence_embs, logps, symbols, lengths): see las_decoder_forward."""
+                flash_ok: bool = True, lm_fuse=None, want_logps: bool = True):
+    """(sequence_embs, logps, symbols, lengths): see las_decoder_forward
+    (lm_fuse: the n-gram LM fuser of the decode, ref: models/Las.py:91-123)."""
     g_enc, g_dec = split(generator)
     acous_outputs, _ = las_encoder_forward(params["encoder"], cfg, acous_feats,
                                            acous_lens, generator=g_enc,
@@ -40,4 +41,4 @@ def las_forward(params: Dict, cfg: ModelConfig, acous_feats: torch.Tensor,
                                generator=g_dec, is_training=is_training,
                                ref_tokens=ref_tokens,
                                teacher_forcing_ratio=teacher_forcing_ratio,
-                               flash_ok=flash_ok)
+                               flash_ok=flash_ok, lm_fuse=lm_fuse, want_logps=want_logps)

@@ -20,7 +20,16 @@ differentiated (ST-alone training, `flash_ok=False`), since K2 has no
 backward, as JAX runs its XLA scan there. The stochastic teacher-forcing
 coin (`teacher_forcing_ratio`) is one host draw from the generator where
 JAX draws a traced bernoulli: the branch it picks then runs as the static
-one. LM fusion is not ported yet.
+one.
+
+With an n-gram LM (`lm_fuse`, infer/lm_fusion.py or infer/lm_table.py)
+neither K2 nor K9 runs, as in JAX (las_decoder.py:291,357): free running
+and teacher forced alike, the step loop applies the head every step, fuses
+its log-probs (on the card through the table fuser, or on a host copy
+through the host fuser, the port's counterpart of JAX's pure_callback),
+takes the greedy symbol of the fused log-probs and shifts it into the
+LM context. Teacher forced, a step's input is [embedding of the reference
+symbol ; cell], as JAX's scan body builds it, not the hoisted `pre0`.
 
 Under bf16 params the LAS head's input is cast to its weight's dtype and
 the picked log-softmax is reduced in f32 (las_decoder.py:411-447).
@@ -125,17 +134,34 @@ def _dec_lstm_stack(params: Dict, cfg: ModelConfig, x: torch.Tensor, h: List,
     return out, hs, cs
 
 
+def _fuse(lm_fuse, logp: torch.Tensor, ctx: torch.Tensor, step: int) -> torch.Tensor:
+    """One step's LM fusion (las_decoder.py:476-490): the table fuser on the
+    log-probs' device, or the host fuser on a host copy (JAX's
+    pure_callback), its result moved back."""
+    if getattr(lm_fuse, "on_device", False):
+        return lm_fuse(logp, ctx, step)
+    out = lm_fuse(logp.detach().float().cpu().numpy(), ctx.cpu().numpy(), step)
+    return torch.from_numpy(out).to(device=logp.device, dtype=logp.dtype)
+
+
 def _step_loop(params: Dict, cfg: ModelConfig, acous_outputs: torch.Tensor,
                att_mask: Optional[torch.Tensor], n_steps: int,
                pre0_steps: Optional[torch.Tensor] = None,
                sym0: Optional[torch.Tensor] = None, masks=None,
                ref_tokens: Optional[torch.Tensor] = None,
-               pre_keys: Optional[Dict] = None, mode: Optional[str] = None):
+               pre_keys: Optional[Dict] = None, mode: Optional[str] = None,
+               emb_steps: Optional[torch.Tensor] = None, lm_fuse=None,
+               want_logps: bool = False):
     """JAX's scan of `las_decoder_step_core` (las_decoder.py:136-183,
     398-408, 454-504) in plain PyTorch, differentiable. Teacher forced with
-    pre0_steps [n, B, 4Hd]: returns the dynamic embeddings [n, B, Hs]. Free
-    running from sym0 [B]: returns (embs [B, n, Hs], greedy symbols [B, n],
-    log-softmax at ref_tokens[:, step] [B, n], token 0 without refs).
+    pre0_steps [n, B, 4Hd] and no head: returns the dynamic embeddings
+    [n, B, Hs]. Otherwise the head runs every step and it returns (embs
+    [B, n, Hs], greedy symbols [B, n], the log-softmax at ref_tokens[:, step]
+    [B, n] (with want_logps and no refs, every log-prob [B, n, V]; else
+    token 0's)). A step's symbol input is the previous greedy symbol,
+    from sym0 [B], or with emb_steps [n, B, E] the given embeddings (teacher
+    forcing under an LM). lm_fuse fuses each step's log-probs before the
+    greedy pick, with the last 3 symbols as its context.
     masks: (lstm [n, L, B, Hd], ctx [n, B, 1, Ha2]) or None. pre_keys and
     mode default to the keys precomputed here and cfg's attention mode."""
     B, Tk, _ = acous_outputs.shape
@@ -148,6 +174,7 @@ def _step_loop(params: Dict, cfg: ModelConfig, acous_outputs: torch.Tensor,
     h, c = [z] * cfg.num_unilstm_dec, [z] * cfg.num_unilstm_dec
     cell = acous_outputs.new_zeros((B, params["acous_ffn"]["w"].shape[1]))
     prev_c = acous_outputs.new_zeros((B, 1, Tk))
+    ctx_lm = torch.zeros((B, 3), dtype=torch.int32, device=acous_outputs.device)
     sym = sym0
     embs, syms, picked = [], [], []
     for step in range(n_steps):
@@ -155,8 +182,9 @@ def _step_loop(params: Dict, cfg: ModelConfig, acous_outputs: torch.Tensor,
         if pre0_steps is not None:
             dec_out, h, c = _dec_lstm_stack(params, cfg, cell, h, c, m_lstm, pre0=pre0_steps[step])
         else:
-            x = torch.cat([embed(params["embedder"], sym), cell], dim=-1)
-            dec_out, h, c = _dec_lstm_stack(params, cfg, x, h, c, m_lstm)
+            emb = embed(params["embedder"], sym) if emb_steps is None else emb_steps[step]
+            dec_out, h, c = _dec_lstm_stack(params, cfg, torch.cat([emb, cell], dim=-1),
+                                            h, c, m_lstm)
         query = dec_out[:, None, :]
         ctx, _, c_out = attend(att, pre_keys, query, acous_outputs, mode,
                                mask=att_mask, prev_c=prev_c)
@@ -168,8 +196,15 @@ def _step_loop(params: Dict, cfg: ModelConfig, acous_outputs: torch.Tensor,
         embs.append(cell)
         if pre0_steps is None:
             logp = torch.log_softmax(linear(params["acous_out"], cell), dim=-1)
+            if lm_fuse is not None:
+                logp = _fuse(lm_fuse, logp, ctx_lm, step)
             sym = torch.argmax(logp, dim=-1)
             syms.append(sym)
+            if lm_fuse is not None:
+                ctx_lm = torch.cat([ctx_lm[:, 1:], sym[:, None].to(torch.int32)], dim=1)
+            if want_logps and ref_tokens is None:
+                picked.append(logp)
+                continue
             ids = (ref_tokens[:, step:step + 1].long() if ref_tokens is not None
                    else torch.zeros_like(sym)[:, None])
             picked.append(logp.gather(1, ids)[:, 0])
@@ -186,7 +221,7 @@ def _att_mask(lens_k: torch.Tensor, Tk: int) -> torch.Tensor:
 def _teacher_forced(params: Dict, cfg: ModelConfig, acous_outputs: torch.Tensor,
                     lens_k: torch.Tensor, tgt: torch.Tensor,
                     generator: Optional[torch.Generator], is_training: bool,
-                    ref_tokens: Optional[torch.Tensor]):
+                    ref_tokens: Optional[torch.Tensor], want_logps: bool = True):
     """The static teacher-forced branch (las_decoder.py:324-452): K9 where
     JAX takes its kernel (`use_tf_kernel`, :376-383), else the step loop."""
     B, _, Ha2 = acous_outputs.shape
@@ -221,7 +256,7 @@ def _teacher_forced(params: Dict, cfg: ModelConfig, acous_outputs: torch.Tensor,
     symbols = torch.argmax(logits, dim=-1)  # == argmax of the log-softmax
     lengths = lengths_from_preds(symbols, L)
     if ref_tokens is None:
-        return embs, torch.log_softmax(logits, dim=-1), symbols, lengths
+        return embs, torch.log_softmax(logits, dim=-1) if want_logps else None, symbols, lengths
     # the log-softmax at the reference token, by gather minus logsumexp, in
     # f32 (las_decoder.py:432-447)
     ids = ref_tokens[:, :L - 1].long()[..., None]
@@ -240,7 +275,7 @@ def las_decoder_forward(params: Dict, cfg: ModelConfig,
                         is_training: bool = False,
                         ref_tokens: Optional[torch.Tensor] = None,
                         teacher_forcing_ratio: Optional[float] = None,
-                        flash_ok: bool = True):
+                        flash_ok: bool = True, lm_fuse=None, want_logps: bool = True):
     """Free running: greedy decode over max_seq_len - 1 steps (tgt.shape[1]
     - 1 from tgt[:, 0] when tgt is given), returning
     (sequence_embs [B, L-1, Hs], None, symbols [B, L-1], lengths [B]), the
@@ -249,7 +284,8 @@ def las_decoder_forward(params: Dict, cfg: ModelConfig,
     (PAD-padded to L-1, as las_decoder.py:308-312 pads them). Teacher-forced
     on tgt [B, L]: (sequence_embs, logps [B, L-1, V] or, with ref_tokens,
     the picked log-probs [B, L-1] at ref_tokens[:, :L-1], symbols,
-    lengths).
+    lengths); want_logps=False drops the [B, L-1, V] log-probs (None in
+    their slot), as JAX's flag does.
 
     teacher_forcing_ratio, when given, is the reference's per-batch coin
     `random.random() < ratio` (ref: Dec.py:196): >= 1.0 teacher-forced,
@@ -257,7 +293,9 @@ def las_decoder_forward(params: Dict, cfg: ModelConfig,
     draws a traced bernoulli, las_decoder.py:256-266). The free-running
     loop runs K2 when flash_ok and not is_training (the JAX gate,
     las_decoder.py:288-292), else the differentiable step loop with the
-    training dropout masks."""
+    training dropout masks. lm_fuse (a fuser of infer/lm_fusion.py or
+    infer/lm_table.py) runs both branches through the step loop, its
+    log-probs, symbols and lengths those of the fused log-probs."""
     B, Tk, _ = acous_outputs.shape
     if acous_lens is not None:
         lens_k = round_up8(acous_lens.long()) // 8  # ref: Dec.py:173-179
@@ -272,11 +310,11 @@ def las_decoder_forward(params: Dict, cfg: ModelConfig,
                 torch.rand((), generator=k) < teacher_forcing_ratio)
         else:
             use_teacher_forcing = teacher_forcing_ratio >= 1.0
-    if use_teacher_forcing:
-        if tgt is None:
-            raise ValueError("teacher forcing needs tgt")
+    if use_teacher_forcing and tgt is None:
+        raise ValueError("teacher forcing needs tgt")
+    if use_teacher_forcing and lm_fuse is None:
         return _teacher_forced(params, cfg, acous_outputs, lens_k, tgt,
-                               generator, is_training, ref_tokens)
+                               generator, is_training, ref_tokens, want_logps)
     dev = acous_outputs.device
     if tgt is not None:
         L, sym0 = tgt.shape[1], tgt[:, 0].long()
@@ -287,18 +325,28 @@ def las_decoder_forward(params: Dict, cfg: ModelConfig,
     if ref_tokens is not None:  # K2 reads them as contiguous [B, L-1] int32
         r = ref_tokens[:, :L - 1].to(torch.int32)
         refs = F.pad(r, (0, L - 1 - r.shape[1]), value=PAD).contiguous()
-    if flash_ok and not is_training and las_flash_supported(cfg):
+    if (flash_ok and not is_training and not use_teacher_forcing and lm_fuse is None
+            and las_flash_supported(cfg)):
         pre_keys = precompute_keys(params["acous_att"], acous_outputs, cfg.acous_att_mode)
         embs, preds, picked = las_greedy_flash(params, cfg, pre_keys["wk"],
                                                acous_outputs, lens_k, sym0, L - 1,
                                                ref_tokens=refs)
     else:
+        emb_steps = None
+        if use_teacher_forcing:  # under an LM: JAX's scan body (las_decoder.py:454-504)
+            emb_tgt = embed(params["embedder"], tgt)
+            if is_training and cfg.embedding_dropout > 0.0:  # ref: Dec.py:166
+                generator, k = split(generator)
+                emb_tgt = dropout(k, emb_tgt, cfg.embedding_dropout, True)
+            emb_steps = emb_tgt[:, :L - 1].transpose(0, 1)
         masks = None
         if is_training and cfg.dropout > 0.0:
             generator, k = split(generator)
             masks = _make_drop_masks(k, cfg, L - 1, B, acous_outputs.shape[-1], dev,
                                      acous_outputs.dtype)
         embs, preds, picked = _step_loop(params, cfg, acous_outputs, _att_mask(lens_k, Tk),
-                                         L - 1, sym0=sym0, masks=masks, ref_tokens=refs)
-    return (embs, picked if refs is not None else None, preds,
-            lengths_from_preds(preds, L))
+                                         L - 1, sym0=sym0, masks=masks, ref_tokens=refs,
+                                         emb_steps=emb_steps, lm_fuse=lm_fuse,
+                                         want_logps=use_teacher_forcing and want_logps)
+    second = picked if refs is not None or (use_teacher_forcing and want_logps) else None
+    return embs, second, preds, lengths_from_preds(preds, L)

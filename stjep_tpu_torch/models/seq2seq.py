@@ -143,18 +143,20 @@ def _encoder_acous(params: Dict, cfg: ModelConfig, acous_feats: torch.Tensor,
                    is_training: bool = False,
                    ref_tokens: Optional[torch.Tensor] = None,
                    teacher_forcing_ratio: Optional[float] = None,
-                   flash_ok: bool = True):
+                   flash_ok: bool = True, lm_fuse=None, want_logps: bool = True):
     """LAS pass -> (dynamic embs, logps or picked logps or None, preds,
     lengths); free running unless teacher_forcing (ref: Seq2seq.py:222-230).
     teacher_forcing_ratio: the reference's per-batch coin (las_decoder.py);
     flash_ok=False keeps K2, which has no backward, out of a free-running
-    pass that is differentiated."""
+    pass that is differentiated; lm_fuse: n-gram LM shallow fusion in the
+    LAS decode; want_logps=False: no teacher-forced [B, L-1, V] log-probs
+    (las_decoder_forward)."""
     return las_forward(params["las"], cfg, acous_feats, acous_lens=acous_lens,
                        max_seq_len=max_seq_len, tgt=tgt,
                        use_teacher_forcing=teacher_forcing, generator=generator,
                        is_training=is_training, ref_tokens=ref_tokens,
                        teacher_forcing_ratio=teacher_forcing_ratio,
-                       flash_ok=flash_ok)
+                       flash_ok=flash_ok, lm_fuse=lm_fuse, want_logps=want_logps)
 
 
 def _encoder_en(params: Dict, cfg: ModelConfig, emb_src: torch.Tensor,
@@ -360,7 +362,7 @@ def forward_eval(params: Dict, cfg: ModelConfig, mode: str,
                  acous_lens: Optional[torch.Tensor] = None,
                  ref_src: Optional[torch.Tensor] = None,
                  ref_tgt: Optional[torch.Tensor] = None,
-                 device="cuda") -> Dict[str, torch.Tensor]:
+                 device="cuda", lm_fuse=None) -> Dict[str, torch.Tensor]:
     """Free-running greedy dev eval with reference ids, modes ASR, ST,
     ASR_ST and MT (ref: Seq2seq.py:512-638; seq2seq.py:586-724).
 
@@ -372,8 +374,9 @@ def forward_eval(params: Dict, cfg: ModelConfig, mode: str,
     (ST). `device`: where the call runs, the card unless the caller asks
     for the CPU (the plain routes); the inputs move there, and params must
     already lie there (ValueError otherwise). Eval draws no random numbers,
-    so the JAX function's `rng` has no counterpart. LM fusion is not
-    ported."""
+    so the JAX function's `rng` has no counterpart. lm_fuse applies n-gram
+    shallow fusion inside the LAS passes (the step loop instead of K2), as
+    the reference's lm_mode/lm_model do (ref: Seq2seq.py:548,607)."""
     mode = mode.upper()
     if "AE" in mode:
         raise NotImplementedError(
@@ -399,7 +402,7 @@ def forward_eval(params: Dict, cfg: ModelConfig, mode: str,
     if "ASR" in mode:
         emb, picked, preds, lengths = _encoder_acous(
             params, cfg, acous_feats, acous_lens,
-            max_seq_len=cfg.max_seq_len_src, ref_tokens=ref_src[:, 1:])
+            max_seq_len=cfg.max_seq_len_src, ref_tokens=ref_src[:, 1:], lm_fuse=lm_fuse)
         out.update(emb_asr=emb, preds_asr=preds, lengths_asr=lengths,
                    picked_asr=picked)
 
@@ -426,7 +429,7 @@ def forward_eval(params: Dict, cfg: ModelConfig, mode: str,
         else:
             emb_dyn, _, preds_src, lengths = _encoder_acous(
                 params, cfg, acous_feats, acous_lens,
-                max_seq_len=cfg.max_seq_len_src)
+                max_seq_len=cfg.max_seq_len_src, lm_fuse=lm_fuse)
         # static embeddings of the ASR *hypotheses* (ref: Seq2seq.py:608)
         _, emb_src, _ = _get_src_emb(params, cfg, preds_src, emb_dyn)
         src_mask_input = _length_src_mask(lengths, emb_src.shape[1])

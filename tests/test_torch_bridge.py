@@ -94,8 +94,8 @@ def test_position_signal_equal(d_model):
 
 
 def test_port_imports_no_jax():
-    """Every module of stjep_tpu_torch (pkgutil.walk_packages, the CLI
-    included) and every script under stjep_tpu_torch/scripts/ (a directory
+    """Every module of stjep_tpu_torch (pkgutil.walk_packages, the CLIs
+    and the LM fusion modules included) and every script under stjep_tpu_torch/scripts/ (a directory
     without __init__.py, which walk_packages does not enter) imports in a
     fresh process, on a host without a card, and loads no jax, jaxlib or
     stjep_tpu module."""
@@ -105,15 +105,17 @@ def test_port_imports_no_jax():
             "names += ['stjep_tpu_torch.scripts.' + f.stem for f in "
             "sorted((Path(p.__file__).parent / 'scripts').glob('*.py'))]; "
             "[importlib.import_module(n) for n in names]; "
-            "print(len(names), 'stjep_tpu_torch.cli.train' in names); "
+            "print(len(names), all(m in names for m in ('stjep_tpu_torch.cli.train', "
+            "'stjep_tpu_torch.cli.translate', 'stjep_tpu_torch.infer.lm_fusion', "
+            "'stjep_tpu_torch.infer.lm_table'))); "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'stjep_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True,
                          cwd=Path(__file__).resolve().parents[1])
     count, listed = out.stdout.strip().splitlines()
-    n, has_cli = count.split()
-    assert int(n) >= 55 and has_cli == "True", count
+    n, has_new = count.split()
+    assert int(n) >= 58 and has_new == "True", count
     assert listed == "[]"
 
 

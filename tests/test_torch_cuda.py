@@ -2214,3 +2214,109 @@ def test_bf16_train_step_on_card(dev, train_corpus):
     assert k8.bilstm_bwd.launches > before[0] and k9.las_tf_bwd.launches > before[1]
     assert np.isfinite(out["card"])
     assert abs(out["card"] - out["cpu"]) <= 2e-2 * abs(out["cpu"]), out
+
+
+# --------------------------------------------------------------------------
+# the translate entry point: modes MT / ST_BASE / refen, LM fusion, the CLI
+# --------------------------------------------------------------------------
+
+
+def _translate_inputs(seed=3):
+    rng = np.random.RandomState(seed)
+    src = torch.from_numpy(rng.randint(5, CFG.enc_vocab_size, (B, CFG.max_seq_len_src)))
+    src[:, 0] = BOS
+    src[1, 7:] = PAD
+    return dict(acous_feats=_randn(rng, B, 64, CFG.acous_dim),
+                acous_lens=torch.tensor([64, 29, 47]), src=src)
+
+
+@pytest.mark.parametrize("mode,refen", [("MT", False), ("ST_BASE", False), ("ASR", True),
+                                        ("ST", True)],
+                         ids=["MT", "ST_BASE", "ASR-REF", "ST-REF"])
+def test_translate_modes_match_cpu(dev, params, mode, refen):
+    """forward_translate in the modes this slice ports, on the card (K9's
+    forward in the refen modes, K1-K4) against CPU copies: the same tokens."""
+    p_cpu, p_dev = params
+    rng = np.random.RandomState(1)
+    ave = torch.from_numpy(rng.randn(CFG.dim_model).astype(np.float32))
+    p_cpu, p_dev = {**p_cpu, "emb_dyn_ave": ave}, {**p_dev, "emb_dyn_ave": ave.to(dev)}
+    x = _translate_inputs()
+    before = k9.las_tf_fwd.launches
+    outs = [forward_translate(p, CFG, mode, beam_width=3, max_seq_len=MAX_LEN, refen=refen,
+                              device=d, **x).cpu() for p, d in ((p_dev, "cuda"), (p_cpu, "cpu"))]
+    assert torch.equal(outs[0], outs[1])
+    assert (k9.las_tf_fwd.launches > before) == refen
+
+
+def test_lm_table_hash_and_fuser_on_card(dev):
+    """The table's int64 hash on the card equals numpy's uint32 hash bit for
+    bit over the whole int32 range, and the table fuser on the card equals
+    it on CPU copies (1e-6), ties at the 10th candidate included."""
+    from stjep_tpu_torch.infer import lm_table as lt
+
+    rng = np.random.RandomState(2)
+    toks = rng.randint(-2 ** 31, 2 ** 31 - 1, (4096, 4), dtype=np.int64).astype(np.int32)
+    for mult, seed in ((lt._MULT1, lt._SEED1), (lt._MULT2, lt._SEED2)):
+        got = lt._hash_torch(torch.from_numpy(toks).to(dev), int(mult), int(seed)).cpu().numpy()
+        np.testing.assert_array_equal(got, lt._hash_np(toks, mult, seed).astype(np.int64))
+    V = 40
+    entries = {(w,): float(-rng.uniform(1, 6)) for w in range(V)}
+    for _ in range(300):
+        entries[tuple(int(t) for t in rng.randint(0, V, rng.randint(2, 5)))] = float(-rng.rand())
+    backoffs = {k[:-1]: float(-rng.rand()) for k in entries if len(k) > 1}
+    fusers = [lt.make_table_fuser(lt.NGramTable.from_ngrams(entries, backoffs, device=d),
+                                  "s-4g_0.5") for d in ("cuda", "cpu")]
+    for step in range(5):
+        logp = torch.log_softmax(_randn(rng, 6, V), dim=-1)
+        logp[0, 3] = logp[0, 7] = logp[0].topk(10).values[-1]
+        ctx = torch.from_numpy(rng.randint(0, V, (6, 3)))
+        on_card = fusers[0](logp.to(dev), ctx.to(dev), step).cpu()
+        _close(on_card, fusers[1](logp, ctx, step), 1e-6)
+
+
+def test_lm_fused_asr_on_card_matches_cpu(dev, params):
+    """An LM-fused ASR decode on the card (the plain step loop; K1, no K2)
+    against CPU copies, through the device table and the host fuser."""
+    from stjep_tpu_torch.infer import lm_fusion, lm_table
+
+    p_cpu, p_dev = params
+    rng = np.random.RandomState(4)
+    entries = {(w,): float(-rng.uniform(1, 6)) for w in range(CFG.enc_vocab_size)}
+    x = _translate_inputs()
+    before = (las_greedy_flash.launches, k9.las_tf_fwd.launches)
+    for kind in ("table", "host"):
+        outs = []
+        for p, d in ((p_dev, "cuda"), (p_cpu, "cpu")):
+            fuse = (lm_table.make_table_fuser(lm_table.NGramTable.from_ngrams(entries, device=d),
+                                              "s-4g_0.8") if kind == "table" else
+                    lm_fusion.make_ngram_fuser(
+                        type("LM", (), {"logscore": lambda self, w, c: entries[(int(w),)]})(),
+                        "s-4g_0.8"))
+            outs.append(forward_translate(p, CFG, "ASR", device=d, lm_fuse=fuse, **x).cpu())
+        assert torch.equal(outs[0], outs[1]), kind
+    assert (las_greedy_flash.launches, k9.las_tf_fwd.launches) == before
+
+
+def test_translate_cli_on_card_writes_the_cpu_file(dev, train_corpus, tmp_path):
+    """main() of the translate CLI on the card (its default) and on the
+    host, on one checkpoint: the same translate.txt; mode 3 within 1e-5."""
+    from stjep_tpu_torch.cli import translate as cli
+    from stjep_tpu_torch.train.checkpoint import Checkpoint
+
+    cfg = _train_cfg(train_corpus)
+    ds = _train_dataset(train_corpus)
+    ckpt = Checkpoint(params=init_seq2seq(cfg, torch.Generator().manual_seed(6)),
+                      input_vocab=ds.vocab_src, output_vocab=ds.vocab_tgt,
+                      model_config=dataclasses.asdict(cfg)).save_customise(str(tmp_path / "ckpt"))
+    c = train_corpus
+    for mode, extra in (("1", ["--gen_mode", "ST", "--beam_width", "3"]), ("3", [])):
+        outs = [cli.main(["--test_path_src", c["path_src"], "--test_path_tgt", c["path_tgt"],
+                          "--test_acous_path", c["acous_path"], "--load", ckpt,
+                          "--test_path_out", str(tmp_path / f"{mode}{d}"), "--batch_size", "8",
+                          "--max_seq_len", "16", "--eval_mode", mode, *extra], **kw)
+                for d, kw in (("card", {}), ("cpu", {"device": "cpu"}))]
+        if mode == "1":
+            lines = [open(o, encoding="utf8").read() for o in outs]
+            assert lines[0] == lines[1] and lines[0].count("\n") == 32
+        else:
+            _close(*(torch.from_numpy(np.load(o)) for o in outs), 1e-5)
