@@ -152,6 +152,31 @@ package beside it, included):
       and its ckpts.log; mode 4 (K1, K2), which without tensorboard returns
       None as JAX's does.
 
+10. act and dense eval (its own seconds on its last line): a universal
+   transformer with ACT at the flagship widths (random weights from
+   init_seq2seq(seed + 5)) and the standard model of phase 4:
+   a. the ACT ST beam-5 through forward_translate on 2 requests of B=16
+      (K1, K2, each position a re-run of the [80, 150] token buffer in
+      plain PyTorch, then K4's select kernel; K3, K4, K5 and K7 idle):
+      utt/s; rows 0-1 of a request as a batch of their own on the card,
+      with the halting loops' mean layer maps (encoder and decoder hops),
+      and on CPU copies, every differing row a tie within E2E_MARGIN (an
+      ACT decoder halts on its whole batch, so a batch is held only
+      against the same batch);
+   b. ACT dev eval, forward_eval("ASR_ST") with refs at B=16 (K1, K2,
+      the greedy re-running its buffer): utt/s; rows 0-3 as a batch of
+      their own against CPU copies as dev eval's: preds up to ties,
+      picked_* within 1e-4;
+   c. forward_eval("ASR_ST") without refs on the standard model at B=16
+      (the LAS step loop for logps_asr, no K2; the dense greedy: K5 per
+      hop and a plain head, no K3): call ms and peak memory; against CPU
+      copies, preds up to ties, logps_* within 1e-4 on agreeing rows;
+   d. the ASR_ST train step with cfg.remat (B=16, dropout 0.2,
+      SpecAugment): loss and gradients against the step without remat
+      from one generator (1e-6 of each leaf's norm), then 3 timed steps
+      each way: step ms and peak memory, and the remat steps' K8/K9
+      launches.
+
 The last lines: a JSON object with one entry per kernel (its launches
 summed over the main paths' runs), the total seconds, the nvidia-smi line,
 then {"ok": true, "device": {...}}.
@@ -2610,14 +2635,17 @@ def phase_serving_universal(uparams, uparams_c, ucfg, reqs, seed):
     return runs
 
 
-def phase_dev_eval(label, params, params_c, cfg, rng, ran):
+def phase_dev_eval(label, params, params_c, cfg, rng, ran, idle=(), rows=B):
     """forward_eval ASR_ST with reference ids (dev eval) at B=16: 3 timed
     calls on the card, then the plain arm on CPU copies. preds_asr and
     preds_st must be equal, or differ only by a tie at the first
     divergence (the plain arm's log-probs of the two choices there, read
     through forward_eval's own picked_* with each arm's tokens as refs,
     within E2E_MARGIN); picked_* within 1e-4 on the rows that agree.
-    Returns the main path's launch counts."""
+    With rows < B both arms run the first `rows` rows as a batch of their
+    own (an ACT decoder halts on the whole batch's positions, so the card
+    holds a batch only against the same batch). Returns the main path's
+    launch counts."""
     from stjep_tpu_torch.config import BOS
     from stjep_tpu_torch.infer.forward import forward_eval
 
@@ -2640,7 +2668,11 @@ def phase_dev_eval(label, params, params_c, cfg, rng, ran):
         out_g = run(params, "cuda")
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
-    launches = read_counts(ran)
+    launches = read_counts(ran, idle)
+    if rows < B:
+        feats, lens = feats[:rows], lens[:rows]
+        refs = {k: r[:rows] for k, r in refs.items()}
+        out_g = run(params, "cuda")
     out_g = {k: v.cpu() for k, v in out_g.items()}
     t0 = time.perf_counter()
     out_c = run(params_c, "cpu")
@@ -2675,13 +2707,216 @@ def phase_dev_eval(label, params, params_c, cfg, rng, ran):
     say(label, transformer=cfg.transformer_type, batch=B, calls=len(secs),
         utt_per_s=round(B * len(secs) / sum(secs), 3),
         call_ms=[round(x * 1e3, 1) for x in secs], plain_cpu_s=round(plain_s, 1),
-        rows_differ=len(margins), of=B, max_first_divergence_margin=max(margins, default=0.0),
+        rows_differ=len(margins), of=rows, max_first_divergence_margin=max(margins, default=0.0),
         limit=E2E_MARGIN, picked_max_abs_err=err, tol=tol,
         launches={k: n for k, n in launches.items() if n})
     need(all(m <= E2E_MARGIN for m in margins),
          f"{label} rows differ beyond ties: margins {margins}")
     need(err <= tol, f"{label} picked max_abs_err {err} > {tol}")
     return launches
+
+
+ACT_ROWS = 2  # the ACT beam's plain arm: rows 0-1 of a request, as a batch of their own
+ACT_EVAL_ROWS = 4  # the ACT dev eval's plain arm likewise
+# what the ACT and dense routes must leave idle: no KV-cached step and no
+# fused head (JAX's dense head is plain XLA)
+DENSE_IDLE = ("K3", "K3 gather", "K4", "K5", "K7 head", "K7 head_gather")
+
+
+def act_hops(run):
+    """run() with the ACT halting loops recorded: (its result, {"encoder":
+    [...], "decoder": [...]} the mean layer map of each call)."""
+    from stjep_tpu_torch.models import tf_decoder, tf_encoder
+
+    maps = {"encoder": [], "decoder": []}
+    real = {"encoder": tf_encoder.act_enc_apply, "decoder": tf_decoder.act_dec_apply}
+
+    def recording(side):
+        def f(*a, **kw):
+            out, lmap = real[side](*a, **kw)
+            maps[side].append(float(lmap.float().mean()))
+            return out, lmap
+        return f
+
+    tf_encoder.act_enc_apply, tf_decoder.act_dec_apply = recording("encoder"), recording("decoder")
+    try:
+        return run(), maps
+    finally:
+        tf_encoder.act_enc_apply, tf_decoder.act_dec_apply = real["encoder"], real["decoder"]
+
+
+def phase_act_beam(aparams, aparams_c, acfg, reqs):
+    """(a) the ACT ST beam-5 through forward_translate on 2 requests of
+    B=16 (K1, K2, then each position a re-run of the [80, 150] token buffer
+    in plain PyTorch and K4's select kernel); then rows 0-1 of request 0
+    as a batch of their own on the card (its halting loops recorded: the
+    mean layer maps) and on CPU copies, every differing row a tie within
+    E2E_MARGIN. Returns the timed requests' launch counts."""
+    outs, secs, launches = translate_timed(aparams, acfg, reqs[:2],
+                                           LAS_RAN + ("K4 select",), DENSE_IDLE)
+    feats, lens = reqs[0][0][:ACT_ROWS], reqs[0][1][:ACT_ROWS]
+    t0 = time.perf_counter()
+    plain = recorded_translate(aparams_c, acfg, feats, lens, "cpu")
+    plain_s = time.perf_counter() - t0
+    card, maps = act_hops(lambda: recorded_translate(aparams, acfg, feats, lens, "cuda"))
+    margins = explain_e2e(aparams_c, acfg, feats, lens, card, plain)
+    mean = lambda xs: sum(xs) / len(xs)
+    say("act beam", transformer="universal+act", requests=len(secs), batch=B,
+        utt_per_s=round(B * len(secs) / sum(secs), 3),
+        request_ms=[round(x * 1e3, 1) for x in secs],
+        encoder_mean_hops=round(mean(maps["encoder"]), 4),
+        decoder_mean_hops=round(mean(maps["decoder"]), 4),
+        decoder_reruns=len(maps["decoder"]), plain_rows=ACT_ROWS,
+        plain_cpu_s=round(plain_s, 1), rows_differ=len(margins),
+        max_first_divergence_margin=max(margins, default=0.0), limit=E2E_MARGIN,
+        launches={k: n for k, n in launches.items() if n})
+    need(all(m <= E2E_MARGIN for m in margins),
+         f"act beam rows differ beyond ties: margins {margins}")
+    return launches
+
+
+def phase_dense_eval(params, params_c, cfg, rng):
+    """(c) forward_eval ASR_ST without reference ids on the standard model
+    at B=16: the LAS step loop for logps_asr (no K2), the dense greedy (K5
+    per hop and a plain head, no K3); one warm call, one timed with its
+    peak memory; then CPU copies: preds equal or parted by a tie (the
+    plain arm's own log-probs of the two choices at the first divergence,
+    within E2E_MARGIN), logps_* within 1e-4 on the rows that agree."""
+    from stjep_tpu_torch.infer.forward import forward_eval
+
+    feats, lens = inputs(rng, B)
+    run = lambda p, dev: forward_eval(p, cfg, "ASR_ST", acous_feats=feats, acous_lens=lens,
+                                      device=dev)
+    run(params, "cuda")
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out_g = run(params, "cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_counts(("K1", "K5"), ("K2",) + tuple(k for k in DENSE_IDLE if k != "K5"))
+    out_g = {k: v.cpu() for k, v in out_g.items()}
+    t0 = time.perf_counter()
+    out_c = run(params_c, "cpu")
+    plain_s = time.perf_counter() - t0
+    need(set(out_g) == set(out_c) >= {"logps_asr", "logps_st"},
+         f"dense eval keys {set(out_g)} vs {set(out_c)}")
+    for k, v in out_c.items():
+        need(out_g[k].shape == v.shape and bool(torch.isfinite(out_g[k].float()).all()),
+             f"dense eval {k}: shape {tuple(out_g[k].shape)} vs {tuple(v.shape)} or not finite")
+    margins, same_asr, same = [], [], []
+    for r, (ca, cs) in enumerate(zip(first_diff(out_g["preds_asr"], out_c["preds_asr"]),
+                                     first_diff(out_g["preds_st"], out_c["preds_st"]))):
+        same_asr.append(ca is None)
+        same.append(ca is None and cs is None)
+        if ca is None and cs is None:
+            continue
+        # LAS step c holds logps_asr[:, c]; the greedy's slot c logps_st[:, c]
+        key, c, pk = ("logps_asr", ca, "preds_asr") if ca is not None else ("logps_st", cs,
+                                                                           "preds_st")
+        lp = out_c[key][r, c]
+        m = float(abs(lp[out_g[pk][r, c]] - lp[out_c[pk][r, c]]))
+        say("dense eval differing row", row=r, stage=key[6:], col=c, margin=m)
+        margins.append(m)
+    err = max(max_err(out_g["logps_asr"][same_asr], out_c["logps_asr"][same_asr]),
+              max_err(out_g["logps_st"][same], out_c["logps_st"][same]))
+    tol = 1e-4
+    say("dense eval", transformer=cfg.transformer_type, batch=B, refs=False,
+        utt_per_s=round(B / secs, 3), call_ms=round(secs * 1e3, 1),
+        peak_mem_gib=peak / 2 ** 30, peak_over_resident_gib=(peak - base) / 2 ** 30,
+        plain_cpu_s=round(plain_s, 1), rows_differ=len(margins), of=B,
+        max_first_divergence_margin=max(margins, default=0.0), limit=E2E_MARGIN,
+        logps_max_abs_err=err, tol=tol, launches={k: n for k, n in launches.items() if n})
+    need(all(m <= E2E_MARGIN for m in margins),
+         f"dense eval rows differ beyond ties: margins {margins}")
+    need(err <= tol, f"dense eval logps max_abs_err {err} > {tol}")
+    return launches
+
+
+def phase_remat_step(seed, rng):
+    """(d) the ASR_ST train step with cfg.remat at the flagship (B=16,
+    dropout 0.2, SpecAugment): loss and every gradient leaf against the
+    step without remat from the same generator (within 1e-6 of the leaf's
+    norm), then make_train_step both ways on copies of one init, one
+    warm-up and 3 timed steps each: step ms and peak memory. Returns the
+    remat steps' launch counts."""
+    from stjep_tpu_torch.bridge import named_leaves, params_to
+    from stjep_tpu_torch.config import ModelConfig
+    from stjep_tpu_torch.models.seq2seq import init_seq2seq
+    from stjep_tpu_torch.train.optim import make_optimizer
+    from stjep_tpu_torch.train.trainer import compute_grads, make_train_step
+
+    cfgs = {"remat": ModelConfig(**FLAGSHIP, remat=True), "plain": ModelConfig(**FLAGSHIP)}
+    init = init_seq2seq(cfgs["plain"], torch.Generator().manual_seed(seed + 7), "cpu")
+    mb = {k: v.cuda() for k, v in train_batch(rng, cfgs["plain"], B, FRAMES).items()}
+    got = {}
+    for k, c in cfgs.items():
+        p = params_to(init, "cuda")
+        losses, grads = compute_grads(c, "ASR_ST", p, [mb], torch.Generator().manual_seed(seed))
+        got[k] = (float(sum(losses.values())), [g.detach() for g in grads])
+        del p
+    names = [n for n, _ in named_leaves(init)]
+    worst, worst_leaf = 0.0, None
+    for n, a, b in zip(names, got["remat"][1], got["plain"][1]):
+        rel = float((a - b).abs().max()) / max(float(b.norm()), 1e-30)
+        if rel > worst:
+            worst, worst_leaf = rel, n
+    timing, launches = {}, None
+    for k, c in cfgs.items():
+        p = params_to(init, "cuda")
+        opt = make_optimizer(1.0)
+        state = opt.init(p)
+        step = make_train_step(c, "ASR_ST", opt, device="cuda")
+        gen = torch.Generator().manual_seed(seed)
+        p, state, _ = step(p, state, [mb], gen, TRAIN_LR)
+        torch.cuda.synchronize()
+        if k == "remat":
+            zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        secs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            p, state, ls = step(p, state, [mb], gen, TRAIN_LR)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        timing[k] = ([round(x * 1e3, 3) for x in secs], torch.cuda.max_memory_allocated() / 2 ** 30)
+        if k == "remat":
+            launches = read_counts(("K8 fwd", "K8 bwd", "K9 fwd", "K9 bwd"))
+        del p, state
+    say("remat step", mode="ASR_ST", B=B, frames=FRAMES, dropout=cfgs["remat"].dropout,
+        loss_remat=got["remat"][0], loss_plain=got["plain"][0],
+        grad_max_rel_err=worst, worst_leaf=worst_leaf, tol=1e-6,
+        remat_step_ms=timing["remat"][0], plain_step_ms=timing["plain"][0],
+        remat_peak_mem_gib=timing["remat"][1], plain_peak_mem_gib=timing["plain"][1],
+        launches={k: n for k, n in launches.items() if n})
+    need(abs(got["remat"][0] - got["plain"][0]) <= 1e-6 * max(1.0, abs(got["plain"][0])),
+         f"remat loss {got['remat'][0]} vs {got['plain'][0]}")
+    need(worst <= 1e-6, f"remat gradient {worst_leaf} off by {worst} of its norm")
+    return launches
+
+
+def phase_act_dense(seed, rng, params, params_c, cfg, reqs):
+    """ACT decode and dev eval, the dense eval route and the remat step
+    ((a)-(d) above), the ACT model universal + act at the flagship widths
+    from init_seq2seq(seed + 5). Returns the main paths' launch counts."""
+    from stjep_tpu_torch.bridge import params_to
+    from stjep_tpu_torch.config import ModelConfig
+    from stjep_tpu_torch.models.seq2seq import init_seq2seq
+
+    t0 = time.perf_counter()
+    acfg = ModelConfig(**{**FLAGSHIP, "transformer_type": "universal", "act": True})
+    aparams_c = init_seq2seq(acfg, torch.Generator().manual_seed(seed + 5), "cpu")
+    aparams = params_to(aparams_c, "cuda")
+    runs = [phase_act_beam(aparams, aparams_c, acfg, reqs),
+            phase_dev_eval("act dev eval", aparams, aparams_c, acfg, rng, LAS_RAN,
+                           DENSE_IDLE, rows=ACT_EVAL_ROWS),
+            phase_dense_eval(params, params_c, cfg, rng),
+            phase_remat_step(seed, rng)]
+    say("act and dense eval", seconds=round(time.perf_counter() - t0, 1))
+    return runs
 
 
 # the step of main() that runs, for the failure line when no phase_* function
@@ -2790,6 +3025,8 @@ def main() -> int:
     runs.append(phase_train_cli(args.seed, bare_steps_per_s))
     # 9. the translate CLI, eval modes 1-4
     runs += phase_translate_cli(args.seed, params_c, cfg)
+    # 10. ACT decode and dev eval, the dense eval route, the remat step
+    runs += phase_act_dense(args.seed, rng, params, params_c, cfg, reqs)
     launches = {k: sum(r.get(k, 0) for r in runs) for k in counters()}
 
     src, rep = "stjep_tpu_torch/csrc/", "stjep_tpu/ops/"

@@ -7,13 +7,17 @@ It runs on the card: `main(argv, device="cpu")` lets a caller (the CPU
 tests) run it on the host, and without a visible card and without that
 argument it raises instead of training on the CPU. `--use_gpu`,
 `--gpu_id` and `--grab_memory` are accepted and, as in the JAX CLI, change
-nothing. Not ported, each raising NotImplementedError: `--n_model` > 1
-(ROADMAP Queue A item 11), `--remat True` and the AE modes (item 6), and
-`--act True` (item 9). The flags' help strings are train.py's, written for
-the JAX package (XLA shapes, the TPU link); on the port `--acous_bucket`
-still sets the time-axis padding, `--feat_dtype` the staging dtype of the
-host-to-card copies, and `--device_cache` / `--train_window` the resident
-feature cache and the K-step window (stjep_tpu_torch/train/trainer.py).
+nothing; `--remat True` checkpoints the transformer layers. Not ported,
+raising NotImplementedError: `--n_model` > 1 (ROADMAP Queue A item 11).
+Refused with the JAX package's reasons, before anything is written, each
+raising ValueError: `--act True` on a universal transformer (JAX cannot
+take the first step's gradient through ACT's halting loop) and the AE
+modes (JAX has no AE loss and no Trainer_AE* class). The flags' help
+strings are train.py's, written for the JAX package (XLA shapes, the TPU
+link); on the port `--acous_bucket` still sets the time-axis padding,
+`--feat_dtype` the staging dtype of the host-to-card copies, and
+`--device_cache` / `--train_window` the resident feature cache and the
+K-step window (stjep_tpu_torch/train/trainer.py).
 """
 
 import argparse
@@ -24,6 +28,8 @@ import torch
 
 from stjep_tpu_torch.config import ModelConfig, save_config, validate_config
 from stjep_tpu_torch.data.dataset import Dataset
+from stjep_tpu_torch.models.act import ACT_NO_GRAD
+from stjep_tpu_torch.train.trainer import AE_NO_LOSS
 from stjep_tpu_torch.utils.misc import set_global_seeds
 
 
@@ -268,13 +274,10 @@ def _refuse_unported(config):
         raise NotImplementedError(
             "--n_model > 1: training across a device mesh is not ported "
             "(ROADMAP Queue A item 11)")
-    if config['remat']:
-        raise NotImplementedError("--remat True is not ported (ROADMAP Queue A item 6)")
-    if config['act']:
-        raise NotImplementedError("--act True is not ported (ROADMAP Queue A item 9)")
     if 'AE' in str(config['mode']):
-        raise NotImplementedError(
-            f"--mode {config['mode']}: the AE modes are not ported (ROADMAP Queue A item 6)")
+        raise ValueError(f"--mode {config['mode']}: {AE_NO_LOSS}")
+    if config['act'] and config['transformer_type'] == 'universal':
+        raise ValueError(f"--act True: {ACT_NO_GRAD}")
 
 
 def main(argv=None, device="cuda"):

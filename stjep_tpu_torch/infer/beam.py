@@ -24,6 +24,15 @@ every route takes either, and both. Caches are never reordered:
 the ancestry map `anc` records which slot holds each hypothesis's K/V per
 position. Returns beam 0 per batch item, as the reference's output does.
 
+An ACT decoder (universal with `cfg.act`) cannot be KV-cached: every
+position re-runs its token buffer [B*K, max_seq_len] through the full
+decoder (`_decode_logits_full`) over the memory expanded K times, takes
+the top K of the log-softmax at the position, and the general loop's
+k^2 -> k `beam_select` (whose back-copied ancestry and key mask no re-run
+reads) keeps K: JAX's dense beam with `full_rerun` (beam.py:104-205).
+`weight_dtype="int8"` raises there, as JAX's does (beam.py:88-91), and
+`cache_dtype` has no cache to act on.
+
 Under a kernel mesh (parallel/spmd.py `set_kernel_mesh`) `beam_search`
 dispatches as JAX's does (beam.py:87-97): each data shard decodes its slice
 of the batch, and with a model axis the shards decode tensor-parallel
@@ -39,7 +48,8 @@ import torch
 import torch.nn.functional as F
 
 from stjep_tpu_torch.config import BOS, EOS, PAD, ModelConfig
-from stjep_tpu_torch.models.seq2seq import _dec_embedder, _embed_tgt_token
+from stjep_tpu_torch.models.seq2seq import _dec_embedder, _decode_logits_full, _embed_tgt_token
+from stjep_tpu_torch.models.tf_encoder import uses_act
 from stjep_tpu_torch.models.tf_decoder import (
     decode_signals,
     tf_decoder_chain_step,
@@ -56,6 +66,7 @@ from stjep_tpu_torch.ops.decode_flash import (
     pad_len,
     quantize_decoder_weights,
     stack_decoder_layers,
+    topk_lowest_index,
 )
 from stjep_tpu_torch.ops.decode_flash_tp import ModelAxis
 from stjep_tpu_torch.parallel import spmd
@@ -82,6 +93,13 @@ def beam_search(params: Dict, cfg: ModelConfig, enc_outputs: torch.Tensor,
                          f"torch.bfloat16, got {cache_dtype!r}")
     args = (params, cfg, enc_outputs, mem_mask_b, beam_width, penalty_factor,
             max_seq_len, cache_dtype, weight_dtype)
+    if uses_act(cfg):
+        spmd.refuse_act_under_mesh(cfg)
+        if weight_dtype is not None:
+            raise ValueError(
+                "weight_dtype='int8' needs the fused decode kernels; an ACT "
+                "decoder re-runs its token buffer each position instead")
+        return _beam_search_flash(*args)
     if spmd.kernel_mesh() is not None:
         return spmd.beam_search_flash_dp(*args)
     return _beam_search_flash(*args)
@@ -109,7 +127,10 @@ def _beam_search_flash(params, cfg: ModelConfig, enc_outputs: torch.Tensor,
         mem_mask_b = torch.ones((B, Lk), dtype=torch.bool, device=dev)
     mem_mask_t = F.pad(mem_mask_b.to(i32), (0, Lk_pad - Lk)).T.contiguous()
 
-    if tp is None:
+    full_rerun = uses_act(cfg)
+    if full_rerun:  # a/a/a b/b/b: each row's memory beside its hypotheses
+        enc_k, mem_k = (t.repeat_interleave(K, dim=0) for t in (enc_outputs, mem_mask_b))
+    elif tp is None:
         dec = params["dec_tgt"]
         if weight_dtype == "int8":
             dec = quantize_decoder_weights(dec)  # once, outside the loop
@@ -128,7 +149,12 @@ def _beam_search_flash(params, cfg: ModelConfig, enc_outputs: torch.Tensor,
     stacked = stack_decoder_layers(dec) if use_chain else None
     tsig, lsig = decode_signals(cfg, max_time, dev)
 
-    def decode_pos(tok, pos, anc, maskk):
+    def decode_pos(tok, pos, anc, maskk, preds):
+        if full_rerun:
+            logits = _decode_logits_full(params, cfg, preds[:, :max_seq_len], enc_k,
+                                         mem_k, pos, max_time)
+            sc, ids = topk_lowest_index(torch.log_softmax(logits, dim=-1), K)
+            return sc, ids.to(i32)
         emb = _embed_tgt_token(params, cfg, tok)
         if use_chain:
             return tf_decoder_chain_step(
@@ -141,7 +167,7 @@ def _beam_search_flash(params, cfg: ModelConfig, enc_outputs: torch.Tensor,
         return decode_head(dec["norm"], params["out_tgt"], x, K)
 
     # position 1: keep beam 0's K candidates; ancestry stays all-self
-    score_k, pred_k = decode_pos(preds[:, 0], 0, anc, maskk)
+    score_k, pred_k = decode_pos(preds[:, 0], 0, anc, maskk, preds)
     scores = score_k.reshape(B, K * K)[:, :K].reshape(-1).contiguous()
     last_tok = pred_k.reshape(B, K * K)[:, :K].reshape(-1).contiguous()
     preds[:, 1] = last_tok
@@ -165,7 +191,7 @@ def _beam_search_flash(params, cfg: ModelConfig, enc_outputs: torch.Tensor,
                 cfg.num_heads, K, penalty_factor)
         else:
             anc[i - 1] = own  # position i-1's K/V is written into each row itself
-            sc, ids = decode_pos(last_tok, i - 1, anc, maskk)
+            sc, ids = decode_pos(last_tok, i - 1, anc, maskk, preds)
             out = beam_select(sc, ids, scores, eos, lenm, preds, anc, maskk,
                               i, K, penalty_factor)
         preds, anc, maskk, last_tok, scores, eos, lenm, flag = out

@@ -9,7 +9,11 @@ Modes (ref: Seq2seq.py:641-903):
 - ST: the LAS free-running pass gives dynamic embeddings and ASR
   hypotheses; their static embeddings and the dynamic ones pass through
   `enc_emb_proj` into the transformer encoder, masked by the LAS lengths,
-  and the transformer (standard or universal) decodes by beam search.
+  and the transformer (standard, universal, or universal with ACT)
+  decodes by beam search; an ACT decoder re-runs its token buffer each
+  position (infer/beam.py), at beam width 1 too, where JAX's CPU route
+  runs its dense greedy: width 1 keeps the argmax, so both emit the same
+  tokens.
 - MT: the average dynamic embedding (`params["emb_dyn_ave"]`, translate
   mode 3's artifact) broadcast over the source, beam decode.
 - ST_BASE: the LAS hypotheses with the average dynamic embedding
@@ -40,6 +44,7 @@ from stjep_tpu_torch.models.seq2seq import (
     _get_src_emb,
     _length_src_mask,
     _pre_proc_src,
+    _src_emb_ave,
     forward_eval,
 )
 
@@ -71,10 +76,7 @@ def _encode_for_mode(params: Dict, cfg: ModelConfig, mode: str, src, acous_feats
     """Encoder memory [B, Ls, D] and its mask [B, Ls] for each translate
     mode (stjep_tpu/infer/forward.py:31-85)."""
     if mode == "MT":
-        src_trim = _pre_proc_src(src)
-        B, Ls = src_trim.shape
-        _, emb_src, src_mask_input = _get_src_emb(params, cfg, src_trim,
-                                                  _emb_dyn_ave(params, cfg, B, Ls))
+        _, emb_src, src_mask_input = _src_emb_ave(params, cfg, src)
         enc_out = _encoder_en(params, cfg, emb_src, src_mask=src_mask_input)
         return enc_out, src_mask_input[:, 0, :]
     if mode == "ST":

@@ -28,7 +28,8 @@ def las_forward(params: Dict, cfg: ModelConfig, acous_feats: torch.Tensor,
                 is_training: bool = False,
                 ref_tokens: Optional[torch.Tensor] = None,
                 teacher_forcing_ratio: Optional[float] = None,
-                flash_ok: bool = True, lm_fuse=None, want_logps: bool = True):
+                flash_ok: bool = True, lm_fuse=None, want_logps: bool = True,
+                dense_logps: bool = False):
     """(sequence_embs, logps, symbols, lengths): see las_decoder_forward
     (lm_fuse: the n-gram LM fuser of the decode, ref: models/Las.py:91-123)."""
     g_enc, g_dec = split(generator)
@@ -41,4 +42,5 @@ def las_forward(params: Dict, cfg: ModelConfig, acous_feats: torch.Tensor,
                                generator=g_dec, is_training=is_training,
                                ref_tokens=ref_tokens,
                                teacher_forcing_ratio=teacher_forcing_ratio,
-                               flash_ok=flash_ok, lm_fuse=lm_fuse, want_logps=want_logps)
+                               flash_ok=flash_ok, lm_fuse=lm_fuse, want_logps=want_logps,
+                               dense_logps=dense_logps)

@@ -275,7 +275,8 @@ def las_decoder_forward(params: Dict, cfg: ModelConfig,
                         is_training: bool = False,
                         ref_tokens: Optional[torch.Tensor] = None,
                         teacher_forcing_ratio: Optional[float] = None,
-                        flash_ok: bool = True, lm_fuse=None, want_logps: bool = True):
+                        flash_ok: bool = True, lm_fuse=None, want_logps: bool = True,
+                        dense_logps: bool = False):
     """Free running: greedy decode over max_seq_len - 1 steps (tgt.shape[1]
     - 1 from tgt[:, 0] when tgt is given), returning
     (sequence_embs [B, L-1, Hs], None, symbols [B, L-1], lengths [B]), the
@@ -295,7 +296,10 @@ def las_decoder_forward(params: Dict, cfg: ModelConfig,
     las_decoder.py:288-292), else the differentiable step loop with the
     training dropout masks. lm_fuse (a fuser of infer/lm_fusion.py or
     infer/lm_table.py) runs both branches through the step loop, its
-    log-probs, symbols and lengths those of the fused log-probs."""
+    log-probs, symbols and lengths those of the fused log-probs.
+    dense_logps: free running without ref_tokens, the second entry is
+    every step's log-probs [B, L-1, V] (JAX's want_logps there, its XLA
+    scan): the step loop runs, since K2 emits none."""
     B, Tk, _ = acous_outputs.shape
     if acous_lens is not None:
         lens_k = round_up8(acous_lens.long()) // 8  # ref: Dec.py:173-179
@@ -325,8 +329,9 @@ def las_decoder_forward(params: Dict, cfg: ModelConfig,
     if ref_tokens is not None:  # K2 reads them as contiguous [B, L-1] int32
         r = ref_tokens[:, :L - 1].to(torch.int32)
         refs = F.pad(r, (0, L - 1 - r.shape[1]), value=PAD).contiguous()
+    dense_logps = dense_logps and refs is None and not use_teacher_forcing
     if (flash_ok and not is_training and not use_teacher_forcing and lm_fuse is None
-            and las_flash_supported(cfg)):
+            and not dense_logps and las_flash_supported(cfg)):
         pre_keys = precompute_keys(params["acous_att"], acous_outputs, cfg.acous_att_mode)
         embs, preds, picked = las_greedy_flash(params, cfg, pre_keys["wk"],
                                                acous_outputs, lens_k, sym0, L - 1,
@@ -347,6 +352,8 @@ def las_decoder_forward(params: Dict, cfg: ModelConfig,
         embs, preds, picked = _step_loop(params, cfg, acous_outputs, _att_mask(lens_k, Tk),
                                          L - 1, sym0=sym0, masks=masks, ref_tokens=refs,
                                          emb_steps=emb_steps, lm_fuse=lm_fuse,
-                                         want_logps=use_teacher_forcing and want_logps)
-    second = picked if refs is not None or (use_teacher_forcing and want_logps) else None
+                                         want_logps=(use_teacher_forcing and want_logps)
+                                         or dense_logps)
+    second = (picked if refs is not None or (use_teacher_forcing and want_logps)
+              or dense_logps else None)
     return embs, second, preds, lengths_from_preds(preds, L)

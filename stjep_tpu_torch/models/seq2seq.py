@@ -6,11 +6,15 @@ layouts, so `bridge.params_from_numpy` carries JAX params over unchanged.
 `enc_emb_proj` (static + dynamic -> dim_model) is always created and
 applied, as in the reference (ref: Seq2seq.py:123-125). `forward_train`
 runs modes ASR, MT, ST and ASR_ST (ST alone trains through the free-running
-LAS decoder's differentiable step loop, as JAX through its XLA scan); the
-AE modes are not ported yet. `forward_eval` is the dev eval
-with reference ids, over the free-running LAS (K2) and the kernel greedy
-decoder `_greedy_decode_flash`; without reference ids (the dense logps
-buffers) and in the AE modes it is not ported yet.
+LAS decoder's differentiable step loop, as JAX through its XLA scan), and
+the AE head in any mode that names it (`_decoder_en`, the LAS output layer
+over the dynamic or the combined source embedding). `forward_eval` is the
+greedy dev eval: with reference ids over the free-running LAS (K2) and the
+kernel greedy decoder `_greedy_decode_flash`; without them (the dense
+`logps_*` buffers, JAX's XLA while loop) over the LAS step loop and
+`_greedy_decode` (K5 per hop, then a plain head). ACT models decode by
+re-running their token buffer each position (`_decode_logits_full`), with
+reference ids too (`_greedy_decode` plus `_pick`, as JAX).
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from stjep_tpu_torch.models.tf_encoder import (
     UPPERBOUND_SEQ_LEN,
     tf_encoder_forward,
     tf_encoder_init,
+    uses_act,
 )
 from stjep_tpu_torch.ops.attention import linear, linear_init
 from stjep_tpu_torch.ops.decode_flash import (
@@ -49,8 +54,8 @@ from stjep_tpu_torch.ops.decode_flash import (
 )
 from stjep_tpu_torch.ops.decode_flash_tp import ModelAxis
 from stjep_tpu_torch.ops.masks import pad_mask, subsequent_mask
-from stjep_tpu_torch.ops.transformer import dropout, split
-from stjep_tpu_torch.parallel.spmd import greedy_decode_flash_dp
+from stjep_tpu_torch.ops.transformer import dropout, layer_norm, split
+from stjep_tpu_torch.parallel.spmd import greedy_decode_flash_dp, refuse_act_under_mesh
 
 
 def init_seq2seq(cfg: ModelConfig, generator: torch.Generator,
@@ -143,20 +148,22 @@ def _encoder_acous(params: Dict, cfg: ModelConfig, acous_feats: torch.Tensor,
                    is_training: bool = False,
                    ref_tokens: Optional[torch.Tensor] = None,
                    teacher_forcing_ratio: Optional[float] = None,
-                   flash_ok: bool = True, lm_fuse=None, want_logps: bool = True):
+                   flash_ok: bool = True, lm_fuse=None, want_logps: bool = True,
+                   dense_logps: bool = False):
     """LAS pass -> (dynamic embs, logps or picked logps or None, preds,
     lengths); free running unless teacher_forcing (ref: Seq2seq.py:222-230).
     teacher_forcing_ratio: the reference's per-batch coin (las_decoder.py);
     flash_ok=False keeps K2, which has no backward, out of a free-running
     pass that is differentiated; lm_fuse: n-gram LM shallow fusion in the
-    LAS decode; want_logps=False: no teacher-forced [B, L-1, V] log-probs
-    (las_decoder_forward)."""
+    LAS decode; want_logps=False: no teacher-forced [B, L-1, V] log-probs;
+    dense_logps: the free-running ones (las_decoder_forward)."""
     return las_forward(params["las"], cfg, acous_feats, acous_lens=acous_lens,
                        max_seq_len=max_seq_len, tgt=tgt,
                        use_teacher_forcing=teacher_forcing, generator=generator,
                        is_training=is_training, ref_tokens=ref_tokens,
                        teacher_forcing_ratio=teacher_forcing_ratio,
-                       flash_ok=flash_ok, lm_fuse=lm_fuse, want_logps=want_logps)
+                       flash_ok=flash_ok, lm_fuse=lm_fuse, want_logps=want_logps,
+                       dense_logps=dense_logps)
 
 
 def _encoder_en(params: Dict, cfg: ModelConfig, emb_src: torch.Tensor,
@@ -193,6 +200,27 @@ def _decoder_de(params: Dict, cfg: ModelConfig, emb_tgt: torch.Tensor,
     return dec_out, logits, picked, preds
 
 
+def _decoder_en(params: Dict, emb: torch.Tensor):
+    """The AE head, sharing the LAS output layer: (logits, logps, preds)
+    (ref: Seq2seq.py:240-246, 172-173)."""
+    logits = linear(params["las"]["decoder"]["acous_out"], emb)
+    logps = F.log_softmax(logits, dim=2)
+    return logits, logps, torch.argmax(logps, dim=2)
+
+
+def _src_emb_ave(params: Dict, cfg: ModelConfig, src: torch.Tensor,
+                 generator: Optional[torch.Generator] = None,
+                 is_training: bool = False):
+    """_get_src_emb of src without its BOS over the average dynamic
+    embedding (detached: a buffer, never trained): the source embedding of
+    MT and of the src-only AE head."""
+    src_trim = _pre_proc_src(src)
+    B, Ls = src_trim.shape
+    emb_dyn = params["emb_dyn_ave"].detach()[None, None, :].expand(B, Ls, cfg.dim_model)
+    return _get_src_emb(params, cfg, src_trim, emb_dyn, generator=generator,
+                        is_training=is_training)
+
+
 def _length_src_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
     """[B] -> [B, 1, max_len] bool (ref: Seq2seq.py:494-497)."""
     ar = torch.arange(max_len, device=lengths.device)[None, :]
@@ -206,10 +234,12 @@ def forward_train(params: Dict, cfg: ModelConfig, mode: str, src: torch.Tensor,
                   generator: Optional[torch.Generator] = None,
                   is_training: bool = True,
                   ref_pick: bool = False) -> Dict[str, torch.Tensor]:
-    """Teacher-forced training forward for modes ASR, MT, ST and ASR_ST
-    (ref: Seq2seq.py:396-509); ST alone runs the LAS free, without dropout
-    or SpecAugment, on its differentiable step loop (ref:
-    Seq2seq.py:484-487). Returns the reference's out_dict keys; with
+    """Teacher-forced training forward for modes ASR, MT, ST and ASR_ST,
+    and the AE head in the modes that name it (`logps_ae`, `preds_ae`: over
+    the ASR head's dynamic embeddings with ASR, else over the combined
+    source embedding) (ref: Seq2seq.py:396-509); ST alone runs the LAS
+    free, without dropout or SpecAugment, on its differentiable step loop
+    (ref: Seq2seq.py:484-487). Returns the reference's out_dict keys; with
     ref_pick the heads give `picked_*` [B, L-1] (the log-softmax at the
     reference token) instead of `logps_*` [B, L-1, V].
 
@@ -218,10 +248,6 @@ def forward_train(params: Dict, cfg: ModelConfig, mode: str, src: torch.Tensor,
     is_training turns dropout and SpecAugment on; the teacher-forcing
     structure is the same either way."""
     mode = mode.upper()
-    if "AE" in mode:
-        raise NotImplementedError(
-            f"forward_train mode {mode!r} is not ported yet: AE trains "
-            "through its own head (ROADMAP Queue A item 6)")
     if ("ST" in mode or "ASR" in mode) and acous_feats is None:
         raise ValueError(f"mode {mode} needs acous_feats")
     if ("ST" in mode or "MT" in mode) and tgt is None:
@@ -241,16 +267,21 @@ def forward_train(params: Dict, cfg: ModelConfig, mode: str, src: torch.Tensor,
         out["picked_asr" if ref_pick else "logps_asr"] = logps_src
         out["lengths_asr"] = lengths
 
+    if "AE" in mode:  # the AE head (ref: Seq2seq.py:240-246)
+        if "ASR" in mode:
+            emb_ae = out["emb_asr"]
+        else:  # src only: the combined source embedding, dropout as MT's
+            generator, k = split(generator)
+            _, emb_ae, _ = _src_emb_ave(params, cfg, src, generator=k,
+                                        is_training=is_training)
+        _, out["logps_ae"], out["preds_ae"] = _decoder_en(params, emb_ae)
+
     if "MT" in mode:
         generator, k1, k2, k3, k4 = split(generator, 5)
         tgt_mask, emb_tgt = _get_tgt_emb(params, cfg, tgt, generator=k1,
                                          is_training=is_training)
-        src_trim = _pre_proc_src(src)
-        B, Ls = src_trim.shape
-        emb_dyn = params["emb_dyn_ave"].detach()[None, None, :].expand(
-            B, Ls, cfg.dim_model)
-        _, emb_src, src_mask_input = _get_src_emb(
-            params, cfg, src_trim, emb_dyn, generator=k2, is_training=is_training)
+        _, emb_src, src_mask_input = _src_emb_ave(params, cfg, src, generator=k2,
+                                                  is_training=is_training)
         enc_out = _encoder_en(params, cfg, emb_src, src_mask=src_mask_input,
                               generator=k3, is_training=is_training)
         _, _, logps_tgt, preds_tgt = _decoder_de(
@@ -285,6 +316,93 @@ def forward_train(params: Dict, cfg: ModelConfig, mode: str, src: torch.Tensor,
         out["preds_st"] = preds_tgt
         out["picked_st" if ref_pick else "logps_st"] = logps_tgt
     return out
+
+
+def _decode_logits_full(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+                        enc_outputs: torch.Tensor,
+                        mem_mask_b: Optional[torch.Tensor], pos: int,
+                        max_time: int) -> torch.Tensor:
+    """Logits [B', V] at `pos`, re-running the whole token buffer [B', L]
+    through the decoder (causal and PAD masks): ACT halting cannot be
+    KV-cached (JAX seq2seq.py:369-400; the reference re-runs the prefix,
+    ref: Seq2seq.py:577-586). The ACT loop runs while any position of the
+    buffer runs, so the buffer's width and rows are JAX's: the greedy's
+    [B, length_out], the beam's [B*K, max_seq_len]."""
+    tgt_mask, emb = _get_tgt_emb(params, cfg, tokens)
+    src_mask = mem_mask_b[:, None, :] if mem_mask_b is not None else None
+    dec_out = tf_decoder_forward(params["dec_tgt"], cfg, emb, enc_outputs,
+                                 tgt_mask=tgt_mask, src_mask=src_mask,
+                                 max_time=max_time)
+    return linear(params["out_tgt"], dec_out[:, pos])
+
+
+def _dense_head(params: Dict, x: torch.Tensor) -> torch.Tensor:
+    """The decoder's final LayerNorm (eps 1e-5), out_tgt and the
+    log-softmax over x [B', D]: JAX's dense head, plain XLA there
+    (seq2seq.py:402-427)."""
+    return F.log_softmax(
+        linear(params["out_tgt"], layer_norm(params["dec_tgt"]["norm"], x, eps=1e-5)), dim=-1)
+
+
+def _greedy_decode(params: Dict, cfg: ModelConfig, enc_outputs: torch.Tensor,
+                   mem_mask_b: Optional[torch.Tensor], length_out: int,
+                   max_time: int):
+    """Greedy transformer decode with the dense log-prob buffer (JAX
+    seq2seq.py:430-474; ref: Seq2seq.py:260-304): tokens PAD-filled with
+    BOS in slot 0, logps [B, length_out, V] filled with log(1/V), each
+    position's argmax and log-probs written to its slot, early exit once
+    every row has emitted EOS (one host read a position). An ACT decoder
+    re-runs the token buffer each position (`_decode_logits_full`); the
+    others run K5 per hop over KV caches (group 1, tf_decoder_step_flash),
+    then `_dense_head`. Returns (tokens [B, length_out], logps)."""
+    B, Lk, _ = enc_outputs.shape
+    dev = enc_outputs.device
+    i32 = torch.int32
+    V = cfg.dec_vocab_size
+    full_rerun = uses_act(cfg)
+    tokens = torch.full((B, length_out), PAD, dtype=i32, device=dev)
+    tokens[:, 0] = BOS
+    logps = torch.full((B, length_out, V), math.log(1.0 / V), dtype=enc_outputs.dtype,
+                       device=dev)
+    if not full_rerun:
+        Lbuf, Lk_pad = pad_len(length_out, BLOCK), pad_len(Lk, CROSS_BLOCK)
+        mm = mem_mask_b if mem_mask_b is not None else torch.ones(
+            (B, Lk), dtype=torch.bool, device=dev)
+        mem_mask_t = F.pad(mm.to(i32), (0, Lk_pad - Lk)).T.contiguous()
+        anc = torch.zeros((Lbuf, B), dtype=i32, device=dev)  # every row is its own group
+        maskk = torch.zeros((Lbuf, B), dtype=i32, device=dev)
+        maskk[0] = 1
+        dec = params["dec_tgt"]
+        cache = tf_decoder_init_cache_chain(dec, cfg, enc_outputs, length_out, 1)
+        tsig, lsig = decode_signals(cfg, max_time, dev)
+    eos = torch.zeros((B,), dtype=torch.bool, device=dev)
+    for i in range(1, length_out):
+        pos = i - 1
+        if full_rerun:
+            logp = F.log_softmax(_decode_logits_full(params, cfg, tokens, enc_outputs,
+                                                     mem_mask_b, pos, max_time), dim=-1)
+        else:
+            emb = _embed_tgt_token(params, cfg, tokens[:, pos])
+            x = tf_decoder_step_flash(dec, cfg, emb, cache, pos, anc, 1, mem_mask_t,
+                                      maskk, tsig, lsig)
+            logp = _dense_head(params, x)
+        pred = torch.argmax(logp, dim=-1).to(i32)
+        tokens[:, i] = pred
+        logps[:, i] = logp.to(logps.dtype)
+        if not full_rerun:
+            maskk[i] = (pred != PAD).to(i32)
+        eos |= pred == EOS
+        if bool(eos.all()):
+            break
+    return tokens, logps
+
+
+def _pick(logps: torch.Tensor, refs: torch.Tensor) -> torch.Tensor:
+    """logps [B, L', V] aligned with refs[:, 1:] -> the log-prob at each
+    reference token [B, min(L', Lr - 1)] (JAX seq2seq.py:619-625)."""
+    tgt = refs[:, 1:]
+    lp = logps[:, :tgt.shape[1]]
+    return lp.gather(2, tgt[:, :lp.shape[1]].long()[:, :, None])[:, :, 0]
 
 
 def _greedy_decode_flash(params: Dict, cfg: ModelConfig,
@@ -363,34 +481,37 @@ def forward_eval(params: Dict, cfg: ModelConfig, mode: str,
                  ref_src: Optional[torch.Tensor] = None,
                  ref_tgt: Optional[torch.Tensor] = None,
                  device="cuda", lm_fuse=None) -> Dict[str, torch.Tensor]:
-    """Free-running greedy dev eval with reference ids, modes ASR, ST,
-    ASR_ST and MT (ref: Seq2seq.py:512-638; seq2seq.py:586-724).
+    """Free-running greedy eval, modes ASR, ST, ASR_ST, MT and the AE
+    modes (ref: Seq2seq.py:512-638; seq2seq.py:586-724).
 
     ref_src [B, Ls] / ref_tgt [B, Lt] (BOS first) turn the per-vocab
     outputs into `picked_*` [B, L-1]: the free-running log-prob at the
     reference token, aligned with refs[:, 1:], which is what dev NLL reads.
-    Returns the JAX keys: emb_asr, preds_asr, picked_asr, lengths_asr
-    (ASR); emb_mt, preds_mt, picked_mt (MT); emb_st, preds_st, picked_st
-    (ST). `device`: where the call runs, the card unless the caller asks
-    for the CPU (the plain routes); the inputs move there, and params must
-    already lie there (ValueError otherwise). Eval draws no random numbers,
-    so the JAX function's `rng` has no counterpart. lm_fuse applies n-gram
-    shallow fusion inside the LAS passes (the step loop instead of K2), as
-    the reference's lm_mode/lm_model do (ref: Seq2seq.py:548,607)."""
+    Without them the dense buffers come back instead: `logps_asr`
+    [B, max_seq_len_src - 1, V] from the LAS step loop, `logps_mt` /
+    `logps_st` [B, max_seq_len_tgt, V] from `_greedy_decode` (slot 0 and
+    the slots after an early exit hold log(1/V)). Returns the JAX keys:
+    emb_asr, preds_asr, picked_asr or logps_asr, lengths_asr (ASR);
+    logps_ae, preds_ae (AE: the LAS output layer over the ASR pass's
+    dynamic embeddings with ASR in the mode, else over the combined source
+    embedding of src, JAX :649-671); emb_mt, preds_mt, picked_mt or
+    logps_mt (MT); emb_st, preds_st, picked_st or logps_st (ST). With
+    refs the standard and universal decoders run the kernel greedy
+    (`_greedy_decode_flash`), an ACT decoder `_greedy_decode` and `_pick`,
+    as JAX routes them. `device`: where the call runs, the card unless the
+    caller asks for the CPU (the plain routes); the inputs move there, and
+    params must already lie there (ValueError otherwise). Eval draws no
+    random numbers, so the JAX function's `rng` has no counterpart.
+    lm_fuse applies n-gram shallow fusion inside the LAS passes (the step
+    loop instead of K2), as the reference's lm_mode/lm_model do (ref:
+    Seq2seq.py:548,607). The dense routes and ACT run the whole batch where
+    the call runs; ACT under a kernel mesh raises (parallel/spmd.py)."""
     mode = mode.upper()
-    if "AE" in mode:
-        raise NotImplementedError(
-            f"forward_eval mode {mode!r} is not ported yet: the AE head "
-            "(ROADMAP Queue A item 6)")
-    if ("ASR" in mode and ref_src is None) or (
-            ("ST" in mode or "MT" in mode) and ref_tgt is None):
-        raise NotImplementedError(
-            "forward_eval without reference ids (the dense logps_* buffers) "
-            "is not ported yet (ROADMAP Queue A item 6)")
     if ("ST" in mode or "ASR" in mode) and acous_feats is None:
         raise ValueError(f"mode {mode} needs acous_feats")
-    if "MT" in mode and src is None:
+    if ("MT" in mode or "AE" in mode) and src is None:  # JAX :629-630
         raise ValueError(f"mode {mode} needs src")
+    refuse_act_under_mesh(cfg)
     device = check_params_device(params, device)
     src, acous_feats, acous_lens, ref_src, ref_tgt = (
         t if t is None else t.to(device)
@@ -400,24 +521,35 @@ def forward_eval(params: Dict, cfg: ModelConfig, mode: str,
     max_time = max(UPPERBOUND_SEQ_LEN, length_out)
 
     if "ASR" in mode:
-        emb, picked, preds, lengths = _encoder_acous(
-            params, cfg, acous_feats, acous_lens,
-            max_seq_len=cfg.max_seq_len_src, ref_tokens=ref_src[:, 1:], lm_fuse=lm_fuse)
-        out.update(emb_asr=emb, preds_asr=preds, lengths_asr=lengths,
-                   picked_asr=picked)
+        emb, lp_or_picked, preds, lengths = _encoder_acous(
+            params, cfg, acous_feats, acous_lens, max_seq_len=cfg.max_seq_len_src,
+            ref_tokens=ref_src[:, 1:] if ref_src is not None else None,
+            lm_fuse=lm_fuse, dense_logps=ref_src is None)
+        out.update(emb_asr=emb, preds_asr=preds, lengths_asr=lengths)
+        out["picked_asr" if ref_src is not None else "logps_asr"] = lp_or_picked
+
+    if "AE" in mode:
+        emb_ae = out["emb_asr"] if "ASR" in mode else _src_emb_ave(params, cfg, src)[1]
+        _, out["logps_ae"], out["preds_ae"] = _decoder_en(params, emb_ae)
 
     def greedy_head(enc_out, src_mask_input, key):
-        preds, picked = greedy_decode_flash_dp(
-            params, cfg, enc_out, src_mask_input[:, 0, :], length_out,
-            max_time, ref_tgt)
+        mem_mask_b = src_mask_input[:, 0, :]
+        if ref_tgt is not None and not uses_act(cfg):
+            preds, picked = greedy_decode_flash_dp(
+                params, cfg, enc_out, mem_mask_b, length_out, max_time, ref_tgt)
+            out["preds_" + key] = preds
+            out["picked_" + key] = picked[:, 1:][:, :ref_tgt.shape[1] - 1]
+            return
+        preds, logps = _greedy_decode(params, cfg, enc_out, mem_mask_b, length_out,
+                                      max_time)
         out["preds_" + key] = preds
-        out["picked_" + key] = picked[:, 1:][:, :ref_tgt.shape[1] - 1]
+        if ref_tgt is not None:
+            out["picked_" + key] = _pick(logps[:, 1:], ref_tgt)
+        else:
+            out["logps_" + key] = logps
 
     if "MT" in mode:
-        src_trim = _pre_proc_src(src)
-        B, Ls = src_trim.shape
-        emb_dyn = params["emb_dyn_ave"][None, None, :].expand(B, Ls, cfg.dim_model)
-        _, emb_src, src_mask_input = _get_src_emb(params, cfg, src_trim, emb_dyn)
+        _, emb_src, src_mask_input = _src_emb_ave(params, cfg, src)
         enc_out = _encoder_en(params, cfg, emb_src, src_mask=src_mask_input)
         out["emb_mt"] = emb_src
         greedy_head(enc_out, src_mask_input, "mt")

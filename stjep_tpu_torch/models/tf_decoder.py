@@ -23,7 +23,13 @@ import torch
 import torch.nn.functional as F
 
 from stjep_tpu_torch.config import ModelConfig
-from stjep_tpu_torch.models.tf_encoder import _layer_params, check_supported
+from stjep_tpu_torch.models.act import act_dec_apply, act_init
+from stjep_tpu_torch.models.tf_encoder import (
+    _layer_params,
+    check_supported,
+    checkpointed,
+    uses_act,
+)
 from stjep_tpu_torch.ops.attention import linear
 from stjep_tpu_torch.ops.decode_flash import (
     BLOCK,
@@ -63,12 +69,14 @@ def tf_decoder_init(generator: torch.Generator, cfg: ModelConfig,
                     device=None, dtype=torch.float32) -> Dict:
     check_supported(cfg)
     n = 1 if cfg.transformer_type == "universal" else cfg.dec_layers
-    return {
+    params: Dict = {
         "layers": [decoder_layer_init(generator, cfg.dim_model, cfg.num_heads,
                                       cfg.dim_feedforward, device, dtype)
-                   for _ in range(n)],
-        "norm": layer_norm_init(cfg.dim_model, device, dtype),
-    }
+                   for _ in range(n)]}
+    if uses_act(cfg):
+        params["act_fn"] = act_init(generator, cfg.dim_model, device, dtype)
+    params["norm"] = layer_norm_init(cfg.dim_model, device, dtype)
+    return params
 
 
 def tf_decoder_forward(params: Dict, cfg: ModelConfig, tgt: torch.Tensor,
@@ -82,16 +90,26 @@ def tf_decoder_forward(params: Dict, cfg: ModelConfig, tgt: torch.Tensor,
     and src_mask [B, 1, Lk] (0 = blocked) -> out [B, L, D]."""
     check_supported(cfg, is_training)
     L = tgt.shape[1]
-    x = tgt + position_signal(max(max_time, L), cfg.dim_model, tgt.device)[:, :L].to(tgt.dtype)
-    layer_sig = position_signal(cfg.dec_layers, cfg.dim_model, tgt.device)[0].to(tgt.dtype)
-    for hop in range(cfg.dec_layers):
-        if cfg.transformer_type == "universal":
-            x = x + layer_sig[hop]
-        generator, k = split(generator)
-        x = decoder_layer(_layer_params(params, cfg, hop), x, memory,
-                          cfg.num_heads, self_mask=tgt_mask,
-                          cross_mask=src_mask, generator=k,
-                          dropout_rate=cfg.dropout, training=is_training)
+    time_sig = position_signal(max(max_time, L), cfg.dim_model, tgt.device)
+    layer_sig = position_signal(cfg.dec_layers, cfg.dim_model, tgt.device)
+    if uses_act(cfg):
+        x, _ = act_dec_apply(params["act_fn"], _layer_params(params, cfg, 0),
+                                     cfg, tgt, memory, tgt_mask, src_mask, time_sig,
+                                     layer_sig, cfg.act_max_hop or cfg.dec_layers)
+    else:
+        x = tgt + time_sig[:, :L].to(tgt.dtype)
+        layer_sig = layer_sig[0].to(tgt.dtype)
+        for hop in range(cfg.dec_layers):
+            if cfg.transformer_type == "universal":
+                x = x + layer_sig[hop]
+            generator, k = split(generator)
+            args = (_layer_params(params, cfg, hop), x, memory, cfg.num_heads)
+            kw = dict(self_mask=tgt_mask, cross_mask=src_mask,
+                      dropout_rate=cfg.dropout, training=is_training)
+            if cfg.remat and is_training:
+                x = checkpointed(decoder_layer, *args, generator=k, **kw)
+            else:
+                x = decoder_layer(*args, generator=k, **kw)
     return layer_norm(params["norm"], x, eps=1e-5)  # torch default eps, ref: TFDec.py:58
 
 
@@ -157,8 +175,12 @@ def tf_decoder_step_flash(params: Dict, cfg: ModelConfig, x_new: torch.Tensor,
     decoder_layer_step_flash_tp with n_head_local = num_heads * Dq / D
     (universal hops share the one sharded layer), and the result is the
     per-shard list of outputs, alike on every shard. x_new, anc, the masks
-    and the signals lie on the first shard's device."""
+    and the signals lie on the first shard's device. ACT raises
+    ValueError: its halting cannot be KV-cached."""
     check_supported(cfg)
+    if uses_act(cfg):
+        raise ValueError("ACT halting cannot be KV-cached: an ACT decoder re-runs "
+                         "its token buffer each position (seq2seq._decode_logits_full)")
     x = x_new + time_sig[pos]
     if tp is not None:
         d_local = params[0]["layers"][0]["decslf_attn"]["w_qs"]["w"].shape[1]

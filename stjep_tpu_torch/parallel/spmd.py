@@ -20,6 +20,12 @@ all-EOS exit (JAX :214-216), one shard after the other in this process:
 
 A batch that does not divide by n_data takes the unsharded call (JAX
 :248-250, :315-318). int8 weights under a model axis raise (JAX :277-284).
+ACT models raise under any mesh (`refuse_act_under_mesh`): JAX's
+`decode_flash_auto` sends them to its dense, sharding-aware XLA decode
+(:87-107), and the port's dense ACT decode has no mesh dispatch yet
+(ROADMAP Queue A item 11); without a mesh they decode on one device. The
+dense greedy of `forward_eval` without reference ids runs the whole batch
+where the call runs, mesh or not.
 The encoder has no mesh wrapper yet: it runs the whole batch where the
 call runs (its kernels are batch-parallel, so the values are the same).
 """
@@ -31,6 +37,7 @@ from typing import Dict, Optional
 import torch
 
 from stjep_tpu_torch.bridge import params_to
+from stjep_tpu_torch.models.tf_encoder import uses_act
 from stjep_tpu_torch.ops.decode_flash_tp import ModelAxis
 from stjep_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh, shard_params
 
@@ -65,6 +72,16 @@ def tp_flash_ok(cfg) -> bool:
     n = mesh.shape[MODEL_AXIS]
     return n > 1 and not (cfg.num_heads % n or cfg.dim_model % n
                           or cfg.dim_feedforward % n or cfg.dec_vocab_size % n)
+
+
+def refuse_act_under_mesh(cfg):
+    """ValueError for an ACT model while a kernel mesh is installed (module
+    docstring)."""
+    if kernel_mesh() is not None and uses_act(cfg):
+        raise ValueError(
+            "ACT decode under a kernel mesh is not supported: an ACT model "
+            "re-runs its token buffer each position on one device; clear the "
+            "mesh with set_kernel_mesh(None) (ROADMAP Queue A item 11)")
 
 
 def _per_data_shard(decode, params, cfg, batched: Dict[str, Optional[torch.Tensor]],

@@ -2,7 +2,7 @@
 """Profile the port's decode paths at the flagship on one GPU.
 
     python3 stjep_tpu_torch/scripts/profile_decode.py [--seed 0] [--n_model N] [--train]
-        [--train_loop]
+        [--train_loop] [--act]
 
 The paths are chip_smoke.py's: ST beam-5 (forward_translate) and dev eval
 (forward_eval ASR_ST with reference ids), each on the standard and on the
@@ -18,7 +18,11 @@ the same shapes, on a corpus written like chip_smoke.py's train cli one
 (320 utterances of 1504 frames, B=16: 20 steps an epoch): f32 with
 per-step staging, bf16 (--dtype bfloat16), and the int8 device cache with
 --train_window 1 and 4, each timed over 3 interleaved epochs after a
-warm-up epoch (`train_loop`), then one epoch a call profiled. For each path: one
+warm-up epoch (`train_loop`), then one epoch a call profiled. With --act
+only chip_smoke.py's act and dense eval paths: the ACT ST beam-5 and ACT
+dev eval (universal + ACT, B=16, each position re-running the token
+buffer), forward_eval ASR_ST without refs on the standard model (the
+dense greedy), and the ASR_ST train step with and without cfg.remat. For each path: one
 warm-up call, one call timed on the host clock, then one call under
 torch.profiler. Prints per path the plain wall ms, the profiled wall ms
 (inflated by the profiler), device busy ms (the union of the device
@@ -76,7 +80,9 @@ def positions(n_model: int) -> int:
     return single + got["K7 head_partial"] // n_model
 
 
-def profile(label: str, fn, n_model: int = 1, n_steps: int = 0):
+def profile(label: str, fn, n_model: int = 1, n_steps: int = 0, count_positions=None):
+    """count_positions: the decode positions the call ran, from the launch
+    counts (`positions` by default)."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -90,7 +96,7 @@ def profile(label: str, fn, n_model: int = 1, n_steps: int = 0):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    n_pos = positions(n_model)
+    n_pos = count_positions() if count_positions else positions(n_model)
     events = prof.events()
     dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     host_ops = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CPU
@@ -243,6 +249,59 @@ def train_loop(seed: int):
     T.host_prefetch = prefetch
 
 
+def act_paths(seed: int, rng, f, l):
+    """chip_smoke.py's phase 10 paths under the profiler (module docstring)."""
+    from stjep_tpu_torch.bridge import params_to
+    from stjep_tpu_torch.config import BOS, ModelConfig
+    from stjep_tpu_torch.infer.forward import forward_eval, forward_translate
+    from stjep_tpu_torch.models.seq2seq import init_seq2seq
+    from stjep_tpu_torch.ops.decode_flash import beam_select, decoder_layer_step_flash
+    from stjep_tpu_torch.train.optim import make_optimizer
+    from stjep_tpu_torch.train.trainer import make_train_step
+
+    acfg = ModelConfig(**{**cs.FLAGSHIP, "transformer_type": "universal", "act": True})
+    aparams = params_to(init_seq2seq(acfg, torch.Generator().manual_seed(seed + 5), "cpu"),
+                        "cuda")
+    refs = {"ref_src": rng.randint(5, acfg.enc_vocab_size, (cs.B, acfg.max_seq_len_src)),
+            "ref_tgt": rng.randint(5, acfg.dec_vocab_size, (cs.B, acfg.max_seq_len_tgt))}
+    refs = {k: torch.from_numpy(v).cuda() for k, v in refs.items()}
+    for r in refs.values():
+        r[:, 0] = BOS
+    profile("act beam", lambda: forward_translate(
+        aparams, acfg, "ST", acous_feats=f, acous_lens=l, beam_width=cs.BEAM,
+        penalty_factor=1.0, max_seq_len=cs.DECODE_LEN, device="cuda"),
+        count_positions=lambda: beam_select.launches + 1)
+    profile("act dev_eval", lambda: forward_eval(aparams, acfg, "ASR_ST", acous_feats=f,
+                                                 acous_lens=l, **refs))
+    cfg = ModelConfig(**cs.FLAGSHIP)
+    init = init_seq2seq(cfg, torch.Generator().manual_seed(seed), "cpu")
+    params = params_to(init, "cuda")
+    profile("standard dense eval, no refs", lambda: forward_eval(
+        params, cfg, "ASR_ST", acous_feats=f, acous_lens=l),
+        count_positions=lambda: decoder_layer_step_flash.launches // cfg.dec_layers)
+    mb = {k: v.cuda() for k, v in cs.train_batch(rng, cfg, cs.B, cs.FRAMES).items()}
+    for remat in (False, True):
+        c = ModelConfig(**cs.FLAGSHIP, remat=remat)
+        state = {"params": params_to(init, "cuda")}
+        opt = make_optimizer(1.0)
+        state["opt"] = opt.init(state["params"])
+        step = make_train_step(c, "ASR_ST", opt, device="cuda")
+        gen = torch.Generator().manual_seed(seed)
+
+        def one_step(step=step, state=state, gen=gen):
+            state["params"], state["opt"], _ = step(state["params"], state["opt"], [mb], gen,
+                                                    cs.TRAIN_LR)
+        one_step()  # a second warm-up step: the first builds the optimizer's state
+        torch.cuda.reset_peak_memory_stats()
+        profile(f"train step ASR_ST remat={remat}", one_step)
+        cs.say(f"train step ASR_ST remat={remat} memory",
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        del state
+    print(cs.subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                             "--format=csv,noheader"], capture_output=True, text=True,
+                            check=True).stdout.strip(), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -251,6 +310,8 @@ def main() -> int:
     ap.add_argument("--train", action="store_true", help="profile the train step alone")
     ap.add_argument("--train_loop", action="store_true",
                     help="profile the Trainer's epoch loop alone (f32, bf16, int8 window)")
+    ap.add_argument("--act", action="store_true",
+                    help="profile ACT decode and dev eval, the dense eval, the remat step")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_decode: needs a CUDA device", file=sys.stderr)
@@ -287,6 +348,9 @@ def main() -> int:
         profile("train step ASR_ST", one_step)
     if args.train_loop:
         train_loop(args.seed)
+        return 0
+    if args.act:
+        act_paths(args.seed, rng, feats.cuda(), lens.cuda())
         return 0
     if args.n_model > 1:
         cfg = ModelConfig(**cs.FLAGSHIP)

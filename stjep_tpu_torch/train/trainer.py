@@ -6,7 +6,9 @@ masked NLL of each head and its gradient; the gradients are summed over the
 minibatches (the JAX step's lax.scan), clipped over the trainable leaves
 and applied by Adam (optim.py), in place. Modes ASR, MT, ST and ASR_ST; ST
 alone trains through the free-running LAS decoder's differentiable step
-loop. The AE modes raise NotImplementedError (ROADMAP Queue A item 6).
+loop; `cfg.remat` checkpoints the transformer layers (models/tf_encoder.py).
+The AE modes and ACT models raise ValueError with the JAX package's
+reasons (AE_NO_LOSS; models/act.py ACT_NO_GRAD): neither trains there.
 
 `Trainer` (with the reference's class names `Trainer_ASR`, `Trainer_MT`,
 `Trainer_ST`, `Trainer_ASR_ST`) is JAX's host loop around that step: epoch
@@ -45,7 +47,9 @@ from stjep_tpu_torch.data.device_cache import (
     quantize_batch,
 )
 from stjep_tpu_torch.data.loader import host_prefetch, to_device
+from stjep_tpu_torch.models.act import ACT_NO_GRAD
 from stjep_tpu_torch.models.seq2seq import forward_eval, forward_train
+from stjep_tpu_torch.models.tf_encoder import uses_act
 from stjep_tpu_torch.ops.losses import normalise
 from stjep_tpu_torch.ops.masks import bucket_length, round_up8
 from stjep_tpu_torch.ops.transformer import split
@@ -94,11 +98,22 @@ def head_losses(cfg: ModelConfig, mode: str, out: Dict, srcid: torch.Tensor,
     return total, losses
 
 
-def _check_mode(mode: str):
+AE_NO_LOSS = (
+    "the AE modes do not train: the JAX package's train step has no AE loss "
+    "(it sums the ASR, MT and ST heads' NLL, stjep_tpu/train/trainer.py:261-292) "
+    "and train.py has no Trainer_AE* class to pick (train.py:296); "
+    "forward_train and forward_eval run the AE head")
+
+
+def _check_trainable(cfg: ModelConfig, mode: str):
+    """ValueError for a mode or a model the JAX package cannot train."""
+    if "AE" in mode:
+        raise ValueError(f"train mode {mode!r}: {AE_NO_LOSS}")
     if mode not in MODES:
-        raise NotImplementedError(
-            f"train mode {mode!r} is not ported yet (ported: {', '.join(MODES)}); "
-            "the AE modes wait (ROADMAP Queue A item 6)")
+        raise ValueError(f"train mode {mode!r}: the trainers are {', '.join(MODES)} "
+                         "(train.py's Trainer_<mode> classes)")
+    if uses_act(cfg):
+        raise ValueError(ACT_NO_GRAD)
 
 
 def compute_grads(cfg: ModelConfig, mode: str, params: Dict,
@@ -114,7 +129,7 @@ def compute_grads(cfg: ModelConfig, mode: str, params: Dict,
     dropout, no SpecAugment) that holds one device against another.
     Returns (losses dict of device scalars, grads in bridge.leaves(params)
     order). Reads nothing back to the host."""
-    _check_mode(mode)
+    _check_trainable(cfg, mode)
     ps = leaves(params)
     for p in ps:
         p.requires_grad_(True)
@@ -147,7 +162,7 @@ def make_train_step(cfg: ModelConfig, mode: str, optimizer: Optimizer,
     step donates and returns them). It runs on `device`, the card unless
     the caller asks for the CPU: the minibatches move there, and params
     must already lie there (ValueError otherwise)."""
-    _check_mode(mode)
+    _check_trainable(cfg, mode)
     device = torch.device(device)
 
     def step(params: Dict, opt_state, minibatches: List[Dict],

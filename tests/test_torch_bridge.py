@@ -94,8 +94,8 @@ def test_position_signal_equal(d_model):
 
 
 def test_port_imports_no_jax():
-    """Every module of stjep_tpu_torch (pkgutil.walk_packages, the CLIs
-    and the LM fusion modules included) and every script under stjep_tpu_torch/scripts/ (a directory
+    """Every module of stjep_tpu_torch (pkgutil.walk_packages, the CLIs,
+    the LM fusion modules, ACT and the checkpoint converter included) and every script under stjep_tpu_torch/scripts/ (a directory
     without __init__.py, which walk_packages does not enter) imports in a
     fresh process, on a host without a card, and loads no jax, jaxlib or
     stjep_tpu module."""
@@ -107,7 +107,9 @@ def test_port_imports_no_jax():
             "[importlib.import_module(n) for n in names]; "
             "print(len(names), all(m in names for m in ('stjep_tpu_torch.cli.train', "
             "'stjep_tpu_torch.cli.translate', 'stjep_tpu_torch.infer.lm_fusion', "
-            "'stjep_tpu_torch.infer.lm_table'))); "
+            "'stjep_tpu_torch.infer.lm_table', 'stjep_tpu_torch.models.act', "
+            "'stjep_tpu_torch.train.convert', "
+            "'stjep_tpu_torch.scripts.convert_torch_checkpoint'))); "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'stjep_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

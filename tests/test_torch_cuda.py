@@ -13,7 +13,8 @@ inputs that require grad. The decode head K7 (one launch in
 csrc/decode_chain.cu) is also held at target vocabularies of 13 000 and
 30 000 words, and with exact ties, bit-identical at any grid and one
 device kernel a call; the general beam loop and dev eval (forward_eval)
-run on the card against CPU copies.
+run on the card against CPU copies, and so do the dense greedy of
+forward_eval without refs (K5 per hop) and the ACT beam (beam_select).
 The serving options: K3, K4 and K5 with int8 weights, bf16 caches and
 both (TOL_BF16 below). The fused K5 and K4
 (csrc/decode_fused.cu) at the flagship width and off-tile shapes in every
@@ -552,6 +553,54 @@ def test_forward_eval_card_matches_cpu(dev, kind):
         else:
             _close(out_g[k].cpu(), v, TOL)
     assert out_c["picked_st"].shape == (B, 8)
+
+
+@pytest.mark.parametrize("kind", ["standard", "universal"])
+def test_dense_greedy_card_matches_cpu(dev, kind):
+    """forward_eval ASR_ST without refs: K1, the LAS step loop for
+    logps_asr (no K2), then the dense greedy, K5 per hop and a plain head
+    (no K3, no K7); the dense logps_* against CPU copies."""
+    cfg = CFG if kind == "standard" else UNIVERSAL
+    pc = init_seq2seq(cfg, torch.Generator().manual_seed(6), "cpu")
+    pg = params_to(pc, dev)
+    rng = np.random.RandomState(10)
+    kw = dict(acous_feats=_randn(rng, B, 64, CFG.acous_dim), acous_lens=torch.tensor([64, 29, 47]))
+    wrappers = ((bilstm_pallas, "launches"), (las_greedy_flash, "launches"),
+                (decoder_layer_step_flash, "launches"), (decode_chain_step_flash, "launches"),
+                (decode_chain_step_flash, "gather_launches"), (decode_head, "launches"),
+                (decode_head_gather, "launches"))
+    before = [getattr(w, a) for w, a in wrappers]
+    out_g = forward_eval(pg, cfg, "ASR_ST", device=dev, **kw)
+    ran = [getattr(w, a) > n for (w, a), n in zip(wrappers, before)]
+    assert ran == [True, False, True, False, False, False, False]
+    out_c = forward_eval(pc, cfg, "ASR_ST", device="cpu", **kw)
+    assert set(out_g) == set(out_c) >= {"logps_asr", "logps_st"}
+    for k, v in out_c.items():
+        if k.startswith(("preds", "lengths")):
+            assert torch.equal(out_g[k].cpu(), v), k
+        else:
+            _close(out_g[k].cpu(), v, TOL)
+
+
+@pytest.mark.parametrize("K", [1, 3, 5])
+def test_act_beam_card_matches_cpu(dev, K):
+    """The ACT beam: every position re-runs the token buffer in plain
+    PyTorch, then K4's select kernel keeps K; no K3, K4, K5 or K7."""
+    cfg = dataclasses.replace(UNIVERSAL, act=True)
+    pc = init_seq2seq(cfg, torch.Generator().manual_seed(30 + K), "cpu")
+    pg = params_to(pc, dev)
+    rng = np.random.RandomState(40 + K)
+    enc = _randn(rng, B, LK, CFG.dim_model)
+    mem_mask = torch.arange(LK)[None, :] < torch.tensor([11, 6, 9])[:, None]
+    wrappers = (beam_select, decoder_layer_step_flash, decode_head, decode_chain_step_flash,
+                decode_beam_step_flash)
+    before = [w.launches for w in wrappers]
+    preds_g, scores_g = beam_search(pg, cfg, enc.to(dev), mem_mask.to(dev), K, 1.0, MAX_LEN)
+    ran = [w.launches > n for w, n in zip(wrappers, before)]
+    assert ran == [True, False, False, False, False]
+    preds_c, scores_c = beam_search(pc, cfg, enc, mem_mask, K, 1.0, MAX_LEN)
+    assert torch.equal(preds_g.cpu(), preds_c)
+    _close(scores_g.cpu(), scores_c, TOL)
 
 
 def _grad_leaves(tree, dev):

@@ -11,6 +11,9 @@ general beam loop and the universal transformer.
   general loop) and on a standard model with dec_emb_proj (the chain step
   in the general loop): tokens line-identical to the JAX dense beam for
   widths 1-3.
+- the routes once refused here: an ACT model's dev eval, forward_eval
+  without ref_src or ref_tgt (the dense logps_* buffers) and the AE head,
+  against JAX's dense forward_eval (logps_* within 1e-5).
 - forward_train through the universal encoder and decoder: loss and the
   whole gradient tree against jax.value_and_grad, dropout off (forward
   values 1e-5; gradients rtol 1e-4 / atol 1e-6, as tests/test_torch_train.py).
@@ -171,23 +174,50 @@ def test_universal_shares_one_layer():
 
 @pytest.mark.parametrize("what", ["act", "unknown"])
 def test_unported_transformer_types_raise(what):
-    cfg = (dataclasses.replace(UNIVERSAL, act=True) if what == "act"
-           else dataclasses.replace(CFG, transformer_type="recurrent"))
-    with pytest.raises(NotImplementedError if what == "act" else ValueError):
-        tf_decoder_init(torch.Generator().manual_seed(0), cfg)
+    """An unknown transformer type still raises; ACT, once refused here,
+    now inits its halting units and its dev eval (forward_eval ASR_ST
+    with reference ids: `_greedy_decode` plus `_pick`, each position
+    re-running the token buffer) matches JAX's."""
+    if what == "unknown":
+        with pytest.raises(ValueError):
+            tf_decoder_init(torch.Generator().manual_seed(0),
+                            dataclasses.replace(CFG, transformer_type="recurrent"))
+        return
+    cfg = dataclasses.replace(UNIVERSAL, act=True)
+    assert "act_fn" in tf_decoder_init(torch.Generator().manual_seed(0), cfg)
+    jp = jax.tree_util.tree_map(np.asarray, jax_init(jax.random.PRNGKey(2), cfg))
+    before = decoder_layer_step_flash.launches
+    out = _compare_eval(jp, cfg, "ASR_ST", _batch(0))
+    assert decoder_layer_step_flash.launches == before
+    assert out["picked_st"].shape == (B, CFG.max_seq_len_tgt - 1)
 
 
 @pytest.mark.parametrize("mode,kw", [
     ("ASR_ST", {"ref_src": None}), ("MT", {"ref_tgt": None}), ("AE_ASR", {})])
 def test_unported_eval_routes_raise(models, mode, kw):
+    """The routes this once refused, against JAX's dense forward_eval: the
+    ASR head without ref_src (`logps_asr` from the LAS step loop, beside
+    `picked_st`), MT without ref_tgt (`logps_mt` from the dense greedy)
+    and the AE head with refs."""
     mb = _batch(0)
     args = dict(src=mb["srcid"], acous_feats=mb["acous_feat"], acous_lens=mb["acouslen"],
                 ref_src=mb["srcid"], ref_tgt=mb["tgtid"])
-    args = {k: (torch.from_numpy(v) if v is not None else None)
-            for k, v in {**args, **kw}.items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        forward_eval(params_from_numpy(models["standard"]), CFG, mode, device="cpu",
-                     **args)
+    args = {k: v for k, v in {**args, **kw}.items() if v is not None}
+    ref = jax_forward_eval(models["standard"], CFG, mode, use_flash=False,
+                           **{k: jnp.asarray(v) for k, v in args.items()})
+    out = forward_eval(params_from_numpy(models["standard"]), CFG, mode, device="cpu",
+                       **{k: torch.from_numpy(v) for k, v in args.items()})
+    assert set(out) == set(ref)
+    for k in ref:
+        a, b = out[k].numpy(), np.asarray(ref[k])
+        assert a.shape == b.shape, k
+        if k.startswith(("preds", "lengths")):
+            np.testing.assert_array_equal(a, b, err_msg=k)
+        else:
+            tol = TOL_PICKED if k.startswith("picked") else TOL
+            np.testing.assert_allclose(a, b, atol=tol, rtol=0, err_msg=k)
+    dense = {"ASR_ST": "logps_asr", "MT": "logps_mt", "AE_ASR": "logps_ae"}[mode]
+    assert out[dense].ndim == 3
 
 
 @pytest.mark.parametrize("mode", ["MT", "ASR_ST"])

@@ -128,10 +128,25 @@ def test_cli_embedding_overlay_shared_and_dyn_ave(corpus, tmp_path):
 
 @pytest.mark.parametrize("flags,item", [
     (["--n_model", "2"], "item 11"), (["--remat", "True"], "item 6"),
-    (["--act", "True"], "item 9"), (["--mode", "AE_ASR"], "item 6")])
+    (["--act", "True", "--transformer_type", "universal"], "item 9"),
+    (["--mode", "AE_ASR"], "item 6")])
 def test_cli_refuses_unported_options(corpus, tmp_path, flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main(_argv(corpus, tmp_path / "x", *flags), device="cpu")
+    """`item` is the ROADMAP Queue A item of each option. --n_model > 1
+    (item 11) is not ported; --remat (item 6) trains; --act on a universal
+    transformer (item 9) and the AE modes (item 6) refuse with the JAX
+    package's reasons before anything is written."""
+    if flags[0] == "--n_model":
+        with pytest.raises(NotImplementedError, match=item):
+            cli.main(_argv(corpus, tmp_path / "x", *flags), device="cpu")
+    elif flags[0] == "--remat":
+        t, (cfg, _) = cli.main(_argv(corpus, tmp_path / "x", *flags, "--num_epochs", "1",
+                                     "--batch_size", "12"), device="cpu")
+        assert cfg.remat and t.steps_run == 1
+    else:
+        reason = "lax.while_loop" if flags[0] == "--act" else "no AE loss"
+        with pytest.raises(ValueError, match=reason):
+            cli.main(_argv(corpus, tmp_path / "x", *flags), device="cpu")
+        assert not (tmp_path / "x").exists()
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the host without a card")
