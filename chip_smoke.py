@@ -177,6 +177,36 @@ package beside it, included):
       each way: step ms and peak memory, and the remat steps' K8/K9
       launches.
 
+11. mesh train (its own seconds on its last line): the Trainer on a
+   (data, model) mesh of the one card, several shards on it
+   (parallel/mesh.py, parallel/spmd.py), at the flagship (ASR_ST, B=16,
+   1504 frames, dropout 0.2, SpecAugment):
+   a. one batch's losses and gradients on make_mesh(2, 2, ["cuda"] * 4)
+      against the unsharded Trainer's from the same params and generator:
+      the loss within 1e-5 relative, each gathered gradient leaf within
+      1e-5 of its norm on the unsharded step's ReLU pieces (the mesh's FFN
+      shards replay their columns of them, as phase 6 replays its arms';
+      the pieces its own rounding flips must be at most RELU_FLIPS_MAX and
+      ties: the two arms' FFN pre-activations within RELU_BAND of each
+      call's largest; the gradients on its own pieces are printed beside); then steps in turns (2 warm-up, 5 timed each):
+      step ms, and one profiled step each way: device busy ms, K8's and
+      K9's sweep kernels' device ms, idle share, host aten operators, peak
+      memory;
+   b. K8 and K9 launches a mesh step: twice the unsharded step's (each
+      data shard runs them on its half of the batch);
+   c. dev eval (forward_eval ASR_ST with refs, B=16) under the (2, 2)
+      mesh against the single-device card route: ASR preds equal, ST
+      preds up to ties (E2E_MARGIN), picked within 1e-4; K1, K2 per data
+      shard, K6a-c and K7c launched, K3 gather, K5 and K7 idle;
+   d. 2 mesh steps saved, loaded into an unsharded Trainer (load_mode
+      resume): params and Adam state bit-equal to the mesh's gathered
+      ones; resumed on the mesh, one step bit-equal to a mesh run of 3
+      steps that never stopped;
+   e. the train CLI with --n_model 2 on the one card: make_mesh's
+      degrade warning, a (1, 1) mesh, 4 steps bit-equal to --n_model 1;
+   f. ACT dev eval (the ACT model of phase 10's seed), rows 0-1 under a
+      (1, 2) mesh equal to the same rows without one.
+
 The last lines: a JSON object with one entry per kernel (its launches
 summed over the main paths' runs), the total seconds, the nvidia-smi line,
 then {"ok": true, "device": {...}}.
@@ -1225,9 +1255,9 @@ def phase_tp_beam(params, params_c, cfg, reqs):
     return runs
 
 
-def phase_tp_dev_eval(params, cfg, rng):
-    """forward_eval("ASR_ST") with refs at B=16 on mesh (1, 2) of the card
-    against the single-device card route: preds_asr equal, preds_st equal
+def phase_tp_dev_eval(params, cfg, rng, shape=(1, 2), label="tp dev eval n=2"):
+    """forward_eval("ASR_ST") with refs at B=16 on mesh `shape` (1, 2) of
+    the card against the single-device card route: preds_asr equal, preds_st equal
     or differing by a tie (the single-device route's log-probs of the two
     choices, read as picked_st with each arm's tokens as refs, within
     E2E_MARGIN), picked_* within 1e-4 on agreeing rows. Returns the main
@@ -1244,7 +1274,10 @@ def phase_tp_dev_eval(params, cfg, rng):
         params, cfg, "ASR_ST", acous_feats=feats, acous_lens=lens, device="cuda",
         **{**refs, **kw}).items()}
     single = run()
-    tp_mesh(2)
+    from stjep_tpu_torch.parallel.mesh import make_mesh
+    from stjep_tpu_torch.parallel.spmd import set_kernel_mesh
+
+    set_kernel_mesh(make_mesh(*shape, ["cuda"] * (shape[0] * shape[1])))
     try:
         zero_counts()
         torch.cuda.synchronize()
@@ -1266,7 +1299,7 @@ def phase_tp_dev_eval(params, cfg, rng):
     err = max(max_err(out["picked_asr"], single["picked_asr"]),
               max_err(out["picked_st"][same], single["picked_st"][same]))
     tol = 1e-4
-    say("tp dev eval n=2", batch=B, call_ms=round(secs * 1e3, 1), rows_differ=len(margins),
+    say(label, mesh=list(shape), batch=B, call_ms=round(secs * 1e3, 1), rows_differ=len(margins),
         of=B, max_first_divergence_margin=max(margins, default=0.0), limit=E2E_MARGIN,
         picked_max_abs_err=err, tol=tol, launches={k: v for k, v in launches.items() if v})
     need(all(m <= E2E_MARGIN for m in margins), f"tp dev eval rows differ beyond ties: {margins}")
@@ -1460,16 +1493,17 @@ def train_batch(rng, cfg, n, frames):
 
 
 @contextlib.contextmanager
-def relu_patterns(replay=None):
+def relu_patterns(replay=None, inputs=False):
     """While active, torch.relu (the transformer FFNs' only nonlinearity
-    with a kink) records each call's pattern, input > 0, in call order; the
-    context yields that list. Given `replay`, another arm's recorded list,
-    it returns x * pattern instead: the same linear piece that arm's step
-    took, so that the two differ by rounding alone."""
+    with a kink) records each call's pattern, input > 0, in call order (with
+    `inputs`, the input itself); the context yields that list. Given
+    `replay`, another arm's recorded patterns, it returns x * pattern
+    instead: the same linear piece that arm's step took, so that the two
+    differ by rounding alone."""
     seen, relu = [], torch.relu
 
     def patched(x):
-        seen.append((x > 0).detach().cpu())
+        seen.append(x.detach().cpu() if inputs else (x > 0).detach().cpu())
         if replay is None:
             return relu(x)
         return x * replay[len(seen) - 1].to(x.device, x.dtype)
@@ -1806,7 +1840,7 @@ def phase_train_cli(seed, bare_steps_per_s):
                               learning_rate_init=TRAIN_LR, lr_warmup_steps=0, seed=seed,
                               loss_coeff={"nll_asr": 1.0, "nll_st": 1.0}, device_cache=False,
                               device="cuda")
-        pa, opt_a, _, _ = tb.setup(pa)
+        pa, opt_a, _, _ = tb.setup(pa, cfg0)
         staged = tb._stage_batch(item)
         tb._train_batch(cfg0, pa, opt_a, staged, 1)
         opt = make_optimizer(1.0, trainable_mask(pb, lambda n: False))
@@ -2919,6 +2953,305 @@ def phase_act_dense(seed, rng, params, params_c, cfg, reqs):
     return runs
 
 
+MESH = (2, 2)  # the mesh train phase's (data, model) shape, every shard on the card
+# (a)'s ReLU ties: at most this many pieces may part the mesh step from the
+# unsharded one, and the arms' FFN pre-activations may differ by at most
+# this share of a call's largest (f32 rounding through the layers' joins)
+RELU_FLIPS_MAX, RELU_BAND = 32, 1e-4
+
+
+def busy_union_ms(intervals) -> float:
+    """The length of the union of (start, end) intervals in us, in ms."""
+    total, end = 0.0, -float("inf")
+    for a, b in sorted(intervals):
+        if a > end:
+            total, end = total + b - a, b
+        elif b > end:
+            total, end = total + b - end, b
+    return total / 1e3
+
+
+def step_profile(fn) -> dict:
+    """One call of fn (warmed up before) under torch.profiler: its wall ms
+    under the profiler, the device's busy ms (the union of its kernels'
+    intervals), the device ms of K8's and K9's sweep kernels, the idle
+    share, and the host aten operators."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    evs = prof.events()
+    dev = [e for e in evs if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = busy_union_ms((e.time_range.start, e.time_range.end) for e in dev)
+    sweeps = sum(e.time_range.elapsed_us() for e in dev if any(
+        k in e.name for k in ("bilstm_kernel", "bilstm_bwd_kernel", "tf_fwd_kernel",
+                              "tf_bwd_kernel"))) / 1e3
+    return {"profiled_ms": round(wall, 3), "busy_ms": round(busy, 3),
+            "k8_k9_sweeps_ms": round(sweeps, 3),
+            "idle_share": round(1 - busy / wall, 4) if dev else None,
+            "host_aten_ops": sum(1 for e in evs if e.device_type == torch.autograd.DeviceType.CPU
+                                 and e.name.startswith("aten::"))}
+
+
+def phase_mesh_train(seed, rng, params, cfg):
+    """(a)-(f) of phase 11. Returns the main paths' launch counts."""
+    import logging
+    import tempfile
+
+    from stjep_tpu_torch.bridge import named_leaves, params_to
+    from stjep_tpu_torch.cli import train as cli
+    from stjep_tpu_torch.config import ModelConfig
+    from stjep_tpu_torch.infer.forward import forward_eval
+    from stjep_tpu_torch.models.seq2seq import init_seq2seq
+    from stjep_tpu_torch.parallel.mesh import gather_params, make_mesh
+    from stjep_tpu_torch.parallel.spmd import kernel_mesh, set_kernel_mesh
+    from stjep_tpu_torch.train import trainer as T
+
+    t_start = time.perf_counter()
+    mesh_devs = ["cuda"] * (MESH[0] * MESH[1])
+    init_c = init_seq2seq(cfg, torch.Generator().manual_seed(seed + 9), "cpu")
+    items = []
+    for _ in range(3):
+        tb = train_batch(rng, cfg, B, FRAMES)
+        items.append({k: v.numpy().astype(np.int32) if k != "acous_feat" else v.numpy()
+                      for k, v in tb.items()})
+    runs = []
+    with tempfile.TemporaryDirectory(prefix="stjep_mesh_") as tmp:
+        tmp = Path(tmp)
+
+        def trainer(tag, mesh, **kw):
+            t = T.Trainer_ASR_ST(expt_dir=str(tmp / tag), batch_size=B, learning_rate=TRAIN_LR,
+                                 learning_rate_init=TRAIN_LR, lr_warmup_steps=0, seed=seed,
+                                 loss_coeff={"nll_asr": 1.0, "nll_st": 1.0}, device_cache=False,
+                                 n_model=MESH[1] if mesh else 1,
+                                 devices=mesh_devs if mesh else None, device="cuda", **kw)
+            p, opt, _, _ = t.setup(params_to(init_c, "cuda"), cfg)
+            set_kernel_mesh(None)  # each arm installs its own mesh around its calls
+            return t, p, opt
+
+        def on(t, fn):
+            set_kernel_mesh(t._mesh)
+            try:
+                return fn()
+            finally:
+                set_kernel_mesh(None)
+
+        # a. one batch's losses and gradients, mesh against unsharded
+        arms = {"mesh": trainer("mesh", True), "single": trainer("single", False)}
+        need(arms["mesh"][0]._mesh.shape == {"data": MESH[0], "model": MESH[1]},
+             f"mesh shape {arms['mesh'][0]._mesh.shape}")
+        def grads_of(k, replay=None):
+            t, p, _ = arms[k]
+            staged = t._stage_batch(dict(items[0]))
+            zero_counts()
+            with relu_patterns(replay, inputs=replay is None) as seen:
+                losses, grads = on(t, lambda: t._grads(cfg, p, staged[0], staged[2],
+                                                       torch.Generator().manual_seed(seed), 1.0))
+                torch.cuda.synchronize()
+            launch = read_counts(("K8 fwd", "K8 bwd", "K9 fwd", "K9 bwd"))
+            # the gathered gradient tree: slices joined in shard order
+            tree = dict(named_leaves(gather_params(_fill(p, [g.detach() for g in grads]))))
+            return float(sum(losses.values())), tree, launch, seen
+
+        def worst_of(got, want):
+            rel = {n: float((got[n] - b).abs().max()) / max(float(b.norm()), 1e-30)
+                   for n, b in want.items()}
+            n = max(rel, key=rel.get)
+            return rel[n], n
+
+        # the mesh step's FFNs call relu once a model shard on its columns of
+        # the unsharded call's: replayed on the unsharded step's pieces (cut
+        # per shard), the two steps differ by rounding alone (phase 6's way).
+        # The pieces the arms part on must be few and each a tie: the arms'
+        # pre-activations may differ by at most RELU_BAND of each call's
+        # largest (so a parted piece's unsharded pre-activation lies that
+        # close to 0), which a wrong shard of w_1 or b_1 cannot meet.
+        single = grads_of("single")
+        raw = grads_of("mesh")
+        pre = [c for x in single[3] for c in x.chunk(MESH[1], dim=-1)]
+        pieces = [c > 0 for c in pre]
+        mesh = grads_of("mesh", replay=pieces)
+        worst, worst_leaf = worst_of(mesh[1], single[1])
+        raw_worst, raw_leaf = worst_of(raw[1], single[1])
+        flips, band_rel, flip_rel = 0, 0.0, 0.0
+        for a, b in zip(raw[3], pre, strict=True):
+            flip = (a > 0) != (b > 0)
+            top = max(float(b.abs().max()), 1e-30)
+            band_rel = max(band_rel, float((a - b).abs().max()) / top)
+            flips += int(flip.sum())
+            if flip.any():
+                flip_rel = max(flip_rel, float(b[flip].abs().max()) / top)
+        relu_entries = sum(c.numel() for c in pre)
+        pre = None
+        loss_rel = abs(raw[0] - single[0]) / max(abs(single[0]), 1e-30)
+        doubled = {k: (raw[2][k], single[2][k]) for k in ("K8 fwd", "K8 bwd", "K9 fwd", "K9 bwd")}
+        single = raw = mesh = pieces = None
+        # steps in turns, then one profiled step each way
+        secs = {k: [] for k in arms}
+        launches = None
+        for i in range(7):
+            for k, (t, p, opt) in arms.items():
+                if i == 2 and k == "mesh":
+                    zero_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                on(t, lambda: t._train_batch(cfg, p, opt, dict(items[i % 2]), i + 1))
+                torch.cuda.synchronize()
+                secs[k].append(time.perf_counter() - t0)
+                if i == 2 and k == "mesh":
+                    launches = read_counts(("K8 fwd", "K8 bwd", "K9 fwd", "K9 bwd"))
+        runs.append(launches)
+        prof, peak = {}, {}
+        for k, (t, p, opt) in arms.items():
+            torch.cuda.reset_peak_memory_stats()
+            prof[k] = step_profile(lambda: on(t, lambda: t._train_batch(
+                cfg, p, opt, dict(items[0]), 8)))
+            peak[k] = torch.cuda.max_memory_allocated() / 2 ** 30
+        say("mesh train a", mode="ASR_ST", mesh=list(MESH), B=B, frames=FRAMES,
+            dropout=cfg.dropout, loss_mesh_vs_single_rel=loss_rel, grad_max_rel_err=worst,
+            worst_leaf=worst_leaf, tol=1e-5, relu_entries=relu_entries, relu_flips=flips,
+            relu_flips_max=RELU_FLIPS_MAX, relu_band_rel=band_rel, relu_band_max=RELU_BAND,
+            relu_flip_pre_rel=flip_rel,
+            grad_max_rel_err_own_pieces=raw_worst, its_leaf=raw_leaf,
+            **{f"{k}_step_ms": [round(x * 1e3, 3) for x in v[2:]] for k, v in secs.items()},
+            **{f"{k}_median_ms": round(statistics.median(v[2:]) * 1e3, 3)
+               for k, v in secs.items()},
+            **{f"{k}_{m}": v for k, pr in prof.items() for m, v in pr.items()},
+            **{f"{k}_peak_mem_gib": round(v, 4) for k, v in peak.items()})
+        need(loss_rel <= 1e-5, f"mesh loss off by {loss_rel} relative")
+        need(worst <= 1e-5, f"mesh gradient {worst_leaf} off by {worst} of its norm")
+        need(flips <= RELU_FLIPS_MAX, f"{flips} ReLU pieces part the mesh and unsharded steps")
+        need(band_rel <= RELU_BAND, f"the mesh step's FFN pre-activations are off by {band_rel} "
+                                    f"of their largest: its parted ReLU pieces are no ties")
+        say("mesh train b", launches_mesh_vs_single={k: list(v) for k, v in doubled.items()})
+        need(all(m == 2 * s_ > 0 for m, s_ in doubled.values()),
+             f"K8/K9 launches a mesh step are not twice the unsharded step's: {doubled}")
+        del arms
+
+        # c. dev eval under the (2, 2) mesh
+        runs.append(phase_tp_dev_eval(params, cfg, rng, shape=MESH,
+                                      label="mesh train c dev eval"))
+
+        # d. save on the mesh, load unsharded; resume on the mesh
+        ta, pa, oa = trainer("d_mesh", True)
+        for i in range(2):
+            on(ta, lambda: ta._train_batch(cfg, pa, oa, dict(items[i]), i + 1))
+        gen = ta._root_gen.get_state()
+        saved = ta._save(cfg, pa, oa, 1, 2, _Vocab()).path
+        tu, pu, ou = trainer("d_single", False, load_dir=saved, load_mode="resume")
+        differ = {}
+        for what, mine, theirs in (("params", gather_params(pa), pu),
+                                   ("adam", ta._tx.state_tree(pa, oa), tu._tx.state_tree(pu, ou))):
+            a, b = dict(named_leaves(mine)), dict(named_leaves(theirs))
+            differ[what] = sorted(set(a) ^ set(b)) + [
+                n for n in a if n in b and not (a[n].dtype == b[n].dtype
+                                                and torch.equal(a[n].cpu(), b[n].cpu()))]
+        n_adam = len(named_leaves(ta._tx.state_tree(pa, oa)))
+        del tu, pu, ou
+        tr, pr, orr = trainer("d_resume", True, load_dir=saved, load_mode="resume")
+        tr._root_gen.set_state(gen)
+        on(tr, lambda: tr._train_batch(cfg, pr, orr, dict(items[2]), 3))
+        tb, pb, ob = trainer("d_cont", True)
+        for i in range(3):
+            on(tb, lambda: tb._train_batch(cfg, pb, ob, dict(items[i]), i + 1))
+        resumed = {}
+        for what, mine, theirs in (("params", gather_params(pr), gather_params(pb)),
+                                   ("adam", tr._tx.state_tree(pr, orr), tb._tx.state_tree(pb, ob))):
+            a, b = named_leaves(mine), named_leaves(theirs)
+            resumed[what] = [n for (n, x), (_, y) in zip(a, b, strict=True)
+                             if not torch.equal(x.cpu(), y.cpu())]
+        say("mesh train d", adam_leaves=n_adam, loaded_params_bit_equal=not differ["params"],
+            loaded_adam_bit_equal=not differ["adam"],
+            resumed_params_bit_equal=not resumed["params"],
+            resumed_adam_bit_equal=not resumed["adam"])
+        need(not differ["params"] and not differ["adam"],
+             f"mesh checkpoint loaded unsharded differs: {differ['params'][:3]} {differ['adam'][:3]}")
+        need(not resumed["params"] and not resumed["adam"],
+             f"mesh resume differs from the run that never stopped: "
+             f"{resumed['params'][:3]} {resumed['adam'][:3]}")
+        del ta, pa, oa, tr, pr, orr, tb, pb, ob
+
+        # e. the CLI with --n_model 2 on the one card
+        corpus = write_corpus(tmp / "corpus", seed, utts={"train": 4 * B})
+        records = []
+        handler = logging.Handler(logging.WARNING)
+        handler.emit = records.append
+        logging.getLogger("stjep_tpu_torch.parallel.mesh").addHandler(handler)
+        finals = {}
+        try:
+            for n in ("1", "2"):
+                te, (_, finals[n]) = cli.main(cli_argv(corpus, tmp / f"e{n}", seed,
+                                                       "--n_model", n), device="cuda")
+                need(te.steps_run == 4, f"--n_model {n}: {te.steps_run} steps")
+                need((te._mesh is None) == (n == "1"), f"--n_model {n}: mesh {te._mesh}")
+        finally:
+            logging.getLogger("stjep_tpu_torch.parallel.mesh").removeHandler(handler)
+        warned = [r.getMessage() for r in records]
+        differ = [n for (n, a), (_, b) in zip(named_leaves(finals["2"]), named_leaves(finals["1"]),
+                                              strict=True) if not torch.equal(a, b)]
+        say("mesh train e", mesh=te._mesh.shape, warning=repr(warned[:1]), steps=te.steps_run,
+            params_bit_equal_to_n_model_1=not differ, kernel_mesh_after=kernel_mesh())
+        need(te._mesh.shape == {"data": 1, "model": 1} and any(
+            "does not divide 1 devices" in w for w in warned), f"--n_model 2: {warned}")
+        need(not differ, f"--n_model 2 differs from --n_model 1: {differ[:3]}")
+        need(kernel_mesh() is None, "the CLI left a kernel mesh installed")
+
+    # f. ACT dev eval rows 0-1 under a (1, 2) mesh
+    from stjep_tpu_torch.config import BOS
+
+    acfg = ModelConfig(**{**FLAGSHIP, "transformer_type": "universal", "act": True})
+    aparams = init_seq2seq(acfg, torch.Generator().manual_seed(seed + 5), "cuda")
+    feats, lens = inputs(rng, 2)
+    refs = {"ref_src": torch.from_numpy(rng.randint(5, acfg.enc_vocab_size, (2, acfg.max_seq_len_src))),
+            "ref_tgt": torch.from_numpy(rng.randint(5, acfg.dec_vocab_size, (2, acfg.max_seq_len_tgt)))}
+    for r in refs.values():
+        r[:, 0] = BOS
+    run = lambda: {k: v.cpu() for k, v in forward_eval(  # noqa: E731
+        aparams, acfg, "ASR_ST", acous_feats=feats, acous_lens=lens, device="cuda",
+        **refs).items()}
+    alone = run()
+    set_kernel_mesh(make_mesh(1, 2, ["cuda"] * 2))
+    try:
+        zero_counts()
+        meshed = run()
+        act_launches = read_counts(LAS_RAN, DENSE_IDLE + TP_RAN)
+    finally:
+        set_kernel_mesh(None)
+    differ = [k for k in alone if not torch.equal(alone[k], meshed[k])]
+    say("mesh train f", act_rows=2, mesh=[1, 2], outputs_equal=not differ,
+        launches={k: v for k, v in act_launches.items() if v})
+    need(not differ, f"ACT dev eval under a (1, 2) mesh differs: {differ}")
+    runs.append(act_launches)
+    say("mesh train", seconds=round(time.perf_counter() - t_start, 1))
+    return runs
+
+
+class _Vocab:
+    vocab_src, vocab_tgt = ["a"], ["b"]
+
+
+def _fill(layout, values):
+    """The training layout's structure with its leaves replaced, in
+    bridge.leaves order, by `values` (a gradient a leaf)."""
+    from stjep_tpu_torch.parallel.mesh import Shards
+
+    it = iter(values)
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: walk(v) for k, v in tree.items()}
+        if isinstance(tree, Shards):
+            return Shards(next(it) for _ in tree)
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v) for v in tree)
+        return next(it)
+
+    return walk(layout)
+
+
 # the step of main() that runs, for the failure line when no phase_* function
 # is on the traceback
 STAGE = ["arguments"]
@@ -3027,6 +3360,8 @@ def main() -> int:
     runs += phase_translate_cli(args.seed, params_c, cfg)
     # 10. ACT decode and dev eval, the dense eval route, the remat step
     runs += phase_act_dense(args.seed, rng, params, params_c, cfg, reqs)
+    # 11. the Trainer on a (data, model) mesh of the card
+    runs += phase_mesh_train(args.seed, rng, params, cfg)
     launches = {k: sum(r.get(k, 0) for r in runs) for k in counters()}
 
     src, rep = "stjep_tpu_torch/csrc/", "stjep_tpu/ops/"

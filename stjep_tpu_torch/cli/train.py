@@ -7,9 +7,10 @@ It runs on the card: `main(argv, device="cpu")` lets a caller (the CPU
 tests) run it on the host, and without a visible card and without that
 argument it raises instead of training on the CPU. `--use_gpu`,
 `--gpu_id` and `--grab_memory` are accepted and, as in the JAX CLI, change
-nothing; `--remat True` checkpoints the transformer layers. Not ported,
-raising NotImplementedError: `--n_model` > 1 (ROADMAP Queue A item 11).
-Refused with the JAX package's reasons, before anything is written, each
+nothing; `--remat True` checkpoints the transformer layers; `--n_model N`
+trains on a (data, model) mesh of the visible cards, and where N
+does not divide them the mesh degrades to pure data parallelism with a
+warning, as JAX's does: one card gives a (1, 1) mesh. Refused with the JAX package's reasons, before anything is written, each
 raising ValueError: `--act True` on a universal transformer (JAX cannot
 take the first step's gradient through ACT's halting loop) and the AE
 modes (JAX has no AE loss and no Trainer_AE* class). The flags' help
@@ -270,10 +271,6 @@ def build_datasets(config, t):
 
 
 def _refuse_unported(config):
-    if int(config['n_model'] or 1) > 1:
-        raise NotImplementedError(
-            "--n_model > 1: training across a device mesh is not ported "
-            "(ROADMAP Queue A item 11)")
     if 'AE' in str(config['mode']):
         raise ValueError(f"--mode {config['mode']}: {AE_NO_LOSS}")
     if config['act'] and config['transformer_type'] == 'universal':

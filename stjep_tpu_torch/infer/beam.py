@@ -38,6 +38,7 @@ dispatches as JAX's does (beam.py:87-97): each data shard decodes its slice
 of the batch, and with a model axis the shards decode tensor-parallel
 (`tp`): `decode_pos` runs the trio per layer and `decode_head_tp` (the
 chain and the megastep are off, JAX beam.py:287), then `beam_select` once.
+An ACT decoder re-runs its buffer on the whole batch under a mesh too.
 """
 
 from __future__ import annotations
@@ -93,8 +94,7 @@ def beam_search(params: Dict, cfg: ModelConfig, enc_outputs: torch.Tensor,
                          f"torch.bfloat16, got {cache_dtype!r}")
     args = (params, cfg, enc_outputs, mem_mask_b, beam_width, penalty_factor,
             max_seq_len, cache_dtype, weight_dtype)
-    if uses_act(cfg):
-        spmd.refuse_act_under_mesh(cfg)
+    if uses_act(cfg):  # the whole batch where the call runs, mesh or not
         if weight_dtype is not None:
             raise ValueError(
                 "weight_dtype='int8' needs the fused decode kernels; an ACT "

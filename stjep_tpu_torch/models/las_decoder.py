@@ -33,6 +33,11 @@ symbol ; cell], as JAX's scan body builds it, not the hoisted `pre0`.
 
 Under bf16 params the LAS head's input is cast to its weight's dtype and
 the picked log-softmax is reduced in f32 (las_decoder.py:411-447).
+
+Under a kernel mesh K2 and K9 run per data shard (parallel/spmd.py
+las_greedy_flash_dp, las_tf_scan_dp); K9's dropout masks are drawn for
+the whole batch and cut there, so a shard's masks are the unsharded
+step's rows.
 """
 
 from __future__ import annotations
@@ -50,11 +55,12 @@ from stjep_tpu_torch.ops.attention import (
     linear_init,
     precompute_keys,
 )
-from stjep_tpu_torch.ops.las_flash import las_flash_supported, las_greedy_flash
-from stjep_tpu_torch.ops.las_tf_flash import las_tf_flash_supported, las_tf_scan
+from stjep_tpu_torch.ops.las_flash import las_flash_supported
+from stjep_tpu_torch.ops.las_tf_flash import las_tf_flash_supported
 from stjep_tpu_torch.ops.lstm import lstm_cell_step, lstm_gates, lstm_init
 from stjep_tpu_torch.ops.masks import round_up8
 from stjep_tpu_torch.ops.transformer import dropout, on_device, split
+from stjep_tpu_torch.parallel.spmd import las_greedy_flash_dp, las_tf_scan_dp
 
 
 def embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -241,9 +247,9 @@ def _teacher_forced(params: Dict, cfg: ModelConfig, acous_outputs: torch.Tensor,
     pre0 = emb_steps @ p0["w_ih"][:E] + p0["b_ih"] + p0["b_hh"]
     if cfg.num_unilstm_dec == 3 and las_tf_flash_supported(cfg):
         stack = {k: params[k] for k in ("dec_l0", "dec_l1", "dec_l2")}
-        embs = las_tf_scan(stack, params["acous_att"]["linear_att_w"]["w"],
-                           params["acous_ffn"]["w"], pre0, acous_outputs, lens_k,
-                           masks)
+        embs = las_tf_scan_dp(stack, params["acous_att"]["linear_att_w"]["w"],
+                              params["acous_ffn"]["w"], pre0, acous_outputs, lens_k,
+                              masks)
     else:
         embs = _step_loop(params, cfg, acous_outputs, _att_mask(lens_k, acous_outputs.shape[1]),
                           L - 1, pre0_steps=pre0, masks=masks)
@@ -333,9 +339,9 @@ def las_decoder_forward(params: Dict, cfg: ModelConfig,
     if (flash_ok and not is_training and not use_teacher_forcing and lm_fuse is None
             and not dense_logps and las_flash_supported(cfg)):
         pre_keys = precompute_keys(params["acous_att"], acous_outputs, cfg.acous_att_mode)
-        embs, preds, picked = las_greedy_flash(params, cfg, pre_keys["wk"],
-                                               acous_outputs, lens_k, sym0, L - 1,
-                                               ref_tokens=refs)
+        embs, preds, picked = las_greedy_flash_dp(params, cfg, pre_keys["wk"],
+                                                  acous_outputs, lens_k, sym0, L - 1,
+                                                  ref_tokens=refs)
     else:
         emb_steps = None
         if use_teacher_forcing:  # under an LM: JAX's scan body (las_decoder.py:454-504)

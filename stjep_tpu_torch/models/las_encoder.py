@@ -11,7 +11,8 @@ features or a weight, each layer goes through K8
 (`bilstm_pallas_trainable`), which has a backward; otherwise through K1
 (`bilstm_pallas`), whose CUDA route has none. The JAX package takes its
 trainable kernel with `is_training` and differentiates K1 by a
-recomputing VJP otherwise; the port takes K8 for both.
+recomputing VJP otherwise; the port takes K8 for both. Under a kernel
+mesh each layer's kernel runs per data shard (parallel/spmd.py bilstm_dp).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from stjep_tpu_torch.ops.lstm_pallas import bilstm_pallas
 from stjep_tpu_torch.ops.lstm_pallas_bwd import bilstm_pallas_trainable
 from stjep_tpu_torch.ops.masks import round_up8
 from stjep_tpu_torch.ops.transformer import dropout, split
+from stjep_tpu_torch.parallel.spmd import bilstm_dp
 
 
 def las_encoder_init(generator: torch.Generator, cfg: ModelConfig,
@@ -88,7 +90,7 @@ def las_encoder_forward(params: Dict, cfg: ModelConfig,
     n = cfg.num_pyramid_layers
     for i in range(n):
         p = params[f"acous_enc_l{i + 1}"]
-        out = layer(p["fwd"], p["bwd"], x, lens)
+        out = bilstm_dp(layer, p["fwd"], p["bwd"], x, lens)
         if is_training and cfg.dropout > 0.0:
             generator, k = split(generator)
             out = dropout(k, out, cfg.dropout, True)

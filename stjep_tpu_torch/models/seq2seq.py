@@ -55,7 +55,8 @@ from stjep_tpu_torch.ops.decode_flash import (
 from stjep_tpu_torch.ops.decode_flash_tp import ModelAxis
 from stjep_tpu_torch.ops.masks import pad_mask, subsequent_mask
 from stjep_tpu_torch.ops.transformer import dropout, layer_norm, split
-from stjep_tpu_torch.parallel.spmd import greedy_decode_flash_dp, refuse_act_under_mesh
+from stjep_tpu_torch.parallel.mesh import Shards, join
+from stjep_tpu_torch.parallel.spmd import greedy_decode_flash_dp
 
 
 def init_seq2seq(cfg: ModelConfig, generator: torch.Generator,
@@ -185,12 +186,20 @@ def _decoder_de(params: Dict, cfg: ModelConfig, emb_tgt: torch.Tensor,
     """(dec_outputs, logits, logps, preds) (ref: Seq2seq.py:249-257). With
     ref_pick_ids [B, L-1] (the shifted targets) the logps slot holds the
     log-softmax of logits[:, :-1] at those ids, by gather minus logsumexp,
-    without the [B, L, V] log-probability tensor."""
+    without the [B, L, V] log-probability tensor. A vocabulary-split
+    out_tgt (Shards, the Trainer's mesh) takes `_picked_split` there, with
+    None for the logits."""
     dec_out = tf_decoder_forward(params["dec_tgt"], cfg, emb_tgt, enc_outputs,
                                  tgt_mask=tgt_mask, src_mask=src_mask,
                                  max_time=max_time, generator=generator,
                                  is_training=is_training)
-    logits = linear(params["out_tgt"], dec_out)
+    w = params["out_tgt"]["w"]
+    if isinstance(w, Shards):
+        if ref_pick_ids is not None:
+            return (dec_out, None) + _picked_split(w, dec_out, ref_pick_ids)
+        logits = dec_out @ join(w, 1, dec_out.device)
+    else:
+        logits = linear(params["out_tgt"], dec_out)
     preds = torch.argmax(logits, dim=2)  # == argmax of the log-softmax
     if ref_pick_ids is None:
         return dec_out, logits, F.log_softmax(logits, dim=2), preds
@@ -198,6 +207,38 @@ def _decoder_de(params: Dict, cfg: ModelConfig, emb_tgt: torch.Tensor,
     picked = (lg.gather(2, ref_pick_ids.long()[:, :, None])[:, :, 0]
               - torch.logsumexp(lg, dim=-1))
     return dec_out, logits, picked, preds
+
+
+def _picked_split(w: Shards, dec_out: torch.Tensor, ref_pick_ids: torch.Tensor):
+    """The vocabulary-split head (out_tgt.w's slices, shard s holding ids
+    [s V/n, (s+1) V/n)): (picked [B, L-1], preds [B, L]) as _decoder_de
+    gives them, without the whole logits. The log-softmax normaliser is
+    taken across the shards (max, then the sum of exp in shard order); the
+    picked logit is the one shard holding each id; preds take each shard's
+    first maximum and then the first shard with the largest one, the
+    lowest id among ties as torch.argmax."""
+    lead = dec_out.device
+    vs = w[0].shape[1]
+    ids = ref_pick_ids.long().to(lead)
+    owner = ids // vs
+    parts = [dec_out.to(s.device) @ s for s in w]
+    lgs = [p[:, :-1].float().to(lead) for p in parts]  # f32, as the unsharded head
+    mx = torch.stack([lg.detach().amax(-1) for lg in lgs]).amax(0)
+    se = None
+    picked = torch.zeros_like(mx)
+    for s, lg in enumerate(lgs):
+        e = torch.exp(lg - mx[..., None]).sum(-1)
+        se = e if se is None else se + e
+        at = lg.gather(2, (ids - s * vs).clamp(0, vs - 1)[..., None])[..., 0]
+        picked = picked + torch.where(owner == s, at, torch.zeros_like(at))
+    picked = picked - (mx + torch.log(se))
+    with torch.no_grad():
+        best = [p.to(lead).max(-1) for p in parts]
+        vals = torch.stack([b.values for b in best])
+        shard = torch.argmax(vals, 0)
+        local = torch.stack([b.indices for b in best]).gather(0, shard[None])[0]
+        preds = local + shard * vs
+    return picked, preds
 
 
 def _decoder_en(params: Dict, emb: torch.Tensor):
@@ -505,13 +546,12 @@ def forward_eval(params: Dict, cfg: ModelConfig, mode: str,
     lm_fuse applies n-gram shallow fusion inside the LAS passes (the step
     loop instead of K2), as the reference's lm_mode/lm_model do (ref:
     Seq2seq.py:548,607). The dense routes and ACT run the whole batch where
-    the call runs; ACT under a kernel mesh raises (parallel/spmd.py)."""
+    the call runs, under a kernel mesh too (parallel/spmd.py)."""
     mode = mode.upper()
     if ("ST" in mode or "ASR" in mode) and acous_feats is None:
         raise ValueError(f"mode {mode} needs acous_feats")
     if ("MT" in mode or "AE" in mode) and src is None:  # JAX :629-630
         raise ValueError(f"mode {mode} needs src")
-    refuse_act_under_mesh(cfg)
     device = check_params_device(params, device)
     src, acous_feats, acous_lens, ref_src, ref_tgt = (
         t if t is None else t.to(device)

@@ -13,6 +13,16 @@ Randomness: a JAX key becomes a host `torch.Generator` on the CPU, and
 where randomness is drawn correspond one to one (the streams differ). A
 draw for a CUDA tensor uses a generator on the tensor's device, seeded
 from the host generator, so no draw waits for the device.
+
+Over a model axis (the Trainer's mesh, parallel/mesh.py place_params) the
+ruled weights come as `Shards` and `mha` and `ffn` run Megatron-style, one
+shard after the other: Q/K/V column-parallel, each shard attending over
+its n_head / n heads; `fc` and FFN w_2 row-parallel, their partials summed
+in shard order where the call runs and w_2's bias added once; w_1 and its
+bias column-parallel. The attention-probability dropout mask is drawn for
+all heads, as the unsharded call draws it, and cut per shard, so both
+compute the same function. place_params splits the attention projections
+only where the heads divide over the shards, so a shard holds whole heads.
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ from typing import Dict, List, Optional
 import torch
 
 from stjep_tpu_torch.ops.attention import linear, linear_init
+from stjep_tpu_torch.parallel.mesh import Shards
 
 ATTN_MASK_FILL = -1e9  # ref: modules/layers.py:224
 ATTN_DROPOUT = 0.1  # ref: modules/layers.py:207
@@ -45,16 +56,23 @@ def on_device(generator: torch.Generator, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
+def uniform(generator: torch.Generator, shape, device) -> torch.Tensor:
+    """The uniform draw behind a dropout mask of `shape` on `device`."""
+    return torch.rand(shape, generator=on_device(generator, device), device=device)
+
+
+def _keep_where(u: torch.Tensor, x: torch.Tensor, rate: float) -> torch.Tensor:
+    keep = 1.0 - rate
+    return torch.where(u < keep, x / keep, torch.zeros_like(x))
+
+
 def dropout(generator: Optional[torch.Generator], x: torch.Tensor, rate: float,
             training: bool) -> torch.Tensor:
     """Inverted dropout: keep with probability 1 - rate and scale by
     1 / (1 - rate), as `jnp.where(mask, x / keep, 0)`."""
     if not training or rate <= 0.0:
         return x
-    keep = 1.0 - rate
-    u = torch.rand(x.shape, generator=on_device(generator, x.device),
-                   device=x.device)
-    return torch.where(u < keep, x / keep, torch.zeros_like(x))
+    return _keep_where(uniform(generator, x.shape, x.device), x, rate)
 
 
 def layer_norm_init(dim: int, device=None, dtype=torch.float32) -> Dict[str, torch.Tensor]:
@@ -84,22 +102,63 @@ def scaled_dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          temperature: float,
                          mask: Optional[torch.Tensor] = None,
                          generator: Optional[torch.Generator] = None,
-                         training: bool = False) -> torch.Tensor:
+                         training: bool = False,
+                         u: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q, k, v [B, L, n, d]; mask broadcastable to [B, 1, Lq, Lk] with
-    0 = blocked. Returns [B, Lq, n, d]."""
+    0 = blocked. Returns [B, Lq, n, d]. u: the dropout draw [B, n, Lq, Lk]
+    when it was taken elsewhere (a model shard's heads)."""
     attn = torch.einsum("bqnd,bknd->bnqk", q / temperature, k)
     if mask is not None:
         attn = attn.masked_fill(mask == 0, ATTN_MASK_FILL)
     attn = torch.softmax(attn, dim=-1)
-    attn = dropout(generator, attn, ATTN_DROPOUT, training)
+    if u is not None:
+        attn = _keep_where(u, attn, ATTN_DROPOUT)
+    else:
+        attn = dropout(generator, attn, ATTN_DROPOUT, training)
     return torch.einsum("bnqk,bknd->bqnd", attn, v)
+
+
+_MHA_W = ("w_qs", "w_ks", "w_vs", "fc")
+
+
+def _mha_split(params: Dict, q, k, v, n_head: int, mask, generator, dropout_rate: float,
+               training: bool) -> torch.Tensor:
+    """mha over a model axis (module docstring); its arguments' meaning."""
+    wq, wk, wv, wo = (params[nm]["w"] for nm in _MHA_W)
+    n, lead = len(wq), q.device
+    if n_head % n:
+        raise ValueError(f"{n_head} heads do not divide over {n} model shards")
+    h = n_head // n
+    d_k = wq[0].shape[1] // h
+    B, Lq, Lk = q.shape[0], q.shape[1], k.shape[1]
+    qn = layer_norm(params["layer_norm"], q, eps=1e-6)
+    r1, r2 = split(generator)
+    u = (uniform(r1, (B, n_head, Lq, Lk), lead)
+         if training and ATTN_DROPOUT > 0.0 else None)
+    out = None
+    for s in range(n):
+        dev = wq[s].device
+
+        def heads(x):
+            return x.reshape(x.shape[0], x.shape[1], h, -1)
+
+        o = scaled_dot_attention(
+            heads(qn.to(dev) @ wq[s]), heads(k.to(dev) @ wk[s]), heads(v.to(dev) @ wv[s]),
+            d_k ** 0.5, mask=mask[:, None].to(dev) if mask is not None else None,
+            u=None if u is None else u[:, s * h:(s + 1) * h].to(dev))
+        part = (o.reshape(B, Lq, -1) @ wo[s]).to(lead)
+        out = part if out is None else out + part
+    return dropout(r2, out, dropout_rate, training) + q
 
 
 def mha(params: Dict, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         n_head: int, mask: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None, dropout_rate: float = 0.0,
         training: bool = False) -> torch.Tensor:
-    """Multi-head attention with the residual; mask [B, Lq|1, Lk]."""
+    """Multi-head attention with the residual; mask [B, Lq|1, Lk]. Split
+    weights (Shards) run over the model axis (module docstring)."""
+    if isinstance(params["w_qs"]["w"], Shards):  # Q, K, V and fc are split alike
+        return _mha_split(params, q, k, v, n_head, mask, generator, dropout_rate, training)
     d_k = params["w_qs"]["w"].shape[1] // n_head
     qn = layer_norm(params["layer_norm"], q, eps=1e-6)
 
@@ -125,8 +184,17 @@ def ffn_init(generator: torch.Generator, d_in: int, d_hid: int, device=None,
 
 def ffn(params: Dict, x: torch.Tensor, generator: Optional[torch.Generator] = None,
         dropout_rate: float = 0.0, training: bool = False) -> torch.Tensor:
+    """LN -> w_1 -> relu -> w_2 -> dropout -> + x; split weights (Shards)
+    run over the model axis (module docstring)."""
     y = layer_norm(params["layer_norm"], x, eps=1e-6)
-    y = linear(params["w_2"], torch.relu(linear(params["w_1"], y)))
+    if isinstance(params["w_1"]["w"], Shards):  # w_1, its bias and w_2 are split alike
+        out = None
+        for a, b, c in zip(params["w_1"]["w"], params["w_1"]["b"], params["w_2"]["w"]):
+            part = (torch.relu(y.to(a.device) @ a + b) @ c).to(x.device)
+            out = part if out is None else out + part
+        y = out + params["w_2"]["b"]
+    else:
+        y = linear(params["w_2"], torch.relu(linear(params["w_1"], y)))
     return dropout(generator, y, dropout_rate, training) + x
 
 

@@ -10,6 +10,16 @@ projections and FFN w_1 (and its bias) by column, over the heads and the
 hidden dim; the attention output projection `fc` and FFN w_2 by row; the
 vocabulary projection out_tgt by column. A leaf is split only where every
 split dim divides by n_model; everything else is replicated.
+
+Training keeps its params in the layout `place_params` gives (JAX's
+`shard_params` for the Trainer): a ruled leaf is held only as a `Shards`,
+its n slices in shard order, slice m on the first data row's device m;
+every other leaf once, on the mesh's first device. Adam runs over the
+slices, so a ruled leaf's moments are slices too (JAX's
+`opt_state_shardings`). `gather_params` is the inverse. The attention
+projections stay replicated where the heads do not divide by n_model, as
+in the TP decode (parallel/spmd.py tp_flash_ok), so a shard always holds
+whole heads.
 """
 
 from __future__ import annotations
@@ -45,6 +55,17 @@ class Mesh:
         self.devices = [[torch.device(x) for x in row] for row in devices]
         self.shape = {DATA_AXIS: len(self.devices),
                       MODEL_AXIS: len(self.devices[0])}
+
+    @property
+    def lead(self) -> torch.device:
+        """The first device: where replicated leaves and joins live."""
+        return self.devices[0][0]
+
+
+class Shards(tuple):
+    """A ruled param leaf held as its model shards' slices along its rule's
+    dim (`shard_dim`), in mesh order. bridge.named_leaves walks it as a
+    tuple, so each slice is a leaf of its own ("<path>/0", ...)."""
 
 
 def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
@@ -118,3 +139,87 @@ def shard_params(params: Dict, mesh: Mesh, data_index: int = 0) -> List[Dict]:
     return [map_with_path(params, lambda name, leaf, s=s, dev=dev: _shard(
                 leaf, param_pspec(name, leaf, n), s, n, dev))
             for s, dev in enumerate(row)]
+
+
+def _rule_path(path: str) -> str:
+    """A bridge path ("/dec_tgt/layers/0/fc/w") in the rules' form
+    ("dec_tgt.layers.0.fc.w")."""
+    return path.strip("/").replace("/", ".")
+
+
+def shard_dim(path: str) -> int:
+    """The dim a ruled leaf at bridge path `path` is split along."""
+    name = _rule_path(path)
+    for rx, spec in _TP_RULES:
+        if rx.match(name):
+            return spec.index(MODEL_AXIS)
+    raise KeyError(f"{path} has no tensor-parallel rule")
+
+
+_ATTN_RULE = re.compile(r".*\b(w_qs|w_ks|w_vs|fc)\.w$")
+
+
+def place_params(params: Dict, mesh: Mesh, n_head: int) -> Dict:
+    """The training layout of params on the mesh (module docstring): each
+    leaf `param_pspec` splits becomes a Shards of its n slices, slice m on
+    mesh.devices[0][m]; every other leaf, and the attention projections
+    where n_head does not divide by n, moves to the first device (itself
+    where it already lies there). The slices are new leaf tensors."""
+    row = mesh.devices[0]
+    n = len(row)
+
+    def place(name, leaf):
+        spec = () if n_head % n and _ATTN_RULE.match(name) else param_pspec(name, leaf, n)
+        if not spec:
+            return leaf.detach().to(mesh.lead)
+        return Shards(_shard(leaf.detach(), spec, s, n, dev) for s, dev in enumerate(row))
+
+    return map_with_path(params, place)
+
+
+def join(shards: Shards, dim: int, device) -> torch.Tensor:
+    """The slices concatenated along dim on `device`, in shard order."""
+    return torch.cat([t.to(device) for t in shards], dim)
+
+
+def logical_leaves(tree: Any, prefix: str = "") -> list:
+    """(bridge path, leaf) pairs of a params tree in bridge.named_leaves
+    order, a Shards counting as one leaf: the unsharded tree's paths."""
+    if isinstance(tree, Shards):
+        return [(prefix, tree)]
+    if isinstance(tree, dict):
+        return [kv for k, v in tree.items() for kv in logical_leaves(v, f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [kv for i, v in enumerate(tree) for kv in logical_leaves(v, f"{prefix}/{i}")]
+    return [(prefix, tree)]
+
+
+def gather_params(params: Dict, device=None) -> Dict:
+    """The unsharded tree of a training layout (place_params' inverse):
+    each Shards joined along its rule's dim on `device` (the first slice's
+    device by default), every other leaf as it is; detached."""
+
+    def walk(tree, prefix):
+        if isinstance(tree, Shards):
+            return join(tree, shard_dim(prefix), device or tree[0].device).detach()
+        if isinstance(tree, dict):
+            return {k: walk(v, f"{prefix}/{k}") for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v, f"{prefix}/{i}") for i, v in enumerate(tree))
+        return tree.detach()
+
+    return walk(params, "")
+
+
+def like_layout(tree: Any, layout: Any) -> Any:
+    """A tree of the unsharded structure (a trainable mask, say) laid out
+    as `layout`: each value repeated over the slices where layout holds a
+    Shards, so that bridge.leaves of both line up."""
+    if isinstance(layout, Shards):
+        return Shards(tree for _ in layout)
+    if isinstance(layout, dict):
+        return {k: like_layout(tree[k], v) for k, v in layout.items()}
+    if isinstance(layout, (list, tuple)):
+        return type(layout)(like_layout(t, v) for t, v in zip(tree, layout, strict=True))
+    return tree
+

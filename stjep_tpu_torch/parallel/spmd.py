@@ -1,11 +1,23 @@
-"""Mesh dispatch of the decode kernels (port of the decode parts of
-stjep_tpu/parallel/spmd.py).
+"""Mesh dispatch of the kernels (port of stjep_tpu/parallel/spmd.py).
 
 The active mesh is process-global state (`set_kernel_mesh`), as in the JAX
-package; `beam_search` and `forward_eval` read it. With no mesh they run
-the single-device kernel routes. Under a mesh each data shard decodes its
-slice of the batch on its own devices, with its own loop and its own
-all-EOS exit (JAX :214-216), one shard after the other in this process:
+package; the Trainer installs its (data, model) mesh there, and the LAS
+modules, `beam_search` and `forward_eval` read it. With no mesh everything
+runs the single-device kernel routes.
+
+The LAS kernels are batch-parallel with replicated weights: `bilstm_dp`
+(K1, or K8 under autograd), `las_tf_scan_dp` (K9) and
+`las_greedy_flash_dp` (K2) run the kernel once per data shard, on its
+batch slice, on that data row's first device, and join the results on the
+batch axis where the call runs, as JAX's shard_map over 'data' does. The
+weights reach each shard through autograd-tracked copies (nothing moves
+when the rows share a card), so autograd sums their gradients over the
+shards, as shard_map's transpose psums them. With no mesh, one data row,
+or a batch that does not divide by n_data, each makes the plain call.
+
+The transformer decode runs per data shard as well, each shard with its
+own loop and its own all-EOS exit (JAX :214-216), one after the other in
+this process:
 
 - a pure data-parallel mesh (n_model == 1): the single-device route per
   slice, on the replicated params;
@@ -20,24 +32,22 @@ all-EOS exit (JAX :214-216), one shard after the other in this process:
 
 A batch that does not divide by n_data takes the unsharded call (JAX
 :248-250, :315-318). int8 weights under a model axis raise (JAX :277-284).
-ACT models raise under any mesh (`refuse_act_under_mesh`): JAX's
-`decode_flash_auto` sends them to its dense, sharding-aware XLA decode
-(:87-107), and the port's dense ACT decode has no mesh dispatch yet
-(ROADMAP Queue A item 11); without a mesh they decode on one device. The
-dense greedy of `forward_eval` without reference ids runs the whole batch
-where the call runs, mesh or not.
-The encoder has no mesh wrapper yet: it runs the whole batch where the
-call runs (its kernels are batch-parallel, so the values are the same).
+An ACT decoder, as in JAX's `decode_flash_auto` (:87-107), takes the dense
+decode under any mesh: it re-runs its token buffer on the whole batch where
+the call runs, never per data shard, since the halting loop runs while any
+position of the batch runs (a shard's batch would change its tokens). The
+dense greedy of `forward_eval` without reference ids likewise runs the
+whole batch where the call runs.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import contextlib
+from typing import Dict, List, Optional
 
 import torch
 
 from stjep_tpu_torch.bridge import params_to
-from stjep_tpu_torch.models.tf_encoder import uses_act
 from stjep_tpu_torch.ops.decode_flash_tp import ModelAxis
 from stjep_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh, shard_params
 
@@ -74,14 +84,101 @@ def tp_flash_ok(cfg) -> bool:
                           or cfg.dim_feedforward % n or cfg.dec_vocab_size % n)
 
 
-def refuse_act_under_mesh(cfg):
-    """ValueError for an ACT model while a kernel mesh is installed (module
-    docstring)."""
-    if kernel_mesh() is not None and uses_act(cfg):
-        raise ValueError(
-            "ACT decode under a kernel mesh is not supported: an ACT model "
-            "re-runs its token buffer each position on one device; clear the "
-            "mesh with set_kernel_mesh(None) (ROADMAP Queue A item 11)")
+def _data_rows(B: int) -> Optional[List[torch.device]]:
+    """The data rows' first devices when a batch of B shards over the
+    installed mesh's data axis, else None (no mesh, one row, or B not
+    divisible by n_data): then the plain call runs."""
+    mesh = kernel_mesh()
+    if mesh is None:
+        return None
+    n = mesh.shape[DATA_AXIS]
+    if n == 1 or B % n:
+        return None
+    return [row[0] for row in mesh.devices]
+
+
+def _cut(t: Optional[torch.Tensor], axis: int, d: int, n: int, dev):
+    """Data shard d of n of t along axis, on dev (None stays None)."""
+    if t is None:
+        return None
+    b = t.shape[axis] // n
+    return t.narrow(axis, d * b, b).to(dev)
+
+
+def _joined(outs: List[torch.Tensor], axis: int, device) -> torch.Tensor:
+    return torch.cat([o.to(device) for o in outs], axis)
+
+
+def _current(dev: torch.device):
+    """dev as the current card while a shard's kernel launches there (the
+    kernels launch on the current card); nothing on the CPU."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+
+def bilstm_dp(kernel_fn, params_fwd: Dict, params_bwd: Dict, x: torch.Tensor,
+              lengths: torch.Tensor) -> torch.Tensor:
+    """kernel_fn(pf, pb, x [B, T, D], lengths [B]) -> [B, T, 2H] (K1's
+    bilstm_pallas, or K8's bilstm_pallas_trainable under autograd) per data
+    shard (module docstring), joined on B (JAX :143-152)."""
+    rows = _data_rows(x.shape[0])
+    if rows is None:
+        return kernel_fn(params_fwd, params_bwd, x, lengths)
+    n = len(rows)
+    outs = []
+    for d, dev in enumerate(rows):
+        with _current(dev):
+            outs.append(kernel_fn(params_to(params_fwd, dev), params_to(params_bwd, dev),
+                                  _cut(x, 0, d, n, dev), _cut(lengths, 0, d, n, dev)))
+    return _joined(outs, 0, x.device)
+
+
+def las_tf_scan_dp(stack: Dict, att_w: torch.Tensor, ffn_w: torch.Tensor,
+                   pre0_steps: torch.Tensor, acous_outputs: torch.Tensor,
+                   lens_k: torch.Tensor, masks) -> torch.Tensor:
+    """K9's teacher-forced scan (ops/las_tf_flash.py las_tf_scan) per data
+    shard (module docstring): pre0_steps [S, B, 4Hd] (batch axis 1),
+    acous_outputs [B, Tk, Ha2], lens_k [B], masks (lstm [S, n, B, Hd], ctx
+    [S, B, 1, Ha2]) or None, drawn for the whole batch and cut here; out
+    [S, B, Hs] (JAX :158-178)."""
+    from stjep_tpu_torch.ops.las_tf_flash import las_tf_scan
+
+    rows = _data_rows(acous_outputs.shape[0])
+    if rows is None:
+        return las_tf_scan(stack, att_w, ffn_w, pre0_steps, acous_outputs, lens_k, masks)
+    n = len(rows)
+    outs = []
+    for d, dev in enumerate(rows):
+        m = None if masks is None else (_cut(masks[0], 2, d, n, dev),
+                                        _cut(masks[1], 1, d, n, dev))
+        with _current(dev):
+            outs.append(las_tf_scan(params_to(stack, dev), att_w.to(dev), ffn_w.to(dev),
+                                    _cut(pre0_steps, 1, d, n, dev),
+                                    _cut(acous_outputs, 0, d, n, dev),
+                                    _cut(lens_k, 0, d, n, dev), m))
+    return _joined(outs, 1, acous_outputs.device)
+
+
+def las_greedy_flash_dp(params: Dict, cfg, wk: torch.Tensor, att_values: torch.Tensor,
+                        lens_k: torch.Tensor, sym0: torch.Tensor, n_steps: int,
+                        ref_tokens: Optional[torch.Tensor] = None):
+    """K2's free-running decode (ops/las_flash.py las_greedy_flash) per
+    data shard (module docstring). Returns (embs [B, S, Hs], preds [B, S],
+    picked [B, S]) (JAX :182-203)."""
+    from stjep_tpu_torch.ops.las_flash import las_greedy_flash
+
+    rows = _data_rows(wk.shape[0])
+    if rows is None:
+        return las_greedy_flash(params, cfg, wk, att_values, lens_k, sym0, n_steps,
+                                ref_tokens=ref_tokens)
+    n = len(rows)
+    outs = []
+    for d, dev in enumerate(rows):
+        with _current(dev):
+            outs.append(las_greedy_flash(params_to(params, dev), cfg, _cut(wk, 0, d, n, dev),
+                                         _cut(att_values, 0, d, n, dev),
+                                         _cut(lens_k, 0, d, n, dev), _cut(sym0, 0, d, n, dev),
+                                         n_steps, ref_tokens=_cut(ref_tokens, 0, d, n, dev)))
+    return tuple(_joined([o[i] for o in outs], 0, wk.device) for i in range(3))
 
 
 def _per_data_shard(decode, params, cfg, batched: Dict[str, Optional[torch.Tensor]],

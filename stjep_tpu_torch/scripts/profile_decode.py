@@ -50,19 +50,6 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 import chip_smoke as cs  # noqa: E402
 
 
-def busy_ms(intervals) -> float:
-    """Length of the union of (start, end) intervals in us, in ms."""
-    total, end = 0.0, -float("inf")
-    for a, b in sorted(intervals):
-        if a > end:
-            total += b - a
-            end = b
-        elif b > end:
-            total += b - end
-            end = b
-    return total / 1e3
-
-
 # device kernels that only a decode position launches; the decode loop's
 # window on the device runs from the first to the last of them
 STEP_KERNELS = ("layer_kernel", "beam_kernel", "chain_kernel", "head_full_kernel",
@@ -101,7 +88,7 @@ def profile(label: str, fn, n_model: int = 1, n_steps: int = 0, count_positions=
     dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     host_ops = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CPU
                    and e.name.startswith("aten::"))
-    busy = busy_ms((e.time_range.start, e.time_range.end) for e in dev)
+    busy = cs.busy_union_ms((e.time_range.start, e.time_range.end) for e in dev)
     steps = [e.time_range for e in dev if any(k in e.name for k in STEP_KERNELS)]
     per_pos = {}
     if steps and n_pos:
@@ -198,7 +185,7 @@ def train_loop(seed: int):
                          seed=seed, acous_max_len=3000)  # train.py's --las_acous_max_len
             params = init_seq2seq(cfg, torch.Generator().manual_seed(seed), device="cuda",
                                   dtype=dtype)
-            params, opt_state, _, _ = t.setup(params)
+            params, opt_state, _, _ = t.setup(params, cfg)
             runs[label] = (lambda t=t, ds=ds, p=params, o=opt_state:
                            t._train_epoches({"st": ds}, cfg, p, o, 1, 1, 0), t)
             if label == "f32":

@@ -20,6 +20,14 @@ their gradients.
 leaf by leaf (the clip's empty state, scale_by_adam's count/mu/nu, the
 injected step_size, under multi_transform's "train"/"freeze" branches when
 there is a mask), which is what a checkpoint stores.
+
+On the Trainer's mesh the params come in parallel/mesh.py's training
+layout: Adam runs over a split leaf's slices, each a parameter of its own
+(elementwise, so a slice's update is the unsharded leaf's slice), the
+clip's global norm sums the squares over every slice and takes one square
+root, and the freezing mask applies to a leaf's slices by the leaf's path.
+`state_tree` joins the slices' moments and `load_state_tree` cuts them, so
+the state tree keeps optax's unsharded layout whatever the mesh.
 """
 
 from __future__ import annotations
@@ -28,7 +36,8 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from stjep_tpu_torch.bridge import leaves, named_leaves
+from stjep_tpu_torch.bridge import leaves
+from stjep_tpu_torch.parallel.mesh import Shards, like_layout, logical_leaves, shard_dim
 
 
 def reference_lr(step, init_lr: float, peak_lr: float,
@@ -47,14 +56,20 @@ def reference_lr(step, init_lr: float, peak_lr: float,
 
 def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
     """optax.clip_by_global_norm: unchanged when the global norm is below
-    max_norm, else each t / norm * max_norm. No host sync."""
-    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    max_norm, else each t / norm * max_norm. No host sync. Gradients on
+    several devices: the squares are summed on the first one's."""
+    dev = grads[0].device
+    norm = torch.sqrt(sum(torch.sum(g * g).to(dev) for g in grads))
     keep = norm < max_norm
-    return [torch.where(keep, g, g / norm * max_norm) for g in grads]
+    return [torch.where(keep.to(g.device), g, g / norm.to(g.device) * max_norm)
+            for g in grads]
 
 
 def _map_tree(tree: Any, fn, it) -> Any:
-    """The structure of `tree` with each leaf replaced by fn(next(it))."""
+    """The structure of `tree` with each leaf (a Shards counting as one)
+    replaced by fn(next(it))."""
+    if isinstance(tree, Shards):
+        return fn(next(it))
     if isinstance(tree, dict):
         return {k: _map_tree(v, fn, it) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -71,19 +86,28 @@ class Optimizer:
         self.mask = trainable_mask
         self.trainable = (None if trainable_mask is None
                           else [bool(m) for m in leaves(trainable_mask)])
+        self._keep = self.trainable  # per leaf of the params init() took
+
+    def _keep_of(self, params: Dict) -> Optional[List[bool]]:
+        """The mask per leaf of params (a split leaf's slices take its value)."""
+        if self.mask is None:
+            return None
+        return [bool(m) for m in leaves(like_layout(self.mask, params))]
 
     @property
     def clips(self) -> bool:
         return bool(self.max_grad_norm and self.max_grad_norm > 0)
 
     def _select(self, xs: List) -> List:
-        if self.trainable is None:
+        if self._keep is None:
             return list(xs)
-        return [x for x, keep in zip(xs, self.trainable, strict=True) if keep]
+        return [x for x, keep in zip(xs, self._keep, strict=True) if keep]
 
     def init(self, params: Dict) -> torch.optim.Adam:
-        """The optimizer state: Adam over the tree's trainable leaves, LR 0
-        until set_lr writes it."""
+        """The optimizer state: Adam over the tree's trainable leaves (a
+        split leaf's slices), LR 0 until set_lr writes it. `update` then
+        takes the gradients of this tree's leaves."""
+        self._keep = self._keep_of(params)
         return torch.optim.Adam(self._select(leaves(params)), lr=0.0,
                                 betas=(0.9, 0.999), eps=1e-8)
 
@@ -105,19 +129,26 @@ class Optimizer:
     def state_tree(self, params: Dict, opt_state: torch.optim.Adam) -> Dict:
         """The state as `make_optimizer(max_grad_norm, mask).init(params)`
         lays it out in the JAX package after as many updates (tensors on the
-        host; frozen leaves' moments are `{}`, optax's MaskedNode)."""
-        ps = leaves(params)
-        keep = self.trainable or [True] * len(ps)
+        host; frozen leaves' moments are `{}`, optax's MaskedNode); a split
+        leaf's moments joined in shard order, so the tree is the unsharded
+        one."""
+        pairs = logical_leaves(params)
+        keep = self.trainable or [True] * len(pairs)
         count = 0
         moments = {"mu": [], "nu": []}
-        for p, k in zip(ps, keep):
-            st = opt_state.state.get(p, {}) if k else None
-            if st:
-                count = int(st["step"])
-            for key, name in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
-                moments[key].append(
-                    {} if not k else (st[name] if st else torch.zeros_like(p))
-                    .detach().cpu())
+        for (name, p), k in zip(pairs, keep, strict=True):
+            parts = list(p) if isinstance(p, Shards) else [p]
+            sts = [opt_state.state.get(x, {}) if k else None for x in parts]
+            if sts[0]:
+                count = int(sts[0]["step"])
+            for key, attr in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+                if not k:
+                    moments[key].append({})
+                    continue
+                vals = [(st[attr] if st else torch.zeros_like(x)).detach().cpu()
+                        for st, x in zip(sts, parts)]
+                moments[key].append(torch.cat(vals, shard_dim(name))
+                                    if isinstance(p, Shards) else vals[0])
         n = torch.tensor(count, dtype=torch.int32)
         adam = {"count": n}
         for key, vals in moments.items():
@@ -137,20 +168,29 @@ class Optimizer:
                         tree: Dict):
         """Set Adam's state (count, moments, LR) from a state tree of
         `state_tree`'s layout, in place; lists may come as dicts keyed "0",
-        "1", ... (a checkpoint's state dict)."""
+        "1", ... (a checkpoint's state dict). A split leaf's moments are cut
+        into its slices."""
         if self.mask is not None:
             tree = tree["inner_states"]["train"]["inner_state"]
         adam, inject = (tree["1"], tree["2"]) if self.clips else (tree["0"], tree["1"])
         count = int(torch.as_tensor(adam["count"]))
-        keep = self.trainable or [True] * len(leaves(params))
-        for (name, p), k in zip(named_leaves(params), keep, strict=True):
+        pairs = logical_leaves(params)
+        keep = self.trainable or [True] * len(pairs)
+        for (name, p), k in zip(pairs, keep, strict=True):
             if not k:
                 continue
-            mu, nu = (_lookup(adam[key], name) for key in ("mu", "nu"))
-            opt_state.state[p] = {
-                "step": torch.tensor(float(count), dtype=torch.float32),
-                "exp_avg": torch.as_tensor(mu).to(device=p.device, dtype=p.dtype).clone(),
-                "exp_avg_sq": torch.as_tensor(nu).to(device=p.device, dtype=p.dtype).clone()}
+            mu, nu = (torch.as_tensor(_lookup(adam[key], name)) for key in ("mu", "nu"))
+            if isinstance(p, Shards):
+                dim = shard_dim(name)
+                cuts = list(zip(p, *(torch.split(t, [x.shape[dim] for x in p], dim)
+                                     for t in (mu, nu))))
+            else:
+                cuts = [(p, mu, nu)]
+            for x, m, v in cuts:
+                opt_state.state[x] = {
+                    "step": torch.tensor(float(count), dtype=torch.float32),
+                    "exp_avg": m.to(device=x.device, dtype=x.dtype).clone(),
+                    "exp_avg_sq": v.to(device=x.device, dtype=x.dtype).clone()}
         set_lr(opt_state, -float(torch.as_tensor(inject["hyperparams"]["step_size"])))
 
 

@@ -19,8 +19,20 @@ early stop, the load modes and resume, int8/bf16 feature staging, the
 device-resident feature cache, and `train_window` (JAX's grouping of K
 steps into windows; on the cache path every step already runs with no host
 read, so a window's steps go through the single-step path). It runs on
-the card unless the caller passes device="cpu"; params elsewhere raise. Training across processes
-(`n_model` > 1, DDP) is not ported (ROADMAP Queue A item 11).
+the card unless the caller passes device="cpu"; params elsewhere raise.
+
+On a device mesh (JAX's `_setup_mesh`: when more than one device is given
+or `n_model` > 1) one process drives every shard: the params and their
+Adam moments take parallel/mesh.py's training layout (the TP-ruled leaves
+as n model-axis slices), each macro batch is staged whole on the mesh's
+first device, the LAS kernels run per data shard (parallel/spmd.py cuts
+the batch) and the transformer Megatron-style over the model axis, and the
+step computes the unsharded step's function. `devices` are the mesh's devices, every visible card by
+default (one device on the CPU); they may repeat, as ["cuda"] * 4 gives a
+(2, 2) mesh of one card. Checkpoints hold the gathered params and
+optax's unsharded state tree, whatever the mesh. A failed upload of the
+device feature cache falls back to per-step staging, as JAX's does.
+Training across processes (DDP) is not ported (ROADMAP Queue A item 6).
 """
 
 from __future__ import annotations
@@ -53,6 +65,16 @@ from stjep_tpu_torch.models.tf_encoder import uses_act
 from stjep_tpu_torch.ops.losses import normalise
 from stjep_tpu_torch.ops.masks import bucket_length, round_up8
 from stjep_tpu_torch.ops.transformer import split
+from stjep_tpu_torch.parallel.mesh import (
+    Mesh,
+    Shards,
+    gather_params,
+    logical_leaves,
+    make_mesh,
+    place_params,
+    shard_dim,
+)
+from stjep_tpu_torch.parallel.spmd import kernel_mesh, set_kernel_mesh
 from stjep_tpu_torch.train.checkpoint import Checkpoint
 from stjep_tpu_torch.train.optim import Optimizer, make_optimizer, reference_lr, set_lr
 from stjep_tpu_torch.train.policies import apply_load_mode, trainable_mask
@@ -201,9 +223,9 @@ def _float_dtype(params: Dict) -> torch.dtype:
 
 class Trainer:
     """Base trainer (ref: trainer/trainer_base.py:23-443; JAX
-    stjep_tpu/train/trainer.py Trainer), with JAX's constructor arguments
-    and `device`, where the run goes (the card unless the caller passes
-    "cpu")."""
+    stjep_tpu/train/trainer.py Trainer), with JAX's constructor arguments,
+    `device`, where the run goes (the card unless the caller passes
+    "cpu"), and `devices`, the mesh's (module docstring)."""
 
     MODE = "ASR"  # overridden by subclasses
     DATA_KEY = "asr"
@@ -216,11 +238,8 @@ class Trainer:
                  max_count_num_rollback=2, keep_num=1, normalise_loss=True,
                  loss_coeff=None, minibatch_partition=1, seed=333,
                  acous_bucket=256, n_model=1, feat_dtype=None,
-                 device_cache="auto", train_window=1, device="cuda"):
-        if int(n_model) > 1:
-            raise NotImplementedError(
-                "n_model > 1 (tensor-parallel training across a mesh) is not "
-                "ported (ROADMAP Queue A item 11)")
+                 device_cache="auto", train_window=1, device="cuda", devices=None):
+        self.n_model = max(1, int(n_model or 1))
         self.checkpoint_every = checkpoint_every
         self.print_every = print_every
         self.loss_coeff = loss_coeff or {"nll_asr": 1.0, "nll_mt": 1.0, "nll_st": 1.0}
@@ -256,6 +275,13 @@ class Trainer:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is visible: the trainer runs on the "
                                "card unless the caller passes device='cpu'")
+        if devices is None:  # JAX's jax.devices(): every visible card
+            devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                       if self.device.type == "cuda" else [self.device])
+        self.devices = [torch.device(d) for d in devices]
+        if any(d.type != self.device.type for d in self.devices):
+            raise ValueError(f"mesh devices {self.devices} are not all {self.device.type}")
+        self._mesh: Optional[Mesh] = None
         # host staging dtype of the acoustic features: None keeps the
         # loader's float32; "bfloat16" halves the host-to-device bytes;
         # "int8" quarters them (per-utterance scales, dequantized on the
@@ -363,7 +389,9 @@ class Trainer:
 
     def _place_macro(self, staged):
         """Device half of batch staging: one pinned, non-blocking copy a
-        leaf (bf16 staging casts the features on the host first)."""
+        leaf (bf16 staging casts the features on the host first). On a mesh
+        the macro goes whole to its first device: the data-shard wrappers of
+        parallel/spmd.py make the only cut, per kernel call."""
         macro, n_real, t_bucket = staged
         placed = to_device({k: v for k, v in macro.items() if k != "acous_feat"},
                            self.device)
@@ -396,17 +424,22 @@ class Trainer:
                                           self._compute_dtype)
         return mb
 
-    def _step(self, cfg, params, opt_state, macro, t_bucket, generator, lr, inv_n):
-        """One train step on a placed macro batch [n_mini, mini, ...]:
-        gradients summed over the minibatches, then clip and Adam in place.
-        Returns the losses as device scalars."""
+    def _grads(self, cfg, params, macro, t_bucket, generator, inv_n):
+        """The losses and the gradients (in bridge.leaves(params) order) of
+        a placed macro batch [n_mini, mini, ...], summed over the
+        minibatches."""
         n_mini = macro["srcid"].shape[0]
         mbs = [self._minibatch({k: v[i] for k, v in macro.items()}, t_bucket)
                for i in range(n_mini)]
-        losses, grads = compute_grads(
+        return compute_grads(
             cfg, self.MODE, params, mbs, generator, inv_n=inv_n,
             loss_coeff=self.loss_coeff, eval_with_mask=self.eval_with_mask,
             normalise_loss=self.normalise_loss)
+
+    def _step(self, cfg, params, opt_state, macro, t_bucket, generator, lr, inv_n):
+        """One train step on a placed macro batch: `_grads`, then clip and
+        Adam in place. Returns the losses as device scalars."""
+        losses, grads = self._grads(cfg, params, macro, t_bucket, generator, inv_n)
         self._tx.update(grads, set_lr(opt_state, lr))
         self.steps_run += 1
         return losses
@@ -489,6 +522,8 @@ class Trainer:
         trainer_*.py:_evaluate_batches). The eval kernels are f32: bf16
         params are evaluated through an f32 copy."""
         mode = self.MODE
+        if self._mesh is not None:  # forward_eval cuts its own TP shards
+            params = gather_params(params, self._mesh.lead)
         if _float_dtype(params) != torch.float32:
             params = _cast_tree(params, torch.float32)
         resloss_en = resloss_de = 0.0
@@ -574,19 +609,53 @@ class Trainer:
     def train(self, train_sets, model, num_epochs=5, optimizer=None,
               dev_sets=None, grab_memory=False):
         """Main entry (ref: trainer_base.py:169-443). model: (cfg, params)
-        with params on the trainer's device. Returns (cfg, params)."""
+        with params on the trainer's device. Returns (cfg, params), params
+        gathered on a mesh (`_final_params` keeps the training layout that
+        `_final_opt_state` is keyed by). The kernel mesh installed before
+        the call is installed again after it."""
         cfg, params = model
-        params, opt_state, start_epoch, step = self.setup(params)
-        self._train_epoches(train_sets, cfg, params, opt_state, num_epochs,
-                            start_epoch, step, dev_sets=dev_sets)
+        before = kernel_mesh()
+        try:
+            params, opt_state, start_epoch, step = self.setup(params, cfg)
+            self._train_epoches(train_sets, cfg, params, opt_state, num_epochs,
+                                start_epoch, step, dev_sets=dev_sets)
+        finally:
+            set_kernel_mesh(before)
+        if self._mesh is not None:
+            return cfg, gather_params(self._final_params)
         return cfg, self._final_params
 
-    def setup(self, params):
-        """The load mode applied to params (on the trainer's device): the
-        optimizer with its freezing mask, and for resume/restart the
-        checkpoint's params (in place) and optimizer state. Returns
-        (params, opt_state, start_epoch, start_step)."""
+    def _setup_mesh(self):
+        """Build and install the (data, model) mesh when more than one
+        device is given or n_model > 1 (JAX :386-405); one device and
+        n_model 1 keep no mesh. make_mesh degrades a shape that does not fit
+        the devices to pure data parallelism, with JAX's warning."""
+        if self._mesh is not None:
+            return
+        if len(self.devices) > 1 or self.n_model > 1:
+            self._mesh = make_mesh(n_model=self.n_model, devices=self.devices)
+            self.device = self._mesh.lead  # where batches, joins and dev eval go
+            self.logger.info("device mesh: %s", self._mesh.shape)
+            set_kernel_mesh(self._mesh)
+
+    def _place(self, params, cfg):
+        """The training layout of params on the mesh (no-op without one):
+        after every init, load mode and resume (JAX :407-415); a rollback
+        assigns into it in place. The optimizer state is built after it, on
+        the placed leaves."""
+        if self._mesh is None:
+            return params
+        return place_params(params, self._mesh, cfg.num_heads)
+
+    def setup(self, params, cfg):
+        """The load mode applied to params (on the trainer's device) of the
+        model `cfg`: the optimizer with its freezing mask, and for
+        resume/restart the checkpoint's params (in place) and optimizer
+        state. On a mesh (installed here) params then take the training
+        layout, and Adam is built on it. Returns (params, opt_state,
+        start_epoch, start_step)."""
         check_params_device(params, self.device)
+        self._setup_mesh()
         start_epoch, step = 1, 0
         self._compute_dtype = _float_dtype(params)
         if "resume" in self.load_mode or "restart" in self.load_mode:
@@ -598,6 +667,7 @@ class Trainer:
             ckpt = Checkpoint.load(self.load_dir, params_template=params,
                                    with_opt_state=True)
             _assign(params, ckpt.params)
+            params = self._place(params, cfg)
             opt_state = self._tx.init(params)
             if ckpt.opt_state is not None:
                 self._tx.load_state_tree(params, opt_state, ckpt.opt_state)
@@ -611,12 +681,16 @@ class Trainer:
             params, mask = apply_load_mode(params, loaded, self.load_mode,
                                            self.load_freeze, self.logger)
             self._tx = make_optimizer(self.max_grad_norm, mask)
+            params = self._place(params, cfg)
             opt_state = self._tx.init(params)
         self.start = (start_epoch, step)
         return params, opt_state, start_epoch, step
 
     def _save(self, cfg, params, opt_state, epoch, step, train_set, epoch_dir=False):
-        ckpt = Checkpoint(params=params, opt_state=self._tx.state_tree(params, opt_state),
+        """A checkpoint of the gathered params and optax's unsharded state
+        tree: the same bytes whatever the mesh."""
+        ckpt = Checkpoint(params=gather_params(params) if self._mesh is not None else params,
+                          opt_state=self._tx.state_tree(params, opt_state),
                           epoch=epoch, step=step, input_vocab=train_set.vocab_src,
                           output_vocab=train_set.vocab_tgt,
                           model_config=dataclasses.asdict(cfg))
@@ -656,9 +730,16 @@ class Trainer:
 
             use_cache = self._resolve_device_cache(train_set, log)
             if use_cache and id(train_set) not in self._feat_caches:
-                self._feat_caches[id(train_set)] = DeviceFeatureCache.build(
-                    train_set, self.acous_bucket, self.feat_dtype or np.float32,
-                    device=self.device, logger=log)
+                try:
+                    self._feat_caches[id(train_set)] = DeviceFeatureCache.build(
+                        train_set, self.acous_bucket, self.feat_dtype or np.float32,
+                        device=self.device, logger=log)
+                except (torch.cuda.OutOfMemoryError, RuntimeError, MemoryError) as e:
+                    # the upload failed (memory the estimate missed): stage per
+                    # step rather than end the run, as JAX does (:843-856)
+                    log.warning("device cache: upload FAILED (%s) — falling back "
+                                "to per-step feature staging", e)
+                    self._feat_caches[id(train_set)] = None
             self._feat_cache = self._feat_caches.get(id(train_set)) if use_cache else None
             use_cache = self._feat_cache is not None
 
@@ -778,12 +859,14 @@ class Trainer:
 
     def _rollback(self, params, opt_state, log, epoch, step):
         """Reload the latest checkpoint's params and optimizer state, in
-        place (Adam holds the param tensors)."""
+        place (Adam holds the param tensors; on a mesh the slices take
+        their cut of each loaded leaf, so the layout stays placed)."""
         latest = Checkpoint.get_latest_checkpoint(self.expt_dir)
         if latest is None:
             return
         log.info("epoch:%d step: %d - rolling back %s ...", epoch, step, latest)
-        ckpt = Checkpoint.load(latest, params_template=params, with_opt_state=True)
+        ckpt = Checkpoint.load(latest, params_template=gather_params(params)
+                               if self._mesh is not None else params, with_opt_state=True)
         _assign(params, ckpt.params)
         if ckpt.opt_state is not None:
             self._tx.load_state_tree(params, opt_state, ckpt.opt_state)
@@ -799,14 +882,24 @@ def _cast_tree(tree, dtype):
 
 
 def _assign(params: Dict, values: Dict):
-    """Copy a loaded tree of the same structure into params' tensors, in
-    place (cast to each leaf's dtype and device)."""
+    """Copy a loaded tree of the unsharded structure into params' tensors,
+    in place (cast to each leaf's dtype and device); a split leaf's slices
+    (the mesh's training layout) take their cut of the loaded leaf."""
     with torch.no_grad():
-        for (name, p), (_, v) in zip(named_leaves(params), named_leaves(values), strict=True):
-            if tuple(p.shape) != tuple(v.shape):
+        for (name, p), (_, v) in zip(logical_leaves(params), named_leaves(values), strict=True):
+            if not isinstance(p, Shards):
+                parts, cuts, shape = [p], [v], tuple(p.shape)
+            else:
+                parts, dim = list(p), shard_dim(name)
+                widths = [x.shape[dim] for x in parts]
+                shape = tuple(sum(widths) if i == dim else n
+                              for i, n in enumerate(parts[0].shape))
+                cuts = torch.split(torch.as_tensor(v), widths, dim)
+            if tuple(v.shape) != shape:
                 raise ValueError(f"checkpoint leaf {name} has shape {tuple(v.shape)}, "
-                                 f"the model {tuple(p.shape)}")
-            p.copy_(v)
+                                 f"the model {shape}")
+            for x, cut in zip(parts, cuts):
+                x.copy_(cut)
 
 
 class Trainer_ASR(Trainer):

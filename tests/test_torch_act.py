@@ -12,7 +12,8 @@ the decode routes it takes.
   EOS-heavy model: line-identical to JAX's dense beam.
 - `act_max_hop` past the layer count: JAX reads NaN, the port raises.
 - What ACT refuses: training (JAX has no gradient through its while
-  loop), int8 weight streaming, and decode under a kernel mesh.
+  loop) and int8 weight streaming; under a kernel mesh its decodes equal
+  those without one.
 - The translate CLI on an ACT checkpoint: translate.txt byte-identical to
   translate.py's translate() in gen modes ST, ST-REF, MT and ST_BASE, and
   main() in eval modes 1-4 reading the checkpoint.
@@ -268,15 +269,34 @@ def test_act_refusals(jp):
     with pytest.raises(ValueError, match="int8"):
         forward_translate(tp, CFG, "ST", acous_feats=feats, acous_lens=lens, beam_width=2,
                           max_seq_len=8, device="cpu", weight_dtype="int8")
+    # under a kernel mesh ACT decodes the whole batch where the call runs, as
+    # JAX's decode_flash_auto sends it to its dense decode: the beam, the
+    # greedy eval and dev eval with refs equal the calls without a mesh
+    src = torch.from_numpy(mb["src"])
+    ref_tgt = torch.from_numpy(np.full((B, 8), 5, np.int32))
+    ref_tgt[:, 0] = BOS
+    calls = {
+        "beam": lambda: forward_translate(tp, CFG, "ST", acous_feats=feats, acous_lens=lens,
+                                          beam_width=2, max_seq_len=8, device="cpu"),
+        "greedy": lambda: forward_eval(tp, CFG, "MT", src=src, device="cpu"),
+        "dev eval": lambda: forward_eval(tp, CFG, "ASR_ST", acous_feats=feats,
+                                         acous_lens=lens, ref_src=src, ref_tgt=ref_tgt,
+                                         device="cpu")}
+    alone = {k: fn() for k, fn in calls.items()}
     set_kernel_mesh(make_mesh(1, 2, ["cpu"] * 2))
     try:
-        with pytest.raises(ValueError, match="kernel mesh"):
-            forward_translate(tp, CFG, "ST", acous_feats=feats, acous_lens=lens,
-                              beam_width=2, max_seq_len=8, device="cpu")
-        with pytest.raises(ValueError, match="kernel mesh"):
-            forward_eval(tp, CFG, "MT", src=torch.from_numpy(mb["src"]), device="cpu")
+        meshed = {k: fn() for k, fn in calls.items()}
     finally:
         set_kernel_mesh(None)
+    for k, want in alone.items():
+        got = meshed[k]
+        if torch.is_tensor(want):
+            got, want = [got], [want]
+        elif isinstance(want, dict):
+            assert got.keys() == want.keys(), k
+            got, want = [got[x] for x in want], list(want.values())
+        for a, b in zip(got, want, strict=True):
+            assert torch.equal(a, b), k
 
 
 @pytest.fixture(scope="module")

@@ -16,6 +16,7 @@ import train as jax_train
 from stjep_tpu.config import save_config as jsave_config
 from stjep_tpu.config import validate_config as jvalidate_config
 
+from stjep_tpu_torch.bridge import named_leaves
 from stjep_tpu_torch.cli import train as cli
 from stjep_tpu_torch.data.dataset import load_vocab_file
 from stjep_tpu_torch.train.checkpoint import Checkpoint
@@ -130,14 +131,28 @@ def test_cli_embedding_overlay_shared_and_dyn_ave(corpus, tmp_path):
     (["--n_model", "2"], "item 11"), (["--remat", "True"], "item 6"),
     (["--act", "True", "--transformer_type", "universal"], "item 9"),
     (["--mode", "AE_ASR"], "item 6")])
-def test_cli_refuses_unported_options(corpus, tmp_path, flags, item):
-    """`item` is the ROADMAP Queue A item of each option. --n_model > 1
-    (item 11) is not ported; --remat (item 6) trains; --act on a universal
-    transformer (item 9) and the AE modes (item 6) refuse with the JAX
-    package's reasons before anything is written."""
+def test_cli_refuses_unported_options(corpus, tmp_path, flags, item, caplog):
+    """`item` is the ROADMAP Queue A item each option had when this test
+    was written (the ids keep it). --n_model 2 trains: on the one CPU
+    device the mesh degrades to (1, 1) with make_mesh's warning, and the
+    run equals --n_model 1 at 1e-5; --remat trains; --act on a universal
+    transformer and the AE modes refuse with the JAX package's reasons
+    before anything is written."""
     if flags[0] == "--n_model":
-        with pytest.raises(NotImplementedError, match=item):
-            cli.main(_argv(corpus, tmp_path / "x", *flags), device="cpu")
+        finals = {}
+        for n in ("1", "2"):
+            with caplog.at_level("WARNING"):
+                t, (_, finals[n]) = cli.main(_argv(corpus, tmp_path / f"n{n}", "--n_model", n,
+                                                   "--num_epochs", "1", "--batch_size", "12"),
+                                             device="cpu")
+            assert t.steps_run == 1
+            assert (t._mesh is None) == (n == "1")
+        assert t._mesh.shape == {"data": 1, "model": 1}
+        assert "n_model=2 does not divide 1 devices" in caplog.text
+        for (name, a), (_, b) in zip(named_leaves(finals["2"]), named_leaves(finals["1"]),
+                                     strict=True):
+            np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(), rtol=1e-5,
+                                       atol=1e-5, err_msg=name)
     elif flags[0] == "--remat":
         t, (cfg, _) = cli.main(_argv(corpus, tmp_path / "x", *flags, "--num_epochs", "1",
                                      "--batch_size", "12"), device="cpu")
