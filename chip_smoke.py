@@ -207,6 +207,30 @@ package beside it, included):
    f. ACT dev eval (the ACT model of phase 10's seed), rows 0-1 under a
       (1, 2) mesh equal to the same rows without one.
 
+12. multi-process train (its own seconds on its last line): two ranks of
+   stjep_tpu_torch/scripts/multiproc_worker.py on the one card (gloo; NCCL
+   refuses two ranks on one device), spawned after the build so they load
+   its library, at the flagship (ASR_ST, B=16 split into 8 rows a rank,
+   1504 frames), each rank stepping on its rows and the gradients summed
+   over the ranks in one all-reduce:
+   a. one step with dropout off against the one-process step on the card
+      from the same params and batch: the loss within 1e-5 relative, each
+      gradient leaf within 1e-5 of its norm on the one-process step's ReLU
+      pieces (each rank replays its rows of them; its own rounding may
+      part at most RELU_FLIPS_MAX pieces, each a tie within RELU_BAND);
+   b. the same with dropout 0.2 and SpecAugment on (one generator: each
+      rank's draws are its rows of the whole batch's);
+   c. 3 Trainer steps: the ranks' params and Adam states bit-equal
+      (digests);
+   d. the Trainer's checkpoint written once, by rank 0 (its msgpack
+      writes), into one dir, and each rank's load of it bit-equal to its
+      params and Adam state;
+   e. make_train_step with dropout, 2 warm-up and 5 timed steps: each
+      rank's step ms beside the one-process step's in this run, the
+      all-reduce's ms inside the step and its bytes, the backend, and each
+      rank's K8/K9 launches a step (the kernels line adds them).
+   A rank that fails, or runs past MP_TIMEOUT, fails the phase.
+
 The last lines: a JSON object with one entry per kernel (its launches
 summed over the main paths' runs), the total seconds, the nvidia-smi line,
 then {"ok": true, "device": {...}}.
@@ -215,7 +239,6 @@ then {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import statistics
@@ -227,6 +250,16 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+try:  # the flagship workload and the helpers the port's scripts share
+    from stjep_tpu_torch.scripts.flagship import (
+        B, BEAM, CORPUS_FRAMES, DECODE_LEN, FLAGSHIP, FRAMES, TRAIN_LR, inputs, say,
+        train_batch, write_corpus)
+    from stjep_tpu_torch.utils.profiling import VARIANTS, variant_label
+except ImportError as e:  # run without the package beside it
+    traceback.print_exc()
+    print(f"[failed] phase=imports error={type(e).__name__}: {e}", flush=True)
+    sys.exit(1)
 
 TIE = 1e-5  # integer outputs may differ only where the plain top-2 gap is below this
 E2E_MARGIN = 1e-3  # first-divergence margin that explains a differing e2e row
@@ -247,24 +280,11 @@ BF16_DRIFT = 3e-3
 HBM_BYTES_PER_S = 3.35e12
 PEAK = {"f32": 67e12, "bf16": 989e12}
 
-# bench.py's flagship workload (bench.py:24-38,120-129)
-FLAGSHIP = dict(
-    enc_vocab_size=30000, dec_vocab_size=200, enc_embedding_size=200,
-    dec_embedding_size=512, acous_dim=40, acous_hidden_size=256,
-    dim_model=512, dim_feedforward=1024, num_heads=8, enc_layers=6,
-    dec_layers=6, num_unilstm_dec=3, spec_aug=True, dropout=0.2,
-    max_seq_len_src=90, max_seq_len_tgt=150, mode="ASR_ST")
-B, FRAMES, DECODE_LEN, BEAM = 16, 1504, 150, 5
-TRAIN_LR = 1e-4  # bench.py's train row
 PARITY_B, PARITY_FRAMES = 2, 256
 # train parity: each gradient leaf's distance from float64 on the same ReLU
 # pieces, relative to its norm. Both f32 arms read 1.2e-5 to 2.1e-5 over
 # seeds 0-7 (stjep_tpu_torch/scripts/train_parity_seeds.py on an H100)
 PARITY_TOL = 1e-4
-
-
-def say(phase: str, **kw):
-    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()), flush=True)
 
 
 def need(ok: bool, what: str):
@@ -395,14 +415,6 @@ def cudnn_bilstm(p, din, H, train=False):
 def packed(x, lens):
     return torch.nn.utils.rnn.pack_padded_sequence(x, lens.cpu(), batch_first=True,
                                                    enforce_sorted=False)
-
-
-def inputs(rng, n):
-    """Seeded fbank-shaped features and lengths, as bench.py makes them."""
-    feats = rng.randn(n, FRAMES, 40).astype(np.float32)
-    lens = rng.randint(FRAMES // 2, FRAMES - 8, size=(n,)).astype(np.int64)
-    lens[0] = FRAMES - 8  # round_up8(max) == FRAMES
-    return torch.from_numpy(feats), torch.from_numpy(lens)
 
 
 def first_diff(a, b):
@@ -601,10 +613,6 @@ def random_norms(dec, rng):
                   .cuda() for k in ("scale", "bias")}
     layers = [{k: {**v, "layer_norm": ln()} for k, v in lp.items()} for lp in dec["layers"]]
     return {**dec, "layers": layers, "norm": ln()}
-
-
-def variant_label(quant, bf16):
-    return "+".join(n for n, on in (("int8", quant), ("bf16", bf16)) if on) or "f32"
 
 
 # serving variants against plain on the card: bf16 caches round where plain
@@ -1318,6 +1326,8 @@ def device_ops(fn, with_us=False):
     taken again, up to PROFILE_TRIES times, a little later each time (the
     profiler records none in ~1 % of profiles, several in a row at times,
     PERF.md section 7); the last one counts."""
+    from stjep_tpu_torch.utils import trace_tools
+
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for attempt in range(PROFILE_TRIES):
         time.sleep(0.1 * attempt)
@@ -1325,11 +1335,10 @@ def device_ops(fn, with_us=False):
         with torch.profiler.profile(activities=acts) as prof:
             fn()
             torch.cuda.synchronize()
-        evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        evs = trace_tools.device_ops(prof.events())
         if evs:
             break
-    short = {e.name.replace("(anonymous namespace)::", "").split("(")[0].split("::")[-1]
-             .split()[-1] for e in evs}
+    short = {trace_tools.short_name(e.name) for e in evs}
     if with_us:
         return len(evs), sorted(short), sum(e.time_range.elapsed_us() for e in evs)
     return len(evs), sorted(short)
@@ -1480,41 +1489,6 @@ def phase_k9(params, cfg, rng):
     return res
 
 
-def train_batch(rng, cfg, n, frames):
-    """bench.py's train inputs: fbank-shaped features with lengths in
-    [frames/2, frames-8] (one at frames-8), random source and target ids."""
-    feats = torch.from_numpy(rng.randn(n, frames, cfg.acous_dim).astype(np.float32))
-    lens = torch.from_numpy(rng.randint(frames // 2, frames - 8, size=(n,)))
-    lens[0] = frames - 8
-    src = rng.randint(5, cfg.enc_vocab_size, (n, cfg.max_seq_len_src))
-    tgt = rng.randint(5, cfg.dec_vocab_size, (n, cfg.max_seq_len_tgt))
-    return {"srcid": torch.from_numpy(src), "tgtid": torch.from_numpy(tgt),
-            "acous_feat": feats, "acouslen": lens}
-
-
-@contextlib.contextmanager
-def relu_patterns(replay=None, inputs=False):
-    """While active, torch.relu (the transformer FFNs' only nonlinearity
-    with a kink) records each call's pattern, input > 0, in call order (with
-    `inputs`, the input itself); the context yields that list. Given
-    `replay`, another arm's recorded patterns, it returns x * pattern
-    instead: the same linear piece that arm's step took, so that the two
-    differ by rounding alone."""
-    seen, relu = [], torch.relu
-
-    def patched(x):
-        seen.append(x.detach().cpu() if inputs else (x > 0).detach().cpu())
-        if replay is None:
-            return relu(x)
-        return x * replay[len(seen) - 1].to(x.device, x.dtype)
-
-    torch.relu = patched
-    try:
-        yield seen
-    finally:
-        torch.relu = relu
-
-
 def train_parity_readings(seed):
     """One deterministic ASR_ST step, made from `seed` alone: the kernel
     route on the card and the plain route on CPU copies, both f32, each
@@ -1528,6 +1502,7 @@ def train_parity_readings(seed):
     from stjep_tpu_torch.config import ModelConfig
     from stjep_tpu_torch.models.seq2seq import init_seq2seq
     from stjep_tpu_torch.train.optim import make_optimizer, set_lr
+    from stjep_tpu_torch.scripts.multiproc_worker import relu_patterns
     from stjep_tpu_torch.train.trainer import compute_grads
 
     cfg = ModelConfig(**{**FLAGSHIP, "dropout": 0.0, "spec_aug": False,
@@ -1550,9 +1525,9 @@ def train_parity_readings(seed):
                                           torch.Generator().manual_seed(seed),
                                           is_training=False)
         if replay is None:
-            pats[arm] = seen
+            pats[arm] = [x > 0 for x in seen]
         else:  # entries where float64's own sign differs from the replayed one
-            flips[arm] = sum(int((a != b).sum()) for a, b in zip(seen, replay))
+            flips[arm] = sum(int(((a > 0) != b).sum()) for a, b in zip(seen, replay))
         before = [t_.detach().clone() for t_ in leaves(p)]
         opt = make_optimizer(1.0)
         opt.update(grads, set_lr(opt.init(p), TRAIN_LR))
@@ -1665,48 +1640,8 @@ def phase_train_e2e(seed, rng):
     return launches, len(timed) / sum(timed)
 
 
-# the train cli phase's synthetic corpus (written with numpy from --seed)
+# the train cli phase's synthetic corpus (flagship.write_corpus, from --seed)
 CLI_UTTS = {"train": 64, "dev": 16}
-CLI_FRAMES = (400, 1504)
-CLI_SPEAKERS = 4
-SPECIALS = ["<pad>", "<unk>", "<s>", "</s>", "<spc>"]
-
-
-def write_corpus(root: Path, seed: int, utts=None, frames=CLI_FRAMES) -> dict:
-    """A corpus in the reference layout: vocab files (the five specials,
-    then 29 995 source words and 195 target characters: bench's 30 000 and
-    200), src/tgt text, one 40-dim fbank .npy an utterance of `frames`
-    (low, high) frames (400-1504), an acoustic file list `path frames
-    speaker`, and per-speaker CMVN stats. utts: utterances a split
-    (CLI_UTTS)."""
-    rng = np.random.RandomState(seed + 11)
-    words = [f"w{i:05d}" for i in range(FLAGSHIP["enc_vocab_size"] - len(SPECIALS))]
-    chars = [chr(0x4E00 + i) for i in range(FLAGSHIP["dec_vocab_size"] - len(SPECIALS))]
-    (root / "fbk").mkdir(parents=True)
-    (root / "norm").mkdir()
-    (root / "vocab.src").write_text("\n".join(SPECIALS + words) + "\n", encoding="utf-8")
-    (root / "vocab.tgt").write_text("\n".join(SPECIALS + chars) + "\n", encoding="utf-8")
-    dim = FLAGSHIP["acous_dim"]
-    for s_ in range(CLI_SPEAKERS):
-        np.save(root / "norm" / f"spk{s_}.mu.npy", (rng.randn(dim) * 0.1).astype(np.float32))
-        np.save(root / "norm" / f"spk{s_}.std.npy", (1.0 + 0.1 * rng.rand(dim)).astype(np.float32))
-    paths = {"vocab_src": root / "vocab.src", "vocab_tgt": root / "vocab.tgt",
-             "norm": root / "norm"}
-    for split_, n in (utts or CLI_UTTS).items():
-        src, tgt, flis = [], [], []
-        for i in range(n):
-            ids = rng.randint(0, len(words), rng.randint(3, 30))
-            src.append(" ".join(words[w] for w in ids))
-            tgt.append(" ".join("".join(chars[(w * 7 + k) % len(chars)]
-                                        for k in range(1 + w % 3)) for w in ids))
-            n_frames = rng.randint(frames[0], frames[1] + 1)
-            f = root / "fbk" / f"{split_}_{i:03d}.npy"
-            np.save(f, rng.randn(n_frames, dim).astype(np.float32))
-            flis.append(f"{f} {n_frames} spk{i % CLI_SPEAKERS}.fbk")
-        for ext, lines in (("src", src), ("tgt", tgt), ("flis", flis)):
-            paths[f"{split_}_{ext}"] = root / f"{split_}.{ext}"
-            paths[f"{split_}_{ext}"].write_text("\n".join(lines) + "\n", encoding="utf-8")
-    return {k: str(v) for k, v in paths.items()}
 
 
 def cli_argv(corpus, save, seed, *extra, dev=False):
@@ -1770,12 +1705,12 @@ def phase_train_cli(seed, bare_steps_per_s):
     with tempfile.TemporaryDirectory(prefix="stjep_train_cli_") as tmp:
         tmp = Path(tmp)
         t0 = time.perf_counter()
-        corpus = write_corpus(tmp / "corpus", seed)
+        corpus = write_corpus(tmp / "corpus", seed, CLI_UTTS)
         corpus_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         need(get_native_loader() is not None, "the native loader did not build (no g++?)")
         say("train cli corpus", train=CLI_UTTS["train"], dev=CLI_UTTS["dev"],
-            frames=list(CLI_FRAMES), write_s=round(corpus_s, 3),
+            frames=list(CORPUS_FRAMES), write_s=round(corpus_s, 3),
             native_loader_build_s=round(time.perf_counter() - t0, 3))
 
         # a. the CLI, f32, with a dev set; eval's launches apart
@@ -2080,7 +2015,7 @@ def phase_translate_cli(seed, params_c, cfg):
         ds.construct_batches(is_train=False)
         items = [ds.materialise_batch(i) for i in range(len(ds))]
         need(len(items) == TEST_UTTS // B, f"{len(items)} test batches")
-        say("translate cli corpus", test=TEST_UTTS, frames=list(CLI_FRAMES), batches=len(items),
+        say("translate cli corpus", test=TEST_UTTS, frames=list(CORPUS_FRAMES), batches=len(items),
             checkpoint_write_s=round(save_s, 3))
 
         # mode 3: the mean dynamic embedding (K1, K9's forward)
@@ -2423,34 +2358,9 @@ def beam_divergence(st_c, st_p, r):
 
 def counters():
     """Every kernel wrapper's launch counter: name -> (wrapper, attribute)."""
-    from stjep_tpu_torch.ops import decode_flash as df
-    from stjep_tpu_torch.ops import las_tf_flash as k9
-    from stjep_tpu_torch.ops import lstm_pallas_bwd as k8
-    from stjep_tpu_torch.ops.las_flash import las_greedy_flash
-    from stjep_tpu_torch.ops.lstm_pallas import bilstm_pallas
+    from stjep_tpu_torch.utils.profiling import launch_counters
 
-    out = {"K1": (bilstm_pallas, "launches"), "K2": (las_greedy_flash, "launches"),
-           "K3 gather": (df.decode_chain_step_flash, "gather_launches"),
-           "K4 select": (df.beam_select, "launches"),
-           "K7 head": (df.decode_head, "launches"),
-           "K7 head_gather": (df.decode_head_gather, "launches"),
-           "K8 fwd": (k8.bilstm_fwd_save, "launches"), "K8 bwd": (k8.bilstm_bwd, "launches"),
-           "K9 fwd": (k9.las_tf_fwd, "launches"), "K9 bwd": (k9.las_tf_bwd, "launches"),
-           "self_attn bf16": (df.self_attn_step, "bf16_launches"),
-           "cross_attn bf16": (df.cross_attn_step, "bf16_launches"),
-           "K6 self_attn_step": (df.self_attn_step, "launches"),
-           "K6 cross_attn_step": (df.cross_attn_step, "launches"),
-           "K6 ffn_step": (df.ffn_step, "launches"),
-           "K7 head_partial": (df.decode_head_partial, "launches")}
-    for k, fn in (("K3", df.decode_chain_step_flash), ("K4", df.decode_beam_step_flash),
-                  ("K5", df.decoder_layer_step_flash)):
-        for quant, bf16 in VARIANTS:
-            label = k if not (quant or bf16) else f"{k} {variant_label(quant, bf16)}"
-            out[label] = (fn, ("q8_" if quant else "") + ("bf16_" if bf16 else "") + "launches")
-    return out
-
-
-VARIANTS = ((False, False), (True, False), (False, True), (True, True))
+    return launch_counters()
 
 
 def zero_counts():
@@ -2960,22 +2870,13 @@ MESH = (2, 2)  # the mesh train phase's (data, model) shape, every shard on the 
 RELU_FLIPS_MAX, RELU_BAND = 32, 1e-4
 
 
-def busy_union_ms(intervals) -> float:
-    """The length of the union of (start, end) intervals in us, in ms."""
-    total, end = 0.0, -float("inf")
-    for a, b in sorted(intervals):
-        if a > end:
-            total, end = total + b - a, b
-        elif b > end:
-            total, end = total + b - end, b
-    return total / 1e3
-
-
 def step_profile(fn) -> dict:
     """One call of fn (warmed up before) under torch.profiler: its wall ms
     under the profiler, the device's busy ms (the union of its kernels'
     intervals), the device ms of K8's and K9's sweep kernels, the idle
     share, and the host aten operators."""
+    from stjep_tpu_torch.utils import trace_tools
+
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
@@ -2984,16 +2885,14 @@ def step_profile(fn) -> dict:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     evs = prof.events()
-    dev = [e for e in evs if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = busy_union_ms((e.time_range.start, e.time_range.end) for e in dev)
-    sweeps = sum(e.time_range.elapsed_us() for e in dev if any(
+    r = trace_tools.profile_reading(evs, wall)
+    sweeps = sum(e.time_range.elapsed_us() for e in trace_tools.device_ops(evs) if any(
         k in e.name for k in ("bilstm_kernel", "bilstm_bwd_kernel", "tf_fwd_kernel",
                               "tf_bwd_kernel"))) / 1e3
-    return {"profiled_ms": round(wall, 3), "busy_ms": round(busy, 3),
+    return {"profiled_ms": round(wall, 3), "busy_ms": round(r["busy_ms"], 3),
             "k8_k9_sweeps_ms": round(sweeps, 3),
-            "idle_share": round(1 - busy / wall, 4) if dev else None,
-            "host_aten_ops": sum(1 for e in evs if e.device_type == torch.autograd.DeviceType.CPU
-                                 and e.name.startswith("aten::"))}
+            "idle_share": None if r["idle_share"] is None else round(r["idle_share"], 4),
+            "host_aten_ops": r["host_aten_ops"]}
 
 
 def phase_mesh_train(seed, rng, params, cfg):
@@ -3008,6 +2907,7 @@ def phase_mesh_train(seed, rng, params, cfg):
     from stjep_tpu_torch.models.seq2seq import init_seq2seq
     from stjep_tpu_torch.parallel.mesh import gather_params, make_mesh
     from stjep_tpu_torch.parallel.spmd import kernel_mesh, set_kernel_mesh
+    from stjep_tpu_torch.scripts.multiproc_worker import relu_patterns
     from stjep_tpu_torch.train import trainer as T
 
     t_start = time.perf_counter()
@@ -3047,7 +2947,7 @@ def phase_mesh_train(seed, rng, params, cfg):
             t, p, _ = arms[k]
             staged = t._stage_batch(dict(items[0]))
             zero_counts()
-            with relu_patterns(replay, inputs=replay is None) as seen:
+            with relu_patterns(replay) as seen:
                 losses, grads = on(t, lambda: t._grads(cfg, p, staged[0], staged[2],
                                                        torch.Generator().manual_seed(seed), 1.0))
                 torch.cuda.synchronize()
@@ -3252,9 +3152,189 @@ def _fill(layout, values):
     return walk(layout)
 
 
+MP_RANKS = 2  # the multi-process phase's ranks, all on the card
+MP_TIMEOUT = 300  # seconds a rank may take before the phase fails
+MP_SEED_OFFSET = 11  # the phase's params and batches: multiproc_worker's --seed
+
+
+def phase_multiproc_train(seed):
+    """(a)-(e) of phase 12. Returns the ranks' launch counts of e's timed
+    steps, summed over the ranks."""
+    import tempfile
+
+    from stjep_tpu_torch.bridge import named_leaves, params_to
+    from stjep_tpu_torch.config import ModelConfig
+    from stjep_tpu_torch.models.seq2seq import init_seq2seq
+    from stjep_tpu_torch.scripts import multiproc_worker as W
+    from stjep_tpu_torch.train.optim import make_optimizer
+    from stjep_tpu_torch.train.trainer import make_train_step, step_grads
+
+    t_start = time.perf_counter()
+    S = seed + MP_SEED_OFFSET
+    cfg = ModelConfig(**FLAGSHIP)
+    init = init_seq2seq(cfg, torch.Generator().manual_seed(S), "cpu")
+    mb = W.tensor_item(W.make_item(cfg, B, FRAMES, S, 0))
+    names = [n for n, _ in named_leaves(init)]
+    with tempfile.TemporaryDirectory(prefix="stjep_multiproc_") as tmp:
+        work = Path(tmp)
+        # the one-process step on the card: a and b's reference (and its
+        # ReLU pieces, which the ranks replay), e's step time
+        single = {}
+        for drop in ("off", "on"):
+            params = params_to(init, "cuda")
+            with W.dropout_off(drop), W.relu_patterns() as pre:
+                losses, grads = step_grads(W.job_cfg(cfg, drop), "ASR_ST", params, [mb],
+                                           torch.Generator().manual_seed(S), "cuda")
+                torch.cuda.synchronize()
+            single[drop] = (float(sum(losses.values())), [g.detach().cpu() for g in grads],
+                            list(pre))
+            np.savez(work / f"pieces_grads_{drop}.npz", *[(x > 0).numpy() for x in pre])
+            del params, grads
+        params = params_to(init, "cuda")
+        opt = make_optimizer(1.0)
+        state = opt.init(params)
+        step = make_train_step(cfg, "ASR_ST", opt, device="cuda")
+        gen, secs = torch.Generator().manual_seed(S), []
+        mb_c = {k: v.cuda() for k, v in mb.items()}
+        zero_counts()
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, _ = step(params, state, [mb_c], gen, TRAIN_LR)
+            torch.cuda.synchronize()
+            secs.append((time.perf_counter() - t0) * 1e3)
+        one = read_counts(("K8 fwd", "K8 bwd", "K9 fwd", "K9 bwd"))
+        one = {k: v / len(secs) for k, v in one.items() if k.startswith(("K8", "K9"))}
+        del params, state, step, mb_c
+        torch.cuda.empty_cache()  # the ranks share the card
+
+        # the ranks
+        t_ranks = time.perf_counter()
+        jobs = "grads:off,grads:on,steps:on,trainer:on:3"
+        cmd = [sys.executable, "-m", "stjep_tpu_torch.scripts.multiproc_worker",
+               "--init", f"file://{work / 'rendezvous'}", "--world", str(MP_RANKS),
+               "--workdir", str(work), "--device", "cuda", "--cfg", json.dumps(FLAGSHIP),
+               "--batch", str(B), "--frames", str(FRAMES), "--seed", str(S),
+               "--lr", str(TRAIN_LR), "--jobs", jobs, "--relu", "--save_arrays",
+               "--timeout", str(MP_TIMEOUT)]
+        here = str(Path(__file__).resolve().parent)
+        env = {**os.environ, "PYTHONPATH": here + os.pathsep + os.environ.get("PYTHONPATH", "")}
+        logs = [open(work / f"log{r}.txt", "w+") for r in range(MP_RANKS)]
+        procs = [subprocess.Popen(cmd + ["--rank", str(r)], cwd=here, env=env,
+                                  stdout=logs[r], stderr=subprocess.STDOUT)
+                 for r in range(MP_RANKS)]
+        try:
+            deadline = time.perf_counter() + MP_TIMEOUT
+            for r, proc in enumerate(procs):
+                try:
+                    proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+                except subprocess.TimeoutExpired:
+                    raise RuntimeError(f"rank {r} ran past {MP_TIMEOUT} s") from None
+            for r, proc in enumerate(procs):
+                logs[r].seek(0)
+                need(proc.returncode == 0, f"rank {r} exited {proc.returncode}: "
+                     + " ".join(logs[r].read()[-1500:].split()))
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            for f in logs:
+                f.close()
+        ranks_s = time.perf_counter() - t_ranks
+        metas = []
+        for r in range(MP_RANKS):
+            with np.load(work / f"rank{r}.npz") as d:
+                metas.append(json.loads(str(d["meta"])))
+        m0 = metas[0]
+
+        # a, b: losses and gradients against the one-process step's
+        arrays = np.load(work / "rank0.npz")
+        for part, drop in (("a", "off"), ("b", "on")):
+            tag = f"grads_{drop}"
+            loss1, grads1, pre1 = single[drop]
+            need(all(m[f"{tag}_own_losses"] == m0[f"{tag}_own_losses"] for m in metas),
+                 f"{part}: the ranks' losses differ")
+            loss = sum(m0[f"{tag}_own_losses"].values())
+            loss_rel = abs(loss - loss1) / max(abs(loss1), 1e-30)
+            rel = {n: float((torch.from_numpy(arrays[f"{tag}/grad{n}"]) - g).abs().max())
+                   / max(float(g.norm()), 1e-30) for n, g in zip(names, grads1)}
+            worst_leaf = max(rel, key=rel.get)
+            pres = [np.load(work / f"pre_{tag}_rank{r}.npz") for r in range(MP_RANKS)]
+            flips, band_rel = 0, 0.0
+            for i, b in enumerate(pre1):
+                a = torch.cat([torch.from_numpy(p[f"arr_{i}"]) for p in pres])
+                top = max(float(b.abs().max()), 1e-30)
+                band_rel = max(band_rel, float((a - b).abs().max()) / top)
+                flips += int(((a > 0) != (b > 0)).sum())
+            say(f"multi-process train {part}", ranks=MP_RANKS, backend=m0["backend"],
+                dropout="off" if drop == "off" else cfg.dropout, spec_aug=drop == "on", B=B,
+                rows_a_rank=B // MP_RANKS, frames=FRAMES, loss=loss, loss_rel=loss_rel,
+                grad_max_rel_err=rel[worst_leaf], worst_leaf=worst_leaf, tol=1e-5,
+                relu_calls=len(pre1), relu_flips=flips, relu_flips_max=RELU_FLIPS_MAX,
+                relu_band_rel=band_rel, relu_band_max=RELU_BAND)
+            need(loss_rel <= 1e-5, f"{part}: two-rank loss off by {loss_rel} relative")
+            need(rel[worst_leaf] <= 1e-5,
+                 f"{part}: two-rank gradient {worst_leaf} off by {rel[worst_leaf]} of its norm")
+            need(flips <= RELU_FLIPS_MAX, f"{part}: {flips} ReLU pieces part the ranks' step")
+            need(band_rel <= RELU_BAND, f"{part}: the ranks' FFN pre-activations are off by "
+                                        f"{band_rel} of their largest")
+        arrays.close()
+        single = None
+
+        # c, d: the Trainer, its checkpoint
+        tag = "trainer_on_3"
+        same = {k: len({m[f"{tag}_{k}"] for m in metas}) == 1
+                for k in ("params_digest", "adam_digest", "path")}
+        say("multi-process train c", steps=3, params_bit_equal=same["params_digest"],
+            adam_bit_equal=same["adam_digest"], digest=m0[f"{tag}_params_digest"][:16],
+            cut=[m[f"{tag}_cut"] for m in metas], losses=m0[f"{tag}_losses"])
+        need(same["params_digest"] and same["adam_digest"],
+             "the ranks' params or Adam states differ after 3 Trainer steps")
+        need(all(m[f"{tag}_cut"] for m in metas), "the Trainer did not cut the batch")
+        writes = [m[f"{tag}_writes"] for m in metas]
+        loaded = [m[f"{tag}_loaded_params_equal"] and m[f"{tag}_loaded_adam_equal"]
+                  for m in metas]
+        say("multi-process train d", msgpack_writes=writes, dirs=m0[f"{tag}_saved_dirs"],
+            same_path=same["path"], loaded_bit_equal=loaded)
+        need(writes == [2] + [0] * (MP_RANKS - 1) and len(m0[f"{tag}_saved_dirs"]) == 1
+             and same["path"], f"checkpoint writes {writes}, dirs {m0[f'{tag}_saved_dirs']}")
+        need(all(loaded), f"a rank's checkpoint load differs from its state: {loaded}")
+
+        # e: the timings and the launches
+        tag = "steps_on"
+        launches = {k: sum(m[f"{tag}_launches"][k] for m in metas)
+                    for k in m0[f"{tag}_launches"]}
+        n = m0[f"{tag}_timed_steps"]
+        say("multi-process train e", backend=m0["backend"],
+            **{f"rank{r}_step_ms": m[f"{tag}_step_ms"] for r, m in enumerate(metas)},
+            **{f"rank{r}_median_ms": statistics.median(m[f"{tag}_step_ms"])
+               for r, m in enumerate(metas)},
+            one_process_step_ms=secs[2:], one_process_median_ms=statistics.median(secs[2:]),
+            all_reduce_ms=m0[f"{tag}_all_reduce_ms"],
+            all_reduce_median_ms=statistics.median(m0[f"{tag}_all_reduce_ms"]),
+            all_reduce_bytes=m0[f"{tag}_bucket_bytes"],
+            launches_a_step_a_rank={k: [m[f"{tag}_launches"][k] / n for m in metas]
+                                    for k in launches},
+            one_process_launches_a_step=one,
+            losses=m0[f"{tag}_step_losses"], ranks_s=round(ranks_s, 1),
+            **{f"rank{r}_jobs_s": {k[:-8]: round(v, 1) for k, v in m.items()
+                                   if k.endswith("_seconds")} for r, m in enumerate(metas)})
+        need(all(m[f"{tag}_params_digest"] == m0[f"{tag}_params_digest"] for m in metas),
+             "the ranks' params differ after make_train_step's steps")
+        need(all(np.isfinite(m0[f"{tag}_step_losses"])), "non-finite two-rank loss")
+        need(all(m[f"{tag}_launches"][k] == n * one[k] > 0 for m in metas for k in one),
+             f"K8/K9 launches a rank over {n} steps: {[m[f'{tag}_launches'] for m in metas]}, "
+             f"not the one-process step's {one} each step")
+    say("multi-process train", seconds=round(time.perf_counter() - t_start, 1))
+    return [launches]
+
+
 # the step of main() that runs, for the failure line when no phase_* function
 # is on the traceback
 STAGE = ["arguments"]
+# a phase's name on the failure line where it is not its function's
+PHASE_LABELS = {"phase_multiproc_train": "multi-process train"}
 
 
 def main() -> int:
@@ -3362,6 +3442,8 @@ def main() -> int:
     runs += phase_act_dense(args.seed, rng, params, params_c, cfg, reqs)
     # 11. the Trainer on a (data, model) mesh of the card
     runs += phase_mesh_train(args.seed, rng, params, cfg)
+    # 12. two ranks on the card, data parallel across processes
+    runs += phase_multiproc_train(args.seed)
     launches = {k: sum(r.get(k, 0) for r in runs) for k in counters()}
 
     src, rep = "stjep_tpu_torch/csrc/", "stjep_tpu/ops/"
@@ -3421,7 +3503,7 @@ def failed_phase(exc: BaseException) -> str:
     here = Path(__file__).resolve()
     names = [f.name for f in traceback.extract_tb(exc.__traceback__)
              if Path(f.filename).resolve() == here and f.name.startswith("phase_")]
-    return names[-1] if names else STAGE[0]
+    return PHASE_LABELS.get(names[-1], names[-1]) if names else STAGE[0]
 
 
 def run() -> int:

@@ -59,7 +59,7 @@ from stjep_tpu_torch.ops.las_flash import las_flash_supported
 from stjep_tpu_torch.ops.las_tf_flash import las_tf_flash_supported
 from stjep_tpu_torch.ops.lstm import lstm_cell_step, lstm_gates, lstm_init
 from stjep_tpu_torch.ops.masks import round_up8
-from stjep_tpu_torch.ops.transformer import dropout, on_device, split
+from stjep_tpu_torch.ops.transformer import dropout, split, uniform
 from stjep_tpu_torch.parallel.spmd import las_greedy_flash_dp, las_tf_scan_dp
 
 
@@ -110,10 +110,9 @@ def _make_drop_masks(generator: torch.Generator, cfg: ModelConfig,
     activations': torch does not promote a bf16 stream through f32 masks
     into its matmuls as JAX does)."""
     keep = 1.0 - cfg.dropout
-    shapes = ((n_steps, cfg.num_unilstm_dec, B, cfg.dim_model), (n_steps, B, 1, Ha2))
-    return tuple(((torch.rand(shape, generator=on_device(g, device), device=device)
-                   < keep).float() / keep).to(dtype)
-                 for g, shape in zip(split(generator), shapes))
+    shapes = (((n_steps, cfg.num_unilstm_dec, B, cfg.dim_model), 2), ((n_steps, B, 1, Ha2), 1))
+    return tuple(((uniform(g, shape, device, batch_dim=bd) < keep).float() / keep).to(dtype)
+                 for g, (shape, bd) in zip(split(generator), shapes))
 
 
 def _dec_lstm_stack(params: Dict, cfg: ModelConfig, x: torch.Tensor, h: List,

@@ -12,7 +12,10 @@ Randomness: a JAX key becomes a host `torch.Generator` on the CPU, and
 `split` stands where the JAX code calls `jax.random.split`, so the places
 where randomness is drawn correspond one to one (the streams differ). A
 draw for a CUDA tensor uses a generator on the tensor's device, seeded
-from the host generator, so no draw waits for the device.
+from the host generator, so no draw waits for the device. Under
+`batch_rows` (a process's rows of a batch split over processes, set by the
+train step) a draw with a batch dim is made at the whole batch's shape and
+the process's rows are taken, so they equal the one-process draw's rows.
 
 Over a model axis (the Trainer's mesh, parallel/mesh.py place_params) the
 ruled weights come as `Shards` and `mha` and `ffn` run Megatron-style, one
@@ -27,7 +30,8 @@ only where the heads divide over the shards, so a shard holds whole heads.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+import contextlib
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -56,9 +60,35 @@ def on_device(generator: torch.Generator, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
-def uniform(generator: torch.Generator, shape, device) -> torch.Tensor:
-    """The uniform draw behind a dropout mask of `shape` on `device`."""
-    return torch.rand(shape, generator=on_device(generator, device), device=device)
+_ROWS: Optional[Tuple[int, int]] = None  # (start, total) while batch_rows is active
+
+
+@contextlib.contextmanager
+def batch_rows(start: int, total: int):
+    """While active, the batches being drawn for are rows start.. of a
+    batch of `total` rows (this process's cut, train/trainer.py): `uniform`
+    draws at the whole batch's shape and takes these rows."""
+    global _ROWS
+    before, _ROWS = _ROWS, (start, total)
+    try:
+        yield
+    finally:
+        _ROWS = before
+
+
+def uniform(generator: torch.Generator, shape, device, batch_dim: int = 0) -> torch.Tensor:
+    """The uniform draw behind a dropout mask of `shape` on `device`; the
+    batch lies on `batch_dim` (module docstring)."""
+    gen = on_device(generator, device)
+    if _ROWS is None:
+        return torch.rand(shape, generator=gen, device=device)
+    start, total = _ROWS
+    whole = list(shape)
+    whole[batch_dim] = total
+    if start + shape[batch_dim] > total:
+        raise ValueError(f"a draw of {shape[batch_dim]} rows at row {start} of {total}")
+    return torch.rand(whole, generator=gen, device=device).narrow(batch_dim, start,
+                                                                  shape[batch_dim])
 
 
 def _keep_where(u: torch.Tensor, x: torch.Tensor, rate: float) -> torch.Tensor:

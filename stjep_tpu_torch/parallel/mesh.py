@@ -20,6 +20,13 @@ slices, so a ruled leaf's moments are slices too (JAX's
 projections stay replicated where the heads do not divide by n_model, as
 in the TP decode (parallel/spmd.py tp_flash_ok), so a shard always holds
 whole heads.
+
+Under a process group (parallel/distributed.py) a `Mesh` is this process's
+part of JAX's global one: its grid holds this process's devices, and the
+data axis spans the processes, world size times the rows held here, rank r
+holding the r-th run of them (`process_rows`). A model axis stays inside a
+process: one that would span processes needs tensor-parallel joins between
+processes, which the port does not make (`make_mesh` raises).
 """
 
 from __future__ import annotations
@@ -29,6 +36,8 @@ import re
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+
+from stjep_tpu_torch.parallel import distributed
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -49,12 +58,20 @@ _TP_RULES = [
 
 
 class Mesh:
-    """devices[d][m]: the device of data shard d, model shard m."""
+    """devices[d][m]: the device of this process's data shard d, model
+    shard m; `shape` is the global mesh's, whose data axis holds n_proc
+    times these rows, process `proc` holding its proc-th run of them."""
 
-    def __init__(self, devices: Sequence[Sequence[torch.device]]):
+    def __init__(self, devices: Sequence[Sequence[torch.device]], n_proc: int = 1,
+                 proc: int = 0):
         self.devices = [[torch.device(x) for x in row] for row in devices]
-        self.shape = {DATA_AXIS: len(self.devices),
+        self.n_proc, self.proc = n_proc, proc
+        self.shape = {DATA_AXIS: n_proc * len(self.devices),
                       MODEL_AXIS: len(self.devices[0])}
+
+    def process_rows(self, B: int) -> Optional[slice]:
+        """This process's rows of a batch of B (`process_rows`)."""
+        return process_rows(B, self.shape[DATA_AXIS], self.n_proc, self.proc)
 
     @property
     def lead(self) -> torch.device:
@@ -62,10 +79,27 @@ class Mesh:
         return self.devices[0][0]
 
 
+def process_rows(B: int, n_data: int, n_proc: int, proc: int) -> Optional[slice]:
+    """Process `proc`'s rows of a batch of B over a global data axis of
+    n_data rows held by n_proc processes: None with one process, or where B
+    does not divide by n_data (then every process runs the whole batch, as
+    JAX's shard_batch replicates it, stjep_tpu/parallel/mesh.py:127-129)."""
+    if n_proc == 1 or B % n_data:
+        return None
+    b = B // n_proc
+    return slice(proc * b, (proc + 1) * b)
+
+
 class Shards(tuple):
     """A ruled param leaf held as its model shards' slices along its rule's
     dim (`shard_dim`), in mesh order. bridge.named_leaves walks it as a
     tuple, so each slice is a leaf of its own ("<path>/0", ...)."""
+
+
+MODEL_AXIS_ACROSS_PROCESSES = (
+    "a model axis that spans processes needs tensor-parallel joins between "
+    "processes (NCCL across cards), which the port does not make: pick n_model "
+    "dividing each process's devices")
 
 
 def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
@@ -75,25 +109,32 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
     shards on one card is how tensor parallelism runs on one H100, e.g.
     make_mesh(1, 4, ["cuda"] * 4). Where the shape does not fit the
     devices, the mesh degrades to pure data parallelism with a warning, as
-    the JAX function does."""
+    the JAX function does. Under a process group `devices` are this
+    process's and n_data counts the global data axis (module docstring); a
+    model axis that fits the processes' devices together but not one
+    process's raises ValueError, where JAX's global mesh would span them."""
     if devices is None:
         devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
         if not devices:
             raise ValueError("make_mesh: no CUDA device visible; pass devices=")
     devices = [torch.device(x) for x in devices]
-    n = len(devices)
+    n, P = len(devices), distributed.world_size()
     log = logging.getLogger(__name__)
+    if P > 1 and n_model > 1 and n % n_model and (n * P) % n_model == 0:
+        raise ValueError(f"make_mesh: n_model={n_model} over {P} processes of {n} "
+                         f"device(s) each: {MODEL_AXIS_ACROSS_PROCESSES}")
     if n_model < 1 or n % n_model != 0:
         log.warning("make_mesh: n_model=%s does not divide %d devices; "
                     "falling back to pure data parallelism", n_model, n)
-        n_data, n_model = n, 1
+        n_data, n_model = n * P, 1
     if n_data is None:
-        n_data = n // n_model
-    if n_data * n_model != n:
+        n_data = n // n_model * P
+    if n_data * n_model != n * P:
         log.warning("make_mesh: (%d, %d) != %d devices; falling back to pure DP",
-                    n_data, n_model, n)
-        n_data, n_model = n, 1
-    return Mesh([devices[d * n_model:(d + 1) * n_model] for d in range(n_data)])
+                    n_data, n_model, n * P)
+        n_data, n_model = n * P, 1
+    return Mesh([devices[d * n_model:(d + 1) * n_model] for d in range(n_data // P)],
+                n_proc=P, proc=distributed.rank())
 
 
 def map_with_path(tree: Any, fn: Callable[[str, Any], Any], prefix: Tuple = ()):

@@ -49,7 +49,7 @@ import torch
 
 from stjep_tpu_torch.bridge import params_to
 from stjep_tpu_torch.ops.decode_flash_tp import ModelAxis
-from stjep_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh, shard_params
+from stjep_tpu_torch.parallel.mesh import MODEL_AXIS, Mesh, shard_params
 
 _KERNEL_MESH: Optional[Mesh] = None
 
@@ -87,11 +87,12 @@ def tp_flash_ok(cfg) -> bool:
 def _data_rows(B: int) -> Optional[List[torch.device]]:
     """The data rows' first devices when a batch of B shards over the
     installed mesh's data axis, else None (no mesh, one row, or B not
-    divisible by n_data): then the plain call runs."""
+    divisible by n_data): then the plain call runs. Under a process group
+    the rows are this process's and B its batch (its rows of the whole)."""
     mesh = kernel_mesh()
     if mesh is None:
         return None
-    n = mesh.shape[DATA_AXIS]
+    n = len(mesh.devices)
     if n == 1 or B % n:
         return None
     return [row[0] for row in mesh.devices]
@@ -194,9 +195,9 @@ def _per_data_shard(decode, params, cfg, batched: Dict[str, Optional[torch.Tenso
     mesh = kernel_mesh()
     lead = next(iter(batched.values()))
     tp = mesh is not None and not dp_only_mesh()
-    if mesh is None or (tp and not tp_flash_ok(cfg)) or lead.shape[0] % mesh.shape[DATA_AXIS]:
+    if mesh is None or (tp and not tp_flash_ok(cfg)) or lead.shape[0] % len(mesh.devices):
         return decode(params, cfg, **batched, **kw)
-    n = mesh.shape[DATA_AXIS]
+    n = len(mesh.devices)
     b = lead.shape[0] // n
     built, outs = {}, []
     for d in range(n):

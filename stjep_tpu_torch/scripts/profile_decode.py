@@ -4,7 +4,7 @@
     python3 stjep_tpu_torch/scripts/profile_decode.py [--seed 0] [--n_model N] [--train]
         [--train_loop] [--act]
 
-The paths are chip_smoke.py's: ST beam-5 (forward_translate) and dev eval
+The paths are chip_smoke.py's (its flagship workload is flagship.py's): ST beam-5 (forward_translate) and dev eval
 (forward_eval ASR_ST with reference ids), each on the standard and on the
 universal transformer, at B=16 with random weights; and the serving decode,
 ST beam-5 on the standard model with bf16 caches and int8 weights, at B=16
@@ -37,6 +37,7 @@ eight device kernels with the most time.
 from __future__ import annotations
 
 import argparse
+import subprocess
 import sys
 import time
 from collections import defaultdict
@@ -47,7 +48,9 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
-import chip_smoke as cs  # noqa: E402
+from stjep_tpu_torch.scripts import flagship as cs  # noqa: E402
+from stjep_tpu_torch.utils import trace_tools  # noqa: E402
+from stjep_tpu_torch.utils.profiling import launch_counts, zero_launch_counts  # noqa: E402
 
 
 # device kernels that only a decode position launches; the decode loop's
@@ -58,9 +61,9 @@ STEP_KERNELS = ("layer_kernel", "beam_kernel", "chain_kernel", "head_full_kernel
 
 
 def positions(n_model: int) -> int:
-    """Decode positions since cs.zero_counts(): each runs one head (K3,
+    """Decode positions since zero_launch_counts(): each runs one head (K3,
     K4, or K7 and its gather variant; K7c once per shard)."""
-    got = {k: getattr(fn, attr) for k, (fn, attr) in cs.counters().items()}
+    got = launch_counts()
     single = sum(v for k, v in got.items()
                  if k.split()[0] in ("K3", "K4") and k != "K4 select"
                  or k in ("K7 head", "K7 head_gather"))
@@ -77,7 +80,7 @@ def profile(label: str, fn, n_model: int = 1, n_steps: int = 0, count_positions=
     torch.cuda.synchronize()
     plain_wall = (time.perf_counter() - t0) * 1e3
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    cs.zero_counts()
+    zero_launch_counts()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
@@ -85,10 +88,9 @@ def profile(label: str, fn, n_model: int = 1, n_steps: int = 0, count_positions=
         wall = (time.perf_counter() - t0) * 1e3
     n_pos = count_positions() if count_positions else positions(n_model)
     events = prof.events()
-    dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    host_ops = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CPU
-                   and e.name.startswith("aten::"))
-    busy = cs.busy_union_ms((e.time_range.start, e.time_range.end) for e in dev)
+    dev = trace_tools.device_ops(events)
+    reading = trace_tools.profile_reading(events, wall)
+    host_ops, busy = reading["host_aten_ops"], reading["busy_ms"]
     steps = [e.time_range for e in dev if any(k in e.name for k in STEP_KERNELS)]
     per_pos = {}
     if steps and n_pos:
@@ -284,7 +286,7 @@ def act_paths(seed: int, rng, f, l):
         cs.say(f"train step ASR_ST remat={remat} memory",
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
         del state
-    print(cs.subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                              "--format=csv,noheader"], capture_output=True, text=True,
                             check=True).stdout.strip(), flush=True)
 
@@ -373,7 +375,7 @@ def main() -> int:
                     params, cfg, "ST", acous_feats=fn, acous_lens=ln, beam_width=cs.BEAM,
                     penalty_factor=1.0, max_seq_len=cs.DECODE_LEN, device="cuda",
                     cache_dtype=torch.bfloat16, weight_dtype="int8"))
-    print(cs.subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                              "--format=csv,noheader"], capture_output=True, text=True,
                             check=True).stdout.strip(), flush=True)
     return 0

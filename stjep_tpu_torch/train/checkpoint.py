@@ -9,7 +9,10 @@ latest/2nd/3rd-latest lookup, and checkpoint weight averaging
 params.msgpack and opt_state.msgpack in flax's msgpack format
 (`flax_msgpack.py`), meta.json and the vocab JSONs, so either package loads
 the other's checkpoints. `opt_state` here is optax's state tree as
-`Optimizer.state_tree` gives it. One process writes.
+`Optimizer.state_tree` gives it. Under a process group every rank calls
+the writes, rank 0 alone touches the filesystem, and a barrier follows,
+so a load right after sees a complete dir (JAX :76-106); the params are
+replicated over the ranks, so each holds the whole tree to write already.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from stjep_tpu_torch.parallel import distributed
 from stjep_tpu_torch.train import flax_msgpack
 from stjep_tpu_torch.train.policies import get_path, has_path, map_with_path
 
@@ -58,21 +62,25 @@ class Checkpoint:
     # ----------------------------------------------------------- saving
 
     def _write(self, path: str) -> str:
-        if os.path.exists(path):
-            shutil.rmtree(path)
-        os.makedirs(path)
-        with open(os.path.join(path, PARAMS_NAME), "wb") as f:
-            f.write(flax_msgpack.to_bytes(self.params))
-        if self.opt_state is not None:
-            with open(os.path.join(path, OPT_NAME), "wb") as f:
-                f.write(flax_msgpack.to_bytes(self.opt_state))
-        with open(os.path.join(path, META_NAME), "w") as f:
-            json.dump({"epoch": self.epoch, "step": self.step,
-                       "model_config": self.model_config}, f)
-        with open(os.path.join(path, INPUT_VOCAB_FILE), "w") as f:
-            json.dump(list(self.input_vocab), f)
-        with open(os.path.join(path, OUTPUT_VOCAB_FILE), "w") as f:
-            json.dump(list(self.output_vocab), f)
+        """Write the checkpoint dir: collective under a process group (module
+        docstring)."""
+        if distributed.is_primary():
+            if os.path.exists(path):
+                shutil.rmtree(path)
+            os.makedirs(path)
+            with open(os.path.join(path, PARAMS_NAME), "wb") as f:
+                f.write(flax_msgpack.to_bytes(self.params))
+            if self.opt_state is not None:
+                with open(os.path.join(path, OPT_NAME), "wb") as f:
+                    f.write(flax_msgpack.to_bytes(self.opt_state))
+            with open(os.path.join(path, META_NAME), "w") as f:
+                json.dump({"epoch": self.epoch, "step": self.step,
+                           "model_config": self.model_config}, f)
+            with open(os.path.join(path, INPUT_VOCAB_FILE), "w") as f:
+                json.dump(list(self.input_vocab), f)
+            with open(os.path.join(path, OUTPUT_VOCAB_FILE), "w") as f:
+                json.dump(list(self.output_vocab), f)
+        distributed.barrier("ckpt_write:" + path)
         self._path = path
         return path
 
@@ -81,8 +89,12 @@ class Checkpoint:
         keeps names unique and lexicographically ordered."""
         # ONE clock read for both parts: a second read can straddle a second
         # rollover and emit old-second + new-microseconds, which sorts
-        # BEFORE the previous checkpoint and breaks the latest lookups
+        # BEFORE the previous checkpoint and breaks the latest lookups;
+        # rank 0's read on every rank, so the ranks name the same dir
         now = time.time()
+        if distributed.world_size() > 1:
+            t = torch.tensor([now if distributed.is_primary() else 0.0], dtype=torch.float64)
+            now = float(distributed.all_reduce_sum(t)[0])
         date_time = time.strftime("%Y_%m_%d_%H_%M_%S", time.localtime(now))
         date_time += "_{:06d}".format(int((now % 1) * 1e6))
         return self._write(os.path.join(experiment_dir, CHECKPOINT_DIR_NAME, date_time))
@@ -98,7 +110,10 @@ class Checkpoint:
         return self._write(dir_path)
 
     def rm_old(self, experiment_dir: str, keep_num: int = 3):
-        """Prune to keep_num newest (ref: checkpoint.py:138-148)."""
+        """Prune to keep_num newest (ref: checkpoint.py:138-148); rank 0
+        alone under a process group."""
+        if not distributed.is_primary():
+            return
         checkpoints_path = os.path.join(experiment_dir, CHECKPOINT_DIR_NAME)
         all_times = sorted(os.listdir(checkpoints_path), reverse=True)
         for name in all_times[keep_num:]:

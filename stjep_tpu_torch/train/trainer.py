@@ -32,11 +32,26 @@ default (one device on the CPU); they may repeat, as ["cuda"] * 4 gives a
 (2, 2) mesh of one card. Checkpoints hold the gathered params and
 optax's unsharded state tree, whatever the mesh. A failed upload of the
 device feature cache falls back to per-step staging, as JAX's does.
-Training across processes (DDP) is not ported (ROADMAP Queue A item 6).
+
+Across processes (JAX's mesh whose data axis spans hosts): the script
+that starts each rank calls parallel/distributed.py's `init_distributed`,
+then builds the Trainer or the step as usual. Each rank runs the forward and backward on its rows of
+every minibatch (`Mesh.process_rows`; the Trainer cuts each macro batch on
+the host, before staging), each head normalised by the whole minibatch's
+mask count, which the minibatch carries (`norm_en`, `norm_de`); the
+dropout draws take the rank's rows of the whole minibatch's draws
+(ops/transformer.py batch_rows). The gradients and the losses are summed
+over the ranks in one all_reduce of a flat bucket before the clip and
+Adam, so every rank applies the same update and holds the same params and
+Adam state. A minibatch whose rows do not divide by the global data axis
+runs whole on every rank, with no sum, as JAX's shard_batch replicates it.
+Dev eval runs whole on every rank and its numbers are rank 0's, so every
+rank takes the same decisions; rank 0 alone writes checkpoints and scalars.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -64,7 +79,8 @@ from stjep_tpu_torch.models.seq2seq import forward_eval, forward_train
 from stjep_tpu_torch.models.tf_encoder import uses_act
 from stjep_tpu_torch.ops.losses import normalise
 from stjep_tpu_torch.ops.masks import bucket_length, round_up8
-from stjep_tpu_torch.ops.transformer import split
+from stjep_tpu_torch.ops.transformer import batch_rows, split
+from stjep_tpu_torch.parallel import distributed
 from stjep_tpu_torch.parallel.mesh import (
     Mesh,
     Shards,
@@ -72,6 +88,7 @@ from stjep_tpu_torch.parallel.mesh import (
     logical_leaves,
     make_mesh,
     place_params,
+    process_rows,
     shard_dim,
 )
 from stjep_tpu_torch.parallel.spmd import kernel_mesh, set_kernel_mesh
@@ -89,35 +106,59 @@ LOSS_COEFF = {"nll_asr": 1.0, "nll_mt": 1.0, "nll_st": 1.0}
 def head_losses(cfg: ModelConfig, mode: str, out: Dict, srcid: torch.Tensor,
                 tgtid: Optional[torch.Tensor], inv_n: float,
                 loss_coeff: Optional[Dict] = None, eval_with_mask: bool = True,
-                normalise_loss: bool = True):
+                normalise_loss: bool = True, norms: Optional[Dict] = None):
     """Per-head masked NLL over the picked log-probs of forward_train
     (ref_pick=True), with the reference's normalise / coefficient / 1/n_mini
-    scaling. Returns (total, {"nll_loss_en", "nll_loss_de"})."""
+    scaling. `norms` ({"norm_en", "norm_de"}: device scalars) replace the
+    normalisers this batch's targets give: a process's rows of a minibatch
+    are normalised by the whole minibatch's (`head_norms`). Returns (total,
+    {"nll_loss_en", "nll_loss_de"})."""
     coeffs = loss_coeff or LOSS_COEFF
+    norms = norms or {}
     losses = {"nll_loss_en": 0.0, "nll_loss_de": 0.0}
     total = 0.0
 
-    def head(picked, targets, coeff):
+    def head(picked, targets, coeff, norm):
         mask = (targets != PAD).to(picked.dtype)
         if eval_with_mask:
-            s, norm = -torch.sum(picked * mask), torch.sum(mask)
+            s = -torch.sum(picked * mask)
+            norm = torch.sum(mask) if norm is None else norm.to(picked.dtype)
         else:
             s = -torch.sum(picked)
-            norm = torch.full((), float(targets.numel()), device=picked.device)
+            norm = (torch.full((), float(targets.numel()), device=picked.device)
+                    if norm is None else norm)
         loss = normalise(s, norm) if normalise_loss else s
         return loss * coeff * inv_n
 
     if "ASR" in mode:
         coeff = coeffs["nll_asr"] if mode == "ASR_ST" else 1.0
-        losses["nll_loss_en"] = head(out["picked_asr"], srcid[:, 1:], coeff)
+        losses["nll_loss_en"] = head(out["picked_asr"], srcid[:, 1:], coeff,
+                                     norms.get("norm_en"))
         total = total + losses["nll_loss_en"]
     if mode == "MT":
-        losses["nll_loss_de"] = head(out["picked_mt"], tgtid[:, 1:], coeffs["nll_mt"])
+        losses["nll_loss_de"] = head(out["picked_mt"], tgtid[:, 1:], coeffs["nll_mt"],
+                                     norms.get("norm_de"))
         total = total + losses["nll_loss_de"]
     if "ST" in mode:
-        losses["nll_loss_de"] = head(out["picked_st"], tgtid[:, 1:], coeffs["nll_st"])
+        losses["nll_loss_de"] = head(out["picked_st"], tgtid[:, 1:], coeffs["nll_st"],
+                                     norms.get("norm_de"))
         total = total + losses["nll_loss_de"]
     return total, losses
+
+
+def head_norms(srcid, tgtid, eval_with_mask: bool = True) -> Dict:
+    """The normalisers of a whole minibatch's heads ({"norm_en", "norm_de"},
+    float32 of srcid's kind: numpy arrays or tensors), over its leading
+    dims but the last two: its targets' non-PAD count, or with
+    eval_with_mask False their number, as head_losses takes them."""
+    out = {}
+    for key, ids in (("norm_en", srcid), ("norm_de", tgtid)):
+        if ids is None:
+            continue
+        t = ids[..., 1:]
+        n = ((t != PAD) if eval_with_mask else (t == t)).sum(-1).sum(-1)
+        out[key] = np.asarray(n, np.float32) if isinstance(ids, np.ndarray) else n.float()
+    return out
 
 
 AE_NO_LOSS = (
@@ -142,15 +183,19 @@ def compute_grads(cfg: ModelConfig, mode: str, params: Dict,
                   minibatches: Sequence[Dict], generator: torch.Generator,
                   is_training: bool = True, inv_n: Optional[float] = None,
                   loss_coeff: Optional[Dict] = None, eval_with_mask: bool = True,
-                  normalise_loss: bool = True):
+                  normalise_loss: bool = True, cut: bool = False):
     """Summed losses and gradients over the minibatches, each loss scaled
     by inv_n (default 1 / len(minibatches); the Trainer passes 1 / the
     number of minibatches holding real rows). A minibatch holds srcid
     [B, Ls], and as the mode needs tgtid [B, Lt], acous_feat [B, T, C] and
     acouslen [B]. is_training=False gives the deterministic step (no
     dropout, no SpecAugment) that holds one device against another.
-    Returns (losses dict of device scalars, grads in bridge.leaves(params)
-    order). Reads nothing back to the host."""
+    With `cut` the minibatches are this process's rows of whole ones (rank
+    r of P holds rows r*b.. of P*b), each carrying its whole minibatch's
+    `head_norms`: the draws take those rows of the whole minibatch's, and
+    the losses and gradients are summed over the processes (module
+    docstring). Returns (losses dict of device scalars, grads in
+    bridge.leaves(params) order). Reads nothing back to the host."""
     _check_trainable(cfg, mode)
     ps = leaves(params)
     for p in ps:
@@ -160,38 +205,90 @@ def compute_grads(cfg: ModelConfig, mode: str, params: Dict,
     grads = [torch.zeros_like(p) for p in ps]
     zero = torch.zeros((), device=ps[0].device)
     sums = {"nll_loss_en": zero, "nll_loss_de": zero}
+    P, r = distributed.world_size(), distributed.rank()
     for mb, g in zip(minibatches, split(generator, len(minibatches))):
-        out = forward_train(params, cfg, mode, src=mb["srcid"], tgt=mb.get("tgtid"),
-                            acous_feats=mb.get("acous_feat"),
-                            acous_lens=mb.get("acouslen"), generator=g,
-                            is_training=is_training, ref_pick=True)
-        total, losses = head_losses(cfg, mode, out, mb["srcid"], mb.get("tgtid"),
-                                    inv_n, loss_coeff, eval_with_mask, normalise_loss)
-        gs = torch.autograd.grad(total, ps, allow_unused=True)
+        b = mb["srcid"].shape[0]
+        with batch_rows(r * b, P * b) if cut else contextlib.nullcontext():
+            out = forward_train(params, cfg, mode, src=mb["srcid"], tgt=mb.get("tgtid"),
+                                acous_feats=mb.get("acous_feat"),
+                                acous_lens=mb.get("acouslen"), generator=g,
+                                is_training=is_training, ref_pick=True)
+            total, losses = head_losses(cfg, mode, out, mb["srcid"], mb.get("tgtid"),
+                                        inv_n, loss_coeff, eval_with_mask, normalise_loss,
+                                        norms=mb if cut else None)
+            gs = torch.autograd.grad(total, ps, allow_unused=True)
         for acc, gr in zip(grads, gs):
             if gr is not None:
                 acc.add_(gr)
         sums = {k: sums[k] + (v.detach().float() if torch.is_tensor(v) else v)
                 for k, v in losses.items()}
+    if cut:
+        sums = _sum_over_processes(sums, grads)
     return sums, grads
+
+
+def _sum_over_processes(sums: Dict, grads: List[torch.Tensor]) -> Dict:
+    """The gradients (in place) and the losses summed over the processes in
+    one all_reduce of a flat f32 bucket: the gradients in bridge.leaves
+    order, then the losses. Returns the summed losses."""
+    lead = grads[0].device
+    keys = sorted(sums)
+    bucket = torch.cat([g.reshape(-1).to(lead, torch.float32) for g in grads]
+                       + [sums[k].reshape(1).to(lead) for k in keys])
+    distributed.all_reduce_sum(bucket)
+    parts = bucket.split([g.numel() for g in grads] + [1] * len(keys))
+    for g, part in zip(grads, parts):
+        g.copy_(part.view(g.shape))
+    return {k: part[0] for k, part in zip(keys, parts[len(grads):])}
+
+
+def own_rows(B: int) -> Optional[slice]:
+    """This process's rows of a minibatch of B (mesh.process_rows) under
+    the installed kernel mesh; without one, each process counts as one
+    device."""
+    mesh = kernel_mesh()
+    if mesh is not None:
+        return mesh.process_rows(B)
+    P = distributed.world_size()
+    return process_rows(B, P, P, distributed.rank())
+
+
+def step_grads(cfg: ModelConfig, mode: str, params: Dict, minibatches: List[Dict],
+               generator: torch.Generator, device="cuda", **kw):
+    """make_train_step's gradient half: the minibatches moved to `device`
+    (params must lie there) and compute_grads in training mode (`kw` its
+    options). Under a process group, where every minibatch's rows divide
+    by the global data axis, each rank takes its rows of each minibatch,
+    which carry the whole minibatch's normalisers, and the losses and
+    gradients come summed over the ranks; elsewhere every rank runs the
+    whole minibatches, with no sum."""
+    device = check_params_device(params, device)
+    rows = [own_rows(mb["srcid"].shape[0]) for mb in minibatches]
+    cut = all(r is not None for r in rows)
+    mbs = []
+    for mb, r in zip(minibatches, rows):
+        if cut:
+            mb = {**{k: v[r] for k, v in mb.items()},
+                  **head_norms(mb["srcid"], mb.get("tgtid"), kw.get("eval_with_mask", True))}
+        mbs.append({k: v.to(device) for k, v in mb.items()})
+    return compute_grads(cfg, mode, params, mbs, generator, cut=cut, **kw)
 
 
 def make_train_step(cfg: ModelConfig, mode: str, optimizer: Optimizer,
                     device="cuda"):
     """The step `step(params, opt_state, minibatches, generator, lr) ->
-    (params, opt_state, losses)`: compute_grads in training mode, then the
-    optimizer's clip and Adam with lr, updating params in place (the JAX
-    step donates and returns them). It runs on `device`, the card unless
-    the caller asks for the CPU: the minibatches move there, and params
-    must already lie there (ValueError otherwise)."""
+    (params, opt_state, losses)`: step_grads, then the optimizer's clip
+    and Adam with lr, updating params in place (the JAX step donates and
+    returns them). It runs on `device`, the card unless the caller asks
+    for the CPU: the minibatches move there, and params must already lie
+    there (ValueError otherwise). Under a process group each rank passes
+    the whole minibatches and steps on its rows of them (step_grads)."""
     _check_trainable(cfg, mode)
     device = torch.device(device)
 
     def step(params: Dict, opt_state, minibatches: List[Dict],
              generator: torch.Generator, lr: float):
-        check_params_device(params, device)
-        mbs = [{k: v.to(device) for k, v in mb.items()} for mb in minibatches]
-        losses, grads = compute_grads(cfg, mode, params, mbs, generator)
+        losses, grads = step_grads(cfg, mode, params, minibatches, generator, device)
         optimizer.update(grads, set_lr(opt_state, lr))
         return params, opt_state, losses
 
@@ -205,9 +302,13 @@ class _ScalarWriter:
 
     def __init__(self, log_dir: str):
         os.makedirs(log_dir, exist_ok=True)
-        self._jsonl = open(os.path.join(log_dir, "scalars.jsonl"), "a")
+        # rank 0 alone writes under a process group
+        self._jsonl = (open(os.path.join(log_dir, "scalars.jsonl"), "a")
+                       if distributed.is_primary() else None)
 
     def add_scalar(self, tag: str, value, global_step: int = 0):
+        if self._jsonl is None:
+            return
         self._jsonl.write(json.dumps(
             {"tag": tag, "value": float(value), "step": int(global_step)}) + "\n")
         self._jsonl.flush()
@@ -275,13 +376,17 @@ class Trainer:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is visible: the trainer runs on the "
                                "card unless the caller passes device='cpu'")
-        if devices is None:  # JAX's jax.devices(): every visible card
-            devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-                       if self.device.type == "cuda" else [self.device])
+        if devices is None:  # JAX's jax.local_devices(): every visible card, the
+            # current one a rank under a process group
+            devices = ([self.device] if self.device.type != "cuda"
+                       else [torch.device("cuda", torch.cuda.current_device())]
+                       if distributed.world_size() > 1
+                       else [torch.device("cuda", i) for i in range(torch.cuda.device_count())])
         self.devices = [torch.device(d) for d in devices]
         if any(d.type != self.device.type for d in self.devices):
             raise ValueError(f"mesh devices {self.devices} are not all {self.device.type}")
         self._mesh: Optional[Mesh] = None
+        self._rows: Optional[slice] = None  # this process's rows of a minibatch
         # host staging dtype of the acoustic features: None keeps the
         # loader's float32; "bfloat16" halves the host-to-device bytes;
         # "int8" quarters them (per-utterance scales, dequantized on the
@@ -370,8 +475,9 @@ class Trainer:
         return fits
 
     def _host_macro(self, item):
-        """Host half of batch staging: pad/reshape the macro batch, resolve
-        cache rows, quantize features. Returns (macro, n_real, t_bucket):
+        """Host half of batch staging: pad/reshape the macro batch, cut it
+        to this process's rows (module docstring), resolve cache rows,
+        quantize features. Returns (macro, n_real, t_bucket):
         t_bucket is None except on the device-cache path, where the macro
         carries row indices and the step gathers them, cut to t_bucket."""
         t_bucket = None
@@ -381,6 +487,9 @@ class Trainer:
             t_bucket = bucket_length(
                 int(round_up8(max(1, int(item["acouslen"].max())))), self.acous_bucket)
         macro, n_real = self._device_batch(item, self.batch_size)
+        if self._rows is not None:  # this process's rows, the whole minibatches' normalisers
+            norms = head_norms(macro["srcid"], macro.get("tgtid"), self.eval_with_mask)
+            macro = {**{k: v[:, self._rows] for k, v in macro.items()}, **norms}
         if self.feat_dtype == "int8" and "acous_feat" in macro:
             qd = quantize_batch(macro["acous_feat"], np.float32)
             macro["acous_feat"] = qd["q"]
@@ -434,7 +543,7 @@ class Trainer:
         return compute_grads(
             cfg, self.MODE, params, mbs, generator, inv_n=inv_n,
             loss_coeff=self.loss_coeff, eval_with_mask=self.eval_with_mask,
-            normalise_loss=self.normalise_loss)
+            normalise_loss=self.normalise_loss, cut=self._rows is not None)
 
     def _step(self, cfg, params, opt_state, macro, t_bucket, generator, lr, inv_n):
         """One train step on a placed macro batch: `_grads`, then clip and
@@ -627,12 +736,13 @@ class Trainer:
 
     def _setup_mesh(self):
         """Build and install the (data, model) mesh when more than one
-        device is given or n_model > 1 (JAX :386-405); one device and
-        n_model 1 keep no mesh. make_mesh degrades a shape that does not fit
-        the devices to pure data parallelism, with JAX's warning."""
+        device is given, n_model > 1 or the process group has more than
+        one rank (JAX :386-405); one device and n_model 1 keep no mesh.
+        make_mesh degrades a shape that does not fit the devices to pure
+        data parallelism, with JAX's warning."""
         if self._mesh is not None:
             return
-        if len(self.devices) > 1 or self.n_model > 1:
+        if len(self.devices) > 1 or self.n_model > 1 or distributed.world_size() > 1:
             self._mesh = make_mesh(n_model=self.n_model, devices=self.devices)
             self.device = self._mesh.lead  # where batches, joins and dev eval go
             self.logger.info("device mesh: %s", self._mesh.shape)
@@ -656,6 +766,7 @@ class Trainer:
         start_epoch, start_step)."""
         check_params_device(params, self.device)
         self._setup_mesh()
+        self._rows = self._mesh.process_rows(self.minibatch_size) if self._mesh else None
         start_epoch, step = 1, 0
         self._compute_dtype = _float_dtype(params)
         if "resume" in self.load_mode or "restart" in self.load_mode:
@@ -790,7 +901,8 @@ class Trainer:
                     log.info("evaluating at step %d ...", step)
                     self._sync()
                     t0 = time.perf_counter()
-                    losses_d, metrics = self._evaluate_batches(cfg, params, dev_set)
+                    losses_d, metrics = _primary_numbers(
+                        *self._evaluate_batches(cfg, params, dev_set))
                     self.timing["eval_s"] += time.perf_counter() - t0
                     self.timing["eval_utts"] += dev_set.num_training_sentences
                     for tag in ("nll_loss_en", "nll_loss_de"):
@@ -870,6 +982,18 @@ class Trainer:
         _assign(params, ckpt.params)
         if ckpt.opt_state is not None:
             self._tx.load_state_tree(params, opt_state, ckpt.opt_state)
+
+
+def _primary_numbers(*dicts: Dict) -> tuple:
+    """Dicts of numbers as rank 0 holds them, on every rank (themselves
+    with one process): the dev eval's numbers every rank decides on."""
+    if distributed.world_size() == 1:
+        return dicts
+    vals = torch.tensor([float(v) for d in dicts for v in d.values()], dtype=torch.float64)
+    if not distributed.is_primary():
+        vals.zero_()
+    it = iter(distributed.all_reduce_sum(vals).tolist())
+    return tuple({k: next(it) for k in d} for d in dicts)
 
 
 def _cast_tree(tree, dtype):
