@@ -231,6 +231,35 @@ package beside it, included):
       rank's K8/K9 launches a step (the kernels line adds them).
    A rank that fails, or runs past MP_TIMEOUT, fails the phase.
 
+13. recipe (its own seconds on its last line): the port's end-to-end
+   training scripts (stjep_tpu_torch/scripts/):
+   a. full_recipe.py --dims flagship: scripts/run_full_recipe.sh's six
+      stages through the port's CLIs at the flagship widths on the train
+      cli phase's corpus (CORPUS_UTTS), 4 steps a training stage: ASR, mode 3,
+      MT on its artifact, ASR_ST from the ASR checkpoint (--load_mode ASR),
+      ST from the joint one (ALL-PARTIAL, the LAS frozen), the ST beam-5
+      decode. Each stage's launch counts zeroed before it and read after
+      it: K8 and K9 (forward and backward) in ASR and ASR_ST, K8 and no K9
+      in ST (its LAS runs free, through the differentiable step loop, as
+      JAX's XLA scan), K1 and K9's forward in mode 3, K1-K4 in the decode,
+      no K8 in MT; the
+      script's checks (a checkpoint a training stage, the artifact's
+      shape, a line a test utterance, the LAS loaded at step 0 of ASR_ST,
+      bit-equal after ST while other leaves moved); the decode's lines
+      equal to forward_translate's on the same staged batches
+      (`cli_staged_lines`, the translate cli phase's helper);
+   b. quality_ab.py for seed 333 at 4 + 4 epochs on the quality run's
+      corpus and widths: it finishes and writes its JSON; WER and BLEU
+      printed, not held (the run is too short for the band); K1, K3, K3
+      gather, K4 and K8 launched, and no K2 or K9 (the LAS step loop at
+      these widths, JAX's gate). Its kernels held at these widths (D 32,
+      head width 8, acoustic hidden 16) on the run's own inputs: the
+      joint stage's first dev eval at B = 32 (K1, K3 gather) and the ST
+      beam decode's first batch (K1, K3, K4) against CPU copies, rows
+      equal up to ties (1e-3) and picked_* within 1e-4; K8 forward and
+      backward at that dev batch's lengths against the plain version
+      (1e-4 and 1e-3 relative).
+
 The last lines: a JSON object with one entry per kernel (its launches
 summed over the main paths' runs), the total seconds, the nvidia-smi line,
 then {"ok": true, "device": {...}}.
@@ -239,6 +268,7 @@ then {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -253,8 +283,8 @@ import torch
 
 try:  # the flagship workload and the helpers the port's scripts share
     from stjep_tpu_torch.scripts.flagship import (
-        B, BEAM, CORPUS_FRAMES, DECODE_LEN, FLAGSHIP, FRAMES, TRAIN_LR, inputs, say,
-        train_batch, write_corpus)
+        B, BEAM, CORPUS_FRAMES, CORPUS_UTTS, DECODE_LEN, FLAGSHIP, FRAMES, TRAIN_LR, inputs,
+        say, train_batch, train_flags, write_corpus)
     from stjep_tpu_torch.utils.profiling import VARIANTS, variant_label
 except ImportError as e:  # run without the package beside it
     traceback.print_exc()
@@ -1360,6 +1390,29 @@ def rel_err(a, b) -> float:
     return max_err(a, b) / scale if scale > 0 else max_err(a, b)
 
 
+K8_TOL = {"fwd": 1e-4, "bwd": 1e-3}  # relative; phase_k8 says why
+
+
+def k8_layer(p, rng, n, T, din, lens):
+    """One pyramid layer (params p) through K8's forward and backward and
+    their plain versions on the same tensors: inputs x [n, T, din] and
+    output gradients g from rng, on the card. Returns (x, g, the forward's
+    arguments, its outputs, the plain ones, the backward's arguments, its
+    output, the plain one)."""
+    from stjep_tpu_torch.ops import lstm_pallas_bwd as k8
+
+    H = p["fwd"]["w_hh"].shape[0]
+    w = tuple((p["fwd"][k], p["bwd"][k]) for k in ("w_ih", "w_hh"))
+    bias = tuple(q["b_ih"] + q["b_hh"] for q in (p["fwd"], p["bwd"]))
+    x = torch.from_numpy(rng.uniform(-1, 1, (n, T, din)).astype(np.float32)).cuda()
+    g = torch.from_numpy(rng.randn(n, T, 2 * H).astype(np.float32)).cuda()
+    fargs = (*w, bias, x, lens)
+    plain = k8.bilstm_fwd_save_plain(*fargs)
+    fwd = k8.bilstm_fwd_save(*fargs)
+    bargs = (g, plain[2], plain[3], w[1], lens)
+    return x, g, fargs, fwd, plain, bargs, k8.bilstm_bwd(*bargs), k8.bilstm_bwd_plain(*bargs)
+
+
 def phase_k8(params, cfg, rng):
     """K8 forward and backward at the four pyramid shapes of the main path."""
     from stjep_tpu_torch.ops import lstm_pallas_bwd as k8
@@ -1376,17 +1429,9 @@ def phase_k8(params, cfg, rng):
     n_bytes, flops = {"fwd": 0, "bwd": 0}, {"fwd": 0, "bwd": 0}
     for li in range(cfg.num_pyramid_layers):
         p = enc[f"acous_enc_l{li + 1}"]
-        w = tuple((p["fwd"][k], p["bwd"][k]) for k in ("w_ih", "w_hh"))
-        bias = tuple(q["b_ih"] + q["b_hh"] for q in (p["fwd"], p["bwd"]))
-        x = torch.from_numpy(rng.uniform(-1, 1, (B, T, din)).astype(np.float32)).cuda()
-        g = torch.from_numpy(rng.randn(B, T, 2 * H).astype(np.float32)).cuda()
-        fargs = (*w, bias, x, lens)
-        plain = k8.bilstm_fwd_save_plain(*fargs)
-        fwd = k8.bilstm_fwd_save(*fargs)
-        for a, b in zip(fwd, plain):
-            err["fwd"], rel["fwd"] = max(err["fwd"], max_err(a, b)), max(rel["fwd"], rel_err(a, b))
-        bargs = (g, plain[2], plain[3], w[1], lens)
-        a, b = k8.bilstm_bwd(*bargs), k8.bilstm_bwd_plain(*bargs)
+        x, g, fargs, fwd, plain, bargs, a, b = k8_layer(p, rng, B, T, din, lens)
+        for c, d in zip(fwd, plain):
+            err["fwd"], rel["fwd"] = max(err["fwd"], max_err(c, d)), max(rel["fwd"], rel_err(c, d))
         err["bwd"], rel["bwd"] = max(err["bwd"], max_err(a, b)), max(rel["bwd"], rel_err(a, b))
         ms["fwd"] += cuda_ms(lambda: k8.bilstm_fwd_save(*fargs), 3)
         ms["sweep_fwd"] += cuda_ms(sweep_call(p, x, lens, save=True), 3)
@@ -1409,7 +1454,7 @@ def phase_k8(params, cfg, rng):
     # f32 on both sides, other summation orders in the 256-long products of
     # each step, carried through up to 1504 serial steps: the forward's
     # states are bounded (|h| < 1), the backward's carried dc is not
-    tol = {"fwd": 1e-4, "bwd": 1e-3}
+    tol = K8_TOL
     res = {}
     for k in ("fwd", "bwd"):
         res[k] = dict(max_abs_err=err[k], ms=ms[k], plain_ms=ms[f"plain_{k}"],
@@ -1640,27 +1685,17 @@ def phase_train_e2e(seed, rng):
     return launches, len(timed) / sum(timed)
 
 
-# the train cli phase's synthetic corpus (flagship.write_corpus, from --seed)
-CLI_UTTS = {"train": 64, "dev": 16}
-
-
 def cli_argv(corpus, save, seed, *extra, dev=False):
-    """train.py's flags for the flagship ASR_ST model (bench's widths, f32,
-    B = 16) on the corpus; `extra` overrides."""
+    """train.py's flags for the flagship ASR_ST model (flagship.train_flags:
+    bench's widths, f32, B = 16) on the corpus, with CMVN, one epoch, a
+    checkpoint every 2 steps; `extra` overrides."""
     argv = ["--mode", "ASR_ST", "--save", str(save),
             "--st_train_path_src", corpus["train_src"], "--st_train_path_tgt", corpus["train_tgt"],
             "--st_train_acous_path", corpus["train_flis"], "--st_acous_norm_path", corpus["norm"],
             "--path_vocab_src", corpus["vocab_src"], "--path_vocab_tgt", corpus["vocab_tgt"],
-            "--embedding_size_enc", "200", "--embedding_size_dec", "512",
-            "--dim_model", "512", "--dim_feedforward", "1024", "--num_heads", "8",
-            "--enc_layers", "6", "--dec_layers", "6", "--las_acous_dim", "40",
-            "--las_acous_hidden_size", "256", "--max_seq_len_src", "90",
-            "--max_seq_len_tgt", "150", "--batch_size", str(B), "--minibatch_partition", "1",
-            "--dropout", "0.2", "--num_epochs", "1", "--learning_rate", str(TRAIN_LR),
-            "--learning_rate_init", str(TRAIN_LR), "--lr_warmup_steps", "0",
+            *train_flags(), "--num_epochs", "1",
             "--loss_nll_asr_coeff", "1.0", "--loss_nll_st_coeff", "1.0",
-            "--random_seed", str(seed), "--print_every", "2", "--checkpoint_every", "2",
-            "--device_cache", "False"]
+            "--random_seed", str(seed), "--checkpoint_every", "2"]
     if dev:
         argv += ["--st_dev_path_src", corpus["dev_src"], "--st_dev_path_tgt", corpus["dev_tgt"],
                  "--st_dev_acous_path", corpus["dev_flis"]]
@@ -1705,11 +1740,11 @@ def phase_train_cli(seed, bare_steps_per_s):
     with tempfile.TemporaryDirectory(prefix="stjep_train_cli_") as tmp:
         tmp = Path(tmp)
         t0 = time.perf_counter()
-        corpus = write_corpus(tmp / "corpus", seed, CLI_UTTS)
+        corpus = write_corpus(tmp / "corpus", seed, CORPUS_UTTS)
         corpus_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         need(get_native_loader() is not None, "the native loader did not build (no g++?)")
-        say("train cli corpus", train=CLI_UTTS["train"], dev=CLI_UTTS["dev"],
+        say("train cli corpus", train=CORPUS_UTTS["train"], dev=CORPUS_UTTS["dev"],
             frames=list(CORPUS_FRAMES), write_s=round(corpus_s, 3),
             native_loader_build_s=round(time.perf_counter() - t0, 3))
 
@@ -1751,7 +1786,7 @@ def phase_train_cli(seed, bare_steps_per_s):
             native_loader_batches=loaded, checkpoints=ckpts, last_losses=losses,
             launches_train={k: n for k, n in in_train.items() if n},
             launches_dev_eval={k: n for k, n in in_eval.items() if n})
-        need(ta.steps_run == CLI_UTTS["train"] // B, f"train cli a ran {ta.steps_run} steps")
+        need(ta.steps_run == CORPUS_UTTS["train"] // B, f"train cli a ran {ta.steps_run} steps")
         need(all(in_train[k] > 0 for k in ("K8 fwd", "K8 bwd", "K9 fwd", "K9 bwd"))
              and all(in_eval[k] > 0 for k in ("K1", "K2", "K3 gather"))
              and not any(in_eval[k] for k in ("K8 fwd", "K8 bwd", "K9 fwd", "K9 bwd")),
@@ -2051,16 +2086,12 @@ def phase_translate_cli(seed, params_c, cfg):
                                            gen, *extra, load=ckpt_dyn)
             lines = Path(path).read_text(encoding="utf8").splitlines()
             cache = opts.get("cache_dtype")
-            staged = [tcli.unstage(**tcli.stage(it, 0, B, mode, refen, feat, cache, "cuda"))
-                      for it in items]
-            card = recorded_translate(pg, c, staged[0].get("acous_feats"),
-                                      staged[0].get("acous_lens"), "cuda", mode=mode,
-                                      src=staged[0].get("src"), refen=refen, **opts)
-            toks = [card[0]] + [forward_translate_in(pg, c, mode, kw.get("acous_feats"),
-                                                     kw.get("acous_lens"), "cuda",
-                                                     src=kw.get("src"), refen=refen,
-                                                     **opts).cpu() for kw in staged[1:]]
-            want = sum((tcli.hyp_lines(t.numpy(), ds, mode) for t in toks), [])
+            first = tcli.unstage(**tcli.stage(items[0], 0, B, mode, refen, feat, cache, "cuda"))
+            card = recorded_translate(pg, c, first.get("acous_feats"),
+                                      first.get("acous_lens"), "cuda", mode=mode,
+                                      src=first.get("src"), refen=refen, **opts)
+            want = cli_staged_lines(pg, c, ds, items, mode, refen, feat, cache, first=card[0],
+                                    **opts)
             need(lines == want, f"{label}: the CLI's lines differ from forward_translate's "
                  f"on the same staged batches ({sum(a != b for a, b in zip(lines, want))} rows)")
             x = {k: v.cpu() for k, v in tcli.unstage(**tcli.stage(
@@ -2213,9 +2244,26 @@ def phase_translate_cli(seed, params_c, cfg):
     return runs
 
 
+def cli_staged_lines(params, cfg, ds, items, mode, refen=False, feat="float32", cache=None,
+                     first=None, **opts):
+    """translate.txt's lines that forward_translate (beam BEAM, DECODE_LEN
+    positions) gives on the card for the materialised batches `items` of
+    the test set `ds`, each staged as the translate CLI's mode 1 stages it
+    (`stage`, `unstage`); `first`: batch 0's tokens where already decoded."""
+    from stjep_tpu_torch.cli import translate as tcli
+
+    toks = [] if first is None else [first]
+    for it in items[len(toks):]:
+        kw = tcli.unstage(**tcli.stage(it, 0, B, mode, refen, feat, cache, "cuda"))
+        toks.append(forward_translate_in(params, cfg, mode, kw.get("acous_feats"),
+                                         kw.get("acous_lens"), "cuda", src=kw.get("src"),
+                                         refen=refen, **opts).cpu())
+    return sum((tcli.hyp_lines(t.numpy(), ds, mode) for t in toks), [])
+
+
 def recorded_translate(params, cfg, feats, lens, device, step=None, mode="ST", **opts):
     """forward_translate beam-5 in `mode` on `device` (opts: its other
-    arguments, e.g. src, refen, the serving options) that also records the
+    arguments, e.g. max_seq_len, src, refen, the serving options) that also records the
     LAS pass's symbols and, at every beam position, the state handed on
     (tokens [BK, L] and kept scores [BK], on the host), starting with the
     state after position 1: the megastep's output for the standard decoder,
@@ -2255,12 +2303,13 @@ def recorded_translate(params, cfg, feats, lens, device, step=None, mode="ST", *
     return toks.cpu(), (las[0] if las else None), states
 
 
-def forward_translate_in(params, cfg, mode, feats, lens, device, **opts):
-    """forward_translate beam-5 in `mode`, DECODE_LEN positions, on `device`."""
+def forward_translate_in(params, cfg, mode, feats, lens, device, max_seq_len=DECODE_LEN,
+                         **opts):
+    """forward_translate beam-5 in `mode`, max_seq_len positions, on `device`."""
     from stjep_tpu_torch.infer.forward import forward_translate
 
     return forward_translate(params, cfg, mode, acous_feats=feats, acous_lens=lens,
-                             beam_width=BEAM, penalty_factor=1.0, max_seq_len=DECODE_LEN,
+                             beam_width=BEAM, penalty_factor=1.0, max_seq_len=max_seq_len,
                              device=device, **opts)
 
 
@@ -2618,6 +2667,31 @@ def phase_dev_eval(label, params, params_c, cfg, rng, ran, idle=(), rows=B):
         refs = {k: r[:rows] for k, r in refs.items()}
         out_g = run(params, "cuda")
     out_g = {k: v.cpu() for k, v in out_g.items()}
+    margins, err, plain_s = hold_eval(label, run, out_g, params_c)
+    say(label, transformer=cfg.transformer_type, batch=B, calls=len(secs),
+        utt_per_s=round(B * len(secs) / sum(secs), 3),
+        call_ms=[round(x * 1e3, 1) for x in secs], plain_cpu_s=round(plain_s, 1),
+        rows_differ=len(margins), of=rows, max_first_divergence_margin=max(margins, default=0.0),
+        limit=E2E_MARGIN, picked_max_abs_err=err, tol=EVAL_TOL,
+        launches={k: n for k, n in launches.items() if n})
+    need_eval_held(label, margins, err)
+    return launches
+
+
+EVAL_TOL = 1e-4  # log-probs through the free-running decoders in f32, summed in another order
+
+
+def hold_eval(label, run, out_g, params_c):
+    """forward_eval's card outputs out_g (on the host) against the plain arm
+    on CPU copies; run(params, device, **kw) calls forward_eval on the same
+    inputs, kw overriding its refs. preds_asr and preds_st must be equal,
+    or differ only by a tie at the first divergence (the plain arm's
+    log-probs of the two choices there, read through forward_eval's own
+    picked_* with each arm's tokens as refs); picked_* are compared on the
+    rows that agree. Returns (margins of the differing rows, picked_* max
+    abs error, the plain arm's seconds); need_eval_held holds them."""
+    from stjep_tpu_torch.config import BOS
+
     t0 = time.perf_counter()
     out_c = run(params_c, "cpu")
     plain_s = time.perf_counter() - t0
@@ -2647,17 +2721,13 @@ def phase_dev_eval(label, params, params_c, cfg, rng, ran, idle=(), rows=B):
     same_asr = [ca is None for ca in asr_rows]
     err = max(max_err(out_g["picked_asr"][same_asr], out_c["picked_asr"][same_asr]),
               max_err(out_g["picked_st"][same], out_c["picked_st"][same]))
-    tol = 1e-4  # log-probs through the free-running decoders in f32, summed in another order
-    say(label, transformer=cfg.transformer_type, batch=B, calls=len(secs),
-        utt_per_s=round(B * len(secs) / sum(secs), 3),
-        call_ms=[round(x * 1e3, 1) for x in secs], plain_cpu_s=round(plain_s, 1),
-        rows_differ=len(margins), of=rows, max_first_divergence_margin=max(margins, default=0.0),
-        limit=E2E_MARGIN, picked_max_abs_err=err, tol=tol,
-        launches={k: n for k, n in launches.items() if n})
+    return margins, err, plain_s
+
+
+def need_eval_held(label, margins, err):
     need(all(m <= E2E_MARGIN for m in margins),
          f"{label} rows differ beyond ties: margins {margins}")
-    need(err <= tol, f"{label} picked max_abs_err {err} > {tol}")
-    return launches
+    need(err <= EVAL_TOL, f"{label} picked max_abs_err {err} > {EVAL_TOL}")
 
 
 ACT_ROWS = 2  # the ACT beam's plain arm: rows 0-1 of a request, as a batch of their own
@@ -3330,11 +3400,221 @@ def phase_multiproc_train(seed):
     return [launches]
 
 
+# the recipe phase: each stage's kernels that must launch, and must not. ST
+# trains its LAS free running, through the differentiable step loop (K2 has
+# no backward; JAX runs its XLA scan there), so no K9 in ST
+RECIPE_RAN = {"asr": ("K8 fwd", "K8 bwd", "K9 fwd", "K9 bwd"), "emb": ("K1", "K9 fwd"),
+              "mt": (), "asr_st": ("K8 fwd", "K8 bwd", "K9 fwd", "K9 bwd"),
+              "st": ("K8 fwd", "K8 bwd"), "decode": ("K1", "K2", "K3", "K4")}
+RECIPE_IDLE = {"mt": ("K8 fwd", "K8 bwd"), "st": ("K9 fwd", "K9 bwd")}
+# phase b's kernels: at the quality widths (D 32, 2H 32) the LAS decoder runs
+# its step loop, not K2 or K9, on JAX's gate (ops/las_flash.py
+# las_flash_supported: D and 2H multiples of 128)
+QUALITY_RAN = ("K1", "K3 gather", "K3", "K4", "K8 fwd", "K8 bwd")
+QUALITY_IDLE = ("K2", "K9 fwd", "K9 bwd")
+QUALITY_EPOCHS = 4  # phase b's epochs a stage: a smoke run, too short to hold the band
+QUALITY_B = 32  # the quality run's train batch, and its dev eval's
+
+
+@contextlib.contextmanager
+def first_call(owner, name, store, want, keep):
+    """While open, owner.<name> appends keep(args, kwargs, output) to
+    `store` at its first call that want(args, kwargs) picks."""
+    orig = getattr(owner, name)
+
+    def recording(*a, **kw):
+        out = orig(*a, **kw)
+        if not store and want(a, kw):
+            store.append(keep(a, kw, out))
+        return out
+
+    setattr(owner, name, recording)
+    try:
+        yield store
+    finally:
+        setattr(owner, name, orig)
+
+
+def host_copy(tree):
+    """A copy on the host of every tensor in a tree of dicts, lists and
+    tuples (other leaves as they are): the Trainer updates its params in
+    place, and the loader reuses its host buffers for the next batch."""
+    if isinstance(tree, dict):
+        return {k: host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(host_copy(v) for v in tree)
+    return tree.detach().to("cpu", copy=True) if torch.is_tensor(tree) else tree
+
+
+def hold_quality(ev, dec, rng):
+    """Phase b's kernels at the quality widths (D 32, head width 8, acoustic
+    hidden 16) held against their plain versions on the main path's own
+    inputs: the joint stage's first dev eval at B = QUALITY_B (K1, K3's
+    gather variant; `ev`: CPU params, cfg, mode, kwargs, outputs) through
+    hold_eval; the ST beam-5 decode's first batch (K1, K3, K4; `dec`: card
+    params, cfg, kwargs, tokens) again on the card with its beam states
+    recorded and on CPU copies, differing rows explained by ties
+    (explain_e2e); K8 forward and backward at that batch's lengths, layer
+    by layer, on the eval's weights (k8_layer)."""
+    from stjep_tpu_torch.bridge import params_to
+    from stjep_tpu_torch.models.seq2seq import forward_eval
+
+    (pc_e, cfg_e, mode, kw_e, out_g), (pg_d, cfg_d, kw_d, toks) = ev, dec  # on the host but pg_d
+    kw_e = {k: v for k, v in kw_e.items() if k != "device"}
+    run = lambda p, d, **kw: forward_eval(p, cfg_e, mode, device=d, **{**kw_e, **kw})
+    margins_e, err_e, plain_e = hold_eval("recipe b dev eval", run, out_g, pc_e)
+
+    feats, lens, n_pos = kw_d["acous_feats"], kw_d["acous_lens"], kw_d["max_seq_len"]
+    card = recorded_translate(pg_d, cfg_d, feats, lens, "cuda", max_seq_len=n_pos)
+    need(torch.equal(card[0], toks), "recipe b: the ST decode's batch not reproducible")
+    pc_d = host_copy(pg_d)
+    t0 = time.perf_counter()
+    plain = recorded_translate(pc_d, cfg_d, feats, lens, "cpu", max_seq_len=n_pos)
+    plain_d = time.perf_counter() - t0
+    margins_d = explain_e2e(pc_d, cfg_d, feats, lens, card, plain)
+
+    enc = params_to(pc_e, "cuda")["las"]["encoder"]
+    n, T = kw_e["acous_feats"].shape[:2]
+    lens_k8, din, H = kw_e["acous_lens"].long().cuda(), cfg_e.acous_dim, cfg_e.acous_hidden_size
+    rel = {"fwd": 0.0, "bwd": 0.0}
+    for li in range(cfg_e.num_pyramid_layers):
+        _, _, _, fwd, fplain, _, a, b = k8_layer(enc[f"acous_enc_l{li + 1}"], rng, n, T, din,
+                                                 lens_k8)
+        rel["fwd"] = max([rel["fwd"]] + [rel_err(c, d) for c, d in zip(fwd, fplain)])
+        rel["bwd"] = max(rel["bwd"], rel_err(a, b))
+        T, din, lens_k8 = T // 2, 4 * H, lens_k8 // 2
+    say("recipe b held", dims=f"D{cfg_e.dim_model}/{cfg_e.num_heads}heads/H{H}",
+        eval_batch=list(kw_e["acous_feats"].shape), eval_rows_differ=len(margins_e),
+        eval_max_margin=max(margins_e, default=0.0), picked_max_abs_err=err_e,
+        picked_tol=EVAL_TOL, eval_plain_cpu_s=round(plain_e, 1),
+        decode_batch=list(feats.shape), decode_positions=n_pos,
+        decode_rows_differ=len(margins_d), decode_max_margin=max(margins_d, default=0.0),
+        margin_limit=E2E_MARGIN, decode_plain_cpu_s=round(plain_d, 1),
+        k8_batch=n, k8_layers=cfg_e.num_pyramid_layers, k8_max_rel_err=rel, k8_tol_rel=K8_TOL)
+    need_eval_held("recipe b dev eval", margins_e, err_e)
+    need(all(m <= E2E_MARGIN for m in margins_d),
+         f"recipe b ST decode rows differ beyond ties: margins {margins_d}")
+    need(all(rel[k] <= K8_TOL[k] for k in rel), f"recipe b K8 relative errors {rel} > {K8_TOL}")
+
+
+def phase_recipe(seed):
+    """a. stjep_tpu_torch/scripts/full_recipe.py at the flagship widths on
+    the train cli phase's corpus (recipe_a); b. quality_ab.py, seed 333,
+    QUALITY_EPOCHS + QUALITY_EPOCHS epochs, and its kernels held against
+    their plain versions on its own inputs (recipe_b). Returns the runs'
+    launch counts."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="stjep_recipe_") as tmp:
+        runs = recipe_a(Path(tmp), seed) + recipe_b(Path(tmp), seed)
+    say("recipe", seconds=round(time.perf_counter() - t_phase, 1))
+    return runs
+
+
+def recipe_a(tmp, seed):
+    """The six stages at the flagship on a CORPUS_UTTS corpus in tmp, each
+    stage's launches, the script's checks, and the decode's lines against
+    forward_translate on the same staged batches. Returns each stage's
+    launch counts."""
+    import dataclasses
+
+    from stjep_tpu_torch.cli import translate as tcli
+    from stjep_tpu_torch.data.dataset import Dataset
+    from stjep_tpu_torch.scripts import full_recipe
+
+    runs = []
+    corpus = write_corpus(tmp / "corpus", seed, CORPUS_UTTS)
+    res = full_recipe.run(str(tmp / "a"), device="cuda", dims="flagship", corpus=corpus,
+                          log=lambda line: print(line, flush=True))
+    stages = {s["stage"]: s for s in res["stages"]}
+    for name, rec in stages.items():
+        got = rec["launches"]
+        need(all(got[k] > 0 for k in RECIPE_RAN[name])
+             and not any(got[k] for k in RECIPE_IDLE.get(name, ())),
+             f"stage {name}: launches {got}, expected > 0 for {list(RECIPE_RAN[name])}, "
+             f"0 for {list(RECIPE_IDLE.get(name, ()))}")
+        runs.append(got)
+    # stage 6 against bare forward_translate on the same staged batches
+    cfg, pg, ck = tcli._load_model(res["st_ckpt"], "cuda")
+    ds = Dataset(path_src=corpus["dev_src"], path_tgt=corpus["dev_tgt"],
+                 vocab_src_list=ck.input_vocab, vocab_tgt_list=ck.output_vocab,
+                 use_type="char", acous_path=corpus["dev_flis"], acous_max_len=6000,
+                 max_seq_len_src=900, max_seq_len_tgt=900, batch_size=B, mode="ST")
+    ds.construct_batches(is_train=False)
+    items = [ds.materialise_batch(i) for i in range(len(ds))]
+    need(res["decode"] == {"batch_size": B, "beam_width": BEAM, "max_seq_len": DECODE_LEN},
+         f"the recipe decodes with {res['decode']}")
+    want = cli_staged_lines(pg, dataclasses.replace(cfg, max_seq_len_src=150), ds, items,
+                            "ST")
+    lines = Path(res["translate"]).read_text(encoding="utf8").splitlines()
+    need(lines == want, f"recipe decode: the CLI's lines differ from forward_translate's "
+         f"on the same staged batches ({sum(a != b for a, b in zip(lines, want))} rows)")
+    say("recipe a", stages=len(stages),
+        seconds={k: round(v["seconds"], 3) for k, v in stages.items()},
+        asr_leaves_loaded=stages["asr_st"]["asr_leaves_loaded"],
+        frozen_check=stages["st"]["frozen_check"], decoded=len(lines),
+        nonempty_rows=sum(map(bool, lines)), lines_equal_bare=True)
+    return runs
+
+
+def recipe_b(tmp, seed):
+    """quality_ab.py for seed 333 at QUALITY_EPOCHS + QUALITY_EPOCHS epochs
+    in tmp: it finishes and writes its JSON, its launches; then
+    hold_quality on its recorded joint dev eval and ST decode. Returns its
+    launch counts."""
+    import stjep_tpu_torch.infer.forward as fwd_mod
+    from stjep_tpu_torch.scripts import quality_ab
+    from stjep_tpu_torch.train import trainer as trainer_mod
+    from stjep_tpu_torch.utils.profiling import launch_counts, zero_launch_counts
+
+    # the seed's first dev eval of the joint stage at the train batch and
+    # its ST beam decode's first batch, recorded for hold_quality
+    out = tmp / "quality.json"
+    evals, decodes = [], []
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with first_call(trainer_mod, "forward_eval", evals,
+                    lambda a, kw: a[2] == "ASR_ST" and kw["acous_feats"].shape[0] == QUALITY_B,
+                    lambda a, kw, o: (host_copy(a[0]), a[1], a[2], host_copy(kw),
+                                      host_copy(o))), \
+            first_call(fwd_mod, "forward_translate", decodes,
+                       lambda a, kw: a[2] == "ST" and kw["beam_width"] == BEAM,
+                       lambda a, kw, o: (a[0], a[1], host_copy(kw), host_copy(o))):
+        rc = quality_ab.main(["--device", "cuda", "--workdir", str(tmp / "b"),
+                              "--epochs_asr", str(QUALITY_EPOCHS),
+                              "--epochs_joint", str(QUALITY_EPOCHS), "--seeds", "333",
+                              "--out", str(out)])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = launch_counts()
+    need(rc == 0 and out.exists(), f"quality_ab exited {rc}")
+    q = json.loads(out.read_text())
+    r = q["runs"][0]
+    need(q["status"] == "partial" and r["steps"]["asr"] == QUALITY_EPOCHS * 12
+         and r["steps"]["joint"] == QUALITY_EPOCHS * 12,
+         f"quality seed: status {q['status']}, steps {r['steps']}")
+    need(all(got[k] > 0 for k in QUALITY_RAN) and not any(got[k] for k in QUALITY_IDLE),
+         f"quality seed launches {got}: expected > 0 for {list(QUALITY_RAN)}, 0 for "
+         f"{list(QUALITY_IDLE)}")
+    say("recipe b", seed=r["seed"], epochs=[QUALITY_EPOCHS, QUALITY_EPOCHS],
+        seconds=round(secs, 3), wall_s={k: round(v, 3) for k, v in r["wall_s"].items()},
+        steps=r["steps"], asr_dev_wer=r["asr_dev_wer"], st_dev_bleu=r["st_dev_bleu"],
+        wer_bleu_held="no (too short for the band)", card=repr(r["card"]),
+        launches={k: v for k, v in got.items() if v})
+    need(len(evals) == 1 and len(decodes) == 1,
+         f"quality seed: {len(evals)} joint dev evals at B={QUALITY_B}, {len(decodes)} "
+         "ST beam decodes recorded")
+    hold_quality(evals[0], decodes[0], np.random.RandomState(seed + 13))
+    return [got]
+
+
 # the step of main() that runs, for the failure line when no phase_* function
 # is on the traceback
 STAGE = ["arguments"]
 # a phase's name on the failure line where it is not its function's
-PHASE_LABELS = {"phase_multiproc_train": "multi-process train"}
+PHASE_LABELS = {"phase_multiproc_train": "multi-process train", "phase_recipe": "recipe"}
 
 
 def main() -> int:
@@ -3444,6 +3724,8 @@ def main() -> int:
     runs += phase_mesh_train(args.seed, rng, params, cfg)
     # 12. two ranks on the card, data parallel across processes
     runs += phase_multiproc_train(args.seed)
+    # 13. the staged recipe at the flagship, and a short quality seed
+    runs += phase_recipe(args.seed)
     launches = {k: sum(r.get(k, 0) for r in runs) for k in counters()}
 
     src, rep = "stjep_tpu_torch/csrc/", "stjep_tpu/ops/"

@@ -21,10 +21,31 @@ TRAIN_LR = 1e-4  # bench.py's train row
 SPECIALS = ["<pad>", "<unk>", "<s>", "</s>", "<spc>"]
 SPEAKERS = 4
 CORPUS_FRAMES = (400, 1504)  # a corpus utterance's frames, low and high
+CORPUS_UTTS = {"train": 64, "dev": 16}  # write_corpus's utterances a split for the CLI runs
 
 
 def say(phase: str, **kw):
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()), flush=True)
+
+
+def train_flags():
+    """train.py's flags for FLAGSHIP's model, f32, B = 16: its widths and
+    bench's train settings (dropout, TRAIN_LR constant from step 0), a
+    line every 2 steps, no device cache. Callers add the mode, the data,
+    the epochs, the checkpoint interval and what else their run needs."""
+    f = FLAGSHIP
+    return [
+        "--embedding_size_enc", str(f["enc_embedding_size"]),
+        "--embedding_size_dec", str(f["dec_embedding_size"]),
+        "--dim_model", str(f["dim_model"]), "--dim_feedforward", str(f["dim_feedforward"]),
+        "--num_heads", str(f["num_heads"]), "--enc_layers", str(f["enc_layers"]),
+        "--dec_layers", str(f["dec_layers"]), "--las_acous_dim", str(f["acous_dim"]),
+        "--las_acous_hidden_size", str(f["acous_hidden_size"]),
+        "--max_seq_len_src", str(f["max_seq_len_src"]),
+        "--max_seq_len_tgt", str(f["max_seq_len_tgt"]), "--batch_size", str(B),
+        "--minibatch_partition", "1", "--dropout", str(f["dropout"]),
+        "--learning_rate", str(TRAIN_LR), "--learning_rate_init", str(TRAIN_LR),
+        "--lr_warmup_steps", "0", "--print_every", "2", "--device_cache", "False"]
 
 
 def inputs(rng, n):

@@ -33,7 +33,12 @@ kernel a call. The
 fused K2 and K9 (csrc/las_fused.cu) at the flagship's LAS widths over
 batches, key lengths, vocabularies and layer counts, with forced head ties
 and a PAD symbol fed back, bit-identical at two grid sizes, at alternating
-key lengths, and one device kernel a call.
+key lengths, and one device kernel a call. The widths of the quality run
+and the staged recipe (stjep_tpu_torch/scripts/quality_ab.py and
+full_recipe.py: D = 32 with 4 heads and D = 16 with 2, head width 8,
+acoustic hidden sizes 16 and 6, vocabularies of 15 to 21 ids): K1 and K8
+(SWEEPS), K2 and K9, K3, K4 and K5 in every variant, K7, and the decode
+routes card against CPU.
 
 Every test needs a CUDA card and skips without one. Run them on a GPU host
 (the tests' conftest imports JAX, which that host need not have):
@@ -175,7 +180,10 @@ def test_wrappers_reject_bad_cuda_input(dev):
 # T up to the flagship's 1504 frames
 SWEEPS = [(1, 5, 8, 50), (3, 21, 8, 64), (9, 40, 24, 256), (3, 97, 8, 50),
           (16, 60, 24, 200), (3, 300, 16, 512), (64, 33, 8, 512), (64, 188, 64, 256),
-          (1, 1504, 40, 256), (16, 1504, 40, 256)]
+          (1, 1504, 40, 256), (16, 1504, 40, 256),
+          # the quality run's and the staged recipe's LAS (acoustic hidden
+          # sizes 16 and 6): layer 1 (8-dim features) and a pyramid layer (4H)
+          (32, 64, 8, 16), (32, 32, 64, 16), (8, 72, 8, 6), (8, 36, 24, 6)]
 SWEEP_IDS = [f"B{b}-T{t}-H{h}" for b, t, _, h in SWEEPS]
 
 
@@ -226,19 +234,25 @@ def test_bilstm_kernels_raise_where_they_cannot_run(dev):
 
 
 def test_las_greedy_kernel_matches_plain(dev, params):
-    _, pg = params
-    dec = pg["las"]["decoder"]
+    _check_las_greedy(dev, CFG, params[1]["las"]["decoder"])
+
+
+def _check_las_greedy(dev, cfg, dec, refs=True):
+    """K2 (with reference tokens, or free running) against its plain
+    version on 5 rows, one key of length 1."""
     rng = np.random.RandomState(3)
     Tk = 9
-    acous = _randn(rng, 5, Tk, 2 * CFG.acous_hidden_size, dev=dev)
+    acous = _randn(rng, 5, Tk, 2 * cfg.acous_hidden_size, dev=dev)
     wk = precompute_keys(dec["acous_att"], acous, "bilinear")["wk"]
     lens_k = torch.tensor([9, 1, 4, 9, 6], device=dev)
     sym0 = torch.full((5,), BOS, device=dev)
-    n = CFG.max_seq_len_src - 1
-    refs = torch.from_numpy(rng.randint(0, CFG.enc_vocab_size, (5, n))).to(dev)
-    args = (dec, CFG, wk, acous, lens_k, sym0, n)
-    embs, preds, picked = las_greedy_flash(*args, ref_tokens=refs)
-    embs_p, preds_p, picked_p = las_greedy_plain(*args, ref_tokens=refs)
+    n = cfg.max_seq_len_src - 1
+    ref = torch.from_numpy(rng.randint(0, cfg.enc_vocab_size, (5, n))).to(dev) if refs else None
+    args = (dec, cfg, wk, acous, lens_k, sym0, n)
+    before = las_greedy_flash.launches
+    embs, preds, picked = las_greedy_flash(*args, ref_tokens=ref)
+    assert las_greedy_flash.launches == before + 1
+    embs_p, preds_p, picked_p = las_greedy_plain(*args, ref_tokens=ref)
     assert torch.equal(preds, preds_p)
     _close(embs, embs_p, TOL)
     _close(picked, picked_p, TOL)
@@ -321,8 +335,7 @@ def test_layer_step_kernel_matches_plain(dev, params, Bn, K, pos):
     assert torch.equal(ck.self_k[0], cache.self_k[0])  # other layers untouched
 
 
-def _head_params(rng, V, dev, ties=False):
-    D = CFG.dim_model
+def _head_params(rng, V, dev, ties=False, D=CFG.dim_model):
     norm = {"scale": 1 + 0.1 * _randn(rng, D, dev=dev), "bias": 0.1 * _randn(rng, D, dev=dev)}
     w = _randn(rng, D, V, dev=dev) / D ** 0.5
     if ties:
@@ -356,9 +369,13 @@ def test_head_kernels_match_plain(dev, BK, V, topk, ties):
     V-1; the last case is universal dev eval's shape. The tie cases put
     equal columns in one thread's registers, across threads and, past 2048
     ids, across slices."""
+    _check_head(dev, BK, V, topk, ties)
+
+
+def _check_head(dev, BK, V, topk, ties, D=CFG.dim_model):
     rng = np.random.RandomState(BK + V + topk)
-    norm, out = _head_params(rng, V, dev, ties)
-    x = _randn(rng, BK, CFG.dim_model, dev=dev)
+    norm, out = _head_params(rng, V, dev, ties, D)
+    x = _randn(rng, BK, D, dev=dev)
     gid = torch.from_numpy(rng.randint(0, V, BK).astype(np.int32)).to(dev)
     gid[0], gid[-1] = V - 1, 0
     before = (decode_head.launches, decode_head_gather.launches)
@@ -683,12 +700,14 @@ def test_bilstm_bwd_sums_pieces_in_rank_order(dev):
 def test_las_tf_kernels_match_plain(dev, params, use_masks):
     """K9 forward streams, backward streams and the Function's gradients,
     with a fully masked row (lens_k 0) and an odd batch."""
-    pc, _ = params
+    _check_las_tf(dev, CFG, params[0], use_masks)
+
+
+def _check_las_tf(dev, cfg, pc, use_masks):
     dec = pc["las"]["decoder"]
     rng = np.random.RandomState(11 + use_masks)
     S, Bn, Tk = 6, 5, 9
-    Hd, Ha2 = CFG.dim_model, 2 * CFG.acous_hidden_size
-    E = CFG.enc_embedding_size
+    Hd, Ha2 = cfg.dim_model, 2 * cfg.acous_hidden_size
     pre0 = _randn(rng, S, Bn, 4 * Hd)
     acous = _randn(rng, Bn, Tk, Ha2)
     lens_k = torch.tensor([9, 1, 4, 0, 6])
@@ -1021,6 +1040,41 @@ def wide_params(dev):
     return params_to(init_seq2seq(WIDE, torch.Generator().manual_seed(7), "cpu"), dev)
 
 
+# the widths of stjep_tpu_torch/scripts/quality_ab.py (DIMS, on the hard
+# corpus's vocabularies) and of full_recipe.py (run_full_recipe.sh's COMMON,
+# on its corpus's): head width 8, acoustic hidden sizes 16 and 6
+NARROW = {
+    "quality": ModelConfig(
+        enc_vocab_size=21, dec_vocab_size=15, enc_embedding_size=16, dec_embedding_size=32,
+        acous_dim=8, acous_hidden_size=16, dim_model=32, dim_feedforward=64, num_heads=4,
+        enc_layers=2, dec_layers=2, spec_aug=False, dropout=0.0, max_seq_len_src=10,
+        max_seq_len_tgt=24, mode="ASR_ST"),
+    "recipe": ModelConfig(
+        enc_vocab_size=20, dec_vocab_size=15, enc_embedding_size=8, dec_embedding_size=16,
+        acous_dim=8, acous_hidden_size=6, dim_model=16, dim_feedforward=32, num_heads=2,
+        enc_layers=2, dec_layers=2, spec_aug=False, dropout=0.0, max_seq_len_src=16,
+        max_seq_len_tgt=32, mode="ASR_ST")}
+
+
+@pytest.fixture(scope="module")
+def narrow(dev):
+    """width -> (cfg, CPU params, card params)."""
+    out = {}
+    for i, (k, cfg) in enumerate(NARROW.items()):
+        pc = init_seq2seq(cfg, torch.Generator().manual_seed(40 + i), "cpu")
+        out[k] = (cfg, pc, params_to(pc, dev))
+    return out
+
+
+def _kind(kind, params, wide_params, narrow):
+    """(cfg, card params) of a fused case's config."""
+    if kind == "small":
+        return CFG, params[1]
+    if kind == "wide":
+        return WIDE, wide_params
+    return narrow[kind][0], narrow[kind][2]
+
+
 def _fused_state(pg, cfg, Bn, K, pos, rng, dev, quant=False, bf16=False, Lk=LK,
                  snap=False):
     """A decode state at `pos`: memory of Lk rows (the K/V cut to Lk, not
@@ -1070,27 +1124,31 @@ def _fused_state(pg, cfg, Bn, K, pos, rng, dev, quant=False, bf16=False, Lk=LK,
     return dec, cache, preds.to(dev), anc.to(dev), maskk.to(dev), mem_mask.to(dev)
 
 
-def _k5(dec, cache, x, pos, anc, K, mem_mask, maskk, fn=decoder_layer_step_flash, layer=1):
+def _k5(dec, cache, x, pos, anc, K, mem_mask, maskk, fn=decoder_layer_step_flash, layer=1,
+        n_head=None):
     c = _clone(cache)
+    if n_head is None:
+        n_head = WIDE.num_heads if x.shape[1] == WIDE.dim_model else CFG.num_heads
     y = fn(dec["layers"][layer], x, c.self_k[layer], c.self_v[layer], c.mem_k[layer],
-           c.mem_v[layer], pos, WIDE.num_heads if x.shape[1] == WIDE.dim_model else CFG.num_heads,
-           anc, K, mem_mask, maskk)
+           c.mem_v[layer], pos, n_head, anc, K, mem_mask, maskk)
     return y, c
 
 
 FUSED_K5_CASES = [  # (config, Bn, K, pos, Lk): BK = 5, 320, 9, 80
     ("small", 1, 5, 0, LK), ("small", 64, 5, 7, 45), ("small", 3, 3, MAX_LEN - 1, 45),
-    ("wide", 16, 5, 75, 89)]
+    ("wide", 16, 5, 75, 89),
+    # head width 8: the quality run's (D 32, 4 heads) and the recipe's (D 16, 2)
+    ("quality", 16, 5, 0, 8), ("quality", 16, 5, 23, 8), ("recipe", 8, 3, 31, 9)]
 
 
 @pytest.mark.parametrize("quant,bf16", VARIANTS, ids=VARIANT_IDS)
 @pytest.mark.parametrize("kind,Bn,K,pos,Lk", FUSED_K5_CASES)
-def test_fused_layer_step_matches_plain(dev, params, wide_params, kind, Bn, K, pos, Lk, quant,
-                                        bf16):
+def test_fused_layer_step_matches_plain(dev, params, wide_params, narrow, kind, Bn, K, pos, Lk,
+                                        quant, bf16):
     """Fused K5 against decoder_layer_step_plain, every LayerNorm drawn at
     random: the output, every cache row (the new one at pos, the rest
     untouched), one launch counted."""
-    cfg, pg = (CFG, params[1]) if kind == "small" else (WIDE, wide_params)
+    cfg, pg = _kind(kind, params, wide_params, narrow)
     rng = np.random.RandomState(6000 + Bn + pos)
     dec, cache, _, anc, maskk, mem_mask = _fused_state(pg, cfg, Bn, K, pos, rng, dev, quant,
                                                        bf16, Lk)
@@ -1098,9 +1156,10 @@ def test_fused_layer_step_matches_plain(dev, params, wide_params, kind, Bn, K, p
     dec = _random_norms(dec, rng, dev)
     name = _variant(quant, bf16)
     before = getattr(decoder_layer_step_flash, name)
-    y, ck = _k5(dec, cache, x, pos, anc, K, mem_mask, maskk)
+    y, ck = _k5(dec, cache, x, pos, anc, K, mem_mask, maskk, n_head=cfg.num_heads)
     assert getattr(decoder_layer_step_flash, name) == before + 1
-    y_p, cp = _k5(dec, cache, x, pos, anc, K, mem_mask, maskk, decoder_layer_step_plain)
+    y_p, cp = _k5(dec, cache, x, pos, anc, K, mem_mask, maskk, decoder_layer_step_plain,
+                  n_head=cfg.num_heads)
     assert torch.isfinite(y).all()
     _close(y, y_p, TOL_BF16 if bf16 else TOL)
     for a, b in ((ck.self_k, cp.self_k), (ck.self_v, cp.self_v)):
@@ -1127,19 +1186,21 @@ def _k4(dec, pg, cfg, cache, preds, anc, maskk, mem_mask, i, K, fn=decode_beam_s
 
 
 FUSED_K4_CASES = [("small", 1, 5, 2, LK, 1.0), ("small", 3, 3, 7, 45, 0.7),
-                  ("small", 2, 2, MAX_LEN - 1, 45, 1.3), ("wide", 16, 5, 75, 89, 1.0)]
+                  ("small", 2, 2, MAX_LEN - 1, 45, 1.3), ("wide", 16, 5, 75, 89, 1.0),
+                  ("quality", 16, 5, 2, 8, 1.0), ("quality", 16, 5, 23, 8, 1.0),
+                  ("recipe", 8, 3, 31, 9, 1.0)]
 
 
 @pytest.mark.parametrize("quant,bf16", VARIANTS, ids=VARIANT_IDS)
 @pytest.mark.parametrize("kind,Bn,K,i,Lk,pf", FUSED_K4_CASES)
-def test_fused_beam_step_matches_plain(dev, params, wide_params, kind, Bn, K, i, Lk, pf, quant,
-                                       bf16):
+def test_fused_beam_step_matches_plain(dev, params, wide_params, narrow, kind, Bn, K, i, Lk, pf,
+                                       quant, bf16):
     """Fused K4 against decode_beam_step_plain, every LayerNorm (each
     layer's three and the final one) drawn at random: the select's outputs
     equal (scores and lenm within tolerance) except in a beam group whose
     plain candidates tie within the tolerance, anc[i-1] set in place, the
     caches."""
-    cfg, pg = (CFG, params[1]) if kind == "small" else (WIDE, wide_params)
+    cfg, pg = _kind(kind, params, wide_params, narrow)
     rng = np.random.RandomState(7000 + Bn + i)
     dec, cache, preds, anc, maskk, mem_mask = _fused_state(pg, cfg, Bn, K, i - 1, rng, dev,
                                                            quant, bf16, Lk)
@@ -1209,12 +1270,12 @@ def test_fused_kernels_bit_identical_at_two_grid_sizes(dev, wide_params, monkeyp
 
 
 def _k3(dec, pg, cache, x, pos, anc, K, mem_mask, maskk, topk, gid=None,
-        fn=decode_chain_step_flash):
-    """K3 (or fn) at the flagship's widths on a copy of the caches; returns
-    (its outputs, the caches)."""
+        fn=decode_chain_step_flash, n_head=WIDE.num_heads):
+    """K3 (or fn), n_head heads (the flagship's by default), on a copy of
+    the caches; returns (its outputs, the caches)."""
     c = _clone(cache)
     out = fn(stack_decoder_layers(dec), dec["norm"], pg["out_tgt"], x, c.self_k, c.self_v,
-             c.mem_k, c.mem_v, pos, WIDE.num_heads, anc, K, mem_mask, maskk, topk,
+             c.mem_k, c.mem_v, pos, n_head, anc, K, mem_mask, maskk, topk,
              gather_ids=gid)
     return out, c
 
@@ -1247,22 +1308,28 @@ def test_fused_chain_step_matches_plain(dev, wide_params, K, pos, topk, gather, 
     margin, every cache row (each layer's new one at pos, the rest
     untouched) within TOL (bf16: one bf16 step), one launch counted under
     the variant's name. Every LayerNorm differs from every other."""
-    rng = np.random.RandomState(12000 + 100 * K + pos)
-    dec, cache, _, anc, maskk, mem_mask = _fused_state(wide_params, WIDE, 16, K, pos, rng, dev,
-                                                       quant, bf16, 89)
+    _check_chain_step(dev, WIDE, wide_params, 16, K, pos, topk, gather, quant, bf16, 89,
+                      12000 + 100 * K + pos)
+
+
+def _check_chain_step(dev, cfg, pg, Bn, K, pos, topk, gather, quant, bf16, Lk, seed):
+    rng = np.random.RandomState(seed)
+    dec, cache, _, anc, maskk, mem_mask = _fused_state(pg, cfg, Bn, K, pos, rng, dev,
+                                                       quant, bf16, Lk)
     dec = _random_norms(dec, rng, dev)
-    BK = 16 * K
-    x = _randn(rng, BK, WIDE.dim_model, dev=dev)
+    BK, V = Bn * K, cfg.dec_vocab_size
+    x = _randn(rng, BK, cfg.dim_model, dev=dev)
     gid = None
     if gather:
-        gid = torch.from_numpy(rng.randint(0, WIDE.dec_vocab_size, BK).astype(np.int32)).to(dev)
-        gid[0], gid[-1] = WIDE.dec_vocab_size - 1, 0
+        gid = torch.from_numpy(rng.randint(0, V, BK).astype(np.int32)).to(dev)
+        gid[0], gid[-1] = V - 1, 0
     name = ("gather_" if gather else "") + _variant(quant, bf16)
     before = getattr(decode_chain_step_flash, name)
-    out, ck = _k3(dec, wide_params, cache, x, pos, anc, K, mem_mask, maskk, topk, gid)
+    out, ck = _k3(dec, pg, cache, x, pos, anc, K, mem_mask, maskk, topk, gid,
+                  n_head=cfg.num_heads)
     assert getattr(decode_chain_step_flash, name) == before + 1
-    ref, cp = _k3(dec, wide_params, cache, x, pos, anc, K, mem_mask, maskk, topk, gid,
-                  decode_chain_step_plain)
+    ref, cp = _k3(dec, pg, cache, x, pos, anc, K, mem_mask, maskk, topk, gid,
+                  decode_chain_step_plain, n_head=cfg.num_heads)
     tol = TOL_BF16 if bf16 else TOL
     assert len(out) == (3 if gather else 2) and out[0].shape == (BK, topk)
     assert torch.isfinite(out[0]).all() and out[1].dtype == torch.int32
@@ -2369,3 +2436,104 @@ def test_translate_cli_on_card_writes_the_cpu_file(dev, train_corpus, tmp_path):
             assert lines[0] == lines[1] and lines[0].count("\n") == 32
         else:
             _close(*(torch.from_numpy(np.load(o)) for o in outs), 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The quality run's and the staged recipe's widths (NARROW: head width 8,
+# acoustic hidden sizes 16 and 6, vocabularies of 15 to 21 ids). K1 and K8
+# run them in SWEEPS, K4 and K5 in the fused cases; here K2, K9, K3, K7 and
+# the routes that chain them.
+
+
+@pytest.mark.parametrize("refs", [True, False], ids=["refs", "free"])
+@pytest.mark.parametrize("width", list(NARROW))
+def test_narrow_las_greedy_kernel_matches_plain(dev, narrow, width, refs):
+    cfg, _, pg = narrow[width]
+    _check_las_greedy(dev, cfg, pg["las"]["decoder"], refs)
+
+
+@pytest.mark.parametrize("use_masks", [False, True])
+@pytest.mark.parametrize("width", list(NARROW))
+def test_narrow_las_tf_kernels_match_plain(dev, narrow, width, use_masks):
+    cfg, pc, _ = narrow[width]
+    _check_las_tf(dev, cfg, pc, use_masks)
+
+
+# (K, pos, topk, gather): the beam's first two positions, dev eval's group
+# of 1 with gather ids, the last position of the quality run's 24
+NARROW_K3_CASES = [(5, 0, 6, False), (5, 1, 5, False), (1, 0, 2, True), (1, 23, 1, True)]
+
+
+@pytest.mark.parametrize("quant,bf16", VARIANTS, ids=VARIANT_IDS)
+@pytest.mark.parametrize("K,pos,topk,gather", NARROW_K3_CASES)
+@pytest.mark.parametrize("width", list(NARROW))
+def test_narrow_chain_step_matches_plain(dev, narrow, width, K, pos, topk, gather, quant, bf16):
+    cfg, _, pg = narrow[width]
+    _check_chain_step(dev, cfg, pg, 16, K, pos, topk, gather, quant, bf16, 9,
+                      13000 + 100 * K + pos)
+
+
+@pytest.mark.parametrize("BK,topk", [(16, 1), (48, 5), (80, 6)])
+@pytest.mark.parametrize("width", list(NARROW))
+def test_narrow_head_kernels_match_plain(dev, width, BK, topk):
+    """K7 and its gather variant at the narrow vocabulary (15 ids) and
+    width: the universal decoder's head there."""
+    cfg = NARROW[width]
+    _check_head(dev, BK, cfg.dec_vocab_size, topk, False, cfg.dim_model)
+
+
+@pytest.mark.parametrize("route", ["beam", "eval", "beam universal", "eval universal"])
+@pytest.mark.parametrize("width", list(NARROW))
+def test_narrow_routes_card_match_cpu(dev, narrow, width, route):
+    """The decode routes at the narrow widths on B = 16, card against CPU
+    copies: the ST beam-5 (K1, K3, K4; universal: K1, K5, K7, the select)
+    tokens equal, and dev eval with refs (K1, K3's gather variant;
+    universal: K1, K5, K7's gather variant) outputs equal (floats within
+    TOL). The LAS decoder runs its plain step loop at these widths, not
+    K2: JAX's gate (`las_flash_supported`: D and 2H multiples of 128) sends
+    them to its XLA scan."""
+    cfg, pc, pg = narrow[width]
+    assert not k2.las_flash_supported(cfg)
+    k2_before = las_greedy_flash.launches
+    if "universal" in route:
+        cfg = dataclasses.replace(cfg, transformer_type="universal")
+        pc = init_seq2seq(cfg, torch.Generator().manual_seed(50), "cpu")
+        pg = params_to(pc, dev)
+    rng = np.random.RandomState(60)
+    Bn = 16
+    feats = _randn(rng, Bn, 64, cfg.acous_dim)
+    lens = torch.from_numpy(rng.randint(24, 65, Bn))
+    lens[0] = 64
+    if route.startswith("beam"):
+        wrappers = ((decoder_layer_step_flash, decode_head, beam_select, bilstm_pallas)
+                    if "universal" in route else
+                    (bilstm_pallas, decode_chain_step_flash, decode_beam_step_flash))
+        before = [w.launches for w in wrappers]
+        kw = dict(acous_feats=feats, acous_lens=lens, beam_width=5,
+                  max_seq_len=cfg.max_seq_len_tgt)
+        out_g = forward_translate(pg, cfg, "ST", device=dev, **kw)
+        assert all(w.launches > n for w, n in zip(wrappers, before))
+        assert las_greedy_flash.launches == k2_before
+        out_c = forward_translate(pc, cfg, "ST", device="cpu", **kw)
+        assert torch.equal(out_g.cpu(), out_c)
+        return
+    kw = dict(acous_feats=feats, acous_lens=lens,
+              ref_src=torch.from_numpy(rng.randint(4, cfg.enc_vocab_size,
+                                                   (Bn, cfg.max_seq_len_src))),
+              ref_tgt=torch.from_numpy(rng.randint(4, cfg.dec_vocab_size, (Bn, 12))))
+    kw["ref_src"][:, 0] = kw["ref_tgt"][:, 0] = BOS
+    counts = lambda: (decode_chain_step_flash.gather_launches,
+                      decoder_layer_step_flash.launches, decode_head_gather.launches,
+                      las_greedy_flash.launches, bilstm_pallas.launches)
+    before = counts()
+    out_g = forward_eval(pg, cfg, "ASR_ST", device=dev, **kw)
+    ran = [a > b for a, b in zip(counts(), before)]
+    assert ran == ([False, True, True, False, True] if "universal" in route
+                   else [True, False, False, False, True])
+    out_c = forward_eval(pc, cfg, "ASR_ST", device="cpu", **kw)
+    assert set(out_g) == set(out_c)
+    for k, v in out_c.items():
+        if k.startswith(("preds", "lengths")):
+            assert torch.equal(out_g[k].cpu(), v), k
+        else:
+            _close(out_g[k].cpu(), v, TOL)
