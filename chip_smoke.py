@@ -260,6 +260,29 @@ package beside it, included):
       backward at that dev batch's lengths against the plain version
       (1e-4 and 1e-3 relative).
 
+14. quality kernel (its own seconds on its last line): the kernel profile
+   of stjep_tpu_torch/scripts/quality.py (D 128, 4 heads, FF 256,
+   acoustic hidden 64: D and 2H pass JAX's gate, so the LAS runs K9 in
+   training and K2 when it runs free):
+   a. quality.py --profile kernel for 2 + 2 epochs on its full corpus (360
+      + 48 sentences, 24 steps a training stage): it finishes with its
+      route check passed (K8, K9 forward and backward in every step of
+      ASR and ASR_ST, K2 in every dev eval) and each stage's kernels
+      launched (QK_RAN); WER and BLEU printed, not held (too short for
+      the gate). On the run's own inputs: K9 forward and backward on the
+      joint stage's first train step's LAS scan, K8 on that step's
+      pyramid layers (1e-3, 1e-4 / 1e-3 relative), the joint stage's first
+      dev eval (K1, K2, K3 gather) and the ST beam decode's first batch
+      (K1, K2, K3, K4's select: the decoder projects its 32-wide
+      embeddings to D, so the beam takes the general loop) against CPU
+      copies as in 13 b;
+   b. eval_audit.py's 15 cells (eval modes 1-4, the six gen modes with
+      and without the n-gram LM) on a's joint checkpoint and its own
+      16-sentence test set, each on the card and on the CPU: mode 1 lines
+      equal, mode 2 bit-equal to the leaf-wise mean on both, mode 3 within
+      1e-5 relative, mode 4's rows within 1e-5; no K2 or K9 under the LM,
+      K2 (ASR, ST, ST_BASE) or K9's forward (ASR-REF, ST-REF) without it.
+
 The last lines: a JSON object with one entry per kernel (its launches
 summed over the main paths' runs), the total seconds, the nvidia-smi line,
 then {"ok": true, "device": {...}}.
@@ -1393,18 +1416,19 @@ def rel_err(a, b) -> float:
 K8_TOL = {"fwd": 1e-4, "bwd": 1e-3}  # relative; phase_k8 says why
 
 
-def k8_layer(p, rng, n, T, din, lens):
+def k8_layer(p, rng, n, T, din, lens, x=None):
     """One pyramid layer (params p) through K8's forward and backward and
-    their plain versions on the same tensors: inputs x [n, T, din] and
-    output gradients g from rng, on the card. Returns (x, g, the forward's
-    arguments, its outputs, the plain ones, the backward's arguments, its
-    output, the plain one)."""
+    their plain versions on the same tensors: inputs x [n, T, din] (from
+    rng where not given) and output gradients g from rng, on the card.
+    Returns (x, g, the forward's arguments, its outputs, the plain ones,
+    the backward's arguments, its output, the plain one)."""
     from stjep_tpu_torch.ops import lstm_pallas_bwd as k8
 
     H = p["fwd"]["w_hh"].shape[0]
     w = tuple((p["fwd"][k], p["bwd"][k]) for k in ("w_ih", "w_hh"))
     bias = tuple(q["b_ih"] + q["b_hh"] for q in (p["fwd"], p["bwd"]))
-    x = torch.from_numpy(rng.uniform(-1, 1, (n, T, din)).astype(np.float32)).cuda()
+    if x is None:
+        x = torch.from_numpy(rng.uniform(-1, 1, (n, T, din)).astype(np.float32)).cuda()
     g = torch.from_numpy(rng.randn(n, T, 2 * H).astype(np.float32)).cuda()
     fargs = (*w, bias, x, lens)
     plain = k8.bilstm_fwd_save_plain(*fargs)
@@ -1480,18 +1504,15 @@ def phase_k9(params, cfg, rng):
     Hd, Ha2, E = cfg.dim_model, 2 * cfg.acous_hidden_size, cfg.enc_embedding_size
     t = lambda a: torch.from_numpy(a.astype(np.float32)).cuda()
     keep = 1.0 - cfg.dropout
-    w = k9.scan_weights(*(dec[k][n] for k, n in (
-        ("dec_l0", "w_ih"), ("dec_l0", "w_hh"), ("dec_l1", "w_ih"), ("dec_l1", "w_hh"),
-        ("dec_l1", "b_ih"), ("dec_l1", "b_hh"), ("dec_l2", "w_ih"), ("dec_l2", "w_hh"),
-        ("dec_l2", "b_ih"), ("dec_l2", "b_hh"))), dec["acous_ffn"]["w"], pack=True)
     ids = torch.from_numpy(rng.randint(5, cfg.enc_vocab_size, (S, B))).cuda()
     p0 = dec["dec_l0"]
     pre0 = (dec["embedder"][ids] @ p0["w_ih"][:E] + p0["b_ih"] + p0["b_hh"]).contiguous()
     acous = t(rng.uniform(-1, 1, (B, Tk, Ha2)))
-    wk = (acous @ dec["acous_att"]["linear_att_w"]["w"]).contiguous()
     lens = torch.from_numpy(rng.randint(Tk // 2, Tk + 1, size=(B,))).cuda()
-    masks = k9.Masks(t((rng.rand(S, 3, B, Hd) < keep) / keep),
-                     t((rng.rand(S, B, Ha2) < keep) / keep))
+    drop = (t((rng.rand(S, 3, B, Hd) < keep) / keep), t((rng.rand(S, B, 1, Ha2) < keep) / keep))
+    # the kernels' arguments as las_tf_scan's Function builds them
+    w, wk, masks = k9.kernel_args(acous, *k9.scan_inputs(
+        dec, dec["acous_att"]["linear_att_w"]["w"], dec["acous_ffn"]["w"], drop), pack=True)
     g = t(rng.randn(S, B, Hd))
     fargs = (w, pre0, wk, acous, lens, masks)
     st = k9.las_tf_fwd_plain(*fargs)
@@ -3417,14 +3438,14 @@ QUALITY_B = 32  # the quality run's train batch, and its dev eval's
 
 
 @contextlib.contextmanager
-def first_call(owner, name, store, want, keep):
+def first_call(owner, name, store, want, keep, n=1):
     """While open, owner.<name> appends keep(args, kwargs, output) to
-    `store` at its first call that want(args, kwargs) picks."""
+    `store` at its first n calls that want(args, kwargs) picks."""
     orig = getattr(owner, name)
 
     def recording(*a, **kw):
         out = orig(*a, **kw)
-        if not store and want(a, kw):
+        if len(store) < n and want(a, kw):
             store.append(keep(a, kw, out))
         return out
 
@@ -3433,6 +3454,59 @@ def first_call(owner, name, store, want, keep):
         yield store
     finally:
         setattr(owner, name, orig)
+
+
+@contextlib.contextmanager
+def step_mode(now):
+    """While open, now["mode"] is the MODE of the Trainer whose _step runs,
+    and None between steps."""
+    from stjep_tpu_torch.train import trainer as trainer_mod
+
+    orig = trainer_mod.Trainer._step
+
+    def marking(self, *a, **kw):
+        now["mode"] = self.MODE
+        try:
+            return orig(self, *a, **kw)
+        finally:
+            now["mode"] = None
+
+    trainer_mod.Trainer._step = marking
+    try:
+        yield now
+    finally:
+        trainer_mod.Trainer._step = orig
+
+
+@contextlib.contextmanager
+def recording_quality(evals, decodes, k8_calls):
+    """While open, a quality run's main-path inputs are recorded for
+    hold_quality: the joint stage's first dev eval at B = QUALITY_B (CPU
+    params, cfg, mode, kwargs, outputs) into evals, the ST beam-5 decode's
+    first batch (card params, cfg, kwargs, tokens) into decodes, and the
+    joint stage's first train step's K8 layers (bilstm_dp's arguments: the
+    layer's params, input and lengths) into k8_calls. Yields step_mode's
+    dict."""
+    import stjep_tpu_torch.infer.forward as fwd_mod
+    import stjep_tpu_torch.models.las_encoder as las_enc_mod
+    from stjep_tpu_torch.config import ModelConfig
+    from stjep_tpu_torch.ops.lstm_pallas_bwd import bilstm_pallas_trainable
+    from stjep_tpu_torch.train import trainer as trainer_mod
+
+    now = {"mode": None}
+    with step_mode(now), \
+            first_call(las_enc_mod, "bilstm_dp", k8_calls,
+                       lambda a, kw: now["mode"] == "ASR_ST" and a[0] is bilstm_pallas_trainable,
+                       lambda a, kw, o: host_copy(a[1:]),
+                       n=ModelConfig().num_pyramid_layers), \
+            first_call(trainer_mod, "forward_eval", evals,
+                       lambda a, kw: a[2] == "ASR_ST" and kw["acous_feats"].shape[0] == QUALITY_B,
+                       lambda a, kw, o: (host_copy(a[0]), a[1], a[2], host_copy(kw),
+                                         host_copy(o))), \
+            first_call(fwd_mod, "forward_translate", decodes,
+                       lambda a, kw: a[2] == "ST" and kw["beam_width"] == BEAM,
+                       lambda a, kw, o: (a[0], a[1], host_copy(kw), host_copy(o))):
+        yield now
 
 
 def host_copy(tree):
@@ -3446,55 +3520,55 @@ def host_copy(tree):
     return tree.detach().to("cpu", copy=True) if torch.is_tensor(tree) else tree
 
 
-def hold_quality(ev, dec, rng):
-    """Phase b's kernels at the quality widths (D 32, head width 8, acoustic
-    hidden 16) held against their plain versions on the main path's own
-    inputs: the joint stage's first dev eval at B = QUALITY_B (K1, K3's
-    gather variant; `ev`: CPU params, cfg, mode, kwargs, outputs) through
-    hold_eval; the ST beam-5 decode's first batch (K1, K3, K4; `dec`: card
-    params, cfg, kwargs, tokens) again on the card with its beam states
-    recorded and on CPU copies, differing rows explained by ties
-    (explain_e2e); K8 forward and backward at that batch's lengths, layer
-    by layer, on the eval's weights (k8_layer)."""
+def hold_quality(label, ev, dec, k8_calls, rng):
+    """A quality run's kernels held against their plain versions on the
+    main path's own inputs (recording_quality's records): the joint
+    stage's first dev eval at B = QUALITY_B (K1, K3's gather variant, and
+    K2 where the LAS passes JAX's gate; `ev`) through hold_eval; the ST
+    beam-5 decode's first batch (K1, K3, K4, K2 likewise; `dec`) again on
+    the card with its beam states recorded and on CPU copies, differing
+    rows explained by ties (explain_e2e); K8 forward and backward layer by
+    layer (k8_layer) on the joint stage's first train step's layers
+    (`k8_calls`)."""
     from stjep_tpu_torch.bridge import params_to
     from stjep_tpu_torch.models.seq2seq import forward_eval
 
     (pc_e, cfg_e, mode, kw_e, out_g), (pg_d, cfg_d, kw_d, toks) = ev, dec  # on the host but pg_d
     kw_e = {k: v for k, v in kw_e.items() if k != "device"}
     run = lambda p, d, **kw: forward_eval(p, cfg_e, mode, device=d, **{**kw_e, **kw})
-    margins_e, err_e, plain_e = hold_eval("recipe b dev eval", run, out_g, pc_e)
+    margins_e, err_e, plain_e = hold_eval(f"{label} dev eval", run, out_g, pc_e)
 
     feats, lens, n_pos = kw_d["acous_feats"], kw_d["acous_lens"], kw_d["max_seq_len"]
     card = recorded_translate(pg_d, cfg_d, feats, lens, "cuda", max_seq_len=n_pos)
-    need(torch.equal(card[0], toks), "recipe b: the ST decode's batch not reproducible")
+    need(torch.equal(card[0], toks), f"{label}: the ST decode's batch not reproducible")
     pc_d = host_copy(pg_d)
     t0 = time.perf_counter()
     plain = recorded_translate(pc_d, cfg_d, feats, lens, "cpu", max_seq_len=n_pos)
     plain_d = time.perf_counter() - t0
     margins_d = explain_e2e(pc_d, cfg_d, feats, lens, card, plain)
 
-    enc = params_to(pc_e, "cuda")["las"]["encoder"]
-    n, T = kw_e["acous_feats"].shape[:2]
-    lens_k8, din, H = kw_e["acous_lens"].long().cuda(), cfg_e.acous_dim, cfg_e.acous_hidden_size
-    rel = {"fwd": 0.0, "bwd": 0.0}
-    for li in range(cfg_e.num_pyramid_layers):
-        _, _, _, fwd, fplain, _, a, b = k8_layer(enc[f"acous_enc_l{li + 1}"], rng, n, T, din,
-                                                 lens_k8)
+    rel, k8_shapes = {"fwd": 0.0, "bwd": 0.0}, []
+    for pf, pb, x, n_ in k8_calls:
+        p = {"fwd": params_to(pf, "cuda"), "bwd": params_to(pb, "cuda")}
+        _, _, _, fwd, fplain, _, a, b = k8_layer(p, rng, *x.shape, n_.long().cuda(),
+                                                 x=x.float().cuda())
+        k8_shapes.append(list(x.shape))
         rel["fwd"] = max([rel["fwd"]] + [rel_err(c, d) for c, d in zip(fwd, fplain)])
         rel["bwd"] = max(rel["bwd"], rel_err(a, b))
-        T, din, lens_k8 = T // 2, 4 * H, lens_k8 // 2
-    say("recipe b held", dims=f"D{cfg_e.dim_model}/{cfg_e.num_heads}heads/H{H}",
+    say(f"{label} held",
+        dims=f"D{cfg_e.dim_model}/{cfg_e.num_heads}heads/H{cfg_e.acous_hidden_size}",
         eval_batch=list(kw_e["acous_feats"].shape), eval_rows_differ=len(margins_e),
         eval_max_margin=max(margins_e, default=0.0), picked_max_abs_err=err_e,
         picked_tol=EVAL_TOL, eval_plain_cpu_s=round(plain_e, 1),
         decode_batch=list(feats.shape), decode_positions=n_pos,
         decode_rows_differ=len(margins_d), decode_max_margin=max(margins_d, default=0.0),
         margin_limit=E2E_MARGIN, decode_plain_cpu_s=round(plain_d, 1),
-        k8_batch=n, k8_layers=cfg_e.num_pyramid_layers, k8_max_rel_err=rel, k8_tol_rel=K8_TOL)
-    need_eval_held("recipe b dev eval", margins_e, err_e)
+        k8_layer_inputs=k8_shapes,
+        k8_max_rel_err=rel, k8_tol_rel=K8_TOL)
+    need_eval_held(f"{label} dev eval", margins_e, err_e)
     need(all(m <= E2E_MARGIN for m in margins_d),
-         f"recipe b ST decode rows differ beyond ties: margins {margins_d}")
-    need(all(rel[k] <= K8_TOL[k] for k in rel), f"recipe b K8 relative errors {rel} > {K8_TOL}")
+         f"{label} ST decode rows differ beyond ties: margins {margins_d}")
+    need(all(rel[k] <= K8_TOL[k] for k in rel), f"{label} K8 relative errors {rel} > {K8_TOL}")
 
 
 def phase_recipe(seed):
@@ -3563,25 +3637,16 @@ def recipe_b(tmp, seed):
     in tmp: it finishes and writes its JSON, its launches; then
     hold_quality on its recorded joint dev eval and ST decode. Returns its
     launch counts."""
-    import stjep_tpu_torch.infer.forward as fwd_mod
+    from stjep_tpu_torch.config import ModelConfig
     from stjep_tpu_torch.scripts import quality_ab
-    from stjep_tpu_torch.train import trainer as trainer_mod
     from stjep_tpu_torch.utils.profiling import launch_counts, zero_launch_counts
 
-    # the seed's first dev eval of the joint stage at the train batch and
-    # its ST beam decode's first batch, recorded for hold_quality
     out = tmp / "quality.json"
-    evals, decodes = [], []
+    evals, decodes, k8_calls = [], [], []
     zero_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with first_call(trainer_mod, "forward_eval", evals,
-                    lambda a, kw: a[2] == "ASR_ST" and kw["acous_feats"].shape[0] == QUALITY_B,
-                    lambda a, kw, o: (host_copy(a[0]), a[1], a[2], host_copy(kw),
-                                      host_copy(o))), \
-            first_call(fwd_mod, "forward_translate", decodes,
-                       lambda a, kw: a[2] == "ST" and kw["beam_width"] == BEAM,
-                       lambda a, kw, o: (a[0], a[1], host_copy(kw), host_copy(o))):
+    with recording_quality(evals, decodes, k8_calls):
         rc = quality_ab.main(["--device", "cuda", "--workdir", str(tmp / "b"),
                               "--epochs_asr", str(QUALITY_EPOCHS),
                               "--epochs_joint", str(QUALITY_EPOCHS), "--seeds", "333",
@@ -3603,18 +3668,155 @@ def recipe_b(tmp, seed):
         steps=r["steps"], asr_dev_wer=r["asr_dev_wer"], st_dev_bleu=r["st_dev_bleu"],
         wer_bleu_held="no (too short for the band)", card=repr(r["card"]),
         launches={k: v for k, v in got.items() if v})
-    need(len(evals) == 1 and len(decodes) == 1,
+    need(len(evals) == 1 and len(decodes) == 1
+         and len(k8_calls) == ModelConfig().num_pyramid_layers,
          f"quality seed: {len(evals)} joint dev evals at B={QUALITY_B}, {len(decodes)} "
-         "ST beam decodes recorded")
-    hold_quality(evals[0], decodes[0], np.random.RandomState(seed + 13))
+         f"ST beam decodes, {len(k8_calls)} joint K8 layers recorded")
+    hold_quality("recipe b", evals[0], decodes[0], k8_calls, np.random.RandomState(seed + 13))
     return [got]
+
+
+# phase 14: quality.py's kernel profile (D 128, 2H 128: JAX's gate sends the
+# LAS through K2 and K9) on the full corpus, each stage's kernels, and the
+# eval audit's 15 cells on its joint checkpoint
+QK_EPOCHS = 2  # a training stage's epochs: 24 steps on the 360 + 48 corpus
+QK_RAN = {"asr": ("K8 fwd", "K8 bwd", "K9 fwd", "K9 bwd", "K1", "K2"),
+          "emb": ("K1", "K9 fwd"),
+          "asr_st": ("K8 fwd", "K8 bwd", "K9 fwd", "K9 bwd", "K1", "K2", "K3 gather"),
+          "dec_asr": ("K1", "K2"), "dec_st": ("K1", "K2", "K3", "K4 select")}
+K9_TOL = 1e-3  # relative, phase_k9's
+
+
+def hold_k9(label, call, rng):
+    """K9 forward and backward on a recorded las_tf_scan_dp call (host
+    copies of its arguments: the LSTM stack, attention and FFN weights,
+    pre0, the acoustic memory, lengths and dropout masks), the arguments
+    built as las_tf_scan's Function builds them, against the plain
+    versions on the card; the backward on a cotangent from rng."""
+    from stjep_tpu_torch.bridge import params_to
+    from stjep_tpu_torch.ops import las_tf_flash as k9
+
+    stack, att_w, ffn_w, pre0, acous, lens_k = params_to(call[:6], "cuda")
+    drop = None if call[6] is None else params_to(call[6], "cuda")
+    acous = acous.float().contiguous()
+    w, wk, m = k9.kernel_args(acous, *k9.scan_inputs(stack, att_w, ffn_w, drop), pack=True)
+    fargs = (w, pre0.float().contiguous(), wk, acous, lens_k.long(), m)
+    st = k9.las_tf_fwd_plain(*fargs)
+    S, Bn = pre0.shape[:2]
+    g = torch.from_numpy(rng.randn(S, Bn, ffn_w.shape[1]).astype(np.float32)).cuda()
+    bargs = (w, st, g, wk, acous, m)
+    rel = {"fwd": max(rel_err(a, b) for a, b in zip(k9.las_tf_fwd(*fargs), st)
+                      if a is not None),
+           "bwd": max(rel_err(a, b) for a, b in zip(k9.las_tf_bwd(*bargs),
+                                                     k9.las_tf_bwd_plain(*bargs)))}
+    say(f"{label} K9 held", steps=S, B=Bn, Tk=acous.shape[1], D=w.w1.shape[1] // 4,
+        two_H=acous.shape[2], masks=m is not None, max_rel_err=rel, tol_rel=K9_TOL)
+    need(all(v <= K9_TOL for v in rel.values()), f"{label} K9 relative errors {rel} > {K9_TOL}")
+
+
+def phase_quality_kernel(seed):
+    """a. quality.py --profile kernel for QK_EPOCHS + QK_EPOCHS epochs on
+    its full corpus (quality_kernel_a); b. the eval audit's 15 cells on
+    a's joint checkpoint, each against the CPU (quality_kernel_b). Returns
+    the runs' launch counts."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="stjep_quality_kernel_") as tmp:
+        runs, joint = quality_kernel_a(Path(tmp), seed)
+        runs += quality_kernel_b(Path(tmp), joint)
+    say("quality kernel", seconds=round(time.perf_counter() - t_phase, 1))
+    return runs
+
+
+def quality_kernel_a(tmp, seed):
+    """quality.py at the kernel profile in tmp/a: it finishes with its
+    route check passed (K9 forward and backward in every training step, K2
+    in every dev eval; not judged on WER and BLEU: too short), each
+    stage's kernels in QK_RAN launched; then, on the run's own inputs, K9
+    forward and backward on the joint stage's first train step's LAS scan
+    (hold_k9), K8 on that step's pyramid layers, and the joint stage's
+    first dev eval and the ST decode's first batch against CPU copies
+    (hold_quality). Returns (each stage's launch counts, the joint
+    checkpoint)."""
+    import stjep_tpu_torch.models.las_decoder as las_dec_mod
+    from stjep_tpu_torch.config import ModelConfig
+    from stjep_tpu_torch.scripts import quality
+
+    out = tmp / "quality_kernel.json"
+    evals, decodes, k9_calls, k8_calls = [], [], [], []
+    t0 = time.perf_counter()
+    with recording_quality(evals, decodes, k8_calls) as now, \
+            first_call(las_dec_mod, "las_tf_scan_dp", k9_calls,
+                       lambda a, kw: now["mode"] == "ASR_ST", lambda a, kw, o: host_copy(a)):
+        rc = quality.main(["--profile", "kernel", "--device", "cuda", "--workdir",
+                           str(tmp / "a"), "--epochs_asr", str(QK_EPOCHS), "--epochs_joint",
+                           str(QK_EPOCHS), "--out", str(out)])
+    secs = time.perf_counter() - t0
+    need(out.exists(), f"quality.py exited {rc} without a result")
+    q = json.loads(out.read_text())
+    stages = q["stages"]
+    need(rc == 0 and q["routes"]["status"] == "pass" and q["short"],
+         f"quality.py exited {rc}: routes {q['routes']}, gate {q['gate']}")
+    steps = {k: stages[k]["steps"] for k in quality.TRAINING}
+    need(steps == {"asr": QK_EPOCHS * 12, "asr_st": QK_EPOCHS * 12}, f"steps {steps}")
+    for name, ran in QK_RAN.items():
+        got = stages[name]["launches"]
+        need(all(got[k] > 0 for k in ran), f"stage {name}: launches {got}, expected > 0 for "
+             f"{list(ran)}")
+    say("quality kernel a", profile="kernel", epochs=[QK_EPOCHS, QK_EPOCHS],
+        corpus=[q["corpus"]["train_sents"], q["corpus"]["dev_sents"]], seconds=round(secs, 3),
+        stage_s={k: round(v["seconds"], 3) for k, v in stages.items()}, steps=steps,
+        loop_steps_per_s={k: stages[k]["loop_steps_per_s"] for k in quality.TRAINING},
+        steps_with={k: stages[k]["steps_with"] for k in quality.TRAINING},
+        dev_evals={k: [stages[k]["dev_evals"], stages[k]["dev_evals_with"]["K2"]]
+                   for k in quality.TRAINING},
+        asr_dev_wer=q["asr_dev_wer"], st_dev_bleu=q["st_dev_bleu"],
+        wer_bleu_held="no (too short for the gate)", card=repr(q["card"]))
+    need(len(k9_calls) == 1 and len(k8_calls) == ModelConfig().num_pyramid_layers
+         and len(evals) == 1 and len(decodes) == 1,
+         f"recorded {len(k9_calls)} joint K9 scans, {len(k8_calls)} K8 layers, {len(evals)} "
+         f"joint dev evals at B={QUALITY_B}, {len(decodes)} ST beam decodes")
+    rng = np.random.RandomState(seed + 19)
+    hold_k9("quality kernel", k9_calls[0], rng)
+    hold_quality("quality kernel", evals[0], decodes[0], k8_calls, rng)
+    joint_ckpt = tmp / "a" / "asr_st" / "checkpoints" / q["checkpoints"]["joint"]
+    return [stages[k]["launches"] for k in quality.STAGES], joint_ckpt
+
+
+def quality_kernel_b(tmp, joint_ckpt):
+    """eval_audit.py's 15 cells at --dims kernel on a's joint checkpoint
+    (mode 2 averaging a's saved checkpoints), each on the card and on the
+    CPU: every cell passes (eval_audit's holds and launch rules). Returns
+    the card arms' launch counts."""
+    from stjep_tpu_torch.scripts import eval_audit
+
+    t0 = time.perf_counter()
+    res = eval_audit.run(str(tmp / "b"), dims="kernel", device="cuda", load=str(joint_ckpt),
+                         combine_path=str(joint_ckpt.parent), log=lambda line: None)
+    secs = time.perf_counter() - t0
+    runs = res["runs"]
+    say("quality kernel b", cells=len(runs), n_pass=res["n_pass"], n_fail=res["n_fail"],
+        seconds=round(secs, 3),
+        card_s={k: round(r.get("wall_s", 0.0), 3) for k, r in runs.items()},
+        cpu_s={k: round(r.get("cpu_s", 0.0), 3) for k, r in runs.items()},
+        rows_differ={k: r["held"].get("rows_differ") for k, r in runs.items()
+                     if "rows_differ" in r.get("held", {})},
+        mode3_rel_err=runs["mode3_gather_emb"].get("held", {}).get("rel_err"),
+        mode4=runs["mode4_plot_emb"].get("held"),
+        mode2=runs["mode2_combine"].get("leaves_not_the_mean"))
+    bad = {k: {x: r.get(x) for x in ("error", "held", "launch_problems")}
+           for k, r in runs.items() if r["status"] != "PASS"}
+    need(len(runs) == len(eval_audit.CELLS) and not bad, f"audit cells failed: {bad}")
+    return [r["launches"] for r in runs.values()]
 
 
 # the step of main() that runs, for the failure line when no phase_* function
 # is on the traceback
 STAGE = ["arguments"]
 # a phase's name on the failure line where it is not its function's
-PHASE_LABELS = {"phase_multiproc_train": "multi-process train", "phase_recipe": "recipe"}
+PHASE_LABELS = {"phase_multiproc_train": "multi-process train", "phase_recipe": "recipe",
+                "phase_quality_kernel": "quality kernel"}
 
 
 def main() -> int:
@@ -3726,6 +3928,8 @@ def main() -> int:
     runs += phase_multiproc_train(args.seed)
     # 13. the staged recipe at the flagship, and a short quality seed
     runs += phase_recipe(args.seed)
+    # 14. the kernel profile's quality recipe (K2, K9 in training) and the audit
+    runs += phase_quality_kernel(args.seed)
     launches = {k: sum(r.get(k, 0) for r in runs) for k in counters()}
 
     src, rep = "stjep_tpu_torch/csrc/", "stjep_tpu/ops/"

@@ -418,27 +418,48 @@ def _load_lm(lm_path):
         return loader.load(fin)
 
 
+def parse_config(argv=None):
+    """translate.py's flags in argv (sys.argv[1:] when None), validated."""
+    parser = argparse.ArgumentParser(description='Evaluation')
+    parser = load_arguments(parser)
+    return validate_config(vars(parser.parse_args(argv)))
+
+
+def build_test_set(config, ckpt):
+    """The test set main() decodes: config's paths in the checkpoint's
+    vocabularies (translate.py:100-117)."""
+    from stjep_tpu_torch.data.dataset import Dataset
+
+    test_acous_path = config['test_acous_path']
+    return Dataset(
+        path_src=config['test_path_src'],
+        path_tgt=config['test_path_tgt'] or config['test_path_src'],
+        vocab_src_list=ckpt.input_vocab, vocab_tgt_list=ckpt.output_vocab,
+        use_type=config['use_type'],
+        acous_path=test_acous_path,
+        seqrev=config['seqrev'],
+        acous_norm=config['acous_norm'],
+        acous_norm_path=config['acous_norm_path'],
+        acous_max_len=6000, max_seq_len_src=900, max_seq_len_tgt=900,
+        batch_size=config['batch_size'],
+        mode='ST' if test_acous_path else 'MT',
+    )
+
+
 def main(argv=None, device="cuda"):
     """Parse argv (sys.argv[1:] when None) and run the eval mode on
     `device`. Returns what the mode returns: mode 1 the translate.txt
     path, mode 2 the combined checkpoint's dir, mode 3 the .npy path,
     mode 4 the projector dir or None."""
-    from stjep_tpu_torch.data.dataset import Dataset
     from stjep_tpu_torch.train.checkpoint import Checkpoint, combine_weights, log_ckpts
 
-    parser = argparse.ArgumentParser(description='Evaluation')
-    parser = load_arguments(parser)
-    args = vars(parser.parse_args(argv))
-    config = validate_config(args)
+    config = parse_config(argv)
     device = torch.device(device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is visible: the port's translate CLI runs "
                            "on the card (main(argv, device='cpu') runs it on the host)")
 
-    test_path_src = config['test_path_src']
-    test_path_tgt = config['test_path_tgt'] or test_path_src
     test_path_out = config['test_path_out']
-    test_acous_path = config['test_acous_path']
 
     MODE = config['eval_mode']
     if MODE != 2:
@@ -454,19 +475,8 @@ def main(argv=None, device="cuda"):
         if MODE != 2:
             params = _f32_on(params, device)
 
-    test_set = Dataset(
-        path_src=test_path_src, path_tgt=test_path_tgt,
-        vocab_src_list=ckpt.input_vocab, vocab_tgt_list=ckpt.output_vocab,
-        use_type=config['use_type'],
-        acous_path=test_acous_path,
-        seqrev=config['seqrev'],
-        acous_norm=config['acous_norm'],
-        acous_norm_path=config['acous_norm_path'],
-        acous_max_len=6000, max_seq_len_src=900, max_seq_len_tgt=900,
-        batch_size=config['batch_size'],
-        mode='ST' if test_acous_path else 'MT',
-    )
-    print('Test dir: {}'.format(test_path_src))
+    test_set = build_test_set(config, ckpt)
+    print('Test dir: {}'.format(config['test_path_src']))
     print('Testset loaded')
     sys.stdout.flush()
 

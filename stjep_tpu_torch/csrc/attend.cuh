@@ -11,10 +11,10 @@
 // `pos` in slot (k, b), and reads position l from slot (anc[l, r], b) —
 // the ancestry map the beam carries instead of permuting caches. Memory
 // K/V stay unexpanded [B, Lk, D]; row r reads batch entry r / K. A lane per
-// position for the scores (16-byte row loads), a lane per head entry for
-// the context; exact two-pass softmax in shared memory (the lengths are
-// short); the warp writes its new K/V row into the cache and reads it back
-// at `pos`.
+// position for the scores (16-byte row loads where the head width allows),
+// a lane per head entry for the context; exact two-pass softmax in shared
+// memory (the lengths are short); the warp writes its new K/V row into the
+// cache and reads it back at `pos`.
 //
 // bf16 caches: the TPU kernels take the cache dtype as a parameter
 // (decode_flash.py:795,843-855). The bodies are templates over the element
@@ -60,10 +60,15 @@ __device__ __forceinline__ float dot_step(float q, __nv_bfloat16 k, float acc) {
 }
 
 // q . k over one head's d entries: qs (the scaled query, shared memory)
-// against a cache row kp, 16 bytes a load (d % 8 == 0, rows 16-byte
-// aligned), summed in order of the entries.
+// against a cache row kp, summed in order of the entries: 16 bytes a load
+// where d % 8 == 0 (then every row starts 16-byte aligned), else an entry
+// a load (head widths such as 6; the same sum in the same order).
 __device__ __forceinline__ float dot_row(const float* qs, const float* kp, int d) {
   float acc = 0.f;
+  if (d % 8) {
+    for (int t = 0; t < d; ++t) acc = dot_step(qs[t], kp[t], acc);
+    return acc;
+  }
   for (int t = 0; t < d; t += 4) {
     const float4 k = *reinterpret_cast<const float4*>(kp + t);
     acc = dot_step(qs[t], k.x, acc);
@@ -79,6 +84,10 @@ __device__ __forceinline__ float dot_pair(const float* qs, unsigned u, float acc
 }
 __device__ __forceinline__ float dot_row(const float* qs, const __nv_bfloat16* kp, int d) {
   float acc = 0.f;
+  if (d % 8) {
+    for (int t = 0; t < d; ++t) acc = dot_step(qs[t], kp[t], acc);
+    return acc;
+  }
   for (int t = 0; t < d; t += 8) {
     const uint4 k = *reinterpret_cast<const uint4*>(kp + t);  // entries t .. t+7
     acc = dot_pair(qs + t, k.x, acc);

@@ -615,13 +615,13 @@ LayerW read_layer(const void* const* w) {
   return L;
 }
 
-// The shapes the kernels take: head width d % 8 == 0 (16-byte cache row
-// loads), D within a row phase's registers, 16-byte weight rows.
+// The shapes the kernels take: whole heads, D within a row phase's
+// registers, 16-byte weight rows. Any head width: attend.cuh loads a cache
+// row 16 bytes at a time where d % 8 == 0, an entry at a time otherwise.
 bool shapes_ok(int quant, int D, int FF, int nh) {
   if (nh < 1 || D % nh) return false;
-  const int d = D / nh;
   const int align = quant ? 16 : 4;
-  return d % 8 == 0 && D <= ROW_COLS * THREADS && D % align == 0 && FF % align == 0;
+  return D <= ROW_COLS * THREADS && D % align == 0 && FF % align == 0;
 }
 
 // K6a-c and K7c: `grid` blocks (> 0), at most what the card keeps resident.

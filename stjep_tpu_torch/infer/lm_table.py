@@ -45,7 +45,6 @@ import numpy as np
 import torch
 
 from stjep_tpu_torch.config import BOS
-from stjep_tpu_torch.ops.decode_flash import topk_lowest_index
 
 TOP_N = 10  # ref: Dec.py:287
 MISS_SCORE = -1e10  # ref: Dec.py:293-295 (-inf clamp)
@@ -69,23 +68,35 @@ def _hash_np(tokens: np.ndarray, mult: np.uint32, seed: np.uint32) -> np.ndarray
     return h
 
 
-def _mul32(h: torch.Tensor, mult: int) -> torch.Tensor:
-    """(h * mult) mod 2^32 for int64 h in [0, 2^32): the low half of the
-    multiplier gives products below 2^48, and of the high half's product
-    only its low 16 bits reach the low 32 bits of the result."""
-    lo = h * (mult & 0xFFFF)
-    hi = ((h * (mult >> 16)) & 0xFFFF) << 16
-    return (lo + hi) & _M32
+def _mul32(h: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """(h * mult) mod 2^32 for int64 h in [0, 2^32), given the multiplier's
+    16-bit halves lo and hi (broadcasting against h): the low half gives
+    products below 2^48, and of the high half's product only its low 16
+    bits reach the low 32 bits of the result."""
+    return (h * lo + (((h * hi) & 0xFFFF) << 16)) & _M32
 
 
-def _hash_torch(tokens: torch.Tensor, mult: int, seed: int) -> torch.Tensor:
-    """_hash_np on a tensor: tokens [..., K] int -> [...] int64 holding the
-    uint32 hash, equal to _hash_np bit for bit."""
-    h = torch.full(tokens.shape[:-1], int(seed), dtype=torch.int64, device=tokens.device)
-    for k in range(tokens.shape[-1]):
-        t = tokens[..., k].long() & _M32
-        h = _mul32(h ^ ((t + 1) & _M32), int(mult))
-        h = h ^ (h >> 15)
+def _hash_torch(tokens: torch.Tensor, mult, seed,
+                length: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """_hash_np on a tensor, bit for bit: tokens [..., K] int -> int64
+    holding the uint32 hash. mult and seed are ints or int64 tensors of
+    one shape [n...] (several hashes at once): the result is [n..., ...].
+    With `length` (an int tensor broadcasting against the result) each
+    key's hash is that of its last `length` tokens."""
+    dev = tokens.device
+    lead = tokens.shape[:-1]
+    mult = torch.as_tensor(mult, dtype=torch.int64, device=dev)
+    shape = mult.shape + (1,) * len(lead)
+    mult = mult.reshape(shape)
+    lo, hi = mult & 0xFFFF, mult >> 16
+    h = torch.as_tensor(seed, dtype=torch.int64, device=dev).reshape(shape) \
+        + torch.zeros(lead, dtype=torch.int64, device=dev)
+    t1 = ((tokens.long() & _M32) + 1) & _M32  # each token as uint32, plus 1
+    K = tokens.shape[-1]
+    for k, t in enumerate(t1.unbind(-1)):
+        g = _mul32(h ^ t, lo, hi)
+        g = g ^ (g >> 15)
+        h = g if length is None else torch.where(length > K - 1 - k, g, h)
     return h
 
 
@@ -105,6 +116,13 @@ class NGramTable:
         self.order = order
         self.backoff = backoff
         self.on_device = True
+        # the probe offsets, the two hashes' multipliers and seeds, and a
+        # score's key lengths by context width, on the table's device
+        dev = h2.device
+        self._probes = torch.arange(MAX_PROBES, device=dev)
+        self._mults = torch.tensor([int(_MULT1), int(_MULT2)], device=dev)
+        self._seeds = torch.tensor([int(_SEED1), int(_SEED2)], device=dev)
+        self._lengths: Dict[int, torch.Tensor] = {}
 
     @classmethod
     def from_ngrams(
@@ -181,77 +199,66 @@ class NGramTable:
 
     # ------------------------------------------------------------- queries
 
-    def _probe(self, tokens: torch.Tensor):
-        """tokens [..., K] int -> (found [...], val [...], bow [...])."""
-        hh1 = _hash_torch(tokens, _MULT1, _SEED1)
-        hh2 = _hash_torch(tokens, _MULT2, _SEED2)
-        hh2 = torch.where(hh2 == 0, torch.ones_like(hh2), hh2)
-        found = torch.zeros(hh1.shape, dtype=torch.bool, device=hh1.device)
-        val = torch.full(hh1.shape, MISS_SCORE, dtype=torch.float32, device=hh1.device)
-        bow = torch.zeros(hh1.shape, dtype=torch.float32, device=hh1.device)
-        done = torch.zeros_like(found)
-        for p in range(MAX_PROBES):
-            s = (hh1 + p) & (self.size - 1)
-            slot_h2 = self.h2[s]
-            hit = (~done) & (slot_h2 == hh2)
-            empty = (~done) & (slot_h2 == 0)
-            val = torch.where(hit, self.val[s], val)
-            bow = torch.where(hit, self.bow[s], bow)
-            found = found | hit
-            done = done | hit | empty
+    def _probe(self, tokens: torch.Tensor, length: Optional[torch.Tensor] = None):
+        """tokens [..., K] int -> (found [...], val [...], bow [...]) of each
+        key: the last `length` tokens (all K where None). A key's probe
+        chain, MAX_PROBES slots, is read in one gather; its first slot that
+        holds the key or is empty decides."""
+        hh1, hh2 = _hash_torch(tokens, self._mults, self._seeds, length)
+        hh2 = hh2.clamp_min(1)  # as the builder stores it: 0 marks an empty slot
+        s = (hh1[..., None] + self._probes) & (self.size - 1)
+        slot_h2 = self.h2[s]
+        hit = slot_h2 == hh2[..., None]
+        stop = hit | (slot_h2 == 0)
+        first = stop & (stop.cumsum(-1) == 1)
+        found = (hit & first).any(-1)
+        slot = (s * first).sum(-1)
+        val = torch.where(found, self.val[slot], torch.full_like(found, MISS_SCORE,
+                                                                 dtype=torch.float32))
+        bow = torch.where(found, self.bow[slot], torch.zeros_like(found, dtype=torch.float32))
         return found, val, bow
 
-    def score(self, ctx_tokens: torch.Tensor, n_ctx, word: torch.Tensor) -> torch.Tensor:
+    def score(self, ctx_tokens: torch.Tensor, n_ctx: int, word: torch.Tensor) -> torch.Tensor:
         """logscore(word | last-n_ctx tokens of ctx_tokens).
 
         ctx_tokens [..., C] int (C = order-1 slots, oldest first), n_ctx an
-        int or an int tensor broadcasting against word, in [0, C], word
-        [...] int. Returns [...] float32.
+        int in [0, C], word [...] int. Returns [...] float32.
         """
         C = ctx_tokens.shape[-1]
-        n_ctx = torch.as_tensor(n_ctx, device=word.device)
         word = word.long()
         ctx_tokens = ctx_tokens.long()
 
-        # For each possible context length k (0..C): probe ngram (suffix_k +
-        # word) and context backoff (suffix_k); select by n_ctx.
-        founds, vals, bows = [], [], []
-        for k in range(C + 1):
-            if k == 0:
-                toks = word[..., None]
-            else:
-                toks = torch.cat([ctx_tokens[..., C - k:], word[..., None]], dim=-1)
-            f, v, _ = self._probe(toks)
-            if k == 0:
-                b = torch.zeros(f.shape, dtype=torch.float32, device=f.device)
-            else:
-                _, _, b = self._probe(ctx_tokens[..., C - k:])
-            founds.append(f)
-            vals.append(v)
-            bows.append(b)
+        # For each context length k (0..C): the ngram (suffix_k + word) and
+        # the context backoff (suffix_k). All 2C + 1 keys in one probe: the
+        # last k + 1 tokens of [ctx, word] (k = 0..C), then the last k of
+        # [0, ctx] (k = 1..C).
+        full = torch.cat([ctx_tokens, word[..., None]], dim=-1)
+        ctxp = torch.cat([torch.zeros_like(word)[..., None], ctx_tokens], dim=-1)
+        keys = torch.stack([full] * (C + 1) + [ctxp] * C)
+        if C not in self._lengths:
+            self._lengths[C] = torch.tensor(list(range(1, C + 2)) + list(range(1, C + 1)),
+                                            device=self.h2.device)
+        found, val, bow = self._probe(keys, self._lengths[C].view(-1, *[1] * word.dim()))
 
         miss = torch.full(word.shape, MISS_SCORE, dtype=torch.float32, device=word.device)
         if not self.backoff:
             # strict: only the exact-order probe counts
-            out = miss
-            for k in range(C + 1):
-                out = torch.where((n_ctx == k) & founds[k], vals[k], out)
-            return out
+            return torch.where(found[n_ctx], val[n_ctx], miss)
 
-        # ARPA backoff: highest found order wins; accumulate bow of every
-        # higher (missed) order along the way.
-        out = miss
-        for n in range(C + 1):  # actual context length
-            score = miss
-            acc = torch.zeros_like(miss)
-            settled = torch.zeros(word.shape, dtype=torch.bool, device=word.device)
-            for k in range(n, -1, -1):
-                take = (~settled) & founds[k]
-                score = torch.where(take, acc + vals[k], score)
+        # ARPA backoff: the highest found order up to n_ctx wins; accumulate
+        # the bow of every higher (missed) order along the way (a settled
+        # key's acc is read no more, so it may go on adding)
+        found, val, bow = found.unbind(0), val.unbind(0), bow.unbind(0)
+        score = miss
+        acc = torch.zeros_like(miss)
+        settled = torch.zeros(word.shape, dtype=torch.bool, device=word.device)
+        for k in range(n_ctx, -1, -1):
+            take = found[k] & ~settled
+            score = torch.where(take, acc + val[k], score)
+            if k:
                 settled = settled | take
-                acc = acc + torch.where(settled, torch.zeros_like(acc), bows[k])
-            out = torch.where(n_ctx == n, score, out)
-        return out
+                acc = acc + bow[C + k]
+        return score
 
 
 def make_table_fuser(table: NGramTable, lm_mode: str):
@@ -259,7 +266,8 @@ def make_table_fuser(table: NGramTable, lm_mode: str):
     (logp [B,V], ctx [B,3], step int) -> [B,V] function on the table's
     device with fn.on_device = True, or None for 'null'. The top TOP_N
     candidates come in jax.lax.top_k's order, the lowest id first among
-    ties (`topk_lowest_index`)."""
+    ties: the head of a stable descending sort, one operation where
+    `topk_lowest_index` takes four a candidate."""
     if lm_mode == "null" or table is None:
         return None
     mode = lm_mode.split("_")[0]
@@ -269,12 +277,14 @@ def make_table_fuser(table: NGramTable, lm_mode: str):
 
     def fuse(logp, ctx, step):
         step = int(step)
-        top_v, top_i = topk_lowest_index(logp, TOP_N)  # [B, N]
+        top_v, top_i = (a[:, :TOP_N] for a in torch.sort(logp, dim=-1, descending=True,
+                                                          stable=True))  # [B, N]
         # context: last min(3, step) emitted ids, or [BOS] at step 0 (the
         # reference's context build, ref: Dec.py:283-285 / infer/lm_fusion.py);
         # step 0 = length-1 context with BOS in the newest slot
-        ctx_eff = ctx.long().clone()
+        ctx_eff = ctx.long()
         if step == 0:
+            ctx_eff = ctx_eff.clone()
             ctx_eff[:, 2] = BOS
         n_eff = 1 if step == 0 else min(step, 3)
         raw = table.score(ctx_eff[:, None, :].expand(-1, TOP_N, -1), n_eff, top_i)  # [B, N]

@@ -287,16 +287,40 @@ def scan_weights(w0_ih, w0_hh, w1_ih, w1_hh, b1_ih, b1_hh, w2_ih, w2_hh, b2_ih,
                    p1=packed[1], p2=packed[2])
 
 
+def scan_inputs(stack: Dict, att_w: torch.Tensor, ffn_w: torch.Tensor,
+                masks: Optional[Tuple[torch.Tensor, torch.Tensor]]) -> Tuple:
+    """las_tf_scan's weights and masks as _LasTFScan takes them after its
+    first three inputs, in f32: (m_lstm, m_ctx, att_w, w0_ih, w0_hh, w1_ih,
+    w1_hh, b1_ih, b1_hh, w2_ih, w2_hh, b2_ih, b2_hh, ffn_w); the masks None
+    without dropout."""
+    p0, p1, p2 = (stack[f"dec_l{i}"] for i in range(3))
+    m_lstm, m_ctx = (None, None) if masks is None else (masks[0].float(),
+                                                        masks[1][:, :, 0].float())
+    ws = (att_w, p0["w_ih"], p0["w_hh"], p1["w_ih"], p1["w_hh"], p1["b_ih"],
+          p1["b_hh"], p2["w_ih"], p2["w_hh"], p2["b_ih"], p2["b_hh"], ffn_w)
+    return (m_lstm, m_ctx) + tuple(w.float() for w in ws)
+
+
+def kernel_args(acous, m_lstm, m_ctx, att_w, w0_ih, w0_hh, w1_ih, w1_hh, b1_ih,
+                b1_hh, w2_ih, w2_hh, b2_ih, b2_hh, ffn_w, pack: bool):
+    """What the kernels read, from _LasTFScan's inputs: (w, wk, masks), the
+    weights as the steps read them (scan_weights; packed with pack), the
+    attention keys acous @ att_w of the contiguous acous, and the masks
+    (None without dropout)."""
+    w = scan_weights(w0_ih, w0_hh, w1_ih, w1_hh, b1_ih, b1_hh, w2_ih, w2_hh,
+                     b2_ih, b2_hh, ffn_w, pack=pack)
+    masks = None if m_lstm is None else Masks(m_lstm.contiguous(), m_ctx.contiguous())
+    return w, (acous @ att_w).contiguous(), masks
+
+
 class _LasTFScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, pre0, acous, lens_k, m_lstm, m_ctx, att_w, w0_ih, w0_hh,
                 w1_ih, w1_hh, b1_ih, b1_hh, w2_ih, w2_hh, b2_ih, b2_hh, ffn_w):
-        w = scan_weights(w0_ih, w0_hh, w1_ih, w1_hh, b1_ih, b1_hh, w2_ih, w2_hh,
-                         b2_ih, b2_hh, ffn_w, pack=pre0.is_cuda)
-        masks = None if m_lstm is None else Masks(m_lstm.contiguous(),
-                                                  m_ctx.contiguous())
         acous = acous.contiguous()
-        wk = (acous @ att_w).contiguous()
+        w, wk, masks = kernel_args(acous, m_lstm, m_ctx, att_w, w0_ih, w0_hh, w1_ih,
+                                   w1_hh, b1_ih, b1_hh, w2_ih, w2_hh, b2_ih, b2_hh,
+                                   ffn_w, pack=pre0.is_cuda)
         fwd = las_tf_fwd if pre0.is_cuda else las_tf_fwd_plain
         st = fwd(w, pre0.contiguous(), wk, acous, lens_k, masks)
         ctx.save_for_backward(acous, att_w, w0_ih, ffn_w)
@@ -337,15 +361,10 @@ def las_tf_scan(stack: Dict, att_w: torch.Tensor, ffn_w: torch.Tensor,
     with both biases; masks: (lstm [S, 3, B, Hd], ctx [S, B, 1, Ha2])
     inverted-dropout masks, or None. Returns the dynamic embeddings
     [S, B, Hs], time-major."""
-    p0, p1, p2 = (stack[f"dec_l{i}"] for i in range(3))
-    m_lstm, m_ctx = (None, None) if masks is None else (masks[0].float(),
-                                                        masks[1][:, :, 0].float())
     lens = lens_k.to(device=pre0_steps.device, dtype=torch.int64)
     dtype = torch.promote_types(pre0_steps.dtype, acous_outputs.dtype)
     # the kernels are f32: other dtypes (bf16 params) are cast to f32 at the
     # boundary and the output back, so the gradients are cast the same way
-    ws = (att_w, p0["w_ih"], p0["w_hh"], p1["w_ih"], p1["w_hh"], p1["b_ih"],
-          p1["b_hh"], p2["w_ih"], p2["w_hh"], p2["b_ih"], p2["b_hh"], ffn_w)
-    out = _LasTFScan.apply(pre0_steps.float(), acous_outputs.float(), lens, m_lstm,
-                           m_ctx, *(w.float() for w in ws))
+    out = _LasTFScan.apply(pre0_steps.float(), acous_outputs.float(), lens,
+                           *scan_inputs(stack, att_w, ffn_w, masks))
     return out.to(dtype)

@@ -183,7 +183,9 @@ SWEEPS = [(1, 5, 8, 50), (3, 21, 8, 64), (9, 40, 24, 256), (3, 97, 8, 50),
           (1, 1504, 40, 256), (16, 1504, 40, 256),
           # the quality run's and the staged recipe's LAS (acoustic hidden
           # sizes 16 and 6): layer 1 (8-dim features) and a pyramid layer (4H)
-          (32, 64, 8, 16), (32, 32, 64, 16), (8, 72, 8, 6), (8, 36, 24, 6)]
+          (32, 64, 8, 16), (32, 32, 64, 16), (8, 72, 8, 6), (8, 36, 24, 6),
+          # quality.py's kernel profile (acoustic hidden 64): the same two
+          (32, 64, 8, 64), (32, 32, 256, 64)]
 SWEEP_IDS = [f"B{b}-T{t}-H{h}" for b, t, _, h in SWEEPS]
 
 
@@ -1041,8 +1043,9 @@ def wide_params(dev):
 
 
 # the widths of stjep_tpu_torch/scripts/quality_ab.py (DIMS, on the hard
-# corpus's vocabularies) and of full_recipe.py (run_full_recipe.sh's COMMON,
-# on its corpus's): head width 8, acoustic hidden sizes 16 and 6
+# corpus's vocabularies), of full_recipe.py (run_full_recipe.sh's COMMON,
+# on its corpus's) and quality.py's kernel profile: head widths 8 and 32,
+# acoustic hidden sizes 16, 6 and 64
 NARROW = {
     "quality": ModelConfig(
         enc_vocab_size=21, dec_vocab_size=15, enc_embedding_size=16, dec_embedding_size=32,
@@ -1053,14 +1056,29 @@ NARROW = {
         enc_vocab_size=20, dec_vocab_size=15, enc_embedding_size=8, dec_embedding_size=16,
         acous_dim=8, acous_hidden_size=6, dim_model=16, dim_feedforward=32, num_heads=2,
         enc_layers=2, dec_layers=2, spec_aug=False, dropout=0.0, max_seq_len_src=16,
-        max_seq_len_tgt=32, mode="ASR_ST")}
+        max_seq_len_tgt=32, mode="ASR_ST"),
+    # stjep_tpu_torch/scripts/quality.py's kernel profile on the learnable
+    # corpus's vocabularies: D 128 and 2H 128 pass JAX's gate for K2 and K9
+    "kernel": ModelConfig(
+        enc_vocab_size=20, dec_vocab_size=15, enc_embedding_size=16, dec_embedding_size=32,
+        acous_dim=8, acous_hidden_size=64, dim_model=128, dim_feedforward=256, num_heads=4,
+        enc_layers=2, dec_layers=2, spec_aug=False, dropout=0.0, max_seq_len_src=10,
+        max_seq_len_tgt=24, mode="ASR_ST")}
+# stjep_tpu_torch/scripts/eval_audit.py's --dims audit (run_eval_audit.py's
+# DIMS): D 12 in 2 heads, a head width of 6 (no 16-byte cache row loads),
+# and no int8 weights (D % 16); its own tests at the end of the file
+AUDIT = ModelConfig(
+    enc_vocab_size=20, dec_vocab_size=15, enc_embedding_size=8, dec_embedding_size=12,
+    acous_dim=8, acous_hidden_size=6, dim_model=12, dim_feedforward=24, num_heads=2,
+    enc_layers=2, dec_layers=2, spec_aug=False, dropout=0.0, max_seq_len_src=16,
+    max_seq_len_tgt=32, mode="ASR_ST")
 
 
 @pytest.fixture(scope="module")
 def narrow(dev):
-    """width -> (cfg, CPU params, card params)."""
+    """width -> (cfg, CPU params, card params), NARROW's and "audit"."""
     out = {}
-    for i, (k, cfg) in enumerate(NARROW.items()):
+    for i, (k, cfg) in enumerate({**NARROW, "audit": AUDIT}.items()):
         pc = init_seq2seq(cfg, torch.Generator().manual_seed(40 + i), "cpu")
         out[k] = (cfg, pc, params_to(pc, dev))
     return out
@@ -1138,7 +1156,9 @@ FUSED_K5_CASES = [  # (config, Bn, K, pos, Lk): BK = 5, 320, 9, 80
     ("small", 1, 5, 0, LK), ("small", 64, 5, 7, 45), ("small", 3, 3, MAX_LEN - 1, 45),
     ("wide", 16, 5, 75, 89),
     # head width 8: the quality run's (D 32, 4 heads) and the recipe's (D 16, 2)
-    ("quality", 16, 5, 0, 8), ("quality", 16, 5, 23, 8), ("recipe", 8, 3, 31, 9)]
+    ("quality", 16, 5, 0, 8), ("quality", 16, 5, 23, 8), ("recipe", 8, 3, 31, 9),
+    # head width 32 at the kernel profile (D 128, 4 heads, 15 target ids)
+    ("kernel", 16, 5, 0, 8), ("kernel", 16, 5, 23, 8)]
 
 
 @pytest.mark.parametrize("quant,bf16", VARIANTS, ids=VARIANT_IDS)
@@ -2366,8 +2386,9 @@ def test_translate_modes_match_cpu(dev, params, mode, refen):
 
 def test_lm_table_hash_and_fuser_on_card(dev):
     """The table's int64 hash on the card equals numpy's uint32 hash bit for
-    bit over the whole int32 range, and the table fuser on the card equals
-    it on CPU copies (1e-6), ties at the 10th candidate included."""
+    bit over the whole int32 range, also both hashes in one call on keys of
+    lengths 1-4 as the probe makes them, and the table fuser on the card
+    equals it on CPU copies (1e-6), ties at the 10th candidate included."""
     from stjep_tpu_torch.infer import lm_table as lt
 
     rng = np.random.RandomState(2)
@@ -2375,6 +2396,15 @@ def test_lm_table_hash_and_fuser_on_card(dev):
     for mult, seed in ((lt._MULT1, lt._SEED1), (lt._MULT2, lt._SEED2)):
         got = lt._hash_torch(torch.from_numpy(toks).to(dev), int(mult), int(seed)).cpu().numpy()
         np.testing.assert_array_equal(got, lt._hash_np(toks, mult, seed).astype(np.int64))
+    both = lt._hash_torch(torch.from_numpy(toks.reshape(4, 1024, 4)).to(dev),
+                          torch.tensor([int(lt._MULT1), int(lt._MULT2)], device=dev),
+                          torch.tensor([int(lt._SEED1), int(lt._SEED2)], device=dev),
+                          torch.arange(1, 5, device=dev).view(4, 1)).cpu().numpy()
+    for i, (mult, seed) in enumerate(((lt._MULT1, lt._SEED1), (lt._MULT2, lt._SEED2))):
+        for g in range(4):
+            np.testing.assert_array_equal(
+                both[i, g], lt._hash_np(toks.reshape(4, 1024, 4)[g, :, 3 - g:], mult,
+                                        seed).astype(np.int64))
     V = 40
     entries = {(w,): float(-rng.uniform(1, 6)) for w in range(V)}
     for _ in range(300):
@@ -2439,8 +2469,9 @@ def test_translate_cli_on_card_writes_the_cpu_file(dev, train_corpus, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# The quality run's and the staged recipe's widths (NARROW: head width 8,
-# acoustic hidden sizes 16 and 6, vocabularies of 15 to 21 ids). K1 and K8
+# The quality runs' and the staged recipe's widths (NARROW: head widths 8
+# and 32, acoustic hidden sizes 16, 6 and 64, vocabularies of 15 to 21
+# ids). K1 and K8
 # run them in SWEEPS, K4 and K5 in the fused cases; here K2, K9, K3, K7 and
 # the routes that chain them.
 
@@ -2486,14 +2517,16 @@ def test_narrow_head_kernels_match_plain(dev, width, BK, topk):
 @pytest.mark.parametrize("width", list(NARROW))
 def test_narrow_routes_card_match_cpu(dev, narrow, width, route):
     """The decode routes at the narrow widths on B = 16, card against CPU
-    copies: the ST beam-5 (K1, K3, K4; universal: K1, K5, K7, the select)
+    copies: the ST beam-5 (K1, K3, K4 or the select; universal: K1, K5,
+    K7, the select)
     tokens equal, and dev eval with refs (K1, K3's gather variant;
     universal: K1, K5, K7's gather variant) outputs equal (floats within
-    TOL). The LAS decoder runs its plain step loop at these widths, not
-    K2: JAX's gate (`las_flash_supported`: D and 2H multiples of 128) sends
-    them to its XLA scan."""
+    TOL). The LAS decoder runs K2 at the kernel profile only: JAX's gate
+    (`las_flash_supported`: D and 2H multiples of 128) sends the other
+    widths to its XLA scan, the port's plain step loop."""
     cfg, pc, pg = narrow[width]
-    assert not k2.las_flash_supported(cfg)
+    gated = k2.las_flash_supported(cfg)
+    assert gated == (width == "kernel")
     k2_before = las_greedy_flash.launches
     if "universal" in route:
         cfg = dataclasses.replace(cfg, transformer_type="universal")
@@ -2505,15 +2538,18 @@ def test_narrow_routes_card_match_cpu(dev, narrow, width, route):
     lens = torch.from_numpy(rng.randint(24, 65, Bn))
     lens[0] = 64
     if route.startswith("beam"):
+        # the standard decoder's megastep K4, or where it projects its
+        # embeddings (the kernel profile: E 32, D 128) the general loop's select
         wrappers = ((decoder_layer_step_flash, decode_head, beam_select, bilstm_pallas)
                     if "universal" in route else
-                    (bilstm_pallas, decode_chain_step_flash, decode_beam_step_flash))
+                    (bilstm_pallas, decode_chain_step_flash,
+                     beam_select if cfg.dec_emb_proj_flag else decode_beam_step_flash))
         before = [w.launches for w in wrappers]
         kw = dict(acous_feats=feats, acous_lens=lens, beam_width=5,
                   max_seq_len=cfg.max_seq_len_tgt)
         out_g = forward_translate(pg, cfg, "ST", device=dev, **kw)
         assert all(w.launches > n for w, n in zip(wrappers, before))
-        assert las_greedy_flash.launches == k2_before
+        assert (las_greedy_flash.launches > k2_before) == gated
         out_c = forward_translate(pc, cfg, "ST", device="cpu", **kw)
         assert torch.equal(out_g.cpu(), out_c)
         return
@@ -2528,8 +2564,8 @@ def test_narrow_routes_card_match_cpu(dev, narrow, width, route):
     before = counts()
     out_g = forward_eval(pg, cfg, "ASR_ST", device=dev, **kw)
     ran = [a > b for a, b in zip(counts(), before)]
-    assert ran == ([False, True, True, False, True] if "universal" in route
-                   else [True, False, False, False, True])
+    assert ran == ([False, True, True, gated, True] if "universal" in route
+                   else [True, False, False, gated, True])
     out_c = forward_eval(pc, cfg, "ASR_ST", device="cpu", **kw)
     assert set(out_g) == set(out_c)
     for k, v in out_c.items():
@@ -2537,3 +2573,32 @@ def test_narrow_routes_card_match_cpu(dev, narrow, width, route):
             assert torch.equal(out_g[k].cpu(), v), k
         else:
             _close(out_g[k].cpu(), v, TOL)
+
+
+# The audit's widths (AUDIT: head width 6): the fused kernels' attention
+# loads a cache row an entry at a time there. K3 in f32 and with bf16
+# caches, K5 and K4 likewise, and the decode routes, through the narrow
+# tests' bodies.
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("K,pos,topk,gather", NARROW_K3_CASES)
+def test_audit_width_chain_step_matches_plain(dev, narrow, K, pos, topk, gather, bf16):
+    test_narrow_chain_step_matches_plain(dev, narrow, "audit", K, pos, topk, gather, False,
+                                         bf16)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("pos", [0, 31])
+def test_audit_width_fused_steps_match_plain(dev, params, wide_params, narrow, pos, bf16):
+    """K5 and K4 (the audit's decoder embeds at D: the megastep) at head
+    width 6."""
+    test_fused_layer_step_matches_plain(dev, params, wide_params, narrow, "audit", 8, 2, pos, 9,
+                                        False, bf16)
+    test_fused_beam_step_matches_plain(dev, params, wide_params, narrow, "audit", 8, 2,
+                                       max(pos, 2), 9, 1.0, False, bf16)
+
+
+@pytest.mark.parametrize("route", ["beam", "eval", "beam universal", "eval universal"])
+def test_audit_width_routes_card_match_cpu(dev, narrow, route):
+    test_narrow_routes_card_match_cpu(dev, narrow, "audit", route)

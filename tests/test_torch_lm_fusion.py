@@ -82,6 +82,17 @@ def test_hash_bit_equal_on_int32_tokens():
             np.testing.assert_array_equal(ours.numpy(), ref.astype(np.int64))
             assert (ref >= 2 ** 31).any() and (ref < 2 ** 31).any()
             np.testing.assert_array_equal(tlt._hash_np(toks[:, :k], mult, seed), ref)
+    # both hashes in one call on keys [4, 128, 4] of lengths 1-4, as the
+    # table's probe makes it: each key's hash is that of its last tokens
+    keys = toks.reshape(4, 128, 4)
+    length = torch.arange(1, 5).view(4, 1)
+    both = tlt._hash_torch(torch.from_numpy(keys), torch.tensor([int(jlt._MULT1), int(jlt._MULT2)]),
+                           torch.tensor([int(jlt._SEED1), int(jlt._SEED2)]), length)
+    assert both.shape == (2, 4, 128) and both.dtype == torch.int64
+    for i, (mult, seed) in enumerate(((jlt._MULT1, jlt._SEED1), (jlt._MULT2, jlt._SEED2))):
+        for g in range(4):
+            ref = jlt._hash_np(keys[g, :, 3 - g:], mult, seed)
+            np.testing.assert_array_equal(both[i, g].numpy(), ref.astype(np.int64))
 
 
 @pytest.mark.parametrize("kind", ["strict", "backoff"])
