@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from stjep_tpu_torch.config import ModelConfig, save_config, validate_config
+from stjep_tpu_torch.utils.profiling import span
 
 
 def load_arguments(parser):
@@ -230,8 +231,9 @@ def translate(test_set, cfg, params, test_path_out, max_seq_len, beam_width,
     (`stage`: pinned non-blocking copies), STJEP_DECODE_PIPELINE (default
     4) of them ahead and as many decodes' results in flight before their
     rows are read back and written (0: inline, no thread);
-    STJEP_TRANSLATE_TIMING=1 prints the seconds of each phase. Returns the
-    output path."""
+    STJEP_TRANSLATE_TIMING=1 prints the seconds of each phase; each phase
+    is also the span `stjep.translate.<phase>` (utils/profiling.py).
+    Returns the output path."""
     from stjep_tpu_torch.data.loader import host_prefetch
     from stjep_tpu_torch.infer.forward import forward_translate
 
@@ -284,13 +286,16 @@ def translate(test_set, cfg, params, test_path_out, max_seq_len, beam_width,
     phase = {'materialise': 0.0, 'stage': 0.0, 'dispatch': 0.0,
              'drain': 0.0, 'write': 0.0}
 
+    spans = {k: 'stjep.translate.' + k for k in phase}
+
     def _timed(key, fn, *a):
-        if not timing:
-            return fn(*a)
-        t0 = time.perf_counter()
-        out = fn(*a)
-        phase[key] += time.perf_counter() - t0
-        return out
+        with span(spans[key]):
+            if not timing:
+                return fn(*a)
+            t0 = time.perf_counter()
+            out = fn(*a)
+            phase[key] += time.perf_counter() - t0
+            return out
 
     def _minibatches():
         for idx in range(n_batches):

@@ -16,7 +16,10 @@ From position 2 on, two loops, where JAX has them (beam.py:371-372):
   phase).
 
 Both run until `max_seq_len` or until every beam has emitted EOS; the
-all-EOS flag is read on the host once per step. The serving options
+all-EOS flag is read on the host once per step. From position 1 to the
+loop's end is the span `stjep.decode.beam_loop`, and each read of the flag
+the span `stjep.decode.flag_read`, one a position (utils/profiling.py
+`span`). The serving options
 (beam.py:263-272 and the caches' dtype): `weight_dtype="int8"` quantizes
 the decoder once before the loop (`quantize_decoder_weights`), and
 `cache_dtype=torch.bfloat16` keeps the self caches and memory K/V in bf16;
@@ -71,6 +74,7 @@ from stjep_tpu_torch.ops.decode_flash import (
 )
 from stjep_tpu_torch.ops.decode_flash_tp import ModelAxis
 from stjep_tpu_torch.parallel import spmd
+from stjep_tpu_torch.utils.profiling import span
 
 MEGASTEP_TABLE_BYTES = 4 * 1024 * 1024  # ref: beam.py:371-372
 
@@ -166,36 +170,39 @@ def _beam_search_flash(params, cfg: ModelConfig, enc_outputs: torch.Tensor,
                                   maskk, tsig, lsig)
         return decode_head(dec["norm"], params["out_tgt"], x, K)
 
-    # position 1: keep beam 0's K candidates; ancestry stays all-self
-    score_k, pred_k = decode_pos(preds[:, 0], 0, anc, maskk, preds)
-    scores = score_k.reshape(B, K * K)[:, :K].reshape(-1).contiguous()
-    last_tok = pred_k.reshape(B, K * K)[:, :K].reshape(-1).contiguous()
-    preds[:, 1] = last_tok
-    maskk[1] = (last_tok != PAD).to(i32)
-    eos = (last_tok == EOS).to(i32)
-    lenm = 1.0 + (eos == 0).to(torch.float32)
-    done = bool(eos.all())
+    with span("stjep.decode.beam_loop"):
+        # position 1: keep beam 0's K candidates; ancestry stays all-self
+        score_k, pred_k = decode_pos(preds[:, 0], 0, anc, maskk, preds)
+        scores = score_k.reshape(B, K * K)[:, :K].reshape(-1).contiguous()
+        last_tok = pred_k.reshape(B, K * K)[:, :K].reshape(-1).contiguous()
+        preds[:, 1] = last_tok
+        maskk[1] = (last_tok != PAD).to(i32)
+        eos = (last_tok == EOS).to(i32)
+        lenm = 1.0 + (eos == 0).to(torch.float32)
+        with span("stjep.decode.flag_read"):
+            done = bool(eos.all())
 
-    emb_table = _dec_embedder(params, cfg)
-    use_mega = (use_chain and not cfg.dec_emb_proj_flag
-                and emb_table.numel() * 4 <= MEGASTEP_TABLE_BYTES)
-    if use_mega:
-        table = emb_table.contiguous()
-    i = 2
-    while i < max_seq_len and not done:
+        emb_table = _dec_embedder(params, cfg)
+        use_mega = (use_chain and not cfg.dec_emb_proj_flag
+                    and emb_table.numel() * 4 <= MEGASTEP_TABLE_BYTES)
         if use_mega:
-            out = decode_beam_step_flash(
-                stacked, dec["norm"], params["out_tgt"], table, tsig, i,
-                last_tok, preds, anc, maskk, mem_mask_t, scores, eos, lenm,
-                cache.self_k, cache.self_v, cache.mem_k, cache.mem_v,
-                cfg.num_heads, K, penalty_factor)
-        else:
-            anc[i - 1] = own  # position i-1's K/V is written into each row itself
-            sc, ids = decode_pos(last_tok, i - 1, anc, maskk, preds)
-            out = beam_select(sc, ids, scores, eos, lenm, preds, anc, maskk,
-                              i, K, penalty_factor)
-        preds, anc, maskk, last_tok, scores, eos, lenm, flag = out
-        done = bool(flag.item())  # one host read per step
-        i += 1
+            table = emb_table.contiguous()
+        i = 2
+        while i < max_seq_len and not done:
+            if use_mega:
+                out = decode_beam_step_flash(
+                    stacked, dec["norm"], params["out_tgt"], table, tsig, i,
+                    last_tok, preds, anc, maskk, mem_mask_t, scores, eos, lenm,
+                    cache.self_k, cache.self_v, cache.mem_k, cache.mem_v,
+                    cfg.num_heads, K, penalty_factor)
+            else:
+                anc[i - 1] = own  # position i-1's K/V is written into each row itself
+                sc, ids = decode_pos(last_tok, i - 1, anc, maskk, preds)
+                out = beam_select(sc, ids, scores, eos, lenm, preds, anc, maskk,
+                                  i, K, penalty_factor)
+            preds, anc, maskk, last_tok, scores, eos, lenm, flag = out
+            with span("stjep.decode.flag_read"):
+                done = bool(flag.item())  # one host read per step
+            i += 1
     return (preds.reshape(B, K, Lbuf)[:, 0, :max_seq_len],
             scores.reshape(B, K)[:, 0])

@@ -47,6 +47,7 @@ from stjep_tpu_torch.models.seq2seq import (
     _src_emb_ave,
     forward_eval,
 )
+from stjep_tpu_torch.utils.profiling import span
 
 __all__ = ["forward_eval", "forward_translate", "forward_translate_refen"]
 
@@ -60,14 +61,15 @@ def _las_pass(params, cfg, acous_feats, acous_lens, src, refen, lm_fuse):
     """The LAS pass of an acoustic mode: teacher-forced on the reference
     source with refen, else free running over cfg.max_seq_len_src - 1
     steps. Returns (dynamic embs, symbols, lengths)."""
-    if refen:
-        emb, _, preds, lengths = _encoder_acous(params, cfg, acous_feats, acous_lens,
-                                                tgt=src, teacher_forcing=True,
-                                                lm_fuse=lm_fuse, want_logps=False)
-    else:
-        emb, _, preds, lengths = _encoder_acous(params, cfg, acous_feats, acous_lens,
-                                                max_seq_len=cfg.max_seq_len_src,
-                                                lm_fuse=lm_fuse)
+    with span("stjep.decode.las"):
+        if refen:
+            emb, _, preds, lengths = _encoder_acous(params, cfg, acous_feats, acous_lens,
+                                                    tgt=src, teacher_forcing=True,
+                                                    lm_fuse=lm_fuse, want_logps=False)
+        else:
+            emb, _, preds, lengths = _encoder_acous(params, cfg, acous_feats, acous_lens,
+                                                    max_seq_len=cfg.max_seq_len_src,
+                                                    lm_fuse=lm_fuse)
     return emb, preds, lengths
 
 
@@ -75,26 +77,25 @@ def _encode_for_mode(params: Dict, cfg: ModelConfig, mode: str, src, acous_feats
                      acous_lens, refen: bool, lm_fuse=None):
     """Encoder memory [B, Ls, D] and its mask [B, Ls] for each translate
     mode (stjep_tpu/infer/forward.py:31-85)."""
-    if mode == "MT":
-        _, emb_src, src_mask_input = _src_emb_ave(params, cfg, src)
-        enc_out = _encoder_en(params, cfg, emb_src, src_mask=src_mask_input)
-        return enc_out, src_mask_input[:, 0, :]
     if mode == "ST":
         emb_dyn, preds_src, lengths = _las_pass(params, cfg, acous_feats, acous_lens,
                                                 src, refen, lm_fuse)
         # static embeddings of the reference with refen (ref:
         # Seq2seq.py:861-865), else of the hypotheses (:703)
         static_ids = _pre_proc_src(src) if refen else preds_src
-        _, emb_src, _ = _get_src_emb(params, cfg, static_ids, emb_dyn)
     elif mode == "ST_BASE":
-        _, preds_src, lengths = _las_pass(params, cfg, acous_feats, acous_lens, None,
-                                          False, lm_fuse)
-        B, Lp = preds_src.shape
-        _, emb_src, _ = _get_src_emb(params, cfg, preds_src, _emb_dyn_ave(params, cfg, B, Lp))
-    else:
+        _, static_ids, lengths = _las_pass(params, cfg, acous_feats, acous_lens, None,
+                                           False, lm_fuse)
+        emb_dyn = _emb_dyn_ave(params, cfg, *static_ids.shape)
+    elif mode != "MT":
         raise ValueError(f"unknown translate mode {mode}")
-    src_mask_input = _length_src_mask(lengths, emb_src.shape[1])
-    enc_out = _encoder_en(params, cfg, emb_src, src_mask=src_mask_input)
+    with span("stjep.decode.encoder"):
+        if mode == "MT":
+            _, emb_src, src_mask_input = _src_emb_ave(params, cfg, src)
+        else:
+            _, emb_src, _ = _get_src_emb(params, cfg, static_ids, emb_dyn)
+            src_mask_input = _length_src_mask(lengths, emb_src.shape[1])
+        enc_out = _encoder_en(params, cfg, emb_src, src_mask=src_mask_input)
     return enc_out, src_mask_input[:, 0, :]
 
 
@@ -129,25 +130,29 @@ def forward_translate(params: Dict, cfg: ModelConfig, mode: str,
     Under a kernel mesh (parallel/spmd.py `set_kernel_mesh`) the beam
     decodes per data shard and, with a model axis, tensor-parallel, e.g.
     on one card: set_kernel_mesh(make_mesh(1, 4, ["cuda"] * 4)). The
-    encoder runs the whole batch where the call runs."""
+    encoder runs the whole batch where the call runs.
+
+    The call is the span `stjep.decode`, its LAS pass `stjep.decode.las`
+    and its encoder `stjep.decode.encoder` (utils/profiling.py `span`)."""
     if mode == "ASR" and weight_dtype is not None:
         raise ValueError(
             f"weight_dtype={weight_dtype!r} only applies to the transformer "
             "beam decode; ASR (LAS greedy) has no weight-streaming mode")
-    device = check_params_device(params, device)
-    acous_feats, acous_lens, src = (t if t is None else t.to(device)
-                                    for t in (acous_feats, acous_lens, src))
-    if mode == "ASR":
-        # the reference LM-fuses even the teacher-forced refen pass:
-        # emitted symbols are fused though inputs come from the reference
-        # history (ref: Seq2seq.py:816)
-        return _las_pass(params, cfg, acous_feats, acous_lens, src, refen, lm_fuse)[1]
-    enc_out, mem_mask_b = _encode_for_mode(params, cfg, mode, src, acous_feats,
-                                           acous_lens, refen, lm_fuse)
-    preds, _ = beam_search(params, cfg, enc_out, mem_mask_b, max(1, beam_width),
-                           penalty_factor, max_seq_len, cache_dtype=cache_dtype,
-                           weight_dtype=weight_dtype)
-    return preds
+    with span("stjep.decode"):
+        device = check_params_device(params, device)
+        acous_feats, acous_lens, src = (t if t is None else t.to(device)
+                                        for t in (acous_feats, acous_lens, src))
+        if mode == "ASR":
+            # the reference LM-fuses even the teacher-forced refen pass:
+            # emitted symbols are fused though inputs come from the
+            # reference history (ref: Seq2seq.py:816)
+            return _las_pass(params, cfg, acous_feats, acous_lens, src, refen, lm_fuse)[1]
+        enc_out, mem_mask_b = _encode_for_mode(params, cfg, mode, src, acous_feats,
+                                               acous_lens, refen, lm_fuse)
+        preds, _ = beam_search(params, cfg, enc_out, mem_mask_b, max(1, beam_width),
+                               penalty_factor, max_seq_len, cache_dtype=cache_dtype,
+                               weight_dtype=weight_dtype)
+        return preds
 
 
 def forward_translate_refen(params: Dict, cfg: ModelConfig, mode: str, **kw) -> torch.Tensor:

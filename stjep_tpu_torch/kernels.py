@@ -176,8 +176,7 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None,
          out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """out[M, N] = act(a[M, K] @ w[K, N] + bias) + residual, in f32 on the
     card. `a`, `residual` and `out` may be row-strided 2-D views (unit
-    stride along the last dim); `w` and `bias` are contiguous.
-    `gemm.launches` counts the launches."""
+    stride along the last dim); `w` and `bias` are contiguous."""
     M, K = a.shape
     K2, N = w.shape
     if K != K2:
@@ -200,8 +199,4 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None,
     launch("gemm_f32", a, w, bias, residual, out, ws, M, N, K, a.stride(0), w.stride(0),
            out.stride(0), residual.stride(0) if residual is not None else 0,
            int(relu), splits)
-    gemm.launches += 1
     return out
-
-
-gemm.launches = 0

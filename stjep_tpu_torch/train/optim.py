@@ -38,6 +38,7 @@ import torch
 
 from stjep_tpu_torch.bridge import leaves
 from stjep_tpu_torch.parallel.mesh import Shards, like_layout, logical_leaves, shard_dim
+from stjep_tpu_torch.utils.profiling import span
 
 
 def reference_lr(step, init_lr: float, peak_lr: float,
@@ -113,16 +114,18 @@ class Optimizer:
 
     def update(self, grads: List[torch.Tensor], opt_state: torch.optim.Adam):
         """One step from grads, in the order of bridge.leaves(params);
-        frozen leaves' gradients are ignored."""
-        grads = self._select(grads)
-        if self.clips:
-            grads = clip_by_global_norm(grads, self.max_grad_norm)
-        ps = opt_state.param_groups[0]["params"]
-        for p, g in zip(ps, grads, strict=True):
-            p.grad = g
-        opt_state.step()
-        for p in ps:
-            p.grad = None
+        frozen leaves' gradients are ignored. The update is the span
+        `stjep.train.optimizer` (utils/profiling.py)."""
+        with span("stjep.train.optimizer"):
+            grads = self._select(grads)
+            if self.clips:
+                grads = clip_by_global_norm(grads, self.max_grad_norm)
+            ps = opt_state.param_groups[0]["params"]
+            for p, g in zip(ps, grads, strict=True):
+                p.grad = g
+            opt_state.step()
+            for p in ps:
+                p.grad = None
 
     # ------------------------------------------------ optax's state tree
 

@@ -98,6 +98,7 @@ from stjep_tpu_torch.train.policies import apply_load_mode, trainable_mask
 from stjep_tpu_torch.utils import misc as _misc
 from stjep_tpu_torch.utils.metrics import corpus_bleu
 from stjep_tpu_torch.utils.misc import add2corpus, get_memory_alloc
+from stjep_tpu_torch.utils.profiling import span
 
 MODES = ("ASR", "MT", "ST", "ASR_ST")
 LOSS_COEFF = {"nll_asr": 1.0, "nll_mt": 1.0, "nll_st": 1.0}
@@ -195,7 +196,9 @@ def compute_grads(cfg: ModelConfig, mode: str, params: Dict,
     `head_norms`: the draws take those rows of the whole minibatch's, and
     the losses and gradients are summed over the processes (module
     docstring). Returns (losses dict of device scalars, grads in
-    bridge.leaves(params) order). Reads nothing back to the host."""
+    bridge.leaves(params) order). Reads nothing back to the host. Each
+    minibatch's forward and losses are the span `stjep.train.forward`, its
+    gradients and their sum `stjep.train.backward` (utils/profiling.py)."""
     _check_trainable(cfg, mode)
     ps = leaves(params)
     for p in ps:
@@ -209,17 +212,19 @@ def compute_grads(cfg: ModelConfig, mode: str, params: Dict,
     for mb, g in zip(minibatches, split(generator, len(minibatches))):
         b = mb["srcid"].shape[0]
         with batch_rows(r * b, P * b) if cut else contextlib.nullcontext():
-            out = forward_train(params, cfg, mode, src=mb["srcid"], tgt=mb.get("tgtid"),
-                                acous_feats=mb.get("acous_feat"),
-                                acous_lens=mb.get("acouslen"), generator=g,
-                                is_training=is_training, ref_pick=True)
-            total, losses = head_losses(cfg, mode, out, mb["srcid"], mb.get("tgtid"),
-                                        inv_n, loss_coeff, eval_with_mask, normalise_loss,
-                                        norms=mb if cut else None)
-            gs = torch.autograd.grad(total, ps, allow_unused=True)
-        for acc, gr in zip(grads, gs):
-            if gr is not None:
-                acc.add_(gr)
+            with span("stjep.train.forward"):
+                out = forward_train(params, cfg, mode, src=mb["srcid"], tgt=mb.get("tgtid"),
+                                    acous_feats=mb.get("acous_feat"),
+                                    acous_lens=mb.get("acouslen"), generator=g,
+                                    is_training=is_training, ref_pick=True)
+                total, losses = head_losses(cfg, mode, out, mb["srcid"], mb.get("tgtid"),
+                                            inv_n, loss_coeff, eval_with_mask,
+                                            normalise_loss, norms=mb if cut else None)
+            with span("stjep.train.backward"):
+                gs = torch.autograd.grad(total, ps, allow_unused=True)
+                for acc, gr in zip(grads, gs):
+                    if gr is not None:
+                        acc.add_(gr)
         sums = {k: sums[k] + (v.detach().float() if torch.is_tensor(v) else v)
                 for k, v in losses.items()}
     if cut:
@@ -282,14 +287,16 @@ def make_train_step(cfg: ModelConfig, mode: str, optimizer: Optimizer,
     returns them). It runs on `device`, the card unless the caller asks
     for the CPU: the minibatches move there, and params must already lie
     there (ValueError otherwise). Under a process group each rank passes
-    the whole minibatches and steps on its rows of them (step_grads)."""
+    the whole minibatches and steps on its rows of them (step_grads).
+    A step is the span `stjep.train.step`."""
     _check_trainable(cfg, mode)
     device = torch.device(device)
 
     def step(params: Dict, opt_state, minibatches: List[Dict],
              generator: torch.Generator, lr: float):
-        losses, grads = step_grads(cfg, mode, params, minibatches, generator, device)
-        optimizer.update(grads, set_lr(opt_state, lr))
+        with span("stjep.train.step"):
+            losses, grads = step_grads(cfg, mode, params, minibatches, generator, device)
+            optimizer.update(grads, set_lr(opt_state, lr))
         return params, opt_state, losses
 
     return step
@@ -414,7 +421,8 @@ class Trainer:
         self.start = (1, 0)  # (epoch, step) the run started from
         # host seconds of the epoch loops (loader and staging included), of
         # the dev evals and checkpoint-on-improve writes inside them, and the
-        # dev utterances evaluated; the device is synchronised at each edge
+        # dev utterances evaluated; the device is synchronised at each edge;
+        # each timed phase is the span stjep.train.loop, .eval or .save too
         self.timing = {"loop_s": 0.0, "eval_s": 0.0, "save_s": 0.0, "eval_utts": 0}
 
     def _sync(self):
@@ -547,9 +555,11 @@ class Trainer:
 
     def _step(self, cfg, params, opt_state, macro, t_bucket, generator, lr, inv_n):
         """One train step on a placed macro batch: `_grads`, then clip and
-        Adam in place. Returns the losses as device scalars."""
-        losses, grads = self._grads(cfg, params, macro, t_bucket, generator, inv_n)
-        self._tx.update(grads, set_lr(opt_state, lr))
+        Adam in place (the span `stjep.train.step`). Returns the losses as
+        device scalars."""
+        with span("stjep.train.step"):
+            losses, grads = self._grads(cfg, params, macro, t_bucket, generator, inv_n)
+            self._tx.update(grads, set_lr(opt_state, lr))
         self.steps_run += 1
         return losses
 
@@ -865,99 +875,98 @@ class Trainer:
                 staged_iter = (self._stage_batch(it) for it in raw_iter)
             self._sync()
             t_loop = time.perf_counter()
-            for item in host_prefetch(staged_iter, size=2):
-                # a window's steps run back to back: no print or checkpoint
-                # boundary lies strictly inside it
-                self.windows_run += isinstance(item, list)
-                for staged in item if isinstance(item, list) else [item]:
-                    step += 1
-                    step_elapsed += 1
-                    if step_elapsed <= 2:
-                        log.info("step %d (the first steps build the kernels)", step)
-                    params, opt_state, losses = self._train_batch(
-                        cfg, params, opt_state, staged, step)
-                    loss_window.append(losses)
-                    if len(loss_window) >= 1024:
-                        # bound the window: pre-reduce on the device, no readback
-                        loss_window = [{k: torch.stack([w[k] for w in loss_window]).sum()
-                                        for k in loss_window[0]}]
+            with span("stjep.train.loop"):
+                for item in host_prefetch(staged_iter, size=2):
+                    # a window's steps run back to back: no print or checkpoint
+                    # boundary lies strictly inside it
+                    self.windows_run += isinstance(item, list)
+                    for staged in item if isinstance(item, list) else [item]:
+                        step += 1
+                        step_elapsed += 1
+                        if step_elapsed <= 2:
+                            log.info("step %d (the first steps build the kernels)", step)
+                        params, opt_state, losses = self._train_batch(
+                            cfg, params, opt_state, staged, step)
+                        loss_window.append(losses)
+                        if len(loss_window) >= 1024:
+                            # bound the window: pre-reduce on the device, no readback
+                            loss_window = [{k: torch.stack([w[k] for w in loss_window]).sum()
+                                            for k in loss_window[0]}]
 
-                if step % self.print_every == 0 and step_elapsed > self.print_every:
-                    # one drain a print window (the reference divides by
-                    # print_every however many steps accumulated,
-                    # trainer_asr.py:367-373)
-                    avg_en, avg_de = (
-                        float(torch.stack([w[k] for w in loss_window]).sum()) / self.print_every
-                        for k in ("nll_loss_en", "nll_loss_de"))
-                    loss_window = []
-                    log.info("Progress: %d%%, Train nlll_de: %.4f, nlll_en: %.4f",
-                             step / total_steps * 100, avg_de, avg_en)
-                    self.writer.add_scalar("train_loss_de", avg_de, global_step=step)
-                    self.writer.add_scalar("train_loss_en", avg_en, global_step=step)
+                    if step % self.print_every == 0 and step_elapsed > self.print_every:
+                        # one drain a print window (the reference divides by
+                        # print_every however many steps accumulated,
+                        # trainer_asr.py:367-373)
+                        avg_en, avg_de = (
+                            float(torch.stack([w[k] for w in loss_window]).sum()) / self.print_every
+                            for k in ("nll_loss_en", "nll_loss_de"))
+                        loss_window = []
+                        log.info("Progress: %d%%, Train nlll_de: %.4f, nlll_en: %.4f",
+                                 step / total_steps * 100, avg_de, avg_en)
+                        self.writer.add_scalar("train_loss_de", avg_de, global_step=step)
+                        self.writer.add_scalar("train_loss_en", avg_en, global_step=step)
 
-                if step % self.checkpoint_every == 0 or step == total_steps:
-                    if dev_set is None:
-                        continue
-                    log.info("evaluating at step %d ...", step)
-                    self._sync()
-                    t0 = time.perf_counter()
-                    losses_d, metrics = _primary_numbers(
-                        *self._evaluate_batches(cfg, params, dev_set))
-                    self.timing["eval_s"] += time.perf_counter() - t0
-                    self.timing["eval_utts"] += dev_set.num_training_sentences
-                    for tag in ("nll_loss_en", "nll_loss_de"):
-                        self.writer.add_scalar("dev_" + tag, losses_d[tag], global_step=step)
-                    for tag, v in metrics.items():
-                        self.writer.add_scalar("dev_" + tag, v, global_step=step)
-                    acc, bleu = self._ckpt_criterion(losses_d, metrics)
-                    log.info("Progress: %d%%, Dev loss en: %.4f de: %.4f, "
-                             "acc: %.4f, bleu: %.4f", step / total_steps * 100,
-                             losses_d["nll_loss_en"], losses_d["nll_loss_de"], acc, bleu)
-
-                    # save criterion (ref: trainer_asr.py:409)
-                    if ((prev_acc < acc) and (bleu < 0.1)) or prev_bleu < bleu:
+                    if step % self.checkpoint_every == 0 or step == total_steps:
+                        if dev_set is None:
+                            continue
+                        log.info("evaluating at step %d ...", step)
                         self._sync()
                         t0 = time.perf_counter()
-                        ckpt = self._save(cfg, params, opt_state, epoch, step, train_set)
-                        self.timing["save_s"] += time.perf_counter() - t0
-                        prev_acc, prev_bleu = acc, bleu
-                        count_no_improve = count_num_rollback = 0
-                    else:
-                        count_no_improve += 1
+                        with span("stjep.train.eval"):
+                            losses_d, metrics = _primary_numbers(
+                                *self._evaluate_batches(cfg, params, dev_set))
+                        self.timing["eval_s"] += time.perf_counter() - t0
+                        self.timing["eval_utts"] += dev_set.num_training_sentences
+                        for tag in ("nll_loss_en", "nll_loss_de"):
+                            self.writer.add_scalar("dev_" + tag, losses_d[tag], global_step=step)
+                        for tag, v in metrics.items():
+                            self.writer.add_scalar("dev_" + tag, v, global_step=step)
+                        acc, bleu = self._ckpt_criterion(losses_d, metrics)
+                        log.info("Progress: %d%%, Dev loss en: %.4f de: %.4f, "
+                                 "acc: %.4f, bleu: %.4f", step / total_steps * 100,
+                                 losses_d["nll_loss_en"], losses_d["nll_loss_de"], acc, bleu)
 
-                    if count_no_improve > self.max_count_no_improve:
-                        if self.max_count_num_rollback == 0:
-                            early_stop = True
-                            break
-                        self._rollback(params, opt_state, log, epoch, step)
-                        count_no_improve = 0
-                        count_num_rollback += 1
+                        # save criterion (ref: trainer_asr.py:409)
+                        if ((prev_acc < acc) and (bleu < 0.1)) or prev_bleu < bleu:
+                            self._sync()
+                            t0 = time.perf_counter()
+                            with span("stjep.train.save"):
+                                ckpt = self._save(cfg, params, opt_state, epoch, step, train_set)
+                            self.timing["save_s"] += time.perf_counter() - t0
+                            prev_acc, prev_bleu = acc, bleu
+                            count_no_improve = count_num_rollback = 0
+                        else:
+                            count_no_improve += 1
 
-                    if count_num_rollback > self.max_count_num_rollback:
-                        self._rollback(params, opt_state, log, epoch, step)
-                        # halve the LR (ref: trainer_asr.py:472-477); with a
-                        # warmup schedule the next step recomputes it
-                        self._lr_curr *= 0.5
-                        log.info("reducing lr ... step:%d - lr: %s", step, self._lr_curr)
-                        if self._lr_curr <= 0.125 * self.learning_rate:
-                            log.info("early stop ...")
-                            early_stop = True
-                            break
-                        count_no_improve = count_num_rollback = 0
+                        if count_no_improve > self.max_count_no_improve:
+                            if self.max_count_num_rollback == 0:
+                                early_stop = True
+                                break
+                            self._rollback(params, opt_state, log, epoch, step)
+                            count_no_improve = 0
+                            count_num_rollback += 1
 
-                    if ckpt is not None:
-                        ckpt.rm_old(self.expt_dir, keep_num=self.keep_num)
-                    log.info("n_no_improve %d, num_rollback %d", count_no_improve,
-                             count_num_rollback)
-            else:
+                        if count_num_rollback > self.max_count_num_rollback:
+                            self._rollback(params, opt_state, log, epoch, step)
+                            # halve the LR (ref: trainer_asr.py:472-477); with a
+                            # warmup schedule the next step recomputes it
+                            self._lr_curr *= 0.5
+                            log.info("reducing lr ... step:%d - lr: %s", step, self._lr_curr)
+                            if self._lr_curr <= 0.125 * self.learning_rate:
+                                log.info("early stop ...")
+                                early_stop = True
+                                break
+                            count_no_improve = count_num_rollback = 0
+
+                        if ckpt is not None:
+                            ckpt.rm_old(self.expt_dir, keep_num=self.keep_num)
+                        log.info("n_no_improve %d, num_rollback %d", count_no_improve,
+                                 count_num_rollback)
                 self._sync()
-                self.timing["loop_s"] += time.perf_counter() - t_loop
-                if dev_set is None:
-                    ckpt = self._save(cfg, params, opt_state, epoch, step, train_set,
-                                      epoch_dir=True)
-                continue
-            self._sync()
             self.timing["loop_s"] += time.perf_counter() - t_loop
+            if dev_set is None:  # the loop breaks only on a dev set's early stop
+                ckpt = self._save(cfg, params, opt_state, epoch, step, train_set,
+                                  epoch_dir=True)
 
         self._final_params = params
         self._final_opt_state = opt_state

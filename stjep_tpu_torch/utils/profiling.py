@@ -6,6 +6,8 @@ reference's wall-clock prints and memory logging, on the card.
   utils/trace_tools.py reads
 - `memory_stats`: the host process's RSS and each card's allocated bytes
 - `launch_counters`: every hand-written kernel wrapper's launch counter
+- `span`: a named range of the program's own (a decode request, a train
+  step and their phases) in the trace of a running torch.profiler
 
 JAX's `start_server` (a live profiling server for TensorBoard) has no
 torch.profiler counterpart and is not ported.
@@ -100,6 +102,22 @@ VARIANTS = ((False, False), (True, False), (False, True), (True, True))  # (int8
 
 def variant_label(quant: bool, bf16: bool) -> str:
     return "+".join(n for n, on in (("int8", quant), ("bf16", bf16)) if on) or "f32"
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that marks the body as the range `name` (a fixed
+    string under "stjep.") while a torch.profiler profile is running: a
+    `record_function`, written to the Chrome trace as a `user_annotation`
+    on the clock of the card's kernels and copies, nested under the span
+    open on the same thread. With no profiler running it is one shared
+    null context, which records and allocates nothing. Wrap a run in
+    `trace(log_dir)` and open the trace in Perfetto to see them."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def launch_counters() -> Dict[str, tuple]:
